@@ -1,0 +1,32 @@
+"""Serving for the PyTorch port: paged KV, prefix cache, engines and the
+continuous-batching scheduler (counterpart of `paddle_tpu.serving`).
+
+  kv_cache.py     — dense preallocated KV cache and the masked `attend`
+  blocks.py       — paged KV pool, block tables, int8 pools, BlockPool
+  prefix_cache.py — shared prompt blocks keyed on a prefix hash
+  sampling.py     — greedy / temperature / top-k / top-p selection
+  engine.py       — dense and paged prefill/decode engines
+  scheduler.py    — priority queue, continuous batching, preemption
+"""
+from . import blocks, kv_cache, prefix_cache, sampling  # noqa: F401
+from .blocks import (  # noqa: F401
+    BlockAllocError, BlockPool, PagedLayerKV, QuantPagedLayerKV,
+)
+from .engine import (  # noqa: F401
+    EngineConfig, GenerationEngine, PagedEngineConfig, PagedGenerationEngine,
+)
+from .prefix_cache import PrefixCache, prefix_key  # noqa: F401
+from .scheduler import (  # noqa: F401
+    PRIORITIES, QueueFullError, Request, RequestHandle, Scheduler,
+    ServingConfig,
+)
+
+__all__ = [
+    "kv_cache", "blocks", "prefix_cache", "sampling",
+    "BlockAllocError", "BlockPool", "PagedLayerKV", "QuantPagedLayerKV",
+    "PrefixCache", "prefix_key",
+    "EngineConfig", "GenerationEngine", "PagedEngineConfig",
+    "PagedGenerationEngine",
+    "PRIORITIES", "QueueFullError", "Request", "RequestHandle", "Scheduler",
+    "ServingConfig",
+]

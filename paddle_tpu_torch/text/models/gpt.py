@@ -1,0 +1,231 @@
+"""GPT decoder LM as PyTorch modules.
+
+Counterpart of `paddle_tpu/text/models/gpt.py` (`GPTConfig`, `GPTAttention`,
+`GPTMLP`, `GPTBlock`, `GPT`): pre-LN blocks, tanh-approximated GELU,
+LayerNorm epsilon 1e-5, learned positions, tied LM head. The fused qkv
+projection splits q|k|v-major, `reshape(B, S, 3, heads, head_dim)`, as the
+JAX model does, so weights carry over unchanged (`convert.py`).
+
+Linear weights are stored the PyTorch way, `[out, in]`; the JAX model's
+`[in, out]` weights are transposed on load.
+
+The cached forward writes K/V into a dense `kv_cache.DecodeCache` or a
+paged `blocks.PagedDecodeCache` (in place) and attends through it; the
+paged attention runs the plain gather path or the CUDA kernel according to
+`blocks.attention_impl`. The uncached forward is plain masked causal
+attention.
+"""
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...core.device import resolve_device
+from ...serving import blocks as _blk
+from ...serving import kv_cache as _kvc
+
+__all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPT",
+           "gpt_tiny", "gpt_125m"]
+
+LN_EPS = 1e-5     # the JAX LayerNorm default
+
+
+@dataclass
+class GPTConfig:
+    vocab_size: int = 50304
+    max_position_embeddings: int = 1024
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = None
+    hidden_dropout: float = 0.0
+    attention_dropout: float = 0.0
+    initializer_range: float = 0.02
+    tie_embeddings: bool = True
+
+    def __post_init__(self):
+        if self.intermediate_size is None:
+            self.intermediate_size = 4 * self.hidden_size
+
+
+class GPTAttention(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        h = cfg.hidden_size
+        self.num_heads = cfg.num_heads
+        self.head_dim = h // cfg.num_heads
+        self.qkv = nn.Linear(h, 3 * h)
+        self.out_proj = nn.Linear(h, h)
+
+    def forward(self, x, cache=None, pos=None, tables=None, valid=None):
+        """Uncached (cache None): causal attention over x. With a dense
+        `kv_cache.LayerKV` cache and per-slot `pos`, or a paged
+        `(Quant)PagedLayerKV` cache with `tables`, the new K/V are written
+        in place and attention runs over the cache; returns
+        (out, layer cache). `valid` (quantized pools) is the per-slot count
+        of real tokens in this write."""
+        B, S, H = x.shape
+        qkv = self.qkv(x).reshape(B, S, 3, self.num_heads, self.head_dim)
+        q, k, v = qkv.unbind(2)                                # B,S,h,d
+        if cache is None:
+            zero = torch.zeros((B,), dtype=torch.int32, device=x.device)
+            out = _kvc.attend(q, k, v, zero)
+            return self.out_proj(out.reshape(B, S, H))
+        q = q.contiguous()
+        if tables is not None:
+            kernel = _blk.current_attention_impl() == "kernel"
+            if isinstance(cache, _blk.QuantPagedLayerKV):
+                k_pool, k_sc = _blk.quant_write(cache.k, cache.k_scale, k,
+                                                tables, pos, valid)
+                v_pool, v_sc = _blk.quant_write(cache.v, cache.v_scale, v,
+                                                tables, pos, valid)
+                attend = _blk.attend_kernel_quant if kernel \
+                    else _blk.attend_quant
+                out = attend(q, k_pool, v_pool, k_sc, v_sc, tables, pos)
+                new = _blk.QuantPagedLayerKV(k_pool, v_pool, k_sc, v_sc)
+            else:
+                k_pool = _blk.write(cache.k, k, tables, pos)
+                v_pool = _blk.write(cache.v, v, tables, pos)
+                attend = _blk.attend_kernel if kernel else _blk.attend
+                out = attend(q, k_pool, v_pool, tables, pos)
+                new = _blk.PagedLayerKV(k_pool, v_pool)
+        else:
+            k_buf = _kvc.write(cache.k, k, pos)
+            v_buf = _kvc.write(cache.v, v, pos)
+            out = _kvc.attend(q, k_buf, v_buf, pos)
+            new = _kvc.LayerKV(k_buf, v_buf)
+        return self.out_proj(out.reshape(B, S, H)), new
+
+
+class GPTMLP(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+
+
+class GPTBlock(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.ln1 = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS)
+        self.attn = GPTAttention(cfg)
+        self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS)
+        self.mlp = GPTMLP(cfg)
+        self.dropout = nn.Dropout(cfg.hidden_dropout)
+
+    def forward(self, x, cache=None, pos=None, tables=None, valid=None):
+        if cache is None:
+            x = x + self.dropout(self.attn(self.ln1(x)))
+            return x + self.dropout(self.mlp(self.ln2(x)))
+        attn_out, new_cache = self.attn(self.ln1(x), cache=cache, pos=pos,
+                                        tables=tables, valid=valid)
+        x = x + self.dropout(attn_out)
+        x = x + self.dropout(self.mlp(self.ln2(x)))
+        return x, new_cache
+
+
+class GPT(nn.Module):
+    """The GPT decoder. Parameters are drawn on the CPU from a
+    `torch.Generator` seeded `seed` (Normal(0, initializer_range) for
+    weights and embeddings, zero biases, unit LayerNorm scales, as the JAX
+    model initializes) and then moved to `device`, so a seed gives the same
+    weights on every device."""
+
+    def __init__(self, cfg: GPTConfig, device="cuda", seed=0,
+                 dtype=torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.wpe = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
+        self.drop = nn.Dropout(cfg.hidden_dropout)
+        self.blocks = nn.ModuleList(GPTBlock(cfg)
+                                    for _ in range(cfg.num_layers))
+        self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                     bias=False)
+        self._init_weights(torch.Generator().manual_seed(int(seed)))
+        self.to(device=dev, dtype=dtype)
+        self.eval()
+
+    @torch.no_grad()
+    def _init_weights(self, gen):
+        std = self.cfg.initializer_range
+        for mod in self.modules():
+            if isinstance(mod, (nn.Linear, nn.Embedding)):
+                mod.weight.normal_(0.0, std, generator=gen)
+                if getattr(mod, "bias", None) is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+
+    @property
+    def device(self):
+        return self.wte.weight.device
+
+    def gen_cache(self, batch, max_len, dtype=None):
+        """Dense preallocated decode cache: one [batch, max_len, heads,
+        head_dim] K/V pair per block, pos=0."""
+        if max_len > self.cfg.max_position_embeddings:
+            raise ValueError(
+                f"gen_cache max_len={max_len} exceeds "
+                f"max_position_embeddings={self.cfg.max_position_embeddings}")
+        c = self.cfg
+        return _kvc.alloc_cache(c.num_layers, batch, max_len, c.num_heads,
+                                c.hidden_size // c.num_heads,
+                                dtype or self.wte.weight.dtype, self.device)
+
+    def forward(self, input_ids, cache=None):
+        """input_ids [B, S] int -> logits [B, S, V] (uncached), or
+        (logits, new cache) with a dense or paged cache."""
+        B, S = input_ids.shape
+        ids = input_ids.to(torch.int64)
+        if cache is None:
+            positions = torch.arange(S, device=ids.device)[None, :]
+            x = self.drop(self.wte(ids) + self.wpe(positions))
+            for blk in self.blocks:
+                x = blk(x)
+            return self._head(self.ln_f(x))
+        tables = getattr(cache, "tables", None)
+        valid = getattr(cache, "valid", None)
+        pos = cache.pos
+        # right-padded prefill tails may run past the position table;
+        # their rows are discarded, so clamp the lookup into range
+        positions = (pos.to(torch.int64)[:, None]
+                     + torch.arange(S, device=ids.device)[None, :]).clamp(
+            max=self.cfg.max_position_embeddings - 1)
+        x = self.drop(self.wte(ids) + self.wpe(positions))
+        new_layers = []
+        for blk, lkv in zip(self.blocks, cache.layers):
+            x, new_lkv = blk(x, cache=lkv, pos=pos, tables=tables,
+                             valid=valid)
+            new_layers.append(new_lkv)
+        logits = self._head(self.ln_f(x))
+        if tables is not None:
+            return logits, _blk.PagedDecodeCache(tuple(new_layers), tables,
+                                                 pos + S)
+        return logits, _kvc.DecodeCache(tuple(new_layers), pos + S)
+
+    def _head(self, x):
+        if self.cfg.tie_embeddings:
+            return F.linear(x, self.wte.weight)
+        return self.lm_head(x)
+
+
+def gpt_tiny(device="cuda", seed=0, **kw):
+    return GPT(GPTConfig(hidden_size=128, num_layers=2, num_heads=4,
+                         max_position_embeddings=256, vocab_size=1024, **kw),
+               device=device, seed=seed)
+
+
+def gpt_125m(device="cuda", seed=0, **kw):
+    """GPT-125M at full width: hidden 768, 12 layers, 12 heads, vocab
+    50304, 1024 positions, tied head."""
+    return GPT(GPTConfig(hidden_size=768, num_layers=12, num_heads=12, **kw),
+               device=device, seed=seed)

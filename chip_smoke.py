@@ -19,7 +19,24 @@ Phases (any exception ends the run with a non-zero exit):
   5. the same engine with int8 KV pools answers 4 requests;
   6. kernel path vs plain path at full width: first token + 8 greedy
      decode steps per slot must agree, a slot's comparison stopping at the
-     first step where the plain path's top-2 logit gap is below 1e-3.
+     first step where the plain path's top-2 logit gap is below 1e-3;
+  7. flash-attention kernels (forward, dQ, dK/dV) vs their plain versions
+     on the card: the GPT-350M training shape (B=8, H=16, S=1024, D=64,
+     bf16, causal), f32 causal and non-causal, a ragged S=200, D=128, an
+     additive (B,1,S,S) mask with fully masked rows, dropout 0.1 and GQA
+     16/4; with each kernel's time, the plain version's time, the
+     `scaled_dot_product_attention` forward and backward yardsticks and
+     the bound at the training shape;
+  8. the training step: `make_train_step` on GPT-350M (vocab 50304,
+     S=1024, hidden 1024, 24 layers, 16 heads, bf16, no remat, lr 2e-4)
+     at B=8 on one fixed batch, 3 warm-up and 10 timed steps: step ms,
+     tokens/s, peak memory, MFU, one profiled step, exactly 24 launches
+     of each flash kernel a step, and the device ms of the step's parts
+     (forward, backward, clip + AdamW) and of the LM head's logits
+     product;
+  9. training kernel path vs plain path at full width (depth 2, f32, B=2,
+     3 steps from the same weights): flash kernels + remat + fused CE
+     against dense attention + no remat + unfused CE.
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -45,6 +62,15 @@ FLOPS_PER_S = {"f32": 67e12, "int8": 67e12, "nan": 67e12, "bf16": 989e12}
 ATOL = RTOL = 1e-5          # f32: the kernel's summation order differs
 BF16_TOL = 1e-2             # bf16 output rounding (8 mantissa bits)
 GAP_MIN = 1e-3              # phase 6: below this the argmax is a near-tie
+BF16_PEAK = 989e12          # H100 SXM dense bf16, for MFU
+# phase 9 (f32, lr 2e-4): the paths sum in other orders, and Adam divides
+# each gradient element by its own running scale, so where an element's
+# gradient is near zero (the key bias's is zero in exact arithmetic) its
+# rounding noise moves the weight by up to about lr. Each leaf's update as
+# a whole must agree to 1e-2: a wrong gradient changes it at order 1.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_ATOL = 2e-4     # lr
+TRAIN_UPDATE_RTOL = 1e-2    # |dW_kernel - dW_plain| / |dW_plain| per leaf
 
 
 def log(*a):
@@ -407,6 +433,433 @@ def profile_decode(model, prompts, steps=8):
                     for e in top]}
 
 
+# ------------------------------------------------------------ flash kernels
+FLASH_CASES = [
+    # name, shape, dtype, causal, mask, dropout rate
+    ("a_train_bf16_causal", dict(B=8, H=16, Hk=16, S=1024, D=64), "bf16",
+     True, False, 0.0),
+    ("b_f32_causal_S1024", dict(B=2, H=8, Hk=8, S=1024, D=64), "f32", True,
+     False, 0.0),
+    ("c_f32_noncausal", dict(B=2, H=4, Hk=4, S=512, D=64), "f32", False,
+     False, 0.0),
+    ("d_ragged_S200", dict(B=2, H=4, Hk=4, S=200, D=64), "f32", True, False,
+     0.0),
+    ("e_D128_f32", dict(B=1, H=4, Hk=4, S=384, D=128), "f32", True, False,
+     0.0),
+    ("e_D128_bf16", dict(B=2, H=4, Hk=4, S=512, D=128), "bf16", True, False,
+     0.0),
+    ("f_mask_b1ss", dict(B=2, H=4, Hk=4, S=256, D=64), "f32", False, True,
+     0.0),
+    ("g_dropout_0.1", dict(B=2, H=4, Hk=4, S=512, D=64), "f32", True, False,
+     0.1),
+    ("h_gqa_16_4", dict(B=1, H=16, Hk=4, S=512, D=64), "f32", True, False,
+     0.0),
+    # the same options through the bf16 (tensor-core) builds
+    ("d_ragged_S200_bf16", dict(B=2, H=4, Hk=4, S=200, D=64), "bf16", True,
+     False, 0.0),
+    ("f_mask_b1ss_bf16", dict(B=2, H=4, Hk=4, S=256, D=64), "bf16", False,
+     True, 0.0),
+    ("g_dropout_0.1_bf16", dict(B=2, H=4, Hk=4, S=512, D=64), "bf16", True,
+     False, 0.1),
+    ("h_gqa_16_4_bf16", dict(B=1, H=16, Hk=4, S=512, D=64), "bf16", True,
+     False, 0.0),
+]
+MASKED_ROWS = (3, 100)      # rows the (B,1,S,S) mask of case f removes
+
+
+def flash_case(seed, B, H, Hk, S, D, kind, causal, mask, rate):
+    """Flattened [B*H, S, D] inputs as the autograd wrapper hands them to
+    the kernels, the Meta, and the mask flattened to [B, S, S]."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = torch.bfloat16 if kind == "bf16" else torch.float32
+
+    def rnd(rows):
+        return torch.randn((rows, S, D), generator=g, device="cuda").to(dt)
+    c = {"q": rnd(B * H), "k": rnd(B * Hk), "v": rnd(B * Hk),
+         "do": rnd(B * H), "mask": None}
+    if mask:
+        m = torch.randn((B, S, S), generator=g, device="cuda") * 2
+        m[torch.rand((B, S, S), generator=g, device="cuda") < 0.2] = \
+            float("-inf")
+        m[:, list(MASKED_ROWS), :] = float("-inf")
+        c["mask"] = m
+    c["meta"] = fa.Meta(H=H, Hk=Hk, Bm=B if mask else 1, causal=causal,
+                        scale=D ** -0.5, rate=rate, seed=seed)
+    return c
+
+
+def flash_bound(B, H, Hk, S, D, kind, causal, which):
+    """Least time of one kernel call on an H100: each input read once and
+    each output written once over 3.35 TB/s, against the products over the
+    (query, key) pairs the call needs (the lower triangle when causal): 2*D
+    flops a pair and head per product, 2 products in the forward, 3 in dq,
+    4 in dkv, at the rate of the input type."""
+    el = 2 if kind == "bf16" else 4
+    qo = B * H * S * D * el                  # q, dO, O, dQ, dK, dV per head
+    kv = B * Hk * S * D * el
+    rows = B * H * S * 4                     # lse / delta, f32
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    nbytes, products = {
+        "fwd": (qo + 2 * kv + qo + rows, 2),
+        "dq": (2 * qo + 2 * kv + 2 * rows + qo, 3),
+        "dkv": (2 * qo + 2 * kv + 2 * rows + 2 * qo, 4)}[which]
+    flops = products * 2 * D * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FLOPS_PER_S[kind] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, flops)
+
+
+def run_flash_cases(flush):
+    """Phase 7. Each kernel is held against its plain version on the same
+    inputs (the backward kernels get the plain forward's lse and delta).
+    Returns (per-case records, timing record at the training shape)."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    results, timing = [], None
+    for i, (name, shp, kind, causal, mask, rate) in enumerate(FLASH_CASES):
+        c = flash_case(200 + i, **shp, kind=kind, causal=causal, mask=mask,
+                       rate=rate)
+        q, k, v, do, mf, meta = (c[n] for n in ("q", "k", "v", "do", "mask",
+                                                "meta"))
+        o, lse = fa.flash_fwd(q, k, v, mf, meta)
+        po, plse = fa.fwd_plain(q, k, v, mf, meta)
+        delta = (do.float() * po.float()).sum(-1)
+        dq = fa.flash_dq(q, k, v, do, plse, delta, mf, meta)
+        pdq = fa.dq_plain(q, k, v, do, plse, delta, mf, meta)
+        dk, dv = fa.flash_dkv(q, k, v, do, plse, delta, mf, meta)
+        pdk, pdv = fa.dkv_plain(q, k, v, do, plse, delta, mf, meta)
+        torch.cuda.synchronize()
+        tol = BF16_TOL if kind == "bf16" else ATOL
+        errs = {}
+        for out, got, want, t in (("o", o, po, tol), ("lse", lse, plse, ATOL),
+                                  ("dq", dq, pdq, tol), ("dk", dk, pdk, tol),
+                                  ("dv", dv, pdv, tol)):
+            err = (got.float() - want.float()).abs()
+            bad = err > t + t * want.float().abs()
+            if not bool(torch.isfinite(got).all()) or bool(bad.any()):
+                raise AssertionError(
+                    f"flash {name} {out}: kernel disagrees with the plain "
+                    f"version (max_abs_err={float(err.max())}, tol {t})")
+            errs[out] = float(err.max())
+        if mask:
+            rows = o.reshape(shp["B"], shp["H"], shp["S"], -1)[
+                :, :, list(MASKED_ROWS)]
+            if bool((rows != 0).any()):
+                raise AssertionError(f"flash {name}: fully masked rows "
+                                     "must be exact zeros")
+        rec = {"case": name, **shp, "kind": kind, "causal": causal,
+               "mask": mask, "dropout": rate, "tol": tol,
+               "max_abs_err": errs}
+        results.append(rec)
+        log(f"flash {name}: B={shp['B']} H={shp['H']} Hk={shp['Hk']} "
+            f"S={shp['S']} D={shp['D']} {kind} causal={causal} mask={mask} "
+            f"dropout={rate} max_abs_err "
+            + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+            + f" (tol {tol})")
+        if i == 0:
+            timing = time_flash(c, shp, kind, causal, plse, delta, flush)
+    return results, timing
+
+
+def time_flash(c, shp, kind, causal, lse, delta, flush):
+    """Device ms of each kernel, its plain version, the SDPA yardsticks
+    and the bounds at the training shape (phase 7a)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, meta = (c[n] for n in ("q", "k", "v", "do", "meta"))
+    B, H, S, D = shp["B"], shp["H"], shp["S"], shp["D"]
+    fns = {
+        "fwd": (lambda: fa.flash_fwd(q, k, v, None, meta),
+                lambda: fa.fwd_plain(q, k, v, None, meta)),
+        "dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, None, meta),
+               lambda: fa.dq_plain(q, k, v, do, lse, delta, None, meta)),
+        "dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, None, meta),
+                lambda: fa.dkv_plain(q, k, v, do, lse, delta, None, meta)),
+    }
+    q4, k4, v4, do4 = (t.reshape(B, -1, S, D) for t in (q, k, v, do))
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        torch.autograd.backward(out, do4)
+    lib_fwd = time_ms(sdpa_fwd, flush)
+    lib_bwd = time_ms(sdpa_fwd_bwd, flush) - lib_fwd
+    out = {"sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd}
+    for which, (kern, plain) in fns.items():
+        bound, by, nbytes, flops = flash_bound(B, H, shp["Hk"], S, D, kind,
+                                               causal, which)
+        kms = time_ms(kern, flush)
+        pms = time_ms(plain, flush, iters=5)
+        out[which] = {"ms": kms, "plain_ms": pms, "bound_ms": bound,
+                      "bound_by": by, "bytes": nbytes, "flops": flops,
+                      "tflops": flops / kms / 1e9,
+                      "library_ms": lib_fwd if which == "fwd" else lib_bwd}
+        log(f"flash {which} at B={B} H={H} S={S} D={D} {kind} causal: "
+            f"kernel_ms={kms:.4f} ({flops / kms / 1e9:.1f} TFLOP/s) "
+            f"plain_ms={pms:.4f} bound_ms={bound:.5f} ({by})")
+    log(f"sdpa yardstick: forward {lib_fwd:.4f} ms, backward "
+        f"{lib_bwd:.4f} ms (forward+backward minus forward)")
+    return out
+
+
+# ------------------------------------------------------------------ training
+TRAIN_350M = dict(vocab_size=50304, max_seq_len=1024, hidden=1024,
+                  layers=24, heads=16)
+
+
+# device kernels of a profiled training step, grouped by name
+KERNEL_KINDS = (
+    ("flash attention", ("flash_",)),
+    ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+    ("layernorm", ("layer_norm",)),
+    ("reduction", ("reduce",)),
+    ("copy", ("copy", "cat", "index")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def step_flops(cfg, n_params, B, S):
+    """Operations of one training step: 6 per parameter and token (forward
+    and backward products), plus the causal attention products: 2 of
+    2*hidden flops per (query, key) pair and layer in the forward, twice
+    that again in the backward."""
+    pairs = B * S * (S + 1) // 2
+    return 6 * n_params * B * S + 12 * cfg.layers * cfg.hidden * pairs
+
+
+def time_step_parts(cfg, step_fn, params, state, toks, labs):
+    """Device ms of the flagship step and of its parts, by CUDA events:
+    the whole step, forward + backward of the loss (so clip + AdamW is the
+    difference), the forward alone, and the LM head's logits product three
+    ways: the port's `matmul_f32` (bf16 operands, f32 result) beside a
+    bf16-result matmul and an f32-operand matmul, the two choices it
+    avoids (timed only)."""
+    import torch
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_bhsd
+    from paddle_tpu_torch.ops.fused_ce import matmul_f32
+    from paddle_tpu_torch.parallel import gpt_spmd
+
+    def no_flush():
+        pass
+
+    def loss():
+        return gpt_spmd._loss(params, toks, labs, cfg, flash_attention_bhsd)
+
+    def fwd():
+        with torch.no_grad():
+            loss()
+
+    def fwd_bwd():
+        loss().backward()
+        for p in params.values():
+            p.grad = None
+
+    out = {"step_ms": time_ms(lambda: step_fn(params, state, toks, labs),
+                              no_flush, iters=5, warmup=1),
+           "fwd_bwd_ms": time_ms(fwd_bwd, no_flush, iters=5, warmup=1),
+           "fwd_ms": time_ms(fwd, no_flush, iters=5, warmup=1)}
+    out["clip_adamw_ms"] = out["step_ms"] - out["fwd_bwd_ms"]
+    T = toks.numel()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    h = torch.randn((T, cfg.hidden), generator=g, device="cuda").to(
+        params["wte"].dtype)
+    wte = params["wte"].detach()
+    wt = wte.t()
+    out["lm_head"] = {
+        "tokens": T, "vocab": cfg.vocab_size,
+        "flops": 2 * T * cfg.hidden * cfg.vocab_size,
+        "matmul_f32_ms": time_ms(lambda: matmul_f32(h, wt), no_flush),
+        "bf16_result_ms": time_ms(lambda: torch.matmul(h, wt), no_flush),
+        "f32_operands_ms": time_ms(
+            lambda: torch.matmul(h.float(), wte.float().t()), no_flush,
+            iters=5)}
+    log(f"step parts (device ms): step {out['step_ms']:.2f}, forward + "
+        f"backward {out['fwd_bwd_ms']:.2f}, forward {out['fwd_ms']:.2f}, "
+        f"clip + AdamW {out['clip_adamw_ms']:.2f}")
+    lm = out["lm_head"]
+    log(f"LM head logits ({T} x {cfg.hidden} x {cfg.vocab_size}): "
+        f"matmul_f32 {lm['matmul_f32_ms']:.3f} ms, bf16 result "
+        f"{lm['bf16_result_ms']:.3f} ms, f32 operands "
+        f"{lm['f32_operands_ms']:.3f} ms")
+    return out
+
+
+def train_step_350m(smi, warmup=3, steps=10, B=8):
+    """Phase 8: the flagship step through `make_train_step`."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import GPTSpmdConfig, make_train_step
+    cfg = GPTSpmdConfig(**TRAIN_350M, param_dtype="bfloat16",
+                        compute_dtype="bfloat16", remat=False)
+    S = cfg.max_seq_len
+    step_fn, init_fn = make_train_step(cfg, learning_rate=2e-4,
+                                       device="cuda")
+    params, state = init_fn(0)
+    n_params = sum(p.numel() for p in params.values())
+    rng = np.random.RandomState(0)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+    labs = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+    losses = []
+    for _ in range(warmup):
+        loss, params, state = step_fn(params, state, toks, labs)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, params, state = step_fn(params, state, toks, labs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = {"fwd": fa.launches_fwd, "dq": fa.launches_dq,
+                "dkv": fa.launches_dkv}
+    peak = torch.cuda.max_memory_allocated()
+    for which, n in launches.items():
+        if n != steps * cfg.layers:
+            raise AssertionError(f"phase 8: {n} flash {which} launches in "
+                                 f"{steps} steps, want {cfg.layers} a step")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 8: loss not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 8: loss did not fall: {losses}")
+    step_ms = sorted(times)[len(times) // 2] * 1e3
+    mean_ms = sum(times) / len(times) * 1e3
+    flops = step_flops(cfg, n_params, B, S)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, state, toks, labs)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0.0)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    by_kind = {}
+    for e in kernels:
+        kind = next((k for k, keys in KERNEL_KINDS if any(
+            x in e.key.lower() for x in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + dev_us(e) / 1e3
+    rec = {"config": "gpt-350m", **TRAIN_350M, "B": B, "S": S,
+           "dtype": "bfloat16", "remat": False, "lr": 2e-4,
+           "n_params": n_params, "losses": losses,
+           "step_ms_median": step_ms, "step_ms_mean": mean_ms,
+           "step_ms_all": [t * 1e3 for t in times],
+           "tokens_per_s": B * S / (step_ms / 1e3),
+           "peak_memory_gb": peak / 1e9, "flops_per_step": flops,
+           "mfu": flops / (step_ms / 1e3) / BF16_PEAK,
+           "peak_bound_ms": flops / BF16_PEAK * 1e3,
+           "launches": launches, "traced_step_ms": traced_ms,
+           "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / traced_ms if busy_ms else None,
+           "device_idle_share_untraced": (1 - busy_ms / step_ms
+                                          if busy_ms else None),
+           "kernels_per_step": sum(e.count for e in kernels),
+           "device_ms_by_kind": by_kind,
+           "top": [{"name": e.key[:70], "ms": dev_us(e) / 1e3,
+                    "count": e.count} for e in top], "card": smi}
+    log(f"train gpt-350m bf16 B={B} S={S}: step {step_ms:.2f} ms median "
+        f"({mean_ms:.2f} mean), {rec['tokens_per_s']:.0f} tokens/s, peak "
+        f"memory {rec['peak_memory_gb']:.2f} GB, {flops:.3e} flops/step, "
+        f"MFU {rec['mfu']:.4f} (peak-bound step "
+        f"{rec['peak_bound_ms']:.2f} ms), launches/step "
+        f"{launches['fwd'] // steps}+{launches['dq'] // steps}+"
+        f"{launches['dkv'] // steps}, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} [{smi}]")
+    log(f"profile train step: {traced_ms:.2f} ms traced, device busy "
+        f"{busy_ms:.2f} ms, idle share {rec['device_idle_share']} of the "
+        f"traced step, {rec['device_idle_share_untraced']} of the untraced "
+        f"median, {rec['kernels_per_step']} kernels")
+    log("  by kind: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in sorted(by_kind.items(),
+                                              key=lambda kv: -kv[1])))
+    for t in rec["top"]:
+        log(f"  {t['ms']:.3f} ms x{t['count']} {t['name']}")
+    rec["parts"] = time_step_parts(cfg, step_fn, params, state, toks, labs)
+    return rec
+
+
+def compare_train_paths(steps=3, B=2):
+    """Phase 9: flash kernels + remat + fused CE against dense attention +
+    no remat + unfused CE, f32 (TF32 off), depth 2 at full width, the same
+    weights and batch."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import GPTSpmdConfig, make_train_step
+    cfg_k = GPTSpmdConfig(**{**TRAIN_350M, "layers": 2}, remat=True,
+                          fused_ce_chunks=8)
+    cfg_p = dataclasses.replace(cfg_k, remat=False, fused_ce_chunks=0)
+    S = cfg_k.max_seq_len
+    rng = np.random.RandomState(1)
+    toks = torch.from_numpy(rng.randint(0, cfg_k.vocab_size, (B, S))).cuda()
+    labs = torch.from_numpy(rng.randint(0, cfg_k.vocab_size, (B, S))).cuda()
+    runs = {}
+    for name, cfg in (("kernel", cfg_k), ("plain", cfg_p)):
+        step_fn, init_fn = make_train_step(cfg, learning_rate=2e-4,
+                                           device="cuda", attention=name)
+        params, state = init_fn(0)
+        p0 = {n: t.detach().clone() for n, t in params.items()}
+        fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+        losses = []
+        for _ in range(steps):
+            loss, params, state = step_fn(params, state, toks, labs)
+            losses.append(float(loss))
+        runs[name] = (losses, params, (fa.launches_fwd, fa.launches_dq,
+                                       fa.launches_dkv), p0)
+    (lk, pk, nk, p0), (lp, pp, npl, p0p) = runs["kernel"], runs["plain"]
+    if not all(torch.equal(p0[n], p0p[n]) for n in p0):
+        raise AssertionError("phase 9: the two paths started apart")
+    # remat recomputes each block's forward in the backward
+    if nk != (2 * steps * 2, steps * 2, steps * 2) or npl != (0, 0, 0):
+        raise AssertionError(f"phase 9 launches kernel {nk} plain {npl}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    leaf_err = {n: float((pk[n] - pp[n]).detach().abs().max()) for n in pk}
+    upd_err = {n: float((pk[n] - pp[n]).detach().norm()
+                        / (pp[n] - p0[n]).detach().norm()) for n in pk}
+    worst = max(leaf_err, key=leaf_err.get)
+    worst_upd = max(upd_err, key=upd_err.get)
+    param_err, update_err = leaf_err[worst], upd_err[worst_upd]
+    rec = {"layers": 2, "B": B, "S": S, "steps": steps, "dtype": "float32",
+           "losses_kernel": lk, "losses_plain": lp,
+           "loss_max_rel_err": loss_err, "param_max_abs_err": param_err,
+           "param_max_abs_err_by_leaf": leaf_err,
+           "update_rel_err_by_leaf": upd_err,
+           "tol": {"loss_rtol": TRAIN_LOSS_RTOL,
+                   "param_atol": TRAIN_PARAM_ATOL,
+                   "update_rtol": TRAIN_UPDATE_RTOL},
+           "launches_kernel_path": nk}
+    log(f"parity train kernel vs plain path (hidden 1024, 2 layers, f32, "
+        f"B={B}, {steps} steps): losses {[round(x, 6) for x in lk]} vs "
+        f"{[round(x, 6) for x in lp]}, max rel err {loss_err:.2e} (tol "
+        f"{TRAIN_LOSS_RTOL}), params max abs err {param_err:.2e} in {worst} "
+        f"(tol {TRAIN_PARAM_ATOL}), update rel err {update_err:.2e} in "
+        f"{worst_upd} (tol {TRAIN_UPDATE_RTOL}), kernel launches {nk}")
+    if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_ATOL
+            and update_err <= TRAIN_UPDATE_RTOL):
+        raise AssertionError("phase 9: kernel and plain training paths "
+                             "disagree")
+    return rec
+
+
 def main():
     try:
         import torch
@@ -445,9 +898,10 @@ def main():
     libs = build.build_all()
     report["build_s"] = time.perf_counter() - t0
     log(f"built {sorted(libs)} in {report['build_s']:.1f} s")
-    for line in build.ptxas_report("paged_attention").splitlines():
-        if "registers" in line or "spill" in line:
-            log("ptxas:", line.strip())
+    for name in sorted(libs):
+        for line in build.ptxas_report(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}:", line.strip())
 
     # 3. kernel vs plain --------------------------------------------------------
     flush_buf = torch.empty(64 * 1024 * 1024, device="cuda")
@@ -536,6 +990,21 @@ def main():
     if compared == 0:
         raise AssertionError("phase 6 compared nothing")
 
+    # 7. flash kernels vs plain -------------------------------------------------
+    flush_buf = torch.empty(64 * 1024 * 1024, device="cuda")
+    flash_cases, flash_t = run_flash_cases(lambda: _flush_l2(flush_buf))
+    report["flash_cases"], report["flash_timing"] = flash_cases, flash_t
+    del flush_buf
+
+    # 8. the training step ---------------------------------------------------------
+    del model
+    torch.cuda.empty_cache()
+    report["train"] = train_step_350m(smi)
+    torch.cuda.empty_cache()
+
+    # 9. training kernel path vs plain path ------------------------------------------
+    report["train_parity"] = compare_train_paths()
+
     # summary ------------------------------------------------------------------------
     dec = next(c for c in cases if c["case"] == "decode_f32")
     dec8 = next(c for c in cases if c["case"] == "decode_int8")
@@ -556,6 +1025,24 @@ def main():
         entry("paged_attention_int8",
               "paddle_tpu/ops/pallas/paged_attention.py:110", launches8, dec8,
               err_8)]}
+    flash_src = {"fwd": ("flash_attention_fwd", ("o", "lse"),
+                         "paddle_tpu/ops/pallas/flash_attention.py:70"),
+                 "dq": ("flash_attention_dq", ("dq",),
+                        "paddle_tpu/ops/pallas/flash_attention.py:234"),
+                 "dkv": ("flash_attention_dkv", ("dk", "dv"),
+                         "paddle_tpu/ops/pallas/flash_attention.py:286")}
+    for which, (name, outs, replaces) in flash_src.items():
+        t = flash_t[which]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces,
+            "launches": report["train"]["launches"][which],
+            "max_abs_err": max(c["max_abs_err"][o] for c in flash_cases
+                               for o in outs),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

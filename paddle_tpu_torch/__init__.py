@@ -1,15 +1,20 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu for NVIDIA Hopper.
 
 The JAX package `paddle_tpu` stays the reference; this package imports
-neither it nor JAX. Its first slice is serving: the paged-KV GPT engines
-and scheduler, whose attention runs on a hand-written CUDA kernel
-(`csrc/paged_attention.cu`, bound in `ops/paged_attention.py`).
+neither it nor JAX. Its slices so far:
+  * serving: the paged-KV GPT engines and scheduler, whose attention runs
+    on a hand-written CUDA kernel (`csrc/paged_attention.cu`, bound in
+    `ops/paged_attention.py`);
+  * training: the single-device GPT step of `parallel/gpt_spmd.py`, whose
+    attention runs on hand-written flash-attention forward, dQ and dK/dV
+    kernels (`csrc/flash_attention.cu`, bound in
+    `ops/flash_attention.py`).
 
 Every entry point takes `device=` and defaults to "cuda"; without CUDA it
 raises unless the caller passes device="cpu", which runs the plain
 PyTorch versions of the kernels.
 """
-from . import core, ops, serving, text  # noqa: F401
+from . import core, ops, parallel, serving, text  # noqa: F401
 from .core.device import resolve_device  # noqa: F401
 from .serving import (  # noqa: F401
     EngineConfig, GenerationEngine, PagedEngineConfig, PagedGenerationEngine,
@@ -17,7 +22,7 @@ from .serving import (  # noqa: F401
 )
 from .text.models import GPT, GPTConfig, gpt_125m, gpt_tiny  # noqa: F401
 
-__all__ = ["core", "ops", "serving", "text", "resolve_device",
+__all__ = ["core", "ops", "parallel", "serving", "text", "resolve_device",
            "EngineConfig", "GenerationEngine", "PagedEngineConfig",
            "PagedGenerationEngine", "Scheduler", "ServingConfig", "GPT",
            "GPTConfig", "gpt_125m", "gpt_tiny"]

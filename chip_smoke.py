@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (`paddle_tpu_torch`) end to end on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # every phase, as the driver runs it
+    python3 chip_smoke.py --flash-only  # phases 1, 2 and 7 only
 
 Phases (any exception ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -24,9 +25,15 @@ Phases (any exception ends the run with a non-zero exit):
      on the card: the GPT-350M training shape (B=8, H=16, S=1024, D=64,
      bf16, causal), f32 causal and non-causal, a ragged S=200, D=128, an
      additive (B,1,S,S) mask with fully masked rows, dropout 0.1 and GQA
-     16/4; with each kernel's time, the plain version's time, the
-     `scaled_dot_product_attention` forward and backward yardsticks and
-     the bound at the training shape;
+     16/4, the same options in bf16, and bf16 at the edges of the wgmma
+     kernels' 128-row tiles (S=64, 129 and 1000 causal, S=1024
+     non-causal, D=128 at S=1024, GQA 16/4 at S=200); with each kernel's
+     time, the plain version's time, the `scaled_dot_product_attention`
+     forward and backward yardsticks (and the kernel's ratio to them) and
+     the bound at the training shape (phase 7a). Phase 2 prints the
+     registers, spills and shared memory of the wgmma kernels. With
+     --flash-only the script stops after phase 7, runs every case even
+     after a failure, and exits 1 if any failed;
   8. the training step: `make_train_step` on GPT-350M (vocab 50304,
      S=1024, hidden 1024, 24 layers, 16 heads, bf16, no remat, lr 2e-4)
      at B=8 on one fixed batch, 3 warm-up and 10 timed steps: step ms,
@@ -463,6 +470,19 @@ FLASH_CASES = [
      False, 0.1),
     ("h_gqa_16_4_bf16", dict(B=1, H=16, Hk=4, S=512, D=64), "bf16", True,
      False, 0.0),
+    # the edges of the bf16 kernels' 128-row tiles and 64-column panels
+    ("i_S64_bf16", dict(B=2, H=4, Hk=4, S=64, D=64), "bf16", True, False,
+     0.0),
+    ("j_S129_bf16", dict(B=2, H=4, Hk=4, S=129, D=64), "bf16", True, False,
+     0.0),
+    ("k_S1000_bf16", dict(B=1, H=8, Hk=8, S=1000, D=64), "bf16", True,
+     False, 0.0),
+    ("l_noncausal_S1024_bf16", dict(B=1, H=8, Hk=8, S=1024, D=64), "bf16",
+     False, False, 0.0),
+    ("m_D128_S1024_bf16", dict(B=1, H=8, Hk=8, S=1024, D=128), "bf16", True,
+     False, 0.0),
+    ("n_gqa_16_4_S200_bf16", dict(B=1, H=16, Hk=4, S=200, D=64), "bf16",
+     True, False, 0.0),
 ]
 MASKED_ROWS = (3, 100)      # rows the (B,1,S,S) mask of case f removes
 
@@ -512,57 +532,75 @@ def flash_bound(B, H, Hk, S, D, kind, causal, which):
             else "operations", nbytes, flops)
 
 
-def run_flash_cases(flush):
+def run_flash_cases(flush, keep_going=False):
     """Phase 7. Each kernel is held against its plain version on the same
     inputs (the backward kernels get the plain forward's lse and delta).
-    Returns (per-case records, timing record at the training shape)."""
+    Returns (per-case records, timing record at the training shape,
+    failures). Without `keep_going` the first failure raises; with it,
+    every case runs and the failures are returned."""
+    results, timing, failures = [], None, []
+    for i, case in enumerate(FLASH_CASES):
+        try:
+            rec, t = flash_case_check(i, *case, flush=flush)
+        except Exception as e:       # noqa: BLE001 - reported, then raised
+            if not keep_going:
+                raise
+            failures.append(f"{case[0]}: {type(e).__name__}: {e}")
+            log(f"flash {case[0]}: FAILED {type(e).__name__}: {e}")
+            continue
+        results.append(rec)
+        timing = timing or t
+    return results, timing, failures
+
+
+def flash_case_check(i, name, shp, kind, causal, mask, rate, flush):
+    """One phase-7 case; the first case is also timed (phase 7a)."""
     import torch
     from paddle_tpu_torch.ops import flash_attention as fa
-
-    results, timing = [], None
-    for i, (name, shp, kind, causal, mask, rate) in enumerate(FLASH_CASES):
-        c = flash_case(200 + i, **shp, kind=kind, causal=causal, mask=mask,
-                       rate=rate)
-        q, k, v, do, mf, meta = (c[n] for n in ("q", "k", "v", "do", "mask",
-                                                "meta"))
-        o, lse = fa.flash_fwd(q, k, v, mf, meta)
-        po, plse = fa.fwd_plain(q, k, v, mf, meta)
-        delta = (do.float() * po.float()).sum(-1)
-        dq = fa.flash_dq(q, k, v, do, plse, delta, mf, meta)
-        pdq = fa.dq_plain(q, k, v, do, plse, delta, mf, meta)
-        dk, dv = fa.flash_dkv(q, k, v, do, plse, delta, mf, meta)
-        pdk, pdv = fa.dkv_plain(q, k, v, do, plse, delta, mf, meta)
-        torch.cuda.synchronize()
-        tol = BF16_TOL if kind == "bf16" else ATOL
-        errs = {}
-        for out, got, want, t in (("o", o, po, tol), ("lse", lse, plse, ATOL),
-                                  ("dq", dq, pdq, tol), ("dk", dk, pdk, tol),
-                                  ("dv", dv, pdv, tol)):
-            err = (got.float() - want.float()).abs()
-            bad = err > t + t * want.float().abs()
-            if not bool(torch.isfinite(got).all()) or bool(bad.any()):
-                raise AssertionError(
-                    f"flash {name} {out}: kernel disagrees with the plain "
-                    f"version (max_abs_err={float(err.max())}, tol {t})")
-            errs[out] = float(err.max())
-        if mask:
-            rows = o.reshape(shp["B"], shp["H"], shp["S"], -1)[
-                :, :, list(MASKED_ROWS)]
-            if bool((rows != 0).any()):
-                raise AssertionError(f"flash {name}: fully masked rows "
-                                     "must be exact zeros")
-        rec = {"case": name, **shp, "kind": kind, "causal": causal,
-               "mask": mask, "dropout": rate, "tol": tol,
-               "max_abs_err": errs}
-        results.append(rec)
-        log(f"flash {name}: B={shp['B']} H={shp['H']} Hk={shp['Hk']} "
-            f"S={shp['S']} D={shp['D']} {kind} causal={causal} mask={mask} "
-            f"dropout={rate} max_abs_err "
-            + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
-            + f" (tol {tol})")
-        if i == 0:
-            timing = time_flash(c, shp, kind, causal, plse, delta, flush)
-    return results, timing
+    c = flash_case(200 + i, **shp, kind=kind, causal=causal, mask=mask,
+                   rate=rate)
+    q, k, v, do, mf, meta = (c[n] for n in ("q", "k", "v", "do", "mask",
+                                            "meta"))
+    o, lse = fa.flash_fwd(q, k, v, mf, meta)
+    po, plse = fa.fwd_plain(q, k, v, mf, meta)
+    delta = (do.float() * po.float()).sum(-1)
+    dq = fa.flash_dq(q, k, v, do, plse, delta, mf, meta)
+    pdq = fa.dq_plain(q, k, v, do, plse, delta, mf, meta)
+    dk, dv = fa.flash_dkv(q, k, v, do, plse, delta, mf, meta)
+    pdk, pdv = fa.dkv_plain(q, k, v, do, plse, delta, mf, meta)
+    torch.cuda.synchronize()
+    tol = BF16_TOL if kind == "bf16" else ATOL
+    errs, wrong = {}, []
+    for out, got, want, t in (("o", o, po, tol), ("lse", lse, plse, ATOL),
+                              ("dq", dq, pdq, tol), ("dk", dk, pdk, tol),
+                              ("dv", dv, pdv, tol)):
+        err = (got.float() - want.float()).abs()
+        bad = (err > t + t * want.float().abs()) | ~torch.isfinite(got)
+        errs[out] = float(err.max())
+        if bool(bad.any()):
+            wrong.append(f"{out} (max_abs_err={errs[out]}, tol {t}, "
+                         f"{int(bad.sum())} bad, first at "
+                         f"{bad.nonzero()[:4].tolist()})")
+    if wrong:
+        raise AssertionError(f"flash {name}: kernel disagrees with the "
+                             "plain version in " + "; ".join(wrong))
+    if mask:
+        rows = o.reshape(shp["B"], shp["H"], shp["S"], -1)[
+            :, :, list(MASKED_ROWS)]
+        if bool((rows != 0).any()):
+            raise AssertionError(f"flash {name}: fully masked rows "
+                                 "must be exact zeros")
+    rec = {"case": name, **shp, "kind": kind, "causal": causal,
+           "mask": mask, "dropout": rate, "tol": tol,
+           "max_abs_err": errs}
+    log(f"flash {name}: B={shp['B']} H={shp['H']} Hk={shp['Hk']} "
+        f"S={shp['S']} D={shp['D']} {kind} causal={causal} mask={mask} "
+        f"dropout={rate} max_abs_err "
+        + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+        + f" (tol {tol})")
+    timing = (time_flash(c, shp, kind, causal, plse, delta, flush)
+              if i == 0 else None)
+    return rec, timing
 
 
 def time_flash(c, shp, kind, causal, lse, delta, flush):
@@ -598,15 +636,54 @@ def time_flash(c, shp, kind, causal, lse, delta, flush):
                                                causal, which)
         kms = time_ms(kern, flush)
         pms = time_ms(plain, flush, iters=5)
+        lib = lib_fwd if which == "fwd" else lib_bwd
         out[which] = {"ms": kms, "plain_ms": pms, "bound_ms": bound,
                       "bound_by": by, "bytes": nbytes, "flops": flops,
-                      "tflops": flops / kms / 1e9,
-                      "library_ms": lib_fwd if which == "fwd" else lib_bwd}
+                      "tflops": flops / kms / 1e9, "library_ms": lib,
+                      "x_library": kms / lib}
         log(f"flash {which} at B={B} H={H} S={S} D={D} {kind} causal: "
             f"kernel_ms={kms:.4f} ({flops / kms / 1e9:.1f} TFLOP/s) "
-            f"plain_ms={pms:.4f} bound_ms={bound:.5f} ({by})")
+            f"plain_ms={pms:.4f} bound_ms={bound:.5f} ({by}) "
+            f"sdpa_ms={lib:.4f} x_sdpa={kms / lib:.2f}")
     log(f"sdpa yardstick: forward {lib_fwd:.4f} ms, backward "
         f"{lib_bwd:.4f} ms (forward+backward minus forward)")
+    return out
+
+
+def wgmma_resources():
+    """Registers and spills of the bf16 wgmma kernels, from the compiler's
+    report (`build.ptxas_report`), with their dynamic shared memory."""
+    import ctypes
+    import re
+    from paddle_tpu_torch._kernels import build
+    from paddle_tpu_torch.ops import flash_attention as fa
+    lib = fa._kernel_lib()
+    lib.flash_attention_wgmma_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    out, kernel = [], None
+    for line in build.ptxas_report("flash_attention").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1) if "wgmma" in m.group(1) else None
+            spills = (None, None)
+            continue
+        if kernel is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            which = 0 if "fwd" in kernel else 2
+            D = 128 if "ILi128E" in kernel else 64
+            out.append({"kernel": kernel, "D": D,
+                        "general": "Lb1E" in kernel,
+                        "registers": int(m.group(1)),
+                        "spill_stores": spills[0], "spill_loads": spills[1],
+                        "smem_dynamic":
+                            lib.flash_attention_wgmma_smem(which, D),
+                        "ptxas": line.strip()})
+            kernel = None
     return out
 
 
@@ -860,7 +937,8 @@ def compare_train_paths(steps=3, B=2):
     return rec
 
 
-def main():
+def main(argv):
+    flash_only = "--flash-only" in argv
     try:
         import torch
     except ImportError:
@@ -902,6 +980,21 @@ def main():
         for line in build.ptxas_report(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}:", line.strip())
+    report["wgmma_resources"] = wgmma_resources()
+    for r in report["wgmma_resources"]:
+        log(f"wgmma kernel {r['kernel']} (D={r['D']}, "
+            f"{'mask/dropout' if r['general'] else 'plain'} build): "
+            f"{r['registers']} registers, "
+            f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
+            f"spill loads, {r['smem_dynamic']} B dynamic shared memory")
+    if flash_only:
+        # the flash kernels alone, every case run and reported
+        flush_buf = torch.empty(64 * 1024 * 1024, device="cuda")
+        _, _, failures = run_flash_cases(lambda: _flush_l2(flush_buf),
+                                         keep_going=True)
+        log(f"flash-only: {len(FLASH_CASES) - len(failures)} of "
+            f"{len(FLASH_CASES)} cases agree [{smi}]")
+        return 1 if failures else 0
 
     # 3. kernel vs plain --------------------------------------------------------
     flush_buf = torch.empty(64 * 1024 * 1024, device="cuda")
@@ -992,7 +1085,7 @@ def main():
 
     # 7. flash kernels vs plain -------------------------------------------------
     flush_buf = torch.empty(64 * 1024 * 1024, device="cuda")
-    flash_cases, flash_t = run_flash_cases(lambda: _flush_l2(flush_buf))
+    flash_cases, flash_t, _ = run_flash_cases(lambda: _flush_l2(flush_buf))
     report["flash_cases"], report["flash_timing"] = flash_cases, flash_t
     del flush_buf
 
@@ -1059,4 +1152,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

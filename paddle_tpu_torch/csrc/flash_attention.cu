@@ -3,15 +3,17 @@
 // binds them with ctypes).
 //
 // Replaces the three Pallas TPU kernels of
-// paddle_tpu/ops/pallas/flash_attention.py (each in an f32 build and a bf16
-// `_tc_` build, e.g. flash_fwd_kernel / flash_fwd_tc_kernel):
-//   * flash_fwd_kernel  <- `_fwd_kernel` (launched by `_mha_forward`):
-//     online-softmax forward, writes O and a per-row logsumexp;
-//   * flash_dq_kernel   <- `_dq_kernel` (launched by `_mha_backward`):
-//     recomputes P from the logsumexp, dS = P * (dP - delta) * scale,
-//     dQ = dS . K;
-//   * flash_dkv_kernel  <- `_dkv_kernel` (launched by `_mha_backward`):
-//     dV = P_drop^T . dO and dK = dS^T . Q, per query head.
+// paddle_tpu/ops/pallas/flash_attention.py, each in an f32 build and a bf16
+// build:
+//   * forward <- `_fwd_kernel` (launched by `_mha_forward`): online-softmax
+//     forward, writes O and a per-row logsumexp. f32: flash_fwd_kernel;
+//     bf16: flash_fwd_wgmma_kernel;
+//   * dQ <- `_dq_kernel` (launched by `_mha_backward`): recomputes P from
+//     the logsumexp, dS = P * (dP - delta) * scale, dQ = dS . K. f32:
+//     flash_dq_kernel; bf16: flash_dq_tc_kernel;
+//   * dK/dV <- `_dkv_kernel` (launched by `_mha_backward`): dV = P_drop^T .
+//     dO and dK = dS^T . Q, per query head. f32: flash_dkv_kernel; bf16:
+//     flash_dkv_wgmma_kernel.
 //
 // Semantics kept from the TPU kernels, to the rounding: scores are
 // (q . k) * scale in f32; the additive mask is added and the sum clamped at
@@ -26,45 +28,58 @@
 // head b reads KV row (b / H) * Hk + (b % H) / (H / Hk); dK/dV come out per
 // query head and the wrapper sums the group.
 //
-// Design. The Pallas grid walks (batch*head, q-block, k-block) in order on
+// Blocks. The Pallas grid walks (batch*head, q-block, k-block) in order on
 // one core and carries the softmax state in scratch from one k-block to the
 // next. Here blocks run in parallel in no order, so each thread block owns
-// one (batch*head, 64-row tile) and loops over the other axis itself:
+// one (batch*head, row tile) and loops over the other axis itself:
 //   * fwd and dq: one block per (b, q-tile), looping over k-tiles, and on
 //     causal runs stopping at the tile that holds the diagonal;
 //   * dkv: one block per (b, k-tile), looping over q-tiles, and on causal
 //     runs starting at the diagonal tile.
 // The backward kernels are separate and use no atomics, so their results
 // repeat bit for bit from run to run. S may be any length: rows and columns
-// past S load as zeros and score as masked. Each kernel comes in two
-// builds, by input type:
-//   * bf16 (the training path): the products run on the tensor cores
-//     (`mma.sync` m16n8k16, bf16 operands, f32 accumulators), four warps a
-//     tile (see "bf16: the tensor cores" below);
-//   * f32: the products run on the CUDA cores in full f32, which is what
-//     the f32 contract asks (tensor cores would round the operands to
-//     TF32). 256 threads form a 16 x 16 grid; each thread owns a 4 x 4 block
-//     of the 64 x 64 score tile and 4 rows of the output tile at columns
-//     tx*4 + 64*n. Every operand sits in shared memory in f32 with its
-//     contraction index as the major dimension (transposed where needed),
-//     so two 16-byte loads feed 16 fused multiply-adds; row statistics
-//     reduce across the 16 threads of a row with warp shuffles.
+// past S load as zeros and score as masked.
 //
-// Bound on this card. At the GPT-350M training shape (head_dim 64,
-// S = 1024, bf16, causal) attention does 4 * D flops per (query, key) pair
-// in the forward, 6 * D in dq and 8 * D in dkv, against 4 * D bytes a row:
-// the forward sits at the card's flop:byte balance and the backward above
-// it, so at the 989 TFLOP/s bf16 rate the bound is a few hundredths of a
-// millisecond either way. What holds these kernels far above it is
-// latency, not bytes or flops: tiles are loaded by all threads and then
-// computed, with a barrier between (no cp.async/TMA pipeline), `mma.sync`
-// reaches a fraction of the `wgmma` rate, and the softmax runs between the
-// two products of every tile. Moving to `wgmma` with TMA-fed, double-
-// buffered tiles, and fusing dQ into the dK/dV pass with atomics, is later
-// work.
+// Bound on this card. At the GPT-350M training shape (B=8, H=16, S=1024,
+// D=64, bf16, causal) attention does 4 * D flops per (query, key) pair in
+// the forward, 6 * D in dq and 8 * D in dkv, against 4 * D bytes a row: the
+// forward sits near the card's flop:byte balance (0.020 ms by bytes) and
+// dkv above it (0.035 ms by operations at 989 TFLOP/s bf16). A block's
+// time is latency first: loads it waits for, products it waits on, and
+// the softmax between two products. The bf16 forward and dK/dV are built
+// for Hopper against that (primitives in hopper.cuh):
+//   * a producer warp keeps a ring of K/V (forward) or Q/dO (dK/dV) tiles
+//     in flight with TMA into 128B-swizzled shared memory, counted on
+//     mbarriers, while two consumer warpgroups compute (setmaxnreg moves
+//     registers from the producer to them); tensor maps are 3-D
+//     [rows][S][D], so a box that reaches past S reads zeros;
+//   * the products are `wgmma`: Q.K^T, K.Q^T and V.dO^T with both operands
+//     K-major in shared memory; P.V, P_drop^T.dO and dS^T.Q with the f32
+//     score fragment rounded to bf16 in registers as A, and V, dO or Q read
+//     as they lie through the transpose flag (no transposed copies);
+//   * exponentials are exp2f with scale * log2(e) folded into one FMA, and
+//     only tiles that need it mask anything: the diagonal tile and a tile
+//     past S by a compare an element. A mask or dropout selects a second
+//     build of the same kernel (template flag kGeneral) that runs the
+//     per-element rules of score() and keep() on every tile: that branchy
+//     code, compiled into the plain build, takes its registers (spills,
+//     serialized wgmma) and costs it 1.4x (forward) to 2.2x (dK/dV) at the
+//     training shape on the H100;
+//   * causal forward blocks start longest first (the last query tile of
+//     every head is launched first); causal dK/dV blocks are longest first
+//     in launch order already.
+// The bf16 dQ kernel runs on `mma.sync` (below).
+// The f32 builds run on the CUDA cores in full f32, which is what the f32
+// contract asks (tensor cores would round the operands to TF32): 256
+// threads form a 16 x 16 grid; each thread owns a 4 x 4 block of the 64 x 64
+// score tile and 4 rows of the output tile at columns tx*4 + 64*n; operands
+// sit in shared memory with their contraction index major, so two 16-byte
+// loads feed 16 fused multiply-adds.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -514,16 +529,16 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
   }
 }
 
-// ------------------------------------------------ bf16: the tensor cores
-// bf16 inputs run their products on the tensor cores: `mma.sync` m16n8k16
-// with bf16 operands and f32 accumulators. A block of four warps owns a
+// ------------------------------------------- bf16 dQ: `mma.sync` tensor cores
+// The bf16 dQ kernel runs its products on the tensor cores with `mma.sync`
+// m16n8k16 (bf16 operands, f32 accumulators). A block of four warps owns a
 // 64-row tile, each warp 16 rows of the result. Operand tiles sit in shared
 // memory as bf16, each row padded by 8 elements so the fragment loads of a
 // warp hit 32 different banks; the operand whose contraction index is its
 // row index is stored transposed. The f32 result tile of the first product
-// (scores) is rounded to bf16 in registers and is, in place, the A operand of
-// the second (P.V, dS.K, P^T.dO, dS^T.Q), as in FlashAttention-2. Rounding
-// P and dS to bf16 there is the TPU kernels' own rounding.
+// is rounded to bf16 in registers and is, in place, the A operand of the
+// second (dS.K), as in FlashAttention-2. Rounding dS to bf16 there is the
+// TPU kernel's own rounding.
 constexpr int kTcThreads = 128;
 constexpr int kPadH = 8;  // bf16 elements of padding per shared row
 
@@ -644,7 +659,8 @@ __device__ __forceinline__ void tc_load_t(bf16* Xt, const bf16* src, int r0,
   }
 }
 
-// Max and sum over the 4 lanes that hold one row of a C fragment.
+// Max and sum over the 4 lanes that hold one row of a C fragment (of
+// `mma.sync` or of a `wgmma` accumulator alike).
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -678,97 +694,6 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[NT][4],
           __floats2bfloat162_rn(acc[nt][2 * h] / div[h],
                                 acc[nt][2 * h + 1] / div[h]);
   }
-}
-
-template <int D>
-constexpr size_t tc_fwd_smem() {
-  return sizeof(bf16) * (2 * kTile * (D + kPadH) + D * (kTile + kPadH));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Params p) {
-  constexpr int LD = D + kPadH, LDT = kTile + kPadH, NT = D / 8;
-  extern __shared__ float4 smem4[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem4);  // [kTile][LD]
-  bf16* sK = sQ + kTile * LD;                 // [kTile][LD]
-  bf16* sVt = sK + kTile * LD;                // [D][LDT]
-
-  const int b = blockIdx.y;
-  const int qt = blockIdx.x;
-  const int q0 = qt * kTile;
-  const int lane = threadIdx.x % 32;
-  const int r0 = (threadIdx.x / 32) * 16;  // the warp's rows in the tile
-  const long long plane = static_cast<long long>(p.S) * D;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * plane;
-  const bf16* k = static_cast<const bf16*>(p.k) + kv_row(p, b) * plane;
-  const bf16* v = static_cast<const bf16*>(p.v) + kv_row(p, b) * plane;
-  const float* mask = mask_rows(p, b);
-
-  tc_load<D>(sQ, q, q0, p.S);
-  float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f}, acc[NT][4] = {};
-  const int nk = (p.S + kTile - 1) / kTile;
-  const int last = p.causal ? qt : nk - 1;
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // every warp is done with the previous K and V
-    tc_load<D>(sK, k, k0, p.S);
-    tc_load_t<D>(sVt, v, k0, p.S);
-    __syncthreads();
-
-    float s[8][4] = {};
-    mma_smem<8, D>(s, sQ, LD, r0, sK, LD, lane);
-    float mc[2] = {kMask, kMask};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = score(p, mask, s[nt][e], q0 + r0 + frag_row(lane, e),
-                         k0 + frag_col(lane, nt, e));
-        mc[e >> 1] = fmaxf(mc[e >> 1], s[nt][e]);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float m_new = fmaxf(m[h], quad_max(mc[h]));
-      alpha[h] = expf(m[h] - m_new);
-      m[h] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[nt][e];
-        float ev = expf(x - m[e >> 1]);
-        ev = x <= 0.5f * kMask ? 0.f : ev;
-        sum[e >> 1] += ev;
-        if (p.dropout)
-          ev = keep(p, b, q0 + r0 + frag_row(lane, e),
-                    k0 + frag_col(lane, nt, e))
-                   ? ev / p.keep_div
-                   : 0.f;
-        s[nt][e] = ev;
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(sum[h]);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][e] *= alpha[e >> 1];
-    uint32_t pa[4][4];
-    pack_a(pa, s);
-    mma_regs<NT>(acc, pa, sVt, LDT, lane);
-  }
-
-  float l_safe[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l_safe[h] = l[h] == 0.f ? 1.f : l[h];
-    const int row = q0 + r0 + (lane >> 2) + h * 8;
-    if (row < p.S && (lane & 3) == 0)
-      p.lse[static_cast<long long>(b) * p.S + row] = m[h] + logf(l_safe[h]);
-  }
-  store_rows<NT>(static_cast<bf16*>(p.o) + b * plane, acc, q0 + r0, lane,
-                 p.S, D, l_safe);
 }
 
 template <int D>
@@ -843,92 +768,489 @@ __global__ void __launch_bounds__(kTcThreads) flash_dq_tc_kernel(Params p) {
                  p.S, D, one);
 }
 
-template <int D>
-constexpr size_t tc_dkv_smem() {
-  return sizeof(bf16) * (4 * kTile * (D + kPadH) + 2 * D * (kTile + kPadH)) +
-         sizeof(float) * 2 * kTile;
+// --------------------------------- bf16 forward and dK/dV: wgmma and TMA
+// Both kernels run 384 threads: warpgroup 0 is the producer (one warp of it
+// issues TMA loads into a ring of shared-memory stages, the other three
+// exit) and gives up registers with setmaxnreg; warpgroups 1 and 2 are the
+// consumers, each owning 64 rows of the block's 128-row tile, and take the
+// registers. Stage s has a `full` barrier (the producer's arrivals plus the
+// TMA bytes) and an `empty` barrier (one arrival from each of the eight
+// consumer warps once their products have read the stage).
+namespace hw = hopper;
+
+constexpr int kWgThreads = 384;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (hw::smem_u32(p) & 1023)) & 1023);
 }
 
+// The forward: a block owns 128 query rows of one (batch*head) and walks
+// the 128-key tiles of K and V. Q, K and V tiles are D/64 panels of
+// 128 x 64 (hopper.cuh).
 template <int D>
-__global__ void __launch_bounds__(kTcThreads) flash_dkv_tc_kernel(Params p) {
-  constexpr int LD = D + kPadH, LDT = kTile + kPadH, NT = D / 8;
-  extern __shared__ float4 smem4[];
-  float* sLse = reinterpret_cast<float*>(smem4);  // [kTile]
-  float* sDelta = sLse + kTile;                   // [kTile]
-  bf16* sK = reinterpret_cast<bf16*>(sDelta + kTile);  // [kTile][LD]
-  bf16* sV = sK + kTile * LD;                     // [kTile][LD]
-  bf16* sQ = sV + kTile * LD;                     // [kTile][LD]
-  bf16* sdO = sQ + kTile * LD;                    // [kTile][LD]
-  bf16* sQt = sdO + kTile * LD;                   // [D][LDT]
-  bf16* sdOt = sQt + D * LDT;                     // [D][LDT]
+struct FwdShape {
+  static constexpr int kM = 128;
+  static constexpr int kN = 128;
+  static constexpr int kPanels = D / 64;
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kQBytes = kM * D * 2;
+  static constexpr int kKvBytes = kN * D * 2;  // one K or one V tile
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kKvBytes;
+  static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+};
 
-  const int b = blockIdx.y;
-  const int kt = blockIdx.x;
-  const int k0 = kt * kTile;
-  const int lane = threadIdx.x % 32;
-  const int r0 = (threadIdx.x / 32) * 16;  // the warp's keys in the tile
-  const long long plane = static_cast<long long>(p.S) * D;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * plane;
-  const bf16* dout = static_cast<const bf16*>(p.dout) + b * plane;
-  const bf16* k = static_cast<const bf16*>(p.k) + kv_row(p, b) * plane;
-  const bf16* v = static_cast<const bf16*>(p.v) + kv_row(p, b) * plane;
-  const float* mask = mask_rows(p, b);
+template <int D, bool kGeneral>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const Params p) {
+  using C = FwdShape<D>;
+  static_assert(C::kM == C::kN, "one offset serves Q and K panels");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* sQ = smem;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + C::kStages;
 
-  tc_load<D>(sK, k, k0, p.S);
-  tc_load<D>(sV, v, k0, p.S);
-  float dk[NT][4] = {}, dv[NT][4] = {};
-  const int nq = (p.S + kTile - 1) / kTile;
-  for (int qt = p.causal ? kt : 0; qt < nq; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    tc_load<D>(sQ, q, q0, p.S);
-    tc_load<D>(sdO, dout, q0, p.S);
-    tc_load_t<D>(sQt, q, q0, p.S);
-    tc_load_t<D>(sdOt, dout, q0, p.S);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      const long long at = static_cast<long long>(b) * p.S + row;
-      sLse[threadIdx.x] = row < p.S ? p.lse_in[at] : 0.f;
-      sDelta[threadIdx.x] = row < p.S ? p.delta[at] : 0.f;
+  const int b = blockIdx.x;
+  // causal blocks start longest first: the last query tile sees every key
+  const int qt = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * C::kM;
+  const int nk = (p.S + C::kN - 1) / C::kN;
+  const int n_iter = p.causal ? qt + 1 : nk;  // kM == kN: qt < nk
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(q_full, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], 8);
     }
-    __syncthreads();
-
-    // transposed tiles: element (key, query)
-    float st[8][4] = {}, dpt[8][4] = {};
-    mma_smem<8, D>(st, sK, LD, r0, sQ, LD, lane);
-    mma_smem<8, D>(dpt, sV, LD, r0, sdO, LD, lane);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + r0 + frag_row(lane, e);
-        const int qi = frag_col(lane, nt, e);
-        const int row = q0 + qi;
-        const float x = score(p, mask, st[nt][e], row, col);
-        float pr = expf(x - sLse[qi]);
-        pr = x <= 0.5f * kMask ? 0.f : pr;
-        float pd = pr, d = dpt[nt][e];
-        if (p.dropout) {
-          const bool kp = keep(p, b, row, col);
-          pd = kp ? pr / p.keep_div : 0.f;
-          d = kp ? d / p.keep_div : 0.f;
-        }
-        st[nt][e] = pd;
-        dpt[nt][e] = pr * (d - sDelta[qi]) * p.scale;
-      }
-    uint32_t a[4][4];
-    pack_a(a, st);
-    mma_regs<NT>(dv, a, sdOt, LDT, lane);
-    pack_a(a, dpt);
-    mma_regs<NT>(dk, a, sQt, LDT, lane);
+    hw::fence_barrier_init();
   }
-  const float one[2] = {1.f, 1.f};
-  store_rows<NT>(static_cast<bf16*>(p.dk) + b * plane, dk, k0 + r0, lane,
-                 p.S, D, one);
-  store_rows<NT>(static_cast<bf16*>(p.dv) + b * plane, dv, k0 + r0, lane,
-                 p.S, D, one);
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer
+    hw::regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hw::tma_prefetch(&tq);
+      hw::tma_prefetch(&tk);
+      hw::tma_prefetch(&tv);
+      const int kvb = kv_row(p, b);
+      hw::mbar_arrive_tx(q_full, C::kQBytes);
+      for (int pn = 0; pn < C::kPanels; ++pn)
+        hw::tma_load_3d(sQ + pn * C::kM * 128, &tq, q_full, pn * 64, q0, b);
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % C::kStages;
+        hw::mbar_wait(&empty[s], ((it / C::kStages) & 1) ^ 1);
+        uint8_t* sK = smem + C::kQBytes + s * 2 * C::kKvBytes;
+        uint8_t* sV = sK + C::kKvBytes;
+        hw::mbar_arrive_tx(&full[s], 2 * C::kKvBytes);
+        for (int pn = 0; pn < C::kPanels; ++pn) {
+          hw::tma_load_3d(sK + pn * C::kN * 128, &tk, &full[s], pn * 64,
+                          it * C::kN, kvb);
+          hw::tma_load_3d(sV + pn * C::kN * 128, &tv, &full[s], pn * 64,
+                          it * C::kN, kvb);
+        }
+      }
+    }
+  } else {
+    // ---- consumers
+    hw::regs_alloc<kConsumerRegs>();
+    const int t = threadIdx.x % 128;
+    const int wg = threadIdx.x / 128 - 1;
+    const int r0 = q0 + 64 * wg;  // the warpgroup's first row
+    const float scale_log2 = p.scale * kLog2e;
+    float o[C::kPanels][32];
+#pragma unroll
+    for (int pn = 0; pn < C::kPanels; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[pn][i] = 0.f;
+    float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f};
+
+    const uint64_t dQ = hw::desc(sQ + wg * 64 * 128);
+    hw::mbar_wait(q_full, 0);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % C::kStages;
+      const int k0 = it * C::kN;
+      const uint8_t* sK = smem + C::kQBytes + s * 2 * C::kKvBytes;
+      const uint8_t* sV = sK + C::kKvBytes;
+      hw::mbar_wait(&full[s], (it / C::kStages) & 1);
+
+      // S = Q . K^T, both K-major
+      float sc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+      const uint64_t dK = hw::desc(sK);
+      hw::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk / 4) * C::kM * 128 + (kk % 4) * 32;
+        hw::wgmma_ss_n128(sc, dQ + (off >> 4), dK + (off >> 4), 1);
+      }
+      hw::wg_commit();
+      hw::wg_wait<0>();
+      hw::fence_regs(sc);
+
+      // Scores in f32. Under a mask or dropout (the kGeneral build) every
+      // tile takes the per-element rules of score() and keep(). Otherwise
+      // only the diagonal tile and the ragged last tile mask anything, with
+      // one compare an element, and every other tile is a plain scaled dot
+      // product whose scale folds into the exponent.
+      const bool edge = kGeneral || (p.causal && it == n_iter - 1) ||
+                        k0 + C::kN > p.S;
+      float mx[2] = {kMask, kMask};
+      if constexpr (kGeneral) {
+        const float* mask = mask_rows(p, b);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          sc[i] = score(p, mask, sc[i], r0 + hw::acc_row(t, i),
+                        k0 + hw::acc_col(t, i));
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+        }
+      } else if (edge) {
+        int last[2];  // the last key each of the thread's two rows sees
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          last[h] = p.causal ? min(r0 + hw::acc_row(t, 2 * h), p.S - 1)
+                             : p.S - 1;
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int h = (i >> 1) & 1;
+          sc[i] = k0 + hw::acc_col(t, i) <= last[h] ? sc[i] * p.scale : kMask;
+          mx[h] = fmaxf(mx[h], sc[i]);
+        }
+      } else {
+        mx[0] = mx[1] = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+        mx[0] *= p.scale;  // scale > 0: the max of the scaled scores
+        mx[1] *= p.scale;
+      }
+      float alpha[2], ml[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mn = fmaxf(m[h], quad_max(mx[h]));
+        alpha[h] = exp2f((m[h] - mn) * kLog2e);
+        m[h] = mn;
+        ml[h] = mn * kLog2e;
+      }
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int h = (i >> 1) & 1;
+          const float x = sc[i];
+          float e = exp2f(fmaf(x, kLog2e, -ml[h]));
+          e = x <= 0.5f * kMask ? 0.f : e;
+          sum[h] += e;
+          if constexpr (kGeneral) {
+            if (p.dropout)
+              e = keep(p, b, r0 + hw::acc_row(t, i), k0 + hw::acc_col(t, i))
+                      ? e / p.keep_div
+                      : 0.f;
+          }
+          sc[i] = e;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int h = (i >> 1) & 1;
+          const float e = exp2f(fmaf(sc[i], scale_log2, -ml[h]));
+          sum[h] += e;
+          sc[i] = e;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(sum[h]);
+#pragma unroll
+      for (int pn = 0; pn < C::kPanels; ++pn)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[pn][i] *= alpha[(i >> 1) & 1];
+
+      // O += P . V: P rounded to bf16 in registers, V read as it lies
+      // ([key][d], MN-major) through the transpose flag
+      uint32_t pa[C::kN / 16][4];
+      hw::acc_to_a<C::kN>(pa, sc);
+      const uint64_t dV = hw::desc(sV);
+      hw::wg_fence();
+#pragma unroll
+      for (int pn = 0; pn < C::kPanels; ++pn)
+#pragma unroll
+        for (int j = 0; j < C::kN / 16; ++j)
+          hw::wgmma_rs_n64_tb(o[pn], pa[j],
+                              dV + ((pn * C::kN * 128 + j * 2048) >> 4));
+      hw::wg_commit();
+      hw::wg_wait<0>();
+#pragma unroll
+      for (int pn = 0; pn < C::kPanels; ++pn) hw::fence_regs(o[pn]);
+      if ((t & 31) == 0) hw::mbar_arrive(&empty[s]);
+    }
+
+    float l_safe[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l_safe[h] = l[h] == 0.f ? 1.f : l[h];
+      const int row = r0 + hw::acc_row(t, 2 * h);
+      if (row < p.S && (t & 3) == 0)
+        p.lse[static_cast<long long>(b) * p.S + row] = m[h] + logf(l_safe[h]);
+    }
+    bf16* out = static_cast<bf16*>(p.o) + static_cast<long long>(b) * p.S * D;
+#pragma unroll
+    for (int pn = 0; pn < C::kPanels; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int h = (i >> 1) & 1;
+        const int row = r0 + hw::acc_row(t, i);
+        if (row < p.S)
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + static_cast<long long>(row) * D + pn * 64 +
+              hw::acc_col(t, i)) =
+              __floats2bfloat162_rn(o[pn][i] / l_safe[h],
+                                    o[pn][i + 1] / l_safe[h]);
+      }
+  }
 }
 
+// dK/dV: a block owns 128 keys of one (batch*head), keeps their K and V
+// tiles resident, and streams 64-row tiles of Q and dO (with their lse and
+// delta rows) through the ring. The transposed score tiles S^T = K . Q^T
+// and dP^T = V . dO^T are key-major accumulator fragments, so once rounded
+// to bf16 they are the register A operands of dV += P_drop^T . dO and
+// dK += dS^T . Q, whose B (dO, Q) is read as it lies through the
+// transpose flag.
+template <int D>
+struct DkvShape {
+  static constexpr int kN = 128;  // keys of the block
+  static constexpr int kM = 64;   // query rows of a streamed tile
+  static constexpr int kPanels = D / 64;
+  static constexpr int kStages = 3;
+  static constexpr int kKvBytes = kN * D * 2;  // one K or one V tile
+  static constexpr int kQBytes = kM * D * 2;   // one Q or one dO tile
+  static constexpr int kRowsOffset = 2 * kKvBytes + kStages * 2 * kQBytes;
+  static constexpr int kBarOffset = kRowsOffset + kStages * 2 * kM * 4;
+  static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+};
+
+template <int D, bool kGeneral>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const Params p) {
+  using C = DkvShape<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* sK = smem;
+  uint8_t* sV = smem + C::kKvBytes;
+  float* rows = reinterpret_cast<float*>(smem + C::kRowsOffset);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + C::kStages;
+
+  const int b = blockIdx.x;
+  const int k0 = blockIdx.y * C::kN;
+  const int nq = (p.S + C::kM - 1) / C::kM;
+  const int q_first = p.causal ? k0 / C::kM : 0;  // the diagonal tile
+  const int n_iter = nq - q_first;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(kv_full, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      hw::mbar_init(&full[s], 32);
+      hw::mbar_init(&empty[s], 8);
+    }
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: lane 0 issues the TMA loads, the warp copies lse and
+    // delta rows, and every lane arrives on the stage's full barrier
+    hw::regs_dealloc<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        hw::tma_prefetch(&tq);
+        hw::tma_prefetch(&tdo);
+        const int kvb = kv_row(p, b);
+        hw::mbar_arrive_tx(kv_full, 2 * C::kKvBytes);
+        for (int pn = 0; pn < C::kPanels; ++pn) {
+          hw::tma_load_3d(sK + pn * C::kN * 128, &tk, kv_full, pn * 64, k0,
+                          kvb);
+          hw::tma_load_3d(sV + pn * C::kN * 128, &tv, kv_full, pn * 64, k0,
+                          kvb);
+        }
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % C::kStages;
+        const int q0 = (q_first + it) * C::kM;
+        hw::mbar_wait(&empty[s], ((it / C::kStages) & 1) ^ 1);
+        float* sl = rows + s * 2 * C::kM;
+        for (int r = lane; r < C::kM; r += 32) {
+          const long long at = static_cast<long long>(b) * p.S + q0 + r;
+          const bool in = q0 + r < p.S;
+          sl[r] = in ? p.lse_in[at] : 0.f;
+          sl[C::kM + r] = in ? p.delta[at] : 0.f;
+        }
+        if (lane == 0) {
+          uint8_t* sQ = smem + 2 * C::kKvBytes + s * 2 * C::kQBytes;
+          uint8_t* sdO = sQ + C::kQBytes;
+          hw::mbar_arrive_tx(&full[s], 2 * C::kQBytes);
+          for (int pn = 0; pn < C::kPanels; ++pn) {
+            hw::tma_load_3d(sQ + pn * C::kM * 128, &tq, &full[s], pn * 64, q0,
+                            b);
+            hw::tma_load_3d(sdO + pn * C::kM * 128, &tdo, &full[s], pn * 64,
+                            q0, b);
+          }
+        } else {
+          hw::mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    // ---- consumers
+    hw::regs_alloc<kConsumerRegs>();
+    const int t = threadIdx.x % 128;
+    const int wg = threadIdx.x / 128 - 1;
+    const int kw = k0 + 64 * wg;  // the warpgroup's first key
+    const float scale_log2 = p.scale * kLog2e;
+    float dk[C::kPanels][32], dv[C::kPanels][32];
+#pragma unroll
+    for (int pn = 0; pn < C::kPanels; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk[pn][i] = dv[pn][i] = 0.f;
+
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    // this warpgroup's 64 keys of K and V
+    const uint64_t dK = hw::desc(sK + wg * 64 * 128);
+    const uint64_t dV = hw::desc(sV + wg * 64 * 128);
+    hw::mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % C::kStages;
+      const int q0 = (q_first + it) * C::kM;
+      const uint8_t* sQ = smem + 2 * C::kKvBytes + s * 2 * C::kQBytes;
+      const uint8_t* sdO = sQ + C::kQBytes;
+      const float* sl = rows + s * 2 * C::kM;
+      hw::mbar_wait(&full[s], (it / C::kStages) & 1);
+
+      // S^T = K . Q^T and dP^T = V . dO^T, all K-major
+      const uint64_t dQ = hw::desc(sQ), ddO = hw::desc(sdO);
+      hw::fence_regs(st);
+      hw::fence_regs(dpt);
+      hw::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int pn = kk / 4, ko = (kk % 4) * 32;  // panel, k slice
+        const int kv_off = (pn * C::kN * 128 + ko) >> 4;
+        const int q_off = (pn * C::kM * 128 + ko) >> 4;
+        hw::wgmma_ss_n64(st, dK + kv_off, dQ + q_off, kk > 0);
+        hw::wgmma_ss_n64(dpt, dV + kv_off, ddO + q_off, kk > 0);
+      }
+      hw::wg_commit();
+      hw::wg_wait<0>();
+      hw::fence_regs(st);
+      hw::fence_regs(dpt);
+
+      // As in the forward: the kGeneral build (mask or dropout) takes the
+      // per-element rules on every tile; otherwise only tiles that cross
+      // the diagonal or S mask anything, with compares, and the others
+      // fold the scale into the exponent.
+      const bool edge = kGeneral || (p.causal && q0 < kw + 64) ||
+                        q0 + C::kM > p.S || kw + 64 > p.S;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int qc = 8 * c + 2 * (t & 3);  // this chunk's two queries
+        const float2 lse2 = *reinterpret_cast<const float2*>(sl + qc);
+        const float2 del2 = *reinterpret_cast<const float2*>(sl + C::kM + qc);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * c + e;
+          const float lse = (e & 1) ? lse2.y : lse2.x;
+          const float delta = (e & 1) ? del2.y : del2.x;
+          const int row = q0 + qc + (e & 1);       // query
+          const int col = kw + hw::acc_row(t, i);  // key
+          float pr, pd, d = dpt[i];
+          if constexpr (kGeneral) {
+            const float x = score(p, mask_rows(p, b), st[i], row, col);
+            pr = exp2f(fmaf(x, kLog2e, -lse * kLog2e));
+            pr = x <= 0.5f * kMask ? 0.f : pr;
+            pd = pr;
+            if (p.dropout) {
+              const bool kp = keep(p, b, row, col);
+              pd = kp ? pr / p.keep_div : 0.f;
+              d = kp ? d / p.keep_div : 0.f;
+            }
+          } else {
+            pr = exp2f(fmaf(st[i], scale_log2, -lse * kLog2e));
+            if (edge) {
+              const bool seen = row < p.S && col < p.S &&
+                                !(p.causal && col > row);
+              pr = seen ? pr : 0.f;
+            }
+            pd = pr;
+          }
+          st[i] = pd;
+          dpt[i] = pr * (d - delta) * p.scale;
+        }
+      }
+
+      // dV += P_drop^T . dO and dK += dS^T . Q, B read as it lies
+      uint32_t pa[C::kM / 16][4], dsa[C::kM / 16][4];
+      hw::acc_to_a<C::kM>(pa, st);
+      hw::acc_to_a<C::kM>(dsa, dpt);
+      hw::fence_regs(pa);
+      hw::fence_regs(dsa);
+#pragma unroll
+      for (int pn = 0; pn < C::kPanels; ++pn) {
+        hw::fence_regs(dk[pn]);
+        hw::fence_regs(dv[pn]);
+      }
+      hw::wg_fence();
+#pragma unroll
+      for (int pn = 0; pn < C::kPanels; ++pn)
+#pragma unroll
+        for (int j = 0; j < C::kM / 16; ++j) {
+          const int off = (pn * C::kM * 128 + j * 2048) >> 4;
+          hw::wgmma_rs_n64_tb(dv[pn], pa[j], ddO + off);
+          hw::wgmma_rs_n64_tb(dk[pn], dsa[j], dQ + off);
+        }
+      hw::wg_commit();
+      hw::wg_wait<0>();
+#pragma unroll
+      for (int pn = 0; pn < C::kPanels; ++pn) {
+        hw::fence_regs(dk[pn]);
+        hw::fence_regs(dv[pn]);
+      }
+      if ((t & 31) == 0) hw::mbar_arrive(&empty[s]);
+    }
+
+    const long long plane = static_cast<long long>(p.S) * D;
+    bf16* dkp = static_cast<bf16*>(p.dk) + b * plane;
+    bf16* dvp = static_cast<bf16*>(p.dv) + b * plane;
+#pragma unroll
+    for (int pn = 0; pn < C::kPanels; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int row = kw + hw::acc_row(t, i);
+        if (row >= p.S) continue;
+        const long long at =
+            static_cast<long long>(row) * D + pn * 64 + hw::acc_col(t, i);
+        *reinterpret_cast<__nv_bfloat162*>(dkp + at) =
+            __floats2bfloat162_rn(dk[pn][i], dk[pn][i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dvp + at) =
+            __floats2bfloat162_rn(dv[pn][i], dv[pn][i + 1]);
+      }
+  }
+}
 // ------------------------------------------------------------------ launch
 template <typename Kern>
 cudaError_t launch(Kern kern, size_t smem, int threads, int tiles, int BH,
@@ -963,22 +1285,54 @@ cudaError_t run_f32(Which which, int BH, const Params& p, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
-// bf16 inputs: the tensor-core kernels
+// bf16 forward and dK/dV. They read their tiles through tensor maps over
+// [rows][S][D], so a box past S reads zeros, never the next row's data.
+template <int D, bool kGeneral>
+cudaError_t run_wgmma(Which which, int BH, const Params& p, cudaStream_t st) {
+  if (hw::encode_tiled() == nullptr) return cudaErrorNotSupported;
+  const int kv_rows = BH / p.H * p.Hk;
+  CUtensorMap tq, tk, tv, tdo;
+  if (which == kFwd) {
+    using C = FwdShape<D>;
+    if (!hw::make_map_bf16(&tq, p.q, BH, p.S, D, C::kM) ||
+        !hw::make_map_bf16(&tk, p.k, kv_rows, p.S, D, C::kN) ||
+        !hw::make_map_bf16(&tv, p.v, kv_rows, p.S, D, C::kN))
+      return cudaErrorInvalidValue;
+    auto kern = flash_fwd_wgmma_kernel<D, kGeneral>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(C::kSmem));
+    if (e != cudaSuccess) return e;
+    kern<<<dim3(BH, (p.S + C::kM - 1) / C::kM), kWgThreads, C::kSmem, st>>>(
+        tq, tk, tv, p);
+    return cudaGetLastError();
+  }
+  using C = DkvShape<D>;
+  if (!hw::make_map_bf16(&tq, p.q, BH, p.S, D, C::kM) ||
+      !hw::make_map_bf16(&tdo, p.dout, BH, p.S, D, C::kM) ||
+      !hw::make_map_bf16(&tk, p.k, kv_rows, p.S, D, C::kN) ||
+      !hw::make_map_bf16(&tv, p.v, kv_rows, p.S, D, C::kN))
+    return cudaErrorInvalidValue;
+  auto kern = flash_dkv_wgmma_kernel<D, kGeneral>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmem));
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(BH, (p.S + C::kN - 1) / C::kN), kWgThreads, C::kSmem, st>>>(
+      tq, tk, tv, tdo, p);
+  return cudaGetLastError();
+}
+
+// bf16 inputs: the tensor-core kernels. A mask or dropout selects the
+// build of the forward and dK/dV that carries the per-element rules.
 template <int D>
 cudaError_t run_bf16(Which which, int BH, const Params& p, cudaStream_t st) {
-  const int tiles = (p.S + kTile - 1) / kTile;
-  switch (which) {
-    case kFwd:
-      return launch(flash_fwd_tc_kernel<D>, tc_fwd_smem<D>(), kTcThreads,
-                    tiles, BH, p, st);
-    case kDq:
-      return launch(flash_dq_tc_kernel<D>, tc_dq_smem<D>(), kTcThreads, tiles,
-                    BH, p, st);
-    case kDkv:
-      return launch(flash_dkv_tc_kernel<D>, tc_dkv_smem<D>(), kTcThreads,
-                    tiles, BH, p, st);
-  }
-  return cudaErrorInvalidValue;
+  if (which == kDq)
+    return launch(flash_dq_tc_kernel<D>, tc_dq_smem<D>(), kTcThreads,
+                  (p.S + kTile - 1) / kTile, BH, p, st);
+  if (p.mask != nullptr || p.dropout)
+    return run_wgmma<D, true>(which, BH, p, st);
+  return run_wgmma<D, false>(which, BH, p, st);
 }
 
 cudaError_t dispatch(Which which, int BH, int D, int dtype, const Params& p,
@@ -1070,6 +1424,16 @@ extern "C" int flash_attention_dkv(const void* q, const void* k,
   p.dk = dk;
   p.dv = dv;
   return dispatch(kDkv, BH, D, dtype, p, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of the bf16 forward (which = 0) and dK/dV
+// (which = 2) kernels at head dim D, in bytes (0 for anything else).
+extern "C" int flash_attention_wgmma_smem(int which, int D) {
+  if (which == kFwd && D == 64) return FwdShape<64>::kSmem;
+  if (which == kFwd && D == 128) return FwdShape<128>::kSmem;
+  if (which == kDkv && D == 64) return DkvShape<64>::kSmem;
+  if (which == kDkv && D == 128) return DkvShape<128>::kSmem;
+  return 0;
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -9,6 +9,11 @@ wrappers run their plain versions, so these tests hold the plain versions
 (the ones the CUDA kernels are held against on the card) to the TPU
 kernels: forward O and logsumexp, and dQ/dK/dV through autograd.
 
+The edge-shape cases hold the same plain versions, at the lengths where
+the card kernels' 128-row tiles end ragged (S = 64, 129, 200), to the JAX
+package's XLA path `_ref_attention_bhsd` under `jax.vjp` (the Pallas
+kernels take only S that their blocks divide).
+
 Tolerances: float32 atol 2e-5 forward, 1e-4 gradients (the kernels sum
 in blocks, the plain versions over whole rows); bf16 2e-2 (8 mantissa
 bits, and P is rounded against a different running max).
@@ -246,3 +251,43 @@ def test_non_cpu_tensors_raise_before_any_launch(D, match):
         fa.flash_attention_bhsd(q, q, q, causal=True)
     assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv) == before
     assert fa._lib is None
+
+
+# name -> (B, H, Hk, S, causal, dtype), head_dim 64: S below one 128-row
+# tile, one past it, and a ragged 200; one GQA case
+EDGE_CASES = {
+    f"S{S}_{'causal' if causal else 'full'}_{dt}": (1, 2, 2, S, causal, dt)
+    for S in (64, 129, 200) for causal in (True, False)
+    for dt in ("float32", "bfloat16")}
+EDGE_CASES["gqa_4_2_S129_causal_float32"] = (1, 4, 2, 129, True, "float32")
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_edge_shapes_match_xla_reference(case):
+    """flash_attention_bhsd forward and autograd at ragged S against the
+    JAX XLA path (inputs rounded to bf16 first in the bf16 cases, and the
+    reference run in the same dtype)."""
+    B, H, Hk, S, causal, dt = EDGE_CASES[case]
+    D = 64
+    rng = np.random.RandomState(5)
+    q = rng.randn(B, H, S, D).astype(np.float32)
+    k = rng.randn(B, Hk, S, D).astype(np.float32)
+    v = rng.randn(B, Hk, S, D).astype(np.float32)
+    w = rng.randn(B, H, S, D).astype(np.float32)
+    if dt == "bfloat16":
+        q, k, v = (np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+                   for x in (q, k, v))
+    jo, vjp = jax.vjp(
+        lambda a, b, c: _ref_attention_bhsd(a, b, c, causal, D ** -0.5),
+        _j(q, dt), _j(k, dt), _j(v, dt))
+    jg = vjp(_j(w, dt))
+    tq, tk, tv = (_t(x, dt, grad=True) for x in (q, k, v))
+    o = fa.flash_attention_bhsd(tq, tk, tv, causal=causal)
+    assert o.dtype == tq.dtype and o.shape == (B, H, S, D)
+    (o.float() * _t(w, "float32")).sum().backward()
+    fwd, grad = (BF16, BF16) if dt == "bfloat16" else (F32_FWD, F32_GRAD)
+    np.testing.assert_allclose(_np(o), _np(jo), atol=fwd, rtol=fwd)
+    for a, b, name in zip((tq, tk, tv), jg, "qkv"):
+        assert a.grad.dtype == a.dtype
+        np.testing.assert_allclose(_np(a.grad), _np(b), atol=grad,
+                                   rtol=grad, err_msg=f"d{name}")

@@ -11,8 +11,13 @@ Phases (any exception ends the run with a non-zero exit):
   3. kernel vs plain version on the card: the paged-attention kernel at the
      serving shapes (decode T=1 over ragged positions up to 1000, prefill
      T=64/128/512, int8 pools, a garbage block poisoned with NaN/inf,
-     all-masked rows), with its time, the plain version's time, the
-     `scaled_dot_product_attention` yardstick and the bound;
+     all-masked rows, and decode at the edges of the kernel's KV splits:
+     key counts one below, at and one above a split boundary, the full
+     table, a pos = -1 slot beside long ones, 16- and 8-token blocks, in
+     f32, int8 and bf16), every case launched twice and required to
+     repeat bit for bit, with its time, host time per call, the plain
+     version's time, the `scaled_dot_product_attention` yardstick and the
+     bound;
   4. the server: `Scheduler` over `PagedGenerationEngine(gpt_125m,
      attention_impl="kernel")` answers 16 greedy requests (prompts of 1 to
      700 tokens, eight sharing a 256-token prefix), with the kernel's
@@ -30,8 +35,10 @@ Phases (any exception ends the run with a non-zero exit):
      non-causal, D=128 at S=1024, GQA 16/4 at S=200); with each kernel's
      time, the plain version's time, the `scaled_dot_product_attention`
      forward and backward yardsticks (and the kernel's ratio to them) and
-     the bound at the training shape (phase 7a). Phase 2 prints the
-     registers, spills and shared memory of the wgmma kernels. With
+     the bound at the training shape (phase 7a); the backward kernels
+     are launched twice on every case and must repeat bit for bit. Phase
+     2 prints the registers, spills and shared memory of the wgmma
+     kernels (forward, dQ and dK/dV builds). With
      --flash-only the script stops after phase 7, runs every case even
      after a failure, and exits 1 if any failed;
   8. the training step: `make_train_step` on GPT-350M (vocab 50304,
@@ -203,10 +210,19 @@ def run_kernel_cases(flush):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.serving import blocks
+    from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops.paged_attention import paged_attention
 
     rng = __import__("random").Random(0)
     ragged = [0, 15, 16, 17, 255, 511, 777, 1000]
+    sp = pa.decode_split_keys()
+
+    def edges(L):
+        """Decode positions at the kernel's split edges: key counts one
+        below, at and one above the first and the second split boundary,
+        the full table, and a slot with no key (pos = -1) beside them."""
+        return [sp - 2, sp - 1, sp, 2 * sp - 2, 2 * sp - 1, 2 * sp, L - 1,
+                -1]
     cases = [
         ("decode_f32", dict(S=8, T=1, pos=ragged), "f32"),
         ("decode_f32_rand", dict(S=8, T=1,
@@ -224,6 +240,16 @@ def run_kernel_cases(flush):
         ("prefill_int8_T128", dict(S=2, T=128, pos=[0, 256]), "int8"),
         ("decode_bf16", dict(S=8, T=1, pos=ragged), "bf16"),
         ("all_masked", dict(S=8, T=1, pos=[-1] * 8), "nan"),
+        # the decode kernel's split edges, with 16- and 8-token blocks
+        ("decode_edges_f32", dict(S=8, T=1, pos=edges(1024)), "f32"),
+        ("decode_edges_int8", dict(S=8, T=1, pos=edges(1024)), "int8"),
+        ("decode_edges_bf16", dict(S=8, T=1, pos=edges(1024)), "bf16"),
+        ("decode_edges_bs8_f32", dict(S=8, T=1, pos=edges(512), bs=8),
+         "f32"),
+        ("decode_edges_bs8_int8", dict(S=8, T=1, pos=edges(512), bs=8),
+         "int8"),
+        ("decode_edges_bs8_bf16", dict(S=8, T=1, pos=edges(512), bs=8),
+         "bf16"),
     ]
     results = []
     for i, (name, shape, kind) in enumerate(cases):
@@ -256,8 +282,17 @@ def run_kernel_cases(flush):
                     return blocks.attend(q, k, v, tb, pos)
             kd, vd = blocks.gather(k, tb), blocks.gather(v, tb)
         got = kern()
+        again = kern()
         want = plain()
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two launches on the same inputs "
+                                 "differ (the kernel must repeat bit for "
+                                 "bit)")
+        empty = pos < 0
+        if bool(empty.any()) and bool((got[empty] != 0).any()):
+            raise AssertionError(f"{name}: rows with no visible key must be "
+                                 "exact zeros")
         err = (got.float() - want.float()).abs()
         tol = BF16_TOL if kind == "bf16" else ATOL
         rtol = BF16_TOL if kind == "bf16" else RTOL
@@ -268,8 +303,6 @@ def run_kernel_cases(flush):
             raise AssertionError(
                 f"{name}: kernel disagrees with the plain version "
                 f"(max_abs_err={max_err}, finite={finite})")
-        if kind == "nan" and bool((got != 0).any()):
-            raise AssertionError(f"{name}: all-masked rows must be 0")
         kms = time_ms(kern, flush)
         khost = host_us(kern)
         pms = time_ms(plain, flush)
@@ -568,7 +601,15 @@ def flash_case_check(i, name, shp, kind, causal, mask, rate, flush):
     pdq = fa.dq_plain(q, k, v, do, plse, delta, mf, meta)
     dk, dv = fa.flash_dkv(q, k, v, do, plse, delta, mf, meta)
     pdk, pdv = fa.dkv_plain(q, k, v, do, plse, delta, mf, meta)
+    dq2 = fa.flash_dq(q, k, v, do, plse, delta, mf, meta)
+    dk2, dv2 = fa.flash_dkv(q, k, v, do, plse, delta, mf, meta)
     torch.cuda.synchronize()
+    # the backward kernels use no atomics: a second launch repeats the
+    # first bit for bit
+    for out, a, b in (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"flash {name}: {out} differs between two "
+                                 "launches on the same inputs")
     tol = BF16_TOL if kind == "bf16" else ATOL
     errs, wrong = {}, []
     for out, got, want, t in (("o", o, po, tol), ("lse", lse, plse, ATOL),
@@ -674,7 +715,9 @@ def wgmma_resources():
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            which = 0 if "fwd" in kernel else 2
+            # the smem query's kernel index: fwd 0, dq 1, dkv 2
+            which = (2 if "flash_dkv" in kernel else
+                     1 if "flash_dq" in kernel else 0)
             D = 128 if "ILi128E" in kernel else 64
             out.append({"kernel": kernel, "D": D,
                         "general": "Lb1E" in kernel,

@@ -10,7 +10,7 @@
 //     bf16: flash_fwd_wgmma_kernel;
 //   * dQ <- `_dq_kernel` (launched by `_mha_backward`): recomputes P from
 //     the logsumexp, dS = P * (dP - delta) * scale, dQ = dS . K. f32:
-//     flash_dq_kernel; bf16: flash_dq_tc_kernel;
+//     flash_dq_kernel; bf16: flash_dq_wgmma_kernel;
 //   * dK/dV <- `_dkv_kernel` (launched by `_mha_backward`): dV = P_drop^T .
 //     dO and dK = dS^T . Q, per query head. f32: flash_dkv_kernel; bf16:
 //     flash_dkv_wgmma_kernel.
@@ -46,17 +46,18 @@
 // forward sits near the card's flop:byte balance (0.020 ms by bytes) and
 // dkv above it (0.035 ms by operations at 989 TFLOP/s bf16). A block's
 // time is latency first: loads it waits for, products it waits on, and
-// the softmax between two products. The bf16 forward and dK/dV are built
-// for Hopper against that (primitives in hopper.cuh):
-//   * a producer warp keeps a ring of K/V (forward) or Q/dO (dK/dV) tiles
-//     in flight with TMA into 128B-swizzled shared memory, counted on
+// the softmax between two products. The bf16 kernels are built for Hopper
+// against that (primitives in hopper.cuh):
+//   * a producer warp keeps a ring of K/V (forward, dQ) or Q/dO (dK/dV)
+//     tiles in flight with TMA into 128B-swizzled shared memory, counted on
 //     mbarriers, while two consumer warpgroups compute (setmaxnreg moves
 //     registers from the producer to them); tensor maps are 3-D
 //     [rows][S][D], so a box that reaches past S reads zeros;
-//   * the products are `wgmma`: Q.K^T, K.Q^T and V.dO^T with both operands
-//     K-major in shared memory; P.V, P_drop^T.dO and dS^T.Q with the f32
-//     score fragment rounded to bf16 in registers as A, and V, dO or Q read
-//     as they lie through the transpose flag (no transposed copies);
+//   * the products are `wgmma`: Q.K^T, dO.V^T, K.Q^T and V.dO^T with both
+//     operands K-major in shared memory; P.V, dS.K, P_drop^T.dO and dS^T.Q
+//     with the f32 score fragment rounded to bf16 in registers as A, and
+//     V, K, dO or Q read as they lie through the transpose flag (no
+//     transposed copies);
 //   * exponentials are exp2f with scale * log2(e) folded into one FMA, and
 //     only tiles that need it mask anything: the diagonal tile and a tile
 //     past S by a compare an element. A mask or dropout selects a second
@@ -65,10 +66,10 @@
 //     code, compiled into the plain build, takes its registers (spills,
 //     serialized wgmma) and costs it 1.4x (forward) to 2.2x (dK/dV) at the
 //     training shape on the H100;
-//   * causal forward blocks start longest first (the last query tile of
-//     every head is launched first); causal dK/dV blocks are longest first
-//     in launch order already.
-// The bf16 dQ kernel runs on `mma.sync` (below).
+//   * causal forward and dQ blocks start longest first (the last query
+//     tile of every head is launched first); causal dK/dV blocks are
+//     longest first in launch order already. In dQ, a warpgroup whose rows
+//     end before a tile's first key skips the tile's products.
 // The f32 builds run on the CUDA cores in full f32, which is what the f32
 // contract asks (tensor cores would round the operands to TF32): 256
 // threads form a 16 x 16 grid; each thread owns a 4 x 4 block of the 64 x 64
@@ -529,138 +530,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
   }
 }
 
-// ------------------------------------------- bf16 dQ: `mma.sync` tensor cores
-// The bf16 dQ kernel runs its products on the tensor cores with `mma.sync`
-// m16n8k16 (bf16 operands, f32 accumulators). A block of four warps owns a
-// 64-row tile, each warp 16 rows of the result. Operand tiles sit in shared
-// memory as bf16, each row padded by 8 elements so the fragment loads of a
-// warp hit 32 different banks; the operand whose contraction index is its
-// row index is stored transposed. The f32 result tile of the first product
-// is rounded to bf16 in registers and is, in place, the A operand of the
-// second (dS.K), as in FlashAttention-2. Rounding dS to bf16 there is the
-// TPU kernel's own rounding.
-constexpr int kTcThreads = 128;
-constexpr int kPadH = 8;  // bf16 elements of padding per shared row
-
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment (16 x 16, row-major) of X[row][k]: rows r0.., columns k0..
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* X,
-                                       int ld, int r0, int k0, int lane) {
-  const bf16* x = X + (r0 + (lane >> 2)) * ld + k0 + (lane & 3) * 2;
-  a[0] = ld32(x);
-  a[1] = ld32(x + 8 * ld);
-  a[2] = ld32(x + 8);
-  a[3] = ld32(x + 8 * ld + 8);
-}
-
-// B fragment (16 x 8, column-major) of an operand stored as Y[n][k]
-__device__ __forceinline__ void frag_b(uint32_t& b0, uint32_t& b1,
-                                       const bf16* Y, int ld, int n0, int k0,
-                                       int lane) {
-  const bf16* y = Y + (n0 + (lane >> 2)) * ld + k0 + (lane & 3) * 2;
-  b0 = ld32(y);
-  b1 = ld32(y + 8);
-}
-
-// acc[nt] += X[r0 .. r0+16][0 .. K] . Y[nt*8 .. nt*8+8][0 .. K]^T
-template <int NT, int K>
-__device__ __forceinline__ void mma_smem(float (&acc)[NT][4], const bf16* X,
-                                         int ldx, int r0, const bf16* Y,
-                                         int ldy, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < K; kk += 16) {
-    uint32_t a[4];
-    frag_a(a, X, ldx, r0, kk, lane);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      uint32_t b0, b1;
-      frag_b(b0, b1, Y, ldy, nt * 8, kk, lane);
-      mma16816(acc[nt], a, b0, b1);
-    }
-  }
-}
-
-// acc[nt] += A . Y[nt*8 .. nt*8+8][0 .. 64]^T with A (16 x 64) in registers
-template <int NT>
-__device__ __forceinline__ void mma_regs(float (&acc)[NT][4],
-                                         const uint32_t (&a)[4][4],
-                                         const bf16* Y, int ldy, int lane) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      uint32_t b0, b1;
-      frag_b(b0, b1, Y, ldy, nt * 8, j * 16, lane);
-      mma16816(acc[nt], a[j], b0, b1);
-    }
-}
-
-// A 16 x 64 f32 result tile (8 C fragments), rounded to bf16, as the four A
-// fragments of a product over its 64 columns.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
-                                       const float (&s)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    a[j][0] = pack2(s[2 * j][0], s[2 * j][1]);
-    a[j][1] = pack2(s[2 * j][2], s[2 * j][3]);
-    a[j][2] = pack2(s[2 * j + 1][0], s[2 * j + 1][1]);
-    a[j][3] = pack2(s[2 * j + 1][2], s[2 * j + 1][3]);
-  }
-}
-
-// Rows [r0, r0 + 64) of a [S][D] bf16 matrix into X[r][d] (stride D + 8),
-// or transposed into Xt[d][r] (stride 64 + 8); rows past S are 0.
-template <int D>
-__device__ __forceinline__ void tc_load(bf16* X, const bf16* src, int r0,
-                                        int S) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < kTile * CH; i += kTcThreads) {
-    const int r = i / CH, c = i % CH;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < S)
-      v = *reinterpret_cast<const uint4*>(
-          src + static_cast<long long>(r0 + r) * D + c * 8);
-    *reinterpret_cast<uint4*>(X + r * (D + kPadH) + c * 8) = v;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void tc_load_t(bf16* Xt, const bf16* src, int r0,
-                                          int S) {
-  constexpr int CH = D / 8;
-  const int r = threadIdx.x % kTile;
-  for (int c = threadIdx.x / kTile; c < CH; c += kTcThreads / kTile) {
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < S)
-      v = *reinterpret_cast<const uint4*>(
-          src + static_cast<long long>(r0 + r) * D + c * 8);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) Xt[(c * 8 + i) * (kTile + kPadH) + r] = e[i];
-  }
-}
-
-// Max and sum over the 4 lanes that hold one row of a C fragment (of
-// `mma.sync` or of a `wgmma` accumulator alike).
+// Max and sum over the 4 lanes that hold one row of a `wgmma` accumulator
+// fragment.
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -670,110 +543,12 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Element e of C fragment nt: its row (0..15 within the warp's 16) and
-// column (0..8*NT) offsets.
-__device__ __forceinline__ int frag_row(int lane, int e) {
-  return (lane >> 2) + (e >> 1) * 8;
-}
-__device__ __forceinline__ int frag_col(int lane, int nt, int e) {
-  return nt * 8 + (lane & 3) * 2 + (e & 1);
-}
-
-template <int NT>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[NT][4],
-                                           int row0, int lane, int S, int D,
-                                           const float (&div)[2]) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + (lane >> 2) + h * 8;
-    if (row >= S) continue;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(
-          out + static_cast<long long>(row) * D + nt * 8 + (lane & 3) * 2) =
-          __floats2bfloat162_rn(acc[nt][2 * h] / div[h],
-                                acc[nt][2 * h + 1] / div[h]);
-  }
-}
-
-template <int D>
-constexpr size_t tc_dq_smem() {
-  return sizeof(bf16) * (4 * kTile * (D + kPadH) + D * (kTile + kPadH));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kTcThreads) flash_dq_tc_kernel(Params p) {
-  constexpr int LD = D + kPadH, LDT = kTile + kPadH, NT = D / 8;
-  extern __shared__ float4 smem4[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem4);  // [kTile][LD]
-  bf16* sdO = sQ + kTile * LD;                // [kTile][LD]
-  bf16* sK = sdO + kTile * LD;                // [kTile][LD]
-  bf16* sV = sK + kTile * LD;                 // [kTile][LD]
-  bf16* sKt = sV + kTile * LD;                // [D][LDT]
-
-  const int b = blockIdx.y;
-  const int qt = blockIdx.x;
-  const int q0 = qt * kTile;
-  const int lane = threadIdx.x % 32;
-  const int r0 = (threadIdx.x / 32) * 16;
-  const long long plane = static_cast<long long>(p.S) * D;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * plane;
-  const bf16* dout = static_cast<const bf16*>(p.dout) + b * plane;
-  const bf16* k = static_cast<const bf16*>(p.k) + kv_row(p, b) * plane;
-  const bf16* v = static_cast<const bf16*>(p.v) + kv_row(p, b) * plane;
-  const float* mask = mask_rows(p, b);
-
-  tc_load<D>(sQ, q, q0, p.S);
-  tc_load<D>(sdO, dout, q0, p.S);
-  float lse[2], delta[2], dq[NT][4] = {};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r0 + (lane >> 2) + h * 8;
-    const long long at = static_cast<long long>(b) * p.S + row;
-    lse[h] = row < p.S ? p.lse_in[at] : 0.f;
-    delta[h] = row < p.S ? p.delta[at] : 0.f;
-  }
-  const int nk = (p.S + kTile - 1) / kTile;
-  const int last = p.causal ? qt : nk - 1;
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    tc_load<D>(sK, k, k0, p.S);
-    tc_load<D>(sV, v, k0, p.S);
-    tc_load_t<D>(sKt, k, k0, p.S);
-    __syncthreads();
-
-    float s[8][4] = {}, dp[8][4] = {};
-    mma_smem<8, D>(s, sQ, LD, r0, sK, LD, lane);
-    mma_smem<8, D>(dp, sdO, LD, r0, sV, LD, lane);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = q0 + r0 + frag_row(lane, e);
-        const int col = k0 + frag_col(lane, nt, e);
-        const float x = score(p, mask, s[nt][e], row, col);
-        float pr = expf(x - lse[e >> 1]);
-        pr = x <= 0.5f * kMask ? 0.f : pr;
-        float d = dp[nt][e];
-        if (p.dropout) d = keep(p, b, row, col) ? d / p.keep_div : 0.f;
-        s[nt][e] = pr * (d - delta[e >> 1]) * p.scale;
-      }
-    uint32_t dsa[4][4];
-    pack_a(dsa, s);
-    mma_regs<NT>(dq, dsa, sKt, LDT, lane);
-  }
-  const float one[2] = {1.f, 1.f};
-  store_rows<NT>(static_cast<bf16*>(p.dq) + b * plane, dq, q0 + r0, lane,
-                 p.S, D, one);
-}
-
-// --------------------------------- bf16 forward and dK/dV: wgmma and TMA
-// Both kernels run 384 threads: warpgroup 0 is the producer (one warp of it
-// issues TMA loads into a ring of shared-memory stages, the other three
-// exit) and gives up registers with setmaxnreg; warpgroups 1 and 2 are the
-// consumers, each owning 64 rows of the block's 128-row tile, and take the
-// registers. Stage s has a `full` barrier (the producer's arrivals plus the
+// ---------------------------------- bf16 fwd, dQ and dK/dV: wgmma and TMA
+// All three kernels run 384 threads: warpgroup 0 is the producer (one warp
+// of it issues TMA loads into a ring of shared-memory stages, the other
+// three exit) and gives up registers with setmaxnreg; warpgroups 1 and 2
+// are the consumers, each owning 64 rows of the block's 128-row tile, and
+// take the registers. Stage s has a `full` barrier (the producer's arrivals plus the
 // TMA bytes) and an `empty` barrier (one arrival from each of the eight
 // consumer warps once their products have read the stage).
 namespace hw = hopper;
@@ -1251,6 +1026,209 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
   }
 }
+
+// dQ: a block owns 128 query rows of one (batch*head), keeps their Q and
+// dO tiles resident (lse and delta sit in the consumers' registers), and
+// streams 64-key tiles of K and V through the ring. S = Q . K^T and
+// dP = dO . V^T are query-major accumulator fragments, so dS, rounded to
+// bf16, is the register A operand of dQ += dS . K, whose B (K) is read as
+// it lies through the transpose flag.
+template <int D>
+struct DqShape {
+  static constexpr int kM = 128;  // query rows of the block
+  static constexpr int kN = 64;   // keys of a streamed tile
+  static constexpr int kPanels = D / 64;
+  static constexpr int kStages = 4;
+  static constexpr int kQBytes = kM * D * 2;   // one Q or one dO tile
+  static constexpr int kKvBytes = kN * D * 2;  // one K or one V tile
+  static constexpr int kBarOffset = 2 * kQBytes + kStages * 2 * kKvBytes;
+  static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+};
+
+template <int D, bool kGeneral>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const Params p) {
+  using C = DqShape<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* sQ = smem;
+  uint8_t* sdO = smem + C::kQBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + C::kStages;
+
+  const int b = blockIdx.x;
+  // causal blocks start longest first: the last query tile sees every key
+  const int qt = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * C::kM;
+  const int nk = (p.S + C::kN - 1) / C::kN;
+  // causal: up to the tile that holds the block's last diagonal element
+  const int n_iter = p.causal ? min(nk, (q0 + C::kM) / C::kN) : nk;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(q_full, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], 8);
+    }
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer
+    hw::regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hw::tma_prefetch(&tq);
+      hw::tma_prefetch(&tdo);
+      hw::tma_prefetch(&tk);
+      hw::tma_prefetch(&tv);
+      const int kvb = kv_row(p, b);
+      hw::mbar_arrive_tx(q_full, 2 * C::kQBytes);
+      for (int pn = 0; pn < C::kPanels; ++pn) {
+        hw::tma_load_3d(sQ + pn * C::kM * 128, &tq, q_full, pn * 64, q0, b);
+        hw::tma_load_3d(sdO + pn * C::kM * 128, &tdo, q_full, pn * 64, q0,
+                        b);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % C::kStages;
+        hw::mbar_wait(&empty[s], ((it / C::kStages) & 1) ^ 1);
+        uint8_t* sK = smem + 2 * C::kQBytes + s * 2 * C::kKvBytes;
+        uint8_t* sV = sK + C::kKvBytes;
+        hw::mbar_arrive_tx(&full[s], 2 * C::kKvBytes);
+        for (int pn = 0; pn < C::kPanels; ++pn) {
+          hw::tma_load_3d(sK + pn * C::kN * 128, &tk, &full[s], pn * 64,
+                          it * C::kN, kvb);
+          hw::tma_load_3d(sV + pn * C::kN * 128, &tv, &full[s], pn * 64,
+                          it * C::kN, kvb);
+        }
+      }
+    }
+  } else {
+    // ---- consumers
+    hw::regs_alloc<kConsumerRegs>();
+    const int t = threadIdx.x % 128;
+    const int wg = threadIdx.x / 128 - 1;
+    const int r0 = q0 + 64 * wg;  // the warpgroup's first row
+    const float scale_log2 = p.scale * kLog2e;
+    const float* mask = mask_rows(p, b);
+    // the last key tile the warpgroup's rows see; rows past S see none
+    const int last = r0 >= p.S ? -1 : p.causal ? r0 / C::kN : nk - 1;
+    float lse2[2], delta[2];  // lse * log2(e) and delta of the two rows
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + hw::acc_row(t, 2 * h);
+      const long long at = static_cast<long long>(b) * p.S + row;
+      lse2[h] = row < p.S ? p.lse_in[at] * kLog2e : 0.f;
+      delta[h] = row < p.S ? p.delta[at] : 0.f;
+    }
+    float dq[C::kPanels][32];
+#pragma unroll
+    for (int pn = 0; pn < C::kPanels; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dq[pn][i] = 0.f;
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+
+    // this warpgroup's 64 rows of Q and dO
+    const uint64_t dQ = hw::desc(sQ + wg * 64 * 128);
+    const uint64_t ddO = hw::desc(sdO + wg * 64 * 128);
+    hw::mbar_wait(q_full, 0);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % C::kStages;
+      const int k0 = it * C::kN;
+      const uint8_t* sK = smem + 2 * C::kQBytes + s * 2 * C::kKvBytes;
+      const uint8_t* sV = sK + C::kKvBytes;
+      // wait even for a tile this warpgroup skips: its arrival on the
+      // empty barrier must not run ahead of the other warpgroup's
+      hw::mbar_wait(&full[s], (it / C::kStages) & 1);
+      if (it <= last) {
+        // S = Q . K^T and dP = dO . V^T, all K-major
+        const uint64_t dK = hw::desc(sK), dV = hw::desc(sV);
+        hw::fence_regs(sc);
+        hw::fence_regs(dp);
+        hw::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int pn = kk / 4, ko = (kk % 4) * 32;  // panel, k slice
+          const int q_off = (pn * C::kM * 128 + ko) >> 4;
+          const int kv_off = (pn * C::kN * 128 + ko) >> 4;
+          hw::wgmma_ss_n64(sc, dQ + q_off, dK + kv_off, kk > 0);
+          hw::wgmma_ss_n64(dp, ddO + q_off, dV + kv_off, kk > 0);
+        }
+        hw::wg_commit();
+        hw::wg_wait<0>();
+        hw::fence_regs(sc);
+        hw::fence_regs(dp);
+
+        // dS = P * (dP_drop - delta) * scale. As in the other kernels: the
+        // kGeneral build (mask or dropout) takes the per-element rules on
+        // every tile; otherwise only the diagonal tile and tiles past S
+        // mask anything, and the others fold the scale into the exponent.
+        const bool edge = kGeneral || (p.causal && k0 + C::kN > r0) ||
+                          k0 + C::kN > p.S || r0 + 64 > p.S;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int h = (i >> 1) & 1;
+          const int row = r0 + hw::acc_row(t, i);
+          const int col = k0 + hw::acc_col(t, i);
+          float pr, d = dp[i];
+          if constexpr (kGeneral) {
+            const float x = score(p, mask, sc[i], row, col);
+            pr = exp2f(fmaf(x, kLog2e, -lse2[h]));
+            pr = x <= 0.5f * kMask ? 0.f : pr;
+            if (p.dropout) d = keep(p, b, row, col) ? d / p.keep_div : 0.f;
+          } else {
+            pr = exp2f(fmaf(sc[i], scale_log2, -lse2[h]));
+            if (edge) {
+              const bool seen = row < p.S && col < p.S &&
+                                !(p.causal && col > row);
+              pr = seen ? pr : 0.f;
+            }
+          }
+          sc[i] = pr * (d - delta[h]) * p.scale;
+        }
+
+        // dQ += dS . K, K read as it lies ([key][d], MN-major)
+        uint32_t dsa[C::kN / 16][4];
+        hw::acc_to_a<C::kN>(dsa, sc);
+        hw::fence_regs(dsa);
+#pragma unroll
+        for (int pn = 0; pn < C::kPanels; ++pn) hw::fence_regs(dq[pn]);
+        hw::wg_fence();
+#pragma unroll
+        for (int pn = 0; pn < C::kPanels; ++pn)
+#pragma unroll
+          for (int j = 0; j < C::kN / 16; ++j)
+            hw::wgmma_rs_n64_tb(dq[pn], dsa[j],
+                                dK + ((pn * C::kN * 128 + j * 2048) >> 4));
+        hw::wg_commit();
+        hw::wg_wait<0>();
+#pragma unroll
+        for (int pn = 0; pn < C::kPanels; ++pn) hw::fence_regs(dq[pn]);
+      }
+      if ((t & 31) == 0) hw::mbar_arrive(&empty[s]);
+    }
+
+    bf16* out = static_cast<bf16*>(p.dq) + static_cast<long long>(b) * p.S * D;
+#pragma unroll
+    for (int pn = 0; pn < C::kPanels; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int row = r0 + hw::acc_row(t, i);
+        if (row < p.S)
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + static_cast<long long>(row) * D + pn * 64 +
+              hw::acc_col(t, i)) =
+              __floats2bfloat162_rn(dq[pn][i], dq[pn][i + 1]);
+      }
+  }
+}
 // ------------------------------------------------------------------ launch
 template <typename Kern>
 cudaError_t launch(Kern kern, size_t smem, int threads, int tiles, int BH,
@@ -1285,51 +1263,60 @@ cudaError_t run_f32(Which which, int BH, const Params& p, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
-// bf16 forward and dK/dV. They read their tiles through tensor maps over
-// [rows][S][D], so a box past S reads zeros, never the next row's data.
+// Sets a wgmma kernel's dynamic shared memory and launches it on a
+// (BH, tiles) grid: blockIdx.x is the (batch*head), blockIdx.y the tile.
+template <typename Kern, typename... Maps>
+cudaError_t launch_wgmma(Kern kern, size_t smem, int BH, int tiles,
+                         const Params& p, cudaStream_t st,
+                         const Maps&... maps) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(BH, tiles), kWgThreads, smem, st>>>(maps..., p);
+  return cudaGetLastError();
+}
+
+// bf16 forward, dQ and dK/dV. They read their tiles through tensor maps
+// over [rows][S][D], so a box past S reads zeros, never the next row's
+// data. Q and dO boxes are the kernel's kM rows, K and V boxes its kN.
 template <int D, bool kGeneral>
 cudaError_t run_wgmma(Which which, int BH, const Params& p, cudaStream_t st) {
   if (hw::encode_tiled() == nullptr) return cudaErrorNotSupported;
   const int kv_rows = BH / p.H * p.Hk;
+  const int m = which == kFwd  ? FwdShape<D>::kM
+                : which == kDq ? DqShape<D>::kM
+                               : DkvShape<D>::kM;
+  const int n = which == kFwd  ? FwdShape<D>::kN
+                : which == kDq ? DqShape<D>::kN
+                               : DkvShape<D>::kN;
   CUtensorMap tq, tk, tv, tdo;
-  if (which == kFwd) {
-    using C = FwdShape<D>;
-    if (!hw::make_map_bf16(&tq, p.q, BH, p.S, D, C::kM) ||
-        !hw::make_map_bf16(&tk, p.k, kv_rows, p.S, D, C::kN) ||
-        !hw::make_map_bf16(&tv, p.v, kv_rows, p.S, D, C::kN))
-      return cudaErrorInvalidValue;
-    auto kern = flash_fwd_wgmma_kernel<D, kGeneral>;
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(C::kSmem));
-    if (e != cudaSuccess) return e;
-    kern<<<dim3(BH, (p.S + C::kM - 1) / C::kM), kWgThreads, C::kSmem, st>>>(
-        tq, tk, tv, p);
-    return cudaGetLastError();
-  }
-  using C = DkvShape<D>;
-  if (!hw::make_map_bf16(&tq, p.q, BH, p.S, D, C::kM) ||
-      !hw::make_map_bf16(&tdo, p.dout, BH, p.S, D, C::kM) ||
-      !hw::make_map_bf16(&tk, p.k, kv_rows, p.S, D, C::kN) ||
-      !hw::make_map_bf16(&tv, p.v, kv_rows, p.S, D, C::kN))
+  if (!hw::make_map_bf16(&tq, p.q, BH, p.S, D, m) ||
+      !hw::make_map_bf16(&tk, p.k, kv_rows, p.S, D, n) ||
+      !hw::make_map_bf16(&tv, p.v, kv_rows, p.S, D, n) ||
+      (which != kFwd && !hw::make_map_bf16(&tdo, p.dout, BH, p.S, D, m)))
     return cudaErrorInvalidValue;
-  auto kern = flash_dkv_wgmma_kernel<D, kGeneral>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(C::kSmem));
-  if (e != cudaSuccess) return e;
-  kern<<<dim3(BH, (p.S + C::kN - 1) / C::kN), kWgThreads, C::kSmem, st>>>(
-      tq, tk, tv, tdo, p);
-  return cudaGetLastError();
+  switch (which) {
+    case kFwd:
+      return launch_wgmma(flash_fwd_wgmma_kernel<D, kGeneral>,
+                          FwdShape<D>::kSmem, BH, (p.S + m - 1) / m, p, st,
+                          tq, tk, tv);
+    case kDq:
+      return launch_wgmma(flash_dq_wgmma_kernel<D, kGeneral>,
+                          DqShape<D>::kSmem, BH, (p.S + m - 1) / m, p, st,
+                          tq, tk, tv, tdo);
+    case kDkv:
+      return launch_wgmma(flash_dkv_wgmma_kernel<D, kGeneral>,
+                          DkvShape<D>::kSmem, BH, (p.S + n - 1) / n, p, st,
+                          tq, tk, tv, tdo);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // bf16 inputs: the tensor-core kernels. A mask or dropout selects the
-// build of the forward and dK/dV that carries the per-element rules.
+// build that carries the per-element rules.
 template <int D>
 cudaError_t run_bf16(Which which, int BH, const Params& p, cudaStream_t st) {
-  if (which == kDq)
-    return launch(flash_dq_tc_kernel<D>, tc_dq_smem<D>(), kTcThreads,
-                  (p.S + kTile - 1) / kTile, BH, p, st);
   if (p.mask != nullptr || p.dropout)
     return run_wgmma<D, true>(which, BH, p, st);
   return run_wgmma<D, false>(which, BH, p, st);
@@ -1426,11 +1413,14 @@ extern "C" int flash_attention_dkv(const void* q, const void* k,
   return dispatch(kDkv, BH, D, dtype, p, static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory of the bf16 forward (which = 0) and dK/dV
-// (which = 2) kernels at head dim D, in bytes (0 for anything else).
+// Dynamic shared memory of the bf16 forward (which = 0), dQ (which = 1)
+// and dK/dV (which = 2) kernels at head dim D, in bytes (0 for anything
+// else).
 extern "C" int flash_attention_wgmma_smem(int which, int D) {
   if (which == kFwd && D == 64) return FwdShape<64>::kSmem;
   if (which == kFwd && D == 128) return FwdShape<128>::kSmem;
+  if (which == kDq && D == 64) return DqShape<64>::kSmem;
+  if (which == kDq && D == 128) return DqShape<128>::kSmem;
   if (which == kDkv && D == 64) return DkvShape<64>::kSmem;
   if (which == kDkv && D == 128) return DkvShape<128>::kSmem;
   return 0;

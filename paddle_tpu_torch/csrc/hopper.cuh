@@ -1,5 +1,6 @@
 // Hopper (sm_90a) primitives shared by the port's hand-written kernels:
-// TMA tile loads into shared memory, mbarriers that count their bytes,
+// TMA tile loads into shared memory, 16-byte cp.async copies, mbarriers
+// that count their bytes,
 // `wgmma` warpgroup products on 128-byte-swizzled shared tiles, register
 // rebalancing between warpgroups, and the host helper that encodes a
 // `CUtensorMap` without linking libcuda (the driver function is fetched
@@ -102,6 +103,25 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// -------------------------------------------------------------- cp.async
+// 16 bytes from global to shared memory, asynchronously (bypassing L1).
+// A thread's copies form groups; `cp_async_wait<N>` returns once all but
+// its N most recent groups have landed. Other threads see the data only
+// after a barrier (`__syncwarp` or `__syncthreads`).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ------------------------------------------------- register rebalancing

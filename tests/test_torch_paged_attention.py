@@ -7,6 +7,11 @@ the Pallas kernel `paged_attention` in interpret mode, as
 version, so these tests hold the plain version — the one the CUDA kernel is
 held against on the card — to the reference. Tolerance: rtol = atol = 1e-5
 in float32 (the online-softmax kernel sums in another order).
+
+`attend_split_plain` models the decode kernel's split over the KV length
+and its merge of the splits' softmax states; it is held to the same
+references at the same tolerance, so the merge rule is checked here and
+the kernel itself against the plain version on the card.
 """
 import numpy as np
 import pytest
@@ -17,7 +22,8 @@ import jax.numpy as jnp
 from paddle_tpu.ops.pallas.paged_attention import \
     paged_attention as jax_paged_attention
 from paddle_tpu.serving import blocks as jblk
-from paddle_tpu_torch.ops.paged_attention import paged_attention
+from paddle_tpu_torch.ops.paged_attention import (attend_split_plain,
+                                                  paged_attention)
 from paddle_tpu_torch.serving import blocks as tblk
 
 H, D = 4, 32          # the tiny GPT's heads and head_dim
@@ -116,6 +122,70 @@ def test_all_masked_rows_emit_zeros():
     want, pallas, port = _all_three(q, kp, vp, tables, pos)
     assert (port == 0.0).all() and (want == 0.0).all()
     assert (pallas == 0.0).all()
+
+
+# ------------------------------------------- decode split-and-merge rule
+def _ragged_state(seed, pos, bs, nb, quant):
+    """Each slot owns exactly the blocks its positions need; every later
+    table entry points at the garbage block 0, which holds NaN K and inf V
+    (NaN and inf scales for int8 pools)."""
+    rng = np.random.RandomState(seed)
+    live = [max(0, -(-(p + 1) // bs)) for p in pos]
+    N = 1 + sum(live)
+    ids = iter(rng.permutation(np.arange(1, N)))
+    tables = np.zeros((len(pos), nb), np.int32)
+    for s, n in enumerate(live):
+        tables[s, :n] = [next(ids) for _ in range(n)]
+    if quant:
+        kp = rng.randint(-127, 128, (N, bs, H, D)).astype(np.int8)
+        vp = rng.randint(-127, 128, (N, bs, H, D)).astype(np.int8)
+        ks = (rng.rand(N, H) * 3 + 0.1).astype(np.float32)
+        vs = (rng.rand(N, H) * 3 + 0.1).astype(np.float32)
+        ks[jblk.GARBAGE_BLOCK] = np.nan
+        vs[jblk.GARBAGE_BLOCK] = np.inf
+        return kp, vp, tables, dict(k_scale=ks, v_scale=vs)
+    kp = rng.randn(N, bs, H, D).astype(np.float32)
+    vp = rng.randn(N, bs, H, D).astype(np.float32)
+    kp[jblk.GARBAGE_BLOCK] = np.nan
+    vp[jblk.GARBAGE_BLOCK] = np.inf
+    return kp, vp, tables, {}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("split,bs", [(16, 8), (64, 8), (128, 16)])
+def test_split_merge_model_matches_jax(split, bs, quant):
+    """Decode (T = 1) with the KV length cut into splits: positions on a
+    split edge and one either side (key counts split - 1, split, split +
+    1, 2 * split, 2 * split + 1), the full table, a pos = -1 slot beside
+    the long ones, later splits wholly past a slot's last key, and the
+    garbage block poisoned. Tolerance: f32 rtol = atol = 1e-5."""
+    nb = (2 * split + 2 * bs) // bs
+    pos = [split - 2, -1, split - 1, split, 2 * split - 1, 2 * split,
+           nb * bs - 1]
+    kp, vp, tables, scales = _ragged_state(split + quant, pos, bs, nb,
+                                           quant)
+    q = np.random.RandomState(split).randn(len(pos), 1, H, D) \
+        .astype(np.float32)
+    pos = np.asarray(pos, np.int32)
+    want, pallas, _ = _all_three(q, kp, vp, tables, pos, **scales)
+    got = attend_split_plain(
+        *(_t(x) for x in (q, kp, vp, tables, pos)), split,
+        **{k: _t(v) for k, v in scales.items()}).numpy()
+    assert np.isfinite(got).all()
+    assert (got[1] == 0.0).all()            # pos = -1: exact zeros
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, pallas, **TOL)
+
+
+def test_split_merge_model_rejects_prefill_windows():
+    """Only decode (T = 1) is split by the kernel, so the model refuses a
+    window of several query tokens rather than model code that does not
+    exist."""
+    kp, vp, tables, _ = _ragged_state(7, [30], 8, 4, False)
+    q = torch.zeros((1, 4, H, D))
+    with pytest.raises(ValueError, match="decode kernel"):
+        attend_split_plain(q, _t(kp), _t(vp), _t(tables),
+                           torch.tensor([27], dtype=torch.int32), 16)
 
 
 # -------------------------------------------------------------- int8 pools

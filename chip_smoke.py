@@ -14,10 +14,12 @@ Phases (any exception ends the run with a non-zero exit):
      all-masked rows, and decode at the edges of the kernel's KV splits:
      key counts one below, at and one above a split boundary, the full
      table, a pos = -1 slot beside long ones, 16- and 8-token blocks, in
-     f32, int8 and bf16), every case launched twice and required to
-     repeat bit for bit, with its time, host time per call, the plain
-     version's time, the `scaled_dot_product_attention` yardstick and the
-     bound;
+     f32, int8 and bf16; and speculative verify windows, T=5 in f32 and
+     int8 and T=2, at positions 0 to the table's last key with windows
+     across a block edge, beside the T=1 kernel at the same positions),
+     every case launched twice and required to repeat bit for bit, with
+     its time, host time per call, the plain version's time, the
+     `scaled_dot_product_attention` yardstick and the bound;
   4. the server: `Scheduler` over `PagedGenerationEngine(gpt_125m,
      attention_impl="kernel")` answers 16 greedy requests (prompts of 1 to
      700 tokens, eight sharing a 256-token prefix), with the kernel's
@@ -50,7 +52,22 @@ Phases (any exception ends the run with a non-zero exit):
      product;
   9. training kernel path vs plain path at full width (depth 2, f32, B=2,
      3 steps from the same weights): flash kernels + remat + fused CE
-     against dense attention + no remat + unfused CE.
+     against dense attention + no remat + unfused CE;
+ 10. the speculative server: `Scheduler` over `SpeculativeEngine(gpt_125m,
+     gamma=4, draft_layers=2, attention_impl="kernel")` answers phase 4's
+     16 requests (every verify window on the paged kernel at T=5, the
+     draft on its dense cache: exactly 12 paged launches per verify round
+     and per prefill, no block leaked), with its acceptance rate, tokens
+     a round, tokens/s, draft and verify host time, one profiled round;
+     its streams must equal a one-token engine's on 8 prompts, a slot's
+     comparison stopping at the first step whose top-2 gap is below 1e-3;
+ 11. int8 decode weights: teacher-forced against the float engine (8
+     slots x 16 steps; greedy match >= 0.99 where the float gap >= 1e-3,
+     mean logit KL < 1e-3), the device ms of the per-forward dequant;
+     speculative decode with int8 weights and KV agrees >= 0.9 with the
+     one-token int8 engine; a weight swap to a clone in the middle of
+     phase 10's serving leaves every stream unchanged, and a swap with a
+     wrong-shaped tensor is refused.
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -74,6 +91,9 @@ HBM_BYTES_PER_S = 3.35e12
 FLOPS_PER_S = {"f32": 67e12, "int8": 67e12, "nan": 67e12, "bf16": 989e12}
 
 ATOL = RTOL = 1e-5          # f32: the kernel's summation order differs
+SPEC_AGREE = 0.9            # phase 11: spec x int8 vs one-token int8
+QUANT_MATCH = 0.99          # phase 11: int8 weights vs float, greedy
+QUANT_KL = 1e-3             # phase 11: mean KL(float || int8 weights)
 BF16_TOL = 1e-2             # bf16 output rounding (8 mantissa bits)
 GAP_MIN = 1e-3              # phase 6: below this the argmax is a near-tie
 BF16_PEAK = 989e12          # H100 SXM dense bf16, for MFU
@@ -215,6 +235,10 @@ def run_kernel_cases(flush):
 
     rng = __import__("random").Random(0)
     ragged = [0, 15, 16, 17, 255, 511, 777, 1000]
+    # verify windows: from 0 to the window that ends on the table's last
+    # key (1024 keys), two of them across a 16-token block edge
+    verify5 = [0, 12, 14, 255, 500, 777, 1000, 1019]
+    verify2 = [0, 12, 15, 255, 500, 777, 1000, 1022]
     sp = pa.decode_split_keys()
 
     def edges(L):
@@ -250,6 +274,12 @@ def run_kernel_cases(flush):
          "int8"),
         ("decode_edges_bs8_bf16", dict(S=8, T=1, pos=edges(512), bs=8),
          "bf16"),
+        # speculative verify windows (gamma 4 and 1) on the T>1 kernel,
+        # and the T=1 kernel at the same positions
+        ("verify_f32_T5", dict(S=8, T=5, pos=verify5), "f32"),
+        ("verify_int8_T5", dict(S=8, T=5, pos=verify5), "int8"),
+        ("verify_f32_T2", dict(S=8, T=2, pos=verify2), "f32"),
+        ("decode_f32_verify_pos", dict(S=8, T=1, pos=verify5), "f32"),
     ]
     results = []
     for i, (name, shape, kind) in enumerate(cases):
@@ -428,29 +458,24 @@ def compare_paths(model, prompts, steps=8):
     return compared, dropped
 
 
-def profile_decode(model, prompts, steps=8):
-    """Decode steps of a full 8-slot kernel engine, first untraced (host
-    clock), then under torch.profiler: device busy time per step, the
-    kernels launched per step and the largest kernels by device time."""
+def profile_steps(step, steps):
+    """One warm-up call of step() (which ends in a host read), `steps`
+    calls untraced (host clock), then `steps` under torch.profiler: device
+    busy time per call, the kernels launched per call and the largest
+    kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch.serving import PagedGenerationEngine
-    eng = PagedGenerationEngine(model, slots=len(prompts), max_len=1024,
-                                block_size=16, attention_impl="kernel",
-                                device=model.device)
-    for s, p in enumerate(prompts):
-        eng.prefill(s, p)
-    eng.decode()
+    step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        eng.decode()
+        step()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            eng.decode()
+            step()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) / steps * 1e3
     kernels = [e for e in prof.key_averages()
@@ -461,8 +486,7 @@ def profile_decode(model, prompts, steps=8):
             or getattr(e, "self_cuda_time_total", 0.0)
     busy_ms = sum(dev_us(e) for e in kernels) / steps / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:6]
-    return {"steps": steps, "slots": len(prompts),
-            "positions": [int(x) for x in eng.slot_positions()],
+    return {"steps": steps,
             "step_ms_untraced": wall_ms, "step_ms_traced": traced_ms,
             "device_busy_ms_per_step": busy_ms,
             "device_idle_share": (1 - busy_ms / traced_ms
@@ -471,6 +495,297 @@ def profile_decode(model, prompts, steps=8):
             "top": [{"name": e.key[:60], "ms_per_step":
                      dev_us(e) / steps / 1e3, "count": e.count // steps}
                     for e in top]}
+
+
+def profile_decode(model, prompts, steps=8):
+    """One-token decode steps of a full 8-slot kernel engine."""
+    from paddle_tpu_torch.serving import PagedGenerationEngine
+    eng = PagedGenerationEngine(model, slots=len(prompts), max_len=1024,
+                                block_size=16, attention_impl="kernel",
+                                device=model.device)
+    for s, p in enumerate(prompts):
+        eng.prefill(s, p)
+    rec = profile_steps(eng.decode, steps)
+    rec.update(slots=len(prompts),
+               positions=[int(x) for x in eng.slot_positions()])
+    return rec
+
+
+def log_profile(what, prof, smi):
+    log(f"profile {what} (8 slots at positions {prof['positions']}): "
+        f"{prof['step_ms_untraced']:.3f} ms untraced, "
+        f"{prof['step_ms_traced']:.3f} ms traced, device busy "
+        f"{prof['device_busy_ms_per_step']:.3f} ms each, idle share "
+        f"{prof['device_idle_share']}, "
+        f"{prof['kernels_per_step']:.0f} kernels each [{smi}]")
+    for t in prof["top"]:
+        log(f"  {t['ms_per_step']:.4f} ms x{t['count']} {t['name']}")
+
+
+# --------------------------------------------------- speculative serving
+# phase 10's engine: the issue's configuration of the speculative server
+SPEC = dict(slots=8, max_len=1024, block_size=16, attention_impl="kernel",
+            gamma=4, draft_layers=2)
+
+
+def top2_gaps(logits):
+    """Top-2 logit gap of each row of a [rows, V] array."""
+    import numpy as np
+    top = np.sort(np.asarray(logits, np.float64), axis=-1)[:, -2:]
+    return top[:, 1] - top[:, 0]
+
+
+def serve_spec(model, prompts, smi):
+    """Phase 10: the speculative server answers phase 4's requests. Returns
+    (record, handles, window launches)."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import SpeculativeEngine
+    cfg = model.cfg
+    eng = SpeculativeEngine(model, device=model.device, **SPEC)
+    rounds = []
+    spec_round = eng.decode_many
+
+    def recorded():
+        out = spec_round()
+        rounds.append(eng.last_spec_stats)
+        return out
+    eng.decode_many = recorded
+    pa.launches = pa.launches_window = 0
+    handles, m, wall = serve(eng, prompts, max_new=32)
+    launches, window = pa.launches, pa.launches_window
+    n_rounds = m["decode_steps"]
+    prefills = len(prompts) + m["requests"]["preempted"]
+    if launches != cfg.num_layers * (n_rounds + prefills):
+        raise AssertionError(
+            f"phase 10: {launches} paged launches, want {cfg.num_layers} "
+            f"per forward over {n_rounds} verify rounds + {prefills} "
+            "prefills (the draft must make none)")
+    if window != launches:
+        raise AssertionError(f"phase 10: {launches - window} paged "
+                             "launches at T=1 (the draft's or a one-token "
+                             "decode's)")
+    cached = len(eng.prefix_cache)
+    eng.prefix_cache.evict(eng.block_pool.capacity)
+    if eng.block_pool.in_use != 0:
+        raise AssertionError(f"phase 10: {eng.block_pool.in_use} blocks "
+                             "still in use after every request ended")
+    draft_ms = sum(r["draft_s"] for r in rounds) / len(rounds) * 1e3
+    verify_ms = sum(r["verify_s"] for r in rounds) / len(rounds) * 1e3
+    rec = {"requests": len(prompts), "max_new_tokens": 32, **SPEC,
+           "kernel_launches": launches, "rounds": n_rounds,
+           "prefills": prefills, "preempted": m["requests"]["preempted"],
+           "spec_proposed": m["spec_proposed"],
+           "spec_accepted": m["spec_accepted"],
+           "acceptance_rate": m["spec_acceptance_rate"],
+           "decode_tokens": m["decode_tokens"],
+           "tokens_per_round": m["decode_tokens"] / n_rounds,
+           "tokens_per_slot_round": 1 + SPEC["gamma"]
+           * m["spec_acceptance_rate"],
+           "round_ms": m["decode_step_ms"],
+           "decode_tokens_per_s": m["decode_tokens_per_s"],
+           "draft_ms_per_round": draft_ms, "verify_ms_per_round": verify_ms,
+           "prefix_hits": m["prefix_hits"], "prefix_blocks_at_end": cached,
+           "wall_s": wall, "card": smi}
+    log(f"serve gpt_125m speculative (gamma 4, 2-layer draft, kernel): "
+        f"{len(prompts)} requests done, acceptance "
+        f"{rec['acceptance_rate']:.4f}, {n_rounds} rounds, "
+        f"{rec['tokens_per_round']:.2f} tokens a round "
+        f"({rec['tokens_per_slot_round']:.2f} a slot-round), "
+        f"round_ms={rec['round_ms']:.3f} "
+        f"decode_tok_s={rec['decode_tokens_per_s']:.1f}, draft "
+        f"{draft_ms:.3f} ms + verify {verify_ms:.3f} ms a round (host "
+        f"clock), launches={launches} ({cfg.num_layers}/forward x "
+        f"{n_rounds} rounds + {prefills} prefills), no block leaked "
+        f"[{smi}]")
+    return rec, handles, window
+
+
+def profile_spec_round(model, prompts, smi):
+    """Four profiled speculative rounds of a full 8-slot engine."""
+    from paddle_tpu_torch.serving import SpeculativeEngine
+    eng = SpeculativeEngine(model, device=model.device, **SPEC)
+    for s, p in enumerate(prompts):
+        eng.prefill(s, p)
+    rec = profile_steps(eng.decode_many, 4)
+    rec.update(slots=len(prompts),
+               positions=[int(x) for x in eng.slot_positions()])
+    log_profile("speculative round", rec, smi)
+    return rec
+
+
+def compare_spec(model, prompts, streams, steps=32):
+    """Phase 10: the speculative streams against a one-token engine's,
+    token by token; a slot's comparison stops at the first step whose
+    one-token top-2 gap is below GAP_MIN (the verify's matmuls run at
+    slots x 5 rows and the window takes the T>1 kernel, so a near-tie may
+    flip). Returns (compared tokens, tokens dropped by the rule)."""
+    from paddle_tpu_torch.serving import PagedGenerationEngine
+    eng = PagedGenerationEngine(
+        model, slots=len(prompts), max_len=1024, block_size=16,
+        attention_impl="kernel", capture_logits=True, device=model.device)
+    gaps = [[] for _ in prompts]
+    sel = eng._select
+
+    def cap_select(logits, slot):
+        gaps[slot].append(float(top2_gaps(logits.float().cpu())[0]))
+        return sel(logits, slot)
+    eng._select = cap_select
+    toks = [[eng.prefill(s, p)] for s, p in enumerate(prompts)]
+    for _ in range(steps - 1):
+        out = eng.decode()
+        for s, g in enumerate(top2_gaps(eng.last_logits)):
+            gaps[s].append(float(g))
+            toks[s].append(int(out[s]))
+    compared = dropped = 0
+    for s, spec in enumerate(streams):
+        for t in range(steps):
+            if gaps[s][t] < GAP_MIN:
+                dropped += steps - t
+                break
+            if spec[t] != toks[s][t]:
+                raise AssertionError(
+                    f"phase 10: slot {s} token {t}: speculative "
+                    f"{spec[t]} != one-token {toks[s][t]} (gap "
+                    f"{gaps[s][t]:.3e})")
+            compared += 1
+    return compared, dropped
+
+
+def quant_weights_quality(model, prompts, smi, steps=16):
+    """Phase 11: int8 decode weights teacher-forced against the float
+    engine (both fed the float engine's token each step), and the device
+    time of one decode forward's dequant."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving import PagedGenerationEngine
+    kw = dict(slots=len(prompts), max_len=1024, block_size=16,
+              attention_impl="kernel", capture_logits=True,
+              device=model.device)
+    fl = PagedGenerationEngine(model, **kw)
+    q8 = PagedGenerationEngine(model, weight_dtype="int8", **kw)
+    for s, p in enumerate(prompts):
+        q8.prefill(s, p)
+        q8.set_slot_token(s, fl.prefill(s, p))
+    matches, kls, t_fl, t_q8, flips = [], [], [], [], []
+    dropped = 0
+    for step in range(steps):
+        t0 = time.perf_counter()
+        toks = fl.decode()
+        t_fl.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        q8.decode()
+        t_q8.append(time.perf_counter() - t0)
+        lo = fl.last_logits.astype(np.float64)
+        lq = q8.last_logits.astype(np.float64)
+        gaps = top2_gaps(lo)
+        keep = gaps >= GAP_MIN
+        dropped += int((~keep).sum())
+        ao, aq = lo.argmax(-1), lq.argmax(-1)
+        matches.extend((ao == aq)[keep].tolist())
+        # each counted flip: the float gap, and how far below its own best
+        # the int8 engine rates the float engine's pick
+        flips.extend({"step": step, "slot": s, "float_gap": float(gaps[s]),
+                      "int8_deficit": float(lq[s, aq[s]] - lq[s, ao[s]])}
+                     for s in range(len(prompts))
+                     if keep[s] and ao[s] != aq[s])
+        po = np.exp(lo - lo.max(-1, keepdims=True))
+        po /= po.sum(-1, keepdims=True)
+        zq = lq - lq.max(-1, keepdims=True)
+        log_q = zq - np.log(np.exp(zq).sum(-1, keepdims=True))
+        kls.extend((po * (np.log(po + 1e-30) - log_q)).sum(-1).tolist())
+        for s in range(len(prompts)):
+            q8.set_slot_token(s, int(toks[s]))
+    match, kl = float(np.mean(matches)), float(np.mean(kls))
+    n_q = sum(1 for v in q8._decode_params.values() if isinstance(v, dict))
+    n_w = sum(v["q"].numel() for v in q8._decode_params.values()
+              if isinstance(v, dict))
+    dequant_ms = time_ms(lambda: q8._dequant_params(q8._decode_params),
+                         lambda: None, iters=10)
+    # the dequant's least time: read each int8 code and f32 scale once,
+    # write each f32 weight once
+    dequant_bound = n_w * (1 + 4) / HBM_BYTES_PER_S * 1e3
+    rec = {"slots": len(prompts), "steps": steps, "greedy_match": match,
+           "compared": len(matches), "dropped_near_ties": dropped,
+           "flips": flips,
+           "logit_kl": kl, "gate": {"match": QUANT_MATCH, "kl": QUANT_KL},
+           "decode_step_ms_float": 1e3 * sum(t_fl) / steps,
+           "decode_step_ms_int8": 1e3 * sum(t_q8) / steps,
+           "quantized_tensors": n_q, "quantized_weights": n_w,
+           "dequant_ms": dequant_ms, "dequant_bound_ms": dequant_bound,
+           "card": smi}
+    log(f"int8 decode weights vs float (teacher-forced, {len(prompts)} "
+        f"slots x {steps} steps): greedy match {match:.4f} over "
+        f"{len(matches)} decisions ({dropped} near-ties < {GAP_MIN} "
+        f"dropped; flips {flips}), mean KL {kl:.3e}; decode step "
+        f"{rec['decode_step_ms_float']:.3f} ms float, "
+        f"{rec['decode_step_ms_int8']:.3f} ms int8 weights; per-forward "
+        f"dequant of {n_q} tensors ({n_w} weights) {dequant_ms:.4f} ms "
+        f"device (bound {dequant_bound:.4f}) [{smi}]")
+    if not (match >= QUANT_MATCH and kl < QUANT_KL):
+        raise AssertionError(f"phase 11: int8 weights fail the quality "
+                             f"gate (match {match}, KL {kl})")
+    del fl, q8
+    torch.cuda.empty_cache()
+    return rec
+
+
+def spec_int8_agreement(model, prompts, smi, n=8):
+    """Phase 11: speculative decode with int8 weights and KV against the
+    one-token int8 engine over the first n tokens of each request."""
+    from paddle_tpu_torch.serving import (PagedGenerationEngine,
+                                          SpeculativeEngine)
+    kw = dict(weight_dtype="int8", kv_dtype="int8", device=model.device)
+    spec, _, _ = serve(SpeculativeEngine(model, **SPEC, **kw), prompts, n)
+    one, _, _ = serve(PagedGenerationEngine(
+        model, slots=8, max_len=1024, block_size=16,
+        attention_impl="kernel", **kw), prompts, n)
+    same = [a == b for hs, ho in zip(spec, one)
+            for a, b in zip(hs.tokens, ho.tokens)]
+    agree = sum(same) / len(same)
+    log(f"speculative x int8 weights and KV vs one-token int8: "
+        f"{len(prompts)} requests, agreement {agree:.4f} over the first "
+        f"{n} tokens (bar {SPEC_AGREE}) [{smi}]")
+    if agree < SPEC_AGREE:
+        raise AssertionError(f"phase 11: spec x int8 agrees {agree}")
+    return {"requests": len(prompts), "tokens": n, "agreement": agree}
+
+
+def hot_swap(model, prompts, want, smi):
+    """Phase 11: phase 10's serving again, with a swap to a cloned param
+    dict before step 3 and a swap with one wrong-shaped tensor before
+    step 6: every stream must equal phase 10's, the first swap apply and
+    the second be refused."""
+    import torch
+    from paddle_tpu_torch.serving import Scheduler, SpeculativeEngine
+    eng = SpeculativeEngine(model, device=model.device, **SPEC)
+    sched = Scheduler(eng, max_queue=64, device=model.device)
+    handles = [sched.submit(p, max_new_tokens=32) for p in prompts]
+    clone = {k: v.detach().clone() for k, v in eng._params.items()}
+    bad = dict(clone)
+    bad["blocks.0.attn.qkv.weight"] = torch.zeros((3, 3),
+                                                  device=model.device)
+    plan = {3: (clone, 1), 6: (bad, 2)}
+    events = []
+    while True:
+        if sched._steps in plan:
+            events.append(sched.schedule_weight_swap(*plan[sched._steps]))
+        if not sched.step():
+            break
+    results = [ev.swap_result for ev in events]
+    if [r["ok"] for r in results] != [True, False] or \
+            sched.model_version != 1:
+        raise AssertionError(f"phase 11: swap results {results}")
+    inflight = results[0]["inflight"]
+    for h, w in zip(handles, want):
+        if h.status != "DONE" or h.tokens != w.tokens:
+            raise AssertionError(
+                f"phase 11: request {h.request_id} changed under the "
+                f"swaps: {h.tokens} != {w.tokens}")
+    log(f"hot-swap during speculative serving: clone applied with "
+        f"{inflight} requests in flight ({results[0]['params']} tensors), "
+        f"wrong shape refused ({results[1]['error'][:60]}...), "
+        f"{len(prompts)} streams unchanged [{smi}]")
+    return {"results": results, "streams_unchanged": len(prompts)}
 
 
 # ------------------------------------------------------------ flash kernels
@@ -1057,21 +1372,24 @@ def main(argv):
     engine = PagedGenerationEngine(model, slots=8, max_len=1024,
                                    block_size=16, attention_impl="kernel",
                                    device="cuda")
-    pa.launches = 0
+    pa.launches = pa.launches_window = 0
     handles, m, wall = serve(engine, prompts, max_new=32)
-    launches = pa.launches
+    launches, window4 = pa.launches, pa.launches_window
     prefills = len(prompts) + m["requests"]["preempted"]
     if launches <= 0:
         raise AssertionError("the server never launched the kernel")
-    if launches != cfg.num_layers * (m["decode_steps"] + prefills):
+    if launches != cfg.num_layers * (m["decode_steps"] + prefills) or \
+            window4 != cfg.num_layers * prefills:
         raise AssertionError(
-            f"{launches} launches, want {cfg.num_layers} per forward over "
-            f"{m['decode_steps']} decode steps + {prefills} prefills")
+            f"{launches} launches ({window4} at T>1), want "
+            f"{cfg.num_layers} per forward over {m['decode_steps']} decode "
+            f"steps + {prefills} prefills")
     if m["prefix_hits"] < 1:
         raise AssertionError("no prefix-cache hit on shared prompts")
     ttfts = [h.ttft_s for h in handles]
     serve_rec = {"requests": len(prompts), "max_new_tokens": 32,
                  "kernel_launches": launches,
+                 "kernel_launches_window": window4,
                  "launches_per_forward": cfg.num_layers,
                  "decode_steps": m["decode_steps"], "prefills": prefills,
                  "decode_step_ms": m["decode_step_ms"],
@@ -1108,14 +1426,7 @@ def main(argv):
     # where a decode step's time goes ------------------------------------------------
     prof = profile_decode(model, prompts[8:16])
     report["profile"] = prof
-    log(f"profile decode (8 slots at positions {prof['positions']}): "
-        f"step {prof['step_ms_untraced']:.3f} ms untraced, "
-        f"{prof['step_ms_traced']:.3f} ms traced, device busy "
-        f"{prof['device_busy_ms_per_step']:.3f} ms/step, idle share "
-        f"{prof['device_idle_share']}, "
-        f"{prof['kernels_per_step']:.0f} kernels/step [{smi}]")
-    for t in prof["top"]:
-        log(f"  {t['ms_per_step']:.4f} ms/step x{t['count']} {t['name']}")
+    log_profile("one-token decode step", prof, smi)
 
     # 6. kernel path vs plain path ------------------------------------------------
     compared, dropped = compare_paths(model, prompts[:4] + prompts[8:12])
@@ -1140,10 +1451,37 @@ def main(argv):
 
     # 9. training kernel path vs plain path ------------------------------------------
     report["train_parity"] = compare_train_paths()
+    torch.cuda.empty_cache()
+
+    # 10. the speculative server ----------------------------------------------
+    model = gpt_125m(device="cuda", seed=0)
+    spec_rec, spec_handles, window10 = serve_spec(model, prompts, smi)
+    report["serve_spec"] = spec_rec
+    spec_rec["profile"] = profile_spec_round(model, prompts[8:16], smi)
+    log(f"device busy a speculative round "
+        f"{spec_rec['profile']['device_busy_ms_per_step']:.3f} ms vs a "
+        f"one-token step {prof['device_busy_ms_per_step']:.3f} ms")
+    picks = list(range(4)) + list(range(8, 12))
+    compared, dropped = compare_spec(model, [prompts[i] for i in picks],
+                                     [spec_handles[i].tokens for i in picks])
+    spec_rec["parity"] = {"compared_tokens": compared,
+                          "dropped_near_ties": dropped, "gap_min": GAP_MIN}
+    log(f"parity speculative vs one-token: {compared} tokens agree, "
+        f"{dropped} dropped by the top-2 gap < {GAP_MIN} rule")
+    if compared == 0:
+        raise AssertionError("phase 10 compared nothing")
+
+    # 11. int8 decode weights, logit capture and hot-swap ---------------------
+    report["quant_weights"] = quant_weights_quality(model, prompts[8:16], smi)
+    report["spec_int8"] = spec_int8_agreement(model, prompts[8:12], smi)
+    report["hot_swap"] = hot_swap(model, prompts, spec_handles, smi)
 
     # summary ------------------------------------------------------------------------
     dec = next(c for c in cases if c["case"] == "decode_f32")
     dec8 = next(c for c in cases if c["case"] == "decode_int8")
+    win = next(c for c in cases if c["case"] == "verify_f32_T5")
+    err_w = max(c["max_abs_err"] for c in cases
+                if c["case"].startswith("verify_f32"))
     err_f = max(c["max_abs_err"] for c in cases if c["kind"] in ("f32",
                                                                   "nan"))
     err_8 = max(c["max_abs_err"] for c in cases if c["kind"] == "int8")
@@ -1155,12 +1493,17 @@ def main(argv):
                 "max_abs_err": err, "ms": c["ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                 "library_ms": c["library_ms"]}
+    # the decode kernel's launches are phase 4's at T=1; the window
+    # kernel's those at T>1 of phases 4 (prefill) and 10 (prefill, verify)
     kernels = {"kernels": [
         entry("paged_attention", "paddle_tpu/ops/pallas/paged_attention.py:75",
-              launches, dec, err_f),
+              launches - window4, dec, err_f),
         entry("paged_attention_int8",
               "paddle_tpu/ops/pallas/paged_attention.py:110", launches8, dec8,
-              err_8)]}
+              err_8),
+        entry("paged_attention_window",
+              "paddle_tpu/ops/pallas/paged_attention.py:75",
+              window4 + window10, win, err_w)]}
     flash_src = {"fwd": ("flash_attention_fwd", ("o", "lse"),
                          "paddle_tpu/ops/pallas/flash_attention.py:70"),
                  "dq": ("flash_attention_dq", ("dq",),

@@ -20,17 +20,22 @@ read of `pos` is needed.
 `attend_split_plain` is a plain model of that split-and-merge arithmetic
 for the tests; the main path never calls it.
 
+At T > 1 (prefill tiles, and the speculative verify window at T =
+gamma+1) the kernel runs one block per (slot, head, 16-row query tile).
+
 `launches` counts kernel launches (CPU calls do not count), so a run can
-show that its main path went through the kernel.
+show that its main path went through the kernel; `launches_window` counts
+those of them at T > 1.
 """
 import ctypes
 
 import torch
 
 __all__ = ["paged_attention", "attend_split_plain", "decode_split_keys",
-           "launches", "SUPPORTED_HEAD_DIMS"]
+           "launches", "launches_window", "SUPPORTED_HEAD_DIMS"]
 
 launches = 0
+launches_window = 0
 
 SUPPORTED_HEAD_DIMS = (64,)
 _MAX_SMEM = 232448             # bytes a block may use on sm_90
@@ -120,7 +125,7 @@ def paged_attention(q, k_pool, v_pool, tables, pos, scale=None,
 
 def _launch(q, k_pool, v_pool, tables, pos, scale, k_scale, v_scale, qmax,
             quant, operands):
-    global launches
+    global launches, launches_window
     if any(t.device != q.device for t in operands):
         raise ValueError("paged_attention: every operand must be on "
                          f"{q.device}")
@@ -183,6 +188,8 @@ def _launch(q, k_pool, v_pool, tables, pos, scale, k_scale, v_scale, qmax,
         raise RuntimeError(f"paged_attention kernel launch failed: {msg} "
                            f"(cudaError {rc})")
     launches += 1
+    if T > 1:
+        launches_window += 1
     return out
 
 

@@ -5,8 +5,11 @@ continuous-batching scheduler (counterpart of `paddle_tpu.serving`).
   blocks.py       — paged KV pool, block tables, int8 pools, BlockPool
   prefix_cache.py — shared prompt blocks keyed on a prefix hash
   sampling.py     — greedy / temperature / top-k / top-p selection
-  engine.py       — dense and paged prefill/decode engines
-  scheduler.py    — priority queue, continuous batching, preemption
+  engine.py       — dense and paged prefill/decode engines, int8 decode
+                    weights, logit capture, weight hot-swap
+  spec_decode.py  — speculative decode: draft proposals, one verify window
+  scheduler.py    — priority queue, continuous batching, preemption,
+                    speculative rounds, scheduled weight swaps
 """
 from . import blocks, kv_cache, prefix_cache, sampling  # noqa: F401
 from .blocks import (  # noqa: F401
@@ -20,6 +23,9 @@ from .scheduler import (  # noqa: F401
     PRIORITIES, QueueFullError, Request, RequestHandle, Scheduler,
     ServingConfig,
 )
+from .spec_decode import (  # noqa: F401
+    SpecDecodeConfig, SpeculativeEngine, truncated_draft,
+)
 
 __all__ = [
     "kv_cache", "blocks", "prefix_cache", "sampling",
@@ -28,5 +34,6 @@ __all__ = [
     "EngineConfig", "GenerationEngine", "PagedEngineConfig",
     "PagedGenerationEngine",
     "PRIORITIES", "QueueFullError", "Request", "RequestHandle", "Scheduler",
-    "ServingConfig",
+    "ServingConfig", "SpecDecodeConfig", "SpeculativeEngine",
+    "truncated_draft",
 ]

@@ -25,6 +25,7 @@ import contextlib
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from . import kv_cache as kvc
 
 __all__ = ["BlockAllocError", "BlockPool", "PagedLayerKV",
@@ -67,8 +68,10 @@ def blocks_for_tokens(n_tokens, block_size):
 
 
 def alloc_pools(num_layers, num_blocks, block_size, num_heads, head_dim,
-                dtype=torch.float32, device="cpu"):
-    """Zeroed K/V pools for a whole model: one PagedLayerKV per layer."""
+                dtype=torch.float32, device=None):
+    """Zeroed K/V pools for a whole model: one PagedLayerKV per layer, on
+    `device` (None: the card, as every entry point of the port)."""
+    device = resolve_device(device)
     shape = (num_blocks, block_size, num_heads, head_dim)
     return tuple(PagedLayerKV(torch.zeros(shape, dtype=dtype, device=device),
                               torch.zeros(shape, dtype=dtype, device=device))
@@ -76,8 +79,10 @@ def alloc_pools(num_layers, num_blocks, block_size, num_heads, head_dim,
 
 
 def alloc_quant_pools(num_layers, num_blocks, block_size, num_heads,
-                      head_dim, device="cpu"):
-    """Zeroed int8 K/V pools + per-block per-head f32 scales."""
+                      head_dim, device=None):
+    """Zeroed int8 K/V pools + per-block per-head f32 scales, on `device`
+    (None: the card)."""
+    device = resolve_device(device)
     shape = (num_blocks, block_size, num_heads, head_dim)
     sshape = (num_blocks, num_heads)
 

@@ -7,14 +7,21 @@ right-padded to the nearest length bucket; decode advances every slot one
 token per step. Slot lifecycle (who occupies which slot, retirement,
 refill) belongs to `scheduler.Scheduler`; the engines only compute.
 
+Every forward is functional: `torch.func.functional_call` runs the module
+over a param dict. `_params` (the module's own tensors, no copy) serves
+prefill; `_decode_params` serves decode and is the same dict, or with
+`weight_dtype="int8"` int8 codes plus per-output-channel scales that each
+decode forward dequantizes with plain torch before the float matmuls.
+`swap_params` replaces the dict between steps (weight hot-swap) and leaves
+the module untouched.
+
 PyTorch runs eagerly, so the JAX engines' compile-once executables have no
 counterpart here. What the port counts instead is kernel launches:
 `kernel_launches` is the number of paged-attention kernel launches this
 engine's calls made (0 for the gather path and on the CPU).
 
 Left out of this port: the persistent compile cache, the numerics taps,
-LoRA adapters, KV tiers, KV handoff (adopt/extract), int8 decode weights,
-logit capture and weight hot-swap.
+LoRA adapters, KV tiers and KV handoff (adopt/extract).
 """
 import numpy as np
 import torch
@@ -30,6 +37,19 @@ __all__ = ["EngineConfig", "GenerationEngine", "PagedEngineConfig",
            "PagedGenerationEngine", "DEFAULT_BUCKETS"]
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024)
+
+
+def _quantize_weight(w):
+    """One decode-matmul weight [out, in] -> (int8 codes, f32 scales
+    [out, 1]) per output channel: abs-max over the input axis, clamped at
+    1e-30, then `blocks.quantize_codes`. An `nn.Linear` weight's output
+    channels are its axis 0 (the JAX `[in, out]` weights quantize the same
+    channels on axis 1), and so are the tied head's vocab rows of
+    `wte.weight`."""
+    w = w.to(torch.float32)
+    s_b = torch.clamp(torch.amax(torch.abs(w), dim=1, keepdim=True),
+                      min=1e-30)
+    return blocks.quantize_codes(w, s_b), s_b
 
 
 class EngineConfig:
@@ -80,6 +100,10 @@ class GenerationEngine:
                 f"max_len={self.config.max_len} exceeds the model's "
                 f"max_position_embeddings={model.cfg.max_position_embeddings}")
         self._model = model
+        # the module's own tensors, no copy: prefill serves this dict,
+        # decode the derived `_decode_params`
+        self._params = dict(model.named_parameters())
+        self._build_decode_params()
         self._last_tokens = np.zeros((self.config.slots,), np.int32)
         # per-slot sampler state: slot s's next token is generation index
         # _slot_gen[s] of the request seeded _slot_seeds[s]
@@ -159,13 +183,63 @@ class GenerationEngine:
         padded[0, :tokens.size] = tokens
         return torch.from_numpy(padded).to(self.device)
 
-    def _forward(self, ids, cache):
-        """One model forward, counting the kernel launches it made."""
+    def _forward(self, ids, cache, params=None):
+        """One functional model forward over `params` (default: the float
+        serving dict), counting the kernel launches it made."""
         before = _pa.launches
         with torch.no_grad():
-            out = self._model(ids, cache=cache)
+            out = torch.func.functional_call(
+                self._model, self._params if params is None else params,
+                (ids,), {"cache": cache})
         self.kernel_launches += _pa.launches - before
         return out
+
+    def _decode_forward(self, ids, cache):
+        """A decode (or verify) forward: over `_decode_params`, int8
+        entries dequantized first."""
+        return self._forward(ids, cache,
+                             self._dequant_params(self._decode_params))
+
+    # -- decode params and weight hot-swap ----------------------------------
+    def _build_decode_params(self):
+        """The param set decode runs on: the float dict itself here; the
+        paged engine quantizes it for weight_dtype="int8". Rebuilt after
+        every weight swap."""
+        self._decode_params = self._params
+
+    @staticmethod
+    def _dequant_params(params):
+        """Quantized entries ({"q", "scale"}) dequantize through the one
+        canonical expression (`blocks.dequant_codes`); float entries pass
+        through."""
+        return {n: (blocks.dequant_codes(v["q"], v["scale"])
+                    if isinstance(v, dict) else v)
+                for n, v in params.items()}
+
+    def swap_params(self, new_params):
+        """Replace the serving weights between steps. `new_params` maps
+        every serving name to a tensor or array of the same shape; values
+        are cast to the serving dtype and moved to the engine's device.
+        Staged and atomic: a missing key or a wrong shape raises and the
+        old weights keep serving. The module is left untouched. Returns
+        the number of swapped tensors."""
+        current = self._params
+        missing = sorted(set(current) - set(new_params))
+        if missing:
+            raise ValueError(f"swap params missing {len(missing)} keys "
+                             f"(first: {missing[:3]})")
+        staged = {}
+        for name, old in current.items():
+            arr = torch.as_tensor(new_params[name])
+            if tuple(arr.shape) != tuple(old.shape):
+                raise ValueError(
+                    f"swap param {name!r} shape {tuple(arr.shape)} != "
+                    f"serving shape {tuple(old.shape)}: a hot-swap can "
+                    f"only replace values, never architecture")
+            staged[name] = arr.to(device=old.device, dtype=old.dtype)
+        self._params = staged                  # the commit point
+        self._build_decode_params()
+        return len(staged)
 
     # -- public compute API ---------------------------------------------------
     def prefill(self, slot, prompt_ids, rng=None):
@@ -194,8 +268,8 @@ class GenerationEngine:
     def decode(self):
         """Advance every slot one token; returns np.int32 [slots]."""
         tokens = torch.from_numpy(self._last_tokens.astype(np.int64))
-        logits, cache = self._forward(tokens.to(self.device)[:, None],
-                                      self._cache)
+        logits, cache = self._decode_forward(tokens.to(self.device)[:, None],
+                                             self._cache)
         # free slots keep decoding garbage harmlessly; clamp so their
         # position stays in bounds forever
         pos = torch.clamp(self._cache.pos + 1, max=self.config.max_len - 1)
@@ -204,6 +278,11 @@ class GenerationEngine:
         self._slot_gen += 1
         self._last_tokens = out.copy()
         return out
+
+    def set_slot_token(self, slot, token):
+        """Feed `token` as slot's next decode input (after prefill, or to
+        teacher-force a stream)."""
+        self._last_tokens[int(slot)] = np.int32(token)
 
     def reset_slot(self, slot):
         """Mark a slot free: pos=0 hides its stale rows."""
@@ -238,11 +317,15 @@ class PagedEngineConfig(EngineConfig):
     kernel walks the block table; CPU tensors take its plain version) or
     "gather" (the plain dense-view path, the reference it is held to).
     kv_dtype: "float32" pools, or "int8" codes with per-block per-head
-    scales."""
+    scales. weight_dtype: "int8" runs the decode forwards from int8
+    weights with per-output-channel scales (prefill stays float).
+    capture_logits: decode keeps the [slots, vocab] f32 last-token logits
+    in `engine.last_logits`."""
 
     def __init__(self, block_size=16, num_blocks=None,
                  enable_prefix_cache=True, attention_impl="kernel",
-                 kv_dtype="float32", **kwargs):
+                 kv_dtype="float32", weight_dtype="float32",
+                 capture_logits=False, **kwargs):
         super().__init__(**kwargs)
         self.block_size = int(block_size)
         self.max_blocks_per_slot = -(-self.max_len // self.block_size)
@@ -256,10 +339,14 @@ class PagedEngineConfig(EngineConfig):
             raise ValueError(f"attention_impl must be 'gather' or "
                              f"'kernel', got {attention_impl!r}")
         self.attention_impl = attention_impl
-        if kv_dtype not in ("float32", "int8"):
-            raise ValueError(f"kv_dtype must be 'float32' or 'int8', "
-                             f"got {kv_dtype!r}")
+        for knob, val in (("kv_dtype", kv_dtype),
+                          ("weight_dtype", weight_dtype)):
+            if val not in ("float32", "int8"):
+                raise ValueError(f"{knob} must be 'float32' or 'int8', "
+                                 f"got {val!r}")
         self.kv_dtype = kv_dtype
+        self.weight_dtype = weight_dtype
+        self.capture_logits = bool(capture_logits)
 
 
 class PagedGenerationEngine(GenerationEngine):
@@ -294,6 +381,36 @@ class PagedGenerationEngine(GenerationEngine):
         self.prefix_cache = PrefixCache(self.block_pool, c.block_size) \
             if c.enable_prefix_cache else None
         self.last_prefill_stats = {}
+        self.last_logits = None
+
+    # -- int8 decode weights --------------------------------------------------
+    @staticmethod
+    def _is_matmul_weight(name, arr):
+        """Whether a param quantizes for decode: every 2-D `.weight` but
+        `wpe` (a position lookup, one row per slot)."""
+        return arr.dim() == 2 and name.endswith(".weight") \
+            and "wpe" not in name
+
+    def _build_decode_params(self):
+        """weight_dtype="int8": every decode-matmul weight becomes
+        {"q": int8 codes, "scale": broadcast-ready f32 scales}; the float
+        `_params` keep serving prefill."""
+        if self.config.weight_dtype != "int8":
+            self._decode_params = self._params
+            return
+        self._decode_params = self._quantize_params(self._params)
+
+    def _quantize_params(self, params):
+        """int8-quantize every decode-matmul weight of a param dict;
+        other params pass through."""
+        out = {}
+        for name, arr in params.items():
+            if self._is_matmul_weight(name, arr):
+                codes, s_b = _quantize_weight(arr.detach())
+                out[name] = {"q": codes, "scale": s_b}
+            else:
+                out[name] = arr
+        return out
 
     # -- block accounting -----------------------------------------------------
     def _alloc_blocks(self, n):
@@ -331,15 +448,18 @@ class PagedGenerationEngine(GenerationEngine):
         for s in range(self.config.slots):
             self.ensure_slot_capacity(s)
 
-    def _paged_forward(self, ids, tables, pos, valid=None):
+    def _paged_forward(self, ids, tables, pos, valid=None, decode=False):
+        """One forward through the block tables under `attention_impl`;
+        decode (and verify) forwards run on `_decode_params`."""
         cache = blocks.PagedDecodeCache(
             self._pool,
             torch.from_numpy(np.ascontiguousarray(tables)).to(self.device),
             torch.from_numpy(np.asarray(pos, np.int32)).to(self.device),
             None if valid is None else
             torch.tensor(valid, dtype=torch.int32, device=self.device))
+        forward = self._decode_forward if decode else self._forward
         with blocks.attention_impl(self.config.attention_impl):
-            logits, _ = self._forward(ids, cache)
+            logits, _ = forward(ids, cache)
         return logits
 
     # -- public compute API ---------------------------------------------------
@@ -399,9 +519,11 @@ class PagedGenerationEngine(GenerationEngine):
         self.ensure_decode_capacity()
         tokens = torch.from_numpy(self._last_tokens.astype(np.int64))
         logits = self._paged_forward(tokens.to(self.device)[:, None],
-                                     self._tables, self._pos)
+                                     self._tables, self._pos, decode=True)
         self._pos = np.minimum(self._pos + 1, self.config.max_len - 1) \
             .astype(np.int32)
+        if self.config.capture_logits:
+            self.last_logits = logits[:, 0].float().cpu().numpy()
         out = self._select_slots(logits[:, 0])
         self._slot_gen += 1
         self._last_tokens = out.copy()

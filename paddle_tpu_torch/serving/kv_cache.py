@@ -10,6 +10,8 @@ import collections
 
 import torch
 
+from ..core.device import resolve_device
+
 __all__ = ["LayerKV", "DecodeCache", "alloc_kv", "alloc_cache", "write",
            "attend", "MASK_VALUE"]
 
@@ -27,16 +29,20 @@ MASK_VALUE = -1e30
 
 
 def alloc_kv(slots, max_len, num_heads, head_dim, dtype=torch.float32,
-             device="cpu"):
-    """Zeros for one layer's K/V pair."""
+             device=None):
+    """Zeros for one layer's K/V pair, on `device` (None: the card, as
+    every entry point of the port)."""
+    device = resolve_device(device)
     shape = (slots, max_len, num_heads, head_dim)
     return LayerKV(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
 def alloc_cache(num_layers, slots, max_len, num_heads, head_dim,
-                dtype=torch.float32, device="cpu"):
-    """Zeros for a whole model: num_layers LayerKV buffers + pos=0."""
+                dtype=torch.float32, device=None):
+    """Zeros for a whole model: num_layers LayerKV buffers + pos=0, on
+    `device` (None: the card)."""
+    device = resolve_device(device)
     layers = tuple(alloc_kv(slots, max_len, num_heads, head_dim, dtype,
                             device) for _ in range(num_layers))
     return DecodeCache(layers, torch.zeros((slots,), dtype=torch.int32,

@@ -1,6 +1,8 @@
-"""Token selection for generation: greedy, temperature, top-k, top-p.
+"""Token selection for generation: greedy, temperature, top-k, top-p, and
+the speculative-decode accept rule.
 
-Counterpart of `paddle_tpu/serving/sampling.py` `select_tokens`. Filters
+Counterpart of `paddle_tpu/serving/sampling.py` (`select_tokens`,
+`greedy_verify`). Filters
 are masks over the full vocabulary, as in the JAX version. Sampling draws
 from an explicit `torch.Generator`; the engines seed one per slot from the
 request's (seed, generation index), so the same (seed, gen) gives the
@@ -8,7 +10,7 @@ same token. The bits are not those of `jax.random`.
 """
 import torch
 
-__all__ = ["select_tokens", "slot_generator_seed"]
+__all__ = ["select_tokens", "greedy_verify", "slot_generator_seed"]
 
 
 def _mask_top_k(logits, k):
@@ -49,6 +51,28 @@ def select_tokens(logits, generator=None, strategy="greedy", temperature=1.0,
     flat = probs.reshape(-1, probs.shape[-1])
     picks = torch.multinomial(flat, 1, generator=generator)
     return picks.reshape(probs.shape[:-1]).to(torch.int32)
+
+
+def greedy_verify(logits, window):
+    """The speculative-decode accept rule, greedy case, on the device.
+
+    `window` [S, W] is the verify input [t0, d1..d_{W-1}]: t0 the last
+    committed token, d_i the draft's proposals. `logits` [S, W, V] are the
+    target's logits over it; row i is its distribution for the token after
+    window[i]. Draft d_{i+1} is accepted iff it equals the target's argmax
+    at row i and every earlier draft was accepted; at the first mismatch
+    the target's own argmax is emitted instead, and a fully accepted
+    window earns the bonus token of row W-1. The emitted stream is the
+    one-token greedy loop's, whatever the draft proposes.
+
+    Returns (choices [S, W] int32, n_accepted [S] int32, last [S] int32):
+    slot s emits choices[s, :n_accepted[s] + 1], and `last` (the
+    correction or the bonus) is the next round's t0."""
+    choices = torch.argmax(logits, dim=-1).to(torch.int32)        # [S, W]
+    match = (choices[:, :-1] == window[:, 1:]).to(torch.int32)
+    n_acc = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+    last = torch.gather(choices, 1, n_acc[:, None].to(torch.int64))[:, 0]
+    return choices, n_acc, last
 
 
 def slot_generator_seed(seed, gen):

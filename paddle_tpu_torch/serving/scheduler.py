@@ -3,11 +3,12 @@
 Counterpart of `paddle_tpu/serving/scheduler.py`:
 
   submit() -> bounded admission queue (QueueFullError past the cap)
-  step()   -> retire finished slots (max_new_tokens / eos),
-              refill free slots from the queue by (priority, arrival),
-              grow paged slots' block tables — preempting a victim under
-              allocation pressure — then advance every occupied slot one
-              token
+  step()   -> apply queued weight swaps, retire finished slots
+              (max_new_tokens / eos), refill free slots from the queue by
+              (priority, arrival), grow paged slots' block tables —
+              preempting a victim under allocation pressure — then advance
+              every occupied slot one token, or one speculative round
+              (`engine.decode_many`) of 1..gamma+1 tokens
   drain()  -> stop admitting, run until in-flight work finishes
 
 Preemption is recompute-style: the victim's blocks go back to the pool and
@@ -17,9 +18,9 @@ decoding).
 
 Left out of this port: request deadlines (timeouts and slack-ordered
 victims), load shedding, decode-failure quarantine (an engine exception
-propagates), weight and adapter swaps, decode capture, the decision,
-timeline and KV-ledger records, rate limits and tenancy, staged KV
-placement and cancellation.
+propagates), adapter swaps, decode capture, the metrics registry, the
+decision, timeline and KV-ledger records, the chaos sites, rate limits and
+tenancy, staged KV placement and cancellation.
 """
 import collections
 import itertools
@@ -71,6 +72,8 @@ class Request:
         self.slot = None
         self.preempted = 0                # times evicted and requeued
         self.prefix_hit = False           # prefill reused cached blocks
+        self.spec_proposed = 0            # draft tokens proposed for us
+        self.spec_accepted = 0            # ... and accepted by verify
         self._exec_prompt = None          # restart prompt after preemption
         self.first_token_at = None
         self.finished_at = None
@@ -121,6 +124,15 @@ class RequestHandle:
     def prefix_hit(self):
         return self._req.prefix_hit
 
+    @property
+    def spec_proposed(self):
+        """Draft tokens proposed for this request (speculative engines)."""
+        return self._req.spec_proposed
+
+    @property
+    def spec_accepted(self):
+        return self._req.spec_accepted
+
     def done(self):
         return self._req.status in (DONE, REJECTED)
 
@@ -161,9 +173,14 @@ class Scheduler:
         self._decode_tokens = 0               # ... of them by decode steps
         self._decode_steps = 0
         self._decode_time_s = 0.0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
         self._completed = []
         self.counts = dict.fromkeys(
             ("admitted", "done", "rejected", "preempted"), 0)
+        self._pending_swaps = collections.deque()   # armed hot-swaps
+        self.last_swap = None                 # apply_pending_swap summary
+        self.model_version = None
 
     # -- admission -----------------------------------------------------------
     def submit(self, prompt, max_new_tokens=None, priority="standard",
@@ -208,22 +225,80 @@ class Scheduler:
         self.counts["admitted"] += 1
         return handle
 
+    # -- weight hot-swap ------------------------------------------------------
+    def schedule_weight_swap(self, params, version=None):
+        """Arm a weight hot-swap: `params` ({name: tensor or array})
+        replaces the engine's serving weights at the top of the next step,
+        between decode steps, so every token is computed under one weight
+        set. Swaps armed back to back apply in arrival order. Returns a
+        threading.Event set once the swap was applied or refused; its
+        `swap_result` holds that swap's outcome (`last_swap` holds the
+        latest). A refused swap keeps the old weights serving."""
+        ev = threading.Event()
+        self._pending_swaps.append({"params": params, "version": version,
+                                    "event": ev})
+        return ev
+
+    def apply_pending_swap(self):
+        """Apply every armed swap now, in arrival order (step() calls it
+        first). Returns True when at least one swap was processed."""
+        applied = False
+        while self._pending_swaps:
+            swap = self._pending_swaps.popleft()
+            applied = True
+            try:
+                n = self.engine.swap_params(swap["params"])
+            except (ValueError, TypeError, RuntimeError) as e:
+                self.last_swap = {"ok": False, "version": swap["version"],
+                                  "error": f"{type(e).__name__}: {e}"}
+            else:
+                if swap["version"] is not None:
+                    self.model_version = swap["version"]
+                self.last_swap = {"ok": True, "version": swap["version"],
+                                  "params": n,
+                                  "inflight": self.active_slots()}
+            swap["event"].swap_result = dict(self.last_swap)
+            swap["event"].set()
+        return applied
+
     # -- the iteration loop ----------------------------------------------------
     def step(self):
         """One scheduling iteration. Returns True while work remains."""
+        self.apply_pending_swap()
         self._retire()
         self._refill()
         self._grow_paged_slots()
         if any(r is not None for r in self._slots):
             t0 = self._clock()
-            toks = np.asarray(self.engine.decode()).reshape(-1)
+            # a speculative engine advances each slot by a verify window
+            # a round; every other engine by a 1-wide window
+            decode_many = getattr(self.engine, "decode_many", None)
+            if decode_many is not None:
+                toks, counts = decode_many()
+            else:
+                toks = np.asarray(self.engine.decode()).reshape(-1, 1)
+                counts = np.ones((toks.shape[0],), np.int32)
             self._decode_time_s += self._clock() - t0
             self._decode_steps += 1
+            proposed = toks.shape[1] - 1         # gamma for spec, else 0
+            eos = self.engine.config.eos_token_id
             for slot, req in enumerate(self._slots):
-                if req is not None:
-                    req.tokens.append(int(toks[slot]))
+                if req is None:
+                    continue
+                if proposed:
+                    accepted = int(counts[slot]) - 1
+                    req.spec_proposed += proposed
+                    req.spec_accepted += accepted
+                    self._spec_proposed += proposed
+                    self._spec_accepted += accepted
+                # the slot's emitted run, cut where the one-token loop
+                # would have stopped (eos / max_new_tokens)
+                for j in range(int(counts[slot])):
+                    req.tokens.append(int(toks[slot, j]))
                     self._tokens += 1
                     self._decode_tokens += 1
+                    if req.finished(eos):
+                        break
         self._steps += 1
         return bool(self._queue or any(s is not None for s in self._slots))
 
@@ -367,8 +442,11 @@ class Scheduler:
         """Counters and rates since construction. `decode_tokens_per_s`
         and `decode_step_ms` cover decode steps only (host clock around
         `engine.decode()`, which returns host tokens, so the device work
-        is inside the window); `ttft_s_mean` is over completed
-        requests."""
+        is inside the window); with a speculative engine a step is one
+        round (`decode_many`: gamma draft decodes and one verify) and
+        `decode_step_ms` times rounds. `ttft_s_mean` is over completed
+        requests. `spec_*` appear once a speculative round has proposed
+        tokens."""
         ttfts = [r.first_token_at - r.submitted_at for r in self._completed
                  if r.first_token_at is not None]
         out = {
@@ -376,6 +454,7 @@ class Scheduler:
             "queue_depth": len(self._queue),
             "slot_occupancy": self.active_slots() / max(self.engine.slots, 1),
             "tokens_generated": self._tokens,
+            "decode_tokens": self._decode_tokens,
             "decode_steps": self._decode_steps,
             "decode_tokens_per_s": (self._decode_tokens / self._decode_time_s
                                     if self._decode_time_s > 0 else 0.0),
@@ -385,6 +464,11 @@ class Scheduler:
             "requests": dict(self.counts),
             "kernel_launches": getattr(self.engine, "kernel_launches", 0),
         }
+        if self._spec_proposed:
+            out["spec_proposed"] = self._spec_proposed
+            out["spec_accepted"] = self._spec_accepted
+            out["spec_acceptance_rate"] = (self._spec_accepted
+                                           / self._spec_proposed)
         pool = getattr(self.engine, "block_pool", None)
         if pool is not None:
             out["blocks_in_use"] = pool.in_use

@@ -1,0 +1,261 @@
+"""Speculative multi-token decode over the paged serving engine.
+
+Counterpart of `paddle_tpu/serving/spec_decode.py` (`truncated_draft`,
+`SpecDecodeConfig`, `SpeculativeEngine`). A cheap draft GPT proposes gamma
+tokens one at a time; one target forward over the [slots, gamma+1] window
+verifies them (`sampling.greedy_verify`). Under greedy decoding the
+emitted stream is the one-token loop's: the draft only decides how many
+tokens a round buys.
+
+The verify forward goes through the block tables like every paged
+forward, under `attention_impl`: with "kernel" on the card it is the
+paged-attention kernel at T = gamma+1 and decode positions.
+
+Cache protocol: at every round boundary the draft's dense cache and the
+target's paged pool hold the same committed tokens, and the draft's
+positions equal the target's.
+  1. the draft proposes d_1..d_gamma with gamma single-token decodes
+     (writing t0, d_1..d_{gamma-1} into its cache), plus one extra feed of
+     d_gamma so that a fully accepted window leaves its cache complete
+     (that proposal is discarded). The window stays on the device: the
+     round's only host read is the verify's result;
+  2. the verify forward writes K/V for the whole window through the
+     slot's block table (`decode_write_tokens = gamma+1`, so the
+     scheduler provisions the blocks before the round, preempting under
+     pressure as for one-token growth);
+  3. rejection is a position rollback: both engines' positions advance by
+     n_accepted+1. Rejected K/V past the new position stays in blocks the
+     slot owns, masked by position and overwritten next round; no block
+     reference moves.
+
+With int8 KV pools the verify write cannot leave out the rejected tail
+(it is not known before the forward), so those tokens ride the touched
+block's abs-max scale for that one write, as in the JAX engine; the next
+write recomputes the scale over real positions only.
+
+Left out of this port: the compile cache, numerics taps, adapters, the
+metrics registry and the pipeline placement hooks.
+"""
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from . import kv_cache as kvc
+from . import sampling
+from .engine import PagedEngineConfig, PagedGenerationEngine
+
+__all__ = ["SpecDecodeConfig", "SpeculativeEngine", "truncated_draft"]
+
+
+def truncated_draft(model, num_layers):
+    """A draft GPT made of the target's first `num_layers` blocks, sharing
+    the target's parameter tensors (embeddings, the kept blocks, the final
+    LayerNorm): no second copy of any weight."""
+    from ..text.models.gpt import GPT
+    num_layers = int(num_layers)
+    if not 1 <= num_layers <= model.cfg.num_layers:
+        raise ValueError(
+            f"draft_layers={num_layers} must be in 1..target layers "
+            f"({model.cfg.num_layers})")
+    draft = GPT(dataclasses.replace(model.cfg, num_layers=num_layers),
+                device=model.device)
+    own = dict(model.named_parameters())
+    for name, _ in list(draft.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        setattr(draft.get_submodule(owner), leaf, own[name])
+    return draft.eval()
+
+
+class SpecDecodeConfig(PagedEngineConfig):
+    """PagedEngineConfig plus the speculative knobs. gamma: draft tokens
+    proposed a round (a round emits 1..gamma+1 tokens). draft_layers:
+    depth of the truncated draft built when no draft model is given.
+    Greedy only: the stochastic accept rule needs the draft's
+    probabilities, which this pipeline never materializes."""
+
+    def __init__(self, gamma=4, draft_layers=1, **kwargs):
+        super().__init__(**kwargs)
+        if self.decode_strategy != "greedy":
+            raise ValueError(
+                "speculative decode is greedy-only (got decode_strategy="
+                f"{self.decode_strategy!r})")
+        self.gamma = int(gamma)
+        if self.gamma < 1:
+            raise ValueError(f"gamma must be >= 1, got {gamma}")
+        self.draft_layers = int(draft_layers)
+        if self.capture_logits:
+            raise ValueError(
+                "capture_logits is not supported on the speculative "
+                "engine: its decode is the verify window; point quality "
+                "checks at a PagedGenerationEngine")
+
+
+class SpeculativeEngine(PagedGenerationEngine):
+    """PagedGenerationEngine whose decode step is a speculative round.
+
+    `decode_many()` returns (tokens [slots, gamma+1], n_emit [slots]):
+    slot s emitted tokens[s, :n_emit[s]]. `last_spec_stats` holds the last
+    round's `draft_s` and `verify_s` (host clock: the draft's launches
+    return before the card runs them, so `verify_s`, which ends in the
+    round's host read, carries the draft's device time too). The
+    inherited one-token `decode()` stays available."""
+
+    def __init__(self, model, config=None, draft=None, device="cuda",
+                 **kwargs):
+        config = config or SpecDecodeConfig(**kwargs)
+        if not isinstance(config, SpecDecodeConfig):
+            raise TypeError("SpeculativeEngine needs a SpecDecodeConfig")
+        super().__init__(model, config, device=device)
+        from ..text.models.gpt import GPT, GPTForGeneration
+        if draft is None:
+            draft = truncated_draft(self._model, config.draft_layers)
+        if isinstance(draft, GPTForGeneration):
+            draft = draft.gpt
+        if not isinstance(draft, GPT):
+            raise TypeError("draft must be a GPT or GPTForGeneration")
+        if draft.cfg.vocab_size != self._model.cfg.vocab_size:
+            raise ValueError(
+                "draft and target must share a vocabulary: "
+                f"{draft.cfg.vocab_size} vs {self._model.cfg.vocab_size}")
+        if config.max_len > draft.cfg.max_position_embeddings:
+            raise ValueError(
+                f"max_len={config.max_len} exceeds the draft's "
+                f"max_position_embeddings="
+                f"{draft.cfg.max_position_embeddings}")
+        if draft.device != self.device:
+            raise ValueError(f"draft lives on {draft.device}, engine "
+                             f"device is {self.device}")
+        self.draft_model = draft
+        self._draft_params = dict(draft.named_parameters())
+        dcfg = draft.cfg
+        self._draft_cache = kvc.alloc_cache(
+            dcfg.num_layers, config.slots, config.max_len, dcfg.num_heads,
+            dcfg.hidden_size // dcfg.num_heads, draft.wte.weight.dtype,
+            self.device)
+        self._draft_pos = np.zeros((config.slots,), np.int32)
+        self._build_draft_decode_params()
+        self.last_spec_stats = {}
+
+    @property
+    def decode_write_tokens(self):
+        """A verify forward writes the whole gamma+1 window per slot."""
+        return self.config.gamma + 1
+
+    def _build_draft_decode_params(self):
+        """The draft's decode params. int8 weights compose: a draft tensor
+        that is the target's own (the truncated draft) reuses the target's
+        codes; only the draft's own tensors quantize anew."""
+        if self.config.weight_dtype != "int8":
+            self._draft_decode_params = self._draft_params
+            return
+        out, fresh = {}, {}
+        for name, t in self._draft_params.items():
+            if t is self._params.get(name):
+                out[name] = self._decode_params[name]
+            else:
+                fresh[name] = t
+        out.update(self._quantize_params(fresh))
+        self._draft_decode_params = out
+
+    def swap_params(self, new_params):
+        """The target swaps like any paged engine; every draft tensor that
+        was the old target's is re-pointed at the new one, so target and
+        draft change in the same window. A draft with its own weights
+        keeps them (it moves only the acceptance rate, never the
+        output)."""
+        old_target = dict(self._params)
+        n = super().swap_params(new_params)
+        for name, t in list(self._draft_params.items()):
+            if t is old_target.get(name):
+                self._draft_params[name] = self._params[name]
+        self._build_draft_decode_params()
+        return n
+
+    # -- draft forwards -------------------------------------------------------
+    def _run_draft(self, params, cache, ids):
+        with torch.no_grad():
+            return torch.func.functional_call(self.draft_model, params,
+                                              (ids,), {"cache": cache})
+
+    def _draft_decode(self, cache, tokens):
+        """One single-token draft decode over the dense cache: returns
+        (next tokens [S] int64 on the device, cache with pos advanced)."""
+        logits, new = self._run_draft(
+            self._dequant_params(self._draft_decode_params), cache,
+            tokens[:, None])
+        nxt = torch.argmax(logits[:, 0], dim=-1)
+        pos = torch.clamp(cache.pos + 1, max=self.config.max_len - 1)
+        return nxt, kvc.DecodeCache(new.layers, pos)
+
+    def _draft_propose(self):
+        """gamma draft decodes plus the cache-completing extra feed; returns
+        the window [S, gamma+1] (int64, on the device)."""
+        cache = kvc.DecodeCache(self._draft_cache.layers,
+                                torch.from_numpy(self._draft_pos)
+                                .to(self.device))
+        feed = torch.from_numpy(self._last_tokens.astype(np.int64)) \
+            .to(self.device)
+        cols = [feed]
+        for _ in range(self.config.gamma):
+            feed, cache = self._draft_decode(cache, feed)
+            cols.append(feed)
+        self._draft_decode(cache, feed)     # writes d_gamma's K/V only
+        return torch.stack(cols, dim=1)
+
+    # -- public compute API ---------------------------------------------------
+    def prefill(self, slot, prompt_ids, rng=None):
+        """Target prefill (prefix cache, suffix bucket, first token), then
+        the draft's prefill of the whole prompt into its dense cache (the
+        draft shares no prefix, so its bucket is the whole prompt's). The
+        draft moves only after the target's prefill stuck, so an
+        allocation failure leaves both untouched."""
+        first = super().prefill(slot, prompt_ids, rng=rng)
+        slot = int(slot)
+        prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
+        bucket = self.bucket_for(prompt.size)
+        dcfg = self.draft_model.cfg
+        local = kvc.alloc_cache(dcfg.num_layers, 1, bucket, dcfg.num_heads,
+                                dcfg.hidden_size // dcfg.num_heads,
+                                self.draft_model.wte.weight.dtype,
+                                self.device)
+        _, local = self._run_draft(self._draft_params, local,
+                                   self._padded(prompt, bucket))
+        for glob, loc in zip(self._draft_cache.layers, local.layers):
+            glob.k[slot, :bucket] = loc.k[0]
+            glob.v[slot, :bucket] = loc.v[0]
+        self._draft_pos[slot] = prompt.size
+        return first
+
+    def reset_slot(self, slot):
+        super().reset_slot(slot)
+        self._draft_pos[int(slot)] = 0
+
+    def decode_many(self):
+        """One speculative round for every slot: gamma draft proposals, one
+        target verify, the position rollback. Returns (tokens [S, gamma+1]
+        np.int32, n_emit [S] np.int32); free slots round-trip garbage
+        harmlessly, as in the one-token loop."""
+        self.ensure_decode_capacity()
+        t0 = time.perf_counter()
+        window = self._draft_propose()
+        draft_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        logits = self._paged_forward(window, self._tables, self._pos,
+                                     decode=True)
+        choices, n_acc, last = sampling.greedy_verify(logits, window)
+        # the round's one host read
+        res = torch.cat([choices, n_acc[:, None], last[:, None]],
+                        dim=1).cpu().numpy()
+        verify_s = time.perf_counter() - t1
+        out = np.ascontiguousarray(res[:, :-2])
+        n_emit, last = res[:, -2] + 1, res[:, -1]
+        # the rollback: both caches advance to the committed position
+        self._pos = np.minimum(self._pos + n_emit,
+                               self.config.max_len - 1).astype(np.int32)
+        self._draft_pos = self._pos.copy()
+        self._slot_gen += n_emit
+        self._last_tokens = last.astype(np.int32)
+        self.last_spec_stats = {"draft_s": draft_s, "verify_s": verify_s}
+        return out, n_emit

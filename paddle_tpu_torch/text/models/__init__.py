@@ -1,8 +1,9 @@
 """Language models of the port."""
 from .convert import load_jax_params  # noqa: F401
 from .gpt import (  # noqa: F401
-    GPT, GPTAttention, GPTBlock, GPTConfig, GPTMLP, gpt_125m, gpt_tiny,
+    GPT, GPTAttention, GPTBlock, GPTConfig, GPTForGeneration, GPTMLP,
+    gpt_125m, gpt_tiny,
 )
 
-__all__ = ["GPT", "GPTAttention", "GPTBlock", "GPTConfig", "GPTMLP",
-           "gpt_125m", "gpt_tiny", "load_jax_params"]
+__all__ = ["GPT", "GPTAttention", "GPTBlock", "GPTConfig", "GPTForGeneration",
+           "GPTMLP", "gpt_125m", "gpt_tiny", "load_jax_params"]

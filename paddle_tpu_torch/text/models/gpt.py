@@ -1,10 +1,11 @@
 """GPT decoder LM as PyTorch modules.
 
 Counterpart of `paddle_tpu/text/models/gpt.py` (`GPTConfig`, `GPTAttention`,
-`GPTMLP`, `GPTBlock`, `GPT`): pre-LN blocks, tanh-approximated GELU,
-LayerNorm epsilon 1e-5, learned positions, tied LM head. The fused qkv
-projection splits q|k|v-major, `reshape(B, S, 3, heads, head_dim)`, as the
-JAX model does, so weights carry over unchanged (`convert.py`).
+`GPTMLP`, `GPTBlock`, `GPT`, `GPTForGeneration`): pre-LN blocks,
+tanh-approximated GELU, LayerNorm epsilon 1e-5, learned positions, tied LM
+head. The fused qkv projection splits q|k|v-major,
+`reshape(B, S, 3, heads, head_dim)`, as the JAX model does, so weights
+carry over unchanged (`convert.py`).
 
 Linear weights are stored the PyTorch way, `[out, in]`; the JAX model's
 `[in, out]` weights are transposed on load.
@@ -24,9 +25,10 @@ from torch import nn
 from ...core.device import resolve_device
 from ...serving import blocks as _blk
 from ...serving import kv_cache as _kvc
+from ...serving import sampling as _sampling
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPT",
-           "gpt_tiny", "gpt_125m"]
+           "GPTForGeneration", "gpt_tiny", "gpt_125m"]
 
 LN_EPS = 1e-5     # the JAX LayerNorm default
 
@@ -216,6 +218,81 @@ class GPT(nn.Module):
         if self.cfg.tie_embeddings:
             return F.linear(x, self.wte.weight)
         return self.lm_head(x)
+
+
+class GPTForGeneration(nn.Module):
+    """Autoregressive decoding over a GPT. `use_cache=True` prefills the
+    prompt's K/V into a dense cache once, then runs one single-token
+    forward a step; `use_cache=False` recomputes the whole forward a token
+    (the parity oracle)."""
+
+    def __init__(self, gpt: GPT):
+        super().__init__()
+        self.gpt = gpt
+
+    def forward(self, input_ids, **kwargs):
+        return self.generate(input_ids, **kwargs)
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=20, decode_strategy="greedy",
+                 temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
+                 use_cache=True, max_cache_len=None, generator=None):
+        """input_ids [B, S] -> (generated ids [B, max_new_tokens] int32,
+        lengths [B] int32), on the CPU. Rows that hit eos are padded with
+        eos; lengths count tokens up to and including it. Stops early once
+        every row is done. Sampling draws from `generator`, a
+        torch.Generator on the model's device."""
+        B, S = input_ids.shape
+        limit = max_cache_len or S + max_new_tokens
+        if S + max_new_tokens > limit or \
+                S + max_new_tokens > self.gpt.cfg.max_position_embeddings:
+            raise ValueError(
+                f"prompt ({S}) + max_new_tokens ({max_new_tokens}) exceeds "
+                f"max_position_embeddings="
+                f"{self.gpt.cfg.max_position_embeddings}"
+                + (f" / max_cache_len={max_cache_len}" if max_cache_len
+                   else ""))
+
+        def select(logits):
+            return _sampling.select_tokens(
+                logits, generator=generator, strategy=decode_strategy,
+                temperature=temperature, top_k=top_k, top_p=top_p)
+        ids = torch.as_tensor(input_ids).to(self.gpt.device, torch.int64)
+        if use_cache:
+            cache = self.gpt.gen_cache(B, limit)
+            logits, cache = self.gpt(ids, cache=cache)
+        else:
+            logits = self.gpt(ids)
+        nxt = select(logits[:, -1])
+        picked = []
+        done = torch.zeros((B,), dtype=torch.bool)
+        for _ in range(max_new_tokens):
+            step = nxt.cpu()
+            if eos_token_id is not None:
+                step = torch.where(done, torch.tensor(eos_token_id,
+                                                      dtype=step.dtype),
+                                   step)
+                done |= step == eos_token_id
+            picked.append(step)
+            if len(picked) == max_new_tokens or \
+                    (eos_token_id is not None and bool(done.all())):
+                break
+            tok = step.to(self.gpt.device, torch.int64)[:, None]
+            if use_cache:
+                logits, cache = self.gpt(tok, cache=cache)
+                nxt = select(logits[:, 0])
+            else:
+                ids = torch.cat([ids, tok], dim=1)
+                nxt = select(self.gpt(ids)[:, -1])
+        out = torch.stack(picked, dim=1).to(torch.int32)
+        if eos_token_id is None:
+            lengths = torch.full((B,), out.shape[1], dtype=torch.int32)
+        else:
+            hit = out == eos_token_id
+            first = torch.where(hit.any(1), hit.to(torch.int32).argmax(1) + 1,
+                                torch.full((B,), out.shape[1]))
+            lengths = first.to(torch.int32)
+        return out, lengths
 
 
 def gpt_tiny(device="cuda", seed=0, **kw):

@@ -35,7 +35,8 @@ from paddle_tpu.serving import prefix_cache as jprefix
 from paddle_tpu.serving import kv_cache as jkvc
 from paddle_tpu.text.models import gpt_tiny as jgpt_tiny
 from paddle_tpu_torch.serving import (BlockAllocError, GenerationEngine,
-                                      PagedGenerationEngine, Scheduler)
+                                      PagedGenerationEngine, Scheduler,
+                                      SpeculativeEngine)
 from paddle_tpu_torch.serving import kv_cache as tkvc
 from paddle_tpu_torch.serving import prefix_cache as tprefix
 from paddle_tpu_torch.serving import sampling
@@ -150,7 +151,7 @@ def test_uncached_and_paged_cached_logits_match_jax(models):
     from paddle_tpu_torch.serving import blocks
     c = tm.cfg
     pools = blocks.alloc_pools(c.num_layers, 5, 8, c.num_heads,
-                               c.hidden_size // c.num_heads)
+                               c.hidden_size // c.num_heads, device="cpu")
     tables = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32)
     padded = np.zeros((1, 16), np.int64)
     padded[0, :11] = ids[:11]
@@ -363,6 +364,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "    importlib.import_module(m)\n"
             "assert {'paddle_tpu_torch.ops.flash_attention',\n"
             "        'paddle_tpu_torch.parallel.gpt_spmd',\n"
+            "        'paddle_tpu_torch.serving.spec_decode',\n"
             "        'paddle_tpu_torch._kernels.build'} <= set(mods), mods\n"
             "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -393,6 +395,19 @@ def test_default_device_raises_without_cuda(models):
         PagedGenerationEngine(tm, **ENGINE)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         GenerationEngine(tm, **ENGINE)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SpeculativeEngine(tm, **ENGINE)
     eng = PagedGenerationEngine(tm, device="cpu", **ENGINE)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Scheduler(eng)
+    # the allocators default to the card too
+    from paddle_tpu_torch.serving import blocks
+    for alloc in (lambda **kw: blocks.alloc_pools(1, 2, 8, 2, 4, **kw),
+                  lambda **kw: blocks.alloc_quant_pools(1, 2, 8, 2, 4, **kw),
+                  lambda **kw: tkvc.alloc_kv(1, 8, 2, 4, **kw),
+                  lambda **kw: tkvc.alloc_cache(1, 1, 8, 2, 4, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            alloc()
+        assert all(t.device.type == "cpu" for t in
+                   torch.utils._pytree.tree_leaves(alloc(device="cpu")))
+    assert SpeculativeEngine(tm, device="cpu", **ENGINE).device.type == "cpu"

@@ -14,16 +14,21 @@ Phases (any exception ends the run with a non-zero exit):
      all-masked rows, and decode at the edges of the kernel's KV splits:
      key counts one below, at and one above a split boundary, the full
      table, a pos = -1 slot beside long ones, 16- and 8-token blocks, in
-     f32, int8 and bf16; and speculative verify windows, T=5 in f32 and
-     int8 and T=2, at positions 0 to the table's last key with windows
-     across a block edge, beside the T=1 kernel at the same positions),
+     f32, int8 and bf16; speculative verify windows on the window kernel,
+     T=5 in f32, int8 and bf16 and T=2, at positions 0 to the table's
+     last key with windows across a block edge, T=5 windows at the first
+     split edge, beside the T=1 kernel at the same positions; T=16 and
+     T=17, the two sides of the window/tile boundary; the tile kernel at
+     the serving path's own prefill shapes, one slot at T=32 from
+     position 0 and T=256 after a 256-token prefix, and bf16 at T=128),
      every case launched twice and required to repeat bit for bit, with
      its time, host time per call, the plain version's time, the
      `scaled_dot_product_attention` yardstick and the bound;
   4. the server: `Scheduler` over `PagedGenerationEngine(gpt_125m,
      attention_impl="kernel")` answers 16 greedy requests (prompts of 1 to
      700 tokens, eight sharing a 256-token prefix), with the kernel's
-     launch count read just after;
+     launch count read just after (12 a forward: decode steps at T=1,
+     prefills on the tile path);
   5. the same engine with int8 KV pools answers 4 requests;
   6. kernel path vs plain path at full width: first token + 8 greedy
      decode steps per slot must agree, a slot's comparison stopping at the
@@ -57,8 +62,10 @@ Phases (any exception ends the run with a non-zero exit):
      gamma=4, draft_layers=2, attention_impl="kernel")` answers phase 4's
      16 requests (every verify window on the paged kernel at T=5, the
      draft on its dense cache: exactly 12 paged launches per verify round
-     and per prefill, no block leaked), with its acceptance rate, tokens
-     a round, tokens/s, draft and verify host time, one profiled round;
+     on the window path and per prefill on the tile path, no block
+     leaked), with its acceptance rate, tokens a round, tokens/s, draft
+     and verify host time, one profiled round (with the paged kernel's
+     device time);
      its streams must equal a one-token engine's on 8 prompts, a slot's
      comparison stopping at the first step whose top-2 gap is below 1e-3;
  11. int8 decode weights: teacher-forced against the float engine (8
@@ -226,20 +233,15 @@ def case_bound(c, kind):
             else "operations", nbytes, flops)
 
 
-def run_kernel_cases(flush):
-    import torch
-    import torch.nn.functional as F
-    from paddle_tpu_torch.serving import blocks
-    from paddle_tpu_torch.ops import paged_attention as pa
-    from paddle_tpu_torch.ops.paged_attention import paged_attention
-
+def paged_cases(sp):
+    """Phase 3's cases: (name, shape, kind) for a decode split of `sp`
+    keys."""
     rng = __import__("random").Random(0)
     ragged = [0, 15, 16, 17, 255, 511, 777, 1000]
     # verify windows: from 0 to the window that ends on the table's last
     # key (1024 keys), two of them across a 16-token block edge
     verify5 = [0, 12, 14, 255, 500, 777, 1000, 1019]
     verify2 = [0, 12, 15, 255, 500, 777, 1000, 1022]
-    sp = pa.decode_split_keys()
 
     def edges(L):
         """Decode positions at the kernel's split edges: key counts one
@@ -247,7 +249,7 @@ def run_kernel_cases(flush):
         the full table, and a slot with no key (pos = -1) beside them."""
         return [sp - 2, sp - 1, sp, 2 * sp - 2, 2 * sp - 1, 2 * sp, L - 1,
                 -1]
-    cases = [
+    return [
         ("decode_f32", dict(S=8, T=1, pos=ragged), "f32"),
         ("decode_f32_rand", dict(S=8, T=1,
                                  pos=[rng.randint(0, 1000) for _ in range(8)]),
@@ -255,8 +257,8 @@ def run_kernel_cases(flush):
         ("prefill_f32_T64", dict(S=2, T=64, pos=[0, 256]), "f32"),
         ("prefill_f32_T128", dict(S=2, T=128, pos=[0, 256]), "f32"),
         ("prefill_f32_T512", dict(S=2, T=512, pos=[0, 256]), "f32"),
-        # a tile with fewer rows than the kernel's 16, and 8-token blocks
-        # (8 blocks per staged chunk instead of 4)
+        # a 7-row window (the window kernel's 8-row instance), and
+        # 8-token blocks
         ("prefill_f32_T7", dict(S=3, T=7, pos=[0, 61, 300]), "f32"),
         ("decode_f32_bs8", dict(S=8, T=1, pos=ragged[:7] + [500], bs=8),
          "f32"),
@@ -274,13 +276,39 @@ def run_kernel_cases(flush):
          "int8"),
         ("decode_edges_bs8_bf16", dict(S=8, T=1, pos=edges(512), bs=8),
          "bf16"),
-        # speculative verify windows (gamma 4 and 1) on the T>1 kernel,
-        # and the T=1 kernel at the same positions
+        # speculative verify windows (gamma 4 and 1) on the window
+        # kernel, and the T=1 kernel at the same positions
         ("verify_f32_T5", dict(S=8, T=5, pos=verify5), "f32"),
         ("verify_int8_T5", dict(S=8, T=5, pos=verify5), "int8"),
         ("verify_f32_T2", dict(S=8, T=2, pos=verify2), "f32"),
         ("decode_f32_verify_pos", dict(S=8, T=1, pos=verify5), "f32"),
+        ("verify_bf16_T5", dict(S=8, T=5, pos=verify5), "bf16"),
+        # T=5 windows at the first split edge: ending on its last key,
+        # straddling it by 1..4 keys, and one past the second edge
+        ("verify_f32_T5_split_edge",
+         dict(S=8, T=5, pos=[sp - 5, sp - 4, sp - 3, sp - 2, sp - 1,
+                             2 * sp - 2, -1, 1019]), "f32"),
+        # the boundary of the window path (T <= 16) and the tile path
+        ("window_f32_T16", dict(S=8, T=16, pos=[0, 5, 112, 127, 255, 500,
+                                                1000, 1008]), "f32"),
+        ("prefill_f32_T17", dict(S=8, T=17, pos=[0, 5, 111, 127, 255, 500,
+                                                 999, 1007]), "f32"),
+        ("prefill_bf16_T128", dict(S=2, T=128, pos=[0, 256]), "bf16"),
+        # the serving path's own prefill shapes: one slot, a bucket of
+        # 32 at position 0 and of 256 after the 256-token prefix hit
+        ("prefill_f32_S1_T32", dict(S=1, T=32, pos=[0]), "f32"),
+        ("prefill_f32_S1_T256", dict(S=1, T=256, pos=[256]), "f32"),
     ]
+
+
+def run_kernel_cases(flush):
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.serving import blocks
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops.paged_attention import paged_attention
+
+    cases = paged_cases(pa.decode_split_keys())
     results = []
     for i, (name, shape, kind) in enumerate(cases):
         c = paged_case(100 + i, shape["S"], shape["T"], shape["pos"],
@@ -319,7 +347,8 @@ def run_kernel_cases(flush):
             raise AssertionError(f"{name}: two launches on the same inputs "
                                  "differ (the kernel must repeat bit for "
                                  "bit)")
-        empty = pos < 0
+        # query row i of slot s sees no key iff pos[s] + i < 0
+        empty = pos[:, None] + torch.arange(q.shape[1], device="cuda") < 0
         if bool(empty.any()) and bool((got[empty] != 0).any()):
             raise AssertionError(f"{name}: rows with no visible key must be "
                                  "exact zeros")
@@ -486,9 +515,12 @@ def profile_steps(step, steps):
             or getattr(e, "self_cuda_time_total", 0.0)
     busy_ms = sum(dev_us(e) for e in kernels) / steps / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    paged = [e for e in kernels if "paged_" in e.key]
     return {"steps": steps,
             "step_ms_untraced": wall_ms, "step_ms_traced": traced_ms,
             "device_busy_ms_per_step": busy_ms,
+            "paged_ms_per_step": sum(dev_us(e) for e in paged) / steps / 1e3,
+            "paged_launches_per_step": sum(e.count for e in paged) / steps,
             "device_idle_share": (1 - busy_ms / traced_ms
                                   if busy_ms else None),
             "kernels_per_step": sum(e.count for e in kernels) / steps,
@@ -517,7 +549,9 @@ def log_profile(what, prof, smi):
         f"{prof['step_ms_traced']:.3f} ms traced, device busy "
         f"{prof['device_busy_ms_per_step']:.3f} ms each, idle share "
         f"{prof['device_idle_share']}, "
-        f"{prof['kernels_per_step']:.0f} kernels each [{smi}]")
+        f"{prof['kernels_per_step']:.0f} kernels each; the paged kernel "
+        f"{prof['paged_ms_per_step']:.4f} ms in "
+        f"{prof['paged_launches_per_step']:.0f} launches [{smi}]")
     for t in prof["top"]:
         log(f"  {t['ms_per_step']:.4f} ms x{t['count']} {t['name']}")
 
@@ -537,7 +571,7 @@ def top2_gaps(logits):
 
 def serve_spec(model, prompts, smi):
     """Phase 10: the speculative server answers phase 4's requests. Returns
-    (record, handles, window launches)."""
+    (record, handles, window launches, prefill-tile launches)."""
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.serving import SpeculativeEngine
     cfg = model.cfg
@@ -550,9 +584,10 @@ def serve_spec(model, prompts, smi):
         rounds.append(eng.last_spec_stats)
         return out
     eng.decode_many = recorded
-    pa.launches = pa.launches_window = 0
+    pa.launches = pa.launches_window = pa.launches_prefill = 0
     handles, m, wall = serve(eng, prompts, max_new=32)
     launches, window = pa.launches, pa.launches_window
+    prefill = pa.launches_prefill
     n_rounds = m["decode_steps"]
     prefills = len(prompts) + m["requests"]["preempted"]
     if launches != cfg.num_layers * (n_rounds + prefills):
@@ -560,10 +595,14 @@ def serve_spec(model, prompts, smi):
             f"phase 10: {launches} paged launches, want {cfg.num_layers} "
             f"per forward over {n_rounds} verify rounds + {prefills} "
             "prefills (the draft must make none)")
-    if window != launches:
-        raise AssertionError(f"phase 10: {launches - window} paged "
-                             "launches at T=1 (the draft's or a one-token "
-                             "decode's)")
+    if window != cfg.num_layers * n_rounds or \
+            prefill != cfg.num_layers * prefills:
+        raise AssertionError(
+            f"phase 10: {window} window and {prefill} tile launches, want "
+            f"{cfg.num_layers} a verify round on the window path and "
+            f"{cfg.num_layers} a prefill on the tile path; "
+            f"{launches - window - prefill} at T=1 (the draft's or a "
+            "one-token decode's)")
     cached = len(eng.prefix_cache)
     eng.prefix_cache.evict(eng.block_pool.capacity)
     if eng.block_pool.in_use != 0:
@@ -572,7 +611,8 @@ def serve_spec(model, prompts, smi):
     draft_ms = sum(r["draft_s"] for r in rounds) / len(rounds) * 1e3
     verify_ms = sum(r["verify_s"] for r in rounds) / len(rounds) * 1e3
     rec = {"requests": len(prompts), "max_new_tokens": 32, **SPEC,
-           "kernel_launches": launches, "rounds": n_rounds,
+           "kernel_launches": launches, "kernel_launches_window": window,
+           "kernel_launches_prefill": prefill, "rounds": n_rounds,
            "prefills": prefills, "preempted": m["requests"]["preempted"],
            "spec_proposed": m["spec_proposed"],
            "spec_accepted": m["spec_accepted"],
@@ -597,7 +637,7 @@ def serve_spec(model, prompts, smi):
         f"clock), launches={launches} ({cfg.num_layers}/forward x "
         f"{n_rounds} rounds + {prefills} prefills), no block leaked "
         f"[{smi}]")
-    return rec, handles, window
+    return rec, handles, window, prefill
 
 
 def profile_spec_round(model, prompts, smi):
@@ -617,7 +657,7 @@ def compare_spec(model, prompts, streams, steps=32):
     """Phase 10: the speculative streams against a one-token engine's,
     token by token; a slot's comparison stops at the first step whose
     one-token top-2 gap is below GAP_MIN (the verify's matmuls run at
-    slots x 5 rows and the window takes the T>1 kernel, so a near-tie may
+    slots x 5 rows and the window takes the window kernel, so a near-tie may
     flip). Returns (compared tokens, tokens dropped by the rule)."""
     from paddle_tpu_torch.serving import PagedGenerationEngine
     eng = PagedGenerationEngine(
@@ -1372,24 +1412,25 @@ def main(argv):
     engine = PagedGenerationEngine(model, slots=8, max_len=1024,
                                    block_size=16, attention_impl="kernel",
                                    device="cuda")
-    pa.launches = pa.launches_window = 0
+    pa.launches = pa.launches_window = pa.launches_prefill = 0
     handles, m, wall = serve(engine, prompts, max_new=32)
-    launches, window4 = pa.launches, pa.launches_window
+    launches, prefill4 = pa.launches, pa.launches_prefill
     prefills = len(prompts) + m["requests"]["preempted"]
     if launches <= 0:
         raise AssertionError("the server never launched the kernel")
     if launches != cfg.num_layers * (m["decode_steps"] + prefills) or \
-            window4 != cfg.num_layers * prefills:
+            prefill4 != cfg.num_layers * prefills or pa.launches_window:
         raise AssertionError(
-            f"{launches} launches ({window4} at T>1), want "
+            f"{launches} launches ({prefill4} on the tile path, "
+            f"{pa.launches_window} on the window path), want "
             f"{cfg.num_layers} per forward over {m['decode_steps']} decode "
-            f"steps + {prefills} prefills")
+            f"steps + {prefills} prefills (tiles)")
     if m["prefix_hits"] < 1:
         raise AssertionError("no prefix-cache hit on shared prompts")
     ttfts = [h.ttft_s for h in handles]
     serve_rec = {"requests": len(prompts), "max_new_tokens": 32,
                  "kernel_launches": launches,
-                 "kernel_launches_window": window4,
+                 "kernel_launches_prefill": prefill4,
                  "launches_per_forward": cfg.num_layers,
                  "decode_steps": m["decode_steps"], "prefills": prefills,
                  "decode_step_ms": m["decode_step_ms"],
@@ -1411,15 +1452,17 @@ def main(argv):
     eng8 = PagedGenerationEngine(model, slots=8, max_len=1024,
                                  block_size=16, attention_impl="kernel",
                                  kv_dtype="int8", device="cuda")
-    pa.launches = 0
+    pa.launches = pa.launches_prefill = 0
     _, m8, wall8 = serve(eng8, prompts[8:12], max_new=32)
-    launches8 = pa.launches
+    launches8 = pa.launches - pa.launches_prefill   # the decode launches
     if launches8 <= 0:
         raise AssertionError("the int8 server never launched the kernel")
-    report["serve_int8"] = {"requests": 4, "kernel_launches": launches8,
+    report["serve_int8"] = {"requests": 4, "kernel_launches": pa.launches,
+                            "kernel_launches_decode": launches8,
                             "decode_step_ms": m8["decode_step_ms"],
                             "wall_s": wall8}
-    log(f"serve gpt_125m int8 KV: 4 requests done, launches={launches8} "
+    log(f"serve gpt_125m int8 KV: 4 requests done, launches={pa.launches} "
+        f"({launches8} decode) "
         f"decode_step_ms={m8['decode_step_ms']:.3f} [{smi}]")
     del eng8, engine
 
@@ -1455,12 +1498,14 @@ def main(argv):
 
     # 10. the speculative server ----------------------------------------------
     model = gpt_125m(device="cuda", seed=0)
-    spec_rec, spec_handles, window10 = serve_spec(model, prompts, smi)
+    spec_rec, spec_handles, window10, prefill10 = serve_spec(model,
+                                                             prompts, smi)
     report["serve_spec"] = spec_rec
     spec_rec["profile"] = profile_spec_round(model, prompts[8:16], smi)
     log(f"device busy a speculative round "
-        f"{spec_rec['profile']['device_busy_ms_per_step']:.3f} ms vs a "
-        f"one-token step {prof['device_busy_ms_per_step']:.3f} ms")
+        f"{spec_rec['profile']['device_busy_ms_per_step']:.3f} ms (the "
+        f"paged kernel {spec_rec['profile']['paged_ms_per_step']:.4f} ms) "
+        f"vs a one-token step {prof['device_busy_ms_per_step']:.3f} ms")
     picks = list(range(4)) + list(range(8, 12))
     compared, dropped = compare_spec(model, [prompts[i] for i in picks],
                                      [spec_handles[i].tokens for i in picks])
@@ -1480,8 +1525,11 @@ def main(argv):
     dec = next(c for c in cases if c["case"] == "decode_f32")
     dec8 = next(c for c in cases if c["case"] == "decode_int8")
     win = next(c for c in cases if c["case"] == "verify_f32_T5")
+    tile = next(c for c in cases if c["case"] == "prefill_f32_T512")
     err_w = max(c["max_abs_err"] for c in cases
-                if c["case"].startswith("verify_f32"))
+                if c["kind"] == "f32" and 1 < c["T"] <= pa.WINDOW_ROWS)
+    err_t = max(c["max_abs_err"] for c in cases
+                if c["kind"] == "f32" and c["T"] > pa.WINDOW_ROWS)
     err_f = max(c["max_abs_err"] for c in cases if c["kind"] in ("f32",
                                                                   "nan"))
     err_8 = max(c["max_abs_err"] for c in cases if c["kind"] == "int8")
@@ -1494,16 +1542,20 @@ def main(argv):
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                 "library_ms": c["library_ms"]}
     # the decode kernel's launches are phase 4's at T=1; the window
-    # kernel's those at T>1 of phases 4 (prefill) and 10 (prefill, verify)
+    # kernel's phase 10's verify windows; the tile kernel's the prefills of
+    # phases 4 and 10
     kernels = {"kernels": [
         entry("paged_attention", "paddle_tpu/ops/pallas/paged_attention.py:75",
-              launches - window4, dec, err_f),
+              launches - prefill4, dec, err_f),
         entry("paged_attention_int8",
               "paddle_tpu/ops/pallas/paged_attention.py:110", launches8, dec8,
               err_8),
         entry("paged_attention_window",
+              "paddle_tpu/ops/pallas/paged_attention.py:75", window10, win,
+              err_w),
+        entry("paged_attention_prefill",
               "paddle_tpu/ops/pallas/paged_attention.py:75",
-              window4 + window10, win, err_w)]}
+              prefill4 + prefill10, tile, err_t)]}
     flash_src = {"fwd": ("flash_attention_fwd", ("o", "lse"),
                          "paddle_tpu/ops/pallas/flash_attention.py:70"),
                  "dq": ("flash_attention_dq", ("dq",),

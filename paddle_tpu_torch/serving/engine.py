@@ -221,8 +221,12 @@ class GenerationEngine:
         every serving name to a tensor or array of the same shape; values
         are cast to the serving dtype and moved to the engine's device.
         Staged and atomic: a missing key or a wrong shape raises and the
-        old weights keep serving. The module is left untouched. Returns
-        the number of swapped tensors."""
+        old weights keep serving. Every value is copied into storage of
+        the engine's own, detached, so a caller that later updates its
+        tensors in place (a trainer stepping the model it swapped in)
+        cannot change what serves, as the reference's immutable arrays
+        cannot. The module is left untouched. Returns the number of
+        swapped tensors."""
         current = self._params
         missing = sorted(set(current) - set(new_params))
         if missing:
@@ -236,7 +240,8 @@ class GenerationEngine:
                     f"swap param {name!r} shape {tuple(arr.shape)} != "
                     f"serving shape {tuple(old.shape)}: a hot-swap can "
                     f"only replace values, never architecture")
-            staged[name] = arr.to(device=old.device, dtype=old.dtype)
+            staged[name] = arr.detach().to(device=old.device,
+                                           dtype=old.dtype, copy=True)
         self._params = staged                  # the commit point
         self._build_decode_params()
         return len(staged)

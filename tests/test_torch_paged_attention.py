@@ -8,10 +8,11 @@ version, so these tests hold the plain version — the one the CUDA kernel is
 held against on the card — to the reference. Tolerance: rtol = atol = 1e-5
 in float32 (the online-softmax kernel sums in another order).
 
-`attend_split_plain` models the decode kernel's split over the KV length
-and its merge of the splits' softmax states; it is held to the same
-references at the same tolerance, so the merge rule is checked here and
-the kernel itself against the plain version on the card.
+`attend_split_plain` models the split over the KV length of the decode
+and window kernels (T = 1..WINDOW_ROWS) and their merge of the splits'
+softmax states; it is held to the same references at the same tolerance,
+so the merge rule is checked here and the kernels themselves against the
+plain version on the card.
 """
 import numpy as np
 import pytest
@@ -22,7 +23,8 @@ import jax.numpy as jnp
 from paddle_tpu.ops.pallas.paged_attention import \
     paged_attention as jax_paged_attention
 from paddle_tpu.serving import blocks as jblk
-from paddle_tpu_torch.ops.paged_attention import (attend_split_plain,
+from paddle_tpu_torch.ops.paged_attention import (WINDOW_ROWS,
+                                                  attend_split_plain,
                                                   paged_attention)
 from paddle_tpu_torch.serving import blocks as tblk
 
@@ -125,12 +127,12 @@ def test_all_masked_rows_emit_zeros():
 
 
 # ------------------------------------------- decode split-and-merge rule
-def _ragged_state(seed, pos, bs, nb, quant):
-    """Each slot owns exactly the blocks its positions need; every later
-    table entry points at the garbage block 0, which holds NaN K and inf V
-    (NaN and inf scales for int8 pools)."""
+def _ragged_state(seed, pos, bs, nb, quant, T=1):
+    """Each slot owns exactly the blocks its positions up to pos + T - 1
+    need; every later table entry points at the garbage block 0, which
+    holds NaN K and inf V (NaN and inf scales for int8 pools)."""
     rng = np.random.RandomState(seed)
-    live = [max(0, -(-(p + 1) // bs)) for p in pos]
+    live = [max(0, min(nb, -(-(p + T) // bs))) for p in pos]
     N = 1 + sum(live)
     ids = iter(rng.permutation(np.arange(1, N)))
     tables = np.zeros((len(pos), nb), np.int32)
@@ -177,15 +179,49 @@ def test_split_merge_model_matches_jax(split, bs, quant):
     np.testing.assert_allclose(got, pallas, **TOL)
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("split,bs", [(16, 8), (128, 16)])
+@pytest.mark.parametrize("T", [2, 5, 16])
+def test_window_split_merge_model_matches_jax(T, split, bs, quant):
+    """Windows (T = 2..WINDOW_ROWS, the speculative verify windows) with
+    the KV length cut into splits: windows that end on the last key of a
+    split, that straddle the first and the second split edge and a block
+    edge, one that ends on the table's last key, one at position 0, and a
+    pos = -1 slot (its first row sees no key, the others the keys before
+    them); the garbage block poisoned. Tolerance: f32 rtol = atol =
+    1e-5."""
+    nb = (2 * split + 2 * bs) // bs
+    pos = [split - T, split - T + 1, -1, bs - 1, 2 * split - 2,
+           nb * bs - T, 0]
+    kp, vp, tables, scales = _ragged_state(T + split + quant, pos, bs, nb,
+                                           quant, T=T)
+    q = np.random.RandomState(T + split).randn(len(pos), T, H, D) \
+        .astype(np.float32)
+    pos = np.asarray(pos, np.int32)
+    want, pallas, port = _all_three(q, kp, vp, tables, pos, **scales)
+    got = attend_split_plain(
+        *(_t(x) for x in (q, kp, vp, tables, pos)), split,
+        **{k: _t(v) for k, v in scales.items()}).numpy()
+    assert got.shape == q.shape and np.isfinite(got).all()
+    assert (got[2, 0] == 0.0).all()         # pos = -1: row 0 sees nothing
+    assert (got[2, 1:] != 0.0).any()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, pallas, **TOL)
+    np.testing.assert_allclose(port, want, **TOL)
+
+
 def test_split_merge_model_rejects_prefill_windows():
-    """Only decode (T = 1) is split by the kernel, so the model refuses a
-    window of several query tokens rather than model code that does not
-    exist."""
+    """Calls of more than WINDOW_ROWS query tokens run the tile path,
+    whose split the model does not describe, so the model refuses them
+    rather than model code that does not exist."""
     kp, vp, tables, _ = _ragged_state(7, [30], 8, 4, False)
-    q = torch.zeros((1, 4, H, D))
-    with pytest.raises(ValueError, match="decode kernel"):
+    q = torch.zeros((1, WINDOW_ROWS + 1, H, D))
+    with pytest.raises(ValueError, match="decode and window kernels"):
         attend_split_plain(q, _t(kp), _t(vp), _t(tables),
-                           torch.tensor([27], dtype=torch.int32), 16)
+                           torch.tensor([0], dtype=torch.int32), 16)
+    assert attend_split_plain(q[:, :WINDOW_ROWS], _t(kp), _t(vp),
+                              _t(tables), torch.tensor([0], dtype=torch.int32),
+                              16).shape == (1, WINDOW_ROWS, H, D)
 
 
 # -------------------------------------------------------------- int8 pools
@@ -276,10 +312,12 @@ def test_wrapper_counts_no_launch_on_cpu():
     """CPU tensors take the plain version; only kernel launches count."""
     from paddle_tpu_torch.ops import paged_attention as pa
     kp, vp, tables = _state(90, 1, 8, 2, N=3)
-    before = pa.launches
-    paged_attention(_t(np.ones((1, 1, H, D), np.float32)), _t(kp), _t(vp),
-                    _t(tables), torch.tensor([3], dtype=torch.int32))
-    assert pa.launches == before
+    before = (pa.launches, pa.launches_window, pa.launches_prefill)
+    for T in (1, 5, WINDOW_ROWS + 1):
+        paged_attention(_t(np.ones((1, T, H, D), np.float32)), _t(kp),
+                        _t(vp), _t(tables),
+                        torch.tensor([-1], dtype=torch.int32))
+    assert (pa.launches, pa.launches_window, pa.launches_prefill) == before
 
 
 def test_attention_impl_scope():

@@ -19,7 +19,8 @@ mode); the port runs `device="cpu"`. Then:
   * `swap_params`: after a swap to other seeded weights the next decodes'
     tokens and `last_logits` equal the JAX engine's after the same swap,
     and the int8 codes are rebuilt; a missing key or a wrong shape raises
-    and the old weights keep serving;
+    and the old weights keep serving; the engine stages copies of its own,
+    so updating the source tensors in place afterwards changes nothing;
   * `Scheduler.schedule_weight_swap` applies between steps, in arrival
     order, sets each event with its own result and `model_version`;
   * the teacher-forced quality gate of `tools/load_harness.py`
@@ -236,6 +237,40 @@ def test_swap_params_refuses_bad_dicts_and_keeps_serving(models,
         e.prefill(0, PROMPTS[0])
     assert [int(eng.decode()[0]) for _ in range(4)] == \
         [int(ref.decode()[0]) for _ in range(4)]
+
+
+def test_swap_params_keeps_its_own_copy(models, other_weights):
+    """The swapped-in tensors stay the caller's: updating them in place
+    afterwards (a trainer stepping the model it swapped in) changes neither
+    the next decodes' tokens and `last_logits` nor the int8 codes, which
+    keep agreeing with the staged float weights. The reference stages
+    immutable arrays, so its swaps cannot be changed afterwards either."""
+    _, tm = models
+    _, tparams = other_weights
+    kw = dict(ENGINE, weight_dtype="int8", capture_logits=True,
+              attention_impl="gather", device="cpu")
+    eng = PagedGenerationEngine(tm, **kw)
+    ref = PagedGenerationEngine(tm, **kw)
+    src = {k: v.clone() for k, v in tparams.items()}
+    eng.swap_params(src)
+    ref.swap_params({k: v.clone() for k, v in tparams.items()})
+    with torch.no_grad():
+        for v in src.values():
+            v.add_(1.0)
+    for name, t in eng._params.items():
+        assert t.data_ptr() != src[name].data_ptr()
+        assert torch.equal(t, tparams[name])
+    for e in (eng, ref):
+        for s, p in enumerate(PROMPTS):
+            e.prefill(s, p)
+    got, got_logits = _decode(eng, 4)
+    want, want_logits = _decode(ref, 4)
+    assert got == want
+    np.testing.assert_array_equal(np.stack(got_logits),
+                                  np.stack(want_logits))
+    for name in QUANTIZED:
+        codes, _ = _quantize_weight(eng._params[name])
+        assert torch.equal(eng._decode_params[name]["q"], codes)
 
 
 def test_swap_casts_to_the_serving_dtype(models, other_weights):

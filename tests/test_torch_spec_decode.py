@@ -18,7 +18,8 @@ version. Then:
     accepted window;
   * int8 KV pools and int8 decode weights compose with speculative decode
     (at least 0.9 agreement with the one-token int8 engine, the JAX bar);
-  * a weight swap re-points the truncated draft's shared tensors;
+  * a weight swap re-points the truncated draft's shared tensors, and
+    updating the source tensors in place after it changes nothing;
   * `GPTForGeneration.generate` equals the JAX one, with and without the
     cache, with eos.
 Every compared one-token step's top-2 logit gap is asserted to be at least
@@ -289,7 +290,8 @@ def test_spec_swap_params_repoints_the_draft(models):
     assert spec.swap_params(new) == len(new)
     for name, t in spec._draft_params.items():
         assert t is spec._params[name]
-        assert t.data_ptr() == new[name].data_ptr()
+        assert t.data_ptr() != new[name].data_ptr()    # staged copies
+        assert torch.equal(t, new[name])
     spec.reset_slot(0)
     got = _spec_stream(spec, PROMPTS, STREAM)
     want = _one_token_stream(PagedGenerationEngine(other, **kw), PROMPTS,
@@ -297,6 +299,29 @@ def test_spec_swap_params_repoints_the_draft(models):
     assert got == want
     # the module itself is untouched
     assert dict(tm.named_parameters())["wte.weight"] is not new["wte.weight"]
+
+
+def test_spec_swap_holds_when_the_source_changes_after(models):
+    """Updating the swapped-in tensors in place after the swap changes
+    neither the target nor the draft, which still shares the target's new
+    tensors: the stream stays the one-token stream of the swapped
+    weights."""
+    _, tm = models
+    other = gpt_tiny(device="cpu", seed=8)
+    new = {k: v.detach().clone() for k, v in other.named_parameters()}
+    kw = dict(ENGINE, enable_prefix_cache=False, device="cpu")
+    spec = SpeculativeEngine(tm, gamma=3, **kw)
+    assert spec.swap_params(new) == len(new)
+    with torch.no_grad():
+        for v in new.values():
+            v.mul_(-1.0)
+    shared = [n for n, t in spec._draft_params.items()
+              if t is spec._params[n]]
+    assert shared and len(shared) == len(spec._draft_params)
+    got = _spec_stream(spec, PROMPTS, STREAM)
+    want = _one_token_stream(PagedGenerationEngine(other, **kw), PROMPTS,
+                             STREAM)
+    assert got == want
 
 
 # ------------------------------------------------------------- generation

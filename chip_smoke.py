@@ -25,14 +25,18 @@ Phases (any exception ends the run with a non-zero exit):
      its time, host time per call, the plain version's time, the
      `scaled_dot_product_attention` yardstick and the bound;
   4. the server: `Scheduler` over `PagedGenerationEngine(gpt_125m,
-     attention_impl="kernel")` answers 16 greedy requests (prompts of 1 to
+     attention_impl="kernel")`, its executables captured as CUDA graphs
+     first (`precompile()`), answers 16 greedy requests (prompts of 1 to
      700 tokens, eight sharing a 256-token prefix), with the kernel's
      launch count read just after (12 a forward: decode steps at T=1,
-     prefills on the tile path);
+     prefills on the tile path, credited once per graph replay) and every
+     executable captured exactly once; then one profiled decode step;
   5. the same engine with int8 KV pools answers 4 requests;
   6. kernel path vs plain path at full width: first token + 8 greedy
      decode steps per slot must agree, a slot's comparison stopping at the
      first step where the plain path's top-2 logit gap is below 1e-3;
+     and a replayed decode step's logits equal, bit for bit (else within
+     1e-6, recorded), the same forward run eagerly on the same state;
   7. flash-attention kernels (forward, dQ, dK/dV) vs their plain versions
      on the card: the GPT-350M training shape (B=8, H=16, S=1024, D=64,
      bf16, causal), f32 causal and non-causal, a ragged S=200, D=128, an
@@ -74,7 +78,16 @@ Phases (any exception ends the run with a non-zero exit):
      speculative decode with int8 weights and KV agrees >= 0.9 with the
      one-token int8 engine; a weight swap to a clone in the middle of
      phase 10's serving leaves every stream unchanged, and a swap with a
-     wrong-shaped tensor is refused.
+     wrong-shaped tensor is refused, and captures nothing;
+ 12. the KV handoff: engine A prefills phase 4's eight shared-prefix
+     prompts, each request's KV goes `extract_kv_wire` -> `pack_kv_bundle`
+     -> `unpack_kv_bundle` -> engine B's `adopt_kv`, and B's greedy
+     streams must equal a local engine's (phase 6's near-tie rule), with
+     float32 and with int8 pools, with the bundle bytes and the ms of each
+     step; then the 256-token shared prefix, restored into a fresh engine
+     with `restore_prefix`, must be matched by its next prefill with the
+     local stream. Every executable of every engine of phases 4, 5, 10, 11
+     and 12 is captured at most once (exactly once where precompiled).
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -413,6 +426,29 @@ def serve(engine, prompts, max_new):
     return handles, sched.metrics(), wall
 
 
+def check_captures(engine, what, every=True):
+    """Every executable of `engine` captured once (`every`), or none more
+    than once; returns the counts."""
+    counts = dict(engine.capture_counts)
+    names = engine.executable_names()
+    if any(n not in names or c != 1 for n, c in counts.items()) or \
+            (every and set(counts) != set(names)):
+        raise AssertionError(f"{what}: capture counts {counts}, want 1 "
+                             f"for each of {names}")
+    return counts
+
+
+def precompile(engine, what):
+    """Capture every executable of `engine`; returns the seconds taken."""
+    import torch
+    t0 = time.perf_counter()
+    report = engine.precompile()
+    torch.cuda.synchronize()
+    if set(report.values()) != {"captured"}:
+        raise AssertionError(f"{what}: precompile reported {report}")
+    return time.perf_counter() - t0
+
+
 def make_prompts(seed, lengths, shared_from, vocab):
     import numpy as np
     rng = np.random.RandomState(seed)
@@ -446,9 +482,9 @@ def compare_paths(model, prompts, steps=8):
         gaps.append(("prefill", slot, gap(logits)[0]))
         return sel(logits, slot)
 
-    def cap_slots(logits):
+    def cap_slots(logits, picks=None):
         gaps.append(("decode", None, gap(logits)))
-        return sel_slots(logits)
+        return sel_slots(logits, picks)
     plain._select, plain._select_slots = cap_select, cap_slots
 
     toks = {impl: [[] for _ in prompts] for impl in engs}
@@ -487,6 +523,36 @@ def compare_paths(model, prompts, steps=8):
     return compared, dropped
 
 
+def replay_vs_eager(model, prompts):
+    """Phase 6: one replayed decode step against the same forward run
+    eagerly (outside any graph) on the same state. The eager run writes
+    the same K/V at the same positions, so both read one pool."""
+    import torch
+    from paddle_tpu_torch.serving import PagedGenerationEngine
+    eng = PagedGenerationEngine(model, slots=len(prompts), max_len=1024,
+                                block_size=16, attention_impl="kernel",
+                                device=model.device)
+    for s, p in enumerate(prompts):
+        eng.prefill(s, p)
+    for _ in range(2):
+        eng.decode()                  # captures "decode", moves positions
+    eng.ensure_decode_capacity()
+    eng._io.upload()
+    replayed = eng._exe.replay("decode")[0].clone()
+    eager = eng._decode_fn()[0]
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(replayed, eager))
+    err = float((replayed - eager).abs().max())
+    rec = {"bit_equal": equal, "max_abs_err": err, "tol": 1e-6,
+           "positions": [int(x) for x in eng.slot_positions()]}
+    log(f"replay vs eager decode step (8 slots, logits [8, 50304]): "
+        f"bit-equal {equal}, max_abs_err {err:.3e}")
+    if not equal and not err <= 1e-6:
+        raise AssertionError(f"phase 6: the replayed decode step differs "
+                             f"from the eager forward by {err}")
+    return rec
+
+
 def profile_steps(step, steps):
     """One warm-up call of step() (which ends in a host read), `steps`
     calls untraced (host clock), then `steps` under torch.profiler: device
@@ -523,6 +589,8 @@ def profile_steps(step, steps):
             "paged_launches_per_step": sum(e.count for e in paged) / steps,
             "device_idle_share": (1 - busy_ms / traced_ms
                                   if busy_ms else None),
+            "device_idle_share_untraced": (1 - busy_ms / wall_ms
+                                           if busy_ms else None),
             "kernels_per_step": sum(e.count for e in kernels) / steps,
             "top": [{"name": e.key[:60], "ms_per_step":
                      dev_us(e) / steps / 1e3, "count": e.count // steps}
@@ -538,6 +606,7 @@ def profile_decode(model, prompts, steps=8):
     for s, p in enumerate(prompts):
         eng.prefill(s, p)
     rec = profile_steps(eng.decode, steps)
+    rec["capture_counts"] = check_captures(eng, "profile", every=False)
     rec.update(slots=len(prompts),
                positions=[int(x) for x in eng.slot_positions()])
     return rec
@@ -548,7 +617,8 @@ def log_profile(what, prof, smi):
         f"{prof['step_ms_untraced']:.3f} ms untraced, "
         f"{prof['step_ms_traced']:.3f} ms traced, device busy "
         f"{prof['device_busy_ms_per_step']:.3f} ms each, idle share "
-        f"{prof['device_idle_share']}, "
+        f"{prof['device_idle_share']} of the traced step, "
+        f"{prof['device_idle_share_untraced']} of the untraced one, "
         f"{prof['kernels_per_step']:.0f} kernels each; the paged kernel "
         f"{prof['paged_ms_per_step']:.4f} ms in "
         f"{prof['paged_launches_per_step']:.0f} launches [{smi}]")
@@ -576,6 +646,7 @@ def serve_spec(model, prompts, smi):
     from paddle_tpu_torch.serving import SpeculativeEngine
     cfg = model.cfg
     eng = SpeculativeEngine(model, device=model.device, **SPEC)
+    capture_s = precompile(eng, "phase 10")
     rounds = []
     spec_round = eng.decode_many
 
@@ -603,6 +674,7 @@ def serve_spec(model, prompts, smi):
             f"{cfg.num_layers} a prefill on the tile path; "
             f"{launches - window - prefill} at T=1 (the draft's or a "
             "one-token decode's)")
+    counts = check_captures(eng, "phase 10")
     cached = len(eng.prefix_cache)
     eng.prefix_cache.evict(eng.block_pool.capacity)
     if eng.block_pool.in_use != 0:
@@ -625,6 +697,7 @@ def serve_spec(model, prompts, smi):
            "decode_tokens_per_s": m["decode_tokens_per_s"],
            "draft_ms_per_round": draft_ms, "verify_ms_per_round": verify_ms,
            "prefix_hits": m["prefix_hits"], "prefix_blocks_at_end": cached,
+           "capture_s": capture_s, "capture_counts": counts,
            "wall_s": wall, "card": smi}
     log(f"serve gpt_125m speculative (gamma 4, 2-layer draft, kernel): "
         f"{len(prompts)} requests done, acceptance "
@@ -635,8 +708,8 @@ def serve_spec(model, prompts, smi):
         f"decode_tok_s={rec['decode_tokens_per_s']:.1f}, draft "
         f"{draft_ms:.3f} ms + verify {verify_ms:.3f} ms a round (host "
         f"clock), launches={launches} ({cfg.num_layers}/forward x "
-        f"{n_rounds} rounds + {prefills} prefills), no block leaked "
-        f"[{smi}]")
+        f"{n_rounds} rounds + {prefills} prefills), no block leaked; "
+        f"captured in {capture_s:.2f} s, capture counts {counts} [{smi}]")
     return rec, handles, window, prefill
 
 
@@ -648,7 +721,9 @@ def profile_spec_round(model, prompts, smi):
         eng.prefill(s, p)
     rec = profile_steps(eng.decode_many, 4)
     rec.update(slots=len(prompts),
-               positions=[int(x) for x in eng.slot_positions()])
+               positions=[int(x) for x in eng.slot_positions()],
+               capture_counts=check_captures(eng, "phase 10 profile",
+                                             every=False))
     log_profile("speculative round", rec, smi)
     return rec
 
@@ -815,6 +890,9 @@ def hot_swap(model, prompts, want, smi):
     if [r["ok"] for r in results] != [True, False] or \
             sched.model_version != 1:
         raise AssertionError(f"phase 11: swap results {results}")
+    counts = check_captures(eng, "phase 11 swap", every=False)
+    if counts.get("spec_verify") != 1:
+        raise AssertionError(f"phase 11: capture counts {counts}")
     inflight = results[0]["inflight"]
     for h, w in zip(handles, want):
         if h.status != "DONE" or h.tokens != w.tokens:
@@ -824,8 +902,163 @@ def hot_swap(model, prompts, want, smi):
     log(f"hot-swap during speculative serving: clone applied with "
         f"{inflight} requests in flight ({results[0]['params']} tensors), "
         f"wrong shape refused ({results[1]['error'][:60]}...), "
-        f"{len(prompts)} streams unchanged [{smi}]")
-    return {"results": results, "streams_unchanged": len(prompts)}
+        f"{len(prompts)} streams unchanged, capture counts {counts} "
+        f"[{smi}]")
+    return {"results": results, "streams_unchanged": len(prompts),
+            "capture_counts": counts}
+
+
+# ------------------------------------------------------------- KV handoff
+def handoff_streams(model, prompts, kv_dtype, steps, smi):
+    """Phase 12 for one pool type: A prefills, every request's KV crosses
+    the wire to B, B decodes; B's streams against a local engine's.
+    Returns (record, engine A)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving import PagedGenerationEngine
+    from paddle_tpu_torch.serving.distributed import kv_handoff as kvh
+    kw = dict(slots=len(prompts), max_len=1024, block_size=16,
+              attention_impl="kernel", kv_dtype=kv_dtype,
+              device=model.device)
+    a = PagedGenerationEngine(model, **kw)
+    b = PagedGenerationEngine(model, **kw)
+    capture_s = precompile(b, f"phase 12 {kv_dtype}")
+    steps_ms = {"extract": [], "pack": [], "unpack": [], "adopt": []}
+    nbytes, firsts = [], []
+
+    def clock(what, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps_ms[what].append((time.perf_counter() - t0) * 1e3)
+        return out
+    for s, p in enumerate(prompts):
+        first = a.prefill(s, p)
+        firsts.append(first)
+        wire = clock("extract", lambda: a.extract_kv_wire(s))
+        quant = {k: wire[k] for k in ("k_scales", "v_scales",
+                                      "scale_block") if k in wire}
+        bundle = clock("pack", lambda: kvh.pack_kv_bundle(
+            wire["ks"], wire["vs"], meta={"plen": wire["plen"],
+                                          "first_token": first}, **quant))
+        nbytes.append(len(bundle))
+        ks, vs, meta = clock("unpack", lambda: kvh.unpack_kv_bundle(bundle))
+        clock("adopt", lambda: b.adopt_kv(s, ks, vs, meta["plen"],
+                                          meta["first_token"]))
+        if not b.last_prefill_stats.get("adopted"):
+            raise AssertionError("phase 12: adopt_kv did not adopt")
+    got = [[f] for f in firsts]
+    for _ in range(steps):
+        out = b.decode()
+        for s in range(len(prompts)):
+            got[s].append(int(out[s]))
+    counts = check_captures(b, f"phase 12 {kv_dtype}")
+    compared, dropped = stream_parity(model, prompts, got, kw, steps,
+                                      f"phase 12 {kv_dtype}")
+    longest = int(np.argmax([len(p) for p in prompts]))
+    rec = {"kv_dtype": kv_dtype, "requests": len(prompts),
+           "tokens": [len(p) for p in prompts], "bundle_bytes": nbytes,
+           "ms": steps_ms,
+           "ms_mean": {k: sum(v) / len(v) for k, v in steps_ms.items()},
+           "longest": {"tokens": len(prompts[longest]),
+                       "bytes": nbytes[longest],
+                       **{k: v[longest] for k, v in steps_ms.items()}},
+           "compared_tokens": compared, "dropped_near_ties": dropped,
+           "capture_s": capture_s, "capture_counts": counts, "card": smi}
+    lg = rec["longest"]
+    log(f"handoff {kv_dtype} pools ({len(prompts)} requests of "
+        f"{min(rec['tokens'])}-{max(rec['tokens'])} tokens): streams agree "
+        f"on {compared} tokens ({dropped} dropped by the top-2 gap < "
+        f"{GAP_MIN} rule); the {lg['tokens']}-token bundle "
+        f"{lg['bytes']} bytes, extract {lg['extract']:.2f} ms, pack "
+        f"{lg['pack']:.2f}, unpack {lg['unpack']:.2f}, adopt "
+        f"{lg['adopt']:.2f}; mean "
+        + ", ".join(f"{k} {v:.2f}" for k, v in rec["ms_mean"].items())
+        + f" ms; capture counts {counts} [{smi}]")
+    del b
+    return rec, a
+
+
+def stream_parity(model, prompts, got, kw, steps, what, slots=None):
+    """Greedy streams `got` (first token + `steps` decodes per slot)
+    against a local engine's, a slot's comparison stopping at the first
+    step whose local top-2 gap is below GAP_MIN. Returns (compared,
+    dropped)."""
+    from paddle_tpu_torch.serving import PagedGenerationEngine
+    local = PagedGenerationEngine(model, capture_logits=True, **kw)
+    gaps = [[] for _ in prompts]
+    sel = local._select
+
+    def cap_select(logits, slot):
+        gaps[slot].append(float(top2_gaps(logits.float().cpu())[0]))
+        return sel(logits, slot)
+    local._select = cap_select
+    want = [[local.prefill(s, p)] for s, p in enumerate(prompts)]
+    for _ in range(steps):
+        out = local.decode()
+        g = top2_gaps(local.last_logits)
+        for s in range(len(prompts)):
+            gaps[s].append(float(g[s]))
+            want[s].append(int(out[s]))
+    compared = dropped = 0
+    for s in (range(len(prompts)) if slots is None else slots):
+        row = got[s if slots is None else slots.index(s)]
+        for t in range(len(row)):
+            if gaps[s][t] < GAP_MIN:
+                dropped += len(row) - t
+                break
+            if row[t] != want[s][t]:
+                raise AssertionError(
+                    f"{what}: slot {s} token {t}: {row[t]} != local "
+                    f"{want[s][t]} (gap {gaps[s][t]:.3e})")
+            compared += 1
+    check_captures(local, what + " local", every=False)
+    return compared, dropped
+
+
+def handoff(model, prompts, smi, steps=8):
+    """Phase 12: the KV handoff on the card, float32 and int8 pools, then
+    a prefix restore of the prompts' shared 256 tokens."""
+    import torch
+    from paddle_tpu_torch.serving import PagedGenerationEngine
+    out = {}
+    out["float32"], a = handoff_streams(model, prompts, "float32", steps,
+                                        smi)
+    kw = dict(slots=len(prompts), max_len=1024, block_size=16,
+              attention_impl="kernel", device=model.device)
+    ks, vs, n = a.extract_prefix_kv(prompts[1])
+    if n < 256:
+        raise AssertionError(f"phase 12: A's cached chain covers {n} tokens")
+    del a
+    r = PagedGenerationEngine(model, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = r.restore_prefix(prompts[1], [k[:256] for k in ks],
+                                [v[:256] for v in vs], 256)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    first = r.prefill(2, prompts[2])
+    hit = r.last_prefill_stats["prefix_hit_tokens"]
+    if restored != 256 or hit != 256:
+        raise AssertionError(f"phase 12: restored {restored} tokens, the "
+                             f"next prefill hit {hit}; want 256 and 256")
+    row = [first] + [int(r.decode()[2]) for _ in range(steps)]
+    compared, dropped = stream_parity(model, prompts[:3], [row], kw, steps,
+                                      "phase 12 restore", slots=[2])
+    out["restore"] = {"tokens": restored, "prefix_hit_tokens": hit,
+                      "restore_ms": restore_ms, "compared_tokens": compared,
+                      "dropped_near_ties": dropped,
+                      "capture_counts": check_captures(
+                          r, "phase 12 restore", every=False)}
+    log(f"prefix restore: 256 shared tokens restored in {restore_ms:.2f} "
+        f"ms, the next prefill hit {hit} tokens, its stream agrees on "
+        f"{compared} tokens ({dropped} dropped) [{smi}]")
+    del r
+    out["int8"], a = handoff_streams(model, prompts, "int8", steps, smi)
+    del a
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------ flash kernels
@@ -1412,8 +1645,10 @@ def main(argv):
     engine = PagedGenerationEngine(model, slots=8, max_len=1024,
                                    block_size=16, attention_impl="kernel",
                                    device="cuda")
+    capture4 = precompile(engine, "phase 4")
     pa.launches = pa.launches_window = pa.launches_prefill = 0
     handles, m, wall = serve(engine, prompts, max_new=32)
+    counts4 = check_captures(engine, "phase 4")
     launches, prefill4 = pa.launches, pa.launches_prefill
     prefills = len(prompts) + m["requests"]["preempted"]
     if launches <= 0:
@@ -1437,6 +1672,7 @@ def main(argv):
                  "decode_tokens_per_s": m["decode_tokens_per_s"],
                  "ttft_s_mean": sum(ttfts) / len(ttfts),
                  "ttft_s_max": max(ttfts), "prefix_hits": m["prefix_hits"],
+                 "capture_s": capture4, "capture_counts": counts4,
                  "wall_s": wall, "card": smi}
     report["serve"] = serve_rec
     log(f"serve gpt_125m kernel: {len(prompts)} requests done, "
@@ -1446,14 +1682,17 @@ def main(argv):
         f"decode_tok_s={m['decode_tokens_per_s']:.1f} "
         f"ttft_mean_s={serve_rec['ttft_s_mean']:.4f} "
         f"ttft_max_s={serve_rec['ttft_s_max']:.4f} "
-        f"prefix_hits={m['prefix_hits']} wall_s={wall:.2f} [{smi}]")
+        f"prefix_hits={m['prefix_hits']} wall_s={wall:.2f}; captured in "
+        f"{capture4:.2f} s, capture counts {counts4} [{smi}]")
 
     # 5. int8 KV ---------------------------------------------------------------------
     eng8 = PagedGenerationEngine(model, slots=8, max_len=1024,
                                  block_size=16, attention_impl="kernel",
                                  kv_dtype="int8", device="cuda")
+    precompile(eng8, "phase 5")
     pa.launches = pa.launches_prefill = 0
     _, m8, wall8 = serve(eng8, prompts[8:12], max_new=32)
+    check_captures(eng8, "phase 5")
     launches8 = pa.launches - pa.launches_prefill   # the decode launches
     if launches8 <= 0:
         raise AssertionError("the int8 server never launched the kernel")
@@ -1479,6 +1718,7 @@ def main(argv):
         f"{dropped} dropped by the top-2 gap < {GAP_MIN} rule")
     if compared == 0:
         raise AssertionError("phase 6 compared nothing")
+    report["replay_vs_eager"] = replay_vs_eager(model, prompts[8:16])
 
     # 7. flash kernels vs plain -------------------------------------------------
     flush_buf = torch.empty(64 * 1024 * 1024, device="cuda")
@@ -1520,6 +1760,9 @@ def main(argv):
     report["quant_weights"] = quant_weights_quality(model, prompts[8:16], smi)
     report["spec_int8"] = spec_int8_agreement(model, prompts[8:12], smi)
     report["hot_swap"] = hot_swap(model, prompts, spec_handles, smi)
+
+    # 12. the KV handoff ----------------------------------------------------
+    report["handoff"] = handoff(model, prompts[8:16], smi)
 
     # summary ------------------------------------------------------------------------
     dec = next(c for c in cases if c["case"] == "decode_f32")

@@ -80,6 +80,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 #include "hopper.cuh"
 
 namespace {
@@ -1033,12 +1037,25 @@ __global__ void __launch_bounds__(kThreads) paged_tile_kernel(
 }
 
 // ------------------------------------------------------------------ launch
+// Raise a kernel's dynamic shared-memory limit once per (device, kernel):
+// later launches, those captured in a CUDA graph among them, make no
+// attribute call (a capture's warm-up launch made it).
 template <typename Kern>
 cudaError_t allow_smem(Kern kern, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> allowed;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const auto key = std::make_pair(dev, reinterpret_cast<const void*>(kern));
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = allowed.find(key);
+  if (it != allowed.end() && it->second >= smem) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e == cudaSuccess) allowed[key] = smem;
+  return e;
 }
 
 int splits(int keys, int split) { return (keys + split - 1) / split; }

@@ -27,7 +27,10 @@ the first two, for the tests; the main path never calls it.
 
 `launches` counts kernel launches (CPU calls do not count), so a run can
 show that its main path went through the kernel; `launches_window` counts
-those of them at T = 2..WINDOW_ROWS and `launches_prefill` those above.
+those of them at T = 2..WINDOW_ROWS and `launches_prefill` those above. A
+call captured in a CUDA graph launches at every replay, where no Python
+runs: the graph's owner credits the launches it recorded at capture once
+per replay (`count_replay`; `serving/graphs.py`).
 """
 import ctypes
 
@@ -35,6 +38,7 @@ import torch
 
 __all__ = ["paged_attention", "attend_split_plain", "decode_split_keys",
            "launches", "launches_window", "launches_prefill",
+           "launch_counts", "set_launch_counts", "count_replay",
            "SUPPORTED_HEAD_DIMS", "WINDOW_ROWS"]
 
 launches = 0
@@ -218,6 +222,24 @@ def _launch(q, k_pool, v_pool, tables, pos, scale, k_scale, v_scale, qmax,
     elif T > 1:
         launches_window += 1
     return out
+
+
+def launch_counts():
+    """(launches, launches_window, launches_prefill) as they stand."""
+    return launches, launches_window, launches_prefill
+
+
+def set_launch_counts(counts):
+    """Put the three counters back to `counts` (a capture's warm-up and
+    capture calls launch nothing of the path's work)."""
+    global launches, launches_window, launches_prefill
+    launches, launches_window, launches_prefill = (int(c) for c in counts)
+
+
+def count_replay(counts):
+    """Credit one replay of a CUDA graph whose capture recorded `counts`
+    launches: the replay launches them, with no Python running."""
+    set_launch_counts(a + b for a, b in zip(launch_counts(), counts))
 
 
 def _ticket_counters(device, stream, n):

@@ -5,11 +5,15 @@ continuous-batching scheduler (counterpart of `paddle_tpu.serving`).
   blocks.py       — paged KV pool, block tables, int8 pools, BlockPool
   prefix_cache.py — shared prompt blocks keyed on a prefix hash
   sampling.py     — greedy / temperature / top-k / top-p selection
+  graphs.py       — the serving executables as CUDA graphs, captured once
   engine.py       — dense and paged prefill/decode engines, int8 decode
-                    weights, logit capture, weight hot-swap
+                    weights, logit capture, weight hot-swap, KV handoff
+                    (extract, adopt, prefix restore)
   spec_decode.py  — speculative decode: draft proposals, one verify window
   scheduler.py    — priority queue, continuous batching, preemption,
-                    speculative rounds, scheduled weight swaps
+                    speculative rounds, scheduled weight swaps, staged
+                    placement from handed-off KV
+  distributed/    — the KV-bundle wire format of the handoff
 """
 from . import blocks, kv_cache, prefix_cache, sampling  # noqa: F401
 from .blocks import (  # noqa: F401

@@ -8,30 +8,40 @@ token per step. Slot lifecycle (who occupies which slot, retirement,
 refill) belongs to `scheduler.Scheduler`; the engines only compute.
 
 Every forward is functional: `torch.func.functional_call` runs the module
-over a param dict. `_params` (the module's own tensors, no copy) serves
-prefill; `_decode_params` serves decode and is the same dict, or with
-`weight_dtype="int8"` int8 codes plus per-output-channel scales that each
-decode forward dequantizes with plain torch before the float matmuls.
-`swap_params` replaces the dict between steps (weight hot-swap) and leaves
-the module untouched.
+over a param dict. `_params` is the engine's own copy of the module's
+weights and serves prefill; `_decode_params` serves decode and is the same
+dict, or with `weight_dtype="int8"` int8 codes plus per-output-channel
+scales that each decode forward dequantizes with plain torch before the
+float matmuls. `swap_params` copies new weights into that storage in
+place (weight hot-swap) and leaves the module untouched.
 
-PyTorch runs eagerly, so the JAX engines' compile-once executables have no
-counterpart here. What the port counts instead is kernel launches:
-`kernel_launches` is the number of paged-attention kernel launches this
-engine's calls made (0 for the gather path and on the CPU).
+The paged engine's serving executables (`executable_names()`: `decode`
+and `prefill[bucket]`) run on the card as CUDA graphs, captured once per
+engine (`precompile()`, or on first use) and replayed (`graphs.py`): the
+port's counterpart of the JAX engines' compile-once executables.
+`capture_counts` counts captures as the JAX `trace_counts` count traces,
+and `kernel_launches` the paged-attention kernel launches the engine's
+calls made (0 for the gather path and on the CPU). The KV handoff
+(`extract_kv`, `extract_kv_wire`, `adopt_kv`, `prefix_probe`,
+`extract_prefix_kv`, `restore_prefix`) writes the pools in place, so the
+graphs keep reading the KV it moves.
 
 Left out of this port: the persistent compile cache, the numerics taps,
-LoRA adapters, KV tiers and KV handoff (adopt/extract).
+LoRA adapters, the KV tiers and the fault sites of the handoff.
 """
+import functools
+import gc
+
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
 from ..ops import paged_attention as _pa
 from . import blocks
+from . import graphs
 from . import kv_cache as kvc
 from . import sampling
-from .prefix_cache import PrefixCache
+from .prefix_cache import PrefixCache, prefix_key
 
 __all__ = ["EngineConfig", "GenerationEngine", "PagedEngineConfig",
            "PagedGenerationEngine", "DEFAULT_BUCKETS"]
@@ -100,9 +110,11 @@ class GenerationEngine:
                 f"max_len={self.config.max_len} exceeds the model's "
                 f"max_position_embeddings={model.cfg.max_position_embeddings}")
         self._model = model
-        # the module's own tensors, no copy: prefill serves this dict,
-        # decode the derived `_decode_params`
-        self._params = dict(model.named_parameters())
+        # the engine's own copy of the weights: prefill serves this dict,
+        # decode the derived `_decode_params`; a swap copies into it
+        with torch.no_grad():
+            self._params = {n: p.detach().clone()
+                            for n, p in model.named_parameters()}
         self._build_decode_params()
         self._last_tokens = np.zeros((self.config.slots,), np.int32)
         # per-slot sampler state: slot s's next token is generation index
@@ -139,11 +151,14 @@ class GenerationEngine:
             logits, generator=gen, strategy=c.decode_strategy,
             temperature=c.temperature, top_k=c.top_k, top_p=c.top_p)
 
-    def _select_slots(self, logits):
+    def _select_slots(self, logits, picks=None):
         """[slots, V] -> np.int32 [slots]; sampling draws each row from its
-        own slot's generator."""
+        own slot's generator. `picks`: the greedy argmax when the caller
+        computed it already (inside a decode graph)."""
         if self.config.decode_strategy == "greedy":
-            return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+            if picks is None:
+                picks = torch.argmax(logits, dim=-1)
+            return picks.to(torch.int32).cpu().numpy()
         return np.array([int(self._select(logits[s:s + 1], s)[0])
                          for s in range(logits.shape[0])], np.int32)
 
@@ -185,14 +200,11 @@ class GenerationEngine:
 
     def _forward(self, ids, cache, params=None):
         """One functional model forward over `params` (default: the float
-        serving dict), counting the kernel launches it made."""
-        before = _pa.launches
+        serving dict)."""
         with torch.no_grad():
-            out = torch.func.functional_call(
+            return torch.func.functional_call(
                 self._model, self._params if params is None else params,
                 (ids,), {"cache": cache})
-        self.kernel_launches += _pa.launches - before
-        return out
 
     def _decode_forward(self, ids, cache):
         """A decode (or verify) forward: over `_decode_params`, int8
@@ -203,9 +215,12 @@ class GenerationEngine:
     # -- decode params and weight hot-swap ----------------------------------
     def _build_decode_params(self):
         """The param set decode runs on: the float dict itself here; the
-        paged engine quantizes it for weight_dtype="int8". Rebuilt after
-        every weight swap."""
+        paged engine quantizes it for weight_dtype="int8"."""
         self._decode_params = self._params
+
+    def _refresh_decode_params(self):
+        """Re-derive the decode set from `_params` in place after a swap
+        (nothing to do when it is `_params` itself)."""
 
     @staticmethod
     def _dequant_params(params):
@@ -221,9 +236,10 @@ class GenerationEngine:
         every serving name to a tensor or array of the same shape; values
         are cast to the serving dtype and moved to the engine's device.
         Staged and atomic: a missing key or a wrong shape raises and the
-        old weights keep serving. Every value is copied into storage of
-        the engine's own, detached, so a caller that later updates its
-        tensors in place (a trainer stepping the model it swapped in)
+        old weights keep serving. The commit copies every value into the
+        engine's own storage in place (the storage the captured graphs
+        read, so a swap captures nothing), so a caller that later updates
+        its tensors in place (a trainer stepping the model it swapped in)
         cannot change what serves, as the reference's immutable arrays
         cannot. The module is left untouched. Returns the number of
         swapped tensors."""
@@ -241,9 +257,11 @@ class GenerationEngine:
                     f"serving shape {tuple(old.shape)}: a hot-swap can "
                     f"only replace values, never architecture")
             staged[name] = arr.detach().to(device=old.device,
-                                           dtype=old.dtype, copy=True)
-        self._params = staged                  # the commit point
-        self._build_decode_params()
+                                           dtype=old.dtype)
+        with torch.no_grad():                  # the commit point
+            for name, arr in staged.items():
+                current[name].copy_(arr)
+        self._refresh_decode_params()
         return len(staged)
 
     # -- public compute API ---------------------------------------------------
@@ -359,7 +377,12 @@ class PagedGenerationEngine(GenerationEngine):
     tables and positions live on the host, the pools on the device. Adds
     `block_pool` (refcounted allocator), `prefix_cache` (shared prompt
     blocks) and `ensure_slot_capacity` for the scheduler's preemption
-    loop. Prefill runs only the suffix after a prefix-cache hit."""
+    loop. Prefill runs only the suffix after a prefix-cache hit.
+
+    The host state the executables read (each slot's next input token,
+    position and block table) lives in the host views of one
+    `graphs.StaticInputs`, uploaded in one copy before every call; the
+    pools, the weights and those inputs are never reallocated."""
 
     _config_cls = PagedEngineConfig
 
@@ -379,14 +402,34 @@ class PagedGenerationEngine(GenerationEngine):
             self._pool = blocks.alloc_pools(
                 cfg.num_layers, c.num_blocks, c.block_size, cfg.num_heads,
                 head_dim, self._model.wte.weight.dtype, self.device)
-        self._pos = np.zeros((c.slots,), np.int32)
-        self._tables = np.zeros((c.slots, c.max_blocks_per_slot), np.int32)
+        self._io = graphs.StaticInputs(self._decode_fields(), self.device)
+        self._last_tokens = self._io.host["tokens"]
+        self._pos = self._io.host["pos"]
+        self._tables = self._io.host["tables"]
+        self._pf = graphs.StaticInputs(self._prefill_fields(), self.device)
+        self._exe = graphs.Executables(self.device)
         self._slot_active = np.zeros((c.slots,), bool)
         self.block_pool = blocks.BlockPool(c.num_blocks, c.block_size)
         self.prefix_cache = PrefixCache(self.block_pool, c.block_size) \
             if c.enable_prefix_cache else None
         self.last_prefill_stats = {}
         self.last_logits = None
+
+    def _decode_fields(self):
+        """Inputs of the decode-step executables: each slot's next input
+        token, position and block table."""
+        c = self.config
+        return {"tokens": (c.slots,), "pos": (c.slots,),
+                "tables": (c.slots, c.max_blocks_per_slot)}
+
+    def _prefill_fields(self):
+        """Inputs of `prefill[b]`: the bucket-padded suffix (bucket b reads
+        its first b ids), the slot's table row, the suffix's start
+        position and its real length."""
+        c = self.config
+        return {"ids": (1, max(c.prefill_buckets)),
+                "row": (1, c.max_blocks_per_slot), "pos": (1,),
+                "valid": (1,)}
 
     # -- int8 decode weights --------------------------------------------------
     @staticmethod
@@ -404,6 +447,15 @@ class PagedGenerationEngine(GenerationEngine):
             self._decode_params = self._params
             return
         self._decode_params = self._quantize_params(self._params)
+
+    def _refresh_decode_params(self):
+        """Requantize the int8 decode weights in place from `_params`."""
+        with torch.no_grad():
+            for name, v in self._decode_params.items():
+                if isinstance(v, dict):
+                    codes, s_b = _quantize_weight(self._params[name])
+                    v["q"].copy_(codes)
+                    v["scale"].copy_(s_b)
 
     def _quantize_params(self, params):
         """int8-quantize every decode-matmul weight of a param dict;
@@ -453,26 +505,93 @@ class PagedGenerationEngine(GenerationEngine):
         for s in range(self.config.slots):
             self.ensure_slot_capacity(s)
 
+    # -- the executables ------------------------------------------------------
+    def executable_names(self):
+        """The engine's serving executables, the JAX engine's list for the
+        same config."""
+        return ["decode"] + [f"prefill[{b}]"
+                             for b in self.config.prefill_buckets]
+
+    @property
+    def capture_counts(self):
+        """{executable: times captured as a CUDA graph} (at most 1 each)."""
+        return self._exe.capture_counts
+
+    def _safe_inputs(self):
+        """Values of the decode inputs whose writes land in scratch, beyond
+        the zeros `StaticInputs.upload` puts everywhere else (None: zeros
+        are safe: every table entry is the garbage block)."""
+        return None
+
+    def _executable(self, name):
+        """(function, inputs, safe state) of executable `name`."""
+        if name == "decode":
+            return self._decode_fn, self._io, self._safe_inputs()
+        if name.startswith("prefill["):
+            bucket = int(name[len("prefill["):-1])
+            return functools.partial(self._prefill_fn, bucket), self._pf, None
+        raise KeyError(f"unknown executable {name!r}")
+
+    def precompile(self):
+        """Capture every serving executable as a CUDA graph without serving
+        a request: the kernel library is built, each graph is warmed up
+        and captured over the safe state, and no RNG is drawn and no
+        engine state moves, so token streams are identical with or without
+        it. Returns {executable: "captured"}, or on the CPU, where the
+        executables run eagerly, {executable: "eager"}."""
+        names = self.executable_names()
+        if self.device.type != "cuda":
+            return dict.fromkeys(names, "eager")
+        gc.collect()                  # free dead graphs' memory first
+        if self.config.attention_impl == "kernel":
+            _pa.decode_split_keys()             # builds the library
+        for name in names:
+            self._exe.capture(name, *self._executable(name))
+        return dict.fromkeys(names, "captured")
+
+    def _run(self, name, upload=True):
+        """Run executable `name` (a replay on the card) and count its
+        paged-kernel launches."""
+        out, launches = self._exe.run(name, *self._executable(name),
+                                      upload=upload)
+        self.kernel_launches += launches
+        return out
+
     def _paged_forward(self, ids, tables, pos, valid=None, decode=False):
         """One forward through the block tables under `attention_impl`;
         decode (and verify) forwards run on `_decode_params`."""
-        cache = blocks.PagedDecodeCache(
-            self._pool,
-            torch.from_numpy(np.ascontiguousarray(tables)).to(self.device),
-            torch.from_numpy(np.asarray(pos, np.int32)).to(self.device),
-            None if valid is None else
-            torch.tensor(valid, dtype=torch.int32, device=self.device))
+        cache = blocks.PagedDecodeCache(self._pool, tables, pos, valid)
         forward = self._decode_forward if decode else self._forward
         with blocks.attention_impl(self.config.attention_impl):
             logits, _ = forward(ids, cache)
         return logits
 
+    def _decode_fn(self):
+        """The `decode` executable: one token for every slot. Returns
+        (last-token logits [slots, V], greedy argmax [slots] int32 or
+        None)."""
+        io = self._io.dev
+        logits = self._paged_forward(io["tokens"][:, None], io["tables"],
+                                     io["pos"], decode=True)[:, 0]
+        picks = torch.argmax(logits, dim=-1).to(torch.int32) \
+            if self.config.decode_strategy == "greedy" else None
+        return logits, picks
+
+    def _prefill_fn(self, bucket):
+        """The `prefill[bucket]` executable: the padded suffix through the
+        slot's table row; returns its logits [1, bucket, V]."""
+        pf = self._pf.dev
+        return self._paged_forward(pf["ids"][:, :bucket], pf["row"],
+                                   pf["pos"], valid=pf["valid"])
+
     # -- public compute API ---------------------------------------------------
-    def prefill(self, slot, prompt_ids, rng=None):
+    def prefill(self, slot, prompt_ids, rng=None, namespace=None):
         """Place `prompt_ids` into `slot`: match the prefix cache, allocate
         private blocks for the rest, run the suffix through its bucket
         (writes land in this slot's blocks) and return the first token.
-        `last_prefill_stats` records the prefix hit."""
+        `namespace` salts the prefix-cache keys (chains of two namespaces
+        never share a block). `last_prefill_stats` records the prefix
+        hit."""
         slot = int(slot)
         prompt = self._check_prompt(prompt_ids)
         if self._slot_active[slot]:
@@ -483,7 +602,8 @@ class PagedGenerationEngine(GenerationEngine):
         need = blocks.blocks_for_tokens(plen, bs)
         # record=False: the hit counts only once this placement sticks
         shared, nshared = ([], 0) if self.prefix_cache is None \
-            else self.prefix_cache.match(toks, record=False)
+            else self.prefix_cache.match(toks, record=False,
+                                         namespace=namespace)
         n_priv = need - nshared // bs
         try:
             priv = self._alloc_blocks(n_priv) if n_priv else []
@@ -502,14 +622,20 @@ class PagedGenerationEngine(GenerationEngine):
 
         suffix = prompt[nshared:]
         bucket = self.bucket_for(suffix.size)
-        logits = self._paged_forward(self._padded(suffix, bucket), row[None],
-                                     [nshared], valid=[suffix.size])
+        pf = self._pf.host
+        pf["ids"][0, :bucket] = 0
+        pf["ids"][0, :suffix.size] = suffix
+        pf["row"][0] = row
+        pf["pos"][0] = nshared
+        pf["valid"][0] = suffix.size
+        logits = self._run(f"prefill[{bucket}]")
         self._pos[slot] = nshared + suffix.size
         first = int(self._select(logits[:, suffix.size - 1], slot)[0])
         self._slot_gen[slot] += 1
         if self.prefix_cache is not None:
             # the prompt's fully written blocks become shareable
-            self.prefix_cache.insert(toks, row, (plen // bs) * bs)
+            self.prefix_cache.insert(toks, row, (plen // bs) * bs,
+                                     namespace=namespace)
             self.prefix_cache.record_lookup(nshared > 0)
         self.last_prefill_stats = {"prefix_hit_tokens": nshared,
                                    "blocks_allocated": n_priv,
@@ -522,16 +648,13 @@ class PagedGenerationEngine(GenerationEngine):
         slots get their next block first (BlockAllocError under pressure;
         the scheduler grows slots itself so it can preempt instead)."""
         self.ensure_decode_capacity()
-        tokens = torch.from_numpy(self._last_tokens.astype(np.int64))
-        logits = self._paged_forward(tokens.to(self.device)[:, None],
-                                     self._tables, self._pos, decode=True)
-        self._pos = np.minimum(self._pos + 1, self.config.max_len - 1) \
-            .astype(np.int32)
+        logits, picks = self._run("decode")
+        self._pos[:] = np.minimum(self._pos + 1, self.config.max_len - 1)
         if self.config.capture_logits:
-            self.last_logits = logits[:, 0].float().cpu().numpy()
-        out = self._select_slots(logits[:, 0])
+            self.last_logits = logits.float().cpu().numpy()
+        out = self._select_slots(logits, picks)
         self._slot_gen += 1
-        self._last_tokens = out.copy()
+        self._last_tokens[:] = out
         return out
 
     def reset_slot(self, slot):
@@ -549,3 +672,262 @@ class PagedGenerationEngine(GenerationEngine):
 
     def slot_positions(self):
         return self._pos.copy()
+
+    # -- KV handoff -----------------------------------------------------------
+    def _head_shape(self):
+        cfg = self._model.cfg
+        return cfg.num_heads, cfg.hidden_size // cfg.num_heads
+
+    def _extract_row(self, slot):
+        """Validate `slot` for extraction; returns (its first nb table
+        entries as a device index, resident tokens, nb)."""
+        slot = int(slot)
+        if not self._slot_active[slot]:
+            raise ValueError(f"slot {slot} holds no request to extract")
+        plen = int(self._pos[slot])
+        if plen < 1:
+            raise ValueError(f"slot {slot} has no resident tokens")
+        nb = blocks.blocks_for_tokens(plen, self.config.block_size)
+        row = torch.from_numpy(self._tables[slot, :nb].astype(np.int64))
+        return row.to(self.device), plen, nb
+
+    def _host_buffer(self, shape, dtype):
+        """A host tensor for one device copy: page-locked when the engine
+        runs on the card (PyTorch's caching host allocator hands it out,
+        and the copies into and out of it are synchronous)."""
+        return torch.empty(shape, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    def _to_host(self, arrays, tokens):
+        """Per-layer [nb, bs, h, d] device blocks -> contiguous host
+        [tokens, h, d] arrays (block padding stripped), in one copy."""
+        stacked = torch.stack(arrays)
+        host = self._host_buffer(stacked.shape, stacked.dtype)
+        host.copy_(stacked)
+        host = host.numpy()
+        host = host.reshape(host.shape[0], -1, *host.shape[3:])[:, :tokens]
+        return list(host)
+
+    def extract_kv(self, slot):
+        """The handoff source: the `pos[slot]` resident tokens of `slot`,
+        per layer, as host [plen, heads, head_dim] arrays (int8 pools
+        dequantized). Returns (ks, vs, plen)."""
+        row, plen, _ = self._extract_row(slot)
+        ks, vs = [], []
+        for layer in self._pool:
+            if self.kv_quantized:
+                ks.append(blocks.dequant(layer.k[row], layer.k_scale[row]))
+                vs.append(blocks.dequant(layer.v[row], layer.v_scale[row]))
+            else:
+                ks.append(layer.k[row])
+                vs.append(layer.v[row])
+        host = self._to_host(ks + vs, plen)
+        return host[:len(ks)], host[len(ks):], plen
+
+    def extract_kv_wire(self, slot):
+        """What `kv_handoff.pack_kv_bundle` needs. Float pools return
+        {"ks", "vs", "plen"}; int8 pools ship their codes and add the
+        per-block per-head scales ("k_scales"/"v_scales", [nblocks, heads]
+        f32 per layer) and "scale_block" (this pool's block size)."""
+        if not self.kv_quantized:
+            ks, vs, plen = self.extract_kv(slot)
+            return {"ks": ks, "vs": vs, "plen": plen}
+        row, plen, nb = self._extract_row(slot)
+        codes = [layer.k[row] for layer in self._pool] + \
+            [layer.v[row] for layer in self._pool]
+        scales = torch.stack([layer.k_scale[row] for layer in self._pool]
+                             + [layer.v_scale[row] for layer in self._pool])
+        host = self._to_host(codes, plen)
+        sc = [np.ascontiguousarray(a, np.float32)
+              for a in scales.cpu().numpy()]
+        n = len(self._pool)
+        return {"ks": host[:n], "vs": host[n:], "plen": plen,
+                "k_scales": sc[:n], "v_scales": sc[n:],
+                "scale_block": self.config.block_size}
+
+    def _check_bundle(self, ks, vs, plen, what):
+        cfg = self._model.cfg
+        shape = (int(plen),) + self._head_shape()
+        if len(ks) != cfg.num_layers or len(vs) != cfg.num_layers:
+            raise ValueError(
+                f"{what} bundle has {len(ks)}/{len(vs)} layers, model has "
+                f"{cfg.num_layers}")
+        for arr in list(ks) + list(vs):
+            if tuple(np.shape(arr)) != shape:
+                raise ValueError(f"{what} layer shape "
+                                 f"{tuple(np.shape(arr))} != {shape}")
+
+    def _upload_bundle(self, ks, vs, tokens):
+        """The first `tokens` rows of host K/V slices -> one device float32
+        tensor [2, layers, tokens, h, d] (one copy)."""
+        buf = self._host_buffer((2, len(ks), tokens) + self._head_shape(),
+                                torch.float32)
+        host = buf.numpy()
+        for i, (k, v) in enumerate(zip(ks, vs)):
+            host[0, i] = np.asarray(k, np.float32)[:tokens]
+            host[1, i] = np.asarray(v, np.float32)[:tokens]
+        return buf.to(self.device)
+
+    def adopt_kv(self, slot, ks, vs, plen, first_token, rng=None):
+        """The handoff sink: place a request whose prefill ran elsewhere.
+        Allocates the blocks `plen` tokens need (all or nothing), scatters
+        the per-layer K/V slices into them from position 0, padded to the
+        prefill bucket as the JAX `adopt[bucket]` executable pads them
+        (int8 pools requantize against this pool's blocks through
+        `blocks.quant_write`), and arms the slot as a local prefill would:
+        pos=plen, next decode input `first_token`. `rng=(seed, gen)` is a
+        v3 bundle's sampler state; None arms a fresh local seed. Raises
+        BlockAllocError under pressure (the scheduler's cue to preempt);
+        any other failure frees the slot and raises."""
+        slot = int(slot)
+        plen = int(plen)
+        self._check_bundle(ks, vs, plen, "adopt")
+        if plen < 1:
+            raise ValueError("empty adopt bundle")
+        if plen > self.max_prompt_len or self.config.max_len - plen < 1:
+            raise ValueError(
+                f"adopted prefix ({plen} tokens) exceeds the engine "
+                f"limits (max prompt {self.max_prompt_len}, max_len "
+                f"{self.config.max_len})")
+        if self._slot_active[slot]:
+            self.reset_slot(slot)
+        n = blocks.blocks_for_tokens(plen, self.config.block_size)
+        priv = self._alloc_blocks(n)        # all-or-nothing; may raise
+        row = np.zeros((self.config.max_blocks_per_slot,), np.int32)
+        row[:n] = priv
+        self._tables[slot] = row
+        self._slot_active[slot] = True
+        bucket = self.bucket_for(plen)
+        try:
+            new = torch.zeros((2, len(ks), bucket) + self._head_shape(),
+                              dtype=torch.float32, device=self.device)
+            new[:, :, :plen] = self._upload_bundle(ks, vs, plen)
+            tables = torch.from_numpy(row[None]).to(self.device)
+            zero = torch.zeros((1,), dtype=torch.int32, device=self.device)
+            for li, layer in enumerate(self._pool):
+                k, v = new[0, li][None], new[1, li][None]
+                if self.kv_quantized:
+                    blocks.quant_write(layer.k, layer.k_scale, k, tables,
+                                       zero)
+                    blocks.quant_write(layer.v, layer.v_scale, v, tables,
+                                       zero)
+                else:
+                    blocks.write(layer.k, k, tables, zero)
+                    blocks.write(layer.v, v, tables, zero)
+        except Exception:
+            self.reset_slot(slot)           # never strand the blocks
+            raise
+        self._pos[slot] = plen
+        self._last_tokens[slot] = np.int32(first_token)
+        if rng is not None:
+            self.set_slot_rng(slot, rng[0], rng[1])
+        else:
+            self.set_slot_rng(slot, self._default_slot_seed(), 0)
+        self.last_prefill_stats = {"prefix_hit_tokens": 0,
+                                   "blocks_allocated": n,
+                                   "suffix_bucket": bucket,
+                                   "adopted": True}
+        return int(first_token)
+
+    def prefix_probe(self, prompt_ids, namespace=None):
+        """Tokens of `prompt_ids` the prefix cache could serve, with no
+        side effect."""
+        if self.prefix_cache is None:
+            return 0
+        toks = [int(t) for t in np.asarray(prompt_ids, np.int64).ravel()]
+        return int(self.prefix_cache.probe(toks, namespace))
+
+    def extract_prefix_kv(self, prompt_ids, namespace=None):
+        """The prefix-restore source: this engine's cached chain for
+        `prompt_ids` as per-layer [tokens, heads, head_dim] float32 host
+        arrays, and the tokens it covers. The entries stay cached here;
+        the peer registers a copy. The port has no KV tiers, so the chain
+        is the resident entries only."""
+        if self.prefix_cache is None:
+            return [], [], 0
+        toks = [int(t) for t in np.asarray(prompt_ids, np.int64).ravel()]
+        bs = self.config.block_size
+        ids = []
+        for k in range((len(toks) - 1) // bs):
+            blk = self.prefix_cache._entries.get(
+                prefix_key(toks[:(k + 1) * bs], namespace))
+            if blk is None:
+                break
+            ids.append(blk)
+        if not ids:
+            return [], [], 0
+        idx = torch.tensor(ids, dtype=torch.int64, device=self.device)
+        ks, vs = [], []
+        for layer in self._pool:
+            if self.kv_quantized:
+                ks.append(blocks.dequant(layer.k[idx], layer.k_scale[idx]))
+                vs.append(blocks.dequant(layer.v[idx], layer.v_scale[idx]))
+            else:
+                ks.append(layer.k[idx].float())
+                vs.append(layer.v[idx].float())
+        n = len(ids) * bs
+        host = self._to_host(ks + vs, n)
+        return host[:len(ks)], host[len(ks):], n
+
+    def restore_prefix(self, prompt_ids, ks, vs, plen, namespace=None):
+        """The prefix-restore sink: register another engine's exported
+        chain for `prompt_ids` in this engine's prefix cache, so the next
+        prefill of the prompt matches it like a warm local chain. Each
+        missing block is allocated and written in place (an int8 pool
+        quantizes it against its per-head abs-max with
+        `blocks.quantize_codes`), then registered; blocks already cached
+        are touched. Allocation pressure ends the walk early: the prefix
+        registered so far still matches. Returns the tokens now servable
+        from the chain (a multiple of block_size)."""
+        if self.prefix_cache is None or int(plen) < 1:
+            return 0
+        self._check_bundle(ks, vs, plen, "restore")
+        toks = [int(t) for t in np.asarray(prompt_ids, np.int64).ravel()]
+        bs = self.config.block_size
+        cache = self.prefix_cache
+        chain, fresh = [], []          # (key, block or None); new indices
+        for k in range(min(int(plen) // bs, (len(toks) - 1) // bs)):
+            key = prefix_key(toks[:(k + 1) * bs], namespace)
+            if key in cache._entries:
+                chain.append((key, None))
+                continue
+            try:
+                blk = int(self._alloc_blocks(1)[0])
+            except blocks.BlockAllocError:
+                break
+            chain.append((key, blk))
+            fresh.append(k)
+        if fresh:
+            self._write_blocks([chain[k][1] for k in fresh], fresh, ks, vs,
+                               len(chain) * bs)
+        prev = None
+        for key, blk in chain:
+            if blk is None:
+                cache._touch(key)
+            else:
+                cache.register_block(key, blk, namespace, prev)
+            prev = key
+        return len(chain) * bs
+
+    def _write_blocks(self, blks, logical, ks, vs, tokens):
+        """Write logical blocks `logical` of the per-layer slices `ks`/`vs`
+        into physical blocks `blks` of every layer's pool, in place."""
+        bs = self.config.block_size
+        h, d = self._head_shape()
+        new = self._upload_bundle(ks, vs, tokens).view(
+            2, len(ks), tokens // bs, bs, h, d)
+        src = torch.tensor(logical, dtype=torch.int64, device=self.device)
+        dst = torch.tensor(blks, dtype=torch.int64, device=self.device)
+        with torch.no_grad():
+            for li, layer in enumerate(self._pool):
+                for side, pool in ((0, layer.k), (1, layer.v)):
+                    f = new[side, li][src]               # [n, bs, h, d]
+                    if self.kv_quantized:
+                        scale = torch.clamp(torch.amax(f.abs(), dim=(1, 3)),
+                                            min=1e-30)     # [n, h]
+                        pool[dst] = blocks.quantize_codes(
+                            f, scale[:, None, :, None])
+                        (layer.k_scale if side == 0
+                         else layer.v_scale)[dst] = scale
+                    else:
+                        pool[dst] = f.to(pool.dtype)

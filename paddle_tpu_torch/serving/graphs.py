@@ -1,0 +1,160 @@
+"""Compile once: an engine's serving executables captured as CUDA graphs.
+
+The JAX engines compile each serving executable once (`decode`,
+`prefill[bucket]`, ...) and dispatch it as one program. The port's
+counterpart is a CUDA graph per executable: captured once per engine, on
+first use or by `precompile()`, and replayed on every later call, so a
+decode step costs one graph launch instead of some 440 kernel launches.
+
+A graph reads and writes fixed device addresses, so everything an
+executable touches is storage the engine owns and never reallocates: the
+KV pools, the weights (a weight swap copies into them), and the int32
+inputs in `StaticInputs`, which the host fills and uploads with one copy
+before every call. On the CPU the same functions run eagerly over the same
+buffers, so the CPU tests hold the discipline the graphs depend on.
+
+Capture protocol (`Executables.capture`):
+  1. the inputs are uploaded in a safe state, whose writes land in scratch
+     (every table entry the garbage block, every position 0; an engine
+     names other fields' safe values), so neither the warm-up nor the
+     capture moves serving state;
+  2. one eager warm-up on the capture stream: it builds the kernel
+     library, sets the kernels' shared-memory attributes and makes the
+     paged kernel's ticket counters for that stream, so none of that
+     lands inside a graph;
+  3. the capture, on the same stream, with Python's cyclic garbage
+     collector paused (a collection that frees another graph while this
+     one captures invalidates the capture), into a memory pool the engine's
+     graphs share. A graph's outputs stay allocated, but another graph's
+     temporaries may reuse their memory, so an output is valid until the
+     next replay of any of the engine's graphs (the engine reads each at
+     once, and hands values between graphs only through its own
+     buffers). Replays run one at a time, in order, on one stream; the
+     paged kernel's tickets belong to the capture stream, which is one
+     more reason they must not overlap.
+
+Launch counts: a replay runs no Python, so the paged kernel wrapper's
+counters (`ops.paged_attention.launches`, ...) cannot count its launches.
+The launches a capture records are credited to those counters once per
+replay, and the warm-up's and the capture's own calls are not counted.
+
+A capture that fails raises; there is no eager fallback on the card.
+"""
+import gc
+
+import numpy as np
+import torch
+
+from ..ops import paged_attention as _pa
+
+__all__ = ["StaticInputs", "Executables"]
+
+
+class StaticInputs:
+    """Named int32 input arrays of a family of executables, packed in one
+    host vector and one device vector. `host[name]` are numpy views the
+    engine keeps its state in; `dev[name]` the device views the
+    executables read; `upload()` copies the whole vector in one
+    synchronous copy (from pageable memory, so the host may rewrite its
+    arrays as soon as it returns)."""
+
+    def __init__(self, shapes, device):
+        size = sum(int(np.prod(s)) for s in shapes.values())
+        self._host = np.zeros((size,), np.int32)
+        self._dev = torch.zeros((size,), dtype=torch.int32, device=device)
+        self.host, self.dev = {}, {}
+        off = 0
+        for name, shape in shapes.items():
+            n = int(np.prod(shape))
+            self.host[name] = self._host[off:off + n].reshape(shape)
+            self.dev[name] = self._dev[off:off + n].view(shape)
+            off += n
+
+    def upload(self, safe=None):
+        """Copy the host state to the device; with `safe` ({name: value}),
+        upload zeros with those fields set to their value instead (the
+        capture's safe state), leaving the host state as it is."""
+        src = self._host
+        if safe is not None:
+            src = np.zeros_like(self._host)
+            off = 0
+            for name, arr in self.host.items():
+                if name in safe:
+                    src[off:off + arr.size] = safe[name]
+                off += arr.size
+        self._dev.copy_(torch.from_numpy(src))
+
+
+class Executables:
+    """One engine's executables by name. On the card each is a CUDA graph
+    captured at most once and replayed; on the CPU each runs eagerly.
+    `capture_counts[name]` counts captures, as the JAX engines'
+    `trace_counts` count traces."""
+
+    def __init__(self, device):
+        self.device = device
+        self.capture_counts = {}
+        self._graphs = {}            # name -> (graph, outputs, launches)
+        self._stream = None
+        self._pool = None
+
+    def run(self, name, fn, inputs, safe=None, upload=True):
+        """Upload `inputs` and run executable `name` (`fn` computes it over
+        the engine's static storage). upload=False: the inputs are on the
+        device as the previous call uploaded them (a capture made now
+        uploads them again). Returns (outputs, paged-kernel launches the
+        call made)."""
+        if self.device.type != "cuda":
+            if upload:
+                inputs.upload()
+            return fn(), 0
+        if name not in self._graphs:
+            upload = True                # the capture left the safe state
+        graph, out, launches = self.capture(name, fn, inputs, safe)
+        if upload:
+            inputs.upload()
+        graph.replay()
+        _pa.count_replay(launches)
+        return out, launches[0]
+
+    def replay(self, name):
+        """Replay a captured graph over the inputs as they were last
+        uploaded; returns its outputs."""
+        graph, out, launches = self._graphs[name]
+        graph.replay()
+        _pa.count_replay(launches)
+        return out
+
+    def capture(self, name, fn, inputs, safe=None):
+        """Capture `name` unless it was (see the module docstring); returns
+        (graph, outputs, launch counts of one replay)."""
+        entry = self._graphs.get(name)
+        if entry is not None:
+            return entry
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        counts = _pa.launch_counts()
+        current = torch.cuda.current_stream(self.device)
+        inputs.upload(safe or {})
+        self._stream.wait_stream(current)
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            fn()
+        current.wait_stream(self._stream)
+        warm = _pa.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(self.device), torch.cuda.graph(
+                    graph, pool=self._pool, stream=self._stream):
+                out = fn()
+        finally:
+            if collecting:
+                gc.enable()
+        launches = tuple(c - w for c, w in zip(_pa.launch_counts(), warm))
+        _pa.set_launch_counts(counts)
+        self.capture_counts[name] = self.capture_counts.get(name, 0) + 1
+        entry = (graph, out, launches)
+        self._graphs[name] = entry
+        return entry

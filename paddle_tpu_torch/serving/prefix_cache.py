@@ -2,17 +2,22 @@
 safe.
 
 Counterpart of `paddle_tpu/serving/prefix_cache.py` without the KV tiers,
-the ledger, namespaces and quotas. Block k of a prompt is keyed by the hash
-of the whole token prefix `prompt[:(k+1)*block_size]`, so two prompts share
-block k iff they agree on every token up to its end.
+the ledger and the namespace quotas. Block k of a prompt is keyed by the
+hash of the whole token prefix `prompt[:(k+1)*block_size]`, so two prompts
+share block k iff they agree on every token up to its end; a namespace
+salts the hash first, so chains of two namespaces never share a block.
 
   * `match(prompt)` returns the longest cached chain covering a strict
     prefix of the prompt (at least one token is left to run through the
     model), taking one pool reference per block for the caller's table.
+  * `probe(prompt)` measures that chain without side effects.
   * Shared blocks are never written: sharing is full-block granular, so a
     request's writable region starts at its first private block.
   * `insert(prompt, row, upto)` registers a request's fully written blocks
-    after its prefill, one cache-owned reference each.
+    after its prefill, one cache-owned reference each;
+    `register_block(key, blk, ...)` registers a block the caller allocated
+    and filled itself (a restored prefix), its allocation reference
+    becoming the cache's.
   * `evict(n)` frees least-recently-used leaf entries nobody else holds.
 """
 import hashlib
@@ -22,10 +27,13 @@ from .blocks import GARBAGE_BLOCK
 __all__ = ["PrefixCache", "prefix_key"]
 
 
-def prefix_key(tokens):
-    """Stable content hash of a token prefix (the chain key); the same
-    bytes the JAX package hashes for an un-namespaced prefix."""
+def prefix_key(tokens, namespace=None):
+    """Stable content hash of a token prefix (the chain key), the same
+    bytes the JAX package hashes. A non-None `namespace` salts the hash
+    first (its UTF-8 bytes and a NUL); None keeps the un-namespaced keys."""
     h = hashlib.sha1()
+    if namespace is not None:
+        h.update(str(namespace).encode("utf-8") + b"\x00")
     for t in tokens:
         h.update(int(t).to_bytes(8, "little", signed=True))
     return h.hexdigest()
@@ -50,16 +58,16 @@ class PrefixCache:
         self._seq += 1
         self._lru[key] = self._seq
 
-    def match(self, prompt, record=True):
-        """Longest cached chain covering a strict prefix of `prompt`.
-        Returns (block_ids, n_tokens) with one pool reference taken per
-        block; n_tokens is a multiple of block_size and <= len(prompt)-1.
-        record=False leaves the hit/miss counts to `record_lookup`, for
-        callers whose placement may fail and retry."""
+    def match(self, prompt, record=True, namespace=None):
+        """Longest cached chain covering a strict prefix of `prompt` (in
+        `namespace`). Returns (block_ids, n_tokens) with one pool reference
+        taken per block; n_tokens is a multiple of block_size and <=
+        len(prompt)-1. record=False leaves the hit/miss counts to
+        `record_lookup`, for callers whose placement may fail and retry."""
         bs = self.block_size
         ids = []
         for k in range((len(prompt) - 1) // bs):
-            key = prefix_key(prompt[:(k + 1) * bs])
+            key = prefix_key(prompt[:(k + 1) * bs], namespace)
             blk = self._entries.get(key)
             if blk is None:
                 break
@@ -71,6 +79,29 @@ class PrefixCache:
             self.record_lookup(bool(ids))
         return ids, len(ids) * bs
 
+    def probe(self, prompt, namespace=None):
+        """Tokens of `prompt`'s longest cached chain, with no side effect:
+        no pool reference, no LRU touch, no count."""
+        bs = self.block_size
+        n = 0
+        for k in range((len(prompt) - 1) // bs):
+            if prefix_key(prompt[:(k + 1) * bs], namespace) not in \
+                    self._entries:
+                break
+            n += 1
+        return n * bs
+
+    def register_block(self, key, blk, namespace, parent):
+        """Register an allocated block (refcount 1, held by nobody else)
+        as the entry `key` under chain parent `parent`: the allocation's
+        own reference becomes the cache's. `namespace` is the one `key`
+        was hashed in (the port keeps no per-namespace accounting)."""
+        self._entries[key] = int(blk)
+        self._parent[key] = parent
+        if parent is not None:
+            self._children[parent] = self._children.get(parent, 0) + 1
+        self._touch(key)
+
     def record_lookup(self, hit):
         """Count one prefill lookup as a hit or a miss."""
         if hit:
@@ -78,17 +109,18 @@ class PrefixCache:
         else:
             self.misses += 1
 
-    def insert(self, prompt, table_row, upto_tokens):
+    def insert(self, prompt, table_row, upto_tokens, namespace=None):
         """Register the fully written blocks of `prompt` (logical blocks
-        wholly below upto_tokens) from the request's table row. A chain
-        already cached keeps its block; new entries take one reference."""
+        wholly below upto_tokens) from the request's table row, keyed in
+        `namespace`. A chain already cached keeps its block; new entries
+        take one reference."""
         bs = self.block_size
         prev_key = None
         for k in range(int(upto_tokens) // bs):
             blk = int(table_row[k])
             if blk == GARBAGE_BLOCK:
                 continue
-            key = prefix_key(prompt[:(k + 1) * bs])
+            key = prefix_key(prompt[:(k + 1) * bs], namespace)
             if key in self._entries:
                 self._touch(key)
                 prev_key = key

@@ -16,11 +16,19 @@ it is requeued with prompt + tokens-so-far as its restart prompt, so its
 delivered stream continues unchanged (bit-identically under greedy
 decoding).
 
+Staged placement: a request may arrive with its prefill already computed
+elsewhere (`submit(staged_kv=...)`, a KV bundle the engine adopts instead
+of prefilling) or with a prefix chain shipped from another engine
+(`submit(staged_prefix=...)`, restored into the local prefix cache before
+the request's own prefill). A bundle that cannot be used degrades to a
+local prefill; preemption drops it.
+
 Left out of this port: request deadlines (timeouts and slack-ordered
 victims), load shedding, decode-failure quarantine (an engine exception
 propagates), adapter swaps, decode capture, the metrics registry, the
 decision, timeline and KV-ledger records, the chaos sites, rate limits and
-tenancy, staged KV placement and cancellation.
+tenancy (a request's `prefix_namespace` is passed through to the engine)
+and cancellation.
 """
 import collections
 import itertools
@@ -74,6 +82,11 @@ class Request:
         self.prefix_hit = False           # prefill reused cached blocks
         self.spec_proposed = 0            # draft tokens proposed for us
         self.spec_accepted = 0            # ... and accepted by verify
+        self.adopted = False              # placed from a staged KV bundle
+        self.kv_restored_tokens = 0       # tokens a staged prefix restored
+        self.prefix_namespace = None      # prefix-cache namespace
+        self._staged = None               # (ks, vs, plen, first[, rng])
+        self._staged_prefix = None        # (ks, vs, plen, namespace)
         self._exec_prompt = None          # restart prompt after preemption
         self.first_token_at = None
         self.finished_at = None
@@ -133,6 +146,16 @@ class RequestHandle:
     def spec_accepted(self):
         return self._req.spec_accepted
 
+    @property
+    def adopted(self):
+        """Placed by adopting its staged KV bundle (no local prefill)."""
+        return self._req.adopted
+
+    @property
+    def kv_restored_tokens(self):
+        """Prefix tokens its staged prefix chain restored (0 if none)."""
+        return self._req.kv_restored_tokens
+
     def done(self):
         return self._req.status in (DONE, REJECTED)
 
@@ -177,17 +200,30 @@ class Scheduler:
         self._spec_accepted = 0
         self._completed = []
         self.counts = dict.fromkeys(
-            ("admitted", "done", "rejected", "preempted"), 0)
+            ("admitted", "done", "rejected", "preempted", "adopted"), 0)
         self._pending_swaps = collections.deque()   # armed hot-swaps
         self.last_swap = None                 # apply_pending_swap summary
         self.model_version = None
 
     # -- admission -----------------------------------------------------------
     def submit(self, prompt, max_new_tokens=None, priority="standard",
-               rng_seed=None, rng_gen=0):
+               rng_seed=None, rng_gen=0, staged_kv=None, staged_prefix=None,
+               prefix_namespace=None):
         """Queue one request; returns its RequestHandle. `rng_seed` pins
         the sampler stream (None derives one from the engine seed and the
-        request id)."""
+        request id).
+
+        `staged_kv=(ks, vs, plen, first_token[, rng])` places the request
+        from a KV bundle another engine prefilled (`engine.adopt_kv`)
+        instead of a local prefill. `prompt` must still be the full
+        prompt: it is what a preemption recomputes, and the bundle is kept
+        only when `plen == len(prompt)` (and the engine can adopt). The
+        optional 5th element is a v3 bundle's (seed, gen) sampler state.
+        `staged_prefix=(ks, vs, plen, namespace)` is a prefix chain shipped
+        from another engine: at placement it is restored into the local
+        prefix cache (`engine.restore_prefix`) so the request's own
+        prefill matches it; a restore that fails restores nothing.
+        `prefix_namespace` keys the request's prefix-cache blocks."""
         prompt = [int(t) for t in prompt]
         now = self._clock()
         max_new = self.config.default_max_new_tokens \
@@ -221,6 +257,13 @@ class Scheduler:
                 f"exceeds the engine limits (max prompt "
                 f"{self.engine.max_prompt_len}, cache max_len "
                 f"{self.engine.config.max_len})")
+        if staged_kv is not None and hasattr(self.engine, "adopt_kv") \
+                and int(staged_kv[2]) == len(prompt):
+            req._staged = staged_kv
+        if staged_prefix is not None \
+                and hasattr(self.engine, "restore_prefix"):
+            req._staged_prefix = staged_prefix
+        req.prefix_namespace = prefix_namespace
         self._queue.append(req)
         self.counts["admitted"] += 1
         return handle
@@ -348,6 +391,7 @@ class Scheduler:
                 f"request {req.id}: restart prompt ({len(resume)} tokens) "
                 f"exceeds the engine's longest prompt")
         req._exec_prompt = resume
+        req._staged = None                 # evicted KV is gone: recompute
         req.status = QUEUED
         self._queue.append(req)            # keeps its arrival order
 
@@ -402,9 +446,7 @@ class Scheduler:
         requeued and refill stops for this step (returns False)."""
         while True:
             try:
-                first = self.engine.prefill(
-                    slot, req.exec_prompt,
-                    rng=(req.rng_seed, req.rng_gen + len(req.tokens)))
+                first = self._place_once(slot, req)
                 break
             except BlockAllocError:
                 victim = self._pick_victim(worse_than=req.priority,
@@ -429,6 +471,59 @@ class Scheduler:
             self._slots[slot] = req
         return True
 
+    def _place_once(self, slot, req):
+        """One placement attempt: adopt the staged KV bundle when the
+        request carries one, else (after restoring a staged prefix chain)
+        a local prefill. A bundle that fails adoption for any reason but
+        allocation pressure is dropped and the attempt falls back to a
+        local prefill in place; BlockAllocError escapes (the caller
+        preempts)."""
+        staged = req._staged
+        if staged is None:
+            self._restore_staged_prefix(req)
+            return self._prefill(slot, req)
+        try:
+            # an rng-less (v1/v2) bundle arms the request's own stream at
+            # the generation index after the adopted first token
+            rng = staged[4] if len(staged) > 4 else \
+                (req.rng_seed, req.rng_gen + 1)
+            first = self.engine.adopt_kv(slot, *staged[:4], rng=rng)
+        except BlockAllocError:
+            raise
+        except Exception:                                # noqa: BLE001
+            req._staged = None
+            return self._prefill(slot, req)
+        req._staged = None
+        req.adopted = True
+        self.counts["adopted"] += 1
+        return first
+
+    def _prefill(self, slot, req):
+        """Local prefill with the request's sampler state at this
+        placement: its next token is generation index base + tokens
+        already delivered."""
+        kwargs = {} if req.prefix_namespace is None else \
+            {"namespace": req.prefix_namespace}
+        return self.engine.prefill(
+            slot, req.exec_prompt,
+            rng=(req.rng_seed, req.rng_gen + len(req.tokens)), **kwargs)
+
+    def _restore_staged_prefix(self, req):
+        """Register a shipped prefix chain in the local prefix cache, once:
+        the bundle is consumed whatever happens, and a restore that fails
+        for any reason restores 0 tokens (the prefill that follows
+        recomputes). The chain is cache-owned, so a preempted retry still
+        matches it."""
+        sp = req._staged_prefix
+        if sp is None:
+            return
+        req._staged_prefix = None
+        try:
+            req.kv_restored_tokens = int(self.engine.restore_prefix(
+                req.exec_prompt, sp[0], sp[1], sp[2], namespace=sp[3]))
+        except Exception:                                # noqa: BLE001
+            req.kv_restored_tokens = 0
+
     def _finish(self, req, status):
         req.status = status
         req.finished_at = self._clock()
@@ -445,7 +540,8 @@ class Scheduler:
         is inside the window); with a speculative engine a step is one
         round (`decode_many`: gamma draft decodes and one verify) and
         `decode_step_ms` times rounds. `ttft_s_mean` is over completed
-        requests. `spec_*` appear once a speculative round has proposed
+        requests. `requests["adopted"]` counts placements from staged KV
+        bundles. `spec_*` appear once a speculative round has proposed
         tokens."""
         ttfts = [r.first_token_at - r.submitted_at for r in self._completed
                  if r.first_token_at is not None]

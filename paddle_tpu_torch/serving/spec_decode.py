@@ -11,6 +11,14 @@ The verify forward goes through the block tables like every paged
 forward, under `attention_impl`: with "kernel" on the card it is the
 paged-attention kernel at T = gamma+1 and decode positions.
 
+Executables (`executable_names()`, the JAX engine's list): the paged
+engine's plus `draft_decode` (the gamma+1 draft decodes of a round, which
+leave the window in a static buffer), `spec_verify` (the [slots, gamma+1]
+verify forward and `greedy_verify`, up to the round's one host read) and
+`draft_prefill[bucket]`; on the card each is a CUDA graph captured once.
+The draft's dense cache, its positions and the per-bucket one-slot caches
+of its prefill are static storage too.
+
 Cache protocol: at every round boundary the draft's dense cache and the
 target's paged pool hold the same committed tokens, and the draft's
 positions equal the target's.
@@ -37,6 +45,7 @@ Left out of this port: the compile cache, numerics taps, adapters, the
 metrics registry and the pipeline placement hooks.
 """
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -128,13 +137,26 @@ class SpeculativeEngine(PagedGenerationEngine):
             raise ValueError(f"draft lives on {draft.device}, engine "
                              f"device is {self.device}")
         self.draft_model = draft
-        self._draft_params = dict(draft.named_parameters())
+        # the draft's tensors that are the target's read the engine's own
+        # copy of them, so a swap reaches target and draft together
+        own = dict(self._model.named_parameters())
+        self._draft_params = {
+            n: self._params[n] if t is own.get(n) else t
+            for n, t in draft.named_parameters()}
         dcfg = draft.cfg
         self._draft_cache = kvc.alloc_cache(
             dcfg.num_layers, config.slots, config.max_len, dcfg.num_heads,
             dcfg.hidden_size // dcfg.num_heads, draft.wte.weight.dtype,
             self.device)
-        self._draft_pos = np.zeros((config.slots,), np.int32)
+        self._draft_pos = self._io.host["draft_pos"]
+        # the one-slot dense cache each draft prefill bucket runs through
+        self._draft_local = {
+            b: kvc.alloc_cache(dcfg.num_layers, 1, b, dcfg.num_heads,
+                               dcfg.hidden_size // dcfg.num_heads,
+                               draft.wte.weight.dtype, self.device)
+            for b in config.prefill_buckets}
+        self._window = torch.zeros((config.slots, config.gamma + 1),
+                                   dtype=torch.int64, device=self.device)
         self._build_draft_decode_params()
         self.last_spec_stats = {}
 
@@ -143,10 +165,24 @@ class SpeculativeEngine(PagedGenerationEngine):
         """A verify forward writes the whole gamma+1 window per slot."""
         return self.config.gamma + 1
 
+    def _decode_fields(self):
+        return dict(super()._decode_fields(), draft_pos=(self.config.slots,))
+
+    def _prefill_fields(self):
+        return dict(super()._prefill_fields(),
+                    draft_ids=(1, max(self.config.prefill_buckets)))
+
+    def _safe_inputs(self):
+        """The draft's dense cache has no garbage block: its safe position
+        is max_len - 1, a row no committed token ever occupies (positions
+        clamp there)."""
+        return {"draft_pos": self.config.max_len - 1}
+
     def _build_draft_decode_params(self):
         """The draft's decode params. int8 weights compose: a draft tensor
         that is the target's own (the truncated draft) reuses the target's
-        codes; only the draft's own tensors quantize anew."""
+        codes, so a swap requantizes both at once; only the draft's own
+        tensors quantize anew."""
         if self.config.weight_dtype != "int8":
             self._draft_decode_params = self._draft_params
             return
@@ -159,69 +195,84 @@ class SpeculativeEngine(PagedGenerationEngine):
         out.update(self._quantize_params(fresh))
         self._draft_decode_params = out
 
-    def swap_params(self, new_params):
-        """The target swaps like any paged engine; every draft tensor that
-        was the old target's is re-pointed at the new one, so target and
-        draft change in the same window. A draft with its own weights
-        keeps them (it moves only the acceptance rate, never the
-        output)."""
-        old_target = dict(self._params)
-        n = super().swap_params(new_params)
-        for name, t in list(self._draft_params.items()):
-            if t is old_target.get(name):
-                self._draft_params[name] = self._params[name]
-        self._build_draft_decode_params()
-        return n
+    # -- the executables ------------------------------------------------------
+    def executable_names(self):
+        return super().executable_names() + \
+            ["draft_decode", "spec_verify"] + \
+            [f"draft_prefill[{b}]" for b in self.config.prefill_buckets]
 
-    # -- draft forwards -------------------------------------------------------
+    def _executable(self, name):
+        if name == "draft_decode":
+            return self._draft_fn, self._io, self._safe_inputs()
+        if name == "spec_verify":
+            return self._verify_fn, self._io, self._safe_inputs()
+        if name.startswith("draft_prefill["):
+            bucket = int(name[len("draft_prefill["):-1])
+            return (functools.partial(self._draft_prefill_fn, bucket),
+                    self._pf, None)
+        return super()._executable(name)
+
     def _run_draft(self, params, cache, ids):
         with torch.no_grad():
             return torch.func.functional_call(self.draft_model, params,
                                               (ids,), {"cache": cache})
 
-    def _draft_decode(self, cache, tokens):
+    def _draft_decode(self, params, cache, tokens):
         """One single-token draft decode over the dense cache: returns
         (next tokens [S] int64 on the device, cache with pos advanced)."""
-        logits, new = self._run_draft(
-            self._dequant_params(self._draft_decode_params), cache,
-            tokens[:, None])
+        logits, new = self._run_draft(params, cache, tokens[:, None])
         nxt = torch.argmax(logits[:, 0], dim=-1)
         pos = torch.clamp(cache.pos + 1, max=self.config.max_len - 1)
         return nxt, kvc.DecodeCache(new.layers, pos)
 
-    def _draft_propose(self):
-        """gamma draft decodes plus the cache-completing extra feed; returns
-        the window [S, gamma+1] (int64, on the device)."""
-        cache = kvc.DecodeCache(self._draft_cache.layers,
-                                torch.from_numpy(self._draft_pos)
-                                .to(self.device))
-        feed = torch.from_numpy(self._last_tokens.astype(np.int64)) \
-            .to(self.device)
+    def _draft_fn(self):
+        """The `draft_decode` executable: gamma draft decodes plus the
+        cache-completing extra feed; leaves the window [S, gamma+1] (int64)
+        in `_window`."""
+        io = self._io.dev
+        params = self._dequant_params(self._draft_decode_params)
+        cache = kvc.DecodeCache(self._draft_cache.layers, io["draft_pos"])
+        feed = io["tokens"].to(torch.int64)
         cols = [feed]
         for _ in range(self.config.gamma):
-            feed, cache = self._draft_decode(cache, feed)
+            feed, cache = self._draft_decode(params, cache, feed)
             cols.append(feed)
-        self._draft_decode(cache, feed)     # writes d_gamma's K/V only
-        return torch.stack(cols, dim=1)
+        self._draft_decode(params, cache, feed)  # writes d_gamma's K/V only
+        self._window.copy_(torch.stack(cols, dim=1))
+
+    def _verify_fn(self):
+        """The `spec_verify` executable: the target's forward over the
+        window and the greedy accept rule; returns [S, gamma+3] int32
+        (choices, n_accepted, last), the round's one host read."""
+        io = self._io.dev
+        logits = self._paged_forward(self._window, io["tables"], io["pos"],
+                                     decode=True)
+        choices, n_acc, last = sampling.greedy_verify(logits, self._window)
+        return torch.cat([choices, n_acc[:, None], last[:, None]], dim=1)
+
+    def _draft_prefill_fn(self, bucket):
+        """The `draft_prefill[bucket]` executable: the whole prompt through
+        the draft into the bucket's one-slot dense cache."""
+        ids = self._pf.dev["draft_ids"][:, :bucket]
+        self._run_draft(self._draft_params, self._draft_local[bucket], ids)
 
     # -- public compute API ---------------------------------------------------
-    def prefill(self, slot, prompt_ids, rng=None):
+    def prefill(self, slot, prompt_ids, rng=None, namespace=None):
         """Target prefill (prefix cache, suffix bucket, first token), then
         the draft's prefill of the whole prompt into its dense cache (the
         draft shares no prefix, so its bucket is the whole prompt's). The
         draft moves only after the target's prefill stuck, so an
         allocation failure leaves both untouched."""
-        first = super().prefill(slot, prompt_ids, rng=rng)
+        first = super().prefill(slot, prompt_ids, rng=rng,
+                                namespace=namespace)
         slot = int(slot)
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         bucket = self.bucket_for(prompt.size)
-        dcfg = self.draft_model.cfg
-        local = kvc.alloc_cache(dcfg.num_layers, 1, bucket, dcfg.num_heads,
-                                dcfg.hidden_size // dcfg.num_heads,
-                                self.draft_model.wte.weight.dtype,
-                                self.device)
-        _, local = self._run_draft(self._draft_params, local,
-                                   self._padded(prompt, bucket))
+        ids = self._pf.host["draft_ids"]
+        ids[0, :bucket] = 0
+        ids[0, :prompt.size] = prompt
+        self._run(f"draft_prefill[{bucket}]")
+        local = self._draft_local[bucket]
         for glob, loc in zip(self._draft_cache.layers, local.layers):
             glob.k[slot, :bucket] = loc.k[0]
             glob.v[slot, :bucket] = loc.v[0]
@@ -239,23 +290,19 @@ class SpeculativeEngine(PagedGenerationEngine):
         harmlessly, as in the one-token loop."""
         self.ensure_decode_capacity()
         t0 = time.perf_counter()
-        window = self._draft_propose()
+        self._run("draft_decode")
         draft_s = time.perf_counter() - t0
         t1 = time.perf_counter()
-        logits = self._paged_forward(window, self._tables, self._pos,
-                                     decode=True)
-        choices, n_acc, last = sampling.greedy_verify(logits, window)
-        # the round's one host read
-        res = torch.cat([choices, n_acc[:, None], last[:, None]],
-                        dim=1).cpu().numpy()
+        # the draft's upload serves the verify too; the one host read
+        res = self._run("spec_verify", upload=False).cpu().numpy()
         verify_s = time.perf_counter() - t1
         out = np.ascontiguousarray(res[:, :-2])
         n_emit, last = res[:, -2] + 1, res[:, -1]
         # the rollback: both caches advance to the committed position
-        self._pos = np.minimum(self._pos + n_emit,
-                               self.config.max_len - 1).astype(np.int32)
-        self._draft_pos = self._pos.copy()
+        self._pos[:] = np.minimum(self._pos + n_emit,
+                                  self.config.max_len - 1)
+        self._draft_pos[:] = self._pos
         self._slot_gen += n_emit
-        self._last_tokens = last.astype(np.int32)
+        self._last_tokens[:] = last
         self.last_spec_stats = {"draft_s": draft_s, "verify_s": verify_s}
         return out, n_emit

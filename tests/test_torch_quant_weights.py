@@ -126,9 +126,10 @@ def test_non_matmul_params_stay_float_and_prefill_serves_floats(models):
                                 **ENGINE)
     for name in FLOAT:
         assert eng._decode_params[name] is eng._params[name]
-    # the serving dict is the module's own tensors, no copy
+    # the serving dict is the engine's own copy of the module's tensors
     for name, p in tm.named_parameters():
-        assert eng._params[name] is p
+        assert torch.equal(eng._params[name], p)
+        assert eng._params[name].data_ptr() != p.data_ptr()
     seen = []
     forward = eng._forward
 
@@ -195,7 +196,7 @@ def test_swap_params_matches_jax_after_the_same_swap(models, other_weights):
     for s, p in enumerate(PROMPTS):
         assert teng.prefill(s, p) == jeng.prefill(s, p)
     assert _decode(teng, 2)[0] == _decode(jeng, 2)[0]
-    old_codes = teng._decode_params["blocks.0.mlp.fc1.weight"]["q"]
+    old_codes = teng._decode_params["blocks.0.mlp.fc1.weight"]["q"].clone()
     assert teng.swap_params(tparams) == len(tparams)
     assert jeng.swap_params(jparams) == len(jparams)
     gaps = []

@@ -81,9 +81,9 @@ class _GapRecorder:
             self.gaps.extend(gap(logits))
             return sel(logits, slot)
 
-        def rec_slots(logits):
+        def rec_slots(logits, picks=None):
             self.gaps.extend(gap(logits))
-            return sel_slots(logits)
+            return sel_slots(logits, picks)
         eng._select, eng._select_slots = rec_select, rec_slots
 
     def assert_no_near_tie(self):
@@ -365,6 +365,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "assert {'paddle_tpu_torch.ops.flash_attention',\n"
             "        'paddle_tpu_torch.parallel.gpt_spmd',\n"
             "        'paddle_tpu_torch.serving.spec_decode',\n"
+            "        'paddle_tpu_torch.serving.graphs',\n"
+            "        'paddle_tpu_torch.serving.distributed.kv_handoff',\n"
             "        'paddle_tpu_torch._kernels.build'} <= set(mods), mods\n"
             "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -87,7 +87,30 @@ Phases (any exception ends the run with a non-zero exit):
      step; then the 256-token shared prefix, restored into a fresh engine
      with `restore_prefix`, must be matched by its next prefill with the
      local stream. Every executable of every engine of phases 4, 5, 10, 11
-     and 12 is captured at most once (exactly once where precompiled).
+     and 12 is captured at most once (exactly once where precompiled);
+ 13. the server under its SLO machinery and chaos (phase 4's engine,
+     precompiled): phase 4's 16 requests three times, without the serving
+     JSONL, with it, and with the metrics registry off, each run's decode
+     step on the host clock and the scheduler's host time a step outside
+     `engine.decode()`, and the host µs of each piece of the machinery
+     (a fault site, a span, a counter, histogram and gauge update, a JSONL
+     line); then on one scheduler writing the JSONL: six batch
+     requests past `shed_watermark=4` shed while interactive ones are
+     admitted, two 1 ms deadlines expiring in the queue with no tokens, a
+     running request's deadline passing mid-decode, a cancel freeing its
+     blocks, a `serving.decode_step` fault failing exactly the eight
+     requests in flight (then one probe slot, then every slot), a swap the
+     `serving.weight_swap` site refuses, a bundle `serving.kv_handoff`
+     refuses beside one adopted, a prefix restore `serving.kv_restore`
+     refuses (0 tokens, the corrupt counter +1), and `serving.kv_quant`
+     truncate on an int8 engine scaling one block by 64 in place so the
+     next replayed decode's logits move. Every stream is held to phase 4's
+     (the near-tie rule), `serving_decode_failures_total` moves by exactly
+     the one injected fault, every decision record replays
+     (`observability.decisions`), every timeline's phases sum to its
+     `e2e_s`, `tools/metrics_report.py` accepts the registry snapshot,
+     and every executable stays captured once. Phases 4, 5, 10, 11 and 12
+     contain no decode failure.
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -410,20 +433,87 @@ def run_kernel_cases(flush):
 
 
 # ------------------------------------------------------------------ serving
-def serve(engine, prompts, max_new):
+def run_timed(sched):
+    """Run `sched` until idle. Returns the host seconds of every step that
+    made one decode call (`decode`, or `decode_many` for a speculative
+    engine) and no prefill, outside that call: the scheduler's own work a
+    step, its SLO machinery included."""
+    eng = sched.engine
+    name = "decode_many" if hasattr(eng, "decode_many") else "decode"
+    saved = {n: vars(eng).get(n) for n in (name, "prefill")}
+    inner, inner_prefill = getattr(eng, name), eng.prefill
+    calls, prefills = [], [0]
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = inner(*a, **kw)           # a raise leaves the step uncounted
+        calls.append(time.perf_counter() - t0)
+        return out
+
+    def counted(*a, **kw):
+        prefills[0] += 1
+        return inner_prefill(*a, **kw)
+    setattr(eng, name, timed)
+    eng.prefill = counted
+    over = []
+    try:
+        while True:
+            n, p = len(calls), prefills[0]
+            t0 = time.perf_counter()
+            more = sched.step()
+            dt = time.perf_counter() - t0
+            if len(calls) == n + 1 and prefills[0] == p:
+                over.append(dt - calls[-1])
+            if not more:
+                return over
+    finally:
+        for n, v in saved.items():
+            if v is None:
+                delattr(eng, n)
+            else:
+                setattr(eng, n, v)
+
+
+def step_host_us(over):
+    """Median, mean and count of `run_timed`'s per-step host seconds, µs."""
+    xs = sorted(over)
+    if not xs:
+        return {"steps": 0, "median_us": None, "mean_us": None}
+    return {"steps": len(xs), "median_us": xs[len(xs) // 2] * 1e6,
+            "mean_us": sum(xs) / len(xs) * 1e6}
+
+
+def decode_failures():
+    """The port's `serving_decode_failures_total` now."""
+    from paddle_tpu_torch.observability import metrics
+    return metrics.registry().counter("serving_decode_failures_total").value
+
+
+def serve(engine, prompts, max_new, config=None):
     """Submit every prompt, run the scheduler until idle; returns
-    (handles, metrics, wall seconds)."""
-    from paddle_tpu_torch.serving import Scheduler
-    sched = Scheduler(engine, max_queue=64, device=engine.device)
+    (handles, metrics, wall seconds). `metrics["sched_host_us"]` is the
+    scheduler's host time a decode step outside the decode call
+    (`run_timed`). Every request must end DONE with `max_new` tokens, and
+    no decode or prefill failure may be contained on the way."""
+    from paddle_tpu_torch.serving import Scheduler, ServingConfig
+    sched = Scheduler(engine, config or ServingConfig(max_queue=64),
+                      device=engine.device)
+    failures = decode_failures()
     handles = [sched.submit(p, max_new_tokens=max_new) for p in prompts]
     t0 = time.perf_counter()
-    sched.run_until_idle()      # every step ends in a host read of tokens
+    over = run_timed(sched)     # every step ends in a host read of tokens
     wall = time.perf_counter() - t0
+    sched.close()
     for h in handles:
         if h.status != "DONE" or len(h.tokens) != max_new:
             raise AssertionError(f"request {h.request_id} ended {h.status} "
-                                 f"with {len(h.tokens)} tokens")
-    return handles, sched.metrics(), wall
+                                 f"with {len(h.tokens)} tokens ({h.error})")
+    if decode_failures() != failures:
+        raise AssertionError(f"{decode_failures() - failures} decode "
+                             "failures were contained while serving")
+    m = sched.metrics()
+    m["sched_host_us"] = step_host_us(over)
+    return handles, m, wall
 
 
 def check_captures(engine, what, every=True):
@@ -553,6 +643,18 @@ def replay_vs_eager(model, prompts):
     return rec
 
 
+def device_kernels(prof):
+    """The kernels (and copies) of a torch.profiler capture: its CUDA
+    events without the device ranges of user annotations. The port's
+    `RecordEvent` spans (`serving::...`, `fault::...`) open a
+    `record_function` range while the profiler records, and its device
+    range spans the kernels it encloses."""
+    return [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("serving::", "fault::"))]
+
+
 def profile_steps(step, steps):
     """One warm-up call of step() (which ends in a host read), `steps`
     calls untraced (host clock), then `steps` under torch.profiler: device
@@ -573,8 +675,7 @@ def profile_steps(step, steps):
             step()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) / steps * 1e3
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
+    kernels = device_kernels(prof)
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) \
@@ -660,7 +761,7 @@ def serve_spec(model, prompts, smi):
     launches, window = pa.launches, pa.launches_window
     prefill = pa.launches_prefill
     n_rounds = m["decode_steps"]
-    prefills = len(prompts) + m["requests"]["preempted"]
+    prefills = len(prompts) + m["requests"]["serving.preempted"]
     if launches != cfg.num_layers * (n_rounds + prefills):
         raise AssertionError(
             f"phase 10: {launches} paged launches, want {cfg.num_layers} "
@@ -685,7 +786,8 @@ def serve_spec(model, prompts, smi):
     rec = {"requests": len(prompts), "max_new_tokens": 32, **SPEC,
            "kernel_launches": launches, "kernel_launches_window": window,
            "kernel_launches_prefill": prefill, "rounds": n_rounds,
-           "prefills": prefills, "preempted": m["requests"]["preempted"],
+           "prefills": prefills,
+           "preempted": m["requests"]["serving.preempted"],
            "spec_proposed": m["spec_proposed"],
            "spec_accepted": m["spec_accepted"],
            "acceptance_rate": m["spec_acceptance_rate"],
@@ -694,6 +796,7 @@ def serve_spec(model, prompts, smi):
            "tokens_per_slot_round": 1 + SPEC["gamma"]
            * m["spec_acceptance_rate"],
            "round_ms": m["decode_step_ms"],
+           "sched_host_us": m["sched_host_us"],
            "decode_tokens_per_s": m["decode_tokens_per_s"],
            "draft_ms_per_round": draft_ms, "verify_ms_per_round": verify_ms,
            "prefix_hits": m["prefix_hits"], "prefix_blocks_at_end": cached,
@@ -881,12 +984,15 @@ def hot_swap(model, prompts, want, smi):
                                                   device=model.device)
     plan = {3: (clone, 1), 6: (bad, 2)}
     events = []
+    failures = decode_failures()
     while True:
         if sched._steps in plan:
             events.append(sched.schedule_weight_swap(*plan[sched._steps]))
         if not sched.step():
             break
     results = [ev.swap_result for ev in events]
+    if decode_failures() != failures:
+        raise AssertionError("phase 11: a decode failure was contained")
     if [r["ok"] for r in results] != [True, False] or \
             sched.model_version != 1:
         raise AssertionError(f"phase 11: swap results {results}")
@@ -1059,6 +1165,402 @@ def handoff(model, prompts, smi, steps=8):
     del a
     torch.cuda.empty_cache()
     return out
+
+
+# -------------------------------------------------------- SLO machinery
+def slo_host_costs(path, n=20000):
+    """Phase 13: the host µs of each piece of the SLO machinery, apart
+    from the card: one call each of a disarmed fault site, a closed
+    `RecordEvent` span with attrs, a counter inc, a histogram observe and
+    a gauge set (a private registry), and one serving-JSONL step record
+    (dumps, write, flush) in the directory of `path`. The whole step with
+    the decode replaced is `sched_host_cost.py`'s."""
+    from paddle_tpu_torch.observability import faults, metrics
+    from paddle_tpu_torch.profiler import RecordEvent, TracerEventType
+
+    def per_call(fn, k=n):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            fn()
+        return (time.perf_counter() - t0) / k * 1e6
+    reg = metrics.MetricsRegistry()
+    child = reg.counter("c_total", labelnames=("tenant",)).labels(tenant="a")
+    hist, gauge = reg.histogram("h_seconds"), reg.gauge("g")
+    attrs = {"slots": 8, "paged": True, "kv_dtype": "float32",
+             "attend": "kernel"}
+
+    def span():
+        with RecordEvent("serving::decode_step",
+                         TracerEventType.UserDefined, attrs):
+            pass
+    rec = {"kind": "step", "step": 1, "t": 1.0, "queue_depth": 0,
+           "active_slots": 8, "tokens_generated": 100}
+    jpath = path + ".cost"
+    with open(jpath, "w") as f:
+        def line():
+            f.write(json.dumps(rec) + "\n")
+            f.flush()
+        out = {"fault_site": per_call(
+                   lambda: faults.fire("serving.decode_step")),
+               "span": per_call(span),
+               "counter_inc": per_call(lambda: child.inc(8)),
+               "histogram_observe": per_call(lambda: hist.observe(0.0018)),
+               "gauge_set": per_call(lambda: gauge.set(3)),
+               "jsonl_step_record": per_call(line, 2000)}
+    os.remove(jpath)
+    return out
+
+
+SLO_ENGINE = dict(slots=8, max_len=1024, block_size=16,
+                  attention_impl="kernel")
+
+
+def next_token_gap(model, tokens):
+    """Top-2 logit gap of the next token after `tokens` (a one-slot
+    prefill on the kernel path): the near-tie test of a stream mismatch."""
+    from paddle_tpu_torch.serving import PagedGenerationEngine
+    eng = PagedGenerationEngine(model, device=model.device,
+                                **dict(SLO_ENGINE, slots=1))
+    seen = []
+    sel = eng._select
+
+    def cap(logits, slot):
+        seen.append(float(top2_gaps(logits.float().cpu())[0]))
+        return sel(logits, slot)
+    eng._select = cap
+    eng.prefill(0, tokens)
+    return seen[0]
+
+
+def same_stream(model, prompt, got, want, what):
+    """`got` against phase 4's `want` over their common length, under the
+    near-tie rule: a mismatch ends the comparison if the next token's
+    top-2 gap after the agreed tokens is below GAP_MIN, else fails.
+    Returns (compared, dropped)."""
+    n = min(len(got), len(want))
+    for t in range(n):
+        if got[t] != want[t]:
+            gap = next_token_gap(model, list(prompt) + list(want[:t]))
+            if gap < GAP_MIN:
+                return t, n - t
+            raise AssertionError(f"{what}: token {t}: {got[t]} != phase "
+                                 f"4's {want[t]} (gap {gap:.3e})")
+    return n, 0
+
+
+def slo_serving(model, prompts, want, smi):
+    """Phase 13: phase 4's server under its SLO machinery and chaos.
+    `want`: phase 4's token streams."""
+    import torch
+    from paddle_tpu_torch.observability import decisions, faults, metrics
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import (LoadShedError,
+                                          PagedGenerationEngine, Scheduler,
+                                          ServingConfig)
+    from paddle_tpu_torch.serving.distributed import kv_handoff as kvh
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "phase13_serve.jsonl")
+    snap_path = os.path.join(out_dir, "phase13_metrics.jsonl")
+    for f in (path, snap_path):
+        if os.path.exists(f):
+            os.remove(f)
+    reg = metrics.registry()
+    failures0 = decode_failures()
+    corrupt = reg.counter("serving_kv_tier_corrupt_total")
+    corrupt0 = corrupt.value
+    eng = PagedGenerationEngine(model, device=model.device, **SLO_ENGINE)
+    capture_s = precompile(eng, "phase 13")
+    compared = dropped = 0
+
+    def hold(h, i, what, n=None):
+        nonlocal compared, dropped
+        got = h.tokens if n is None else h.tokens[:n]
+        c, d = same_stream(model, prompts[i], got, want[i], what)
+        compared += c
+        dropped += d
+
+    def idle_pool():
+        eng.prefix_cache.evict(eng.block_pool.capacity)
+        if eng.block_pool.in_use:
+            raise AssertionError(f"phase 13: {eng.block_pool.in_use} "
+                                 "blocks leaked")
+
+    # normal traffic: the step on the host clock without and with the
+    # serving JSONL, and with the registry switched off
+    timing = {}
+    pa.launches = pa.launches_window = pa.launches_prefill = 0
+    for label, cfg in 2 * (("no_jsonl", ServingConfig(max_queue=64)),
+                           ("jsonl", ServingConfig(max_queue=64,
+                                                   metrics_path=path)),
+                           ("registry_off", ServingConfig(max_queue=64))):
+        if label == "registry_off":
+            reg.disable()
+        try:
+            hs, m, wall = serve(eng, prompts, 32, cfg)
+        finally:
+            reg.enable()
+        for i, h in enumerate(hs):
+            hold(h, i, f"phase 13 {label} request {i}")
+        timing.setdefault(label, []).append(
+            {"decode_step_ms": m["decode_step_ms"],
+             "decode_tokens_per_s": m["decode_tokens_per_s"],
+             "decode_steps": m["decode_steps"],
+             "sched_host_us": m["sched_host_us"], "wall_s": wall})
+        idle_pool()
+    launches = {"decode": pa.launches - pa.launches_prefill,
+                "prefill": pa.launches_prefill,
+                "window": pa.launches_window}
+    if not launches["decode"] or not launches["prefill"] or \
+            launches["window"]:
+        raise AssertionError(f"phase 13: paged launches {launches}")
+
+    # chaos, on one scheduler writing the serving JSONL
+    sched = Scheduler(eng, ServingConfig(max_queue=64, metrics_path=path,
+                                         shed_watermark=4),
+                      device=model.device)
+    # shedding: six standard requests deepen the queue past the watermark,
+    # six batch requests are shed, two interactive ones still admitted
+    std = {i: sched.submit(prompts[i], max_new_tokens=32)
+           for i in (0, 1, 2, 3, 5, 7)}
+    shed = []
+    for i in range(8, 14):
+        try:
+            sched.submit(prompts[i], max_new_tokens=32, priority="batch")
+        except LoadShedError:
+            shed.append(i)
+    if len(shed) < 2:
+        raise AssertionError(f"phase 13: {len(shed)} batch requests shed")
+    inter = sched.submit(prompts[4], max_new_tokens=32,
+                         priority="interactive")
+    # a running request whose deadline passes mid-decode
+    late = sched.submit(prompts[15], max_new_tokens=300,
+                        priority="interactive", timeout_s=0.25)
+    sched.step()
+    if sched.active_slots() != 8:
+        raise AssertionError(f"phase 13: {sched.active_slots()} slots busy")
+    # deadlines that pass while every slot is busy
+    expired = [sched.submit(prompts[i], max_new_tokens=8, timeout_s=1e-3)
+               for i in (6, 9)]
+    for _ in range(5):
+        sched.step()
+    # a cancelled running request: its blocks go back at once
+    in_use = eng.block_pool.in_use
+    if not sched.cancel(std[7]):
+        raise AssertionError("phase 13: the cancel found nothing to cancel")
+    freed = in_use - eng.block_pool.in_use
+    sched.run_until_idle()
+    if [h.status for h in expired] != ["TIMEOUT"] * 2 or \
+            any(h.tokens for h in expired):
+        raise AssertionError(f"phase 13: queued deadlines "
+                             f"{[(h.status, h.tokens) for h in expired]}")
+    if late.status != "TIMEOUT" or not 0 < len(late.tokens) < 300:
+        raise AssertionError(f"phase 13: running deadline {late.status} "
+                             f"with {len(late.tokens)} tokens")
+    if std[7].status != "SHED" or not std[7].tokens or freed < 1:
+        raise AssertionError(f"phase 13: cancel left {std[7].status}, "
+                             f"{len(std[7].tokens)} tokens, {freed} blocks "
+                             "freed")
+    for i, h in list(std.items()) + [(4, inter)]:
+        if i != 7 and h.status != "DONE":
+            raise AssertionError(f"phase 13: request {i} {h.status}")
+        hold(h, i, f"phase 13 request {i}")
+    hold(late, 15, "phase 13 running deadline", n=32)
+    idle_pool()
+
+    # a decode-step fault: exactly the requests in flight fail, one probe
+    # slot refills, then every slot
+    first = [sched.submit(prompts[i], max_new_tokens=32)
+             for i in range(8, 16)]
+    for _ in range(4):
+        sched.step()
+    inflight = {h.request_id for h in first if h.status == "RUNNING"}
+    faults.arm("serving.decode_step", "raise", max_fires=1)
+    sched.step()
+    faults.disarm("serving.decode_step")
+    errored = {h.request_id for h in first if h.status == "ERROR"}
+    if errored != inflight or len(inflight) != 8:
+        raise AssertionError(f"phase 13: {len(errored)} errored, "
+                             f"{len(inflight)} were in flight")
+    for i, h in zip(range(8, 16), first):
+        hold(h, i, f"phase 13 partial stream {i}")
+    after = [sched.submit(prompts[i], max_new_tokens=32)
+             for i in range(8, 16)]
+    sched.step()
+    probe = sched.active_slots()
+    sched.step()
+    refill = sched.active_slots()
+    if probe != 1 or refill != 8:
+        raise AssertionError(f"phase 13: {probe} probe slots, then "
+                             f"{refill} after a healthy step")
+    sched.run_until_idle()
+    for i, h in zip(range(8, 16), after):
+        if h.status != "DONE":
+            raise AssertionError(f"phase 13: request {i} {h.status} after "
+                                 "the fault")
+        hold(h, i, f"phase 13 after the fault, request {i}")
+    idle_pool()
+
+    # a swap the fault site refuses while eight requests decode
+    hs = [sched.submit(prompts[i], max_new_tokens=32) for i in range(8)]
+    for _ in range(3):
+        sched.step()
+    faults.arm("serving.weight_swap", "raise", max_fires=1)
+    ev = sched.schedule_weight_swap(
+        {k: v.detach().clone() for k, v in eng._params.items()}, version=7)
+    sched.step()
+    faults.disarm("serving.weight_swap")
+    if not ev.is_set() or sched.last_swap["ok"] or \
+            sched.model_version is not None:
+        raise AssertionError(f"phase 13: swap result {sched.last_swap}")
+    sched.run_until_idle()
+    for i, h in enumerate(hs):
+        hold(h, i, f"phase 13 across the failed swap, request {i}")
+    idle_pool()
+
+    # a handoff refused at pack time falls back to a local prefill beside
+    # one that crosses the wire; a restore refused restores nothing
+    src = PagedGenerationEngine(model, device=model.device, **SLO_ENGINE)
+    staged = []
+    for s, i in enumerate((9, 10)):
+        firsts = src.prefill(s, prompts[i])
+        wire = src.extract_kv_wire(s)
+        if i == 9:
+            faults.arm("serving.kv_handoff", "raise", max_fires=1)
+        try:
+            ks, vs, meta = kvh.unpack_kv_bundle(kvh.pack_kv_bundle(
+                wire["ks"], wire["vs"], meta={"plen": wire["plen"],
+                                              "first": firsts}))
+            staged.append((ks, vs, meta["plen"], meta["first"]))
+        except faults.FaultInjected:
+            staged.append(None)
+        faults.disarm("serving.kv_handoff")
+    pks, pvs, pn = src.extract_prefix_kv(prompts[11])
+    del src
+    if staged[0] is not None or staged[1] is None or pn < 256:
+        raise AssertionError("phase 13: the handoff fault did not refuse "
+                             "the first bundle alone")
+    refused = sched.submit(prompts[9], max_new_tokens=32, staged_kv=None)
+    adopted = sched.submit(prompts[10], max_new_tokens=32,
+                           staged_kv=staged[1])
+    faults.arm("serving.kv_restore", "raise", max_fires=1)
+    restore = sched.submit(prompts[11], max_new_tokens=32,
+                           staged_prefix=([k[:256] for k in pks],
+                                          [v[:256] for v in pvs], 256,
+                                          None))
+    sched.run_until_idle()
+    faults.disarm("serving.kv_restore")
+    if not adopted.adopted or refused.adopted or \
+            restore.kv_restored_tokens != 0 or \
+            corrupt.value != corrupt0 + 1:
+        raise AssertionError(
+            f"phase 13: adopted {adopted.adopted}, refused bundle adopted "
+            f"{refused.adopted}, restored {restore.kv_restored_tokens}, "
+            f"corrupt +{corrupt.value - corrupt0}")
+    for i, h in ((9, refused), (10, adopted), (11, restore)):
+        if h.status != "DONE":
+            raise AssertionError(f"phase 13: request {i} {h.status}")
+        hold(h, i, f"phase 13 handoff/restore request {i}")
+    sched.close()
+    idle_pool()
+    counts = check_captures(eng, "phase 13")
+    injected = decode_failures() - failures0
+    if injected != 1:
+        raise AssertionError(f"phase 13: serving_decode_failures_total "
+                             f"moved by {injected}, 1 fault injected")
+    statuses = {}
+    for h in list(std.values()) + [inter, late] + expired + first + \
+            after + hs + [refused, adopted, restore]:
+        if not h.done():
+            raise AssertionError(f"phase 13: request {h.request_id} "
+                                 f"{h.status}")
+        statuses[h.status] = statuses.get(h.status, 0) + 1
+    statuses["SHED"] = statuses.get("SHED", 0) + len(shed)
+
+    # the records: decisions replay, timelines sum, the snapshot validates
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    decs = [r for r in recs if r["kind"] == "decision"]
+    errs = decisions.validate_records(decs)
+    actions = {r["action"] for r in decs}
+    if errs or not {"admit", "shed", "quarantine", "swap"} <= actions:
+        raise AssertionError(f"phase 13: decisions {sorted(actions)}, "
+                             f"errors {errs[:3]}")
+    timelines = [r for r in recs if r["kind"] == "timeline"]
+    for r in timelines:
+        total = sum(p["dur_s"] for p in r["phases"])
+        if abs(total - r["e2e_s"]) > 1e-6 * (len(r["phases"]) + 1):
+            raise AssertionError(f"phase 13: timeline phases sum to "
+                                 f"{total}, e2e_s {r['e2e_s']}")
+    reg.write_snapshot(snap_path)
+    rc = subprocess.run([sys.executable,
+                         os.path.join(ROOT, "tools", "metrics_report.py"),
+                         snap_path], capture_output=True, text=True,
+                        timeout=120)
+    if rc.returncode:
+        raise AssertionError(f"phase 13: metrics_report.py refused the "
+                             f"snapshot: {rc.stderr[-500:]}")
+
+    # int8 KV: the kv_quant truncate scales one block in place, and the
+    # next replayed decode reads it
+    kw = dict(SLO_ENGINE, kv_dtype="int8", capture_logits=True)
+    e8, twin = (PagedGenerationEngine(model, device=model.device, **kw)
+                for _ in range(2))
+    for e in (e8, twin):
+        precompile(e, "phase 13 int8")
+        e.prefill(0, prompts[3])
+        e.prefill(1, prompts[8])
+        e.decode()
+    layer, tlayer = e8._pool[0], twin._pool[0]
+    ptrs = (layer.k_scale.data_ptr(), layer.v_scale.data_ptr())
+    victim = next(b for b in range(1, e8.block_pool.num_blocks)
+                  if e8.block_pool.refcount(b) > 0)
+    faults.arm("serving.kv_quant", "truncate", max_fires=1)
+    e8.decode()
+    faults.disarm("serving.kv_quant")
+    twin.decode()
+    torch.cuda.synchronize()
+    vslot = next(s for s in range(2) if victim in e8._tables[s])
+    scaled = all(torch.equal(getattr(layer, n)[victim],
+                             getattr(tlayer, n)[victim] * 64.0)
+                 for n in ("k_scale", "v_scale"))
+    moved = float(abs(e8.last_logits[vslot]
+                      - twin.last_logits[vslot]).max())
+    if not scaled or ptrs != (layer.k_scale.data_ptr(),
+                              layer.v_scale.data_ptr()) or moved == 0.0:
+        raise AssertionError(f"phase 13: kv_quant scaled {scaled}, "
+                             f"logits moved {moved}")
+    int8_counts = check_captures(e8, "phase 13 int8")
+    del e8, twin
+    costs = slo_host_costs(path)
+
+    rec = {"capture_s": capture_s, "timing": timing, "launches": launches,
+           "shed": len(shed), "cancel_freed_blocks": freed,
+           "running_deadline_tokens": len(late.tokens),
+           "decode_failures": injected, "statuses": statuses,
+           "decisions": {a: sum(r["action"] == a for r in decs)
+                         for a in sorted(actions)},
+           "timelines": len(timelines), "compared_tokens": compared,
+           "dropped_near_ties": dropped, "kv_quant_victim": victim,
+           "kv_quant_logit_move": moved, "capture_counts": counts,
+           "int8_capture_counts": int8_counts, "host_costs": costs,
+           "card": smi}
+    for label, runs in timing.items():
+        log(f"slo serving, {label}: decode step "
+            + " / ".join(f"{r['decode_step_ms']:.3f}" for r in runs)
+            + " ms; scheduler host time a step outside decode, median "
+            + " / ".join(f"{r['sched_host_us']['median_us']:.1f}"
+                         for r in runs) + " us [" + smi + "]")
+    log("slo host costs, us a call: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in costs.items()) + f" [{smi}]")
+    log(f"slo chaos: statuses {statuses}, {len(shed)} shed, decode "
+        f"failures {injected} (1 injected), decisions {rec['decisions']}, "
+        f"{len(timelines)} timelines summing to e2e, {compared} tokens "
+        f"held to phase 4 ({dropped} dropped by the near-tie rule), "
+        f"kv_quant moved the victim's logits by {moved:.3e}, capture "
+        f"counts {counts} [{smi}]")
+    return rec
 
 
 # ------------------------------------------------------------ flash kernels
@@ -1452,8 +1954,7 @@ def train_step_350m(smi, warmup=3, steps=10, B=8):
         step_fn(params, state, toks, labs)
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
+    kernels = device_kernels(prof)
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) \
@@ -1650,7 +2151,7 @@ def main(argv):
     handles, m, wall = serve(engine, prompts, max_new=32)
     counts4 = check_captures(engine, "phase 4")
     launches, prefill4 = pa.launches, pa.launches_prefill
-    prefills = len(prompts) + m["requests"]["preempted"]
+    prefills = len(prompts) + m["requests"]["serving.preempted"]
     if launches <= 0:
         raise AssertionError("the server never launched the kernel")
     if launches != cfg.num_layers * (m["decode_steps"] + prefills) or \
@@ -1670,6 +2171,7 @@ def main(argv):
                  "decode_steps": m["decode_steps"], "prefills": prefills,
                  "decode_step_ms": m["decode_step_ms"],
                  "decode_tokens_per_s": m["decode_tokens_per_s"],
+                 "sched_host_us": m["sched_host_us"],
                  "ttft_s_mean": sum(ttfts) / len(ttfts),
                  "ttft_s_max": max(ttfts), "prefix_hits": m["prefix_hits"],
                  "capture_s": capture4, "capture_counts": counts4,
@@ -1762,7 +2264,23 @@ def main(argv):
     report["hot_swap"] = hot_swap(model, prompts, spec_handles, smi)
 
     # 12. the KV handoff ----------------------------------------------------
+    failures = decode_failures()
     report["handoff"] = handoff(model, prompts[8:16], smi)
+    if decode_failures() != failures:
+        raise AssertionError("phase 12: a decode failure was contained")
+
+    # 13. the server under its SLO machinery and chaos ----------------------
+    report["slo"] = slo_serving(model, prompts, [h.tokens for h in handles],
+                                smi)
+    report["slo"]["phase4_decode_step_ms"] = m["decode_step_ms"]
+    report["slo"]["phase4_sched_host_us"] = m["sched_host_us"]
+    report["slo"]["phase10_round_ms"] = spec_rec["round_ms"]
+    report["slo"]["phase10_sched_host_us"] = spec_rec["sched_host_us"]
+    log(f"decode step on the host clock with the substrate on: phase 4 "
+        f"{m['decode_step_ms']:.3f} ms (scheduler host time a step outside "
+        f"decode, median {m['sched_host_us']['median_us']:.1f} us), phase "
+        f"10 round {spec_rec['round_ms']:.3f} ms (median "
+        f"{spec_rec['sched_host_us']['median_us']:.1f} us) [{smi}]")
 
     # summary ------------------------------------------------------------------------
     dec = next(c for c in cases if c["case"] == "decode_f32")

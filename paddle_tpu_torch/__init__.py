@@ -8,13 +8,18 @@ neither it nor JAX. Its slices so far:
   * training: the single-device GPT step of `parallel/gpt_spmd.py`, whose
     attention runs on hand-written flash-attention forward, dQ and dK/dV
     kernels (`csrc/flash_attention.cu`, bound in
-    `ops/flash_attention.py`).
+    `ops/flash_attention.py`);
+  * observability: the metrics registry, trace context, fault sites,
+    flight recorder, decision and timeline records (`observability/`)
+    and the host span tracer (`profiler/`), which the serving scheduler's
+    SLO machinery reports through.
 
 Every entry point takes `device=` and defaults to "cuda"; without CUDA it
 raises unless the caller passes device="cpu", which runs the plain
 PyTorch versions of the kernels.
 """
-from . import core, ops, parallel, serving, text  # noqa: F401
+from . import core, observability, ops, parallel, profiler  # noqa: F401
+from . import serving, text  # noqa: F401
 from .core.device import resolve_device  # noqa: F401
 from .serving import (  # noqa: F401
     EngineConfig, GenerationEngine, PagedEngineConfig, PagedGenerationEngine,
@@ -22,7 +27,8 @@ from .serving import (  # noqa: F401
 )
 from .text.models import GPT, GPTConfig, gpt_125m, gpt_tiny  # noqa: F401
 
-__all__ = ["core", "ops", "parallel", "serving", "text", "resolve_device",
+__all__ = ["core", "observability", "ops", "parallel", "profiler",
+           "serving", "text", "resolve_device",
            "EngineConfig", "GenerationEngine", "PagedEngineConfig",
            "PagedGenerationEngine", "Scheduler", "ServingConfig", "GPT",
            "GPTConfig", "gpt_125m", "gpt_tiny"]

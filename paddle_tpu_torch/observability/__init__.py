@@ -1,0 +1,37 @@
+"""paddle_tpu_torch.observability — the metrics/trace/postmortem substrate.
+
+Counterpart of `paddle_tpu.observability`: the stdlib-only modules,
+copied (the port imports nothing of the JAX package), with their schemas
+and family names unchanged so the repo's tools grade the port's
+artifacts as they grade the JAX package's:
+
+  metrics.py         — Counter/Gauge/Histogram registry with label sets,
+                       consistent snapshots, JSONL (metrics.v1) +
+                       Prometheus text; rendered/compared by
+                       tools/metrics_report.py
+  tracecontext.py    — trace/span ids, thread+process propagation scope,
+                       the 24-byte wire context, merge_chrome_traces()
+  flight_recorder.py — bounded ring of recent spans + watchdog + SIGTERM
+                       hook; postmortem.v1 artifacts
+  faults.py          — deterministic fault injection at named sites,
+                       armed through the API or `PTN_FAULTS`
+  decisions.py       — the decisions.v1 audit record and its replay rules
+  reqtimeline.py     — per-request phase trails and reqtimeline.v1
+
+Each module finds its siblings under the port's own names
+(`paddle_tpu_torch.profiler`, `paddle_tpu_torch.observability.metrics`),
+so the two packages' registries and tracers never see each other.
+
+Later work: `fleet` (metrics federation, the SLO burn-rate watchdog) with
+the serving fleet (ROADMAP A.11); `kvledger`, `numerics`, `deviceprof`
+and `xplane` with the planes that reach into traced programs (A.12).
+"""
+from . import decisions, faults, flight_recorder, metrics  # noqa: F401
+from . import reqtimeline, tracecontext  # noqa: F401
+from .flight_recorder import dump_postmortem  # noqa: F401
+from .metrics import registry  # noqa: F401
+from .tracecontext import merge_chrome_traces, trace_scope  # noqa: F401
+
+__all__ = ["metrics", "tracecontext", "flight_recorder", "faults",
+           "decisions", "reqtimeline", "registry", "dump_postmortem",
+           "trace_scope", "merge_chrome_traces"]

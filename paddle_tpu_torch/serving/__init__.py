@@ -12,8 +12,11 @@ continuous-batching scheduler (counterpart of `paddle_tpu.serving`).
   spec_decode.py  — speculative decode: draft proposals, one verify window
   scheduler.py    — priority queue, continuous batching, preemption,
                     speculative rounds, scheduled weight swaps, staged
-                    placement from handed-off KV
+                    placement from handed-off KV, deadlines, load
+                    shedding, failure quarantine, cancellation, and the
+                    serving metrics, decision and timeline records
   distributed/    — the KV-bundle wire format of the handoff
+  kv_tiers/       — the corrupt-restore counter the tiers will share
 """
 from . import blocks, kv_cache, prefix_cache, sampling  # noqa: F401
 from .blocks import (  # noqa: F401
@@ -24,8 +27,8 @@ from .engine import (  # noqa: F401
 )
 from .prefix_cache import PrefixCache, prefix_key  # noqa: F401
 from .scheduler import (  # noqa: F401
-    PRIORITIES, QueueFullError, Request, RequestHandle, Scheduler,
-    ServingConfig,
+    PRIORITIES, LoadShedError, QueueFullError, Request, RequestHandle,
+    Scheduler, ServingConfig,
 )
 from .spec_decode import (  # noqa: F401
     SpecDecodeConfig, SpeculativeEngine, truncated_draft,
@@ -37,7 +40,8 @@ __all__ = [
     "PrefixCache", "prefix_key",
     "EngineConfig", "GenerationEngine", "PagedEngineConfig",
     "PagedGenerationEngine",
-    "PRIORITIES", "QueueFullError", "Request", "RequestHandle", "Scheduler",
+    "PRIORITIES", "LoadShedError", "QueueFullError", "Request",
+    "RequestHandle", "Scheduler",
     "ServingConfig", "SpecDecodeConfig", "SpeculativeEngine",
     "truncated_draft",
 ]

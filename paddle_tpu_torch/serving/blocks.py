@@ -1,7 +1,9 @@
 """Paged KV memory: a pool of fixed-size blocks plus block-table attention.
 
-Counterpart of `paddle_tpu/serving/blocks.py`, without its metrics, fault
-sites and ledger hooks. K/V live in per-layer pools
+Counterpart of `paddle_tpu/serving/blocks.py`, with its pool gauges and
+its `serving.block_alloc` fault site; the ledger hooks and the
+`serving.kv_ledger_leak` site wait for the KV ledger (ROADMAP A.12). K/V
+live in per-layer pools
 `[num_blocks, block_size, heads, head_dim]`; each slot owns an int32 block
 table mapping logical block -> physical block id. Block 0 is the reserved
 garbage block: unallocated table entries point at it, so stray writes from
@@ -26,6 +28,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..observability import faults as _faults
+from ..observability import metrics as _metrics
 from . import kv_cache as kvc
 
 __all__ = ["BlockAllocError", "BlockPool", "PagedLayerKV",
@@ -40,6 +44,14 @@ GARBAGE_BLOCK = 0
 
 # int8 symmetric range: codes in [-127, 127], dequant = code * (scale/QMAX)
 QMAX = 127.0
+
+_M_POOL_TOTAL = _metrics.gauge(
+    "serving_block_pool_blocks_total",
+    "Allocatable KV blocks in the live engine's pool (garbage block "
+    "excluded)")
+_M_POOL_IN_USE = _metrics.gauge(
+    "serving_block_pool_blocks_in_use",
+    "KV blocks currently referenced (request tables + prefix cache)")
 
 
 class BlockAllocError(RuntimeError):
@@ -269,6 +281,7 @@ class BlockPool:
         self.block_size = int(block_size)
         self._free = list(range(self.num_blocks - 1, GARBAGE_BLOCK, -1))
         self._refs = np.zeros((self.num_blocks,), np.int32)
+        self._export()
 
     @property
     def capacity(self):
@@ -286,8 +299,15 @@ class BlockPool:
     def refcount(self, block_id):
         return int(self._refs[block_id])
 
+    def _export(self):
+        _M_POOL_TOTAL.set(self.capacity)
+        _M_POOL_IN_USE.set(self.in_use)
+
     def alloc(self, n=1):
-        """Allocate n blocks, all or nothing; raises BlockAllocError."""
+        """Allocate n blocks, all or nothing; raises BlockAllocError.
+        `serving.block_alloc` fires first: armed with exc=BlockAllocError
+        it simulates exhaustion, its default raise a failed prefill."""
+        _faults.fire("serving.block_alloc")
         if n > len(self._free):
             raise BlockAllocError(
                 f"block pool exhausted: want {n}, have {len(self._free)} "
@@ -295,6 +315,7 @@ class BlockPool:
         out = [self._free.pop() for _ in range(n)]
         for b in out:
             self._refs[b] = 1
+        self._export()
         return out
 
     def ref(self, block_id):
@@ -312,3 +333,4 @@ class BlockPool:
         self._refs[block_id] -= 1
         if self._refs[block_id] == 0:
             self._free.append(int(block_id))
+        self._export()

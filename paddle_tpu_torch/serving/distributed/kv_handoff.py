@@ -34,13 +34,17 @@ of the array tail, so a truncation or a shape lie fails
 verbs: a JSON object and an opaque binary tail in one length-prefixed
 payload.
 
-Left out until the port has the fault registry (ROADMAP A.12a): the
-`serving.kv_handoff` fault site the reference fires on both ends.
+The `serving.kv_handoff` fault site fires at both ends, first thing in
+`pack_kv_bundle` (the sender) and in `unpack_kv_bundle` (the receiver),
+as in the reference: a raise on either end leaves the caller to fall back
+to a local prefill.
 """
 import json
 import struct
 
 import numpy as np
+
+from ...observability import faults as _faults
 
 __all__ = ["KVWireError", "BUNDLE_VERSION", "QUANT_BUNDLE_VERSION",
            "RNG_BUNDLE_VERSION", "pack_kv_bundle", "unpack_kv_bundle",
@@ -83,6 +87,7 @@ def pack_kv_bundle(ks, vs, meta=None, k_scales=None, v_scales=None,
 
     `rng=(seed, gen)` stamps the bundle v3: the request's sampler state
     after its first token. Composes with either layout."""
+    _faults.fire("serving.kv_handoff")
     if len(ks) != len(vs) or not ks:
         raise KVWireError(
             f"bundle needs matching non-empty K/V layer lists, got "
@@ -162,6 +167,7 @@ def unpack_kv_bundle(buf):
     quantized bundle comes back dequantized to float32, with
     meta["quantized"] = True; a v3 bundle adds meta["rng"] = (seed,
     gen)."""
+    _faults.fire("serving.kv_handoff")
     buf = memoryview(bytes(buf) if not isinstance(buf, (bytes, bytearray,
                                                         memoryview))
                      else buf)

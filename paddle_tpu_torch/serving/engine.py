@@ -26,8 +26,22 @@ calls made (0 for the gather path and on the CPU). The KV handoff
 `extract_prefix_kv`, `restore_prefix`) writes the pools in place, so the
 graphs keep reading the KV it moves.
 
-Left out of this port: the persistent compile cache, the numerics taps,
-LoRA adapters, the KV tiers and the fault sites of the handoff.
+Fault sites, in the reference's order and each before any engine state
+moves, so a raise leaves the positions, the tables, the packed inputs and
+the weights as they were: `serving.decode_step` first in `decode()`,
+`serving.kv_quant` next on int8 pools (truncate multiplies one in-use
+block's layer-0 K and V scale rows by 64 in place, the storage the decode
+graph reads), `serving.weight_swap` first in `swap_params`, and
+`serving.kv_restore` in `restore_prefix` (raise or truncate restores
+nothing and ticks `serving_kv_tier_corrupt_total`); `serving.block_alloc`
+fires in the block pool. The `serving::prefill` and
+`serving::decode_step` spans wrap the executables (`paddle_tpu_torch.
+profiler.RecordEvent`, a `record_function` range while a torch profiler
+records).
+
+Left out of this port: the persistent compile cache, the numerics taps
+and their `numerics.corrupt` site (ROADMAP A.12), LoRA adapters and their
+`serving.adapter_swap` site, and the KV tiers (A.11).
 """
 import functools
 import gc
@@ -36,11 +50,14 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..observability import faults as _faults
 from ..ops import paged_attention as _pa
+from ..profiler import RecordEvent, TracerEventType
 from . import blocks
 from . import graphs
 from . import kv_cache as kvc
 from . import sampling
+from .kv_tiers.store import corrupt_counter
 from .prefix_cache import PrefixCache, prefix_key
 
 __all__ = ["EngineConfig", "GenerationEngine", "PagedEngineConfig",
@@ -242,7 +259,9 @@ class GenerationEngine:
         its tensors in place (a trainer stepping the model it swapped in)
         cannot change what serves, as the reference's immutable arrays
         cannot. The module is left untouched. Returns the number of
-        swapped tensors."""
+        swapped tensors. `serving.weight_swap` fires before anything is
+        staged, so a fault leaves the old weights bit for bit."""
+        _faults.fire("serving.weight_swap")
         current = self._params
         missing = sorted(set(current) - set(new_params))
         if missing:
@@ -278,7 +297,11 @@ class GenerationEngine:
         # run the prompt through a fresh one-slot cache sized to the
         # bucket, then copy its rows into the slot
         local = self._model.gen_cache(1, bucket)
-        logits, local = self._forward(self._padded(prompt, bucket), local)
+        with RecordEvent("serving::prefill", TracerEventType.UserDefined,
+                         {"bucket": bucket, "length": int(prompt.size),
+                          "slot": slot}):
+            logits, local = self._forward(self._padded(prompt, bucket),
+                                          local)
         for glob, loc in zip(self._cache.layers, local.layers):
             glob.k[slot, :bucket] = loc.k[0]
             glob.v[slot, :bucket] = loc.v[0]
@@ -290,9 +313,13 @@ class GenerationEngine:
 
     def decode(self):
         """Advance every slot one token; returns np.int32 [slots]."""
+        _faults.fire("serving.decode_step")
         tokens = torch.from_numpy(self._last_tokens.astype(np.int64))
-        logits, cache = self._decode_forward(tokens.to(self.device)[:, None],
-                                             self._cache)
+        with RecordEvent("serving::decode_step",
+                         TracerEventType.UserDefined,
+                         {"slots": self.config.slots}):
+            logits, cache = self._decode_forward(
+                tokens.to(self.device)[:, None], self._cache)
         # free slots keep decoding garbage harmlessly; clamp so their
         # position stays in bounds forever
         pos = torch.clamp(self._cache.pos + 1, max=self.config.max_len - 1)
@@ -607,8 +634,10 @@ class PagedGenerationEngine(GenerationEngine):
         n_priv = need - nshared // bs
         try:
             priv = self._alloc_blocks(n_priv) if n_priv else []
-        except blocks.BlockAllocError:
-            for b in shared:                # give back the matched refs
+        except Exception:
+            # give back the matched refs, under pressure and after any
+            # other allocation failure (the `serving.block_alloc` site)
+            for b in shared:
                 self.block_pool.unref(b)
             raise
         row = np.zeros((self.config.max_blocks_per_slot,), np.int32)
@@ -628,7 +657,12 @@ class PagedGenerationEngine(GenerationEngine):
         pf["row"][0] = row
         pf["pos"][0] = nshared
         pf["valid"][0] = suffix.size
-        logits = self._run(f"prefill[{bucket}]")
+        with RecordEvent("serving::prefill", TracerEventType.UserDefined,
+                         {"bucket": bucket, "length": plen, "slot": slot,
+                          "prefix_hit_tokens": nshared, "paged": True,
+                          "kv_dtype": self.config.kv_dtype,
+                          "attend": self.config.attention_impl}):
+            logits = self._run(f"prefill[{bucket}]")
         self._pos[slot] = nshared + suffix.size
         first = int(self._select(logits[:, suffix.size - 1], slot)[0])
         self._slot_gen[slot] += 1
@@ -647,8 +681,15 @@ class PagedGenerationEngine(GenerationEngine):
         """Advance every slot one token; returns np.int32 [slots]. Active
         slots get their next block first (BlockAllocError under pressure;
         the scheduler grows slots itself so it can preempt instead)."""
+        _faults.fire("serving.decode_step")
+        self._fire_kv_quant_chaos()
         self.ensure_decode_capacity()
-        logits, picks = self._run("decode")
+        with RecordEvent("serving::decode_step",
+                         TracerEventType.UserDefined,
+                         {"slots": self.config.slots, "paged": True,
+                          "kv_dtype": self.config.kv_dtype,
+                          "attend": self.config.attention_impl}):
+            logits, picks = self._run("decode")
         self._pos[:] = np.minimum(self._pos + 1, self.config.max_len - 1)
         if self.config.capture_logits:
             self.last_logits = logits.float().cpu().numpy()
@@ -656,6 +697,27 @@ class PagedGenerationEngine(GenerationEngine):
         self._slot_gen += 1
         self._last_tokens[:] = out
         return out
+
+    def _fire_kv_quant_chaos(self):
+        """The `serving.kv_quant` chaos site (truncate mode: the caller
+        does the damage): on int8 pools, multiply one in-use block's K
+        and V scale rows of layer 0 by 64. The multiply is in place, on
+        the scale tensors the captured decode graph reads, so the next
+        replay dequantizes that block's codes against the wrong scale:
+        the silent corruption the int8 quality gate exists to catch."""
+        if not self.kv_quantized:
+            return
+        spec = _faults.fire("serving.kv_quant")
+        if spec is None or spec.mode != "truncate":
+            return
+        victim = next((int(b) for b in range(1, self.block_pool.num_blocks)
+                       if self.block_pool.refcount(b) > 0), None)
+        if victim is None:
+            return
+        layer = self._pool[0]
+        with torch.no_grad():
+            layer.k_scale[victim].mul_(64.0)
+            layer.v_scale[victim].mul_(64.0)
 
     def reset_slot(self, slot):
         """Free the slot: its table drops every reference (blocks return
@@ -878,8 +940,20 @@ class PagedGenerationEngine(GenerationEngine):
         `blocks.quantize_codes`), then registered; blocks already cached
         are touched. Allocation pressure ends the walk early: the prefix
         registered so far still matches. Returns the tokens now servable
-        from the chain (a multiple of block_size)."""
+        from the chain (a multiple of block_size).
+
+        `serving.kv_restore` fires once for the whole bundle: a raise or a
+        truncate restores nothing (the prefill recomputes; never a
+        partial registration) and ticks `serving_kv_tier_corrupt_total`."""
         if self.prefix_cache is None or int(plen) < 1:
+            return 0
+        try:
+            spec = _faults.fire("serving.kv_restore")
+        except Exception:
+            corrupt_counter().inc()
+            return 0
+        if spec is not None and spec.mode == "truncate":
+            corrupt_counter().inc()
             return 0
         self._check_bundle(ks, vs, plen, "restore")
         toks = [int(t) for t in np.asarray(prompt_ids, np.int64).ravel()]

@@ -1,8 +1,9 @@
 """Shared prefix cache: hash-addressed KV blocks, refcounted, copy-on-write
 safe.
 
-Counterpart of `paddle_tpu/serving/prefix_cache.py` without the KV tiers,
-the ledger and the namespace quotas. Block k of a prompt is keyed by the
+Counterpart of `paddle_tpu/serving/prefix_cache.py`, with its hit, miss,
+resident-block and eviction families, without the KV tiers, the ledger
+and the namespace quotas. Block k of a prompt is keyed by the
 hash of the whole token prefix `prompt[:(k+1)*block_size]`, so two prompts
 share block k iff they agree on every token up to its end; a namespace
 salts the hash first, so chains of two namespaces never share a block.
@@ -22,9 +23,30 @@ salts the hash first, so chains of two namespaces never share a block.
 """
 import hashlib
 
+from ..observability import metrics as _metrics
 from .blocks import GARBAGE_BLOCK
 
-__all__ = ["PrefixCache", "prefix_key"]
+__all__ = ["PrefixCache", "prefix_key", "DEFAULT_NAMESPACE"]
+
+_M_HITS = _metrics.counter(
+    "serving_prefix_cache_hits_total",
+    "Prefill lookups that reused at least one cached prefix block")
+_M_MISSES = _metrics.counter(
+    "serving_prefix_cache_misses_total",
+    "Prefill lookups that reused no cached prefix block")
+_M_BLOCKS = _metrics.gauge(
+    "serving_prefix_cache_blocks", "KV blocks resident in the prefix cache")
+_M_EVICTED = _metrics.counter(
+    "serving_prefix_cache_evicted_total",
+    "Prefix blocks evicted back to the pool under allocation pressure")
+_M_NS_EVICTED = _metrics.counter(
+    "serving_prefix_ns_evicted_total",
+    "Prefix blocks evicted per namespace under allocation pressure",
+    labelnames=("namespace",))
+
+# the namespace label of un-namespaced entries (the tenant label of
+# unlabeled traffic in the decision records)
+DEFAULT_NAMESPACE = "default"
 
 
 def prefix_key(tokens, namespace=None):
@@ -47,12 +69,19 @@ class PrefixCache:
         self._lru = {}            # key -> last-use sequence number
         self._parent = {}         # key -> chain-parent key (None at k=0)
         self._children = {}       # key -> cached direct children count
+        self._ns = {}             # key -> namespace it was hashed in
         self._seq = 0
         self.hits = 0             # prefill lookups that reused a block
         self.misses = 0
 
     def __len__(self):
         return len(self._entries)
+
+    def evictable(self):
+        """Blocks reclaimable on demand (only the cache holds them): the
+        free capacity a pool probe (the shed_pool_free rule) must count."""
+        return sum(1 for blk in self._entries.values()
+                   if self.pool.refcount(blk) == 1)
 
     def _touch(self, key):
         self._seq += 1
@@ -95,12 +124,14 @@ class PrefixCache:
         """Register an allocated block (refcount 1, held by nobody else)
         as the entry `key` under chain parent `parent`: the allocation's
         own reference becomes the cache's. `namespace` is the one `key`
-        was hashed in (the port keeps no per-namespace accounting)."""
+        was hashed in."""
         self._entries[key] = int(blk)
+        self._ns[key] = namespace
         self._parent[key] = parent
         if parent is not None:
             self._children[parent] = self._children.get(parent, 0) + 1
         self._touch(key)
+        _M_BLOCKS.set(len(self._entries))
 
     def record_lookup(self, hit):
         """Count one prefill lookup as a hit or a miss."""
@@ -108,6 +139,7 @@ class PrefixCache:
             self.hits += 1
         else:
             self.misses += 1
+        (_M_HITS if hit else _M_MISSES).inc()
 
     def insert(self, prompt, table_row, upto_tokens, namespace=None):
         """Register the fully written blocks of `prompt` (logical blocks
@@ -127,12 +159,14 @@ class PrefixCache:
                 continue
             self.pool.ref(blk)
             self._entries[key] = blk
+            self._ns[key] = namespace
             self._parent[key] = prev_key
             if prev_key is not None:
                 self._children[prev_key] = \
                     self._children.get(prev_key, 0) + 1
             self._touch(key)
             prev_key = key
+        _M_BLOCKS.set(len(self._entries))
 
     def evict(self, n_blocks):
         """Free up to n_blocks least-recently-used entries that only the
@@ -158,6 +192,12 @@ class PrefixCache:
                 self._children.pop(key, None)
                 del self._entries[key]
                 del self._lru[key]
+                ns = self._ns.pop(key, None)
+                _M_NS_EVICTED.labels(namespace=DEFAULT_NAMESPACE if ns is None
+                                     else ns).inc()
                 freed += 1
                 progress = True   # a freed leaf may expose its parent
+        if freed:
+            _M_EVICTED.inc(freed)
+            _M_BLOCKS.set(len(self._entries))
         return freed

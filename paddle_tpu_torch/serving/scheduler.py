@@ -1,20 +1,42 @@
-"""Iteration-level (continuous) batching over a GenerationEngine.
+"""Iteration-level (continuous) batching over a GenerationEngine: the SLO
+tier.
 
 Counterpart of `paddle_tpu/serving/scheduler.py`:
 
-  submit() -> bounded admission queue (QueueFullError past the cap)
-  step()   -> apply queued weight swaps, retire finished slots
-              (max_new_tokens / eos), refill free slots from the queue by
-              (priority, arrival), grow paged slots' block tables —
-              preempting a victim under allocation pressure — then advance
-              every occupied slot one token, or one speculative round
-              (`engine.decode_many`) of 1..gamma+1 tokens
+  submit() -> bounded admission queue (QueueFullError past the cap,
+              LoadShedError past the shed watermark for sheddable
+              priority classes, deadline expiry while queued -> TIMEOUT)
+  step()   -> apply queued weight swaps, retire finished slots (eos /
+              max_new_tokens / deadline), refill free slots from the
+              queue by (priority, arrival), grow paged slots' block
+              tables — preempting a victim under allocation pressure —
+              then advance every occupied slot one token, or one
+              speculative round (`engine.decode_many`) of 1..gamma+1
+              tokens
   drain()  -> stop admitting, run until in-flight work finishes
 
-Preemption is recompute-style: the victim's blocks go back to the pool and
-it is requeued with prompt + tokens-so-far as its restart prompt, so its
-delivered stream continues unchanged (bit-identically under greedy
-decoding).
+SLO classes: every request carries a priority class (interactive=0 <
+standard=1 < batch=2) and optionally a deadline (`timeout_s`). The queue
+serves the best (priority, arrival) first; admission sheds sheddable
+classes past a queue watermark or when the block pool runs dry
+(`decisions.replay_shed`); a deadline passing while queued or while
+running ends the request TIMEOUT, a running one keeping its partial
+stream. Under allocation pressure the scheduler preempts the worst
+(priority, deadline slack) occupant (`decisions.replay_victim`), frees its
+blocks and requeues it recompute-style: prompt + tokens so far become its
+restart prompt, so its delivered stream continues unchanged
+(bit-identically under greedy decoding).
+
+Containment: an engine exception in a decode step fails only the requests
+in flight (terminal ERROR, `handle.error` carries the cause), every slot
+is quarantined but one probe slot, and the next successful step reopens
+them all; a failed prefill fails only the request being placed, under the
+same protocol. The queue and the step loop are untouched. A decode
+failure in the step after a weight swap counts its requests in
+`serving_swap_dropped_requests_total`. `serving_decode_failures_total`
+counts every contained failure, so a caller that injected none can hold
+it at 0 and a kernel or device fault never turns silently into ERROR
+statuses. `cancel()` drives one request terminal wherever it is.
 
 Staged placement: a request may arrive with its prefill already computed
 elsewhere (`submit(staged_kv=...)`, a KV bundle the engine adopts instead
@@ -23,74 +45,208 @@ of prefilling) or with a prefix chain shipped from another engine
 the request's own prefill). A bundle that cannot be used degrades to a
 local prefill; preemption drops it.
 
-Left out of this port: request deadlines (timeouts and slack-ordered
-victims), load shedding, decode-failure quarantine (an engine exception
-propagates), adapter swaps, decode capture, the metrics registry, the
-decision, timeline and KV-ledger records, the chaos sites, rate limits and
-tenancy (a request's `prefix_namespace` is passed through to the engine)
-and cancellation.
+Observability (the reference's families, records and spans, schemas
+unchanged): the serving counters and histograms in the port's metrics
+registry; with `ServingConfig(metrics_path=)` a JSONL stream of one `run`
+record, one `step` record a step, and per terminal request a `request`
+summary and a `paddle_tpu.reqtimeline.v1` timeline (queue, kv_restore,
+prefill or adopt, decode phases, whose durations sum to the request's
+end-to-end time); and every admit, shed, place, preempt, quarantine and
+swap decision as a `paddle_tpu.decisions.v1` record whose inputs replay
+to its outcome. `tools/serve_report.py` and `tools/metrics_report.py`
+grade these artifacts as they grade the JAX package's. A decode step's
+tokens are counted with one labelled `inc` per tenant, the same totals as
+the reference's per-token count.
+
+Left out of this port: adapter swaps and tenancy (token buckets,
+namespace quotas; the `tenant` and `cohort` labels and a request's
+`prefix_namespace` pass through), the KV ledger records,
+`capture_decode_steps` and the numerics taps.
 """
 import collections
 import itertools
+import json
 import threading
 import time
 
 import numpy as np
 
 from ..core.device import resolve_device
+from ..observability import decisions as _dec
+from ..observability import metrics as _metrics
+from ..observability import reqtimeline as _rt
+from ..observability import tracecontext as _tc
+from ..profiler import RecordEvent, TracerEventType
 from .blocks import BlockAllocError
 
 __all__ = ["ServingConfig", "Scheduler", "Request", "RequestHandle",
-           "QueueFullError", "PRIORITIES"]
+           "QueueFullError", "LoadShedError", "PRIORITIES"]
 
 QUEUED = "QUEUED"
 RUNNING = "RUNNING"
 DONE = "DONE"
+TIMEOUT = "TIMEOUT"
 REJECTED = "REJECTED"
+ERROR = "ERROR"
+SHED = "SHED"
+TERMINAL = (DONE, TIMEOUT, REJECTED, ERROR, SHED)
 
-# SLO priority classes, lower is better. Preemption victims are picked
-# worst class first, earliest slot first within a class.
+# SLO priority classes: lower is better. Admission shedding applies to
+# classes >= ServingConfig.shed_priority; preemption victims are picked
+# worst class first, most deadline slack first within a class.
 PRIORITIES = {"interactive": 0, "standard": 1, "batch": 2}
+
+# the per-instance `Scheduler.counts` keys (the reference's); the registry
+# families below are the unified surface
+_COUNTERS = ("serving.admitted", "serving.completed", "serving.rejected",
+             "serving.timeout", "serving.tokens", "serving.error",
+             "serving.shed", "serving.preempted")
+
+_M_REQUESTS = _metrics.counter(
+    "serving_requests_total",
+    "Serving requests by terminal/admission status and tenant",
+    labelnames=("status", "tenant"))
+_M_TOKENS = _metrics.counter(
+    "serving_tokens_total", "Tokens emitted by the serving engine",
+    labelnames=("tenant",))
+_M_QUEUE_DEPTH = _metrics.gauge(
+    "serving_queue_depth", "Admission-queue depth after the last step")
+_M_OCCUPANCY = _metrics.gauge(
+    "serving_slot_occupancy",
+    "Fraction of decode slots occupied after the last step")
+_M_TTFT = _metrics.histogram(
+    "serving_ttft_seconds", "Time to first token per completed request",
+    labelnames=("tenant",))
+_M_DECODE_SECONDS = _metrics.histogram(
+    "serving_decode_step_seconds", "Wall time of one engine decode step")
+_M_REQ_DECODE = _metrics.histogram(
+    "serving_request_decode_seconds",
+    "Per-request decode wall time (first token -> terminal), the "
+    "per-tenant decode-latency companion of the tenant-agnostic "
+    "per-step histogram", labelnames=("tenant",))
+_M_DECODE_FAILURES = _metrics.counter(
+    "serving_decode_failures_total",
+    "Engine decode/prefill calls that raised; each fails only the "
+    "affected requests")
+_M_SHED = _metrics.counter(
+    "serving_shed_total",
+    "Requests load-shed at admission (queue/pool watermark), by tenant "
+    "— per-tenant growth is failure-class in tools/metrics_report.py",
+    labelnames=("tenant",))
+_M_PREEMPTED = _metrics.counter(
+    "serving_preempted_total",
+    "Preemptions under allocation pressure (victim requeued or "
+    "errored), by the victim's tenant", labelnames=("tenant",))
+_M_SPEC_PROPOSED = _metrics.counter(
+    "serving_spec_proposed_total",
+    "Draft tokens proposed to the speculative verifier (occupied "
+    "slots), labeled by the engine kind that proposed them",
+    labelnames=("engine",))
+_M_SPEC_ACCEPTED = _metrics.counter(
+    "serving_spec_accepted_total",
+    "Draft tokens the speculative verifier accepted (occupied slots), "
+    "labeled by engine kind like serving_spec_proposed_total",
+    labelnames=("engine",))
+_M_ADOPTED = _metrics.counter(
+    "serving_kv_adopted_total",
+    "Requests placed from a handed-off KV bundle instead of a local "
+    "prefill")
+_M_SWAPS = _metrics.counter(
+    "serving_weight_swaps_total",
+    "Weight hot-swaps applied between decode steps, by outcome",
+    labelnames=("status",))
+_M_SWAP_DROPPED = _metrics.counter(
+    "serving_swap_dropped_requests_total",
+    "Requests failed by a decode step in a swap's probation window — "
+    "zero by construction; any growth is a hot-swap that poisoned the "
+    "engine (failure-class in tools/metrics_report.py)")
+_M_MODEL_VERSION = _metrics.gauge(
+    "serving_model_version",
+    "Model version the engine is currently serving (flips on hot-swap)")
 
 
 class QueueFullError(RuntimeError):
     """Admission queue at capacity (or draining): retry later."""
 
 
+class LoadShedError(QueueFullError):
+    """Request shed at admission by the SLO watermark: the scheduler chose
+    to fail this (sheddable-class) request fast rather than queue it past
+    its useful life. Terminal status SHED."""
+
+
+def _engine_kind(engine):
+    """"spec" | "paged" | "dense": labels the spec counters and the run
+    record."""
+    if hasattr(engine, "decode_many"):
+        return "spec"
+    if hasattr(engine, "block_pool"):
+        return "paged"
+    return "dense"
+
+
 class ServingConfig:
-    def __init__(self, max_queue=64, default_max_new_tokens=32):
+    def __init__(self, max_queue=64, default_max_new_tokens=32,
+                 default_timeout_s=None, metrics_path=None,
+                 shed_watermark=None, shed_priority=2,
+                 shed_pool_free=None):
         self.max_queue = int(max_queue)
         self.default_max_new_tokens = int(default_max_new_tokens)
+        self.default_timeout_s = default_timeout_s
+        self.metrics_path = metrics_path
+        # load shedding: None disables. shed_watermark is a queue-depth
+        # threshold, shed_pool_free a block-pool free-fraction floor;
+        # classes >= shed_priority are sheddable.
+        self.shed_watermark = None if shed_watermark is None \
+            else int(shed_watermark)
+        self.shed_priority = int(shed_priority)
+        self.shed_pool_free = None if shed_pool_free is None \
+            else float(shed_pool_free)
 
 
 class Request:
     _ids = itertools.count()
 
-    def __init__(self, prompt, max_new_tokens, submitted_at, priority=1,
-                 rng_seed=0, rng_gen=0):
+    def __init__(self, prompt, max_new_tokens, deadline, submitted_at,
+                 priority=1, rng_seed=None, rng_gen=0, tenant=None,
+                 cohort=None):
         self.id = next(Request._ids)
         self.prompt = list(prompt)        # the original prompt
         self.max_new_tokens = max_new_tokens
+        self.deadline = deadline          # absolute clock value or None
         self.submitted_at = submitted_at
         self.priority = int(priority)
+        # attribution labels: metrics, decision and timeline records only;
+        # the engine never sees them
+        self.tenant = str(tenant) if tenant else _dec.DEFAULT_TENANT
+        self.cohort = str(cohort) if cohort else None
+        self._m_tokens = _M_TOKENS.labels(tenant=self.tenant)
         self.rng_seed = rng_seed
         self.rng_gen = int(rng_gen)
         self.status = QUEUED
         self.tokens = []                  # generated tokens, stream order
+        self.error = None                 # cause string for status ERROR
         self.slot = None
         self.preempted = 0                # times evicted and requeued
         self.prefix_hit = False           # prefill reused cached blocks
-        self.spec_proposed = 0            # draft tokens proposed for us
-        self.spec_accepted = 0            # ... and accepted by verify
         self.adopted = False              # placed from a staged KV bundle
-        self.kv_restored_tokens = 0       # tokens a staged prefix restored
         self.prefix_namespace = None      # prefix-cache namespace
         self._staged = None               # (ks, vs, plen, first[, rng])
         self._staged_prefix = None        # (ks, vs, plen, namespace)
+        self.kv_restored_tokens = 0       # tokens a staged prefix restored
+        self.tier_hit = False             # the prefill restored shipped KV
+        self.restore_s = 0.0              # seconds the restore took
+        self.spec_proposed = 0            # draft tokens proposed for us
+        self.spec_accepted = 0            # ... and accepted by verify
         self._exec_prompt = None          # restart prompt after preemption
         self.first_token_at = None
         self.finished_at = None
         self._done = threading.Event()
+        # the end-to-end phase timeline opens its queue segment at
+        # submission, so segment durations sum to finished - submitted
+        self.trail = _rt.PhaseTrail()
+        self.trail.begin(_rt.PH_QUEUE, submitted_at)
+        self.trace_id = _tc.current_trace_id()
 
     @property
     def exec_prompt(self):
@@ -126,8 +282,21 @@ class RequestHandle:
         return list(self._req.tokens)
 
     @property
+    def error(self):
+        """The engine failure that ended this request (status ERROR)."""
+        return self._req.error
+
+    @property
     def priority(self):
         return self._req.priority
+
+    @property
+    def tenant(self):
+        return self._req.tenant
+
+    @property
+    def cohort(self):
+        return self._req.cohort
 
     @property
     def preempted(self):
@@ -156,11 +325,18 @@ class RequestHandle:
         """Prefix tokens its staged prefix chain restored (0 if none)."""
         return self._req.kv_restored_tokens
 
+    @property
+    def phases(self):
+        """The request's closed phase segments so far, t0 relative to its
+        submission (`PhaseTrail.rel()`)."""
+        return self._req.trail.rel(self._req.submitted_at)
+
     def done(self):
-        return self._req.status in (DONE, REJECTED)
+        return self._req.status in TERMINAL
 
     def result(self, timeout=None):
-        """Block until terminal; returns the token list."""
+        """Block until terminal; returns the token list (TIMEOUT and ERROR
+        requests return their partial stream)."""
         if not self._req._done.wait(timeout):
             raise TimeoutError(f"request {self._req.id} still "
                                f"{self._req.status}")
@@ -187,9 +363,13 @@ class Scheduler:
                              f"device is {dev}")
         self.engine = engine
         self.config = config or ServingConfig(**kwargs)
+        self._engine_kind = _engine_kind(engine)
+        self._m_spec = None       # the spec counters' children, on first use
         self._clock = clock
         self._queue = collections.deque()
         self._slots = [None] * engine.slots   # Request or None
+        self._quarantined = set()             # slots held out after a failure
+        self._decode_failures = 0
         self._draining = False
         self._steps = 0
         self._tokens = 0                      # every token delivered
@@ -198,20 +378,86 @@ class Scheduler:
         self._decode_time_s = 0.0
         self._spec_proposed = 0
         self._spec_accepted = 0
-        self._completed = []
-        self.counts = dict.fromkeys(
-            ("admitted", "done", "rejected", "preempted", "adopted"), 0)
+        self._adopted = 0
         self._pending_swaps = collections.deque()   # armed hot-swaps
+        self._swap_probation = False          # first step after a swap
         self.last_swap = None                 # apply_pending_swap summary
         self.model_version = None
+        self._completed = []
+        # decisions.v1 records, newest last; ring-bounded (the JSONL keeps
+        # the full history)
+        self._decisions = collections.deque(maxlen=4096)
+        self.counts = dict.fromkeys(_COUNTERS, 0)
+        self._metrics_f = (open(self.config.metrics_path, "a")
+                           if self.config.metrics_path else None)
+        self._write_run_record()
+
+    def _write_line(self, rec):
+        self._metrics_f.write(json.dumps(rec) + "\n")
+        self._metrics_f.flush()
+
+    def _write_run_record(self):
+        """One `run` header record: the engine kind and its KV/weight
+        dtypes (and gamma for a speculative engine)."""
+        if not self._metrics_f:
+            return
+        cfg = self.engine.config
+        rec = {"kind": "run", "engine": self._engine_kind,
+               "kv_dtype": getattr(cfg, "kv_dtype", "float32"),
+               "weight_dtype": getattr(cfg, "weight_dtype", "float32")}
+        gamma = getattr(cfg, "gamma", None)
+        if gamma is not None:
+            rec["gamma"] = int(gamma)
+        self._write_line(rec)
+
+    # -- the decision audit log ----------------------------------------------
+    def _decide(self, action, req, inputs, outcome):
+        """Append one decisions.v1 record (in memory and to the serving
+        JSONL); its inputs reproduce the outcome through the replay rules
+        of `observability.decisions`, the code that just made it."""
+        rec = _dec.build_record(
+            action, inputs, outcome, "scheduler", self._clock(),
+            request_id=getattr(req, "id", None),
+            tenant=getattr(req, "tenant", None),
+            cohort=getattr(req, "cohort", None),
+            trace_id=getattr(req, "trace_id", None))
+        self._decisions.append(rec)
+        if self._metrics_f:
+            self._write_line(rec)
+        return rec
+
+    def decision_records(self):
+        """Every decisions.v1 record emitted so far (the last 4096)."""
+        return list(self._decisions)
+
+    def _pool_free_fraction(self):
+        """Allocatable fraction of the block pool (prefix-cache-held
+        blocks count as free: they evict on demand), or None without a
+        pool. The pool-free shed rule's input."""
+        pool = getattr(self.engine, "block_pool", None)
+        if pool is None or pool.capacity <= 0:
+            return None
+        cache = getattr(self.engine, "prefix_cache", None)
+        free = pool.available + (cache.evictable()
+                                 if cache is not None else 0)
+        return free / pool.capacity
 
     # -- admission -----------------------------------------------------------
-    def submit(self, prompt, max_new_tokens=None, priority="standard",
-               rng_seed=None, rng_gen=0, staged_kv=None, staged_prefix=None,
-               prefix_namespace=None):
-        """Queue one request; returns its RequestHandle. `rng_seed` pins
-        the sampler stream (None derives one from the engine seed and the
-        request id).
+    def submit(self, prompt, max_new_tokens=None, timeout_s=None,
+               priority="standard", staged_kv=None, rng_seed=None,
+               rng_gen=0, tenant=None, cohort=None, prefix_namespace=None,
+               staged_prefix=None):
+        """Queue one request; returns its RequestHandle.
+
+        `timeout_s` (default `config.default_timeout_s`) sets a deadline:
+        past it a queued request ends TIMEOUT with no tokens and a running
+        one TIMEOUT with its partial stream. A sheddable class (>=
+        `shed_priority`) is refused with LoadShedError (status SHED) when
+        the queue holds `shed_watermark` requests or the pool's free
+        fraction is below `shed_pool_free`. `rng_seed` pins the sampler
+        stream (None derives one from the engine seed and the request
+        id). `tenant`/`cohort` label the request in metrics, decision and
+        timeline records only.
 
         `staged_kv=(ks, vs, plen, first_token[, rng])` places the request
         from a KV bundle another engine prefilled (`engine.adopt_kv`)
@@ -219,11 +465,12 @@ class Scheduler:
         prompt: it is what a preemption recomputes, and the bundle is kept
         only when `plen == len(prompt)` (and the engine can adopt). The
         optional 5th element is a v3 bundle's (seed, gen) sampler state.
-        `staged_prefix=(ks, vs, plen, namespace)` is a prefix chain shipped
-        from another engine: at placement it is restored into the local
-        prefix cache (`engine.restore_prefix`) so the request's own
-        prefill matches it; a restore that fails restores nothing.
-        `prefix_namespace` keys the request's prefix-cache blocks."""
+        `staged_prefix=(ks, vs, plen, namespace)` is a prefix chain
+        shipped from another engine: at placement it is restored into the
+        local prefix cache (`engine.restore_prefix`, the `kv_restore`
+        phase) so the request's own prefill matches it; a restore that
+        fails restores nothing. `prefix_namespace` keys the request's
+        prefix-cache blocks."""
         prompt = [int(t) for t in prompt]
         now = self._clock()
         max_new = self.config.default_max_new_tokens \
@@ -234,39 +481,70 @@ class Scheduler:
         if not isinstance(prio, int):
             raise ValueError(f"unknown priority {priority!r}; want one of "
                              f"{sorted(PRIORITIES)} or an int class")
-        req = Request(prompt, max_new, now, priority=prio, rng_gen=rng_gen)
-        req.rng_seed = rng_seed if rng_seed is not None else \
-            (self.engine.config.seed * 1000003 + req.id * 7919 + 1) \
-            & 0x7FFFFFFF
+        timeout = timeout_s if timeout_s is not None \
+            else self.config.default_timeout_s
+        req = Request(prompt, max_new,
+                      now + timeout if timeout is not None else None, now,
+                      priority=prio, rng_seed=rng_seed, rng_gen=rng_gen,
+                      tenant=tenant, cohort=cohort)
+        if req.rng_seed is None:
+            req.rng_seed = (self.engine.config.seed * 1000003
+                            + req.id * 7919 + 1) & 0x7FFFFFFF
+        req.prefix_namespace = prefix_namespace
         handle = RequestHandle(req)
         if self._draining:
-            self._finish(req, REJECTED)
+            self._finish(req, REJECTED, "serving.rejected")
             raise QueueFullError("scheduler is draining")
         if len(self._queue) >= self.config.max_queue:
-            self._finish(req, REJECTED)
+            self._finish(req, REJECTED, "serving.rejected")
             raise QueueFullError(
                 f"admission queue full ({self.config.max_queue})")
         if not prompt:
-            self._finish(req, REJECTED)
+            self._finish(req, REJECTED, "serving.rejected")
             raise ValueError("empty prompt")
         if len(prompt) > self.engine.max_prompt_len or \
                 len(prompt) + max_new > self.engine.config.max_len:
-            self._finish(req, REJECTED)
+            self._finish(req, REJECTED, "serving.rejected")
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({max_new}) "
                 f"exceeds the engine limits (max prompt "
                 f"{self.engine.max_prompt_len}, cache max_len "
                 f"{self.engine.config.max_len})")
+        shed_inputs = self._shed_inputs(prio)
+        shed_why = _dec.replay_shed(shed_inputs)
+        if shed_why:
+            _M_SHED.labels(tenant=req.tenant).inc()
+            self._decide("shed", req, shed_inputs, {"reason": shed_why})
+            self._finish(req, SHED, "serving.shed")
+            raise LoadShedError(
+                f"load shed (priority class {prio}): {shed_why}")
         if staged_kv is not None and hasattr(self.engine, "adopt_kv") \
                 and int(staged_kv[2]) == len(prompt):
             req._staged = staged_kv
         if staged_prefix is not None \
                 and hasattr(self.engine, "restore_prefix"):
             req._staged_prefix = staged_prefix
-        req.prefix_namespace = prefix_namespace
         self._queue.append(req)
-        self.counts["admitted"] += 1
+        self._decide("admit", req,
+                     dict(shed_inputs, max_queue=self.config.max_queue,
+                          staged=req._staged is not None),
+                     {"admitted": True,
+                      "queued_behind": len(self._queue) - 1})
+        self._count("serving.admitted", req)
         return handle
+
+    def _shed_inputs(self, prio):
+        """The load-shed rule's inputs; the verdict is
+        `decisions.replay_shed(inputs)`, the rule every shed record
+        replays under. The pool scan is paid only when the pool-free rule
+        is armed."""
+        c = self.config
+        return {"priority": prio, "shed_priority": c.shed_priority,
+                "queue_depth": len(self._queue),
+                "shed_watermark": c.shed_watermark,
+                "pool_free_fraction": self._pool_free_fraction()
+                if c.shed_pool_free is not None else None,
+                "shed_pool_free": c.shed_pool_free}
 
     # -- weight hot-swap ------------------------------------------------------
     def schedule_weight_swap(self, params, version=None):
@@ -276,7 +554,8 @@ class Scheduler:
         set. Swaps armed back to back apply in arrival order. Returns a
         threading.Event set once the swap was applied or refused; its
         `swap_result` holds that swap's outcome (`last_swap` holds the
-        latest). A refused swap keeps the old weights serving."""
+        latest). A refused swap (validation, or the `serving.weight_swap`
+        fault site) keeps the old weights serving."""
         ev = threading.Event()
         self._pending_swaps.append({"params": params, "version": version,
                                     "event": ev})
@@ -289,187 +568,456 @@ class Scheduler:
         while self._pending_swaps:
             swap = self._pending_swaps.popleft()
             applied = True
-            try:
-                n = self.engine.swap_params(swap["params"])
-            except (ValueError, TypeError, RuntimeError) as e:
-                self.last_swap = {"ok": False, "version": swap["version"],
-                                  "error": f"{type(e).__name__}: {e}"}
-            else:
-                if swap["version"] is not None:
-                    self.model_version = swap["version"]
-                self.last_swap = {"ok": True, "version": swap["version"],
-                                  "params": n,
-                                  "inflight": self.active_slots()}
+            with RecordEvent("serving::weight_swap",
+                             TracerEventType.UserDefined,
+                             {"version": swap["version"],
+                              "inflight": self.active_slots()}):
+                try:
+                    n = self.engine.swap_params(swap["params"])
+                except Exception as e:                   # noqa: BLE001
+                    _M_SWAPS.labels(status="failed").inc()
+                    self.last_swap = {
+                        "ok": False, "version": swap["version"],
+                        "error": f"{type(e).__name__}: {e}"}
+                else:
+                    _M_SWAPS.labels(status="ok").inc()
+                    if swap["version"] is not None:
+                        self.model_version = swap["version"]
+                        _M_MODEL_VERSION.set(float(swap["version"]))
+                    # probation: requests a decode failure kills in the
+                    # very next step count as swap-dropped
+                    self._swap_probation = True
+                    self.last_swap = {"ok": True,
+                                      "version": swap["version"],
+                                      "params": n,
+                                      "inflight": self.active_slots()}
+            self._decide("swap", None,
+                         {"version": swap["version"],
+                          "inflight": self.active_slots()},
+                         dict(self.last_swap))
             swap["event"].swap_result = dict(self.last_swap)
             swap["event"].set()
         return applied
 
-    # -- the iteration loop ----------------------------------------------------
+    # -- the iteration loop ---------------------------------------------------
     def step(self):
         """One scheduling iteration. Returns True while work remains."""
         self.apply_pending_swap()
-        self._retire()
-        self._refill()
+        now = self._clock()
+        self._expire_queued(now)
+        self._retire(now)
+        self._refill(now)
         self._grow_paged_slots()
-        if any(r is not None for r in self._slots):
+        active = [r for r in self._slots if r is not None]
+        if active:
             t0 = self._clock()
             # a speculative engine advances each slot by a verify window
             # a round; every other engine by a 1-wide window
             decode_many = getattr(self.engine, "decode_many", None)
-            if decode_many is not None:
-                toks, counts = decode_many()
+            try:
+                if decode_many is not None:
+                    toks, counts = decode_many()
+                else:
+                    toks = np.asarray(self.engine.decode()).reshape(-1, 1)
+                    counts = np.ones((toks.shape[0],), np.int32)
+            except Exception as e:                       # noqa: BLE001
+                self._on_decode_failure(e)
             else:
-                toks = np.asarray(self.engine.decode()).reshape(-1, 1)
-                counts = np.ones((toks.shape[0],), np.int32)
-            self._decode_time_s += self._clock() - t0
-            self._decode_steps += 1
-            proposed = toks.shape[1] - 1         # gamma for spec, else 0
-            eos = self.engine.config.eos_token_id
-            for slot, req in enumerate(self._slots):
-                if req is None:
-                    continue
-                if proposed:
-                    accepted = int(counts[slot]) - 1
-                    req.spec_proposed += proposed
-                    req.spec_accepted += accepted
-                    self._spec_proposed += proposed
-                    self._spec_accepted += accepted
-                # the slot's emitted run, cut where the one-token loop
-                # would have stopped (eos / max_new_tokens)
-                for j in range(int(counts[slot])):
-                    req.tokens.append(int(toks[slot, j]))
-                    self._tokens += 1
-                    self._decode_tokens += 1
-                    if req.finished(eos):
-                        break
+                dt = self._clock() - t0
+                self._decode_time_s += dt
+                self._decode_steps += 1
+                _M_DECODE_SECONDS.observe(dt)
+                self._emit(toks, counts)
+                # a healthy step is the reprobe proof: reopen every
+                # quarantined slot (and a fresh swap leaves probation)
+                self._quarantined.clear()
+                self._swap_probation = False
         self._steps += 1
+        _M_QUEUE_DEPTH.set(len(self._queue))
+        _M_OCCUPANCY.set(self.active_slots() / max(self.engine.slots, 1))
+        self._write_step_record(now, len(active))
         return bool(self._queue or any(s is not None for s in self._slots))
 
+    def _emit(self, toks, counts):
+        """Append each slot's emitted run, cut where the one-token loop
+        would have stopped (eos / max_new_tokens); the step's tokens are
+        counted with one labelled inc per tenant."""
+        proposed = toks.shape[1] - 1             # gamma for spec, else 0
+        eos = self.engine.config.eos_token_id
+        step_proposed = step_accepted = 0
+        by_tenant = {}                           # tokens child -> count
+        for slot, req in enumerate(self._slots):
+            if req is None:
+                continue
+            if proposed:
+                accepted = int(counts[slot]) - 1
+                req.spec_proposed += proposed
+                req.spec_accepted += accepted
+                step_proposed += proposed
+                step_accepted += accepted
+            n = 0
+            for j in range(int(counts[slot])):
+                req.tokens.append(int(toks[slot, j]))
+                n += 1
+                if req.finished(eos):
+                    break
+            by_tenant[req._m_tokens] = by_tenant.get(req._m_tokens, 0) + n
+        for child, n in by_tenant.items():
+            child.inc(n)
+            self.counts["serving.tokens"] += n
+            self._tokens += n
+            self._decode_tokens += n
+        if proposed:
+            if self._m_spec is None:
+                self._m_spec = (
+                    _M_SPEC_PROPOSED.labels(engine=self._engine_kind),
+                    _M_SPEC_ACCEPTED.labels(engine=self._engine_kind))
+            self._spec_proposed += step_proposed
+            self._spec_accepted += step_accepted
+            self._m_spec[0].inc(step_proposed)
+            self._m_spec[1].inc(step_accepted)
+
     def active_slots(self):
+        """Occupied decode slots right now."""
         return sum(1 for s in self._slots if s is not None)
 
     def drain(self, max_steps=100000):
-        """Stop admitting and finish what is in flight."""
+        """Stop admitting, finish what is in flight, close the JSONL."""
         self._draining = True
         self.run_until_idle(max_steps)
+        self.close()
+
+    def set_draining(self, draining=True):
+        """Toggle admission stop without the blocking loop of `drain`:
+        in-flight work keeps decoding on the normal step cadence, and
+        `submit` raises QueueFullError("scheduler is draining")."""
+        self._draining = bool(draining)
+
+    @property
+    def draining(self):
+        return self._draining
+
+    def cancel(self, handle, status=None, counter=None):
+        """Cancel one request wherever it is, queued (removed from the
+        queue) or running (slot reset, its blocks back to the pool), and
+        drive it terminal (default SHED, counted as a shed; TIMEOUT and
+        ERROR count as such). Returns True when the request was live and
+        is now terminal, False when it had already finished."""
+        req = getattr(handle, "_req", handle)
+        if req.status not in (QUEUED, RUNNING):
+            return False
+        status = SHED if status is None else status
+        if counter is None:
+            counter = {TIMEOUT: "serving.timeout",
+                       ERROR: "serving.error"}.get(status, "serving.shed")
+        try:
+            self._queue.remove(req)
+        except ValueError:
+            pass
+        for slot, r in enumerate(self._slots):
+            if r is req:
+                try:
+                    self.engine.reset_slot(slot)
+                except Exception:                        # noqa: BLE001
+                    pass          # a broken engine must not block cancel
+                self._slots[slot] = None
+                req.slot = None
+        self._finish(req, status, counter)
+        return True
 
     def run_until_idle(self, max_steps=100000):
         for _ in range(max_steps):
             if not self.step():
                 return
 
-    # -- preemption ------------------------------------------------------------
-    def _pick_victim(self, worse_than=None, exclude=()):
-        """Worst priority class first, earliest slot on ties; only classes
-        strictly worse than `worse_than` when given."""
-        best = None
-        for slot, req in enumerate(self._slots):
-            if req is None or slot in exclude:
-                continue
-            if worse_than is not None and req.priority <= worse_than:
-                continue
-            if best is None or req.priority > self._slots[best].priority:
-                best = slot
-        return best
+    def close(self):
+        """Close the serving JSONL (the scheduler keeps serving)."""
+        if self._metrics_f:
+            self._metrics_f.close()
+            self._metrics_f = None
 
-    def _preempt(self, slot):
+    # -- containment ----------------------------------------------------------
+    def _fail_engine_request(self, slot, req, cause):
+        """Terminal ERROR for one request after an engine failure: slot
+        reset (a broken engine must not block cleanup), cause attached."""
+        try:
+            self.engine.reset_slot(slot)
+        except Exception:                                # noqa: BLE001
+            pass
+        self._slots[slot] = None
+        req.error = cause
+        self._finish(req, ERROR, "serving.error")
+
+    def _quarantine_all_but_probe(self):
+        """Every slot quarantined (free ones too, or a half-empty engine
+        would refill a whole batch into the next failing step); one probe
+        slot rejoins at once, the next successful step releases the
+        rest."""
+        self._quarantined = set(range(self.engine.slots))
+        self._quarantined.discard(min(self._quarantined))
+
+    def _quarantine_outcome(self, failed):
+        return {"quarantined": sorted(self._quarantined),
+                "probe_slot": min(set(range(self.engine.slots))
+                                  - self._quarantined, default=None),
+                "failed_requests": failed}
+
+    def _on_decode_failure(self, exc):
+        """Contain a decode-step exception: only the in-flight requests
+        fail, the queue and the step loop are untouched."""
+        self._decode_failures += 1
+        _M_DECODE_FAILURES.inc()
+        if self._swap_probation:
+            # the first decode step after a hot-swap failed: the swap took
+            # these requests down
+            _M_SWAP_DROPPED.inc(self.active_slots())
+            self._swap_probation = False
+        cause = f"{type(exc).__name__}: {exc}"
+        failed = [{"slot": s, "request_id": r.id, "tenant": r.tenant}
+                  for s, r in enumerate(self._slots) if r is not None]
+        with RecordEvent("serving::decode_failure",
+                         TracerEventType.UserDefined,
+                         {"error": cause[:200],
+                          "failures": self._decode_failures}):
+            for slot, req in enumerate(self._slots):
+                if req is not None:
+                    self._fail_engine_request(slot, req, cause)
+        self._quarantine_all_but_probe()
+        self._decide("quarantine", None,
+                     {"error": cause[:200], "failed": failed,
+                      "engine_slots": self.engine.slots},
+                     self._quarantine_outcome(len(failed)))
+
+    def _on_prefill_failure(self, slot, req, exc):
+        """A prefill exception fails only the request being placed, under
+        the decode failure's quarantine protocol."""
+        self._decode_failures += 1
+        _M_DECODE_FAILURES.inc()
+        cause = f"{type(exc).__name__}: {exc}"
+        with RecordEvent("serving::prefill_failure",
+                         TracerEventType.UserDefined,
+                         {"slot": slot, "request": req.id,
+                          "tenant": req.tenant, "error": cause[:200]}):
+            self._fail_engine_request(slot, req, cause)
+        self._quarantine_all_but_probe()
+        self._decide("quarantine", req,
+                     {"error": cause[:200],
+                      "failed": [{"slot": slot, "request_id": req.id,
+                                  "tenant": req.tenant}],
+                      "engine_slots": self.engine.slots},
+                     self._quarantine_outcome(1))
+
+    # -- preemption -----------------------------------------------------------
+    def _pick_victim(self, worse_than=None, exclude=()):
+        """The preemption victim by `decisions.replay_victim` over the
+        candidate table (every occupied, non-excluded slot with its
+        priority and deadline slack, in slot order): worst class first,
+        most slack within a class (no deadline is infinite slack), the
+        earliest slot on ties; only classes strictly worse than
+        `worse_than` when given. Returns (victim slot or None,
+        candidates)."""
+        now = self._clock()
+        cands = [{"slot": slot, "request_id": req.id, "tenant": req.tenant,
+                  "priority": req.priority,
+                  "deadline_slack_s": (None if req.deadline is None
+                                       else req.deadline - now)}
+                 for slot, req in enumerate(self._slots)
+                 if req is not None and slot not in exclude]
+        best = _dec.replay_victim(cands, worse_than=worse_than)
+        return (None if best is None else best["slot"]), cands
+
+    def _preempt(self, slot, reason, worse_than=None, candidates=None):
         """Evict `slot`'s request, freeing its blocks, and requeue it with
-        prompt + tokens-so-far as its restart prompt."""
+        prompt + tokens so far as its restart prompt; a victim whose
+        restart no longer fits the engine fails ERROR."""
         req = self._slots[slot]
-        self.engine.reset_slot(slot)
+        try:
+            self.engine.reset_slot(slot)
+        except Exception:                                # noqa: BLE001
+            pass
         self._slots[slot] = None
         req.slot = None
         req.preempted += 1
-        self.counts["preempted"] += 1
+        self._count("serving.preempted", req)
+        with RecordEvent("serving::preempt", TracerEventType.UserDefined,
+                         {"slot": slot, "request": req.id,
+                          "priority": req.priority, "tenant": req.tenant,
+                          "tokens": len(req.tokens), "reason": reason}):
+            pass
         remaining = req.max_new_tokens - len(req.tokens)
-        if remaining < 1:                  # raced its own completion
-            self._finish(req, DONE)
-            return
         resume = req.prompt + req.tokens
-        if len(resume) > self.engine.max_prompt_len:
-            raise RuntimeError(
-                f"request {req.id}: restart prompt ({len(resume)} tokens) "
-                f"exceeds the engine's longest prompt")
+        fits = (len(resume) <= self.engine.max_prompt_len
+                and len(resume) + remaining <= self.engine.config.max_len)
+        disposition = "done" if remaining < 1 \
+            else ("requeued" if fits else "error")
+        self._decide(
+            "preempt", req,
+            {"reason": reason, "worse_than": worse_than,
+             "candidates": candidates
+             if candidates is not None else [{
+                 "slot": slot, "request_id": req.id,
+                 "tenant": req.tenant, "priority": req.priority,
+                 "deadline_slack_s": None}],
+             "queue_depth": len(self._queue),
+             "pool_free_fraction": self._pool_free_fraction()
+             if self.config.shed_pool_free is not None else None},
+            {"victim_slot": slot, "victim_request_id": req.id,
+             "victim_tenant": req.tenant, "disposition": disposition,
+             "tokens_delivered": len(req.tokens)})
+        if remaining < 1:                  # raced its own completion
+            self._finish(req, DONE, "serving.completed")
+            return
+        if not fits:
+            req.error = (f"preempted ({reason}) and the restart prompt "
+                         f"({len(resume)} tokens) exceeds the engine "
+                         f"limits")
+            self._finish(req, ERROR, "serving.error")
+            return
         req._exec_prompt = resume
         req._staged = None                 # evicted KV is gone: recompute
         req.status = QUEUED
+        req.trail.begin(_rt.PH_QUEUE, self._clock())
         self._queue.append(req)            # keeps its arrival order
 
     def _grow_paged_slots(self):
         """Before the step every occupied slot must own the block its next
         token lands in. Pressure preempts among the growing request's
-        class and worse, the growing slot included."""
+        class and worse, the growing slot included, so a strictly better
+        class is never evicted to feed a worse one."""
         ensure = getattr(self.engine, "ensure_slot_capacity", None)
         if ensure is None:
             return
         for slot in range(len(self._slots)):
             req = self._slots[slot]
-            while req is not None and self._slots[slot] is req:
+            if req is None:
+                continue
+            for _ in range(len(self._slots) + 1):
+                if self._slots[slot] is None:
+                    break                   # preempted itself below
                 try:
                     ensure(slot)
                     break
                 except BlockAllocError:
-                    victim = self._pick_victim(worse_than=req.priority - 1)
-                    self._preempt(slot if victim is None else victim)
+                    victim, cands = self._pick_victim(
+                        worse_than=req.priority - 1)
+                    if victim is None:      # unreachable: slot qualifies
+                        victim, cands = slot, None
+                    self._preempt(victim, "allocation pressure",
+                                  worse_than=req.priority - 1,
+                                  candidates=cands)
+                    if victim == slot:
+                        break
 
-    # -- phases ------------------------------------------------------------------
-    def _retire(self):
+    # -- phases ---------------------------------------------------------------
+    def _expire_queued(self, now):
+        kept = collections.deque()
+        for req in self._queue:
+            if req.deadline is not None and now > req.deadline:
+                self._finish(req, TIMEOUT, "serving.timeout")
+            else:
+                kept.append(req)
+        self._queue = kept
+
+    def _retire(self, now):
         eos = self.engine.config.eos_token_id
         for slot, req in enumerate(self._slots):
-            if req is not None and req.finished(eos):
-                self.engine.reset_slot(slot)
+            if req is None:
+                continue
+            finished = req.finished(eos)
+            timed_out = req.deadline is not None and now > req.deadline
+            if finished or timed_out:
+                with RecordEvent("serving::retire",
+                                 TracerEventType.UserDefined,
+                                 {"slot": slot, "request": req.id,
+                                  "tenant": req.tenant,
+                                  "tokens": len(req.tokens),
+                                  "timeout": timed_out}):
+                    self.engine.reset_slot(slot)
                 self._slots[slot] = None
-                self._finish(req, DONE)
+                self._finish(req, TIMEOUT if timed_out else DONE,
+                             "serving.timeout" if timed_out
+                             else "serving.completed")
 
-    def _pop_next(self):
-        """Best queued request by (priority class, arrival)."""
-        if not self._queue:
-            return None
-        best = min(self._queue, key=lambda r: (r.priority, r.id))
-        self._queue.remove(best)
-        return best
+    def _pop_next(self, now):
+        """Best queued request by (priority class, arrival), finishing
+        expired ones along the way."""
+        while self._queue:
+            best = min(self._queue, key=lambda r: (r.priority, r.id))
+            self._queue.remove(best)
+            if best.deadline is not None and now > best.deadline:
+                self._finish(best, TIMEOUT, "serving.timeout")
+                continue
+            return best
+        return None
 
-    def _refill(self):
+    def _refill(self, now):
         for slot in range(len(self._slots)):
+            if self._slots[slot] is not None or slot in self._quarantined:
+                continue
             # a request that completes at prefill retires at once and
             # frees the slot for the next one
-            while self._slots[slot] is None:
-                req = self._pop_next()
+            while self._slots[slot] is None \
+                    and slot not in self._quarantined:
+                req = self._pop_next(now)
                 if req is None:
                     return
-                if not self._try_place(slot, req):
+                outcome = self._try_place(slot, req)
+                if outcome == "stop":
                     return
+                if outcome == "failed":
+                    break
 
     def _try_place(self, slot, req):
         """Prefill `req` into `slot`. Allocation pressure preempts a
-        strictly worse-class victim and retries; with none, the request is
-        requeued and refill stops for this step (returns False)."""
-        while True:
+        strictly worse-class victim and retries; with none the request is
+        requeued and refill stops for this step ("stop"). Any other
+        placement exception engages the quarantine protocol ("failed").
+        Returns "placed" on success."""
+        for _ in range(len(self._slots) + 1):
             try:
                 first = self._place_once(slot, req)
-                break
             except BlockAllocError:
-                victim = self._pick_victim(worse_than=req.priority,
-                                           exclude=(slot,))
+                victim, cands = self._pick_victim(
+                    worse_than=req.priority, exclude=(slot,))
                 if victim is None:
-                    self._queue.append(req)
-                    return False
-                self._preempt(victim)
+                    req.trail.begin(_rt.PH_QUEUE, self._clock())
+                    self._queue.append(req)     # retry next step
+                    return "stop"
+                self._preempt(victim, "admission pressure",
+                              worse_than=req.priority, candidates=cands)
+                continue
+            except Exception as e:               # noqa: BLE001
+                self._on_prefill_failure(slot, req, e)
+                return "failed"
+            break
+        else:
+            req.trail.begin(_rt.PH_QUEUE, self._clock())
+            self._queue.append(req)
+            return "stop"
         req.slot = slot
         req.status = RUNNING
         if req.first_token_at is None:
             req.first_token_at = self._clock()
+        req.trail.begin(_rt.PH_DECODE, self._clock())
         stats = getattr(self.engine, "last_prefill_stats", None) or {}
         if stats.get("prefix_hit_tokens", 0) > 0:
             req.prefix_hit = True
+        self._decide("place", req,
+                     {"slot": slot, "queue_depth": len(self._queue),
+                      "priority": req.priority,
+                      "preempted": req.preempted,
+                      "staged": req.adopted},
+                     {"placed": True, "slot": slot,
+                      "adopted": req.adopted,
+                      "prefix_hit": req.prefix_hit})
         req.tokens.append(first)
-        self._tokens += 1
+        self._count_token(req)
         if req.finished(self.engine.config.eos_token_id):
             self.engine.reset_slot(slot)
-            self._finish(req, DONE)
+            self._finish(req, DONE, "serving.completed")
         else:
             self._slots[slot] = req
-        return True
+        return "placed"
 
     def _place_once(self, slot, req):
         """One placement attempt: adopt the staged KV bundle when the
@@ -481,7 +1029,9 @@ class Scheduler:
         staged = req._staged
         if staged is None:
             self._restore_staged_prefix(req)
+            req.trail.begin(_rt.PH_PREFILL, self._clock())
             return self._prefill(slot, req)
+        req.trail.begin(_rt.PH_ADOPT, self._clock())
         try:
             # an rng-less (v1/v2) bundle arms the request's own stream at
             # the generation index after the adopted first token
@@ -490,12 +1040,21 @@ class Scheduler:
             first = self.engine.adopt_kv(slot, *staged[:4], rng=rng)
         except BlockAllocError:
             raise
-        except Exception:                                # noqa: BLE001
+        except Exception as e:                           # noqa: BLE001
             req._staged = None
+            with RecordEvent("serving::adopt_fallback",
+                             TracerEventType.UserDefined,
+                             {"request": req.id,
+                              "error": f"{type(e).__name__}: "
+                                       f"{str(e)[:160]}"}):
+                pass
+            # the failed adoption stays visible as its own segment
+            req.trail.begin(_rt.PH_PREFILL, self._clock())
             return self._prefill(slot, req)
         req._staged = None
         req.adopted = True
-        self.counts["adopted"] += 1
+        self._adopted += 1
+        _M_ADOPTED.inc()
         return first
 
     def _prefill(self, slot, req):
@@ -509,40 +1068,76 @@ class Scheduler:
             rng=(req.rng_seed, req.rng_gen + len(req.tokens)), **kwargs)
 
     def _restore_staged_prefix(self, req):
-        """Register a shipped prefix chain in the local prefix cache, once:
-        the bundle is consumed whatever happens, and a restore that fails
-        for any reason restores 0 tokens (the prefill that follows
-        recomputes). The chain is cache-owned, so a preempted retry still
-        matches it."""
+        """Register a shipped prefix chain in the local prefix cache, once,
+        as the request's `kv_restore` phase: the bundle is consumed
+        whatever happens, and a restore that fails for any reason
+        restores 0 tokens (the prefill that follows recomputes). The
+        chain is cache-owned, so a preempted retry still matches it."""
         sp = req._staged_prefix
         if sp is None:
             return
         req._staged_prefix = None
+        req.trail.begin(_rt.PH_KV_RESTORE, self._clock())
+        t0 = time.perf_counter()
         try:
             req.kv_restored_tokens = int(self.engine.restore_prefix(
                 req.exec_prompt, sp[0], sp[1], sp[2], namespace=sp[3]))
-        except Exception:                                # noqa: BLE001
+            if req.kv_restored_tokens > 0:
+                req.tier_hit = True
+                req.restore_s += time.perf_counter() - t0
+        except Exception as e:                           # noqa: BLE001
+            with RecordEvent("serving::kv_restore_fallback",
+                             TracerEventType.UserDefined,
+                             {"request": req.id,
+                              "error": f"{type(e).__name__}: "
+                                       f"{str(e)[:160]}"}):
+                pass
             req.kv_restored_tokens = 0
 
-    def _finish(self, req, status):
+    def _finish(self, req, status, counter):
         req.status = status
         req.finished_at = self._clock()
-        self.counts[status.lower()] += 1
-        if status == DONE:
+        req.trail.close(req.finished_at)
+        self._count(counter, req)
+        if req.first_token_at is not None:
+            _M_TTFT.labels(tenant=req.tenant).observe(
+                req.first_token_at - req.submitted_at)
+            _M_REQ_DECODE.labels(tenant=req.tenant).observe(
+                req.finished_at - req.first_token_at)
+        if status in (DONE, TIMEOUT, ERROR, SHED):
             self._completed.append(req)
+            self._write_request_record(req)
+            self._write_timeline_record(req)
         req._done.set()
 
-    # -- metrics -------------------------------------------------------------------
+    def _count(self, name, req):
+        """One request event: the registry family (labelled by the
+        request's tenant) and the `counts` mirror."""
+        if name == "serving.preempted":
+            _M_PREEMPTED.labels(tenant=req.tenant).inc()
+        else:
+            _M_REQUESTS.labels(status=name.split(".", 1)[1],
+                               tenant=req.tenant).inc()
+        self.counts[name] += 1
+
+    def _count_token(self, req):
+        """The first token, delivered at placement."""
+        req._m_tokens.inc()
+        self.counts["serving.tokens"] += 1
+        self._tokens += 1
+
+    # -- metrics --------------------------------------------------------------
     def metrics(self):
-        """Counters and rates since construction. `decode_tokens_per_s`
-        and `decode_step_ms` cover decode steps only (host clock around
-        `engine.decode()`, which returns host tokens, so the device work
-        is inside the window); with a speculative engine a step is one
-        round (`decode_many`: gamma draft decodes and one verify) and
-        `decode_step_ms` times rounds. `ttft_s_mean` is over completed
-        requests. `requests["adopted"]` counts placements from staged KV
-        bundles. `spec_*` appear once a speculative round has proposed
-        tokens."""
+        """The reference's counters and rates since construction, plus the
+        port's own: `decode_tokens` and `decode_steps` (tokens and calls of
+        decode steps alone, prefill tokens excluded), `decode_step_ms`
+        (host clock around `engine.decode()`, which returns host tokens,
+        so the device work is inside the window; with a speculative engine
+        a step is one round), `adopted` (placements from staged KV
+        bundles), `prefix_hits` and `kernel_launches`.
+        `decode_tokens_per_s` is decode tokens over decode time (the
+        reference divides every token, prefill's first included).
+        `spec_*` appear once a speculative round has proposed tokens."""
         ttfts = [r.first_token_at - r.submitted_at for r in self._completed
                  if r.first_token_at is not None]
         out = {
@@ -550,14 +1145,15 @@ class Scheduler:
             "queue_depth": len(self._queue),
             "slot_occupancy": self.active_slots() / max(self.engine.slots, 1),
             "tokens_generated": self._tokens,
-            "decode_tokens": self._decode_tokens,
-            "decode_steps": self._decode_steps,
             "decode_tokens_per_s": (self._decode_tokens / self._decode_time_s
                                     if self._decode_time_s > 0 else 0.0),
-            "decode_step_ms": (1e3 * self._decode_time_s / self._decode_steps
-                               if self._decode_steps else None),
             "ttft_s_mean": sum(ttfts) / len(ttfts) if ttfts else None,
             "requests": dict(self.counts),
+            "decode_tokens": self._decode_tokens,
+            "decode_steps": self._decode_steps,
+            "decode_step_ms": (1e3 * self._decode_time_s / self._decode_steps
+                               if self._decode_steps else None),
+            "adopted": self._adopted,
             "kernel_launches": getattr(self.engine, "kernel_launches", 0),
         }
         if self._spec_proposed:
@@ -573,3 +1169,55 @@ class Scheduler:
             out["prefix_cache_blocks"] = len(pc) if pc is not None else 0
             out["prefix_hits"] = pc.hits if pc is not None else 0
         return out
+
+    # -- the serving JSONL ----------------------------------------------------
+    def _write_step_record(self, now, active):
+        if not self._metrics_f:
+            return
+        self._write_line({"kind": "step", "step": self._steps, "t": now,
+                          "queue_depth": len(self._queue),
+                          "active_slots": active,
+                          "tokens_generated": self._tokens})
+
+    def _build_timeline(self, req):
+        """One reqtimeline.v1 record for a terminal request."""
+        return _rt.build_record(
+            req.status, req.submitted_at, req.finished_at,
+            req.trail.rel(req.submitted_at), request_id=req.id,
+            tokens=len(req.tokens),
+            ttft_s=(req.first_token_at - req.submitted_at
+                    if req.first_token_at is not None else None),
+            priority=req.priority, preempted=req.preempted,
+            adopted=req.adopted, trace_id=req.trace_id,
+            tenant=req.tenant, cohort=req.cohort)
+
+    def timeline_records(self):
+        """reqtimeline.v1 records of every terminal request so far."""
+        return [self._build_timeline(r) for r in self._completed]
+
+    def _write_timeline_record(self, req):
+        if self._metrics_f:
+            self._write_line(self._build_timeline(req))
+
+    def _write_request_record(self, req):
+        if not self._metrics_f:
+            return
+        decode_s = (req.finished_at - req.first_token_at
+                    if req.first_token_at else None)
+        self._write_line({
+            "kind": "request", "request_id": req.id, "status": req.status,
+            "tenant": req.tenant,
+            **({"cohort": req.cohort} if req.cohort else {}),
+            **({"prefix_namespace": str(req.prefix_namespace)}
+               if req.prefix_namespace is not None else {}),
+            **({"tier_hit": True,
+                "restore_ms": round(req.restore_s * 1e3, 3)}
+               if req.tier_hit else {}),
+            "prompt_len": len(req.prompt), "tokens": len(req.tokens),
+            "priority": req.priority, "preempted": req.preempted,
+            "prefix_hit": req.prefix_hit, "adopted": req.adopted,
+            "spec_proposed": req.spec_proposed,
+            "spec_accepted": req.spec_accepted,
+            "ttft_s": (req.first_token_at - req.submitted_at
+                       if req.first_token_at else None),
+            "decode_s": decode_s})

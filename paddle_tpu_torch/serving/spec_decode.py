@@ -41,8 +41,15 @@ With int8 KV pools the verify write cannot leave out the rejected tail
 block's abs-max scale for that one write, as in the JAX engine; the next
 write recomputes the scale over real positions only.
 
-Left out of this port: the compile cache, numerics taps, adapters, the
-metrics registry and the pipeline placement hooks.
+A round fires `serving.decode_step` first, before the int8 KV chaos site
+and before any block or position moves, so a fault leaves the draft and
+the target at the same committed tokens. It observes the
+`serving_spec_draft_seconds` and `serving_spec_verify_seconds`
+histograms and runs under the `serving::spec_draft` and
+`serving::spec_verify` spans.
+
+Left out of this port: the compile cache, numerics taps, adapters and the
+pipeline placement hooks.
 """
 import dataclasses
 import functools
@@ -51,11 +58,21 @@ import time
 import numpy as np
 import torch
 
+from ..observability import faults as _faults
+from ..observability import metrics as _metrics
+from ..profiler import RecordEvent, TracerEventType
 from . import kv_cache as kvc
 from . import sampling
 from .engine import PagedEngineConfig, PagedGenerationEngine
 
 __all__ = ["SpecDecodeConfig", "SpeculativeEngine", "truncated_draft"]
+
+_M_DRAFT_SECONDS = _metrics.histogram(
+    "serving_spec_draft_seconds",
+    "Wall time of one speculative round's draft proposal loop")
+_M_VERIFY_SECONDS = _metrics.histogram(
+    "serving_spec_verify_seconds",
+    "Wall time of one speculative round's target verify forward")
 
 
 def truncated_draft(model, num_layers):
@@ -288,14 +305,25 @@ class SpeculativeEngine(PagedGenerationEngine):
         target verify, the position rollback. Returns (tokens [S, gamma+1]
         np.int32, n_emit [S] np.int32); free slots round-trip garbage
         harmlessly, as in the one-token loop."""
+        _faults.fire("serving.decode_step")
+        self._fire_kv_quant_chaos()
         self.ensure_decode_capacity()
+        c = self.config
         t0 = time.perf_counter()
-        self._run("draft_decode")
+        with RecordEvent("serving::spec_draft", TracerEventType.UserDefined,
+                         {"gamma": c.gamma, "slots": c.slots}):
+            self._run("draft_decode")
         draft_s = time.perf_counter() - t0
+        _M_DRAFT_SECONDS.observe(draft_s)
         t1 = time.perf_counter()
-        # the draft's upload serves the verify too; the one host read
-        res = self._run("spec_verify", upload=False).cpu().numpy()
+        with RecordEvent("serving::spec_verify",
+                         TracerEventType.UserDefined,
+                         {"window": c.gamma + 1, "slots": c.slots,
+                          "attend": c.attention_impl}):
+            # the draft's upload serves the verify too; the one host read
+            res = self._run("spec_verify", upload=False).cpu().numpy()
         verify_s = time.perf_counter() - t1
+        _M_VERIFY_SECONDS.observe(verify_s)
         out = np.ascontiguousarray(res[:, :-2])
         n_emit, last = res[:, -2] + 1, res[:, -1]
         # the rollback: both caches advance to the committed position

@@ -166,7 +166,7 @@ def test_static_storage_keeps_its_address(models):
     tight_ptrs = _pointers(tight)
     _, sched = _serve(tight, [_prompt(6 + i, 20) for i in range(3)],
                       max_new=30)
-    assert sched.counts["preempted"] >= 1
+    assert sched.counts["serving.preempted"] >= 1
     assert _pointers(eng) == ptrs
     assert _pointers(tight) == tight_ptrs
     assert {n: a.__array_interface__["data"][0]
@@ -209,7 +209,7 @@ def test_each_executable_is_captured_once(card):
     prompts = [_prompt(9 + i, n) for i, n in enumerate((5, 20, 40))]
     _, sched = _serve(eng, prompts, device=card)
     m = sched.metrics()
-    prefills = len(prompts) + m["requests"]["preempted"]
+    prefills = len(prompts) + m["requests"]["serving.preempted"]
     assert pa.launches == 2 * (m["decode_steps"] + prefills)
     assert pa.launches_window == 2 * m["decode_steps"]
     assert eng.kernel_launches == pa.launches

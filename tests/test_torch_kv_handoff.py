@@ -357,7 +357,7 @@ def test_scheduler_staged_placement_and_fallbacks(models):
     assert good.tokens == bad.tokens == short.tokens == want
     assert warm.kv_restored_tokens == 24 and warm.prefix_hit
     assert warm.tokens == want_other
-    assert sched.metrics()["requests"]["adopted"] == 1
+    assert sched.metrics()["adopted"] == 1
 
 
 def test_preempted_staged_request_recomputes(models):
@@ -385,4 +385,4 @@ def test_preempted_staged_request_recomputes(models):
     sched.run_until_idle()
     assert h.status == "DONE" and h.preempted == 1
     assert h.tokens == want
-    assert sched.counts["adopted"] == 1
+    assert sched.metrics()["adopted"] == 1

@@ -273,7 +273,8 @@ def test_scheduler_answers_and_forced_preemption_keeps_streams(models):
     base, sched = _serve(PagedGenerationEngine(tm, device="cpu", **ENGINE,
                                                **PAGED), prompts)
     m = sched.metrics()
-    assert m["requests"]["done"] == 4 and m["tokens_generated"] == 24
+    assert m["requests"]["serving.completed"] == 4
+    assert m["tokens_generated"] == 24
     assert m["decode_steps"] > 0 and m["decode_step_ms"] > 0
 
     # the scheduler's growth phase of its third step meets one
@@ -296,7 +297,7 @@ def test_scheduler_answers_and_forced_preemption_keeps_streams(models):
     eng.ensure_slot_capacity = flaky
     sched._grow_paged_slots = grow_with_one_failure
     got, _ = _serve(eng, prompts, sched=sched)
-    assert sched.counts["preempted"] == 1
+    assert sched.counts["serving.preempted"] == 1
     assert got == base
 
 
@@ -310,7 +311,7 @@ def test_tight_pool_preempts_without_changing_streams(models):
     got, sched = _serve(PagedGenerationEngine(tm, device="cpu", num_blocks=9,
                                               **ENGINE, **PAGED),
                         prompts, max_new=30)
-    assert sched.counts["preempted"] >= 1
+    assert sched.counts["serving.preempted"] >= 1
     assert got == base
 
 
@@ -367,6 +368,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "        'paddle_tpu_torch.serving.spec_decode',\n"
             "        'paddle_tpu_torch.serving.graphs',\n"
             "        'paddle_tpu_torch.serving.distributed.kv_handoff',\n"
+            "        'paddle_tpu_torch.serving.kv_tiers.store',\n"
+            "        'paddle_tpu_torch.observability.metrics',\n"
+            "        'paddle_tpu_torch.observability.tracecontext',\n"
+            "        'paddle_tpu_torch.observability.faults',\n"
+            "        'paddle_tpu_torch.observability.flight_recorder',\n"
+            "        'paddle_tpu_torch.observability.decisions',\n"
+            "        'paddle_tpu_torch.observability.reqtimeline',\n"
+            "        'paddle_tpu_torch.profiler',\n"
             "        'paddle_tpu_torch._kernels.build'} <= set(mods), mods\n"
             "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -221,7 +221,7 @@ def test_scheduler_spec_streams_exact_with_preemption(models):
     sched = Scheduler(eng, device="cpu", max_queue=16)
     hs = [sched.submit(p, max_new_tokens=6) for p in prompts]
     sched.run_until_idle()
-    assert sched.counts["preempted"] > 0
+    assert sched.counts["serving.preempted"] > 0
     for h, p in zip(hs, prompts):
         assert h.status == "DONE"
         assert h.tokens == _generate(tm, p, 6)

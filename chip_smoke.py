@@ -110,7 +110,32 @@ Phases (any exception ends the run with a non-zero exit):
      (`observability.decisions`), every timeline's phases sum to its
      `e2e_s`, `tools/metrics_report.py` accepts the registry snapshot,
      and every executable stays captured once. Phases 4, 5, 10, 11 and 12
-     contain no decode failure.
+     contain no decode failure;
+ 14. the serving fleet on this card: phase 4's weights committed with
+     `save_state_dict`, then one prefill and two decode worker processes
+     (`python -m paddle_tpu_torch.serving.distributed.worker_main --device
+     cuda --engine paged --ckpt ...`, phase 4's engine configuration, every
+     executable captured before the endpoint is published) behind a
+     `DistFrontend` in this process. Phase 4's 16 requests ride the remote
+     prefill and the KV handoff over loopback TCP and every stream is held
+     to phase 4's (the near-tie rule), with TTFT through the router, the
+     fleet's tokens/s, the router's µs for one `pump()` and each worker's
+     start seconds; `FleetPlane.poll_now()` federates the three workers'
+     registries, `tools/metrics_report.py` accepts the merged snapshot,
+     whose `_fleet` row counts the requests served and gives the handoff
+     bytes and seconds; a second wave of 8 loses one decode worker to
+     SIGKILL once each has its first token, at 300 tokens a stream, and
+     completes on the survivor (held to phase 4's streams and to the same
+     wave run undisturbed before it; `serving_failover_total` >= 1;
+     seconds from the kill until every victim streams again and until
+     the last request is done); `swap_all` to the same weights as
+     version 2, while a second router keeps four of phase 4's requests
+     in flight on the survivor, is applied under live streams, leaves
+     every stream as phase 4's and every live worker reports version 2;
+     STOP ends every live worker with exit
+     0 and an exit line whose capture counts are 1 for every executable
+     and whose paged-kernel launches are above 0; the card's memory by
+     process comes from nvidia-smi.
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -516,6 +541,15 @@ def serve(engine, prompts, max_new, config=None):
     return handles, m, wall
 
 
+def decode_only_tok_s(m):
+    """The decode steps' own rate, `Scheduler.metrics()`' `decode_tokens`
+    over the decode time (the rate this script has printed since the
+    serving slice; `decode_tokens_per_s` counts every delivered token,
+    each prefill's first included, as the reference does)."""
+    t = m["decode_step_ms"] * m["decode_steps"] / 1e3
+    return m["decode_tokens"] / t if t > 0 else 0.0
+
+
 def check_captures(engine, what, every=True):
     """Every executable of `engine` captured once (`every`), or none more
     than once; returns the counts."""
@@ -797,6 +831,7 @@ def serve_spec(model, prompts, smi):
            * m["spec_acceptance_rate"],
            "round_ms": m["decode_step_ms"],
            "sched_host_us": m["sched_host_us"],
+           "decode_only_tok_s": decode_only_tok_s(m),
            "decode_tokens_per_s": m["decode_tokens_per_s"],
            "draft_ms_per_round": draft_ms, "verify_ms_per_round": verify_ms,
            "prefix_hits": m["prefix_hits"], "prefix_blocks_at_end": cached,
@@ -808,7 +843,7 @@ def serve_spec(model, prompts, smi):
         f"{rec['tokens_per_round']:.2f} tokens a round "
         f"({rec['tokens_per_slot_round']:.2f} a slot-round), "
         f"round_ms={rec['round_ms']:.3f} "
-        f"decode_tok_s={rec['decode_tokens_per_s']:.1f}, draft "
+        f"decode_only_tok_s={rec['decode_only_tok_s']:.1f}, draft "
         f"{draft_ms:.3f} ms + verify {verify_ms:.3f} ms a round (host "
         f"clock), launches={launches} ({cfg.num_layers}/forward x "
         f"{n_rounds} rounds + {prefills} prefills), no block leaked; "
@@ -1305,6 +1340,7 @@ def slo_serving(model, prompts, want, smi):
             hold(h, i, f"phase 13 {label} request {i}")
         timing.setdefault(label, []).append(
             {"decode_step_ms": m["decode_step_ms"],
+             "decode_only_tok_s": decode_only_tok_s(m),
              "decode_tokens_per_s": m["decode_tokens_per_s"],
              "decode_steps": m["decode_steps"],
              "sched_host_us": m["sched_host_us"], "wall_s": wall})
@@ -1560,6 +1596,427 @@ def slo_serving(model, prompts, want, smi):
         f"held to phase 4 ({dropped} dropped by the near-tie rule), "
         f"kv_quant moved the victim's logits by {moved:.3e}, capture "
         f"counts {counts} [{smi}]")
+    return rec
+
+
+# ---------------------------------------------------------------- the fleet
+# phase 14's workers: phase 4's engine configuration, one process each
+FLEET_ENGINE = dict(slots=8, max_len=1024, block_size=16,
+                    attention_impl="kernel")
+FLEET_MODEL, FLEET_DEVICE = "gpt_125m", "cuda"
+FLEET_START_S = 300         # spawn -> every endpoint published, captures in
+FLEET_WAVE_S = 180          # submit -> every request of a wave terminal
+
+
+class FleetWorker:
+    """One `worker_main` process of phase 14 (spawned, never forked: the
+    smoke process has touched CUDA). Its output goes to
+    `<work>/<role><index>.log`, whose `worker_main exit:` line carries its
+    capture counts and kernel launches."""
+
+    def __init__(self, role, index, ckpt, work, max_new):
+        self.role, self.name = role, f"{role}{index}"
+        self.ep_file = os.path.join(work, f"{self.name}.ep")
+        self.log_path = os.path.join(work, f"{self.name}.log")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PTN_FAULTS", "PTN_TRACE_EXPORT_DIR")}
+        env["PYTHONPATH"] = os.pathsep.join(
+            [ROOT] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+        self._log = open(self.log_path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "paddle_tpu_torch.serving.distributed.worker_main",
+             "--role", role, "--engine", "paged", "--model", FLEET_MODEL,
+             "--device", FLEET_DEVICE, "--ckpt", ckpt, "--index", str(index),
+             "--engine-config", json.dumps(FLEET_ENGINE),
+             "--serving-config", json.dumps(
+                 {"max_queue": 64, "default_max_new_tokens": max_new}),
+             "--endpoint-file", self.ep_file],
+            cwd=ROOT, env=env, stdout=self._log, stderr=subprocess.STDOUT)
+        self.endpoint = None
+        self.start_s = None
+
+    def log_tail(self, n=3000):
+        with open(self.log_path) as f:
+            return f.read()[-n:]
+
+    def poll_endpoint(self):
+        """The published endpoint, or None while the worker starts; a
+        worker that exits first fails the phase."""
+        if self.endpoint is None and os.path.exists(self.ep_file):
+            with open(self.ep_file) as f:
+                self.endpoint = f.read().strip()
+            self.start_s = time.perf_counter() - self.t0
+        if self.endpoint is None and self.proc.poll() is not None:
+            raise AssertionError(
+                f"phase 14: worker {self.name} exited "
+                f"{self.proc.returncode} before publishing its endpoint:\n"
+                f"{self.log_tail()}")
+        return self.endpoint
+
+    def exit_info(self):
+        with open(self.log_path) as f:
+            lines = [ln for ln in f.read().splitlines()
+                     if ln.startswith("worker_main exit: ")]
+        return json.loads(lines[-1][len("worker_main exit: "):]) \
+            if lines else None
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self._log.close()
+
+
+def gpu_apps():
+    """The card's compute processes as nvidia-smi lists them: [{"pid",
+    "used_memory"}] (its pids are the host's, which may not be this
+    container's)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    rows = []
+    for line in out[1:]:
+        pid, _, mem = line.partition(",")
+        rows.append({"pid": pid.strip(), "used_memory": mem.strip()})
+    return rows
+
+
+def fleet_serving(model, prompts, want, smi):
+    """Phase 14: phase 4's requests through the serving fleet, one prefill
+    and two decode worker processes on this card, behind a `DistFrontend`
+    in this process; then federation, a SIGKILL failover and a fleet
+    swap. `want`: phase 4's token streams."""
+    import shutil
+    from paddle_tpu_torch.distributed.checkpoint import save_state_dict
+    from paddle_tpu_torch.observability import fleet, metrics
+    from paddle_tpu_torch.serving import PagedEngineConfig
+    from paddle_tpu_torch.serving.distributed import DistFrontend
+    max_new = 32
+    work = os.path.join(ROOT, "chiprun_out", "phase14")
+    ckpt_root = os.path.join(ROOT, "build", "phase14_ckpt")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    os.makedirs(work)
+    ckpt = os.path.join(ckpt_root, "gpt125m")
+    t0 = time.perf_counter()
+    save_state_dict(model.state_dict(), ckpt)
+    save_s = time.perf_counter() - t0
+    names = {"decode"} | {f"prefill[{b}]" for b in
+                          PagedEngineConfig(**FLEET_ENGINE).prefill_buckets}
+    failovers = metrics.registry().counter("serving_failover_total")
+    rec = {"engine": FLEET_ENGINE, "ckpt_save_s": save_s, "card": smi}
+    compared = dropped = 0
+    workers, fe = [], None
+    try:
+        t0 = time.perf_counter()
+        workers = [FleetWorker("prefill", 0, ckpt, work, max_new),
+                   FleetWorker("decode", 0, ckpt, work, max_new),
+                   FleetWorker("decode", 1, ckpt, work, max_new)]
+        while not all([w.poll_endpoint() for w in workers]):
+            if time.perf_counter() - t0 > FLEET_START_S:
+                raise AssertionError(
+                    f"phase 14: workers not up in {FLEET_START_S} s: "
+                    + "; ".join(f"{w.name}: {w.log_tail(500)}"
+                                for w in workers))
+            time.sleep(0.05)
+        rec["start_s"] = {w.name: w.start_s for w in workers}
+        rec["start_all_s"] = time.perf_counter() - t0
+        pre, dec = workers[0], workers[1:]
+        fe = DistFrontend([w.endpoint for w in dec], [pre.endpoint])
+        pump_s = []
+
+        def pump():
+            t = time.perf_counter()
+            n = fe.pump()
+            pump_s.append(time.perf_counter() - t)
+            return n
+
+        def wave(idx, label, until=None, n=max_new):
+            """Submit prompts[idx] for `n` tokens each (a pump after each
+            submit), pump until `until(reqs)` (default: every request
+            terminal); returns (requests, seconds)."""
+            t = time.perf_counter()
+            reqs = []
+            for i in idx:
+                reqs.append(fe.submit(prompts[i], max_new=n))
+                pump()
+            cond = until or (lambda rs: all(r.done() for r in rs))
+            while not cond(reqs):
+                if time.perf_counter() - t > FLEET_WAVE_S:
+                    raise AssertionError(
+                        f"phase 14 {label}: not done in {FLEET_WAVE_S} s: "
+                        + ", ".join(f"{r.status}/{len(r.tokens)}"
+                                    for r in reqs))
+                pump()
+                time.sleep(0.001)
+            return reqs, time.perf_counter() - t
+
+        def finish(reqs, label):
+            t = time.perf_counter()
+            while pump():
+                if time.perf_counter() - t > FLEET_WAVE_S:
+                    raise AssertionError(f"phase 14 {label}: not done")
+                time.sleep(0.001)
+
+        def hold(reqs, idx, label, ref=None):
+            """Every request DONE with its tokens, held to phase 4's
+            stream (its first 32 tokens) and to `ref`'s, the same wave's
+            requests in an undisturbed run, under the near-tie rule."""
+            nonlocal compared, dropped
+            for j, (r, i) in enumerate(zip(reqs, idx)):
+                if r.status != "DONE" or len(r.tokens) != r.max_new:
+                    raise AssertionError(
+                        f"phase 14 {label} request {i}: {r.status} with "
+                        f"{len(r.tokens)} tokens ({r.error})")
+                for other in [want[i]] + ([ref[j].tokens] if ref else []):
+                    c, d = same_stream(model, prompts[i], r.tokens, other,
+                                       f"phase 14 {label} request {i}")
+                    compared += c
+                    dropped += d
+
+        # disaggregated serving: phase 4's 16 requests
+        idx1 = list(range(len(prompts)))
+        reqs1, wall1 = wave(idx1, "serving")
+        hold(reqs1, idx1, "serving")
+        if not all(r.staged for r in reqs1):
+            raise AssertionError("phase 14: a request fell back to a local "
+                                 "prefill: " + str([r.staged for r in reqs1]))
+        ttfts = [r.ttft_s for r in reqs1]
+        phases = {}
+        for tl in fe.timeline_records():
+            for seg in tl["phases"]:
+                phases.setdefault(seg["phase"], []).append(seg["dur_s"])
+        stats = fe.stats()
+        for w in workers:
+            st = stats[w.endpoint]
+            if set(st["trace_counts"]) != names or \
+                    set(st["trace_counts"].values()) != {1}:
+                raise AssertionError(f"phase 14: {w.name} capture counts "
+                                     f"{st['trace_counts']}")
+            if st["kernel_launches"] <= 0:
+                raise AssertionError(f"phase 14: {w.name} launched no "
+                                     f"paged kernel")
+        rec["serving"] = {
+            "requests": len(reqs1), "max_new_tokens": max_new,
+            "ttft_s_mean": sum(ttfts) / len(ttfts), "ttft_s_max": max(ttfts),
+            "wall_s": wall1,
+            "tokens_per_s": sum(len(r.tokens) for r in reqs1) / wall1,
+            "placement": [r.worker for r in reqs1],
+            "router_phase_s_mean": {k: sum(v) / len(v)
+                                    for k, v in phases.items()},
+            "pump_us_median": sorted(pump_s)[len(pump_s) // 2] * 1e6,
+            "pumps": len(pump_s),
+            "stat": {w.name: {k: stats[w.endpoint][k] for k in
+                              ("trace_counts", "kernel_launches",
+                               "tokens_generated", "version")
+                              if k in stats[w.endpoint]}
+                     for w in workers}}
+
+        # federation: the three members' registries in one snapshot
+        plane = fleet.FleetPlane(
+            fe, jsonl_path=os.path.join(work, "fleet_metrics.jsonl"),
+            include_router=False)
+        merged = plane.poll_now()
+        fe.fleet_plane = None
+        members = sorted(m["worker_id"] for m in plane.last_members)
+        if members != ["decode0", "decode1", "prefill0"]:
+            raise AssertionError(f"phase 14: federated members {members}")
+        r = subprocess.run([sys.executable,
+                            os.path.join(ROOT, "tools", "metrics_report.py"),
+                            os.path.join(work, "fleet_metrics.jsonl")],
+                           capture_output=True, text=True, timeout=120)
+        if r.returncode:
+            raise AssertionError(f"phase 14: metrics_report.py refused the "
+                                 f"merged snapshot: {r.stderr[-500:]}")
+        flat = metrics.flatten_snapshot(merged)
+        done = sum(v for k, v in flat.items()
+                   if k.startswith("serving_requests_total{")
+                   and "status=completed" in k and "worker_id=_fleet" in k)
+        if done != len(reqs1):
+            raise AssertionError(f"phase 14: the _fleet row counts {done} "
+                                 f"completed, {len(reqs1)} served")
+        hist = next(s for m in merged["metrics"]
+                    if m["name"] == "serving_kv_handoff_seconds"
+                    for s in m["samples"]
+                    if s["labels"].get("worker_id") == fleet.FLEET_LABEL)
+        rec["handoff"] = {
+            "bytes": flat["serving_kv_handoff_bytes_total{role=_fleet,"
+                          "worker_id=_fleet}"],
+            "count": hist["count"], "seconds_sum": hist["sum"],
+            "seconds_mean": hist["sum"] / max(hist["count"], 1)}
+        steps = {s["labels"]["worker_id"]: s["sum"] / s["count"] * 1e3
+                 for m in merged["metrics"]
+                 if m["name"] == "serving_decode_step_seconds"
+                 for s in m["samples"] if s["count"]}
+        rec["federation"] = {"members": members, "completed_fleet": done,
+                             "decode_step_ms_mean": steps}
+
+        # failover: a second wave of 8, first undisturbed, then with one
+        # decode worker SIGKILLed once every request has its first token.
+        # Streams of 300 tokens keep most of the wave in flight at the
+        # kill (a 700-token prompt leaves 323 positions)
+        idx2, n2 = list(range(8, 16)), 300
+        ref2, _ = wave(idx2, "failover reference", n=n2)
+        hold(ref2, idx2, "failover reference")
+        failovers0 = failovers.value
+        reqs2, _ = wave(idx2, "failover", n=n2,
+                        until=lambda rs: all(r.tokens for r in rs))
+        busy = [sum(1 for r in reqs2 if r.worker == i and not r.done())
+                for i in (0, 1)]
+        victim = 1 if busy[1] >= busy[0] else 0
+        pre_kill = fe.decode.stat(victim)
+        victims = [r for r in reqs2 if r.worker == victim and not r.done()]
+        dec[victim].proc.kill()
+        t_kill = time.perf_counter()
+        # resumed: every victim restarted and streaming on the survivor
+        while not all(r.done() or (r.failovers and r._cur)
+                      for r in victims):
+            if time.perf_counter() - t_kill > FLEET_WAVE_S:
+                raise AssertionError("phase 14: the victims never resumed")
+            pump()
+            time.sleep(0.001)
+        resumed_s = time.perf_counter() - t_kill
+        finish(reqs2, "failover")
+        failover_s = time.perf_counter() - t_kill
+        hold(reqs2, idx2, "failover", ref=ref2)
+        restarted = sum(1 for r in reqs2 if r.failovers)
+        if failovers.value - failovers0 < 1 or not restarted:
+            raise AssertionError(f"phase 14: failover counter "
+                                 f"{failovers.value - failovers0}, "
+                                 f"{restarted} restarted")
+        survivor = dec[1 - victim]
+        rec["failover"] = {
+            "killed": dec[victim].name, "victims": busy[victim],
+            "restarted": restarted, "max_new_tokens": n2,
+            "failover_total": failovers.value - failovers0,
+            "kill_to_resumed_s": resumed_s, "kill_to_done_s": failover_s,
+            "placed": [r.worker for r in reqs2],
+            "delivered_at_restart": [
+                len(r._base) for r in reqs2 if r.failovers],
+            "killed_stat": {k: pre_kill[k] for k in
+                            ("trace_counts", "kernel_launches")}}
+
+        # swap: `swap_all` to the same weights as version 2 while a third
+        # wave keeps 4 of phase 4's requests in flight on the survivor
+        # (a finished one is replaced at once) until the swap returns, so
+        # the worker applies it under live streams whatever its
+        # checkpoint load takes. The wave rides a second router with its
+        # own connections: the first one's socket to the survivor is
+        # held by the SWAP call while the checkpoint loads
+        import threading
+        out, fe3, reqs3 = {}, DistFrontend([survivor.endpoint],
+                                           [pre.endpoint]), []
+        swapper = threading.Thread(
+            target=lambda: out.update(fe.swap_all(ckpt, version=2)))
+        try:
+            t = time.perf_counter()
+            while not (reqs3 and all(r.tokens for r in reqs3)):
+                while len(reqs3) < 4:
+                    reqs3.append(fe3.submit(prompts[len(reqs3)],
+                                            max_new=max_new))
+                fe3.pump()
+            t_swap = time.perf_counter()
+            swapper.start()
+            while swapper.is_alive():
+                while sum(not r.done() for r in reqs3) < 4:
+                    reqs3.append(fe3.submit(prompts[len(reqs3) % 16],
+                                            max_new=max_new))
+                fe3.pump()
+                if time.perf_counter() - t > FLEET_WAVE_S:
+                    raise AssertionError("phase 14: swap_all never "
+                                         "returned")
+                time.sleep(0.001)
+            swap_s = time.perf_counter() - t_swap
+            while fe3.pump():
+                time.sleep(0.001)
+        finally:
+            swapper.join(timeout=FLEET_WAVE_S)
+            fe3.close()
+        if not all(v.get("ok") for v in out.values()) or \
+                not out[survivor.endpoint].get("inflight"):
+            raise AssertionError(f"phase 14: swap_all {out}")
+        idx3 = [i % 16 for i in range(len(reqs3))]
+        hold(reqs3, idx3, "swap")
+        versions = {ep: s.get("version") for ep, s in fe.stats().items()}
+        if set(versions.values()) != {2} or \
+                set(versions) != {pre.endpoint, survivor.endpoint}:
+            raise AssertionError(f"phase 14: versions after swap {versions}")
+        rec["swap"] = {"swap_all_s": swap_s, "versions": versions,
+                       "requests": len(reqs3),
+                       "inflight_at_apply": {ep: v.get("inflight")
+                                             for ep, v in out.items()}}
+        rec["gpu_apps"] = gpu_apps()
+        rec["held"] = {"compared_tokens": compared,
+                       "dropped_near_ties": dropped}
+        rec["decisions"] = {}
+        for d in fe.decision_records():
+            rec["decisions"][d["action"]] = \
+                rec["decisions"].get(d["action"], 0) + 1
+
+        # shutdown: STOP every live worker, each exits 0
+        fe.stop_workers()
+        exits = {}
+        for w in workers:
+            rc = w.proc.wait(timeout=60)
+            exits[w.name] = rc
+            if w is dec[victim]:
+                continue
+            info = w.exit_info()
+            if rc != 0 or info is None:
+                raise AssertionError(f"phase 14: {w.name} exited {rc}:\n"
+                                     f"{w.log_tail()}")
+            if set(info["capture_counts"]) != names or \
+                    set(info["capture_counts"].values()) != {1} or \
+                    info["kernel_launches"] <= 0 or \
+                    info["attention_impl"] != "kernel":
+                raise AssertionError(f"phase 14: {w.name} exit line {info}")
+            rec.setdefault("exit", {})[w.name] = info
+        rec["exit_codes"] = exits
+    finally:
+        if fe is not None:
+            fe.close()
+        for w in workers:
+            w.close()
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    s = rec["serving"]
+    log(f"fleet gpt_125m (1 prefill + 2 decode processes, paged kernel): "
+        f"workers up in {rec['start_all_s']:.2f} s ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in rec["start_s"].items())
+        + f"), {s['requests']} requests done, TTFT mean "
+        f"{s['ttft_s_mean']:.4f} s max {s['ttft_s_max']:.4f} s through the "
+        f"router, {s['tokens_per_s']:.1f} tokens/s, one pump() median "
+        f"{s['pump_us_median']:.1f} us, handoff "
+        f"{rec['handoff']['bytes']:.0f} bytes in {rec['handoff']['count']} "
+        f"bundles, {rec['handoff']['seconds_mean'] * 1e3:.2f} ms each; "
+        f"router phases, mean s: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in s["router_phase_s_mean"].items())
+        + "; decode step inside the workers, mean ms: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in
+            rec["federation"]["decode_step_ms_mean"].items())
+        + f" [{smi}]")
+    log("fleet launches, captures and memory: " + ", ".join(
+        f"{k} {v['kernel_launches']} launches {v['capture_counts']}, peak "
+        f"{v['max_memory_allocated_mib']:.0f} MiB allocated, "
+        f"{v['memory_reserved_mib']:.0f} MiB reserved"
+        for k, v in rec["exit"].items())
+        + f"; killed {rec['failover']['killed']} "
+        f"{rec['failover']['killed_stat']['kernel_launches']} launches")
+    log(f"fleet failover: SIGKILL {rec['failover']['killed']} with "
+        f"{rec['failover']['victims']} live streams, "
+        f"{rec['failover']['restarted']} restarted, streaming again "
+        f"{rec['failover']['kill_to_resumed_s']:.3f} s and done "
+        f"{rec['failover']['kill_to_done_s']:.3f} s after the kill; "
+        f"swap_all v2 in {rec['swap']['swap_all_s']:.3f} s under a wave "
+        f"of {rec['swap']['requests']} requests, "
+        f"versions {sorted(set(rec['swap']['versions'].values()))}, in "
+        f"flight at apply {rec['swap']['inflight_at_apply']}; "
+        f"{compared} token comparisons against phase 4's and the "
+        f"undisturbed waves' streams agree ({dropped} dropped by the "
+        f"near-tie rule); decisions {rec['decisions']}; card memory "
+        f"{rec['gpu_apps']} [{smi}]")
     return rec
 
 
@@ -2170,6 +2627,7 @@ def main(argv):
                  "launches_per_forward": cfg.num_layers,
                  "decode_steps": m["decode_steps"], "prefills": prefills,
                  "decode_step_ms": m["decode_step_ms"],
+                 "decode_only_tok_s": decode_only_tok_s(m),
                  "decode_tokens_per_s": m["decode_tokens_per_s"],
                  "sched_host_us": m["sched_host_us"],
                  "ttft_s_mean": sum(ttfts) / len(ttfts),
@@ -2181,7 +2639,7 @@ def main(argv):
         f"launches={launches} ({cfg.num_layers}/forward x "
         f"{m['decode_steps']} decode + {prefills} prefill), "
         f"decode_step_ms={m['decode_step_ms']:.3f} "
-        f"decode_tok_s={m['decode_tokens_per_s']:.1f} "
+        f"decode_only_tok_s={serve_rec['decode_only_tok_s']:.1f} "
         f"ttft_mean_s={serve_rec['ttft_s_mean']:.4f} "
         f"ttft_max_s={serve_rec['ttft_s_max']:.4f} "
         f"prefix_hits={m['prefix_hits']} wall_s={wall:.2f}; captured in "
@@ -2282,6 +2740,13 @@ def main(argv):
         f"10 round {spec_rec['round_ms']:.3f} ms (median "
         f"{spec_rec['sched_host_us']['median_us']:.1f} us) [{smi}]")
 
+    # 14. the serving fleet: worker processes on this card ------------------
+    import gc
+    gc.collect()                     # free the earlier phases' engines
+    torch.cuda.empty_cache()
+    report["fleet"] = fleet_serving(model, prompts,
+                                    [h.tokens for h in handles], smi)
+
     # summary ------------------------------------------------------------------------
     dec = next(c for c in cases if c["case"] == "decode_f32")
     dec8 = next(c for c in cases if c["case"] == "decode_int8")
@@ -2304,7 +2769,8 @@ def main(argv):
                 "library_ms": c["library_ms"]}
     # the decode kernel's launches are phase 4's at T=1; the window
     # kernel's phase 10's verify windows; the tile kernel's the prefills of
-    # phases 4 and 10
+    # phases 4 and 10. Phase 14 launches the decode and tile kernels from
+    # its worker processes, whose counts are in report["fleet"]
     kernels = {"kernels": [
         entry("paged_attention", "paddle_tpu/ops/pallas/paged_attention.py:75",
               launches - prefill4, dec, err_f),

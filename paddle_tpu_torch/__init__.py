@@ -10,9 +10,14 @@ neither it nor JAX. Its slices so far:
     kernels (`csrc/flash_attention.cu`, bound in
     `ops/flash_attention.py`);
   * observability: the metrics registry, trace context, fault sites,
-    flight recorder, decision and timeline records (`observability/`)
-    and the host span tracer (`profiler/`), which the serving scheduler's
-    SLO machinery reports through.
+    flight recorder, decision and timeline records, fleet federation
+    (`observability/`) and the host span tracer (`profiler/`), which the
+    serving scheduler's SLO machinery reports through;
+  * the serving fleet: the RPC fabric (`distributed/ps/rpc.py`),
+    committed checkpoints (`framework/ckpt_commit.py`,
+    `distributed/checkpoint.py`), and the worker verbs, router and
+    worker process of `serving/distributed/`, which run prefill and
+    decode workers as separate processes on one card.
 
 Every entry point takes `device=` and defaults to "cuda"; without CUDA it
 raises unless the caller passes device="cpu", which runs the plain

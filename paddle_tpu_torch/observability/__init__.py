@@ -17,21 +17,22 @@ artifacts as they grade the JAX package's:
                        armed through the API or `PTN_FAULTS`
   decisions.py       — the decisions.v1 audit record and its replay rules
   reqtimeline.py     — per-request phase trails and reqtimeline.v1
+  fleet.py           — metrics federation across serving processes, the
+                       SLO burn-rate watchdog, fleet postmortem bundles
 
 Each module finds its siblings under the port's own names
 (`paddle_tpu_torch.profiler`, `paddle_tpu_torch.observability.metrics`),
 so the two packages' registries and tracers never see each other.
 
-Later work: `fleet` (metrics federation, the SLO burn-rate watchdog) with
-the serving fleet (ROADMAP A.11); `kvledger`, `numerics`, `deviceprof`
+Later work: `kvledger`, `numerics`, `deviceprof`
 and `xplane` with the planes that reach into traced programs (A.12).
 """
-from . import decisions, faults, flight_recorder, metrics  # noqa: F401
+from . import decisions, faults, fleet, flight_recorder, metrics  # noqa: F401
 from . import reqtimeline, tracecontext  # noqa: F401
 from .flight_recorder import dump_postmortem  # noqa: F401
 from .metrics import registry  # noqa: F401
 from .tracecontext import merge_chrome_traces, trace_scope  # noqa: F401
 
 __all__ = ["metrics", "tracecontext", "flight_recorder", "faults",
-           "decisions", "reqtimeline", "registry", "dump_postmortem",
+           "decisions", "reqtimeline", "fleet", "registry", "dump_postmortem",
            "trace_scope", "merge_chrome_traces"]

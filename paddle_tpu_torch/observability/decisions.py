@@ -20,8 +20,8 @@ Record shape (kind "decision", schema `paddle_tpu.decisions.v1`):
    "router", "request_id"/"key": ..., "tenant": str, "cohort": str?,
    "trace_id": str?, "inputs": {...}, "outcome": {...}}
 
-The router's rules (place, failover, health, retry budget, migrate) come
-with the fleet (ROADMAP A.11); they are copied now so one validator
+The router's rules (place, failover, health, retry budget, migrate) are
+the ones `serving/distributed/router.py` records under, so one validator
 grades both emitters. Stdlib-only.
 """
 

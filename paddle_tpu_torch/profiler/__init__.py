@@ -100,6 +100,19 @@ class _HostTracer:
         with self._lock:
             self.events.append(rec)
 
+    def cancel(self, rec):
+        """Abandon an open span without recording it (an RPC handler
+        whose connection dropped mid-frame)."""
+        if rec is None:
+            return
+        st = self._stack()
+        if st and st[-1] is rec:
+            st.pop()
+        elif rec in st:
+            st.remove(rec)
+        if not st:
+            self._stacks.pop(threading.get_ident(), None)
+
     def drain(self):
         with self._lock:
             ev, self.events = self.events, []

@@ -8,14 +8,16 @@ continuous-batching scheduler (counterpart of `paddle_tpu.serving`).
   graphs.py       — the serving executables as CUDA graphs, captured once
   engine.py       — dense and paged prefill/decode engines, int8 decode
                     weights, logit capture, weight hot-swap, KV handoff
-                    (extract, adopt, prefix restore)
+                    (extract, adopt, prefix restore), `make_engine`
   spec_decode.py  — speculative decode: draft proposals, one verify window
   scheduler.py    — priority queue, continuous batching, preemption,
                     speculative rounds, scheduled weight swaps, staged
                     placement from handed-off KV, deadlines, load
                     shedding, failure quarantine, cancellation, and the
                     serving metrics, decision and timeline records
-  distributed/    — the KV-bundle wire format of the handoff
+  distributed/    — the serving fleet: the KV-bundle wire format, the
+                    worker verbs, the router and the worker process
+                    (imported on demand, not by this package)
   kv_tiers/       — the corrupt-restore counter the tiers will share
 """
 from . import blocks, kv_cache, prefix_cache, sampling  # noqa: F401
@@ -24,6 +26,7 @@ from .blocks import (  # noqa: F401
 )
 from .engine import (  # noqa: F401
     EngineConfig, GenerationEngine, PagedEngineConfig, PagedGenerationEngine,
+    make_engine,
 )
 from .prefix_cache import PrefixCache, prefix_key  # noqa: F401
 from .scheduler import (  # noqa: F401
@@ -39,7 +42,7 @@ __all__ = [
     "BlockAllocError", "BlockPool", "PagedLayerKV", "QuantPagedLayerKV",
     "PrefixCache", "prefix_key",
     "EngineConfig", "GenerationEngine", "PagedEngineConfig",
-    "PagedGenerationEngine",
+    "PagedGenerationEngine", "make_engine",
     "PRIORITIES", "LoadShedError", "QueueFullError", "Request",
     "RequestHandle", "Scheduler",
     "ServingConfig", "SpecDecodeConfig", "SpeculativeEngine",

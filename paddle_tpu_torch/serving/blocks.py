@@ -23,6 +23,7 @@ Two attention paths over the same pools:
 """
 import collections
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -243,27 +244,31 @@ def attend_kernel_quant(q, k_pool, v_pool, k_scale, v_scale, tables, pos,
 
 
 # Which attend GPTAttention runs over paged caches: "gather" (plain) or
-# "kernel". The engines wrap every forward in `attention_impl(...)`.
-_ATTEND_IMPL = "gather"
+# "kernel". The engines wrap every forward in `attention_impl(...)`. The
+# scope is per thread: a serving worker runs forwards on its step loop
+# and on its RPC handler threads, and workers hosted in one process run
+# theirs concurrently, so one thread's exit must not change another's
+# forward.
+_ATTEND = threading.local()
 
 
 def current_attention_impl():
-    return _ATTEND_IMPL
+    return getattr(_ATTEND, "impl", "gather")
 
 
 @contextlib.contextmanager
 def attention_impl(impl):
-    """Scope the paged-attend implementation for forwards run inside."""
-    global _ATTEND_IMPL
+    """Scope the paged-attend implementation for forwards this thread
+    runs inside."""
     if impl not in ("gather", "kernel"):
         raise ValueError(f"unknown paged attention impl {impl!r} "
                          f"(want 'gather' or 'kernel')")
-    prev = _ATTEND_IMPL
-    _ATTEND_IMPL = impl
+    prev = current_attention_impl()
+    _ATTEND.impl = impl
     try:
         yield
     finally:
-        _ATTEND_IMPL = prev
+        _ATTEND.impl = prev
 
 
 class BlockPool:

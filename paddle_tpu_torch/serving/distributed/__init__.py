@@ -1,14 +1,34 @@
 """Serving beyond one engine (counterpart of `paddle_tpu.serving.distributed`).
 
-  kv_handoff.py — the KV-bundle wire format a prefill engine hands a
-                  request's K/V to another engine with, byte-compatible
-                  with the JAX package's
+  kv_handoff.py  — the KV-bundle wire format a prefill engine hands a
+                   request's K/V to another engine with, byte-compatible
+                   with the JAX package's
+  worker.py      — one serving host: engine + scheduler behind the fleet
+                   verbs (PREFILL, KVPUT, SUBMIT, POLL, SWAP, STAT,
+                   METRICS, DUMP, PREFIXLOOKUP, KVEXPORT, HEALTH, DRAIN)
+                   on the RPC fabric (`distributed/ps/rpc.py`), a decode
+                   step loop, and weight hot-swap from committed
+                   checkpoints
+  router.py      — `DistFrontend`: placement over prefill and decode
+                   pools, remote prefill with the KV handoff, streaming,
+                   failover, the health plane, hedging, migration,
+                   rolling drain and fleet swaps
+  worker_main.py — `python -m paddle_tpu_torch.serving.distributed.
+                   worker_main`, one worker process
 
-The tensor- and pipeline-parallel engines, the worker verbs and the
-router are not ported yet (ROADMAP A.10, A.11).
+The tensor- and pipeline-parallel engines (`tp.py`, `pp.py`) wait for
+multi-GPU serving (ROADMAP A.10). Not imported by `paddle_tpu_torch.
+serving`: single-engine serving does not pay for the fabric.
 """
 from .kv_handoff import (KVWireError, pack_kv_bundle,  # noqa: F401
                          pack_payload, unpack_kv_bundle, unpack_payload)
+from .router import (DistFrontend, DistRequest,  # noqa: F401
+                     NoWorkersError, ServingShardClient)
+from .worker import (ServingWorker, load_checkpoint_params,  # noqa: F401
+                     save_swap_checkpoint)
 
 __all__ = ["KVWireError", "pack_kv_bundle", "unpack_kv_bundle",
-           "pack_payload", "unpack_payload"]
+           "pack_payload", "unpack_payload",
+           "ServingWorker", "load_checkpoint_params", "save_swap_checkpoint",
+           "DistFrontend", "DistRequest", "NoWorkersError",
+           "ServingShardClient"]

@@ -19,9 +19,11 @@ The paged engine's serving executables (`executable_names()`: `decode`
 and `prefill[bucket]`) run on the card as CUDA graphs, captured once per
 engine (`precompile()`, or on first use) and replayed (`graphs.py`): the
 port's counterpart of the JAX engines' compile-once executables.
-`capture_counts` counts captures as the JAX `trace_counts` count traces,
+`capture_counts` counts captures as the JAX `trace_counts` count traces
+(`trace_counts`, the serving worker's STAT field, answers with them),
 and `kernel_launches` the paged-attention kernel launches the engine's
-calls made (0 for the gather path and on the CPU). The KV handoff
+calls made (0 for the gather path and on the CPU). `make_engine` builds
+an engine from a serving worker's kind and config. The KV handoff
 (`extract_kv`, `extract_kv_wire`, `adopt_kv`, `prefix_probe`,
 `extract_prefix_kv`, `restore_prefix`) writes the pools in place, so the
 graphs keep reading the KV it moves.
@@ -41,7 +43,7 @@ records).
 
 Left out of this port: the persistent compile cache, the numerics taps
 and their `numerics.corrupt` site (ROADMAP A.12), LoRA adapters and their
-`serving.adapter_swap` site, and the KV tiers (A.11).
+`serving.adapter_swap` site (A.11c), and the KV tiers (A.11b).
 """
 import functools
 import gc
@@ -61,7 +63,7 @@ from .kv_tiers.store import corrupt_counter
 from .prefix_cache import PrefixCache, prefix_key
 
 __all__ = ["EngineConfig", "GenerationEngine", "PagedEngineConfig",
-           "PagedGenerationEngine", "DEFAULT_BUCKETS"]
+           "PagedGenerationEngine", "DEFAULT_BUCKETS", "make_engine"]
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024)
 
@@ -189,6 +191,13 @@ class GenerationEngine:
         the request seeded `seed`."""
         self._slot_seeds[int(slot)] = int(seed)
         self._slot_gen[int(slot)] = int(gen)
+
+    def slot_rng(self, slot):
+        """(seed, gen) with gen the generation index of the slot's NEXT
+        token: what a KV-handoff bundle carries for the adopting engine
+        to continue a sampled stream."""
+        return (int(self._slot_seeds[int(slot)]),
+                int(self._slot_gen[int(slot)]))
 
     # -- helpers --------------------------------------------------------------
     def bucket_for(self, length):
@@ -346,6 +355,18 @@ class GenerationEngine:
     @property
     def slots(self):
         return self.config.slots
+
+    @property
+    def capture_counts(self):
+        """{executable: times captured as a CUDA graph}; the dense engine
+        runs eagerly and captures none."""
+        return {}
+
+    @property
+    def trace_counts(self):
+        """The serving worker's STAT field: where the JAX engines report
+        traces per executable, the port reports its captures."""
+        return dict(self.capture_counts)
 
     @property
     def max_prompt_len(self):
@@ -1005,3 +1026,25 @@ class PagedGenerationEngine(GenerationEngine):
                          else layer.v_scale)[dst] = scale
                     else:
                         pool[dst] = f.to(pool.dtype)
+
+
+def make_engine(model, kind, config_dict, device="cuda"):
+    """An engine of `kind` ("dense", "paged" or "spec") over `model`,
+    its config built from `config_dict` (the ctor kwargs a serving
+    worker is started with). The tensor- and pipeline-parallel kinds of
+    the JAX `make_engine` ("tp", "pp", "spec_pp") are multi-GPU serving,
+    not ported yet."""
+    from .spec_decode import SpecDecodeConfig, SpeculativeEngine
+    classes = {"dense": (GenerationEngine, EngineConfig),
+               "paged": (PagedGenerationEngine, PagedEngineConfig),
+               "spec": (SpeculativeEngine, SpecDecodeConfig)}
+    if kind in ("tp", "pp", "spec_pp"):
+        raise NotImplementedError(
+            f"serving engine kind {kind!r} is multi-GPU serving, not "
+            f"ported yet (ROADMAP A.10)")
+    if kind not in classes:
+        raise ValueError(
+            f"unknown serving engine kind {kind!r}; want one of "
+            f"{sorted(classes) + ['tp', 'pp', 'spec_pp']}")
+    engine_cls, cfg_cls = classes[kind]
+    return engine_cls(model, cfg_cls(**config_dict), device=device)

@@ -4,7 +4,8 @@
              cross-engine prefix restore share
 
 The host and disk tiers themselves (`HostTier`, `DiskTier`,
-`TieredBlockStore`) come with the serving fleet (ROADMAP A.11).
+`TieredBlockStore`) and the engine's `enable_kv_tiers` are ROADMAP
+A.11b.
 """
 from .store import corrupt_counter  # noqa: F401
 

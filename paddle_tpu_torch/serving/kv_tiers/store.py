@@ -4,7 +4,7 @@
 Only the corrupt-restore counter is registered so far: the engine's
 `restore_prefix` latches it when its `serving.kv_restore` fault site
 raises or truncates. `TieredBlockStore` and its block, restore-time and
-tier families join it with the tiers (ROADMAP A.11), reusing this
+tier families join it with the tiers (ROADMAP A.11b), reusing this
 family.
 """
 from ...observability import metrics as _metrics

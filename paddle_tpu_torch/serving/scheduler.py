@@ -1135,9 +1135,10 @@ class Scheduler:
         so the device work is inside the window; with a speculative engine
         a step is one round), `adopted` (placements from staged KV
         bundles), `prefix_hits` and `kernel_launches`.
-        `decode_tokens_per_s` is decode tokens over decode time (the
-        reference divides every token, prefill's first included).
-        `spec_*` appear once a speculative round has proposed tokens."""
+        `decode_tokens_per_s` is the reference's: every delivered token,
+        prefill's first included, over decode time (`decode_tokens` over
+        the same time is the decode steps' own rate). `spec_*` appear
+        once a speculative round has proposed tokens."""
         ttfts = [r.first_token_at - r.submitted_at for r in self._completed
                  if r.first_token_at is not None]
         out = {
@@ -1145,7 +1146,7 @@ class Scheduler:
             "queue_depth": len(self._queue),
             "slot_occupancy": self.active_slots() / max(self.engine.slots, 1),
             "tokens_generated": self._tokens,
-            "decode_tokens_per_s": (self._decode_tokens / self._decode_time_s
+            "decode_tokens_per_s": (self._tokens / self._decode_time_s
                                     if self._decode_time_s > 0 else 0.0),
             "ttft_s_mean": sum(ttfts) / len(ttfts) if ttfts else None,
             "requests": dict(self.counts),

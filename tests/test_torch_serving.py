@@ -376,7 +376,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "        'paddle_tpu_torch.observability.decisions',\n"
             "        'paddle_tpu_torch.observability.reqtimeline',\n"
             "        'paddle_tpu_torch.profiler',\n"
+            "        'paddle_tpu_torch.observability.fleet',\n"
+            "        'paddle_tpu_torch.framework.ckpt_commit',\n"
+            "        'paddle_tpu_torch.distributed.checkpoint',\n"
+            "        'paddle_tpu_torch.distributed.ps.rpc',\n"
+            "        'paddle_tpu_torch.serving.distributed.worker',\n"
+            "        'paddle_tpu_torch.serving.distributed.router',\n"
+            "        'paddle_tpu_torch.serving.distributed.worker_main',\n"
             "        'paddle_tpu_torch._kernels.build'} <= set(mods), mods\n"
+            "from paddle_tpu_torch.serving import make_engine\n"
             "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]\n"

@@ -64,11 +64,10 @@ from paddle_tpu_torch.text.models.convert import load_jax_params
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENGINE = dict(slots=2, max_len=64, block_size=8)
 # the reference keys of Scheduler.metrics() compared across the packages
-# (decode_tokens_per_s is a rate the port defines over decode tokens)
 METRIC_KEYS = ("steps", "queue_depth", "slot_occupancy", "tokens_generated",
-               "ttft_s_mean", "requests", "spec_proposed", "spec_accepted",
-               "spec_acceptance_rate", "blocks_in_use", "blocks_total",
-               "prefix_cache_blocks")
+               "decode_tokens_per_s", "ttft_s_mean", "requests",
+               "spec_proposed", "spec_accepted", "spec_acceptance_rate",
+               "blocks_in_use", "blocks_total", "prefix_cache_blocks")
 PKG = {
     "jax": dict(sched=jsched, faults=jfaults, metrics=jmetrics, kvh=jkvh),
     "port": dict(sched=tsched, faults=tfaults, metrics=tmetrics, kvh=tkvh),
@@ -380,6 +379,42 @@ def test_preemption_under_pressure_matches_jax(models, monkeypatch):
                             for r in preempts
                             for c in r["inputs"]["candidates"])
     assert ts.engine.block_pool.in_use == 0
+
+
+class Tick:
+    """A clock that moves 1.0 at every read: each decode step's timed
+    window (one read before `engine.decode()`, one after) lasts 1.0."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 1.0
+        return self.t
+
+
+def test_decode_tokens_per_s_is_the_reference_rate(models, monkeypatch):
+    """`metrics()["decode_tokens_per_s"]` is the reference's rate: every
+    delivered token, prefill's first included, over decode time. Under a
+    clock that gives each decode step 1.0 s, both schedulers read the
+    same rate, and the port's equals its delivered tokens over its
+    decode steps."""
+    out = {}
+    for pkg in PKG:
+        monkeypatch.setattr(PKG[pkg]["sched"].Request, "_ids",
+                            itertools.count())
+        sched = _scheduler(pkg, _engine(pkg, models), Tick())
+        hs = [sched.submit(_prompt(90 + i, 5 + 2 * i), max_new_tokens=6)
+              for i in range(3)]
+        while sched.step():
+            pass
+        assert all(h.status == "DONE" for h in hs)
+        out[pkg] = sched.metrics()
+    port = out["port"]
+    assert port["decode_tokens_per_s"] == out["jax"]["decode_tokens_per_s"]
+    assert port["decode_tokens_per_s"] == \
+        port["tokens_generated"] / port["decode_steps"]
+    assert port["tokens_generated"] > port["decode_tokens"]
 
 
 def _spec_scenario(pkg, models, monkeypatch):

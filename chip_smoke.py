@@ -129,13 +129,41 @@ Phases (any exception ends the run with a non-zero exit):
      wave run undisturbed before it; `serving_failover_total` >= 1;
      seconds from the kill until every victim streams again and until
      the last request is done); `swap_all` to the same weights as
-     version 2, while a second router keeps four of phase 4's requests
-     in flight on the survivor, is applied under live streams, leaves
+     version 2, while a second router keeps eight of phase 4's requests
+     (of staggered lengths, 40 to 264 tokens) in flight on the survivor,
+     is applied under live streams, leaves
      every stream as phase 4's and every live worker reports version 2;
      STOP ends every live worker with exit
      0 and an exit line whose capture counts are 1 for every executable
      and whose paged-kernel launches are above 0; the card's memory by
      process comes from nvidia-smi.
+
+ 15. the KV tiers and multi-tenant serving (phase 4's weights and engine
+     configuration, every engine precompiled). Tiers: phase 4's eight
+     shared-prefix prompts served, every cached block evicted into the
+     tiers, the eight served again, with a host tier in f32 (and a disk
+     directory), a host tier of one block cascading to disk, an int8 host
+     tier and the tiers off: streams held to phase 4's (the int8 tier by
+     greedy agreement >= 0.9), the first re-served request promoting the
+     16 blocks of the 256-token prefix (`tier_restore` 1, host-tier hits,
+     every executable captured once), its restore ms and TTFT printed
+     beside the recompute's; `serving.kv_spill` and `serving.kv_restore`
+     truncate degrade to a recompute with phase 4's stream (the corrupt
+     counter +1); a worker whose chain sits in its host tier answers
+     PREFIXLOOKUP with the tiered tokens and its KVEXPORT, restored by a
+     second worker's fresh engine, gives phase 4's stream. Tenancy: an
+     `AdapterBank` (4 rows, rank 16, all four targets, 12 layers)
+     attached before `precompile()`, 8 slots of three tenants and the base
+     model on the one captured decode graph, base rows held to phase 4's,
+     tenant rows to an engine without a bank that decodes on the merged
+     weights W + (A B)^T (the near-tie rule); a swap under live streams
+     keeps the other tenants' rows, a `serving.adapter_swap` fault keeps
+     the old adapter and ticks the failed count, a rebind captures
+     nothing, a tenant's bucket refuses past its burst with replayable
+     decision records; speculative rounds with the adapters on the verify
+     window agree with the one-token adapted engine; the decode step with
+     and without the bank, profiled (kernels a step, the gathers' and
+     products' device ms).
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -514,17 +542,20 @@ def decode_failures():
     return metrics.registry().counter("serving_decode_failures_total").value
 
 
-def serve(engine, prompts, max_new, config=None):
-    """Submit every prompt, run the scheduler until idle; returns
-    (handles, metrics, wall seconds). `metrics["sched_host_us"]` is the
-    scheduler's host time a decode step outside the decode call
-    (`run_timed`). Every request must end DONE with `max_new` tokens, and
-    no decode or prefill failure may be contained on the way."""
+def serve(engine, prompts, max_new, config=None, tenants=None):
+    """Submit every prompt (labelled `tenants[i]` when given), run the
+    scheduler until idle; returns (handles, metrics, wall seconds).
+    `metrics["sched_host_us"]` is the scheduler's host time a decode step
+    outside the decode call (`run_timed`). Every request must end DONE
+    with `max_new` tokens, and no decode or prefill failure may be
+    contained on the way."""
     from paddle_tpu_torch.serving import Scheduler, ServingConfig
     sched = Scheduler(engine, config or ServingConfig(max_queue=64),
                       device=engine.device)
     failures = decode_failures()
-    handles = [sched.submit(p, max_new_tokens=max_new) for p in prompts]
+    tenants = tenants or [None] * len(prompts)
+    handles = [sched.submit(p, max_new_tokens=max_new, tenant=t)
+               for p, t in zip(prompts, tenants)]
     t0 = time.perf_counter()
     over = run_timed(sched)     # every step ends in a host read of tokens
     wall = time.perf_counter() - t0
@@ -1121,13 +1152,16 @@ def handoff_streams(model, prompts, kv_dtype, steps, smi):
     return rec, a
 
 
-def stream_parity(model, prompts, got, kw, steps, what, slots=None):
+def stream_parity(model, prompts, got, kw, steps, what, slots=None,
+                  setup=None):
     """Greedy streams `got` (first token + `steps` decodes per slot)
     against a local engine's, a slot's comparison stopping at the first
-    step whose local top-2 gap is below GAP_MIN. Returns (compared,
-    dropped)."""
+    step whose local top-2 gap is below GAP_MIN (`setup(local)` runs
+    before its prefills). Returns (compared, dropped)."""
     from paddle_tpu_torch.serving import PagedGenerationEngine
     local = PagedGenerationEngine(model, capture_logits=True, **kw)
+    if setup is not None:
+        setup(local)
     gaps = [[] for _ in prompts]
     sel = local._select
 
@@ -1900,30 +1934,41 @@ def fleet_serving(model, prompts, want, smi):
                             ("trace_counts", "kernel_launches")}}
 
         # swap: `swap_all` to the same weights as version 2 while a third
-        # wave keeps 4 of phase 4's requests in flight on the survivor
+        # wave keeps 8 of phase 4's requests in flight on the survivor
         # (a finished one is replaced at once) until the swap returns, so
         # the worker applies it under live streams whatever its
-        # checkpoint load takes. The wave rides a second router with its
-        # own connections: the first one's socket to the survivor is
-        # held by the SWAP call while the checkpoint loads
+        # checkpoint load takes. Their lengths are staggered (40 to 264
+        # tokens) so that they never all finish together: streams of one
+        # length end on one step, and the survivor would idle through
+        # their replacements' prefill and handoff, where the swap may
+        # land with nothing in flight. The wave rides a second router
+        # with its own connections: the first one's socket to the
+        # survivor is held by the SWAP call while the checkpoint loads
         import threading
         out, fe3, reqs3 = {}, DistFrontend([survivor.endpoint],
                                            [pre.endpoint]), []
         swapper = threading.Thread(
             target=lambda: out.update(fe.swap_all(ckpt, version=2)))
+
+        def submit3():
+            k = len(reqs3)
+            reqs3.append(fe3.submit(prompts[k % 16],
+                                    max_new=40 + 32 * (k % 8)))
+
         try:
             t = time.perf_counter()
             while not (reqs3 and all(r.tokens for r in reqs3)):
-                while len(reqs3) < 4:
-                    reqs3.append(fe3.submit(prompts[len(reqs3)],
-                                            max_new=max_new))
+                while len(reqs3) < 8:
+                    submit3()
                 fe3.pump()
+                if time.perf_counter() - t > FLEET_WAVE_S:
+                    raise AssertionError("phase 14: the swap wave never "
+                                         "started")
             t_swap = time.perf_counter()
             swapper.start()
             while swapper.is_alive():
-                while sum(not r.done() for r in reqs3) < 4:
-                    reqs3.append(fe3.submit(prompts[len(reqs3) % 16],
-                                            max_new=max_new))
+                while sum(not r.done() for r in reqs3) < 8:
+                    submit3()
                 fe3.pump()
                 if time.perf_counter() - t > FLEET_WAVE_S:
                     raise AssertionError("phase 14: swap_all never "
@@ -2526,6 +2571,597 @@ def compare_train_paths(steps=3, B=2):
     return rec
 
 
+# ------------------------------------------- KV tiers and tenancy (15)
+TIER_ENGINE = dict(slots=8, max_len=1024, block_size=16,
+                   attention_impl="kernel")
+TIER_AGREE = 0.9            # phase 15: int8 host tier vs phase 4, greedy
+ADAPTER_RANK = 16
+ADAPTER_SCALE = 0.05        # A, B ~ N(0, 0.05): the delta flips argmaxes
+TENANTS = ["t1", "t1", "t2", "t2", "t3", "t3", None, None]
+SHARED_PREFIX = 256         # the tokens phase 4's eight prompts share
+
+
+def tier_counters():
+    """The port's `serving_kv_tier_*` counters now."""
+    from paddle_tpu_torch.observability import metrics
+    flat = metrics.flatten_snapshot(metrics.registry().snapshot(),
+                                    kinds=("counter",))
+    return {k: v for k, v in flat.items()
+            if k.startswith("serving_kv_tier_")}
+
+
+def counter_delta(before, after):
+    return {k: after[k] - before.get(k, 0.0) for k in after
+            if after[k] != before.get(k, 0.0)}
+
+
+def tier_round(model, prompts, want, what, agree=None, **tier_kw):
+    """Phase 15a: serve `prompts` on a fresh engine (`tier_kw` sets its
+    tiers; none: tiers off), evict every cached block (with tiers on they
+    demote), serve them again. The streams are held to phase 4's `want`
+    (the near-tie rule, or with `agree` a greedy agreement floor). Returns
+    (record, engine)."""
+    import collections
+    import torch
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import PagedGenerationEngine
+    eng = PagedGenerationEngine(model, device=model.device, **TIER_ENGINE,
+                                **tier_kw)
+    precompile(eng, what)
+    warm, _, _ = serve(eng, prompts, max_new=32)
+    for p, h, w in zip(prompts, warm, want):
+        same_stream(model, p, h.tokens, w, what + " (warm)")
+    evicted = eng.prefix_cache.evict(10 ** 9)
+    residency = collections.Counter(eng.kv_tiers.residency().values()) \
+        if eng.kv_tiers is not None else {}
+    stats = []
+    prefill = eng.prefill
+
+    def recorded(*a, **kw):
+        out = prefill(*a, **kw)
+        stats.append(dict(eng.last_prefill_stats))
+        return out
+    eng.prefill = recorded
+    before = tier_counters()
+    pa.launches = pa.launches_window = pa.launches_prefill = 0
+    torch.cuda.synchronize()
+    try:
+        again, m, _ = serve(eng, prompts, max_new=32)
+    finally:
+        del eng.prefill
+    launches = {"decode": pa.launches - pa.launches_prefill,
+                "prefill": pa.launches_prefill,
+                "window": pa.launches_window}
+    if launches["decode"] <= 0 or launches["prefill"] <= 0:
+        raise AssertionError(f"{what}: paged launches {launches}")
+    if agree is None:
+        compared = dropped = 0
+        for p, h, w in zip(prompts, again, want):
+            c, d = same_stream(model, p, h.tokens, w, what)
+            compared, dropped = compared + c, dropped + d
+        agreement = None
+    else:
+        pairs = [(a, b) for h, w in zip(again, want)
+                 for a, b in zip(h.tokens, w)]
+        agreement = sum(a == b for a, b in pairs) / len(pairs)
+        if agreement < agree:
+            raise AssertionError(f"{what}: greedy agreement {agreement} "
+                                 f"with phase 4 < {agree}")
+        compared = dropped = None
+    first = stats[0]
+    # the first prompt alone, evicted and re-served once more: its restore
+    # (or recompute) with the batch's other requests out of the way
+    eng.prefix_cache.evict(10 ** 9)
+    del stats[:]
+    eng.prefill = recorded
+    try:
+        alone, _, _ = serve(eng, prompts[:1], max_new=32)
+    finally:
+        del eng.prefill
+    same_stream(model, prompts[0], alone[0].tokens, want[0], what + " alone")
+    rec = {"alone_promoted_blocks": stats[0].get("tier_promoted_blocks", 0),
+           "alone_restore_ms": stats[0].get("tier_restore_s", 0.0) * 1e3,
+           "alone_ttft_s": alone[0].ttft_s,
+           "evicted_blocks": evicted, "residency": dict(residency),
+           "first_promoted_blocks": first.get("tier_promoted_blocks", 0),
+           "first_restore_ms": first.get("tier_restore_s", 0.0) * 1e3,
+           "first_prefix_hit_tokens": first["prefix_hit_tokens"],
+           "first_ttft_s": again[0].ttft_s,
+           "ttft_s_mean": sum(h.ttft_s for h in again) / len(again),
+           "promoted_blocks": sum(s.get("tier_promoted_blocks", 0)
+                                  for s in stats),
+           "counters": counter_delta(before, tier_counters()),
+           "trace_counts": eng.trace_counts,
+           "decode_step_ms": m["decode_step_ms"], "launches": launches,
+           "compared_tokens": compared, "dropped_near_ties": dropped,
+           "agreement": agreement,
+           "capture_counts": check_captures(eng, what)}
+    chain = SHARED_PREFIX // TIER_ENGINE["block_size"]
+    if tier_kw:
+        if rec["first_promoted_blocks"] != chain or \
+                rec["trace_counts"].get("tier_restore") != 1:
+            raise AssertionError(
+                f"{what}: the first re-served request promoted "
+                f"{rec['first_promoted_blocks']} blocks (want {chain}), "
+                f"trace_counts {rec['trace_counts']}")
+    return rec, eng
+
+
+def tier_chaos(model, eng, prompt, want):
+    """Phase 15a chaos on a tiered engine: `serving.kv_spill` truncate
+    tears every spill (the chain is lost and the request recomputes);
+    after a clean demotion `serving.kv_restore` truncate drops the
+    chain's head (corrupt counter +1) and the request recomputes. Both
+    streams are held to phase 4's."""
+    from paddle_tpu_torch.observability import faults
+    out = {}
+    for site in ("serving.kv_spill", "serving.kv_restore"):
+        if site == "serving.kv_restore":
+            eng.prefix_cache.evict(10 ** 9)           # a clean demotion
+        kept = set(eng.kv_tiers.residency())
+        before = tier_counters()
+        faults.arm(site, mode="truncate", nth=1)
+        try:
+            if site == "serving.kv_spill":
+                eng.prefix_cache.evict(10 ** 9)
+                torn = set(eng.kv_tiers.residency()) == kept
+            handles, _, _ = serve(eng, [prompt], max_new=32)
+        finally:
+            faults.disarm_all()
+        delta = counter_delta(before, tier_counters())
+        stats = eng.last_prefill_stats
+        c, d = same_stream(model, prompt, handles[0].tokens, want,
+                           f"phase 15 {site} chaos")
+        if stats["tier_promoted_blocks"] != 0:
+            raise AssertionError(f"phase 15 {site}: a tiered block was "
+                                 "restored under the fault")
+        if site == "serving.kv_spill" and not torn:
+            raise AssertionError("phase 15: a torn spill was stored")
+        if site == "serving.kv_restore" and \
+                delta.get("serving_kv_tier_corrupt_total") != 1:
+            raise AssertionError(f"phase 15 kv_restore: counters {delta}")
+        out[site] = {"counters": delta, "compared_tokens": c,
+                     "dropped_near_ties": d,
+                     "prefix_hit_tokens": stats["prefix_hit_tokens"]}
+    return out
+
+
+def tier_worker(model, prompts, want, smi):
+    """Phase 15a over the fabric: worker 0's engine demotes the shared
+    prefix's chain to its host tier; its PREFIXLOOKUP counts the tiered
+    tokens, and its KVEXPORT ships the chain (read from the tier) to
+    worker 1's staging area, whose fresh engine restores it ahead of the
+    request's prefill; the stream is phase 4's."""
+    import torch
+    from paddle_tpu_torch.serving import (PagedGenerationEngine,
+                                          ServingConfig)
+    from paddle_tpu_torch.serving.distributed import (ServingShardClient,
+                                                      ServingWorker)
+    m1 = type(model)(model.cfg, device=model.device)   # a worker's own
+    m1.load_state_dict(model.state_dict())
+    e0 = PagedGenerationEngine(model, device=model.device, **TIER_ENGINE,
+                               enable_kv_tiers=True, host_tier_blocks=128)
+    e1 = PagedGenerationEngine(m1, device=m1.device, **TIER_ENGINE)
+    precompile(e0, "phase 15 worker 0")
+    precompile(e1, "phase 15 worker 1")
+    e0.prefill(0, prompts[0])
+    e0.reset_slot(0)
+    e0.prefix_cache.evict(10 ** 9)
+    tiered = len(e0.kv_tiers.residency())
+    torch.cuda.synchronize()
+    cfg = ServingConfig(default_max_new_tokens=32)
+    w0 = ServingWorker(model, e0, serving_config=cfg)
+    w1 = ServingWorker(m1, e1, serving_config=cfg)
+    client = ServingShardClient([w0.endpoint, w1.endpoint])
+    try:
+        match = client.prefix_lookup(0, prompts[1])["match_tokens"]
+        t0 = time.perf_counter()
+        exp = client.kv_export(0, "p15", prompts[0],
+                               decode_endpoint=w1.endpoint)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        client.submit(1, "p15", prompts[0], max_new=32, use_staged=True)
+        deadline = time.monotonic() + 120
+        while True:
+            view = client.poll(1, ["p15"])["p15"]
+            if view["status"] in ("DONE", "ERROR", "TIMEOUT", "SHED"):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase 15 worker: stuck {view}")
+            time.sleep(0.01)
+        with w1._lock:
+            hit = e1.last_prefill_stats["prefix_hit_tokens"]
+            counts1 = check_captures(e1, "phase 15 worker 1")
+        counts0 = check_captures(e0, "phase 15 worker 0")
+    finally:
+        client.close()
+        w0.shutdown()
+        w1.shutdown()
+    if match != SHARED_PREFIX:
+        raise AssertionError(f"phase 15: PREFIXLOOKUP counted {match} "
+                             f"tokens of a {SHARED_PREFIX}-token tiered "
+                             "prefix")
+    if not exp.get("ok") or exp.get("plen") != SHARED_PREFIX or \
+            hit != SHARED_PREFIX \
+            or view["status"] != "DONE":
+        raise AssertionError(f"phase 15: KVEXPORT {exp}, restored hit "
+                             f"{hit}, request {view['status']}")
+    c, d = same_stream(model, prompts[0], view["tokens"], want,
+                       "phase 15 KVEXPORT restore")
+    rec = {"tiered_blocks": tiered, "prefix_lookup_tokens": match,
+           "export": exp, "export_ms": export_ms, "restored_hit": hit,
+           "compared_tokens": c, "dropped_near_ties": d,
+           "capture_counts": [counts0, counts1]}
+    log(f"tiers over the fabric: PREFIXLOOKUP {match} tokens from "
+        f"{tiered} tiered blocks, KVEXPORT {exp['bytes']} B in "
+        f"{export_ms:.1f} ms, the restored request hit {hit} tokens and "
+        f"its stream agrees on {c} tokens ({d} dropped) [{smi}]")
+    del e0, e1, m1
+    return rec
+
+
+def tiers_phase(model, prompts, want, smi):
+    """Phase 15a: the KV tiers under the prefix cache. `prompts`: phase
+    4's eight shared-prefix prompts; `want`: their phase 4 streams."""
+    import shutil
+    import torch
+    kvt = os.path.join(ROOT, "build", "phase15_kvt")
+    shutil.rmtree(kvt, ignore_errors=True)
+    out = {}
+    try:
+        runs = (("host", dict(enable_kv_tiers=True, host_tier_blocks=128,
+                              disk_tier_dir=os.path.join(kvt, "host"))),
+                ("disk", dict(enable_kv_tiers=True, host_tier_blocks=1,
+                              disk_tier_dir=os.path.join(kvt, "disk"))),
+                ("int8", dict(enable_kv_tiers=True, host_tier_blocks=128,
+                              host_tier_dtype="int8")),
+                ("recompute", {}))
+        for name, kw in runs:
+            rec, eng = tier_round(
+                model, prompts, want, f"phase 15 tiers {name}",
+                agree=TIER_AGREE if name == "int8" else None, **kw)
+            if name == "host":
+                hits = rec["counters"].get(
+                    "serving_kv_tier_hits_total{tier=host}", 0)
+                chain = SHARED_PREFIX // TIER_ENGINE["block_size"]
+                if hits < chain:
+                    raise AssertionError(f"phase 15: host tier hits "
+                                         f"{hits}, want >= {chain}")
+                rec["chaos"] = tier_chaos(model, eng, prompts[0], want[0])
+            if name == "disk" and not rec["counters"].get(
+                    "serving_kv_tier_promote_total{tier=disk}"):
+                raise AssertionError(f"phase 15: nothing promoted from "
+                                     f"disk ({rec['counters']})")
+            out[name] = rec
+            log(f"tiers {name}: evicted {rec['evicted_blocks']} blocks "
+                f"(tiers {rec['residency']}), the first re-served request "
+                f"promoted {rec['first_promoted_blocks']} blocks in "
+                f"{rec['first_restore_ms']:.3f} ms, TTFT "
+                f"{rec['first_ttft_s'] * 1e3:.2f} ms (mean "
+                f"{rec['ttft_s_mean'] * 1e3:.2f} ms); served alone it "
+                f"promoted {rec['alone_promoted_blocks']} blocks in "
+                f"{rec['alone_restore_ms']:.3f} ms, TTFT "
+                f"{rec['alone_ttft_s'] * 1e3:.2f} ms; "
+                + (f"agreement {rec['agreement']:.4f}, "
+                   if rec["agreement"] is not None else
+                   f"{rec['compared_tokens']} tokens agree "
+                   f"({rec['dropped_near_ties']} dropped), ")
+                + f"decode step {rec['decode_step_ms']:.3f} ms, "
+                f"launches {rec['launches']}, counters {rec['counters']}, "
+                f"trace_counts {rec['trace_counts']} [{smi}]")
+            del eng
+            torch.cuda.empty_cache()
+        for site, c in out["host"]["chaos"].items():
+            log(f"tiers chaos {site} truncate: counters {c['counters']}, "
+                f"recomputed stream agrees on {c['compared_tokens']} tokens "
+                f"({c['dropped_near_ties']} dropped) [{smi}]")
+        out["worker"] = tier_worker(model, prompts, want[0], smi)
+    finally:
+        shutil.rmtree(kvt, ignore_errors=True)
+    return out
+
+
+def adapter_bank(cfg):
+    """Phase 15b's bank: 4 rows (base + t1..t3), rank 16, all four
+    targets, every layer; each tenant's adapter from its own seed."""
+    from paddle_tpu_torch.serving.tenancy import (AdapterBank,
+                                                  init_adapter_state)
+    bank = AdapterBank(cfg, n_adapters=4, rank=ADAPTER_RANK)
+    for i, t in enumerate(("t1", "t2", "t3")):
+        bank.load(t, init_adapter_state(cfg, ADAPTER_RANK, seed=100 + i,
+                                        scale=ADAPTER_SCALE))
+    return bank
+
+
+def merged_reference(model, prompts, bank, tenant, steps):
+    """The independent reference of a tenant's streams: an engine with no
+    bank prefills on the base weights, then `swap_params` to the tenant's
+    merged weights (W + (A B)^T for each adapted `nn.Linear`) before its
+    first decode. Returns (streams, top-2 gaps)."""
+    import torch
+    from paddle_tpu_torch.serving import PagedGenerationEngine
+    eng = PagedGenerationEngine(model, device=model.device,
+                                capture_logits=True,
+                                **dict(TIER_ENGINE, slots=len(prompts)))
+    gaps = [[] for _ in prompts]
+    sel = eng._select
+
+    def cap(logits, slot):
+        gaps[slot].append(float(top2_gaps(logits.float().cpu())[0]))
+        return sel(logits, slot)
+    eng._select = cap
+    rows = [[eng.prefill(s, p)] for s, p in enumerate(prompts)]
+    idx = bank.slot_of(tenant)
+    merged = dict(eng._params)
+    paths = {"qkv": "attn.qkv", "out_proj": "attn.out_proj",
+             "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    with torch.no_grad():
+        for i in range(bank.num_layers):
+            for t in bank.targets:
+                name = f"blocks.{i}.{paths[t]}.weight"
+                a, b = bank.rows(i, t)
+                delta = torch.from_numpy(a[idx] @ b[idx]).to(model.device)
+                merged[name] = merged[name] + delta.T
+    eng.swap_params(merged)
+    for _ in range(steps):
+        out = eng.decode()
+        g = top2_gaps(eng.last_logits)
+        for s in range(len(prompts)):
+            rows[s].append(int(out[s]))
+            gaps[s].append(float(g[s]))
+    return rows, gaps
+
+
+def near_tie_compare(got, want, gaps, what):
+    """`got` against `want` token by token, a row's comparison ending at
+    the first step whose reference top-2 gap is below GAP_MIN. Returns
+    (compared, dropped)."""
+    compared = dropped = 0
+    for s, row in enumerate(got):
+        for t in range(len(row)):
+            if gaps[s][t] < GAP_MIN:
+                dropped += len(row) - t
+                break
+            if row[t] != want[s][t]:
+                raise AssertionError(f"{what}: row {s} token {t}: "
+                                     f"{row[t]} != {want[s][t]} (gap "
+                                     f"{gaps[s][t]:.3e})")
+            compared += 1
+    return compared, dropped
+
+
+def hold_tenants(model, prompts, rows, want, refs, what):
+    """Base rows against phase 4's streams, tenant rows against their
+    merged-weight references. Returns (compared, dropped)."""
+    compared = dropped = 0
+    for t, (ref, gaps) in refs.items():
+        picks = [i for i, x in enumerate(TENANTS) if x == t]
+        c, d = near_tie_compare([rows[i] for i in picks], ref, gaps,
+                                f"{what} tenant {t}")
+        compared, dropped = compared + c, dropped + d
+    for i, x in enumerate(TENANTS):
+        if x is None:
+            c, d = same_stream(model, prompts[i], rows[i], want[i],
+                               f"{what} base row {i}")
+            compared, dropped = compared + c, dropped + d
+    return compared, dropped
+
+
+def delta_profile(model, prompts, bank):
+    """The adapter delta's cost: decode steps of an 8-slot engine with the
+    bank attached (slots bound as TENANTS) and of one without, each
+    profiled (`profile_steps`), plus the device ms and kernels a step of
+    the index (gather) and gemm/bmm (product) kernels over 4 traced
+    steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.serving import PagedGenerationEngine
+    out = {}
+    for name, b in (("bank", bank), ("no_bank", None)):
+        eng = PagedGenerationEngine(model, device=model.device,
+                                    **TIER_ENGINE)
+        if b is not None:
+            eng.attach_adapters(b)
+        for s, p in enumerate(prompts):
+            eng.prefill(s, p)
+            if b is not None:
+                eng.set_slot_adapter(s, b.slot_of(TENANTS[s]))
+        rec = profile_steps(eng.decode, 8)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                eng.decode()
+            torch.cuda.synchronize()
+        classes = {"index": [0.0, 0.0], "gemm": [0.0, 0.0]}
+        for e in device_kernels(prof):
+            key = e.key.lower()
+            us = getattr(e, "self_device_time_total", None) \
+                or getattr(e, "self_cuda_time_total", 0.0)
+            for cls, marks in (("index", ("index",)),
+                               ("gemm", ("gemm", "bmm", "xmma",
+                                         "cutlass"))):
+                if any(mk in key for mk in marks):
+                    classes[cls][0] += us / 4 / 1e3
+                    classes[cls][1] += e.count / 4
+        rec["classes_ms_count"] = classes
+        rec["capture_counts"] = check_captures(eng, f"phase 15 {name}",
+                                               every=False)
+        out[name] = rec
+        del eng
+    return out
+
+
+def counter_value(key):
+    """A port registry counter series now (`name{label=value}`)."""
+    from paddle_tpu_torch.observability import metrics
+    return metrics.flatten_snapshot(metrics.registry().snapshot(),
+                                    kinds=("counter",)).get(key, 0.0)
+
+
+def tenancy_phase(model, prompts, want, smi, phase4_step_ms):
+    """Phase 15b: per-tenant adapters inside the captured decode graph,
+    adapter swaps and their fault, rate limiting, the delta's cost."""
+    import torch
+    from paddle_tpu_torch.observability import decisions, faults
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import (PagedGenerationEngine,
+                                          RateLimitedError, Scheduler,
+                                          ServingConfig, SpeculativeEngine)
+    from paddle_tpu_torch.serving.tenancy import (TenancyConfig,
+                                                  TenantSpec,
+                                                  init_adapter_state)
+    cfg = model.cfg
+    bank = adapter_bank(cfg)
+    eng = PagedGenerationEngine(model, device=model.device, **TIER_ENGINE)
+    eng.attach_adapters(bank)
+    capture_s = precompile(eng, "phase 15 tenancy")
+    pa.launches = pa.launches_window = pa.launches_prefill = 0
+    handles, m, _ = serve(eng, prompts, max_new=32, tenants=TENANTS)
+    launches = {"decode": pa.launches - pa.launches_prefill,
+                "prefill": pa.launches_prefill}
+    if launches["decode"] <= 0 or launches["prefill"] <= 0:
+        raise AssertionError(f"phase 15 tenancy: launches {launches}")
+    rows = [h.tokens for h in handles]
+    if [h.adapter_id for h in handles] != TENANTS:
+        raise AssertionError("phase 15: requests bound to adapters "
+                             f"{[h.adapter_id for h in handles]}")
+    refs = {t: merged_reference(model, [p for p, x in zip(prompts, TENANTS)
+                                        if x == t], bank, t, 31)
+            for t in ("t1", "t2", "t3")}
+    compared, dropped = hold_tenants(model, prompts, rows, want, refs,
+                                     "phase 15 tenancy")
+    flipped = sum(r != w for r, w, x in zip(rows, want, TENANTS) if x)
+    if not flipped:
+        raise AssertionError("phase 15: no tenant's delta changed a stream")
+    counts = check_captures(eng, "phase 15 tenancy")
+
+    # an adapter swap under live streams, then a refused one
+    sched = Scheduler(eng, ServingConfig(max_queue=64), device=eng.device)
+    live = [sched.submit(p, max_new_tokens=32, tenant=t)
+            for p, t in zip(prompts, TENANTS)]
+    while min(len(h.tokens) for h in live) < 8:
+        sched.step()
+    ev = sched.schedule_adapter_swap("t3", init_adapter_state(
+        cfg, ADAPTER_RANK, seed=200, scale=ADAPTER_SCALE))
+    sched.run_until_idle()
+    if not ev.swap_result["ok"] or ev.swap_result["inflight"] != 8:
+        raise AssertionError(f"phase 15: adapter swap {ev.swap_result}")
+    keep = {t: refs[t] for t in ("t1", "t2")}
+    c2, d2 = hold_tenants(model, prompts, [h.tokens for h in live], want,
+                          keep, "phase 15 swap (other rows)")
+    failed_key = "serving_adapter_swaps_total{status=failed}"
+    failed0 = counter_value(failed_key)
+    faults.arm("serving.adapter_swap", "raise")
+    try:
+        ev = sched.schedule_adapter_swap("t1", init_adapter_state(
+            cfg, ADAPTER_RANK, seed=300, scale=ADAPTER_SCALE))
+        sched.step()
+    finally:
+        faults.disarm_all()
+    if ev.swap_result["ok"] or counter_value(failed_key) != failed0 + 1:
+        raise AssertionError(f"phase 15: faulted swap {ev.swap_result}")
+    again = [sched.submit(p, max_new_tokens=32, tenant="t1")
+             for p, t in zip(prompts, TENANTS) if t == "t1"]
+    sched.run_until_idle()
+    sched.close()
+    c3, d3 = near_tie_compare([h.tokens for h in again], *refs["t1"],
+                              "phase 15 t1 after a refused swap")
+    # a rebind mid-stream is a host write
+    eng.prefill(0, prompts[6])
+    eng.decode()
+    eng.set_slot_adapter(0, bank.slot_of("t2"))
+    eng.decode()
+    eng.reset_slot(0)
+    if check_captures(eng, "phase 15 rebind") != counts:
+        raise AssertionError("phase 15: a rebind captured a graph")
+
+    # token buckets ahead of shedding
+    cost = len(prompts[0]) + 32
+    rl = Scheduler(eng, ServingConfig(max_queue=64), device=eng.device,
+                   tenancy=TenancyConfig(tenants={"t1": TenantSpec(
+                       rate_tokens_per_s=1e-3, burst_tokens=2 * cost)}))
+    ok = [rl.submit(prompts[0], max_new_tokens=32, tenant="t1")
+          for _ in range(2)]
+    try:
+        rl.submit(prompts[0], max_new_tokens=32, tenant="t1")
+        raise AssertionError("phase 15: the bucket admitted past its burst")
+    except RateLimitedError:
+        pass
+    rl.run_until_idle()
+    recs = rl.decision_records()
+    errors = decisions.validate_records(recs)
+    if errors or [r["action"] for r in recs].count("rate_limit") != 1 or \
+            any(h.status != "DONE" for h in ok):
+        raise AssertionError(f"phase 15 rate limit: {errors}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # speculative rounds with the adapters on the verify window
+    spec = SpeculativeEngine(model, device=model.device, **SPEC)
+    spec.attach_adapters(bank)
+    precompile(spec, "phase 15 spec")
+    pa.launches = pa.launches_window = pa.launches_prefill = 0
+    sh, sm, _ = serve(spec, prompts, max_new=32, tenants=TENANTS)
+    window = pa.launches_window
+    if window != cfg.num_layers * sm["decode_steps"]:
+        raise AssertionError(f"phase 15 spec: {window} window launches")
+    spec_counts = check_captures(spec, "phase 15 spec")
+    del spec
+
+    def bind(local):
+        local.attach_adapters(bank)
+        for s, t in enumerate(TENANTS):
+            local.set_slot_adapter(s, bank.slot_of(t))
+    c4, d4 = stream_parity(model, prompts, [h.tokens for h in sh],
+                           dict(TIER_ENGINE, device=model.device), 31,
+                           "phase 15 spec with adapters", setup=bind)
+    torch.cuda.empty_cache()
+
+    prof = delta_profile(model, prompts, bank)
+    b, nb = prof["bank"], prof["no_bank"]
+    rec = {"capture_s": capture_s, "capture_counts": counts,
+           "launches": launches, "decode_step_ms": m["decode_step_ms"],
+           "phase4_decode_step_ms": phase4_step_ms,
+           "decode_only_tok_s": decode_only_tok_s(m),
+           "compared_tokens": compared, "dropped_near_ties": dropped,
+           "tenant_rows_changed": flipped,
+           "swap": {"compared_tokens": c2, "dropped_near_ties": d2},
+           "refused_swap": {"compared_tokens": c3, "dropped_near_ties": d3},
+           "rate_limit_records": len(recs),
+           "spec": {"window_launches": window,
+                    "prefill_launches": pa.launches_prefill,
+                    "round_ms": sm["decode_step_ms"],
+                    "acceptance_rate": sm.get("spec_acceptance_rate"),
+                    "compared_tokens": c4, "dropped_near_ties": d4,
+                    "capture_counts": spec_counts},
+           "profile": prof}
+    log(f"tenancy: 8 slots (t1, t1, t2, t2, t3, t3, base, base) on one "
+        f"captured decode graph (capture counts {counts}), tenant rows "
+        f"held to merged-weight engines and base rows to phase 4: "
+        f"{compared} tokens agree ({dropped} dropped by the near-tie rule), "
+        f"{flipped} of 6 tenant rows differ from phase 4; a swap under 8 "
+        f"live streams kept the other rows ({c2} tokens agree), a "
+        f"refused swap kept t1's adapter ({c3} tokens agree), a rebind and "
+        f"swaps captured nothing, the bucket refused past its burst; spec "
+        f"with adapters: {window} window launches, round "
+        f"{sm['decode_step_ms']:.3f} ms, {c4} tokens agree with the "
+        f"one-token adapted engine ({d4} dropped) [{smi}]")
+    log(f"decode step on the host clock: with the bank "
+        f"{m['decode_step_ms']:.3f} ms, phase 4 (no bank) "
+        f"{phase4_step_ms:.3f} ms; profiled: with the bank "
+        f"{b['step_ms_untraced']:.3f} ms untraced, busy "
+        f"{b['device_busy_ms_per_step']:.3f} ms over "
+        f"{b['kernels_per_step']:.0f} kernels (index {b['classes_ms_count']['index'][1]:.0f} "
+        f"in {b['classes_ms_count']['index'][0]:.4f} ms, gemm "
+        f"{b['classes_ms_count']['gemm'][1]:.0f} in "
+        f"{b['classes_ms_count']['gemm'][0]:.4f} ms); without "
+        f"{nb['step_ms_untraced']:.3f} ms untraced, busy "
+        f"{nb['device_busy_ms_per_step']:.3f} ms over "
+        f"{nb['kernels_per_step']:.0f} kernels (index {nb['classes_ms_count']['index'][1]:.0f} "
+        f"in {nb['classes_ms_count']['index'][0]:.4f} ms, gemm "
+        f"{nb['classes_ms_count']['gemm'][1]:.0f} in "
+        f"{nb['classes_ms_count']['gemm'][0]:.4f} ms) [{smi}]")
+    return rec
+
+
 def main(argv):
     flash_only = "--flash-only" in argv
     try:
@@ -2746,6 +3382,21 @@ def main(argv):
     torch.cuda.empty_cache()
     report["fleet"] = fleet_serving(model, prompts,
                                     [h.tokens for h in handles], smi)
+
+    # 15. KV tiers and multi-tenant serving ----------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    shared, shared_want = prompts[8:16], [h.tokens for h in handles[8:16]]
+    report["tiers"] = tiers_phase(model, shared, shared_want, smi)
+    report["tenancy"] = tenancy_phase(model, shared, shared_want, smi,
+                                      m["decode_step_ms"])
+    report["phase15_s"] = time.perf_counter() - t15
+    log(f"phase 15 paged launches: tier re-serves "
+        f"{ {k: v['launches'] for k, v in report['tiers'].items() if k != 'worker'} }, "
+        f"tenancy {report['tenancy']['launches']}, spec with adapters "
+        f"{report['tenancy']['spec']['window_launches']} windows; phase 15 "
+        f"took {report['phase15_s']:.1f} s [{smi}]")
 
     # summary ------------------------------------------------------------------------
     dec = next(c for c in cases if c["case"] == "decode_f32")

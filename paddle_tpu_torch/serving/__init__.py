@@ -8,17 +8,21 @@ continuous-batching scheduler (counterpart of `paddle_tpu.serving`).
   graphs.py       — the serving executables as CUDA graphs, captured once
   engine.py       — dense and paged prefill/decode engines, int8 decode
                     weights, logit capture, weight hot-swap, KV handoff
-                    (extract, adopt, prefix restore), `make_engine`
+                    (extract, adopt, prefix restore), KV tiers under the
+                    prefix cache, LoRA adapters, `make_engine`
   spec_decode.py  — speculative decode: draft proposals, one verify window
   scheduler.py    — priority queue, continuous batching, preemption,
                     speculative rounds, scheduled weight swaps, staged
                     placement from handed-off KV, deadlines, load
-                    shedding, failure quarantine, cancellation, and the
+                    shedding, failure quarantine, cancellation, token
+                    buckets, namespace quotas, adapter swaps, and the
                     serving metrics, decision and timeline records
   distributed/    — the serving fleet: the KV-bundle wire format, the
                     worker verbs, the router and the worker process
                     (imported on demand, not by this package)
-  kv_tiers/       — the corrupt-restore counter the tiers will share
+  kv_tiers/       — the host and disk tiers under the prefix cache
+  tenancy/        — LoRA adapters, the adapter bank and registry, token
+                    buckets and tenant declarations
 """
 from . import blocks, kv_cache, prefix_cache, sampling  # noqa: F401
 from .blocks import (  # noqa: F401
@@ -30,8 +34,8 @@ from .engine import (  # noqa: F401
 )
 from .prefix_cache import PrefixCache, prefix_key  # noqa: F401
 from .scheduler import (  # noqa: F401
-    PRIORITIES, LoadShedError, QueueFullError, Request, RequestHandle,
-    Scheduler, ServingConfig,
+    PRIORITIES, LoadShedError, QueueFullError, RateLimitedError, Request,
+    RequestHandle, Scheduler, ServingConfig,
 )
 from .spec_decode import (  # noqa: F401
     SpecDecodeConfig, SpeculativeEngine, truncated_draft,
@@ -43,7 +47,8 @@ __all__ = [
     "PrefixCache", "prefix_key",
     "EngineConfig", "GenerationEngine", "PagedEngineConfig",
     "PagedGenerationEngine", "make_engine",
-    "PRIORITIES", "LoadShedError", "QueueFullError", "Request",
+    "PRIORITIES", "LoadShedError", "QueueFullError", "RateLimitedError",
+    "Request",
     "RequestHandle", "Scheduler",
     "ServingConfig", "SpecDecodeConfig", "SpeculativeEngine",
     "truncated_draft",

@@ -35,8 +35,10 @@ through extension verbs:
            federates. Read-only.
   DUMP     (both roles)    write and return the flight recorder's
            postmortem.
-  PREFIXLOOKUP, KVEXPORT (decode role)  probe the prefix cache; export a
-           cached chain to a peer as a `prefix_only` bundle.
+  PREFIXLOOKUP, KVEXPORT (decode role)  probe the prefix cache, tiered
+           continuations included; export a servable chain (device pool
+           entries and tier records, sha-verified) to a peer as a
+           `prefix_only` bundle.
   HEALTH, DRAIN (both roles)  the router's heartbeat; admission stop for
            zero-drop rolling drains.
 
@@ -53,9 +55,10 @@ object. Faults: `serving.kv_handoff` fires in bundle pack/unpack,
 `serving.weight_swap` inside `engine.swap_params`, `serving.rpc.serve`
 in the fabric's server, keyed by endpoint.
 
-`tenancy` must be None: the adapter bank and token buckets are ROADMAP
-A.11c. A SUBMIT's `adapter_id` is accepted and served on the base
-weights, as the JAX worker serves it without a tenancy config.
+`tenancy` (a `tenancy.TenancyConfig`) arms the decode scheduler's token
+buckets, prefix-namespace quotas and tenant namespaces on this host. A
+SUBMIT's `adapter_id` binds the engine's adapter row for it when the
+engine has a bank attached that holds it (else the base weights).
 """
 import json
 import re
@@ -162,10 +165,6 @@ class ServingWorker:
         if role not in ("decode", "prefill"):
             raise ValueError(f"role must be 'decode' or 'prefill', "
                              f"got {role!r}")
-        if tenancy is not None:
-            raise NotImplementedError(
-                "multi-tenant serving (adapters, token buckets, quotas) "
-                "is not ported yet (ROADMAP A.11c); pass tenancy=None")
         self.role = role
         self.model = model
         self.engine = engine
@@ -186,7 +185,7 @@ class ServingWorker:
         self.draining = False
         self._last_step_at = time.monotonic()
         self.scheduler = Scheduler(engine, serving_config or ServingConfig(),
-                                   device=engine.device) \
+                                   device=engine.device, tenancy=tenancy) \
             if role == "decode" else None
         _M_MODEL_VERSION.set(float(version))
         handlers = {OP_SWAP: self._h_swap, OP_STAT: self._h_stat,
@@ -415,6 +414,7 @@ class ServingWorker:
                 rng_gen=int(obj.get("rng_gen") or 0),
                 tenant=obj.get("tenant"),
                 cohort=obj.get("cohort"),
+                adapter_id=obj.get("adapter_id"),
                 prefix_namespace=obj.get("prefix_namespace"),
                 staged_prefix=staged_prefix)
             self._requests[key] = handle
@@ -475,10 +475,10 @@ class ServingWorker:
 
     def _h_prefix_lookup(self, body, aux, reqid, rctx):
         """OP_PREFIX_LOOKUP: how many tokens of `prompt` this worker
-        could serve from its prefix cache (the device pool's entries; the
-        host and disk tiers are ROADMAP A.11b). Genuinely read-only (no refs,
-        LRU touches, or promotion), so the router can probe every shard
-        per placement without perturbing cache state anywhere."""
+        could serve from its prefix cache, counting the device pool's
+        entries and their tiered continuations. Genuinely read-only (no
+        refs, LRU touches, or promotion), so the router can probe every
+        shard per placement without perturbing cache state anywhere."""
         obj, _ = _kv.unpack_payload(body)
         probe = getattr(self.engine, "prefix_probe", None)
         n = 0
@@ -489,8 +489,9 @@ class ServingWorker:
         return _kv.pack_payload({"match_tokens": n})
 
     def _h_kv_export(self, body, aux, reqid, rctx):
-        """OP_KV_EXPORT: read this worker's cached chain for
-        `prompt` (from the device pool's prefix cache) and stream it
+        """OP_KV_EXPORT: read this worker's servable chain for `prompt`
+        (the device pool's entries and their tiered continuation, tier
+        records sha-verified on the way) and stream it
         to the target peer's staging area as a `prefix_only` KV bundle
         under the caller's trace — the cross-host restore edge of the
         fleet-global prefix cache. The chain stays resident here; the

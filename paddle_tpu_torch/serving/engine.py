@@ -41,9 +41,33 @@ fires in the block pool. The `serving::prefill` and
 profiler.RecordEvent`, a `record_function` range while a torch profiler
 records).
 
+KV tiers (`PagedEngineConfig(enable_kv_tiers=True)`): a
+`kv_tiers.TieredBlockStore` under the prefix cache. Eviction copies a
+block's pool-native slabs to the host through page-locked buffers
+(`_tier_read_block`) before the block goes back to the pool; a prefill
+whose chain continues in a tier promotes the run back with one batched
+in-place write (`_tier_write_blocks`: `index_copy_` over the run's block
+ids, no padding, no new pool, no capture). `trace_counts["tier_restore"]`
+reads 0 until the first restore and 1 after it, as the JAX engine counts
+its one restore program's trace (the port's restore is eager: a run's
+length varies and no graph needs a fixed shape); it is absent with the
+tiers off. `last_prefill_stats` gains `tier_promoted_blocks` and
+`tier_restore_s`.
+
+LoRA adapters (`attach_adapters(tenancy.AdapterBank)`): the bank's
+stacked per-slot `A`/`B` rows live in device tensors the engine owns and
+writes in place (`swap_adapter`, `drop_adapter` copy one row), and each
+slot's adapter id is an int32 field of the decode inputs, so a rebind
+(`set_slot_adapter`) is a host write plus the upload every call makes.
+Decode and verify forwards add the gathered delta; prefill runs the base
+weights, as in the reference. Attaching a bank after the decode graph was
+captured captures it once more (the JAX engine retraces once);
+`set_slot_adapter`, `swap_adapter` and `drop_adapter` capture nothing.
+Without a bank the decode graph is the adapter-free one. The
+`serving.adapter_swap` site fires first in `swap_adapter`.
+
 Left out of this port: the persistent compile cache, the numerics taps
-and their `numerics.corrupt` site (ROADMAP A.12), LoRA adapters and their
-`serving.adapter_swap` site (A.11c), and the KV tiers (A.11b).
+and their `numerics.corrupt` site, and the KV ledger (ROADMAP A.12).
 """
 import functools
 import gc
@@ -59,7 +83,7 @@ from . import blocks
 from . import graphs
 from . import kv_cache as kvc
 from . import sampling
-from .kv_tiers.store import corrupt_counter
+from .kv_tiers import TieredBlockStore, corrupt_counter
 from .prefix_cache import PrefixCache, prefix_key
 
 __all__ = ["EngineConfig", "GenerationEngine", "PagedEngineConfig",
@@ -142,6 +166,11 @@ class GenerationEngine:
         self._slot_gen = np.zeros((self.config.slots,), np.int64)
         self._rng_nonce = 0
         self.kernel_launches = 0
+        # per-tenant LoRA adapters: the attached bank, the engine's device
+        # copy of its rows, and each slot's adapter id (0 = base)
+        self._adapter_bank = None
+        self._adapter_tree = None
+        self._slot_adapter = np.zeros((self.config.slots,), np.int32)
         self._alloc_state()
 
     _config_cls = EngineConfig
@@ -224,19 +253,101 @@ class GenerationEngine:
         padded[0, :tokens.size] = tokens
         return torch.from_numpy(padded).to(self.device)
 
-    def _forward(self, ids, cache, params=None):
+    def _forward(self, ids, cache, params=None, adapters=None):
         """One functional model forward over `params` (default: the float
-        serving dict)."""
+        serving dict), with the per-slot adapter view when given."""
+        kwargs = {"cache": cache}
+        if adapters is not None:
+            kwargs["adapters"] = adapters
         with torch.no_grad():
             return torch.func.functional_call(
                 self._model, self._params if params is None else params,
-                (ids,), {"cache": cache})
+                (ids,), kwargs)
 
     def _decode_forward(self, ids, cache):
         """A decode (or verify) forward: over `_decode_params`, int8
-        entries dequantized first."""
-        return self._forward(ids, cache,
-                             self._dequant_params(self._decode_params))
+        entries dequantized first, plus each slot's adapter delta when a
+        bank is attached."""
+        params = self._dequant_params(self._decode_params)
+        if self._adapter_bank is None:
+            return self._forward(ids, cache, params)
+        return self._forward(ids, cache, params, adapters={
+            "slot": self._adapter_ids(),
+            "layers": self._adapter_tree["layers"]})
+
+    # -- per-tenant LoRA adapters -------------------------------------------
+    def _adapter_ids(self):
+        """The slots' adapter ids as the decode forward reads them."""
+        return torch.from_numpy(self._slot_adapter).to(self.device)
+
+    def attach_adapters(self, bank):
+        """Attach a `tenancy.AdapterBank`: from the next decode step each
+        slot adds its adapter row's delta. The engine copies the bank's
+        rows into device tensors it owns; a later bank of the same
+        geometry is copied into them in place, another geometry gets new
+        tensors (and the paged engines capture their adapter graphs
+        again, as the JAX engine retraces)."""
+        same = self._adapter_bank is not None and \
+            self._adapter_bank.geometry() == bank.geometry()
+        self._adapter_bank = bank
+        if same:
+            self._write_adapter_rows(range(bank.n_adapters))
+        else:
+            self._adapter_tree = bank.device_tree(self.device)
+            self._adapters_changed()
+
+    def _adapters_changed(self):
+        """Hook: the adapter tensors the decode forwards read were
+        replaced (the paged engines drop their captured graphs)."""
+
+    def _write_adapter_rows(self, rows):
+        """Copy bank rows `rows` into the engine's device tensors in
+        place (the storage a captured decode graph reads)."""
+        bank = self._adapter_bank
+        with torch.no_grad():
+            for i, layer in enumerate(self._adapter_tree["layers"]):
+                for t, (a, b) in layer.items():
+                    ha, hb = bank.rows(i, t)
+                    for r in rows:
+                        a[r].copy_(torch.from_numpy(ha[r]))
+                        b[r].copy_(torch.from_numpy(hb[r]))
+
+    @property
+    def adapter_bank(self):
+        """The attached `tenancy.AdapterBank`, or None."""
+        return self._adapter_bank
+
+    def set_slot_adapter(self, slot, idx):
+        """Bind engine slot `slot` to adapter row `idx` (0 = base): a host
+        int32 write; the next decode gathers the new row."""
+        self._slot_adapter[int(slot)] = np.int32(idx)
+
+    def slot_adapter(self, slot):
+        return int(self._slot_adapter[int(slot)])
+
+    def swap_adapter(self, tenant, state):
+        """Load or replace one tenant's adapter between decode steps.
+        `serving.adapter_swap` fires first; the bank then validates every
+        tensor before it writes a row, so any failure leaves every
+        tenant's adapter serving as it was. The tenant's row is copied
+        into the engine's tensors in place: nothing is captured again.
+        Returns the tenant's adapter row."""
+        if self._adapter_bank is None:
+            raise ValueError("no adapter bank attached "
+                             "(engine.attach_adapters)")
+        _faults.fire("serving.adapter_swap")
+        idx = self._adapter_bank.load(tenant, state)
+        self._write_adapter_rows([idx])
+        return idx
+
+    def drop_adapter(self, tenant):
+        """Zero a tenant's adapter row (its slots fall back to base)."""
+        if self._adapter_bank is None:
+            return None
+        idx = self._adapter_bank.drop(tenant)
+        if idx is not None:
+            self._write_adapter_rows([idx])
+        return idx
 
     # -- decode params and weight hot-swap ----------------------------------
     def _build_decode_params(self):
@@ -344,10 +455,12 @@ class GenerationEngine:
         self._last_tokens[int(slot)] = np.int32(token)
 
     def reset_slot(self, slot):
-        """Mark a slot free: pos=0 hides its stale rows."""
+        """Mark a slot free: pos=0 hides its stale rows; its adapter id
+        goes back to base."""
         self._cache.pos[int(slot)] = 0
         self._last_tokens[int(slot)] = 0
         self.set_slot_rng(slot, 0, 0)
+        self._slot_adapter[int(slot)] = 0
 
     def slot_positions(self):
         return self._cache.pos.cpu().numpy().astype(np.int32)
@@ -391,12 +504,19 @@ class PagedEngineConfig(EngineConfig):
     scales. weight_dtype: "int8" runs the decode forwards from int8
     weights with per-output-channel scales (prefill stays float).
     capture_logits: decode keeps the [slots, vocab] f32 last-token logits
-    in `engine.last_logits`."""
+    in `engine.last_logits`. enable_kv_tiers: evicted prefix blocks demote
+    to a host tier of `host_tier_blocks` blocks (`host_tier_dtype`
+    "float32", or "int8" requantized), cascading to a disk tier of
+    `disk_tier_blocks` in `disk_tier_dir` (None: no disk tier) compacted
+    past `disk_tier_compact_threshold` dead bytes; off by default."""
 
     def __init__(self, block_size=16, num_blocks=None,
                  enable_prefix_cache=True, attention_impl="kernel",
                  kv_dtype="float32", weight_dtype="float32",
-                 capture_logits=False, **kwargs):
+                 capture_logits=False, enable_kv_tiers=False,
+                 host_tier_blocks=64, host_tier_dtype="float32",
+                 disk_tier_dir=None, disk_tier_blocks=256,
+                 disk_tier_compact_threshold=0.5, **kwargs):
         super().__init__(**kwargs)
         self.block_size = int(block_size)
         self.max_blocks_per_slot = -(-self.max_len // self.block_size)
@@ -418,6 +538,15 @@ class PagedEngineConfig(EngineConfig):
         self.kv_dtype = kv_dtype
         self.weight_dtype = weight_dtype
         self.capture_logits = bool(capture_logits)
+        self.enable_kv_tiers = bool(enable_kv_tiers)
+        self.host_tier_blocks = int(host_tier_blocks)
+        if host_tier_dtype not in ("float32", "int8"):
+            raise ValueError(f"host_tier_dtype must be 'float32' or "
+                             f"'int8', got {host_tier_dtype!r}")
+        self.host_tier_dtype = host_tier_dtype
+        self.disk_tier_dir = disk_tier_dir
+        self.disk_tier_blocks = int(disk_tier_blocks)
+        self.disk_tier_compact_threshold = float(disk_tier_compact_threshold)
 
 
 class PagedGenerationEngine(GenerationEngine):
@@ -454,21 +583,47 @@ class PagedGenerationEngine(GenerationEngine):
         self._last_tokens = self._io.host["tokens"]
         self._pos = self._io.host["pos"]
         self._tables = self._io.host["tables"]
+        self._slot_adapter = self._io.host["adapter"]
         self._pf = graphs.StaticInputs(self._prefill_fields(), self.device)
         self._exe = graphs.Executables(self.device)
         self._slot_active = np.zeros((c.slots,), bool)
+        self.kv_tiers = None
+        self._tier_restores = None      # None: tiers off
+        self._tier_staging = {}         # dtype -> page-locked buffer
+        # each slot's prefix namespace, kept from its prefill so that its
+        # decode-time block growth evicts under the same requester
+        self._slot_namespace = {}
         self.block_pool = blocks.BlockPool(c.num_blocks, c.block_size)
         self.prefix_cache = PrefixCache(self.block_pool, c.block_size) \
             if c.enable_prefix_cache else None
+        if c.enable_kv_tiers and self.prefix_cache is not None:
+            self.kv_tiers = TieredBlockStore(
+                self._tier_read_block, self._tier_write_blocks,
+                host_blocks=c.host_tier_blocks,
+                host_dtype=c.host_tier_dtype, disk_dir=c.disk_tier_dir,
+                disk_blocks=c.disk_tier_blocks,
+                disk_compact_threshold=c.disk_tier_compact_threshold)
+            self.prefix_cache.attach_tier(self.kv_tiers)
+            self._tier_restores = 0
+            # staging for the longest run a prefill can promote, made now
+            # so that no restore pays for page-locking host memory
+            kv = (2 * cfg.num_layers, c.max_blocks_per_slot)
+            self._tier_stage(kv + (c.block_size, cfg.num_heads, head_dim),
+                             torch.int8 if self.kv_quantized
+                             else torch.float32)
+            if self.kv_quantized:
+                self._tier_stage(kv + (cfg.num_heads,), torch.float32)
         self.last_prefill_stats = {}
         self.last_logits = None
 
     def _decode_fields(self):
         """Inputs of the decode-step executables: each slot's next input
-        token, position and block table."""
+        token, position, block table and adapter id (read only with a
+        bank attached)."""
         c = self.config
         return {"tokens": (c.slots,), "pos": (c.slots,),
-                "tables": (c.slots, c.max_blocks_per_slot)}
+                "tables": (c.slots, c.max_blocks_per_slot),
+                "adapter": (c.slots,)}
 
     def _prefill_fields(self):
         """Inputs of `prefill[b]`: the bucket-padded suffix (bucket b reads
@@ -517,16 +672,101 @@ class PagedGenerationEngine(GenerationEngine):
                 out[name] = arr
         return out
 
+    # -- KV tier device I/O -----------------------------------------------------
+    def _tier_stage(self, shape, dtype):
+        """A page-locked staging view of `shape` for the tiers' copies,
+        carved from one buffer per dtype that the engine keeps (sized at
+        construction for a whole slot's blocks, grown if ever needed): a
+        demotion or a restore allocates no page-locked memory. The copies
+        through it are synchronous, so it is free again when they
+        return."""
+        n = int(np.prod(shape))
+        buf = self._tier_staging.get(dtype)
+        if buf is None or buf.numel() < n:
+            buf = self._host_buffer((n,), dtype)
+            self._tier_staging[dtype] = buf
+        return buf[:n].view(shape)
+
+    def _tier_read_block(self, blk):
+        """The tier store's read callback: block `blk`'s whole-model KV as
+        pool-native host arrays, {"k0", "v0", ...} [bs, h, d] (float pools
+        as float32; int8 pools as their codes plus "ks0", "vs0", ... the
+        per-head scale rows [h]), copied in one synchronous copy per kind
+        through the page-locked staging buffer into host memory of the
+        tier's own."""
+        blk = int(blk)
+        nl = len(self._pool)
+        kinds = [("", [x[blk] for layer in self._pool
+                       for x in (layer.k, layer.v)])]
+        if self.kv_quantized:
+            kinds.append(("s", [x[blk] for layer in self._pool
+                                for x in (layer.k_scale, layer.v_scale)]))
+        arrays = {}
+        for suffix, slabs in kinds:
+            slabs = torch.stack(slabs)
+            if not self.kv_quantized:
+                slabs = slabs.float()
+            stage = self._tier_stage(slabs.shape, slabs.dtype)
+            stage.copy_(slabs)
+            host = stage.numpy().copy()
+            arrays.update((f"{side}{suffix}{li}", host[2 * li + j])
+                          for li in range(nl)
+                          for j, side in enumerate(("k", "v")))
+        return {"arrays": arrays, "quant": self.kv_quantized}
+
+    def _tier_write_blocks(self, blks, arrays_list):
+        """The tier store's batched writer: a promoted run's records
+        (`_tier_read_block`'s layout, one per block of `blks`) gathered in
+        the page-locked staging buffer, uploaded in one copy per kind and
+        written in place into every pool with `index_copy_` over the run's
+        block ids: no padding, no new pool, no capture."""
+        n, nl = len(blks), len(self._pool)
+        idx = torch.tensor([int(b) for b in blks], dtype=torch.int64,
+                           device=self.device)
+        kinds = [("", torch.int8 if self.kv_quantized else torch.float32)]
+        if self.kv_quantized:
+            kinds.append(("s", torch.float32))
+        with torch.no_grad():
+            for suffix, dtype in kinds:
+                shape = arrays_list[0][f"k{suffix}0"].shape
+                stage = self._tier_stage((2 * nl, n) + tuple(shape), dtype)
+                host = stage.numpy()
+                for li in range(nl):
+                    for j, side in enumerate(("k", "v")):
+                        name = f"{side}{suffix}{li}"
+                        for r, arrays in enumerate(arrays_list):
+                            host[2 * li + j, r] = arrays[name]
+                dev = stage.to(self.device)
+                for li, layer in enumerate(self._pool):
+                    pools = (layer.k_scale, layer.v_scale) if suffix \
+                        else (layer.k, layer.v)
+                    for j, pool in enumerate(pools):
+                        pool.index_copy_(0, idx,
+                                         dev[2 * li + j].to(pool.dtype))
+        self._tier_restores = 1
+
+    @property
+    def trace_counts(self):
+        """The capture counts, plus `tier_restore` with the tiers on (0
+        until the first restore, then 1)."""
+        out = dict(self.capture_counts)
+        if self._tier_restores is not None:
+            out["tier_restore"] = self._tier_restores
+        return out
+
     # -- block accounting -----------------------------------------------------
-    def _alloc_blocks(self, n):
-        """Pool alloc with prefix-cache eviction as the pressure valve;
-        BlockAllocError escapes only when eviction cannot cover it."""
+    def _alloc_blocks(self, n, requester=None):
+        """Pool alloc with prefix-cache eviction as the pressure valve
+        (`requester`: the allocating request's prefix namespace, whose own
+        entries evict first); BlockAllocError escapes only when eviction
+        cannot cover it."""
         try:
             return self.block_pool.alloc(n)
         except blocks.BlockAllocError:
             if self.prefix_cache is not None:
                 short = n - self.block_pool.available
-                if self.prefix_cache.evict(short) >= short:
+                if self.prefix_cache.evict(short,
+                                           requester=requester) >= short:
                     return self.block_pool.alloc(n)
             raise
 
@@ -546,7 +786,9 @@ class PagedGenerationEngine(GenerationEngine):
         need = [lb for lb in range(first, last + 1)
                 if self._tables[slot, lb] == blocks.GARBAGE_BLOCK]
         if need:
-            for lb, b in zip(need, self._alloc_blocks(len(need))):
+            requester = self._slot_namespace.get(slot)
+            for lb, b in zip(need, self._alloc_blocks(len(need),
+                                                      requester=requester)):
                 self._tables[slot, lb] = b
 
     def ensure_decode_capacity(self):
@@ -596,6 +838,21 @@ class PagedGenerationEngine(GenerationEngine):
         for name in names:
             self._exe.capture(name, *self._executable(name))
         return dict.fromkeys(names, "captured")
+
+    def _adapter_ids(self):
+        """The decode inputs' adapter field, uploaded before every call."""
+        return self._io.dev["adapter"]
+
+    def _adapter_executables(self):
+        """The executables whose forwards add the adapter delta."""
+        return ["decode"]
+
+    def _adapters_changed(self):
+        """New adapter tensors: a captured adapter executable is dropped
+        and captured again at its next call (counted), as the JAX engine
+        retraces an executable it had traced."""
+        for name in self._adapter_executables():
+            self._exe.invalidate(name)
 
     def _run(self, name, upload=True):
         """Run executable `name` (a replay on the card) and count its
@@ -648,13 +905,15 @@ class PagedGenerationEngine(GenerationEngine):
         bs = self.config.block_size
         toks = [int(t) for t in prompt]
         need = blocks.blocks_for_tokens(plen, bs)
-        # record=False: the hit counts only once this placement sticks
+        # record=False: the hit counts only once this placement sticks;
+        # reserve=need: a tier promotion never eats the suffix's blocks
         shared, nshared = ([], 0) if self.prefix_cache is None \
             else self.prefix_cache.match(toks, record=False,
-                                         namespace=namespace)
+                                         namespace=namespace, reserve=need)
         n_priv = need - nshared // bs
         try:
-            priv = self._alloc_blocks(n_priv) if n_priv else []
+            priv = self._alloc_blocks(n_priv, requester=namespace) \
+                if n_priv else []
         except Exception:
             # give back the matched refs, under pressure and after any
             # other allocation failure (the `serving.block_alloc` site)
@@ -666,6 +925,7 @@ class PagedGenerationEngine(GenerationEngine):
         row[len(shared):len(shared) + n_priv] = priv
         self._tables[slot] = row
         self._slot_active[slot] = True
+        self._slot_namespace[slot] = namespace
         seed, gen = rng if rng is not None \
             else (self._default_slot_seed(), 0)
         self.set_slot_rng(slot, seed, gen)
@@ -692,9 +952,14 @@ class PagedGenerationEngine(GenerationEngine):
             self.prefix_cache.insert(toks, row, (plen // bs) * bs,
                                      namespace=namespace)
             self.prefix_cache.record_lookup(nshared > 0)
-        self.last_prefill_stats = {"prefix_hit_tokens": nshared,
-                                   "blocks_allocated": n_priv,
-                                   "suffix_bucket": bucket}
+        tier = self.prefix_cache.last_tier_stats \
+            if self.prefix_cache is not None \
+            else {"promoted_blocks": 0, "restore_s": 0.0}
+        self.last_prefill_stats = {
+            "prefix_hit_tokens": nshared, "blocks_allocated": n_priv,
+            "suffix_bucket": bucket,
+            "tier_promoted_blocks": tier["promoted_blocks"],
+            "tier_restore_s": tier["restore_s"]}
         self._last_tokens[slot] = first
         return first
 
@@ -742,7 +1007,8 @@ class PagedGenerationEngine(GenerationEngine):
 
     def reset_slot(self, slot):
         """Free the slot: its table drops every reference (blocks return
-        to the pool unless the prefix cache holds them), pos=0."""
+        to the pool unless the prefix cache holds them), pos=0, its
+        adapter id back to base."""
         slot = int(slot)
         for b in self._tables[slot]:
             if b != blocks.GARBAGE_BLOCK:
@@ -752,6 +1018,8 @@ class PagedGenerationEngine(GenerationEngine):
         self._pos[slot] = 0
         self._last_tokens[slot] = 0
         self.set_slot_rng(slot, 0, 0)
+        self._slot_adapter[slot] = 0
+        self._slot_namespace.pop(slot, None)
 
     def slot_positions(self):
         return self._pos.copy()
@@ -921,36 +1189,64 @@ class PagedGenerationEngine(GenerationEngine):
         return int(self.prefix_cache.probe(toks, namespace))
 
     def extract_prefix_kv(self, prompt_ids, namespace=None):
-        """The prefix-restore source: this engine's cached chain for
-        `prompt_ids` as per-layer [tokens, heads, head_dim] float32 host
-        arrays, and the tokens it covers. The entries stay cached here;
-        the peer registers a copy. The port has no KV tiers, so the chain
-        is the resident entries only."""
+        """The prefix-restore source: this engine's servable chain for
+        `prompt_ids`, the cached entries and their tiered continuation
+        (records verified on the way: a corrupt one ends the chain), as
+        per-layer [tokens, heads, head_dim] float32 host arrays, and the
+        tokens it covers. The entries stay here; the peer registers a
+        copy."""
         if self.prefix_cache is None:
             return [], [], 0
         toks = [int(t) for t in np.asarray(prompt_ids, np.int64).ravel()]
         bs = self.config.block_size
-        ids = []
+        chain = []                  # per block: a pool block id or a record
         for k in range((len(toks) - 1) // bs):
-            blk = self.prefix_cache._entries.get(
-                prefix_key(toks[:(k + 1) * bs], namespace))
+            key = prefix_key(toks[:(k + 1) * bs], namespace)
+            blk = self.prefix_cache._entries.get(key)
+            if blk is None and self.kv_tiers is not None \
+                    and key in self.kv_tiers:
+                blk = self.kv_tiers.peek(key)
             if blk is None:
                 break
-            ids.append(blk)
-        if not ids:
+            chain.append(blk)
+        if not chain:
             return [], [], 0
-        idx = torch.tensor(ids, dtype=torch.int64, device=self.device)
-        ks, vs = [], []
-        for layer in self._pool:
-            if self.kv_quantized:
-                ks.append(blocks.dequant(layer.k[idx], layer.k_scale[idx]))
-                vs.append(blocks.dequant(layer.v[idx], layer.v_scale[idx]))
+        nl = len(self._pool)
+        ids = [b for b in chain if not isinstance(b, dict)]
+        if ids:
+            idx = torch.tensor(ids, dtype=torch.int64, device=self.device)
+            ks, vs = [], []
+            for layer in self._pool:
+                if self.kv_quantized:
+                    ks.append(blocks.dequant(layer.k[idx],
+                                             layer.k_scale[idx]))
+                    vs.append(blocks.dequant(layer.v[idx],
+                                             layer.v_scale[idx]))
+                else:
+                    ks.append(layer.k[idx].float())
+                    vs.append(layer.v[idx].float())
+            host = self._to_host(ks + vs, len(ids) * bs)
+        parts = [[] for _ in range(2 * nl)]
+        r = 0                       # the next pooled block's row in `host`
+        for b in chain:
+            if isinstance(b, dict):
+                arrays = b["arrays"]
+                for li in range(nl):
+                    for j, side in enumerate(("k", "v")):
+                        a = arrays[f"{side}{li}"]
+                        if b.get("quant"):
+                            a = blocks.dequant_codes(
+                                torch.from_numpy(np.ascontiguousarray(a)),
+                                torch.from_numpy(np.ascontiguousarray(
+                                    arrays[f"{side}s{li}"]))[None, :, None]
+                            ).numpy()
+                        parts[j * nl + li].append(np.asarray(a, np.float32))
             else:
-                ks.append(layer.k[idx].float())
-                vs.append(layer.v[idx].float())
-        n = len(ids) * bs
-        host = self._to_host(ks + vs, n)
-        return host[:len(ks)], host[len(ks):], n
+                for i in range(2 * nl):
+                    parts[i].append(host[i][r * bs:(r + 1) * bs])
+                r += 1
+        out = [np.ascontiguousarray(np.concatenate(p)) for p in parts]
+        return out[:nl], out[nl:], len(chain) * bs
 
     def restore_prefix(self, prompt_ids, ks, vs, plen, namespace=None):
         """The prefix-restore sink: register another engine's exported
@@ -986,8 +1282,12 @@ class PagedGenerationEngine(GenerationEngine):
             if key in cache._entries:
                 chain.append((key, None))
                 continue
+            if self.kv_tiers is not None and key in self.kv_tiers:
+                # the continuation is tiered here: registering past it
+                # would orphan the chain (the prefill's match promotes it)
+                break
             try:
-                blk = int(self._alloc_blocks(1)[0])
+                blk = int(self._alloc_blocks(1, requester=namespace)[0])
             except blocks.BlockAllocError:
                 break
             chain.append((key, blk))

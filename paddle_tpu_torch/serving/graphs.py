@@ -125,6 +125,12 @@ class Executables:
         _pa.count_replay(launches)
         return out
 
+    def invalidate(self, name):
+        """Drop `name`'s graph if it was captured: its next call captures
+        it again (and counts the capture). Used when the storage the graph
+        reads is replaced, as when an engine attaches an adapter bank."""
+        self._graphs.pop(name, None)
+
     def capture(self, name, fn, inputs, safe=None):
         """Capture `name` unless it was (see the module docstring); returns
         (graph, outputs, launch counts of one replay)."""

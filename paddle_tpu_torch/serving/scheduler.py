@@ -58,10 +58,21 @@ grade these artifacts as they grade the JAX package's. A decode step's
 tokens are counted with one labelled `inc` per tenant, the same totals as
 the reference's per-token count.
 
-Left out of this port: adapter swaps and tenancy (token buckets,
-namespace quotas; the `tenant` and `cohort` labels and a request's
-`prefix_namespace` pass through), the KV ledger records,
-`capture_decode_steps` and the numerics taps.
+Tenancy (`Scheduler(tenancy=TenancyConfig)`): each tenant's token bucket
+gates admission ahead of the shed rule (`RateLimitedError`, status SHED,
+`serving_rate_limited_total{tenant}` and a replayable `rate_limit`
+decision record), its namespace's resident-block quota arms the prefix
+cache's protected eviction, and its namespace keys its requests' prefix
+blocks; placement binds the slot to the request's adapter row (its
+`adapter_id`, else its tenant's, else base). `schedule_adapter_swap`
+replaces one tenant's adapter between decode steps
+(`serving_adapter_swaps_total{status}`, the `serving::adapter_swap`
+span, a `swap` decision record); a refused swap keeps the old adapter
+serving. A prefill that restored its chain from the KV tiers (or from a
+shipped prefix) marks its request `tier_hit` with the restore's seconds.
+
+Left out of this port: the KV ledger records, `capture_decode_steps` and
+the numerics taps (ROADMAP A.12).
 """
 import collections
 import itertools
@@ -80,7 +91,8 @@ from ..profiler import RecordEvent, TracerEventType
 from .blocks import BlockAllocError
 
 __all__ = ["ServingConfig", "Scheduler", "Request", "RequestHandle",
-           "QueueFullError", "LoadShedError", "PRIORITIES"]
+           "QueueFullError", "LoadShedError", "RateLimitedError",
+           "PRIORITIES"]
 
 QUEUED = "QUEUED"
 RUNNING = "RUNNING"
@@ -163,6 +175,16 @@ _M_SWAP_DROPPED = _metrics.counter(
 _M_MODEL_VERSION = _metrics.gauge(
     "serving_model_version",
     "Model version the engine is currently serving (flips on hot-swap)")
+_M_RATE_LIMITED = _metrics.counter(
+    "serving_rate_limited_total",
+    "Requests denied at admission by their tenant's token bucket — "
+    "per-tenant growth is failure-class in tools/metrics_report.py",
+    labelnames=("tenant",))
+_M_ADAPTER_SWAPS = _metrics.counter(
+    "serving_adapter_swaps_total",
+    "Per-tenant LoRA adapter hot-swaps applied between decode steps, "
+    "by outcome (a failed swap leaves the tenant's OLD adapter serving)",
+    labelnames=("status",))
 
 
 class QueueFullError(RuntimeError):
@@ -173,6 +195,13 @@ class LoadShedError(QueueFullError):
     """Request shed at admission by the SLO watermark: the scheduler chose
     to fail this (sheddable-class) request fast rather than queue it past
     its useful life. Terminal status SHED."""
+
+
+class RateLimitedError(QueueFullError):
+    """Request denied at admission by its tenant's token bucket: its cost
+    (prompt + max_new tokens) exceeds what the bucket holds now. Terminal
+    status SHED with the request's `rate_limited` flag set; a
+    QueueFullError, so backpressure handlers keep working."""
 
 
 def _engine_kind(engine):
@@ -231,10 +260,13 @@ class Request:
         self.prefix_hit = False           # prefill reused cached blocks
         self.adopted = False              # placed from a staged KV bundle
         self.prefix_namespace = None      # prefix-cache namespace
+        self.adapter_id = None            # the LoRA adapter it decodes under
+        self.rate_limited = False         # denied by its token bucket
         self._staged = None               # (ks, vs, plen, first[, rng])
         self._staged_prefix = None        # (ks, vs, plen, namespace)
         self.kv_restored_tokens = 0       # tokens a staged prefix restored
-        self.tier_hit = False             # the prefill restored shipped KV
+        self.tier_hit = False             # its prefill restored tiered or
+                                          # shipped KV
         self.restore_s = 0.0              # seconds the restore took
         self.spec_proposed = 0            # draft tokens proposed for us
         self.spec_accepted = 0            # ... and accepted by verify
@@ -299,6 +331,21 @@ class RequestHandle:
         return self._req.cohort
 
     @property
+    def rate_limited(self):
+        """Denied at admission by its tenant's token bucket (status SHED)."""
+        return self._req.rate_limited
+
+    @property
+    def adapter_id(self):
+        """The LoRA adapter this request decoded under (None: base)."""
+        return self._req.adapter_id
+
+    @property
+    def prefix_namespace(self):
+        """The prefix-cache namespace the request's blocks live in."""
+        return self._req.prefix_namespace
+
+    @property
     def preempted(self):
         return self._req.preempted
 
@@ -353,16 +400,24 @@ class RequestHandle:
 class Scheduler:
     """Continuous batching over `engine`. `device` (default "cuda") must
     be the engine's device: without CUDA it raises unless "cpu" is
-    passed, like every entry point of the port."""
+    passed, like every entry point of the port. `tenancy` (a
+    `tenancy.TenancyConfig`) arms the token buckets, the namespace quotas
+    and the tenants' namespaces; None is the scheduler without tenancy."""
 
     def __init__(self, engine, config=None, clock=time.monotonic,
-                 device="cuda", **kwargs):
+                 device="cuda", tenancy=None, **kwargs):
         dev = resolve_device(device)
         if engine.device != dev:
             raise ValueError(f"engine runs on {engine.device}, scheduler "
                              f"device is {dev}")
         self.engine = engine
         self.config = config or ServingConfig(**kwargs)
+        self._tenancy = tenancy
+        self._buckets = tenancy.buckets(clock) if tenancy is not None \
+            else {}
+        cache = getattr(engine, "prefix_cache", None)
+        if tenancy is not None and cache is not None:
+            cache.set_quotas(tenancy.quotas())
         self._engine_kind = _engine_kind(engine)
         self._m_spec = None       # the spec counters' children, on first use
         self._clock = clock
@@ -380,6 +435,8 @@ class Scheduler:
         self._spec_accepted = 0
         self._adopted = 0
         self._pending_swaps = collections.deque()   # armed hot-swaps
+        self._pending_adapter_swaps = collections.deque()
+        self.last_adapter_swap = None
         self._swap_probation = False          # first step after a swap
         self.last_swap = None                 # apply_pending_swap summary
         self.model_version = None
@@ -411,14 +468,16 @@ class Scheduler:
         self._write_line(rec)
 
     # -- the decision audit log ----------------------------------------------
-    def _decide(self, action, req, inputs, outcome):
+    def _decide(self, action, req, inputs, outcome, tenant=None):
         """Append one decisions.v1 record (in memory and to the serving
         JSONL); its inputs reproduce the outcome through the replay rules
-        of `observability.decisions`, the code that just made it."""
+        of `observability.decisions`, the code that just made it. `tenant`
+        labels a decision with no request (an adapter swap)."""
         rec = _dec.build_record(
             action, inputs, outcome, "scheduler", self._clock(),
             request_id=getattr(req, "id", None),
-            tenant=getattr(req, "tenant", None),
+            tenant=tenant if tenant is not None
+            else getattr(req, "tenant", None),
             cohort=getattr(req, "cohort", None),
             trace_id=getattr(req, "trace_id", None))
         self._decisions.append(rec)
@@ -445,8 +504,8 @@ class Scheduler:
     # -- admission -----------------------------------------------------------
     def submit(self, prompt, max_new_tokens=None, timeout_s=None,
                priority="standard", staged_kv=None, rng_seed=None,
-               rng_gen=0, tenant=None, cohort=None, prefix_namespace=None,
-               staged_prefix=None):
+               rng_gen=0, tenant=None, cohort=None, adapter_id=None,
+               prefix_namespace=None, staged_prefix=None):
         """Queue one request; returns its RequestHandle.
 
         `timeout_s` (default `config.default_timeout_s`) sets a deadline:
@@ -470,7 +529,14 @@ class Scheduler:
         local prefix cache (`engine.restore_prefix`, the `kv_restore`
         phase) so the request's own prefill matches it; a restore that
         fails restores nothing. `prefix_namespace` keys the request's
-        prefix-cache blocks."""
+        prefix-cache blocks (default: its tenant's namespace under a
+        tenancy config) and `adapter_id` names the adapter it decodes
+        under (default: its tenant's, when the engine's bank holds one).
+        With a tenancy config the tenant's token bucket runs before the
+        shed rule: a request costing more tokens (prompt + max_new) than
+        the bucket holds raises RateLimitedError, ticks
+        `serving_rate_limited_total{tenant}` and leaves a replayable
+        `rate_limit` decision record."""
         prompt = [int(t) for t in prompt]
         now = self._clock()
         max_new = self.config.default_max_new_tokens \
@@ -490,7 +556,10 @@ class Scheduler:
         if req.rng_seed is None:
             req.rng_seed = (self.engine.config.seed * 1000003
                             + req.id * 7919 + 1) & 0x7FFFFFFF
-        req.prefix_namespace = prefix_namespace
+        req.adapter_id = str(adapter_id) if adapter_id else None
+        req.prefix_namespace = prefix_namespace if prefix_namespace \
+            is not None else (self._tenancy.namespace_of(req.tenant)
+                              if self._tenancy is not None else None)
         handle = RequestHandle(req)
         if self._draining:
             self._finish(req, REJECTED, "serving.rejected")
@@ -510,6 +579,26 @@ class Scheduler:
                 f"exceeds the engine limits (max prompt "
                 f"{self.engine.max_prompt_len}, cache max_len "
                 f"{self.engine.config.max_len})")
+        # the tenant's token bucket, ahead of the shed rule: a budget
+        # denial is the tenant's own contract, not system pressure. The
+        # verdict is decisions.replay_rate_limit over the recorded inputs
+        bucket = self._buckets.get(req.tenant)
+        if bucket is not None:
+            cost = len(prompt) + max_new
+            rl_inputs = {"tenant": req.tenant, "cost": cost,
+                         "tokens_available": bucket.available(),
+                         "rate_per_s": bucket.rate,
+                         "burst": bucket.burst}
+            rl_why = _dec.replay_rate_limit(rl_inputs)
+            if rl_why:
+                req.rate_limited = True
+                _M_RATE_LIMITED.labels(tenant=req.tenant).inc()
+                self._decide("rate_limit", req, rl_inputs,
+                             {"reason": rl_why})
+                self._finish(req, SHED, "serving.shed")
+                raise RateLimitedError(
+                    f"rate limited (tenant {req.tenant}): {rl_why}")
+            bucket.take(cost)
         shed_inputs = self._shed_inputs(prio)
         shed_why = _dec.replay_shed(shed_inputs)
         if shed_why:
@@ -599,10 +688,62 @@ class Scheduler:
             swap["event"].set()
         return applied
 
+    # -- per-tenant adapter hot-swap -------------------------------------------
+    def schedule_adapter_swap(self, tenant, state):
+        """Arm a per-tenant LoRA adapter swap: `state` (a
+        `tenancy.AdapterState`, e.g. `AdapterRegistry.resolve`'s) replaces
+        `tenant`'s adapter at the top of the next step, between decode
+        steps, so every token is computed under one adapter version. A
+        refused swap (the bank's validation, or the `serving.adapter_swap`
+        site) keeps the tenant's old adapter serving and every other
+        tenant untouched; base weights are never involved. Returns a
+        threading.Event set once applied or refused; the outcome is in
+        `last_adapter_swap`, the event's `swap_result` and
+        `serving_adapter_swaps_total{status}`."""
+        ev = threading.Event()
+        self._pending_adapter_swaps.append(
+            {"tenant": str(tenant), "state": state, "event": ev})
+        return ev
+
+    def apply_pending_adapter_swap(self):
+        """Apply every armed adapter swap now, in arrival order (step()
+        calls it after the weight swaps). Returns True when at least one
+        was processed."""
+        applied = False
+        while self._pending_adapter_swaps:
+            swap = self._pending_adapter_swaps.popleft()
+            applied = True
+            with RecordEvent("serving::adapter_swap",
+                             TracerEventType.UserDefined,
+                             {"tenant": swap["tenant"],
+                              "inflight": self.active_slots()}):
+                try:
+                    idx = self.engine.swap_adapter(swap["tenant"],
+                                                   swap["state"])
+                except Exception as e:                   # noqa: BLE001
+                    _M_ADAPTER_SWAPS.labels(status="failed").inc()
+                    self.last_adapter_swap = {
+                        "ok": False, "tenant": swap["tenant"],
+                        "error": f"{type(e).__name__}: {e}"}
+                else:
+                    _M_ADAPTER_SWAPS.labels(status="ok").inc()
+                    self.last_adapter_swap = {
+                        "ok": True, "tenant": swap["tenant"], "slot": idx,
+                        "inflight": self.active_slots()}
+            self._decide("swap", None,
+                         {"kind": "adapter", "tenant": swap["tenant"],
+                          "inflight": self.active_slots()},
+                         dict(self.last_adapter_swap),
+                         tenant=swap["tenant"])
+            swap["event"].swap_result = dict(self.last_adapter_swap)
+            swap["event"].set()
+        return applied
+
     # -- the iteration loop ---------------------------------------------------
     def step(self):
         """One scheduling iteration. Returns True while work remains."""
         self.apply_pending_swap()
+        self.apply_pending_adapter_swap()
         now = self._clock()
         self._expire_queued(now)
         self._retire(now)
@@ -1002,6 +1143,9 @@ class Scheduler:
         stats = getattr(self.engine, "last_prefill_stats", None) or {}
         if stats.get("prefix_hit_tokens", 0) > 0:
             req.prefix_hit = True
+        if stats.get("tier_promoted_blocks", 0) > 0:
+            req.tier_hit = True
+            req.restore_s += stats.get("tier_restore_s", 0.0)
         self._decide("place", req,
                      {"slot": slot, "queue_depth": len(self._queue),
                       "priority": req.priority,
@@ -1026,6 +1170,7 @@ class Scheduler:
         allocation pressure is dropped and the attempt falls back to a
         local prefill in place; BlockAllocError escapes (the caller
         preempts)."""
+        self._bind_slot_tenancy(slot, req)
         staged = req._staged
         if staged is None:
             self._restore_staged_prefix(req)
@@ -1056,6 +1201,19 @@ class Scheduler:
         self._adopted += 1
         _M_ADOPTED.inc()
         return first
+
+    def _bind_slot_tenancy(self, slot, req):
+        """Bind the slot to the request's adapter before placement: its
+        `adapter_id`'s bank row, else its tenant's, else row 0 (base). An
+        engine without a bank skips it."""
+        bank = getattr(self.engine, "adapter_bank", None)
+        if bank is None:
+            return
+        aid = req.adapter_id if req.adapter_id is not None else req.tenant
+        idx = bank.slot_of(aid)
+        self.engine.set_slot_adapter(slot, idx)
+        if idx and req.adapter_id is None:
+            req.adapter_id = aid
 
     def _prefill(self, slot, req):
         """Local prefill with the request's sampler state at this
@@ -1209,8 +1367,10 @@ class Scheduler:
             "kind": "request", "request_id": req.id, "status": req.status,
             "tenant": req.tenant,
             **({"cohort": req.cohort} if req.cohort else {}),
+            **({"adapter_id": req.adapter_id} if req.adapter_id else {}),
             **({"prefix_namespace": str(req.prefix_namespace)}
                if req.prefix_namespace is not None else {}),
+            **({"rate_limited": True} if req.rate_limited else {}),
             **({"tier_hit": True,
                 "restore_ms": round(req.restore_s * 1e3, 3)}
                if req.tier_hit else {}),

@@ -48,8 +48,13 @@ the target at the same committed tokens. It observes the
 histograms and runs under the `serving::spec_draft` and
 `serving::spec_verify` spans.
 
-Left out of this port: the compile cache, numerics taps, adapters and the
-pipeline placement hooks.
+Per-tenant adapters ride the verify forward (it decides every emitted
+token, so an adapted slot's stream is the one-token adapted loop's); the
+draft stays on the base weights and an adapted slot only pays in
+acceptance.
+
+Left out of this port: the compile cache, numerics taps and the pipeline
+placement hooks.
 """
 import dataclasses
 import functools
@@ -217,6 +222,9 @@ class SpeculativeEngine(PagedGenerationEngine):
         return super().executable_names() + \
             ["draft_decode", "spec_verify"] + \
             [f"draft_prefill[{b}]" for b in self.config.prefill_buckets]
+
+    def _adapter_executables(self):
+        return super()._adapter_executables() + ["spec_verify"]
 
     def _executable(self, name):
         if name == "draft_decode":

@@ -15,6 +15,12 @@ paged `blocks.PagedDecodeCache` (in place) and attends through it; the
 paged attention runs the plain gather path or the CUDA kernel according to
 `blocks.attention_impl`. The uncached forward is plain masked causal
 attention.
+
+`adapters` (cached forwards only; the engines pass it to decode and
+verify forwards) is the per-slot LoRA view {"slot": ids [B], "layers":
+per-layer {target: (A, B)}}: each of `qkv`, `out_proj`, `fc1` and `fc2`
+it names adds its rows' delta (`serving/tenancy/adapters.py`), gathered
+by slot so a batch mixing tenants is one forward.
 """
 from dataclasses import dataclass
 
@@ -26,6 +32,7 @@ from ...core.device import resolve_device
 from ...serving import blocks as _blk
 from ...serving import kv_cache as _kvc
 from ...serving import sampling as _sampling
+from ...serving.tenancy.adapters import lora_apply
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPT",
            "GPTForGeneration", "gpt_tiny", "gpt_125m"]
@@ -60,15 +67,18 @@ class GPTAttention(nn.Module):
         self.qkv = nn.Linear(h, 3 * h)
         self.out_proj = nn.Linear(h, h)
 
-    def forward(self, x, cache=None, pos=None, tables=None, valid=None):
+    def forward(self, x, cache=None, pos=None, tables=None, valid=None,
+                adapters=None):
         """Uncached (cache None): causal attention over x. With a dense
         `kv_cache.LayerKV` cache and per-slot `pos`, or a paged
         `(Quant)PagedLayerKV` cache with `tables`, the new K/V are written
         in place and attention runs over the cache; returns
         (out, layer cache). `valid` (quantized pools) is the per-slot count
-        of real tokens in this write."""
+        of real tokens in this write; `adapters` this layer's per-slot
+        LoRA view."""
         B, S, H = x.shape
-        qkv = self.qkv(x).reshape(B, S, 3, self.num_heads, self.head_dim)
+        qkv = lora_apply(self.qkv(x), x, adapters, "qkv")
+        qkv = qkv.reshape(B, S, 3, self.num_heads, self.head_dim)
         q, k, v = qkv.unbind(2)                                # B,S,h,d
         if cache is None:
             zero = torch.zeros((B,), dtype=torch.int32, device=x.device)
@@ -97,7 +107,8 @@ class GPTAttention(nn.Module):
             v_buf = _kvc.write(cache.v, v, pos)
             out = _kvc.attend(q, k_buf, v_buf, pos)
             new = _kvc.LayerKV(k_buf, v_buf)
-        return self.out_proj(out.reshape(B, S, H)), new
+        out = out.reshape(B, S, H)
+        return lora_apply(self.out_proj(out), out, adapters, "out_proj"), new
 
 
 class GPTMLP(nn.Module):
@@ -106,8 +117,10 @@ class GPTMLP(nn.Module):
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+    def forward(self, x, adapters=None):
+        mid = F.gelu(lora_apply(self.fc1(x), x, adapters, "fc1"),
+                     approximate="tanh")
+        return lora_apply(self.fc2(mid), mid, adapters, "fc2")
 
 
 class GPTBlock(nn.Module):
@@ -119,14 +132,16 @@ class GPTBlock(nn.Module):
         self.mlp = GPTMLP(cfg)
         self.dropout = nn.Dropout(cfg.hidden_dropout)
 
-    def forward(self, x, cache=None, pos=None, tables=None, valid=None):
+    def forward(self, x, cache=None, pos=None, tables=None, valid=None,
+                adapters=None):
         if cache is None:
             x = x + self.dropout(self.attn(self.ln1(x)))
             return x + self.dropout(self.mlp(self.ln2(x)))
         attn_out, new_cache = self.attn(self.ln1(x), cache=cache, pos=pos,
-                                        tables=tables, valid=valid)
+                                        tables=tables, valid=valid,
+                                        adapters=adapters)
         x = x + self.dropout(attn_out)
-        x = x + self.dropout(self.mlp(self.ln2(x)))
+        x = x + self.dropout(self.mlp(self.ln2(x), adapters=adapters))
         return x, new_cache
 
 
@@ -183,9 +198,10 @@ class GPT(nn.Module):
                                 c.hidden_size // c.num_heads,
                                 dtype or self.wte.weight.dtype, self.device)
 
-    def forward(self, input_ids, cache=None):
+    def forward(self, input_ids, cache=None, adapters=None):
         """input_ids [B, S] int -> logits [B, S, V] (uncached), or
-        (logits, new cache) with a dense or paged cache."""
+        (logits, new cache) with a dense or paged cache (and the per-slot
+        adapter view, `adapters`)."""
         B, S = input_ids.shape
         ids = input_ids.to(torch.int64)
         if cache is None:
@@ -204,9 +220,11 @@ class GPT(nn.Module):
             max=self.cfg.max_position_embeddings - 1)
         x = self.drop(self.wte(ids) + self.wpe(positions))
         new_layers = []
-        for blk, lkv in zip(self.blocks, cache.layers):
+        for i, (blk, lkv) in enumerate(zip(self.blocks, cache.layers)):
+            lv = None if adapters is None else \
+                {"slot": adapters["slot"], **adapters["layers"][i]}
             x, new_lkv = blk(x, cache=lkv, pos=pos, tables=tables,
-                             valid=valid)
+                             valid=valid, adapters=lv)
             new_layers.append(new_lkv)
         logits = self._head(self.ln_f(x))
         if tables is not None:

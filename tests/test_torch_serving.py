@@ -369,6 +369,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "        'paddle_tpu_torch.serving.graphs',\n"
             "        'paddle_tpu_torch.serving.distributed.kv_handoff',\n"
             "        'paddle_tpu_torch.serving.kv_tiers.store',\n"
+            "        'paddle_tpu_torch.serving.kv_tiers.host',\n"
+            "        'paddle_tpu_torch.serving.kv_tiers.disk',\n"
+            "        'paddle_tpu_torch.serving.tenancy.adapters',\n"
+            "        'paddle_tpu_torch.serving.tenancy.limits',\n"
+            "        'paddle_tpu_torch.serving.tenancy.registry',\n"
             "        'paddle_tpu_torch.observability.metrics',\n"
             "        'paddle_tpu_torch.observability.tracecontext',\n"
             "        'paddle_tpu_torch.observability.faults',\n"

@@ -23,6 +23,13 @@ of these tests are mostly in the slow tier):
     trail replays;
   * cross-package: a JAX `DistFrontend` drives port workers and a port
     `DistFrontend` drives JAX workers;
+  * tenancy: a worker armed with a `TenancyConfig` rate-limits a tenant
+    and keys its prefix namespace, and a SUBMIT's `adapter_id` binds the
+    engine's adapter row (the stream is a local adapted engine's);
+  * KV tiers: a chain demoted to a worker's host tier counts in its
+    PREFIXLOOKUP, and its KVEXPORT (tier records sha-checked) restores
+    on the other worker ahead of the request's prefill, the stream the
+    oracle's;
   * `worker_main` as a process: it publishes its endpoint, serves,
     exports its spans under the caller's trace id and exits 0 on STOP
     with its exit line, and without `--device cpu` on a machine without
@@ -60,6 +67,8 @@ from paddle_tpu_torch.serving.distributed import (
     DistFrontend, ServingShardClient, ServingWorker, load_checkpoint_params,
     save_swap_checkpoint)
 from paddle_tpu_torch.distributed.ps.rpc import PSServerError
+from paddle_tpu_torch.serving.tenancy import (AdapterBank, TenancyConfig,
+                                              TenantSpec, init_adapter_state)
 from paddle_tpu_torch.text.models import gpt_tiny
 from paddle_tpu_torch.text.models.convert import load_jax_params
 
@@ -170,8 +179,20 @@ def test_make_engine_kinds(params):
             make_engine(m, kind, ENGINE_KW, device="cpu")
     with pytest.raises(ValueError, match="unknown serving engine kind"):
         make_engine(m, "bogus", ENGINE_KW, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.11c"):
-        ServingWorker(m, _engine(m), tenancy=object())
+    tiered = make_engine(m, "paged", dict(ENGINE_KW, enable_kv_tiers=True,
+                                          host_tier_blocks=4), device="cpu")
+    assert tiered.kv_tiers.host.capacity == 4
+    assert tiered.trace_counts == {"tier_restore": 0}
+    # a tenancy config arms the decode scheduler (it raised before the
+    # tenancy slice)
+    cfg = TenancyConfig(tenants={"t": TenantSpec(namespace="ns-t",
+                                                 kv_block_quota=2)})
+    w = ServingWorker(m, _engine(m), tenancy=cfg)
+    try:
+        assert w.scheduler._tenancy is cfg
+        assert w.engine.prefix_cache._quotas == {"ns-t": 2}
+    finally:
+        w.shutdown()
 
 
 def test_disaggregated_pools_token_exact(params, oracle):
@@ -468,6 +489,109 @@ def test_jax_router_drives_port_workers(params, oracle):
         stat = fe.stats()[workers[1].endpoint]
         assert stat["role"] == "decode" and stat["trace_counts"] == {}
     finally:
+        _close(fe, workers)
+
+
+def test_tenancy_armed_worker(params):
+    """A decode worker armed with a TenancyConfig: the tenant's bucket
+    denies past its burst (an error frame naming the rate limit), its
+    requests key their prefix blocks in its namespace, and a SUBMIT's
+    `adapter_id` decodes under that adapter: the stream is a local
+    engine's with the adapter bound, and differs from the base one."""
+    prompt = _prompt(300, 9)
+    max_new = 6
+    m = _model(params)
+    state = init_adapter_state(m.cfg, 4, seed=1, scale=1.0)
+
+    def local(adapter):
+        eng = _engine(_model(params))
+        bank = AdapterBank(m.cfg, 2, 4)
+        bank.load("acme", state)
+        eng.attach_adapters(bank)
+        first = eng.prefill(0, prompt)
+        eng.set_slot_adapter(0, bank.slot_of("acme") if adapter else 0)
+        out = [first]
+        for _ in range(max_new - 1):
+            eng.ensure_decode_capacity()
+            out.append(int(eng.decode()[0]))
+        return out
+    eng = _engine(m)
+    bank = AdapterBank(m.cfg, 2, 4)
+    bank.load("acme", state)
+    eng.attach_adapters(bank)
+    cfg = TenancyConfig(tenants={"acme": TenantSpec(
+        namespace="ns-acme", rate_tokens_per_s=0.001,
+        burst_tokens=2 * (len(prompt) + max_new))})
+    w = ServingWorker(m, eng, serving_config=ServingConfig(
+        default_max_new_tokens=max_new), tenancy=cfg)
+    fe = DistFrontend([w.endpoint])
+    try:
+        ra = fe.submit(prompt, max_new=max_new, tenant="acme",
+                       adapter_id="acme")
+        rb = fe.submit(prompt, max_new=max_new, tenant="acme")
+        fe.run(timeout_s=60)
+        assert ra.status == rb.status == "DONE", (ra.error, rb.error)
+        assert ra.tokens == local(True)
+        assert rb.tokens == ra.tokens        # the tenant's adapter binds
+        assert local(False) != ra.tokens
+        client = ServingShardClient([w.endpoint])
+        try:
+            with pytest.raises(PSServerError, match="rate limited"):
+                client.submit(0, "k-denied", prompt, max_new=max_new,
+                              tenant="acme")
+        finally:
+            client.close()
+        assert w.engine.prefix_cache.resident("ns-acme") > 0
+    finally:
+        _close(fe, [w])
+
+
+def test_tiered_chain_restores_across_workers(params, oracle):
+    """Worker 0 serves a prompt, then demotes its chain to its host tier.
+    Its PREFIXLOOKUP still counts those tokens, and its KVEXPORT ships the
+    chain (read and sha-checked from the tier, which keeps it) to worker
+    1's staging area; worker 1 restores it ahead of the request's prefill
+    (a 24-token prefix hit), and the stream is the oracle's. The router's
+    placement over the same verbs is the reference's
+    `test_fleet_wire_restore_cross_host`; here the verbs are driven
+    directly, so no probe deadline decides the path."""
+    prompt = _prompt(320, 26)
+    max_new = 4
+    want = oracle([prompt], max_new)[tuple(prompt)]
+    workers = [_worker(params, "decode", max_new, enable_kv_tiers=True,
+                       host_tier_blocks=16) for _ in range(2)]
+    w0, w1 = workers
+    fe = DistFrontend([w0.endpoint])
+    client = ServingShardClient([w.endpoint for w in workers])
+    try:
+        r1 = fe.submit(prompt, max_new=max_new)
+        fe.run(timeout_s=60)
+        assert r1.tokens == want
+        with w0._lock:
+            assert w0.engine.prefix_cache.evict(999) == 3
+            assert len(w0.engine.kv_tiers.residency()) == 3
+        assert client.prefix_lookup(0, prompt)["match_tokens"] == 24
+        hits0 = _counter("serving_kv_tier_hits_total", tier="host")
+        out = client.kv_export(0, "k-tiered", prompt,
+                               decode_endpoint=w1.endpoint)
+        assert out["ok"] and out["plen"] == 24 and out["bytes"] > 0
+        assert _counter("serving_kv_tier_hits_total", tier="host") \
+            == hits0 + 3
+        assert len(w0.engine.kv_tiers.residency()) == 3   # peeked, kept
+        client.submit(1, "k-tiered", prompt, max_new=max_new,
+                      use_staged=True)
+        deadline = time.monotonic() + 60
+        while True:
+            view = client.poll(1, ["k-tiered"])["k-tiered"]
+            if view["status"] == "DONE" or time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+        assert view["status"] == "DONE" and view["tokens"] == want
+        with w1._lock:
+            assert w1.engine.last_prefill_stats["prefix_hit_tokens"] == 24
+        assert "kv_restore" in {p["phase"] for p in view["phases"]}
+    finally:
+        client.close()
         _close(fe, workers)
 
 

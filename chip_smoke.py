@@ -123,7 +123,13 @@ Phases (any exception ends the run with a non-zero exit):
      start seconds; `FleetPlane.poll_now()` federates the three workers'
      registries, `tools/metrics_report.py` accepts the merged snapshot,
      whose `_fleet` row counts the requests served and gives the handoff
-     bytes and seconds; a second wave of 8 loses one decode worker to
+     bytes and seconds; a second router over the two decode workers with
+     `prefix_affinity=True, affinity_load_slack=0` places a shared-prefix
+     prompt on decode 0 (a local prefill warms its prefix cache), a filler
+     on 0, and the same prompt again on decode 1, which restores 0's chain
+     over the wire (`restored_from` 0 in the place record, a `kv_restore`
+     timeline phase; the stream held to phase 4's); a second wave of 8
+     loses one decode worker to
      SIGKILL once each has its first token, at 300 tokens a stream, and
      completes on the survivor (held to phase 4's streams and to the same
      wave run undisturbed before it; `serving_failover_total` >= 1;
@@ -164,6 +170,27 @@ Phases (any exception ends the run with a non-zero exit):
      window agree with the one-token adapted engine; the decode step with
      and without the bank, profiled (kernels a step, the gathers' and
      products' device ms).
+ 16. the KV ledger and the numerics plane (phase 4's weights and engine
+     configuration). (a) phase 4's 16 requests twice each through an
+     engine with the ledger and one built with `kvledger.disable()`,
+     interleaved: the scheduler's host µs a step outside decode, the
+     reconciler's µs a check, the ledger's events, zero divergences,
+     equal streams and capture counts; (b) `serving.kv_ledger_leak`
+     truncate: the free_list divergence latched at the boundary of the
+     step the leak happened in, with a postmortem (in a temporary
+     directory); (c) phase 4's profiled decode step on four engines, the
+     numerics taps disarmed and armed, f32 and int8 KV + int8 weights:
+     step ms, device busy ms, kernels a step (the disarmed f32 engine's
+     equal to phase 4's), the taps' device ms, one ingest's host µs,
+     tokens equal to the disarmed engine's, every executable captured
+     once, no nonfinite or saturation anomaly (drift latches are
+     printed); (d) the NaN drill (`numerics.corrupt` nan on
+     `blocks.1.ln1.weight`): `decode.logits:nonfinite` in the same step,
+     the localizer names layer 1, the prefill masters stay finite,
+     `decode` captured once and the probes counted apart, the bundle on
+     disk; the `scale_zero` drill on the int8 engine latches
+     `weights.scale:drift`. Phases 13-15 run with the ledger attached, as
+     every paged engine is built by default.
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -763,15 +790,23 @@ def profile_steps(step, steps):
                     for e in top]}
 
 
-def profile_decode(model, prompts, steps=8):
-    """One-token decode steps of a full 8-slot kernel engine."""
+def profile_decode(model, prompts, steps=8, engine_sink=None, **kw):
+    """One-token decode steps of a full 8-slot kernel engine (`kw`: more
+    engine options; the engine and the tokens of every profiled call go
+    to `engine_sink` when given)."""
     from paddle_tpu_torch.serving import PagedGenerationEngine
     eng = PagedGenerationEngine(model, slots=len(prompts), max_len=1024,
                                 block_size=16, attention_impl="kernel",
-                                device=model.device)
+                                device=model.device, **kw)
     for s, p in enumerate(prompts):
         eng.prefill(s, p)
-    rec = profile_steps(eng.decode, steps)
+    toks = []
+
+    def step():
+        toks.append(eng.decode().copy())
+    rec = profile_steps(step, steps)
+    if engine_sink is not None:
+        engine_sink.extend([eng, toks])
     rec["capture_counts"] = check_captures(eng, "profile", every=False)
     rec.update(slots=len(prompts),
                positions=[int(x) for x in eng.slot_positions()])
@@ -1888,6 +1923,48 @@ def fleet_serving(model, prompts, want, smi):
         rec["federation"] = {"members": members, "completed_fleet": done,
                              "decode_step_ms_mean": steps}
 
+        # prefix affinity with a wire restore: a second router over the
+        # decode workers alone, so placements prefill decode-local and
+        # warm that worker's prefix cache. The warm prompt lands on decode
+        # 0; a filler keeps 0 loaded; the warm prompt again finds its
+        # chain on 0 and, with zero load slack, is placed on decode 1,
+        # which restores 0's chain over the wire before its prefill
+        fe2 = DistFrontend([w.endpoint for w in dec], prefix_affinity=True,
+                           affinity_min_match=FLEET_ENGINE["block_size"],
+                           affinity_load_slack=0)
+        try:
+            iw, i_fill = 8, 4
+            r1 = fe2.submit(prompts[iw], max_new=max_new)
+            while fe2.pump():
+                time.sleep(0.001)
+            rf = fe2.submit(prompts[i_fill], max_new=300)
+            r2 = fe2.submit(prompts[iw], max_new=max_new)
+            t = time.perf_counter()
+            while fe2.pump():
+                if time.perf_counter() - t > FLEET_WAVE_S:
+                    raise AssertionError("phase 14 affinity: not done")
+                time.sleep(0.001)
+            place = [d for d in fe2.decision_records()
+                     if d["action"] == "place" and d["key"] == r2.key][0]
+            restore = [p["dur_s"] for tl in fe2.timeline_records()
+                       if tl.get("key") == r2.key for p in tl["phases"]
+                       if p["phase"] == "kv_restore"]
+        finally:
+            fe2.close()
+        if (r1.worker, rf.worker, r2.worker) != (0, 0, 1) or \
+                str(place["outcome"].get("restored_from")) != "0" or \
+                not restore:
+            raise AssertionError(
+                f"phase 14 affinity: placed {r1.worker}, {rf.worker}, "
+                f"{r2.worker}; place outcome {place['outcome']}; restore "
+                f"phases {restore}")
+        hold([r1, r2], [iw, iw], "affinity")
+        rec["affinity"] = {
+            "placed": [r1.worker, rf.worker, r2.worker],
+            "matches": place["inputs"].get("matches"),
+            "restored_from": place["outcome"]["restored_from"],
+            "kv_restore_s": restore[0], "ttft_s": [r1.ttft_s, r2.ttft_s]}
+
         # failover: a second wave of 8, first undisturbed, then with one
         # decode worker SIGKILLed once every request has its first token.
         # Streams of 300 tokens keep most of the wave in flight at the
@@ -2042,6 +2119,12 @@ def fleet_serving(model, prompts, want, smi):
             f"{k} {v:.3f}" for k, v in
             rec["federation"]["decode_step_ms_mean"].items())
         + f" [{smi}]")
+    a = rec["affinity"]
+    log(f"fleet prefix affinity: placed {a['placed']} (warm, filler, warm "
+        f"again) with matches {a['matches']}; restored from decode "
+        f"{a['restored_from']} in {a['kv_restore_s'] * 1e3:.2f} ms (the "
+        f"kv_restore phase); TTFT {a['ttft_s'][0]:.4f} s local prefill, "
+        f"{a['ttft_s'][1]:.4f} s with the wire restore [{smi}]")
     log("fleet launches, captures and memory: " + ", ".join(
         f"{k} {v['kernel_launches']} launches {v['capture_counts']}, peak "
         f"{v['max_memory_allocated_mib']:.0f} MiB allocated, "
@@ -3162,6 +3245,273 @@ def tenancy_phase(model, prompts, want, smi, phase4_step_ms):
     return rec
 
 
+# ------------------------------------------- ledger and numerics (16)
+POISON = "blocks.1.ln1.weight"      # phase 16's NaN drill target
+SCALE_ZERO = "blocks.0.mlp.fc1.weight"
+
+
+def ledger_serving(model, prompts, smi):
+    """Phase 16 (a), (b): phase 4's 16 requests twice each through an
+    engine with the KV ledger and one without (`kvledger.disable()` as it
+    is built), interleaved; the scheduler's host µs a step outside decode,
+    the reconciler's µs a check, the events, zero divergences and equal
+    streams. Then `serving.kv_ledger_leak` on the ledger engine: the
+    reconciler latches the free_list divergence at the boundary of the
+    step the leak happened in."""
+    import tempfile
+    from paddle_tpu_torch.observability import (faults, flight_recorder,
+                                                kvledger)
+    from paddle_tpu_torch.serving import (PagedGenerationEngine, Scheduler,
+                                          ServingConfig)
+    engines = {}
+    for on in (True, False):
+        (kvledger.enable if on else kvledger.disable)()
+        try:
+            engines[on] = PagedGenerationEngine(model, **SLO_ENGINE,
+                                                device=model.device)
+        finally:
+            kvledger.enable()
+        precompile(engines[on], f"phase 16 ledger {on}")
+    if engines[False].kv_ledger is not None or \
+            engines[True].kv_ledger is None:
+        raise AssertionError("phase 16: the ledger switch did not hold")
+    runs = {True: [], False: []}
+    streams = {True: [], False: []}
+    for on in (True, False, True, False):
+        eng = engines[on]
+        sched = Scheduler(eng, ServingConfig(max_queue=64),
+                          device=eng.device)
+        ev0 = len(eng.kv_ledger.events) if on else 0
+        hs = [sched.submit(p, max_new_tokens=32) for p in prompts]
+        over = run_timed(sched)
+        if any(h.status != "DONE" or len(h.tokens) != 32 for h in hs):
+            raise AssertionError(f"phase 16: ledger {on}: "
+                                 f"{[h.status for h in hs]}")
+        r = {"sched_host_us": step_host_us(over),
+             "decode_step_ms": sched.metrics()["decode_step_ms"]}
+        if on:
+            recon = sched._kv_reconciler
+            if recon is None or recon.divergences:
+                raise AssertionError(f"phase 16: divergences "
+                                     f"{recon and recon.divergences}")
+            r["events"] = len(eng.kv_ledger.events) - ev0
+            r["divergences"] = 0
+            r["check_us"] = host_us(recon.check, iters=200)
+            r["blocks"] = eng.block_pool.num_blocks
+        elif sched._kv_reconciler is not None:
+            raise AssertionError("phase 16: a reconciler without a ledger")
+        runs[on].append(r)
+        streams[on].append([h.tokens for h in hs])
+    if streams[True] != streams[False]:
+        raise AssertionError("phase 16: the ledger changed a stream")
+    if engines[True].capture_counts != engines[False].capture_counts:
+        raise AssertionError(
+            f"phase 16: capture counts {engines[True].capture_counts} vs "
+            f"{engines[False].capture_counts}")
+    check_captures(engines[True], "phase 16 ledger")
+    # (b) the injected leak, caught within one step
+    eng = engines[True]
+    rec_fr = flight_recorder.get()
+    prev_dir = rec_fr.dir
+    tmp = tempfile.mkdtemp(prefix="phase16_pm_")
+    rec_fr.dir = tmp
+    sched = Scheduler(eng, ServingConfig(max_queue=8), device=eng.device)
+    spec = faults.arm("serving.kv_ledger_leak", "truncate", nth=1,
+                      max_fires=1)
+    try:
+        hs = [sched.submit(p, max_new_tokens=4) for p in prompts[:2]]
+        steps = 0
+        while True:
+            more = sched.step()
+            steps += 1
+            if spec.fires:
+                break
+            if not more:
+                raise AssertionError("phase 16: the leak site never fired")
+        msgs = list(sched._kv_reconciler.divergences)
+        if not any("free_list" in m and "leaked" in m for m in msgs):
+            raise AssertionError(f"phase 16: the leak was not latched in "
+                                 f"its step: {msgs}")
+        sched.run_until_idle()
+        pm = sched._kv_reconciler.last_postmortem
+        if not (pm and os.path.exists(pm)):
+            raise AssertionError("phase 16: no postmortem for the leak")
+    finally:
+        faults.disarm_all()
+        rec_fr.dir = prev_dir
+    leak = {"caught_at_step": steps, "divergences": msgs[:2],
+            "done": [h.status for h in hs]}
+    del engines, eng, sched
+    out = {"ledger_on": runs[True], "ledger_off": runs[False],
+           "leak": leak, "card": smi}
+    on_us = [r["sched_host_us"]["median_us"] for r in runs[True]]
+    off_us = [r["sched_host_us"]["median_us"] for r in runs[False]]
+    log(f"ledger serving (phase 4's 16 requests, twice each, interleaved): "
+        f"scheduler host time a step outside decode, median, ledger on "
+        + " / ".join(f"{x:.1f}" for x in on_us) + " us, off "
+        + " / ".join(f"{x:.1f}" for x in off_us) + " us; decode step on "
+        + " / ".join(f"{r['decode_step_ms']:.3f}" for r in runs[True])
+        + " ms, off "
+        + " / ".join(f"{r['decode_step_ms']:.3f}" for r in runs[False])
+        + f" ms; {runs[True][0]['events']} + {runs[True][1]['events']} "
+        f"ledger events, 0 divergences, one reconciler check "
+        f"{runs[True][0]['check_us']:.1f} / {runs[True][1]['check_us']:.1f}"
+        f" us over {runs[True][0]['blocks']} blocks; streams equal; an "
+        f"injected leak latched at step {steps}: {msgs[0][:90]} [{smi}]")
+    return out
+
+
+def numerics_arming(model, prompts, prof4, smi):
+    """Phase 16 (c), (d): the decode step profiled on four engines, taps
+    disarmed and armed, f32 and int8 KV + int8 weights: kernels a step
+    (the disarmed f32 engine's held to phase 4's), device busy ms, the
+    taps' device ms (armed minus disarmed), the host µs of one ingest,
+    tokens equal to the disarmed engine's, every executable captured
+    once, no nonfinite or saturation anomaly. Then the NaN drill on the
+    armed f32 engine and the scale_zero drill on the armed int8 one."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch.observability import faults, flight_recorder
+    out = {"card": smi}
+    kinds = {"f32": {}, "int8": dict(kv_dtype="int8", weight_dtype="int8")}
+    keep = {}
+    for kind, kw in kinds.items():
+        for armed in (False, True):
+            sink = []
+            name = f"{kind}_{'armed' if armed else 'disarmed'}"
+            rec = profile_decode(model, prompts, engine_sink=sink,
+                                 numerics_taps=armed, **kw)
+            eng, toks = sink
+            rec["capture_counts"] = check_captures(eng, f"phase 16 {name}",
+                                                   every=False)
+            if armed:
+                want = keep[f"{kind}_disarmed"][1]
+                if [t.tolist() for t in toks] != [t.tolist() for t in want]:
+                    raise AssertionError(f"phase 16 {name}: tokens differ "
+                                         f"from the disarmed engine's")
+            keep[name] = (eng, toks)
+            out[name] = rec
+    # the decode step on the host clock, the four engines alternating (3
+    # rounds of 10 steps each), with each ingest timed on the armed ones
+    ingest = {name: [] for name in keep}
+    steps_ms = {name: [] for name in keep}
+    for name, (eng, _) in keep.items():
+        if eng.numerics_monitor is not None:
+            real = eng._ingest_numerics
+
+            def timed(sink, real=real, acc=ingest[name]):
+                t0 = time.perf_counter()
+                real(sink)
+                acc.append(time.perf_counter() - t0)
+            eng._ingest_numerics = timed
+    for _ in range(3):
+        for name, (eng, _) in keep.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                eng.decode()
+            steps_ms[name].append((time.perf_counter() - t0) / 10 * 1e3)
+    for name, (eng, _) in keep.items():
+        rec = out[name]
+        rec["step_ms_alternating"] = steps_ms[name]
+        if eng.numerics_monitor is None:
+            continue
+        del eng._ingest_numerics
+        mon = eng.numerics_monitor
+        bad = {k: v for k, v in mon.counts().items()
+               if not k.endswith(":drift")}
+        if bad:
+            raise AssertionError(f"phase 16 {name}: anomalies {bad}")
+        xs = sorted(ingest[name])
+        rec.update(monitor_counts=mon.counts(), monitor_total=mon.total(),
+                   sites=eng.last_numerics,
+                   ingest_us_median=xs[len(xs) // 2] * 1e6)
+    k4 = prof4["kernels_per_step"]
+    if abs(out["f32_disarmed"]["kernels_per_step"] - k4) >= 1:
+        raise AssertionError(
+            f"phase 16: the disarmed decode step runs "
+            f"{out['f32_disarmed']['kernels_per_step']} kernels, phase 4 "
+            f"{k4}")
+    for kind in kinds:
+        a, d = out[f"{kind}_armed"], out[f"{kind}_disarmed"]
+        out[f"{kind}_taps_device_ms"] = (a["device_busy_ms_per_step"]
+                                         - d["device_busy_ms_per_step"])
+        out[f"{kind}_taps_kernels"] = (a["kernels_per_step"]
+                                       - d["kernels_per_step"])
+    # (d) the NaN drill on the armed f32 engine
+    rec_fr = flight_recorder.get()
+    prev_dir = rec_fr.dir
+    tmp = tempfile.mkdtemp(prefix="phase16_pm_")
+    rec_fr.dir = tmp
+    try:
+        eng = keep["f32_armed"][0]
+        faults.arm("numerics.corrupt", mode="nan", nth=1, max_fires=1,
+                   target=POISON)
+        t0 = time.perf_counter()
+        try:
+            eng.decode()
+        finally:
+            faults.disarm_all()
+        drill_s = time.perf_counter() - t0
+        mon, loc = eng.numerics_monitor, eng.last_localization
+        if mon.counts().get("decode.logits:nonfinite", 0) < 1 or \
+                loc is None or loc["first_unhealthy_layer"] != 1 or \
+                not (mon.bundle_path and os.path.exists(mon.bundle_path)):
+            raise AssertionError(f"phase 16: NaN drill {mon.counts()}, "
+                                 f"{loc}, bundle {mon.bundle_path}")
+        if not bool(torch.isfinite(eng._params[POISON]).all()):
+            raise AssertionError("phase 16: the prefill masters were "
+                                 "poisoned")
+        counts = check_captures(eng, "phase 16 NaN drill", every=False)
+        probes = eng.trace_counts.get("numerics_probe", 0)
+        if counts.get("decode") != 1 or probes < 1:
+            raise AssertionError(f"phase 16: captures {counts}, probes "
+                                 f"{probes}")
+        out["nan_drill"] = {"counts": mon.counts(), "localization": loc,
+                            "probes": probes, "decode_call_s": drill_s,
+                            "capture_counts": counts}
+        # the scale_zero drill on the armed int8 engine
+        eng = keep["int8_armed"][0]
+        faults.arm("numerics.corrupt", mode="scale_zero", nth=1,
+                   max_fires=1, target=SCALE_ZERO)
+        try:
+            eng.decode()
+        finally:
+            faults.disarm_all()
+        kinds8 = eng.numerics_monitor.counts()
+        if kinds8.get("weights.scale:drift", 0) < 1:
+            raise AssertionError(f"phase 16: scale_zero drill {kinds8}")
+        out["scale_zero_drill"] = {"counts": kinds8}
+    finally:
+        rec_fr.dir = prev_dir
+    del keep
+    for kind in kinds:
+        d, a = out[f"{kind}_disarmed"], out[f"{kind}_armed"]
+        log(f"numerics taps {kind}: decode step "
+            + " / ".join(f"{x:.3f}" for x in d["step_ms_alternating"])
+            + " ms disarmed, "
+            + " / ".join(f"{x:.3f}" for x in a["step_ms_alternating"])
+            + f" ms armed (host clock, alternating; profiled "
+            f"{d['step_ms_untraced']:.3f} / {a['step_ms_untraced']:.3f}), "
+            f"device busy {d['device_busy_ms_per_step']:.3f}"
+            f" / {a['device_busy_ms_per_step']:.3f} ms, kernels a step "
+            f"{d['kernels_per_step']:.0f} / {a['kernels_per_step']:.0f}, "
+            f"the taps {out[kind + '_taps_device_ms']:.4f} ms of device "
+            f"time, one ingest {a['ingest_us_median']:.1f} us (median), "
+            f"monitor {a['monitor_counts'] or 'clean'}; tokens equal; "
+            f"capture counts {a['capture_counts']} [{smi}]")
+    log(f"numerics NaN drill ({POISON}): {out['nan_drill']['counts']}, "
+        f"localized to layer "
+        f"{out['nan_drill']['localization']['first_unhealthy_layer']} in "
+        f"{out['nan_drill']['probes']} eager probes, decode captured once, "
+        f"the poisoned step {drill_s * 1e3:.1f} ms with the localizer; "
+        f"scale_zero drill ({SCALE_ZERO}): "
+        f"{out['scale_zero_drill']['counts']} [{smi}]")
+    log(f"phase 4's decode step: {k4:.0f} kernels (phase 16 disarmed "
+        f"{out['f32_disarmed']['kernels_per_step']:.0f})")
+    return out
+
+
 def main(argv):
     flash_only = "--flash-only" in argv
     try:
@@ -3397,6 +3747,17 @@ def main(argv):
         f"tenancy {report['tenancy']['launches']}, spec with adapters "
         f"{report['tenancy']['spec']['window_launches']} windows; phase 15 "
         f"took {report['phase15_s']:.1f} s [{smi}]")
+
+    # 16. the KV ledger and the numerics plane ---------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    report["ledger"] = ledger_serving(model, prompts, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["numerics"] = numerics_arming(model, prompts[8:16], prof, smi)
+    report["phase16_s"] = time.perf_counter() - t16
+    log(f"phase 16 took {report['phase16_s']:.1f} s [{smi}]")
 
     # summary ------------------------------------------------------------------------
     dec = next(c for c in cases if c["case"] == "decode_f32")

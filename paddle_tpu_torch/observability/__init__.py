@@ -19,20 +19,26 @@ artifacts as they grade the JAX package's:
   reqtimeline.py     — per-request phase trails and reqtimeline.v1
   fleet.py           — metrics federation across serving processes, the
                        SLO burn-rate watchdog, fleet postmortem bundles
+  kvledger.py        — the KV-memory attribution plane: the kvledger.v1
+                       block lifecycle log, per-tenant residency gauges,
+                       the step-boundary reconciler
+  numerics.py        — the numerics health plane: stats taps inside the
+                       captured executables, the anomaly monitor, the
+                       bisection localizer
 
 Each module finds its siblings under the port's own names
 (`paddle_tpu_torch.profiler`, `paddle_tpu_torch.observability.metrics`),
 so the two packages' registries and tracers never see each other.
 
-Later work: `kvledger`, `numerics`, `deviceprof`
-and `xplane` with the planes that reach into traced programs (A.12).
+Later work: `deviceprof` and `xplane`, the device profile (A.12c).
 """
 from . import decisions, faults, fleet, flight_recorder, metrics  # noqa: F401
-from . import reqtimeline, tracecontext  # noqa: F401
+from . import kvledger, numerics, reqtimeline, tracecontext  # noqa: F401
 from .flight_recorder import dump_postmortem  # noqa: F401
 from .metrics import registry  # noqa: F401
 from .tracecontext import merge_chrome_traces, trace_scope  # noqa: F401
 
 __all__ = ["metrics", "tracecontext", "flight_recorder", "faults",
-           "decisions", "reqtimeline", "fleet", "registry", "dump_postmortem",
+           "decisions", "reqtimeline", "fleet", "kvledger", "numerics",
+           "registry", "dump_postmortem",
            "trace_scope", "merge_chrome_traces"]

@@ -28,10 +28,20 @@ sites so far, each before any engine state moves:
                        prefill
   serving.kv_restore   restore_prefix: a raise or truncate restores
                        nothing and ticks serving_kv_tier_corrupt_total
+  serving.kv_ledger_leak  BlockPool.unref, when a last reference drops:
+                       truncate skips the free-list return while the KV
+                       ledger records the free, so the reconciler's
+                       free_list invariant diverges within one step
+  numerics.corrupt     the engines' decode (and speculative round) before
+                       the step runs: nan / inf set one element of the
+                       decode weight named by `target=` (the scale of an
+                       int8 entry), scale_zero zeroes an int8 entry's
+                       scale, in the decode storage the captured graph
+                       reads; fire() returns the spec and the engine does
+                       the damage
 
-The other sites (the PS RPC fabric, checkpoint commit, adapter swaps,
-the pipeline handoff, the KV ledger and tiers, numerics) arrive with the
-modules that own them (ROADMAP A.10-A.13).
+The other sites arrive with the modules that own them (ROADMAP A.10,
+A.13).
 
 Arming, in-process:
 

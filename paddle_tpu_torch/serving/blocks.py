@@ -1,8 +1,9 @@
 """Paged KV memory: a pool of fixed-size blocks plus block-table attention.
 
-Counterpart of `paddle_tpu/serving/blocks.py`, with its pool gauges and
-its `serving.block_alloc` fault site; the ledger hooks and the
-`serving.kv_ledger_leak` site wait for the KV ledger (ROADMAP A.12). K/V
+Counterpart of `paddle_tpu/serving/blocks.py`, with its pool gauges, its
+`serving.block_alloc` and `serving.kv_ledger_leak` fault sites and its KV
+ledger hooks (`BlockPool.attach_ledger`: every refcount transition is
+mirrored into an `observability.kvledger.KVLedger`). K/V
 live in per-layer pools
 `[num_blocks, block_size, heads, head_dim]`; each slot owns an int32 block
 table mapping logical block -> physical block id. Block 0 is the reserved
@@ -286,7 +287,13 @@ class BlockPool:
         self.block_size = int(block_size)
         self._free = list(range(self.num_blocks - 1, GARBAGE_BLOCK, -1))
         self._refs = np.zeros((self.num_blocks,), np.int32)
+        # the KV ledger the engine attaches (None: off, one `is None`
+        # check per operation)
+        self._ledger = None
         self._export()
+
+    def attach_ledger(self, ledger):
+        self._ledger = ledger
 
     @property
     def capacity(self):
@@ -320,6 +327,8 @@ class BlockPool:
         out = [self._free.pop() for _ in range(n)]
         for b in out:
             self._refs[b] = 1
+        if self._ledger is not None:
+            self._ledger.pool_alloc(out)
         self._export()
         return out
 
@@ -328,14 +337,26 @@ class BlockPool:
         if block_id == GARBAGE_BLOCK or self._refs[block_id] < 1:
             raise ValueError(f"ref of unallocated block {block_id}")
         self._refs[block_id] += 1
+        if self._ledger is not None:
+            self._ledger.pool_ref(block_id)
 
     def unref(self, block_id):
-        """Drop one reference; the block is freed at zero."""
+        """Drop one reference; the block is freed at zero. The
+        `serving.kv_ledger_leak` site fires when a last reference drops:
+        in truncate mode the block is not put back on the free list while
+        the ledger records its free (a leak the reconciler catches within
+        one scheduler step)."""
         if block_id == GARBAGE_BLOCK:
             return
         if self._refs[block_id] < 1:
             raise ValueError(f"unref of free block {block_id}")
         self._refs[block_id] -= 1
+        if self._ledger is not None:
+            self._ledger.pool_unref(block_id)
         if self._refs[block_id] == 0:
-            self._free.append(int(block_id))
+            if self._ledger is not None:
+                self._ledger.pool_free(block_id)
+            spec = _faults.fire("serving.kv_ledger_leak")
+            if spec is None or spec.mode != "truncate":
+                self._free.append(int(block_id))
         self._export()

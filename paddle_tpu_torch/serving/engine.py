@@ -66,8 +66,37 @@ captured captures it once more (the JAX engine retraces once);
 Without a bank the decode graph is the adapter-free one. The
 `serving.adapter_swap` site fires first in `swap_adapter`.
 
-Left out of this port: the persistent compile cache, the numerics taps
-and their `numerics.corrupt` site, and the KV ledger (ROADMAP A.12).
+KV ledger (`observability.kvledger`, on unless `PTN_KV_LEDGER=0`): the
+paged engine builds one `KVLedger` with its block pool, priced by
+`_kv_block_bytes()`, attaches it to the pool, the prefix cache and the
+tier store, and exposes it as `engine.kv_ledger`; the scheduler labels its
+events and reconciles it every step. It is host bookkeeping only: streams
+and capture counts are the same with it on or off.
+
+Numerics taps (`EngineConfig(numerics_taps=True)`, off by default): the
+executables open a `numerics.sink_scope` and compute one stats vector a
+site inside the captured graph, `decode.logits` and `prefill.logits`
+(`kv.scale` and `kv.codes` on int8 pools, `weights.scale` and `weights.q`
+on int8 decode weights, `adapter.delta` with a bank; the speculative
+engine adds `spec.verify_logits`). The stats are stacked in the graph and
+read with the step's own host read (decode and verify pack them behind
+the greedy picks; a prefill reads them once more); warm-ups and captures
+are never read, so no safe-state step reaches `numerics_monitor`, which
+classifies each step's sink (`last_numerics`). A disarmed engine captures
+the graphs it captures without the plane. The first nonfinite anomaly
+runs `localize_numerics`: the step's saved decode inputs replay eagerly,
+outside any graph, through per-layer probes (`tap_layer`), and the blocks
+the step wrote are put back as the live step left them; the probes count
+under `trace_counts["numerics_probe"]`, never `decode`. The
+`numerics.corrupt` site fires in `decode()` (and the speculative round)
+and damages the named decode tensor in place. An armed engine gives every
+float decode entry storage of its own (a copy of the float weights: the
+whole model for float32 decode weights, the LayerNorms, biases and `wpe`
+for int8 ones), so the damage reaches the captured decode graph and never
+the prefill masters; a disarmed float engine's decode storage is the
+masters themselves, so there it reaches prefill too.
+
+Left out of this port: the persistent compile cache (ROADMAP A.12d).
 """
 import functools
 import gc
@@ -77,6 +106,9 @@ import torch
 
 from ..core.device import resolve_device
 from ..observability import faults as _faults
+from ..observability import flight_recorder as _flight_recorder
+from ..observability import kvledger as _kvl
+from ..observability import numerics as _numerics
 from ..ops import paged_attention as _pa
 from ..profiler import RecordEvent, TracerEventType
 from . import blocks
@@ -110,7 +142,8 @@ class EngineConfig:
 
     def __init__(self, slots=4, max_len=256, prefill_buckets=None,
                  decode_strategy="greedy", temperature=1.0, top_k=0,
-                 top_p=1.0, eos_token_id=None, seed=0):
+                 top_p=1.0, eos_token_id=None, seed=0,
+                 numerics_taps=False):
         self.slots = int(slots)
         self.max_len = int(max_len)
         # the ladder always ends in a max_len bucket so every prompt the
@@ -124,6 +157,9 @@ class EngineConfig:
         self.top_p = float(top_p)
         self.eos_token_id = eos_token_id
         self.seed = int(seed)
+        # arms the numerics taps in the executables (see the module
+        # docstring); decided when the engine is built
+        self.numerics_taps = bool(numerics_taps)
 
 
 class GenerationEngine:
@@ -153,6 +189,16 @@ class GenerationEngine:
                 f"max_len={self.config.max_len} exceeds the model's "
                 f"max_position_embeddings={model.cfg.max_position_embeddings}")
         self._model = model
+        # the numerics plane: the monitor that classifies each step's
+        # sink, the saved inputs of the last decode step (the localizer
+        # replays them) and the localizer's probe state
+        self.numerics_monitor = _numerics.NumericsMonitor(
+            auto_bundle=False) if self._numerics_armed else None
+        self.last_numerics = None
+        self.last_localization = None
+        self._last_decode_inputs = None
+        self._numerics_probe_layers = None
+        self._numerics_probes = 0
         # the engine's own copy of the weights: prefill serves this dict,
         # decode the derived `_decode_params`; a swap copies into it
         with torch.no_grad():
@@ -206,6 +252,8 @@ class GenerationEngine:
         if self.config.decode_strategy == "greedy":
             if picks is None:
                 picks = torch.argmax(logits, dim=-1)
+            if isinstance(picks, np.ndarray):     # read with the stats
+                return picks.astype(np.int32)
             return picks.to(torch.int32).cpu().numpy()
         return np.array([int(self._select(logits[s:s + 1], s)[0])
                          for s in range(logits.shape[0])], np.int32)
@@ -264,15 +312,24 @@ class GenerationEngine:
                 self._model, self._params if params is None else params,
                 (ids,), kwargs)
 
-    def _decode_forward(self, ids, cache):
+    def _tap_decode(self, logits):
+        """The decode taps after the forward: its last-token logits and,
+        with a bank attached, the adapter rows."""
+        _numerics.tap("decode.logits", logits)
+        if self._adapter_bank is not None:
+            _numerics.tap_tree("adapter.delta", self._adapter_tree["layers"])
+
+    def _decode_forward(self, ids, cache, adapter_ids=None):
         """A decode (or verify) forward: over `_decode_params`, int8
         entries dequantized first, plus each slot's adapter delta when a
-        bank is attached."""
+        bank is attached (the slots' adapter ids: `adapter_ids`, default
+        the engine's)."""
         params = self._dequant_params(self._decode_params)
         if self._adapter_bank is None:
             return self._forward(ids, cache, params)
         return self._forward(ids, cache, params, adapters={
-            "slot": self._adapter_ids(),
+            "slot": self._adapter_ids() if adapter_ids is None
+            else adapter_ids,
             "layers": self._adapter_tree["layers"]})
 
     # -- per-tenant LoRA adapters -------------------------------------------
@@ -351,13 +408,186 @@ class GenerationEngine:
 
     # -- decode params and weight hot-swap ----------------------------------
     def _build_decode_params(self):
-        """The param set decode runs on: the float dict itself here; the
-        paged engine quantizes it for weight_dtype="int8"."""
-        self._decode_params = self._params
+        """The param set decode runs on: the float dict itself here (its
+        own copy when the numerics taps are armed); the paged engine
+        quantizes it for weight_dtype="int8"."""
+        self._decode_params = self._own_decode_storage(self._params)
+
+    def _own_decode_storage(self, params):
+        """Armed: every entry of `params` that is a master tensor gets a
+        copy of its own, so the `numerics.corrupt` site damages what
+        decode reads and never what prefill reads. Disarmed: `params`."""
+        if not self._numerics_armed:
+            return params
+        with torch.no_grad():
+            return {n: (v.detach().clone() if v is self._params.get(n)
+                        else v) for n, v in params.items()}
 
     def _refresh_decode_params(self):
-        """Re-derive the decode set from `_params` in place after a swap
-        (nothing to do when it is `_params` itself)."""
+        """Re-derive the decode set from `_params` in place after a swap:
+        int8 entries requantize, float entries with storage of their own
+        take a copy (an entry that is `_params`' tensor needs nothing)."""
+        with torch.no_grad():
+            for name, v in self._decode_params.items():
+                if isinstance(v, dict):
+                    codes, s_b = _quantize_weight(self._params[name])
+                    v["q"].copy_(codes)
+                    v["scale"].copy_(s_b)
+                elif v is not self._params[name]:
+                    v.copy_(self._params[name])
+
+    # -- the numerics plane ----------------------------------------------------
+    @property
+    def _numerics_armed(self):
+        return self.config.numerics_taps
+
+    def _numerics_scope(self):
+        """A sink scope when the taps are armed (with the localizer's layer
+        filter while it probes), else a null scope: the disarmed forward
+        is the forward without the plane."""
+        if not self._numerics_armed:
+            return _numerics.null_scope()
+        return _numerics.sink_scope(self._numerics_probe_layers)
+
+    @staticmethod
+    def _stack_sink(sink, head=None):
+        """An executable's sink as (site names, one int32 tensor): `head`
+        (the greedy picks, int32) first when given, then the [n, 4]
+        float32 stats' bits, so the host reads both in one copy. None
+        when the taps are disarmed."""
+        if sink is None:
+            return None
+        names = tuple(sink)
+        bits = torch.stack([sink[n] for n in names]).reshape(-1).view(
+            torch.int32)
+        return names, (bits if head is None else torch.cat(
+            [head.to(torch.int32).reshape(-1), bits]))
+
+    @staticmethod
+    def _unstack_sink(packed, n_head=0):
+        """The host side of `_stack_sink`: one copy to the host, then
+        (head int32 [n_head] or None, {site: float32 [4]})."""
+        names, t = packed
+        host = t.cpu().numpy()
+        stats = host[n_head:].view(np.float32).reshape(len(names), 4)
+        return (host[:n_head] if n_head else None,
+                dict(zip(names, stats)))
+
+    def _host_sink(self, sink):
+        """An eager sink on the host: {site: float32 [4]}."""
+        return self._unstack_sink(self._stack_sink(sink))[1]
+
+    def _ingest_numerics(self, sink):
+        """Feed one step's sink ({site: [4]}) through the monitor. The
+        first nonfinite anomaly runs the localizer over the saved decode
+        inputs and then dumps the postmortem bundle, so detection,
+        localization and the bundle land in the same step."""
+        mon = self.numerics_monitor
+        new = mon.observe_sink(sink)
+        self.last_numerics = {site: _numerics.stats_dict(vec)
+                              for site, vec in sink.items()}
+        first_bad = next((site for site, kind in new
+                          if kind == "nonfinite"), None)
+        if first_bad is not None and mon.bundle_path is None:
+            loc = self.localize_numerics()
+            if loc is not None:
+                self.last_localization = loc
+                _flight_recorder.annotate("numerics_localization", loc)
+            mon.bundle(f"numerics:{first_bad}:nonfinite")
+
+    def localize_numerics(self, sat_frac_max=0.25):
+        """NaN bisection localizer: replay the last decode step's saved
+        inputs eagerly through per-layer probes (`sink_scope(layers=
+        (k,))`) and name the first unhealthy layer. Corruption propagates
+        forward through the stack, so O(log layers) probes suffice. Each
+        probe counts under `trace_counts["numerics_probe"]`. Returns the
+        localization record, or None before any decode step."""
+        saved = self._last_decode_inputs
+        if saved is None:
+            return None
+        n_layers = self._model.cfg.num_layers
+        probe_sinks = {}
+
+        def probe_sink(k):
+            if k not in probe_sinks:
+                self._numerics_probe_layers = (k,)
+                try:
+                    probe_sinks[k] = self._probe_decode(saved)
+                finally:
+                    self._numerics_probe_layers = None
+                self._numerics_probes += 1
+            return probe_sinks[k]
+
+        def unhealthy_at(k):
+            vec = probe_sink(k).get(f"layer{k}.act")
+            if vec is None:
+                return False
+            return _numerics.stats_unhealthy(vec, sat_frac_max)
+
+        first = _numerics.bisect_first_unhealthy(n_layers, unhealthy_at)
+        rec = {"first_unhealthy_layer": first,
+               "site": None if first is None else f"layer{first}.act",
+               "stats": None, "probes": len(probe_sinks),
+               "layers": n_layers}
+        if first is not None:
+            rec["stats"] = _numerics.stats_dict(
+                probe_sink(first)[f"layer{first}.act"])
+        return rec
+
+    def _probe_decode(self, saved):
+        """One localizer probe over the saved decode inputs (dense cache):
+        an eager decode forward under the armed scope, the rows it wrote
+        put back. Returns {site: float32 [4]}."""
+        tokens, pos = saved
+        rows = torch.arange(pos.shape[0], device=self.device)
+        at = pos.to(torch.int64).clamp(
+            0, self._cache.layers[0].k.shape[1] - 1)
+        kept = [(l.k[rows, at].clone(), l.v[rows, at].clone())
+                for l in self._cache.layers]
+        cache = kvc.DecodeCache(self._cache.layers, pos.clone())
+        try:
+            with self._numerics_scope() as sink:
+                logits, _ = self._decode_forward(tokens[:, None], cache)
+                self._tap_decode(logits[:, 0])
+            return self._host_sink(sink)
+        finally:
+            for l, (k, v) in zip(self._cache.layers, kept):
+                l.k[rows, at] = k
+                l.v[rows, at] = v
+
+    def _fire_numerics_chaos(self):
+        """The `numerics.corrupt` site (caller-interpreted, like truncate):
+        nan / inf set one element of the decode tensor named by the spec's
+        target (of an int8 entry's scale), scale_zero zeroes an int8
+        entry's scale. In place, in the decode storage the captured graph
+        reads, so nothing is captured again."""
+        spec = _faults.fire("numerics.corrupt")
+        if spec is None or spec.mode not in ("nan", "inf", "scale_zero"):
+            return
+        self._apply_numerics_corruption(spec.target, spec.mode)
+
+    @staticmethod
+    def _corrupt_entry(entry, mode):
+        """Damage one decode entry in place per the mode (the scale of an
+        int8 entry); scale_zero leaves a float entry alone."""
+        if isinstance(entry, dict):
+            target = entry["scale"]
+        elif mode == "scale_zero":
+            return
+        else:
+            target = entry
+        with torch.no_grad():
+            if mode == "scale_zero":
+                target.zero_()
+            else:
+                target[(0,) * target.dim()] = \
+                    float("nan") if mode == "nan" else float("inf")
+
+    def _apply_numerics_corruption(self, name, mode):
+        """Where the damage lands: the decode entry named `name`."""
+        entry = self._decode_params.get(name) if name else None
+        if entry is not None:
+            self._corrupt_entry(entry, mode)
 
     @staticmethod
     def _dequant_params(params):
@@ -419,13 +649,16 @@ class GenerationEngine:
         local = self._model.gen_cache(1, bucket)
         with RecordEvent("serving::prefill", TracerEventType.UserDefined,
                          {"bucket": bucket, "length": int(prompt.size),
-                          "slot": slot}):
+                          "slot": slot}), self._numerics_scope() as sink:
             logits, local = self._forward(self._padded(prompt, bucket),
                                           local)
+            _numerics.tap("prefill.logits", logits[:, prompt.size - 1])
         for glob, loc in zip(self._cache.layers, local.layers):
             glob.k[slot, :bucket] = loc.k[0]
             glob.v[slot, :bucket] = loc.v[0]
         self._cache.pos[slot] = int(prompt.size)
+        if sink is not None:
+            self._ingest_numerics(self._host_sink(sink))
         first = int(self._select(logits[:, prompt.size - 1], slot)[0])
         self._slot_gen[slot] += 1
         self._last_tokens[slot] = first
@@ -434,16 +667,24 @@ class GenerationEngine:
     def decode(self):
         """Advance every slot one token; returns np.int32 [slots]."""
         _faults.fire("serving.decode_step")
-        tokens = torch.from_numpy(self._last_tokens.astype(np.int64))
+        self._fire_numerics_chaos()
+        tokens = torch.from_numpy(
+            self._last_tokens.astype(np.int64)).to(self.device)
+        if self._numerics_armed:             # the localizer's replay
+            self._last_decode_inputs = (tokens, self._cache.pos.clone())
         with RecordEvent("serving::decode_step",
                          TracerEventType.UserDefined,
-                         {"slots": self.config.slots}):
-            logits, cache = self._decode_forward(
-                tokens.to(self.device)[:, None], self._cache)
+                         {"slots": self.config.slots}), \
+                self._numerics_scope() as sink:
+            logits, cache = self._decode_forward(tokens[:, None],
+                                                 self._cache)
+            self._tap_decode(logits[:, 0])
         # free slots keep decoding garbage harmlessly; clamp so their
         # position stays in bounds forever
         pos = torch.clamp(self._cache.pos + 1, max=self.config.max_len - 1)
         self._cache = kvc.DecodeCache(cache.layers, pos)
+        if sink is not None:
+            self._ingest_numerics(self._host_sink(sink))
         out = self._select_slots(logits[:, 0])
         self._slot_gen += 1
         self._last_tokens = out.copy()
@@ -478,8 +719,12 @@ class GenerationEngine:
     @property
     def trace_counts(self):
         """The serving worker's STAT field: where the JAX engines report
-        traces per executable, the port reports its captures."""
-        return dict(self.capture_counts)
+        traces per executable, the port reports its captures (and the
+        localizer's probes under `numerics_probe`)."""
+        out = dict(self.capture_counts)
+        if self._numerics_probes:
+            out["numerics_probe"] = self._numerics_probes
+        return out
 
     @property
     def max_prompt_len(self):
@@ -596,6 +841,15 @@ class PagedGenerationEngine(GenerationEngine):
         self.block_pool = blocks.BlockPool(c.num_blocks, c.block_size)
         self.prefix_cache = PrefixCache(self.block_pool, c.block_size) \
             if c.enable_prefix_cache else None
+        # the KV ledger, when enabled as the engine is built: every pool
+        # and cache transition is mirrored into it (host bookkeeping only)
+        self.kv_ledger = None
+        if _kvl.enabled():
+            self.kv_ledger = _kvl.KVLedger(
+                c.num_blocks, block_bytes=self._kv_block_bytes())
+            self.block_pool.attach_ledger(self.kv_ledger)
+            if self.prefix_cache is not None:
+                self.prefix_cache.attach_ledger(self.kv_ledger)
         if c.enable_kv_tiers and self.prefix_cache is not None:
             self.kv_tiers = TieredBlockStore(
                 self._tier_read_block, self._tier_write_blocks,
@@ -603,6 +857,8 @@ class PagedGenerationEngine(GenerationEngine):
                 host_dtype=c.host_tier_dtype, disk_dir=c.disk_tier_dir,
                 disk_blocks=c.disk_tier_blocks,
                 disk_compact_threshold=c.disk_tier_compact_threshold)
+            if self.kv_ledger is not None:
+                self.kv_tiers.attach_ledger(self.kv_ledger)
             self.prefix_cache.attach_tier(self.kv_tiers)
             self._tier_restores = 0
             # staging for the longest run a prefill can promote, made now
@@ -615,6 +871,22 @@ class PagedGenerationEngine(GenerationEngine):
                 self._tier_stage(kv + (cfg.num_heads,), torch.float32)
         self.last_prefill_stats = {}
         self.last_logits = None
+
+    def _kv_block_bytes(self):
+        """Device bytes one pool block pins across every layer and both
+        K/V sides, priced from the pool dtype (an int8 block carries a
+        4-byte scale per head beside its codes): the ledger's per-tenant
+        block counts times this are `serving_kv_bytes{tenant,kind}`."""
+        cfg = self._model.cfg
+        c = self.config
+        heads = cfg.num_heads
+        head_dim = cfg.hidden_size // heads
+        if self.kv_quantized:
+            per_side = c.block_size * heads * head_dim + 4 * heads
+        else:
+            itemsize = self._model.wte.weight.element_size()
+            per_side = c.block_size * heads * head_dim * itemsize
+        return 2 * per_side * cfg.num_layers
 
     def _decode_fields(self):
         """Inputs of the decode-step executables: each slot's next input
@@ -645,20 +917,11 @@ class PagedGenerationEngine(GenerationEngine):
     def _build_decode_params(self):
         """weight_dtype="int8": every decode-matmul weight becomes
         {"q": int8 codes, "scale": broadcast-ready f32 scales}; the float
-        `_params` keep serving prefill."""
-        if self.config.weight_dtype != "int8":
-            self._decode_params = self._params
-            return
-        self._decode_params = self._quantize_params(self._params)
-
-    def _refresh_decode_params(self):
-        """Requantize the int8 decode weights in place from `_params`."""
-        with torch.no_grad():
-            for name, v in self._decode_params.items():
-                if isinstance(v, dict):
-                    codes, s_b = _quantize_weight(self._params[name])
-                    v["q"].copy_(codes)
-                    v["scale"].copy_(s_b)
+        `_params` keep serving prefill. Armed, the float entries get
+        storage of their own too (`_own_decode_storage`)."""
+        params = self._params if self.config.weight_dtype != "int8" \
+            else self._quantize_params(self._params)
+        self._decode_params = self._own_decode_storage(params)
 
     def _quantize_params(self, params):
         """int8-quantize every decode-matmul weight of a param dict;
@@ -748,10 +1011,13 @@ class PagedGenerationEngine(GenerationEngine):
     @property
     def trace_counts(self):
         """The capture counts, plus `tier_restore` with the tiers on (0
-        until the first restore, then 1)."""
+        until the first restore, then 1) and `numerics_probe` once the
+        localizer has probed (its eager probe forwards)."""
         out = dict(self.capture_counts)
         if self._tier_restores is not None:
             out["tier_restore"] = self._tier_restores
+        if self._numerics_probes:
+            out["numerics_probe"] = self._numerics_probes
         return out
 
     # -- block accounting -----------------------------------------------------
@@ -862,32 +1128,97 @@ class PagedGenerationEngine(GenerationEngine):
         self.kernel_launches += launches
         return out
 
-    def _paged_forward(self, ids, tables, pos, valid=None, decode=False):
+    def _paged_forward(self, ids, tables, pos, valid=None, decode=False,
+                       adapter_ids=None):
         """One forward through the block tables under `attention_impl`;
         decode (and verify) forwards run on `_decode_params`."""
         cache = blocks.PagedDecodeCache(self._pool, tables, pos, valid)
-        forward = self._decode_forward if decode else self._forward
         with blocks.attention_impl(self.config.attention_impl):
-            logits, _ = forward(ids, cache)
+            if decode:
+                logits, _ = self._decode_forward(ids, cache, adapter_ids)
+            else:
+                logits, _ = self._forward(ids, cache)
         return logits
 
-    def _decode_fn(self):
-        """The `decode` executable: one token for every slot. Returns
-        (last-token logits [slots, V], greedy argmax [slots] int32 or
-        None)."""
-        io = self._io.dev
-        logits = self._paged_forward(io["tokens"][:, None], io["tables"],
-                                     io["pos"], decode=True)[:, 0]
-        picks = torch.argmax(logits, dim=-1).to(torch.int32) \
-            if self.config.decode_strategy == "greedy" else None
-        return logits, picks
+    def _decode_fn(self, io=None):
+        """The `decode` executable: one token for every slot, over the
+        decode inputs `io` (default: the static ones). Returns (last-token
+        logits [slots, V], greedy argmax [slots] int32 or None, the packed
+        sink or None: `_stack_sink`, the picks first)."""
+        io = self._io.dev if io is None else io
+        with self._numerics_scope() as sink:
+            if sink is not None:
+                self._tap_decode_inputs()
+            logits = self._paged_forward(io["tokens"][:, None],
+                                         io["tables"], io["pos"],
+                                         decode=True,
+                                         adapter_ids=io["adapter"])[:, 0]
+            picks = torch.argmax(logits, dim=-1).to(torch.int32) \
+                if self.config.decode_strategy == "greedy" else None
+            self._tap_decode(logits)
+        return logits, picks, self._stack_sink(sink, picks)
+
+    def _tap_decode_inputs(self):
+        """The decode taps before the forward: the whole int8 pool's
+        scales and codes (codes at +-127 mean a clipped scale) and the
+        int8 decode weights' scales and codes."""
+        if self.kv_quantized:
+            _numerics.tap_tree("kv.scale", [x for l in self._pool
+                                            for x in (l.k_scale, l.v_scale)])
+            _numerics.tap_tree("kv.codes", [x for l in self._pool
+                                            for x in (l.k, l.v)],
+                               sat_threshold=127)
+        quant = [v for v in self._decode_params.values()
+                 if isinstance(v, dict)]
+        if quant:
+            _numerics.tap_tree("weights.scale", [w["scale"] for w in quant])
+            _numerics.tap_tree("weights.q", [w["q"] for w in quant],
+                               sat_threshold=127)
 
     def _prefill_fn(self, bucket):
         """The `prefill[bucket]` executable: the padded suffix through the
-        slot's table row; returns its logits [1, bucket, V]."""
+        slot's table row; returns its logits [1, bucket, V] (armed: and
+        the packed sink, whose `prefill.logits` are the last real
+        token's)."""
         pf = self._pf.dev
-        return self._paged_forward(pf["ids"][:, :bucket], pf["row"],
-                                   pf["pos"], valid=pf["valid"])
+        with self._numerics_scope() as sink:
+            logits = self._paged_forward(pf["ids"][:, :bucket], pf["row"],
+                                         pf["pos"], valid=pf["valid"])
+            if sink is not None:
+                # the safe state's length is 0: its row 0 is read
+                last = logits[0].index_select(
+                    0, (pf["valid"] - 1).clamp(min=0).to(torch.int64))
+                _numerics.tap("prefill.logits", last)
+        if sink is None:
+            return logits
+        return logits, self._stack_sink(sink)
+
+    def _probe_decode(self, saved):
+        """One localizer probe: the saved decode inputs through the decode
+        function eagerly (outside any graph) under the armed scope. The
+        forward writes its token's K/V into the pool in place, so the
+        blocks the live step wrote (each slot's block at its position)
+        are copied first and put back after: the pool stays as the live
+        step left it."""
+        io = {n: torch.from_numpy(a).to(self.device)
+              for n, a in saved.items()}
+        nb = self.config.max_blocks_per_slot
+        lb = saved["pos"].astype(np.int64) // self.config.block_size
+        rows = np.arange(lb.shape[0])
+        touched = np.where(lb < nb, saved["tables"][rows,
+                                                    np.minimum(lb, nb - 1)],
+                           blocks.GARBAGE_BLOCK)
+        idx = torch.from_numpy(np.unique(touched).astype(np.int64)).to(
+            self.device)
+        kept = [(t, t[idx].clone()) for layer in self._pool for t in layer]
+        try:
+            _, picks, packed = self._decode_fn(io)
+            return self._unstack_sink(
+                packed, 0 if picks is None else picks.shape[0])[1]
+        finally:
+            with torch.no_grad():
+                for t, rows_kept in kept:
+                    t.index_copy_(0, idx, rows_kept)
 
     # -- public compute API ---------------------------------------------------
     def prefill(self, slot, prompt_ids, rng=None, namespace=None):
@@ -944,6 +1275,9 @@ class PagedGenerationEngine(GenerationEngine):
                           "kv_dtype": self.config.kv_dtype,
                           "attend": self.config.attention_impl}):
             logits = self._run(f"prefill[{bucket}]")
+        if self._numerics_armed:
+            logits, packed = logits
+            self._ingest_numerics(self._unstack_sink(packed)[1])
         self._pos[slot] = nshared + suffix.size
         first = int(self._select(logits[:, suffix.size - 1], slot)[0])
         self._slot_gen[slot] += 1
@@ -969,17 +1303,29 @@ class PagedGenerationEngine(GenerationEngine):
         the scheduler grows slots itself so it can preempt instead)."""
         _faults.fire("serving.decode_step")
         self._fire_kv_quant_chaos()
+        self._fire_numerics_chaos()
         self.ensure_decode_capacity()
+        if self._numerics_armed:             # the localizer's replay
+            self._last_decode_inputs = {n: a.copy()
+                                        for n, a in self._io.host.items()}
         with RecordEvent("serving::decode_step",
                          TracerEventType.UserDefined,
                          {"slots": self.config.slots, "paged": True,
                           "kv_dtype": self.config.kv_dtype,
                           "attend": self.config.attention_impl}):
-            logits, picks = self._run("decode")
+            logits, picks, packed = self._run("decode")
+        stats = None
+        if packed is not None:
+            # one host read: the greedy picks and the step's stats
+            head, stats = self._unstack_sink(
+                packed, 0 if picks is None else picks.shape[0])
+            picks = picks if head is None else head
         self._pos[:] = np.minimum(self._pos + 1, self.config.max_len - 1)
         if self.config.capture_logits:
             self.last_logits = logits.float().cpu().numpy()
         out = self._select_slots(logits, picks)
+        if stats is not None:
+            self._ingest_numerics(stats)
         self._slot_gen += 1
         self._last_tokens[:] = out
         return out

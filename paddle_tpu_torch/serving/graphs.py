@@ -33,6 +33,13 @@ Capture protocol (`Executables.capture`):
      paged kernel's tickets belong to the capture stream, which is one
      more reason they must not overlap.
 
+Numerics taps: an armed engine's executable also returns its sink, the
+stats of its tap sites stacked in the graph into one tensor (behind the
+greedy picks or the verify result), which the engine copies to the host
+right after the replay with the read the step makes anyway. The warm-up's
+and the capture's outputs are never read, so a safe-state run never
+reaches the engine's monitor.
+
 Launch counts: a replay runs no Python, so the paged kernel wrapper's
 counters (`ops.paged_attention.launches`, ...) cannot count its launches.
 The launches a capture records are credited to those counters once per

@@ -16,15 +16,18 @@ and 4x the blocks per host byte. Payloads that already are int8 codes
 reference's `/q8` (codes) and `/s8` (per-head scales) suffixes, so a
 record spilled to disk by either package decodes in the other.
 
-The reference also feeds the requantized codes to its numerics monitor
-(`observability.numerics.observe_tree`); the port's numerics taps wait
-for ROADMAP A.12, so the saturation figures are kept here only.
+Each requantizing put records its codes' saturated fraction (codes at
+the +-127 rail), which the store hands to the KV ledger's `tier_demote`
+as `sat`, and feeds the codes to the process numerics monitor
+(`observability.numerics.observe_tree("kv_tier.requant_codes", ...)`, a
+no-op unless `numerics.set_monitor` installed one).
 """
 import collections
 
 import numpy as np
 import torch
 
+from ...observability import numerics as _numerics
 from ..blocks import dequant_codes, quantize_codes
 
 __all__ = ["HostTier"]
@@ -103,6 +106,10 @@ class HostTier:
             self._sat_sum += sat
             self._sat_max = max(self._sat_max, sat)
             self._sat_samples += 1
+            # latches a saturation anomaly when a process monitor is
+            # installed; one global read otherwise
+            _numerics.observe_tree("kv_tier.requant_codes", qcodes,
+                                   sat_threshold=127)
         else:
             self.last_put_saturation = None
         return dict(rec, arrays=arrays)

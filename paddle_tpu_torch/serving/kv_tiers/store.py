@@ -19,9 +19,15 @@ spill: the entry is lost and a later match recomputes);
 read). Either way the result is a miss and a recompute, never wrong KV,
 and `serving_kv_tier_corrupt_total` counts failed verifications.
 
-The reference also streams every residency change to its KV ledger
-(`attach_ledger`: tier_demote, tier_promote and tier_drop events checked
-by a reconciler); the port's ledger waits for ROADMAP A.12.
+Ledger contract (`attach_ledger`): `tier_demote` when an entry gains cold
+residency (or moves from host to disk; an int8 host tier adds the
+requantized codes' saturated fraction `sat`), `tier_promote` when it goes
+back into the pool, `tier_drop` with its `reason` when it is discarded.
+The reconciler's `tier_residency` invariant holds the ledger's
+{key: tier} map against `residency()` at every scheduler step. A
+promoted run is written by the batched writer before its events: the
+pool's `alloc` for the whole run, then one `tier_promote` per entry, then
+the prefix cache's `cache_insert`s, the reference's order.
 """
 import time
 
@@ -64,6 +70,8 @@ _H_RESTORE = _metrics.histogram(
     "Wall seconds per block promoted from a cold tier back into HBM "
     "(fetch + verify + device write)")
 
+_OWNER_DEFAULT = "default"
+
 
 def corrupt_counter():
     """The failure-class corrupt-restore counter, shared by the tiers and
@@ -84,7 +92,22 @@ class TieredBlockStore:
         if disk_dir is not None:
             self.disk = DiskTier(disk_dir, disk_blocks,
                                  disk_compact_threshold)
+        self._ledger = None
         self._export()
+
+    def attach_ledger(self, ledger):
+        self._ledger = ledger
+        # a recovered disk log predates this process's event stream: its
+        # residency is announced so the shadow model starts consistent
+        if self.disk is not None:
+            for key in self.disk.keys():
+                header = self.disk.header(key) or {}
+                ledger.tier_demote((), key, "disk",
+                                   self._owner(header.get("ns")))
+
+    @staticmethod
+    def _owner(ns):
+        return ns if ns is not None else _OWNER_DEFAULT
 
     def _export(self):
         _G_BLOCKS.labels(tier="host").set(len(self.host))
@@ -110,6 +133,7 @@ class TieredBlockStore:
         runs) into the host tier; True when the chain entry gained cold
         residency. Host overflow cascades the coldest entries to disk, or
         drops them."""
+        owner = self._owner(namespace)
         rec = {"ns": namespace, "parent": parent}
         rec.update(self._read(blk))
         spec = _faults.fire("serving.kv_spill")
@@ -121,6 +145,9 @@ class TieredBlockStore:
             return False
         self.host.put(key, rec)
         _C_DEMOTE.labels(tier="host").inc()
+        if self._ledger is not None:
+            self._ledger.tier_demote((int(blk),), key, "host", owner,
+                                     sat=self.host.last_put_saturation)
         self._spill_overflow()
         self._export()
         return True
@@ -130,17 +157,30 @@ class TieredBlockStore:
         requantized record ships its codes as they are), or drop them
         when there is no disk tier or the spill tears."""
         for key, raw in self.host.overflow():
+            owner = self._owner(raw.get("ns"))
             if self.disk is None:
                 _C_DROP.labels(tier="host").inc()
+                if self._ledger is not None:
+                    self._ledger.tier_drop(key, "host", owner,
+                                           reason="capacity")
                 continue
             spec = _faults.fire("serving.kv_spill")
             torn = spec is not None and spec.mode == "truncate"
             if self.disk.put(key, raw, torn=torn):
                 _C_DEMOTE.labels(tier="disk").inc()
-                for _ in self.disk.enforce_capacity():
+                if self._ledger is not None:
+                    self._ledger.tier_demote((), key, "disk", owner)
+                for dkey, header in self.disk.enforce_capacity():
                     _C_DROP.labels(tier="disk").inc()
+                    if self._ledger is not None:
+                        self._ledger.tier_drop(
+                            dkey, "disk", self._owner(header.get("ns")),
+                            reason="capacity")
             else:
                 _C_DROP.labels(tier="host").inc()
+                if self._ledger is not None:
+                    self._ledger.tier_drop(key, "host", owner,
+                                           reason="torn spill")
 
     # -- restore -------------------------------------------------------------
     def _fetch(self, key):
@@ -163,21 +203,33 @@ class TieredBlockStore:
             if torn:
                 # a torn host read: drop the entry, count the corruption,
                 # and let the prefill recompute
+                raw = self.host.raw(key)
+                owner = self._owner((raw or {}).get("ns"))
                 self.host.drop(key)
                 _C_CORRUPT.inc()
                 _C_DROP.labels(tier="host").inc()
                 _C_MISSES.labels(tier="host").inc()
+                if self._ledger is not None:
+                    self._ledger.tier_drop(key, "host", owner,
+                                           reason="torn restore")
                 self._export()
                 return None, None
             rec = self.host.get(key)
             _C_HITS.labels(tier="host").inc()
             return rec, "host"
+        # the owner from the index header before the read: a corrupt
+        # restore drops the entry, its namespace with it
+        header = self.disk.header(key) or {}
         rec, corrupt = self.disk.get(key, torn=torn)
         if rec is None:
             _C_MISSES.labels(tier="disk").inc()
             if corrupt or torn:
                 _C_CORRUPT.inc()
                 _C_DROP.labels(tier="disk").inc()
+                if self._ledger is not None:
+                    self._ledger.tier_drop(
+                        key, "disk", self._owner(header.get("ns")),
+                        reason="corrupt restore")
                 self._export()
             return None, None
         _C_HITS.labels(tier="disk").inc()
@@ -229,19 +281,28 @@ class TieredBlockStore:
             (self.host if tier == "host" else self.disk).drop(key)
             _C_PROMOTE.labels(tier=tier).inc()
             _H_RESTORE.observe(dt)
+            if self._ledger is not None:
+                self._ledger.tier_promote((blk,), key, tier,
+                                          self._owner(rec.get("ns")))
             out.append((key, blk, rec))
         self._export()
         return out
 
     # -- invalidation --------------------------------------------------------
-    def discard(self, key):
-        """Drop `key` from whichever tier holds it."""
+    def discard(self, key, reason="invalidated"):
+        """Drop `key` from whichever tier holds it (a namespace flush, an
+        explicit invalidation); the ledger's `tier_drop` carries
+        `reason`."""
         dropped = False
         for tier, store in (("host", self.host), ("disk", self.disk)):
             if store is None or key not in store:
                 continue
+            raw = store.raw(key) if tier == "host" else None
+            owner = self._owner((raw or {}).get("ns"))
             store.drop(key)
             _C_DROP.labels(tier=tier).inc()
+            if self._ledger is not None:
+                self._ledger.tier_drop(key, tier, owner, reason=reason)
             dropped = True
         self._export()
         return dropped

@@ -2,8 +2,11 @@
 safe.
 
 Counterpart of `paddle_tpu/serving/prefix_cache.py`, with its hit, miss,
-resident-block and eviction families, its KV tiers and its namespace
-quotas (the reference's KV ledger waits for ROADMAP A.12). Block k of a
+resident-block and eviction families, its KV tiers, its namespace quotas
+and its KV ledger hooks (`attach_ledger`: `share`, `cache_insert` and
+`cache_evict` events, and the pool calls it makes under
+`origin_scope("prefix_cache.match" | ".promote" | ".insert" | ".evict")`
+so the ledger classifies each holder). Block k of a
 prompt is keyed by the hash of the whole token prefix
 `prompt[:(k+1)*block_size]`, so two prompts share block k iff they agree
 on every token up to its end; a namespace salts the hash first, so
@@ -39,6 +42,9 @@ an over-quota namespace spills instead of losing its chain.
 import hashlib
 import time
 
+import numpy as np
+
+from ..observability import kvledger as _kvl
 from ..observability import metrics as _metrics
 from .blocks import GARBAGE_BLOCK, BlockAllocError
 
@@ -91,6 +97,7 @@ class PrefixCache:
         self._quotas = {}         # namespace -> quota (blocks)
         self._ns_evicted = {}     # namespace label -> evicted count
         self._tier = None         # kv_tiers.TieredBlockStore or None
+        self._ledger = None       # observability.kvledger.KVLedger or None
         # the last match's promotion figures (the engine's prefill stats)
         self.last_tier_stats = {"promoted_blocks": 0, "restore_s": 0.0}
         self.hits = 0             # prefill lookups that reused a block
@@ -98,6 +105,9 @@ class PrefixCache:
 
     def attach_tier(self, store):
         self._tier = store
+
+    def attach_ledger(self, ledger):
+        self._ledger = ledger
 
     # -- namespace quotas -------------------------------------------------------
     def set_quota(self, namespace, blocks):
@@ -138,8 +148,11 @@ class PrefixCache:
     def evictable(self):
         """Blocks reclaimable on demand (only the cache holds them): the
         free capacity a pool probe (the shed_pool_free rule) must count."""
-        return sum(1 for blk in self._entries.values()
-                   if self.pool.refcount(blk) == 1)
+        if not self._entries:
+            return 0
+        blks = np.fromiter(self._entries.values(), np.int64,
+                           len(self._entries))
+        return int(np.count_nonzero(self.pool._refs[blks] == 1))
 
     def _touch(self, key):
         self._seq += 1
@@ -182,8 +195,14 @@ class PrefixCache:
                 self.last_tier_stats = {
                     "promoted_blocks": len(promoted),
                     "restore_s": time.perf_counter() - t0}
-        for b in ids:
-            self.pool.ref(b)
+        if ids and self._ledger is not None:
+            with _kvl.origin_scope("prefix_cache.match"):
+                for b in ids:
+                    self.pool.ref(b)
+            self._ledger.cache_share(ids, len(ids) * bs)
+        else:
+            for b in ids:
+                self.pool.ref(b)
         if record:
             self.record_lookup(bool(ids))
         return ids, len(ids) * bs
@@ -227,6 +246,9 @@ class PrefixCache:
 
         def alloc_run(n):
             try:
+                if self._ledger is not None:
+                    with _kvl.origin_scope("prefix_cache.promote"):
+                        return list(self.pool.alloc(n))
                 return list(self.pool.alloc(n))
             except BlockAllocError:
                 return None
@@ -241,8 +263,10 @@ class PrefixCache:
     def register_block(self, key, blk, namespace, parent):
         """Register an allocated block (refcount 1, held by nobody else)
         as the entry `key` under chain parent `parent`: the allocation's
-        own reference becomes the cache's. `namespace` is the one `key`
-        was hashed in."""
+        own reference becomes the cache's (a `cache_insert` for the
+        ledger). `namespace` is the one `key` was hashed in."""
+        if self._ledger is not None:
+            self._ledger.cache_insert((int(blk),))
         self._entries[key] = int(blk)
         self._ns[key] = namespace
         self._resident[namespace] = self._resident.get(namespace, 0) + 1
@@ -277,7 +301,11 @@ class PrefixCache:
                 self._touch(key)
                 prev_key = key
                 continue
-            self.pool.ref(blk)
+            if self._ledger is not None:
+                with _kvl.origin_scope("prefix_cache.insert"):
+                    self.pool.ref(blk)
+            else:
+                self.pool.ref(blk)
             self.register_block(key, blk, namespace, prev_key)
             prev_key = key
 
@@ -325,7 +353,14 @@ class PrefixCache:
                     # copied out while it is still allocated (a torn spill
                     # skips the copy: lost, never corrupt)
                     self._tier.demote(key, ns, self._parent.get(key), blk)
-                self.pool.unref(blk)
+                if self._ledger is not None:
+                    # cache_evict before the unref: a replay never sees
+                    # the cache holding a freed block
+                    self._ledger.cache_evict((blk,))
+                    with _kvl.origin_scope("prefix_cache.evict"):
+                        self.pool.unref(blk)
+                else:
+                    self.pool.unref(blk)
                 parent = self._parent.pop(key, None)
                 if parent is not None and parent in self._children:
                     self._children[parent] -= 1

@@ -71,8 +71,17 @@ span, a `swap` decision record); a refused swap keeps the old adapter
 serving. A prefill that restored its chain from the KV tiers (or from a
 shipped prefix) marks its request `tier_hit` with the restore's seconds.
 
-Left out of this port: the KV ledger records, `capture_decode_steps` and
-the numerics taps (ROADMAP A.12).
+KV ledger: when the engine attached one (`engine.kv_ledger`), every
+engine call that can touch the block pool runs under
+`kvledger.attribution(request_id, tenant, origin)` (origins prefill,
+adopt, kv_restore, decode_grow, retire, preempt, cancel, error), a
+`LedgerReconciler` holds the ledger against the pool, the prefix cache
+and the tier store at every step boundary (refreshing the
+`serving_kv_blocks` / `serving_kv_bytes` gauges), and the step's ledger
+events go into the serving JSONL as `kvledger` records ahead of the
+`step` record that closed them.
+
+Left out of this port: `capture_decode_steps` (ROADMAP A.12c).
 """
 import collections
 import itertools
@@ -84,6 +93,7 @@ import numpy as np
 
 from ..core.device import resolve_device
 from ..observability import decisions as _dec
+from ..observability import kvledger as _kvl
 from ..observability import metrics as _metrics
 from ..observability import reqtimeline as _rt
 from ..observability import tracecontext as _tc
@@ -445,9 +455,29 @@ class Scheduler:
         # the full history)
         self._decisions = collections.deque(maxlen=4096)
         self.counts = dict.fromkeys(_COUNTERS, 0)
+        # the KV ledger's watchdog, when the engine attached a ledger
+        ledger = getattr(engine, "kv_ledger", None)
+        pool = getattr(engine, "block_pool", None)
+        self._kv_reconciler = (
+            _kvl.LedgerReconciler(ledger, pool,
+                                  getattr(engine, "prefix_cache", None),
+                                  tier_store=getattr(engine, "kv_tiers",
+                                                     None))
+            if ledger is not None and pool is not None else None)
+        self._kv_events_written = 0
         self._metrics_f = (open(self.config.metrics_path, "a")
                            if self.config.metrics_path else None)
         self._write_run_record()
+
+    def _kv_attr(self, req, origin):
+        """The attribution scope of one engine call that touches the block
+        pool (a shared no-op context without a ledger)."""
+        if self._kv_reconciler is None:
+            return _kvl.NULL_CTX
+        return _kvl.attribution(
+            request_id=req.id if req is not None else None,
+            tenant=req.tenant if req is not None else None,
+            origin=origin)
 
     def _write_line(self, rec):
         self._metrics_f.write(json.dumps(rec) + "\n")
@@ -776,6 +806,11 @@ class Scheduler:
         self._steps += 1
         _M_QUEUE_DEPTH.set(len(self._queue))
         _M_OCCUPANCY.set(self.active_slots() / max(self.engine.slots, 1))
+        # the ledger's step boundary: a leak is caught within the step it
+        # happened in, and the step's events precede its step record
+        if self._kv_reconciler is not None:
+            self._kv_reconciler.check()
+            self._write_kvledger_records()
         self._write_step_record(now, len(active))
         return bool(self._queue or any(s is not None for s in self._slots))
 
@@ -858,7 +893,8 @@ class Scheduler:
         for slot, r in enumerate(self._slots):
             if r is req:
                 try:
-                    self.engine.reset_slot(slot)
+                    with self._kv_attr(req, "cancel"):
+                        self.engine.reset_slot(slot)
                 except Exception:                        # noqa: BLE001
                     pass          # a broken engine must not block cancel
                 self._slots[slot] = None
@@ -882,7 +918,8 @@ class Scheduler:
         """Terminal ERROR for one request after an engine failure: slot
         reset (a broken engine must not block cleanup), cause attached."""
         try:
-            self.engine.reset_slot(slot)
+            with self._kv_attr(req, "error"):
+                self.engine.reset_slot(slot)
         except Exception:                                # noqa: BLE001
             pass
         self._slots[slot] = None
@@ -973,7 +1010,8 @@ class Scheduler:
         restart no longer fits the engine fails ERROR."""
         req = self._slots[slot]
         try:
-            self.engine.reset_slot(slot)
+            with self._kv_attr(req, "preempt"):
+                self.engine.reset_slot(slot)
         except Exception:                                # noqa: BLE001
             pass
         self._slots[slot] = None
@@ -1036,7 +1074,8 @@ class Scheduler:
                 if self._slots[slot] is None:
                     break                   # preempted itself below
                 try:
-                    ensure(slot)
+                    with self._kv_attr(req, "decode_grow"):
+                        ensure(slot)
                     break
                 except BlockAllocError:
                     victim, cands = self._pick_victim(
@@ -1073,7 +1112,8 @@ class Scheduler:
                                   "tenant": req.tenant,
                                   "tokens": len(req.tokens),
                                   "timeout": timed_out}):
-                    self.engine.reset_slot(slot)
+                    with self._kv_attr(req, "retire"):
+                        self.engine.reset_slot(slot)
                 self._slots[slot] = None
                 self._finish(req, TIMEOUT if timed_out else DONE,
                              "serving.timeout" if timed_out
@@ -1157,7 +1197,8 @@ class Scheduler:
         req.tokens.append(first)
         self._count_token(req)
         if req.finished(self.engine.config.eos_token_id):
-            self.engine.reset_slot(slot)
+            with self._kv_attr(req, "retire"):
+                self.engine.reset_slot(slot)
             self._finish(req, DONE, "serving.completed")
         else:
             self._slots[slot] = req
@@ -1182,7 +1223,8 @@ class Scheduler:
             # the generation index after the adopted first token
             rng = staged[4] if len(staged) > 4 else \
                 (req.rng_seed, req.rng_gen + 1)
-            first = self.engine.adopt_kv(slot, *staged[:4], rng=rng)
+            with self._kv_attr(req, "adopt"):
+                first = self.engine.adopt_kv(slot, *staged[:4], rng=rng)
         except BlockAllocError:
             raise
         except Exception as e:                           # noqa: BLE001
@@ -1221,9 +1263,10 @@ class Scheduler:
         already delivered."""
         kwargs = {} if req.prefix_namespace is None else \
             {"namespace": req.prefix_namespace}
-        return self.engine.prefill(
-            slot, req.exec_prompt,
-            rng=(req.rng_seed, req.rng_gen + len(req.tokens)), **kwargs)
+        with self._kv_attr(req, "prefill"):
+            return self.engine.prefill(
+                slot, req.exec_prompt,
+                rng=(req.rng_seed, req.rng_gen + len(req.tokens)), **kwargs)
 
     def _restore_staged_prefix(self, req):
         """Register a shipped prefix chain in the local prefix cache, once,
@@ -1238,8 +1281,9 @@ class Scheduler:
         req.trail.begin(_rt.PH_KV_RESTORE, self._clock())
         t0 = time.perf_counter()
         try:
-            req.kv_restored_tokens = int(self.engine.restore_prefix(
-                req.exec_prompt, sp[0], sp[1], sp[2], namespace=sp[3]))
+            with self._kv_attr(req, "kv_restore"):
+                req.kv_restored_tokens = int(self.engine.restore_prefix(
+                    req.exec_prompt, sp[0], sp[1], sp[2], namespace=sp[3]))
             if req.kv_restored_tokens > 0:
                 req.tier_hit = True
                 req.restore_s += time.perf_counter() - t0
@@ -1330,6 +1374,21 @@ class Scheduler:
         return out
 
     # -- the serving JSONL ----------------------------------------------------
+    def _write_kvledger_records(self):
+        """The ledger events emitted since the last step, as `kvledger`
+        records of the serving JSONL (what `tools/serve_report.py`'s
+        residency table and an offline replay read)."""
+        if not self._metrics_f or self._kv_reconciler is None:
+            return
+        events = self._kv_reconciler.ledger.events
+        if self._kv_events_written >= len(events):
+            return
+        for ev in events[self._kv_events_written:]:
+            self._metrics_f.write(
+                json.dumps({"kind": "kvledger", **ev}) + "\n")
+        self._kv_events_written = len(events)
+        self._metrics_f.flush()
+
     def _write_step_record(self, now, active):
         if not self._metrics_f:
             return

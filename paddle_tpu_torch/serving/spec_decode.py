@@ -53,8 +53,16 @@ token, so an adapted slot's stream is the one-token adapted loop's); the
 draft stays on the base weights and an adapted slot only pays in
 acceptance.
 
-Left out of this port: the compile cache, numerics taps and the pipeline
-placement hooks.
+Numerics taps (armed with `numerics_taps=True`): the verify graph taps
+the window's logits as `spec.verify_logits` (where a corrupted target
+first meets emitted tokens) and packs the stats behind the round's one
+host read; the round fires `numerics.corrupt` after the KV chaos site.
+The draft runs the masters for its float tensors, so a corruption of the
+target's decode storage never reaches it; an int8 draft shares the
+target's quantized entries, so a damaged int8 scale reaches both.
+
+Left out of this port: the compile cache and the pipeline placement
+hooks.
 """
 import dataclasses
 import functools
@@ -65,6 +73,7 @@ import torch
 
 from ..observability import faults as _faults
 from ..observability import metrics as _metrics
+from ..observability import numerics as _numerics
 from ..profiler import RecordEvent, TracerEventType
 from . import kv_cache as kvc
 from . import sampling
@@ -211,7 +220,8 @@ class SpeculativeEngine(PagedGenerationEngine):
         out, fresh = {}, {}
         for name, t in self._draft_params.items():
             if t is self._params.get(name):
-                out[name] = self._decode_params[name]
+                q = self._decode_params[name]
+                out[name] = q if isinstance(q, dict) else t
             else:
                 fresh[name] = t
         out.update(self._quantize_params(fresh))
@@ -268,12 +278,19 @@ class SpeculativeEngine(PagedGenerationEngine):
     def _verify_fn(self):
         """The `spec_verify` executable: the target's forward over the
         window and the greedy accept rule; returns [S, gamma+3] int32
-        (choices, n_accepted, last), the round's one host read."""
+        (choices, n_accepted, last), the round's one host read (armed: the
+        packed sink, that result first)."""
         io = self._io.dev
-        logits = self._paged_forward(self._window, io["tables"], io["pos"],
-                                     decode=True)
-        choices, n_acc, last = sampling.greedy_verify(logits, self._window)
-        return torch.cat([choices, n_acc[:, None], last[:, None]], dim=1)
+        with self._numerics_scope() as sink:
+            logits = self._paged_forward(self._window, io["tables"],
+                                         io["pos"], decode=True)
+            choices, n_acc, last = sampling.greedy_verify(logits,
+                                                          self._window)
+            _numerics.tap("spec.verify_logits", logits)
+        res = torch.cat([choices, n_acc[:, None], last[:, None]], dim=1)
+        if sink is None:
+            return res
+        return res, self._stack_sink(sink, res)
 
     def _draft_prefill_fn(self, bucket):
         """The `draft_prefill[bucket]` executable: the whole prompt through
@@ -315,6 +332,7 @@ class SpeculativeEngine(PagedGenerationEngine):
         harmlessly, as in the one-token loop."""
         _faults.fire("serving.decode_step")
         self._fire_kv_quant_chaos()
+        self._fire_numerics_chaos()
         self.ensure_decode_capacity()
         c = self.config
         t0 = time.perf_counter()
@@ -329,7 +347,14 @@ class SpeculativeEngine(PagedGenerationEngine):
                          {"window": c.gamma + 1, "slots": c.slots,
                           "attend": c.attention_impl}):
             # the draft's upload serves the verify too; the one host read
-            res = self._run("spec_verify", upload=False).cpu().numpy()
+            res = self._run("spec_verify", upload=False)
+            stats = None
+            if self._numerics_armed:
+                res, packed = res
+                head, stats = self._unstack_sink(packed, res.numel())
+                res = head.reshape(tuple(res.shape))
+            else:
+                res = res.cpu().numpy()
         verify_s = time.perf_counter() - t1
         _M_VERIFY_SECONDS.observe(verify_s)
         out = np.ascontiguousarray(res[:, :-2])
@@ -341,4 +366,6 @@ class SpeculativeEngine(PagedGenerationEngine):
         self._slot_gen += n_emit
         self._last_tokens[:] = last
         self.last_spec_stats = {"draft_s": draft_s, "verify_s": verify_s}
+        if stats is not None:
+            self._ingest_numerics(stats)
         return out, n_emit

@@ -13,8 +13,10 @@ Linear weights are stored the PyTorch way, `[out, in]`; the JAX model's
 The cached forward writes K/V into a dense `kv_cache.DecodeCache` or a
 paged `blocks.PagedDecodeCache` (in place) and attends through it; the
 paged attention runs the plain gather path or the CUDA kernel according to
-`blocks.attention_impl`. The uncached forward is plain masked causal
-attention.
+`blocks.attention_impl`. After each block the cached forward calls
+`observability.numerics.tap_layer(i, "act", x)`, dormant unless a numerics
+sink with a layer filter is open (the NaN localizer's probes). The
+uncached forward is plain masked causal attention.
 
 `adapters` (cached forwards only; the engines pass it to decode and
 verify forwards) is the per-slot LoRA view {"slot": ids [B], "layers":
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.device import resolve_device
+from ...observability import numerics as _numerics
 from ...serving import blocks as _blk
 from ...serving import kv_cache as _kvc
 from ...serving import sampling as _sampling
@@ -226,6 +229,9 @@ class GPT(nn.Module):
             x, new_lkv = blk(x, cache=lkv, pos=pos, tables=tables,
                              valid=valid, adapters=lv)
             new_layers.append(new_lkv)
+            # dormant unless a numerics sink with a layer filter is open:
+            # the bisection localizer's probe sites
+            _numerics.tap_layer(i, "act", x)
         logits = self._head(self.ln_f(x))
         if tables is not None:
             return logits, _blk.PagedDecodeCache(tuple(new_layers), tables,

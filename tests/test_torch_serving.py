@@ -382,6 +382,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "        'paddle_tpu_torch.observability.reqtimeline',\n"
             "        'paddle_tpu_torch.profiler',\n"
             "        'paddle_tpu_torch.observability.fleet',\n"
+            "        'paddle_tpu_torch.observability.kvledger',\n"
+            "        'paddle_tpu_torch.observability.numerics',\n"
             "        'paddle_tpu_torch.framework.ckpt_commit',\n"
             "        'paddle_tpu_torch.distributed.checkpoint',\n"
             "        'paddle_tpu_torch.distributed.ps.rpc',\n"

@@ -30,6 +30,13 @@ of these tests are mostly in the slow tier):
     PREFIXLOOKUP, and its KVEXPORT (tier records sha-checked) restores
     on the other worker ahead of the request's prefill, the stream the
     oracle's;
+  * prefix-affinity placement with a wire restore (the reference's
+    `test_fleet_wire_restore_cross_host`): with zero load slack the
+    router places a warm prompt on the worker without its chain, which
+    restores it from the worker that has it (`restored_from` in the
+    place record, a `kv_restore` timeline phase), the stream the
+    oracle's; port router over port workers, and across the packages
+    both ways;
   * `worker_main` as a process: it publishes its endpoint, serves,
     exports its spans under the caller's trace id and exits 0 on STOP
     with its exit line, and without `--device cpu` on a machine without
@@ -48,7 +55,9 @@ import pytest
 import torch
 
 import paddle_tpu
+from paddle_tpu.observability import decisions as jdec
 from paddle_tpu.observability import faults as jfaults
+from paddle_tpu.observability import metrics as jmetrics
 from paddle_tpu.serving import PagedEngineConfig as JPagedEngineConfig
 from paddle_tpu.serving import PagedGenerationEngine as JPagedEngine
 from paddle_tpu.serving import Scheduler as JScheduler
@@ -593,6 +602,90 @@ def test_tiered_chain_restores_across_workers(params, oracle):
     finally:
         client.close()
         _close(fe, workers)
+
+
+def _wire_restore_workers(pkg, params, jax_tiny, max_new):
+    """Two decode workers of `pkg` that step every 20 ms."""
+    if pkg == "port":
+        return [_worker(params, "decode", max_new, step_interval_s=0.02)
+                for _ in range(2)]
+    workers = []
+    for _ in range(2):
+        m = jgpt_tiny()
+        m.eval()
+        m.set_state_dict(jax_tiny.state_dict())
+        workers.append(JServingWorker(
+            m, JPagedEngine(m, JPagedEngineConfig(attention_impl="gather",
+                                                  **ENGINE_KW)),
+            role="decode", serving_config=JServingConfig(
+                default_max_new_tokens=max_new), step_interval_s=0.02))
+    return workers
+
+
+@pytest.mark.parametrize("router,workers", [("port", "port"),
+                                            ("jax", "port"),
+                                            ("port", "jax")])
+def test_fleet_wire_restore_cross_host(router, workers, params, jax_tiny,
+                                       oracle, tmp_path):
+    """Worker 0 serves a prompt (its prefix cache warms); a filler keeps
+    it busy; the same prompt again probes the fleet, finds the chain on
+    worker 0, and zero load slack places it on worker 1, which restores
+    0's chain over the wire before its prefill. The stream is the
+    oracle's, the place record names `restored_from`, the restore is a
+    timeline phase, and every decision replays."""
+    prompt = _prompt(46, 26)
+    filler = _prompt(47, 26)
+    max_new = 4
+    want = oracle([prompt], max_new)[tuple(prompt)]
+    tl = str(tmp_path / "timeline.jsonl")
+    metrics_mod = tmetrics if workers == "port" else jmetrics
+    flat = metrics_mod.flatten_snapshot(metrics_mod.registry().snapshot(),
+                                        kinds=("counter",))
+    bytes0 = flat.get("serving_kv_handoff_bytes_total", 0.0)
+    ws = _wire_restore_workers(workers, params, jax_tiny, max_new)
+    frontend = DistFrontend if router == "port" else JDistFrontend
+    # the affinity probe of a worker that has not answered within
+    # 2 * hedge delay claims no match; the hedge delay follows the RTTs
+    # seen, from 20 ms up, and a busy worker answers PREFIXLOOKUP between
+    # its decode steps, which take longer than that on a loaded host. The
+    # floor at the default ceiling (0.5 s) keeps the probe's answer, not
+    # the host's load, deciding the placement
+    fe = frontend([w.endpoint for w in ws], timeline_path=tl,
+                  prefix_affinity=True,
+                  affinity_min_match=ENGINE_KW["block_size"],
+                  affinity_load_slack=0, hedge_delay_min_s=0.5)
+    try:
+        r1 = fe.submit(prompt, max_new=max_new)
+        assert r1.worker == 0              # no match anywhere: a tie, 0
+        fe.run(timeout_s=60)
+        assert r1.status == "DONE" and r1.tokens == want
+        rf = fe.submit(filler, max_new=30)  # keeps worker 0 loaded
+        assert rf.worker == 0
+        r2 = fe.submit(prompt, max_new=max_new)
+        fe.run(timeout_s=60)
+        assert r2.status == "DONE", (r2.status, r2.error)
+        assert r2.worker == 1, "slack fallback did not move the request"
+        assert r2.tokens == want, "wire-restored stream diverged"
+        flat = metrics_mod.flatten_snapshot(
+            metrics_mod.registry().snapshot(), kinds=("counter",))
+        assert flat.get("serving_kv_handoff_bytes_total", 0.0) > bytes0
+        recs = fe.decision_records()
+        validate = tdec.validate_records if router == "port" \
+            else jdec.validate_records
+        assert validate(recs) == []
+        place = [r for r in recs if r["action"] == "place"
+                 and r["key"] == r2.key][0]
+        assert str(place["outcome"].get("restored_from")) == "0"
+        assert place["inputs"]["matches"], "affinity probe recorded nothing"
+    finally:
+        _close(fe, ws)
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import serve_report
+    records = serve_report.load(tl)
+    assert serve_report.validate_records(records) == []
+    r2_tl = [r for r in records if r.get("kind") == "timeline"
+             and r.get("key") == r2.key][0]
+    assert "kv_restore" in {p["phase"] for p in r2_tl["phases"]}
 
 
 def test_port_router_drives_jax_workers(jax_tiny, oracle):

@@ -191,6 +191,25 @@ Phases (any exception ends the run with a non-zero exit):
      disk; the `scale_zero` drill on the int8 engine latches
      `weights.scale:drift`. Phases 13-15 run with the ledger attached, as
      every paged engine is built by default.
+ 17. the device profile and the cost model. (a) phase 4's engine and 16
+     requests under a `Scheduler` with `capture_decode_steps(8)` armed:
+     the capture stays armed through the first decode step, ends
+     `reported`, and its deviceprof.v1 record validates and reconciles
+     (device ms a step <= wall) on one stream, joined to the cost model's
+     decode step (the same engine on fake tensors, `h100-sxm-fp32`); it
+     names `paged_decode_kernel` (op `paged_attention`) 12 times a step
+     and reads within 5% of `profile_steps` on the same engine, with
+     as many device events as it a step (the window lost none); no graph
+     is captured in the window and the streams are phase 4's. (b) phase
+     8's GPT-350M bf16 step at B=8 under `deviceprof.capture(iters=3)`,
+     joined to `cost_model.estimate` of the same step on fake tensors
+     (`h100-sxm`): device ms a step, coverage, the largest rows and ops
+     with their efficiency, each flash kernel 24 times a step, the
+     estimate's FLOPs within 15% of 1.868e13. (c) `Profiler(scheduler=(1,
+     3), timeline=...)` around five steps: the summary renders,
+     `analyze()` covers more than 0, and the timeline holds two records
+     `tools/perf_report.py` accepts. Traces, records and the summary go
+     to `chiprun_out/phase17/`.
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -206,20 +225,12 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): the HBM3 rate, and the operation rate
-# for the type of the products: float32 (q is f32, and int8 codes are
-# dequantised to f32 before they multiply it) outside the tensor cores, or
-# bf16 dense on the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FLOPS_PER_S = {"f32": 67e12, "int8": 67e12, "nan": 67e12, "bf16": 989e12}
-
 ATOL = RTOL = 1e-5          # f32: the kernel's summation order differs
 SPEC_AGREE = 0.9            # phase 11: spec x int8 vs one-token int8
 QUANT_MATCH = 0.99          # phase 11: int8 weights vs float, greedy
 QUANT_KL = 1e-3             # phase 11: mean KL(float || int8 weights)
 BF16_TOL = 1e-2             # bf16 output rounding (8 mantissa bits)
 GAP_MIN = 1e-3              # phase 6: below this the argmax is a near-tie
-BF16_PEAK = 989e12          # H100 SXM dense bf16, for MFU
 # phase 9 (f32, lr 2e-4): the paths sum in other orders, and Adam divides
 # each gradient element by its own running scale, so where an element's
 # gradient is near zero (the key bias's is zero in exact arithmetic) its
@@ -232,6 +243,15 @@ TRAIN_UPDATE_RTOL = 1e-2    # |dW_kernel - dW_plain| / |dW_plain| per leaf
 
 def log(*a):
     print(*a, flush=True)
+
+
+def device_peaks(kind):
+    """The H100 SXM peaks (`cost_model.DEVICES`, NVIDIA's data sheet) for
+    products of `kind`: float32 (q is f32, and int8 codes are dequantised
+    to f32 before they multiply it) outside the tensor cores, or bf16
+    dense on the tensor cores; both read HBM3 at 3.35 TB/s."""
+    from paddle_tpu_torch.cost_model import DEVICES
+    return DEVICES["h100-sxm" if kind == "bf16" else "h100-sxm-fp32"]
 
 
 # ------------------------------------------------------------------ timing
@@ -343,8 +363,8 @@ def case_bound(c, kind):
         nbytes += 2 * sum(-(-max(0, min(p + T, L)) // bs) for p in pos) \
             * H * 4
     flops = 4 * pairs * H * D
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FLOPS_PER_S[kind] * 1e3
+    t_bytes = nbytes / device_peaks(kind).hbm_bw * 1e3
+    t_ops = flops / device_peaks(kind).peak_flops * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, flops)
 
@@ -744,7 +764,32 @@ def device_kernels(prof):
     return [e for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA")
             and not getattr(e, "is_user_annotation", False)
-            and not e.key.startswith(("serving::", "fault::"))]
+            and not e.key.startswith(("serving::", "fault::", "graph::",
+                                      "train::"))]
+
+
+class card_profile:
+    """A torch.profiler session over the card (and the host's operators
+    unless cpu=False), opened through `deviceprof.start_session` so that
+    its window records every device event (opened straight away, a late
+    session lost its first 6-8, and now and then a whole step)."""
+
+    def __init__(self, cpu=True):
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CUDA]
+        if cpu:
+            acts.insert(0, ProfilerActivity.CPU)
+        self.prof = profile(activities=acts)
+
+    def __enter__(self):
+        import torch
+        from paddle_tpu_torch.observability.deviceprof import start_session
+        start_session(self.prof, torch.device("cuda"))
+        return self.prof
+
+    def __exit__(self, *exc):
+        self.prof.stop()
+        return False
 
 
 def profile_steps(step, steps):
@@ -753,15 +798,13 @@ def profile_steps(step, steps):
     busy time per call, the kernels launched per call and the largest
     kernels by device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
         step()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with card_profile() as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
@@ -785,9 +828,38 @@ def profile_steps(step, steps):
             "device_idle_share_untraced": (1 - busy_ms / wall_ms
                                            if busy_ms else None),
             "kernels_per_step": sum(e.count for e in kernels) / steps,
+            "kernel_counts": {e.key: e.count for e in kernels},
+            "kernel_ms": {e.key: dev_us(e) / 1e3 for e in kernels},
             "top": [{"name": e.key[:60], "ms_per_step":
                      dev_us(e) / steps / 1e3, "count": e.count // steps}
                     for e in top]}
+
+
+def kernel_diff(a, b):
+    """{kernel: (count in a, count in b)} for the kernels whose counts
+    differ between two profile_steps records."""
+    ca, cb = a["kernel_counts"], b["kernel_counts"]
+    return {k: (ca.get(k, 0), cb.get(k, 0)) for k in sorted(set(ca) | set(cb))
+            if ca.get(k, 0) != cb.get(k, 0)}
+
+
+def kernel_rows_diff(rec, prof, steps, n=6):
+    """The `n` kernels (base names) whose device ms a step differ most
+    between a deviceprof record over `steps` steps and a profile_steps
+    record: [(name, capture ms, profile ms, capture calls, profile
+    calls)] a step."""
+    from paddle_tpu_torch.observability.deviceprof import kernel_base_name
+    rows = {}
+    for o in rec["ops"]:
+        r = rows.setdefault(o["op"], [0.0, 0.0, 0, 0])
+        r[0] += o["device_ms"] / steps
+        r[2] += o["calls"] / steps
+    for key, ms in prof["kernel_ms"].items():
+        r = rows.setdefault(kernel_base_name(key), [0.0, 0.0, 0, 0])
+        r[1] += ms / prof["steps"]
+        r[3] += prof["kernel_counts"][key] / prof["steps"]
+    top = sorted(rows.items(), key=lambda kv: -abs(kv[1][0] - kv[1][1]))
+    return [(k, round(a, 4), round(b, 4), c, d) for k, (a, b, c, d) in top[:n]]
 
 
 def profile_decode(model, prompts, steps=8, engine_sink=None, **kw):
@@ -1022,7 +1094,7 @@ def quant_weights_quality(model, prompts, smi, steps=16):
                          lambda: None, iters=10)
     # the dequant's least time: read each int8 code and f32 scale once,
     # write each f32 weight once
-    dequant_bound = n_w * (1 + 4) / HBM_BYTES_PER_S * 1e3
+    dequant_bound = n_w * (1 + 4) / device_peaks("f32").hbm_bw * 1e3
     rec = {"slots": len(prompts), "steps": steps, "greedy_match": match,
            "compared": len(matches), "dropped_near_ties": dropped,
            "flips": flips,
@@ -2234,8 +2306,8 @@ def flash_bound(B, H, Hk, S, D, kind, causal, which):
         "dq": (2 * qo + 2 * kv + 2 * rows + qo, 3),
         "dkv": (2 * qo + 2 * kv + 2 * rows + 2 * qo, 4)}[which]
     flops = products * 2 * D * pairs
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FLOPS_PER_S[kind] * 1e3
+    t_bytes = nbytes / device_peaks(kind).hbm_bw * 1e3
+    t_ops = flops / device_peaks(kind).peak_flops * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, flops)
 
@@ -2491,7 +2563,6 @@ def train_step_350m(smi, warmup=3, steps=10, B=8):
     """Phase 8: the flagship step through `make_train_step`."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.parallel import GPTSpmdConfig, make_train_step
     cfg = GPTSpmdConfig(**TRAIN_350M, param_dtype="bfloat16",
@@ -2532,9 +2603,9 @@ def train_step_350m(smi, warmup=3, steps=10, B=8):
     step_ms = sorted(times)[len(times) // 2] * 1e3
     mean_ms = sum(times) / len(times) * 1e3
     flops = step_flops(cfg, n_params, B, S)
+    bf16_peak = device_peaks("bf16").peak_flops
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with card_profile() as prof:
         t0 = time.perf_counter()
         step_fn(params, state, toks, labs)
         torch.cuda.synchronize()
@@ -2558,8 +2629,8 @@ def train_step_350m(smi, warmup=3, steps=10, B=8):
            "step_ms_all": [t * 1e3 for t in times],
            "tokens_per_s": B * S / (step_ms / 1e3),
            "peak_memory_gb": peak / 1e9, "flops_per_step": flops,
-           "mfu": flops / (step_ms / 1e3) / BF16_PEAK,
-           "peak_bound_ms": flops / BF16_PEAK * 1e3,
+           "mfu": flops / (step_ms / 1e3) / bf16_peak,
+           "peak_bound_ms": flops / bf16_peak * 1e3,
            "launches": launches, "traced_step_ms": traced_ms,
            "device_busy_ms": busy_ms,
            "device_idle_share": 1 - busy_ms / traced_ms if busy_ms else None,
@@ -3036,7 +3107,6 @@ def delta_profile(model, prompts, bank):
     the index (gather) and gemm/bmm (product) kernels over 4 traced
     steps."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.serving import PagedGenerationEngine
     out = {}
     for name, b in (("bank", bank), ("no_bank", None)):
@@ -3049,7 +3119,7 @@ def delta_profile(model, prompts, bank):
             if b is not None:
                 eng.set_slot_adapter(s, b.slot_of(TENANTS[s]))
         rec = profile_steps(eng.decode, 8)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with card_profile(cpu=False) as prof:
             for _ in range(4):
                 eng.decode()
             torch.cuda.synchronize()
@@ -3428,10 +3498,14 @@ def numerics_arming(model, prompts, prof4, smi):
                    ingest_us_median=xs[len(xs) // 2] * 1e6)
     k4 = prof4["kernels_per_step"]
     if abs(out["f32_disarmed"]["kernels_per_step"] - k4) >= 1:
+        diff = kernel_diff(prof4, out["f32_disarmed"])
         raise AssertionError(
             f"phase 16: the disarmed decode step runs "
             f"{out['f32_disarmed']['kernels_per_step']} kernels, phase 4 "
-            f"{k4}")
+            f"{k4}; counts in 8 steps (phase 4, phase 16) of the kernels "
+            f"that differ: "
+            + "; ".join(f"{n4}, {n16}: {k[:120]}"
+                        for k, (n4, n16) in diff.items()))
     for kind in kinds:
         a, d = out[f"{kind}_armed"], out[f"{kind}_disarmed"]
         out[f"{kind}_taps_device_ms"] = (a["device_busy_ms_per_step"]
@@ -3509,6 +3583,304 @@ def numerics_arming(model, prompts, prof4, smi):
         f"{out['scale_zero_drill']['counts']} [{smi}]")
     log(f"phase 4's decode step: {k4:.0f} kernels (phase 16 disarmed "
         f"{out['f32_disarmed']['kernels_per_step']:.0f})")
+    return out
+
+
+# ------------------------------------------- the device profile and cost model
+PROFILE_ENGINE = dict(slots=8, max_len=1024, block_size=16,
+                      attention_impl="kernel")
+CAPTURE_STEPS = 8           # phase 17 (a): decode steps in the capture
+PROFILE_AGREE = 0.05        # ... its device ms a step against profile_steps
+FLOPS_RTOL = 0.15           # (b): the estimate against step_flops
+
+
+def op_costs(report):
+    """{op: predicted ms} of a cost report (eager kernels join by name)."""
+    return {k: 1e3 * report.device.roofline_s(c.flops, c.bytes)
+            for k, c in report.by_op.items()}
+
+
+def graph_costs(report):
+    """`op_costs` for a capture of CUDA graph replays: their kernels carry
+    no aten op, and every product kernel of a replay is attributed
+    `aten::mm` (deviceprof's name table), so the step's products
+    (`aten::mm` and `aten::addmm`) join as one."""
+    per_op = op_costs(report)
+    per_op["aten::mm"] = sum(per_op.pop(k, 0.0)
+                             for k in ("aten::mm", "aten::addmm"))
+    return per_op
+
+
+def check_record(rec, what, steps):
+    """A joined deviceprof record: valid, reconciled, on one stream."""
+    from paddle_tpu_torch.observability import deviceprof
+    errs = deviceprof.validate_record(rec)
+    if errs:
+        raise AssertionError(f"{what}: invalid record: {errs}")
+    join = rec["join"]
+    if join["steps"] != steps or not join["reconciles"]:
+        raise AssertionError(f"{what}: join over {join['steps']} steps, "
+                             f"device {join['device_ms_per_step']} ms a "
+                             f"step against wall {join['wall_ms_per_step']}")
+    if len(rec["planes"]) != 1:
+        raise AssertionError(f"{what}: {len(rec['planes'])} device lines "
+                             f"{rec['planes']}: the window is not one "
+                             "stream, so its summed device time is no "
+                             "busy time")
+
+
+def by_prim(rec):
+    """[(op, measured ms a step, predicted ms, efficiency)] of the joined
+    ops, largest first: each op's prediction against the sum of its rows
+    (a row's own efficiency holds the whole op's prediction against one
+    of its kernels)."""
+    agg = {}
+    for row in rec["join"]["per_op"]:
+        if row["predicted_ms"] is not None:
+            agg.setdefault(row["prim"], [0.0, row["predicted_ms"]])[0] += \
+                row["measured_ms_per_step"]
+    return sorted(((p, m, pred, pred / m if m else None)
+                   for p, (m, pred) in agg.items()), key=lambda t: -t[1])
+
+
+def log_record(what, rec, smi, top=10):
+    join = rec["join"]
+    log(f"deviceprof {what}: device {join['device_ms_per_step']:.4f} ms a "
+        f"step over {join['steps']} steps, wall "
+        f"{join['wall_ms_per_step']:.4f} ms (ratio "
+        f"{join['device_wall_ratio']}), {rec['n_events']} events, "
+        f"coverage {join['coverage']:.4f}, modules "
+        f"{ {k: round(v, 3) for k, v in list(rec['modules'].items())[:4]} } "
+        f"[{smi}]")
+    for row in join["per_op"][:top]:
+        eff = row["efficiency"]
+        log(f"  {row['measured_ms_per_step']:.4f} ms a step "
+            f"{100 * row['device_frac']:.1f}% {row['op'][:48]} "
+            f"[{row['prim']}] predicted {row['predicted_ms']} ms, "
+            f"efficiency {'-' if eff is None else f'{eff:.4f}'}")
+    log("  by op: " + ", ".join(
+        f"{p} {m:.4f} ms / predicted {pred:.4f} ({eff:.3f})"
+        for p, m, pred, eff in by_prim(rec)[:8]))
+
+
+def serving_profile(model, prompts, want, smi, out_dir):
+    """Phase 17 (a): phase 4's engine and requests under a `Scheduler`
+    with `capture_decode_steps(8)` armed; the record joined to the cost
+    model's decode step (f32 on fake tensors, `h100-sxm-fp32`), held to
+    `profile_steps` on the same engine."""
+    import torch
+    from paddle_tpu_torch import cost_model
+    from paddle_tpu_torch.observability import deviceprof
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import (PagedGenerationEngine, Scheduler,
+                                          ServingConfig)
+    from paddle_tpu_torch.text.models import gpt_125m
+    eng = PagedGenerationEngine(model, **PROFILE_ENGINE, device="cuda")
+    precompile(eng, "phase 17")
+    counts = check_captures(eng, "phase 17")
+    sched = Scheduler(eng, ServingConfig(max_queue=64), device=eng.device)
+    ctrl = sched.capture_decode_steps(steps=CAPTURE_STEPS, out_dir=out_dir)
+    handles = [sched.submit(p, max_new_tokens=32) for p in prompts]
+    sched.step()                        # the first decode: never captured
+    if ctrl.state != "armed":
+        raise AssertionError(f"phase 17: the capture is {ctrl.state} "
+                             "after the first decode step")
+    t0 = time.perf_counter()
+    sched.run_until_idle()
+    serve_s = time.perf_counter() - t0
+    sched.close()
+    block = sched.last_capture or {}
+    if ctrl.state != "reported" or block.get("state") != "reported":
+        raise AssertionError(f"phase 17: capture {ctrl.state}: {block}")
+    if check_captures(eng, "phase 17 after the window") != counts:
+        raise AssertionError("phase 17: a graph was captured in the window")
+    dropped = 0
+    for i, h in enumerate(handles):
+        if h.status != "DONE":
+            raise AssertionError(f"phase 17: request {i} {h.status}")
+        dropped += same_stream(model, prompts[i], h.tokens, want[i],
+                               f"phase 17 request {i}")[1]
+    rec = deviceprof.load_records(block["jsonl"])[-1]
+    # the cost model's decode step: the same engine on fake tensors
+    t0 = time.perf_counter()
+    cpu_model = gpt_125m(device="cpu", seed=0)
+    with cost_model.fake_mode():
+        fake = PagedGenerationEngine(cpu_model, **PROFILE_ENGINE,
+                                     device="cpu")
+        est = cost_model.estimate(fake._decode_fn, device="h100-sxm-fp32")
+    del cpu_model, fake
+    estimate_s = time.perf_counter() - t0
+    deviceprof.join_cost_model(rec, graph_costs(est), steps=CAPTURE_STEPS,
+                               wall_step_ms=rec["join"]["wall_ms_per_step"])
+    check_record(rec, "phase 17 (a)", CAPTURE_STEPS)
+    paged = [o for o in rec["ops"] if o["op"] == "paged_decode_kernel"]
+    if len(paged) != 1 or paged[0]["prim"] != "paged_attention" or \
+            paged[0]["calls"] != model.cfg.num_layers * CAPTURE_STEPS:
+        raise AssertionError(f"phase 17: paged rows {paged}, want one "
+                             f"paged_attention row of "
+                             f"{model.cfg.num_layers * CAPTURE_STEPS} calls")
+    # profile_steps on the same engine, the first wave's prompts again
+    for s, p in enumerate(prompts[:eng.config.slots]):
+        eng.prefill(s, p)
+    pa.launches = 0
+    prof = profile_steps(lambda: eng.decode().copy(), CAPTURE_STEPS)
+    check_captures(eng, "phase 17 profile")
+    dev = rec["join"]["device_ms_per_step"]
+    busy = prof["device_busy_ms_per_step"]
+    diff = kernel_rows_diff(rec, prof, CAPTURE_STEPS)
+    # neither window lost an event: the first step's upload and first
+    # kernels go unrecorded when a session opens straight away
+    # (start_session)
+    if rec["n_events"] != CAPTURE_STEPS * prof["kernels_per_step"]:
+        raise AssertionError(
+            f"phase 17: the capture holds {rec['n_events']} device events, "
+            f"profile_steps {prof['kernels_per_step']} a step ({busy} ms "
+            f"against the capture's {dev}); kernels (capture ms, profile "
+            f"ms, calls, calls a step): {diff}")
+    if abs(dev - busy) > PROFILE_AGREE * busy:
+        raise AssertionError(f"phase 17: the capture reads {dev} ms a step, "
+                             f"profile_steps {busy} ms; kernels (capture "
+                             f"ms, profile ms, calls, calls a step): {diff}")
+    del eng
+    torch.cuda.empty_cache()
+    out = {"record": block["jsonl"], "trace": rec["xplane"],
+           "device_ms_per_step": dev, "wall_ms_per_step":
+           rec["join"]["wall_ms_per_step"], "profile_busy_ms": busy,
+           "profile_kernels_per_step": prof["kernels_per_step"],
+           "n_events": rec["n_events"], "coverage": rec["join"]["coverage"],
+           "paged_calls": paged[0]["calls"],
+           "estimate_flops": est.total_flops, "estimate_ms": est.time_ms,
+           "estimate_s": estimate_s, "serve_s": serve_s,
+           "dropped_near_ties": dropped, "capture_counts": counts,
+           "top": rec["join"]["per_op"][:10], "by_op": by_prim(rec),
+           "modules": rec["modules"], "card": smi}
+    log_record("serving decode step (phase 4's engine, 8 steps)", rec, smi)
+    log(f"  profile_steps on the same engine: busy {busy:.4f} ms a step "
+        f"over {prof['kernels_per_step']:.0f} kernels; the capture "
+        f"{dev:.4f} ms ({100 * (dev - busy) / busy:+.2f}%); paged decode "
+        f"{paged[0]['calls']} calls; estimate {est.total_flops:.4e} flops, "
+        f"{est.time_ms:.4f} ms at h100-sxm-fp32 in {estimate_s:.1f} s; "
+        f"streams held to phase 4 ({dropped} dropped by the near-tie rule); "
+        f"the kernels that differ most (capture ms, profile ms, calls, "
+        f"calls a step): {diff} [{smi}]")
+    return out
+
+
+def train_profile(smi, out_dir, B=8, iters=3, warmup=3):
+    """Phase 17 (b), (c): phase 8's GPT-350M bf16 step under
+    `deviceprof.capture(iters=3)`, joined to `cost_model.estimate` of the
+    same step on fake tensors (`h100-sxm`); then `Profiler(scheduler=(1,
+    3))` around five steps: summary, analyze, the timeline JSONL."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import cost_model
+    from paddle_tpu_torch.observability import deviceprof
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import GPTSpmdConfig, make_train_step
+    from paddle_tpu_torch.profiler import Profiler
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import perf_report
+    cfg = GPTSpmdConfig(**TRAIN_350M, param_dtype="bfloat16",
+                        compute_dtype="bfloat16", remat=False)
+    S = cfg.max_seq_len
+    step_fn, init_fn = make_train_step(cfg, learning_rate=2e-4,
+                                       device="cuda")
+    params, state = init_fn(0)
+    n_params = sum(p.numel() for p in params.values())
+    rng = np.random.RandomState(0)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+    labs = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+    for _ in range(warmup):
+        step_fn(params, state, toks, labs)
+    torch.cuda.synchronize()
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    t0 = time.perf_counter()
+    _, rec = deviceprof.capture(lambda: step_fn(params, state, toks, labs),
+                                os.path.join(out_dir, "train"), iters=iters,
+                                label="train")
+    capture_s = time.perf_counter() - t0
+    # the cost model: the same step on fake CPU tensors of the same shapes
+    t0 = time.perf_counter()
+    step_cpu, init_cpu = make_train_step(cfg, learning_rate=2e-4,
+                                         device="cpu")
+    with cost_model.fake_mode():
+        fparams, fstate = init_cpu(0)
+        ftoks = torch.zeros((B, S), dtype=torch.int64)
+        est = cost_model.estimate(step_cpu, fparams, fstate, ftoks, ftoks,
+                                  device="h100-sxm")
+    estimate_s = time.perf_counter() - t0
+    deviceprof.join_cost_model(rec, op_costs(est), steps=iters)
+    deviceprof.write_record(rec, os.path.join(out_dir, "train",
+                                              "deviceprof.jsonl"))
+    check_record(rec, "phase 17 (b)", iters)
+    flops = step_flops(cfg, n_params, B, S)
+    if abs(est.total_flops - flops) > FLOPS_RTOL * flops:
+        raise AssertionError(f"phase 17: estimate {est.total_flops:.4e} "
+                             f"flops a step, step_flops {flops:.4e}")
+    flash = {}
+    for o in rec["ops"]:
+        if o["prim"] and o["prim"].startswith("flash_attention_"):
+            flash[o["op"]] = o["calls"] / iters
+    launches = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+    if sorted(flash.values()) != [cfg.layers] * 3 or \
+            launches != (iters * cfg.layers,) * 3:
+        raise AssertionError(f"phase 17: flash rows {flash} a step, "
+                             f"launches {launches}, want {cfg.layers} each")
+    log_record(f"train step (GPT-350M bf16, B={B}, S={S})", rec, smi)
+    log(f"  estimate {est.total_flops:.4e} flops a step against "
+        f"step_flops {flops:.4e} ({100 * (est.total_flops / flops - 1):+.2f}"
+        f"%), {est.time_ms:.3f} ms at h100-sxm in {estimate_s:.1f} s; "
+        f"flash rows {flash} a step; capture {capture_s:.1f} s [{smi}]")
+    out = {"record": rec, "by_op": by_prim(rec),
+           "estimate_flops": est.total_flops,
+           "step_flops": flops, "estimate_ms": est.time_ms,
+           "estimate_table": est.table(20), "estimate_s": estimate_s,
+           "capture_s": capture_s, "flash_calls_per_step": flash,
+           "card": smi}
+    # (c) the Profiler's windows around five steps
+    timeline = os.path.join(out_dir, "profiler_timeline.jsonl")
+    if os.path.exists(timeline):
+        os.remove(timeline)
+    t0 = time.perf_counter()
+    prof = Profiler(scheduler=(1, 3), timeline=timeline, record_shapes=True,
+                    log_dir=os.path.join(out_dir, "profiler"),
+                    device="cuda")
+    with prof:
+        for _ in range(5):
+            loss, _, _ = step_fn(params, state, toks, labs)
+            float(loss)
+            prof.step()
+    if prof.device_error or prof.last_trace is None:
+        raise AssertionError(f"phase 17: the Profiler window recorded no "
+                             f"device side: {prof.device_error}")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        prof.summary()
+    report = prof.analyze()
+    records = perf_report.load_timeline(timeline)
+    summary = text.getvalue()
+    with open(os.path.join(out_dir, "profiler_summary.txt"), "w") as f:
+        f.write(summary + "\n" + report.render() + "\n")
+    if "Overview Summary" not in summary or report.coverage <= 0 or \
+            len(records) != 2:
+        raise AssertionError(f"phase 17: Profiler summary "
+                             f"{len(summary)} chars, coverage "
+                             f"{report.coverage}, {len(records)} timeline "
+                             "records")
+    out["profiler"] = {"coverage": report.coverage,
+                       "phases_ms": report.phases,
+                       "step_ms": [r["step_ms"] for r in records],
+                       "top_gaps": [r["name"] for r in report.top_gaps],
+                       "seconds": time.perf_counter() - t0}
+    log(f"profiler (1, 3) over 5 steps: timeline steps "
+        f"{[r['step'] for r in records]} at {out['profiler']['step_ms']} "
+        f"ms, phases {report.phases} ms, coverage {report.coverage:.4f}, "
+        f"top gaps {out['profiler']['top_gaps']}, "
+        f"{out['profiler']['seconds']:.1f} s [{smi}]")
+    for line in summary.splitlines()[:8]:
+        log("  " + line)
     return out
 
 
@@ -3758,6 +4130,20 @@ def main(argv):
     report["numerics"] = numerics_arming(model, prompts[8:16], prof, smi)
     report["phase16_s"] = time.perf_counter() - t16
     log(f"phase 16 took {report['phase16_s']:.1f} s [{smi}]")
+
+    # 17. the device profile and the cost model ------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    out17 = os.path.join(ROOT, "chiprun_out", "phase17")
+    report["deviceprof_serving"] = serving_profile(
+        model, prompts, [h.tokens for h in handles], smi, out17)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["deviceprof_train"] = train_profile(smi, out17)
+    report["phase17_s"] = time.perf_counter() - t17
+    log(f"phase 17 took {report['phase17_s']:.1f} s [{smi}]")
 
     # summary ------------------------------------------------------------------------
     dec = next(c for c in cases if c["case"] == "decode_f32")

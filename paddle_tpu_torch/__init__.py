@@ -13,6 +13,10 @@ neither it nor JAX. Its slices so far:
     flight recorder, decision and timeline records, fleet federation
     (`observability/`) and the host span tracer (`profiler/`), which the
     serving scheduler's SLO machinery reports through;
+  * the device profile and the cost model: `observability/deviceprof.py`
+    (torch.profiler captures parsed into deviceprof.v1 records),
+    `cost_model/` (an analytical roofline over aten ops on fake tensors)
+    and the `Profiler` windows and summary views of `profiler/`;
   * the serving fleet: the RPC fabric (`distributed/ps/rpc.py`),
     committed checkpoints (`framework/ckpt_commit.py`,
     `distributed/checkpoint.py`), and the worker verbs, router and
@@ -23,7 +27,8 @@ Every entry point takes `device=` and defaults to "cuda"; without CUDA it
 raises unless the caller passes device="cpu", which runs the plain
 PyTorch versions of the kernels.
 """
-from . import core, observability, ops, parallel, profiler  # noqa: F401
+from . import core, cost_model, observability, ops, parallel  # noqa: F401
+from . import profiler  # noqa: F401
 from . import serving, text  # noqa: F401
 from .core.device import resolve_device  # noqa: F401
 from .serving import (  # noqa: F401
@@ -32,7 +37,8 @@ from .serving import (  # noqa: F401
 )
 from .text.models import GPT, GPTConfig, gpt_125m, gpt_tiny  # noqa: F401
 
-__all__ = ["core", "observability", "ops", "parallel", "profiler",
+__all__ = ["core", "cost_model", "observability", "ops", "parallel",
+           "profiler",
            "serving", "text", "resolve_device",
            "EngineConfig", "GenerationEngine", "PagedEngineConfig",
            "PagedGenerationEngine", "Scheduler", "ServingConfig", "GPT",

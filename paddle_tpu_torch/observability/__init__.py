@@ -25,14 +25,21 @@ artifacts as they grade the JAX package's:
   numerics.py        — the numerics health plane: stats taps inside the
                        captured executables, the anomaly monitor, the
                        bisection localizer
+  kineto.py          — stdlib-only reader of torch.profiler chrome traces
+                       (the counterpart of the XSpace decoder xplane.py)
+  deviceprof.py      — the device profile: one-shot torch.profiler
+                       captures parsed into deviceprof.v1 records, joined
+                       to the cost model's roofline; its CLI summarizes a
+                       capture
 
 Each module finds its siblings under the port's own names
 (`paddle_tpu_torch.profiler`, `paddle_tpu_torch.observability.metrics`),
 so the two packages' registries and tracers never see each other.
-
-Later work: `deviceprof` and `xplane`, the device profile (A.12c).
 """
-from . import decisions, faults, fleet, flight_recorder, metrics  # noqa: F401
+# `deviceprof` is imported on first use, not here: its CLI runs as
+# `python -m paddle_tpu_torch.observability.deviceprof`
+from . import decisions, faults, fleet, flight_recorder, kineto  # noqa: F401
+from . import metrics  # noqa: F401
 from . import kvledger, numerics, reqtimeline, tracecontext  # noqa: F401
 from .flight_recorder import dump_postmortem  # noqa: F401
 from .metrics import registry  # noqa: F401
@@ -40,5 +47,6 @@ from .tracecontext import merge_chrome_traces, trace_scope  # noqa: F401
 
 __all__ = ["metrics", "tracecontext", "flight_recorder", "faults",
            "decisions", "reqtimeline", "fleet", "kvledger", "numerics",
+           "kineto", "deviceprof",
            "registry", "dump_postmortem",
            "trace_scope", "merge_chrome_traces"]

@@ -25,6 +25,9 @@ Where the two differ:
   * f32 policy: `make_train_step` turns TF32 off for the process, so f32
     products are full f32 on the card as on the CPU (the parity runs);
     bf16 steps do not depend on it.
+  * The step's three parts run under the spans `train::forward`,
+    `train::backward` and `train::optimizer` (the Profiler's Forward,
+    Backward and Optimization phases; the device profile's modules).
 """
 import math
 from dataclasses import dataclass
@@ -37,6 +40,7 @@ from ..core.device import resolve_device
 from ..ops.flash_attention import (flash_attention_bhsd,
                                    reference_attention_bhsd)
 from ..ops.fused_ce import fused_linear_cross_entropy, matmul_f32
+from ..profiler import RecordEvent, TracerEventType
 
 __all__ = ["GPTSpmdConfig", "MeshPlan", "init_gpt_params",
            "init_opt_state_leaf", "make_train_step", "make_forward_fn",
@@ -347,9 +351,13 @@ def make_train_step(cfg: GPTSpmdConfig, plan: MeshPlan = None,
             p.requires_grad_(True)
             p.grad = None
         with torch.enable_grad():
-            loss = _loss(params, tokens.to(dev), labels.to(dev), cfg, attend)
-            loss.backward()
-        with torch.no_grad():
+            with RecordEvent("train::forward", TracerEventType.Forward):
+                loss = _loss(params, tokens.to(dev), labels.to(dev), cfg,
+                             attend)
+            with RecordEvent("train::backward", TracerEventType.Backward):
+                loss.backward()
+        with torch.no_grad(), RecordEvent("train::optimizer",
+                                          TracerEventType.Optimization):
             clip = torch.ones((), device=dev)
             if grad_clip:
                 sq = sum((p.grad.float() ** 2).sum() for p in params.values())

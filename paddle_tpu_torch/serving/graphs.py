@@ -45,6 +45,10 @@ counters (`ops.paged_attention.launches`, ...) cannot count its launches.
 The launches a capture records are credited to those counters once per
 replay, and the warm-up's and the capture's own calls are not counted.
 
+Profiling: while a torch profiler records, each replay runs inside a
+`graph::<name>` range, so `observability.deviceprof` names the
+executable its kernels belong to (their `hlo_module`).
+
 A capture that fails raises; there is no eager fallback on the card.
 """
 import gc
@@ -55,6 +59,16 @@ import torch
 from ..ops import paged_attention as _pa
 
 __all__ = ["StaticInputs", "Executables"]
+
+
+def _replay(name, graph):
+    """Replay `graph`, labelled `graph::<name>` while a torch profiler
+    records."""
+    if torch.autograd._profiler_enabled():
+        with torch.profiler.record_function(f"graph::{name}"):
+            graph.replay()
+    else:
+        graph.replay()
 
 
 class StaticInputs:
@@ -120,7 +134,7 @@ class Executables:
         graph, out, launches = self.capture(name, fn, inputs, safe)
         if upload:
             inputs.upload()
-        graph.replay()
+        _replay(name, graph)
         _pa.count_replay(launches)
         return out, launches[0]
 
@@ -128,7 +142,7 @@ class Executables:
         """Replay a captured graph over the inputs as they were last
         uploaded; returns its outputs."""
         graph, out, launches = self._graphs[name]
-        graph.replay()
+        _replay(name, graph)
         _pa.count_replay(launches)
         return out
 

@@ -81,7 +81,12 @@ and the tier store at every step boundary (refreshing the
 events go into the serving JSONL as `kvledger` records ahead of the
 `step` record that closed them.
 
-Left out of this port: `capture_decode_steps` (ROADMAP A.12c).
+Device profile: `capture_decode_steps(steps, out_dir)` arms a one-shot
+`observability.deviceprof` capture of the next `steps` decode steps,
+fired in a healthy window only (after a successful decode step, no slot
+quarantined, no failure contained); its summary lands on
+`last_capture`, and a decode failure while it is armed or in flight is
+reported, never silent.
 """
 import collections
 import itertools
@@ -444,6 +449,8 @@ class Scheduler:
         self._spec_proposed = 0
         self._spec_accepted = 0
         self._adopted = 0
+        self._capture = None                  # armed decode-step capture
+        self.last_capture = None              # finalize() summary block
         self._pending_swaps = collections.deque()   # armed hot-swaps
         self._pending_adapter_swaps = collections.deque()
         self.last_adapter_swap = None
@@ -769,6 +776,72 @@ class Scheduler:
             swap["event"].set()
         return applied
 
+    # -- the device profile of decode steps -----------------------------------
+    def capture_decode_steps(self, steps=1, out_dir="./serving_trace"):
+        """Arm a one-shot device-profile capture (observability.deviceprof)
+        spanning the next `steps` decode steps, fired only in a HEALTHY
+        window: at least one decode step has already succeeded (a capture
+        that spans the first step would record the graph's capture, not
+        serving) and no slot is quarantined by a failure. Artifacts land
+        under `out_dir` (the raw trace, the deviceprof.v1 JSONL and the
+        join report); the armed/capturing/reported state rides the
+        flight-recorder annotations. Returns the controller; the parsed
+        summary block is on `last_capture` after the window closes. The
+        capture runs on the engine's device."""
+        from ..observability import deviceprof
+        ctrl = deviceprof.OneShotCapture(out_dir, label="serving",
+                                         device=self.engine.device)
+        self._capture = {"ctrl": ctrl, "steps": max(int(steps), 1),
+                         "remaining": max(int(steps), 1), "wall_s": 0.0}
+        return ctrl
+
+    def _capture_healthy(self):
+        return (self._decode_time_s > 0.0 and not self._quarantined
+                and self._decode_failures == 0)
+
+    def _capture_step_done(self, dt):
+        """One successful decode step closed while a capture is in
+        flight: count it, and close + report the window when the last
+        captured step retires."""
+        cap = self._capture
+        if cap is None or cap["ctrl"].state != "capturing":
+            return
+        cap["wall_s"] += dt
+        cap["remaining"] -= 1
+        if cap["remaining"] > 0:
+            return
+        ctrl = cap["ctrl"]
+        ctrl.stop()
+        done = cap["steps"] - cap["remaining"]
+        self.last_capture = ctrl.finalize(
+            steps=max(done, 1),
+            wall_step_ms=1000.0 * cap["wall_s"] / max(done, 1))
+        self._capture = None
+
+    def _capture_abort(self, why):
+        """A decode failure while a capture is pending: mid-window, close
+        it and report the artifacts marked `aborted_by` (no gauges: the
+        window is known-sick); still armed, mark the controller failed so
+        the flight-recorder annotation and `last_capture` carry the
+        reason."""
+        cap = self._capture
+        if cap is None:
+            return
+        ctrl = cap["ctrl"]
+        if ctrl.state == "capturing":
+            ctrl.stop()
+            done = max(cap["steps"] - cap["remaining"], 1)
+            self.last_capture = ctrl.finalize(
+                steps=done,
+                wall_step_ms=(1000.0 * cap["wall_s"] / done)
+                if cap["wall_s"] else None,
+                aborted_by=why)
+        else:
+            ctrl.abort(why)
+            self.last_capture = {"state": ctrl.state, "error": ctrl.error,
+                                 "aborted_by": why}
+        self._capture = None
+
     # -- the iteration loop ---------------------------------------------------
     def step(self):
         """One scheduling iteration. Returns True while work remains."""
@@ -781,6 +854,16 @@ class Scheduler:
         self._grow_paged_slots()
         active = [r for r in self._slots if r is not None]
         if active:
+            cap = self._capture
+            if cap is not None and cap["ctrl"].armed \
+                    and self._capture_healthy() \
+                    and not cap["ctrl"].start():
+                # the trace could not open (e.g. another capture is
+                # active): report the dead controller instead of leaving
+                # it armed forever
+                self.last_capture = {"state": cap["ctrl"].state,
+                                     "error": cap["ctrl"].error}
+                self._capture = None
             t0 = self._clock()
             # a speculative engine advances each slot by a verify window
             # a round; every other engine by a 1-wide window
@@ -792,9 +875,12 @@ class Scheduler:
                     toks = np.asarray(self.engine.decode()).reshape(-1, 1)
                     counts = np.ones((toks.shape[0],), np.int32)
             except Exception as e:                       # noqa: BLE001
+                self._capture_abort(f"decode failure: "
+                                    f"{type(e).__name__}: {str(e)[:120]}")
                 self._on_decode_failure(e)
             else:
                 dt = self._clock() - t0
+                self._capture_step_done(dt)
                 self._decode_time_s += dt
                 self._decode_steps += 1
                 _M_DECODE_SECONDS.observe(dt)

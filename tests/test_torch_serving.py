@@ -384,6 +384,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "        'paddle_tpu_torch.observability.fleet',\n"
             "        'paddle_tpu_torch.observability.kvledger',\n"
             "        'paddle_tpu_torch.observability.numerics',\n"
+            "        'paddle_tpu_torch.observability.kineto',\n"
+            "        'paddle_tpu_torch.observability.deviceprof',\n"
+            "        'paddle_tpu_torch.cost_model',\n"
+            "        'paddle_tpu_torch.cost_model.analytical',\n"
+            "        'paddle_tpu_torch.profiler.statistic',\n"
             "        'paddle_tpu_torch.framework.ckpt_commit',\n"
             "        'paddle_tpu_torch.distributed.checkpoint',\n"
             "        'paddle_tpu_torch.distributed.ps.rpc',\n"

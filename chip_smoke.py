@@ -210,6 +210,23 @@ Phases (any exception ends the run with a non-zero exit):
      `analyze()` covers more than 0, and the timeline holds two records
      `tools/perf_report.py` accepts. Traces, records and the summary go
      to `chiprun_out/phase17/`.
+ 18. warm start: phase 4's GPT-125M written with
+     `serving.save_for_generation` (phase 4's paged engine recorded in
+     `.gencfg`, whose serving config must equal the config's `as_dict()`)
+     under `chiprun_out/phase18/`, with an empty `_compile_cache/`; then
+     two fresh processes each build `inference.create_predictor(Config(
+     artifact))` and `generate` phase 4's 16 prompts: a cold one, which
+     builds the paged kernel's library with nvcc through the artifact's
+     compile cache, and a warm one with nvcc off its PATH and CUDA_HOME
+     pointed nowhere, so that a compile would raise. Each prints its
+     load-to-ready seconds by stage, `predictor_executable_ready_seconds`,
+     the first request's TTFT, the cache's stats, the capture counts, the
+     paged launches and its peak memory. The cold precompile must report
+     every executable "miss" and the warm one "hit" (misses 0, hits >= 1),
+     both streams must equal phase 4's token for token, each child must
+     launch the paged kernel (decode and prefill tiles) and capture each
+     executable once. The weights and the libraries are removed at the
+     end; the children's logs and `phase18.json` stay.
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -3884,6 +3901,178 @@ def train_profile(smi, out_dir, B=8, iters=3, warmup=3):
     return out
 
 
+WARM_ENGINE = dict(slots=8, max_len=1024, block_size=16,
+                   attention_impl="kernel")
+WARM_CHILD_S = 600          # one Predictor process, a cold build included
+
+# phase 18's child: a fresh process that serves the artifact through the
+# user's entry points and prints one PHASE18 JSON line
+WARM_CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+t_torch = time.perf_counter()
+from paddle_tpu_torch.inference import Config, create_predictor
+from paddle_tpu_torch.observability import metrics
+from paddle_tpu_torch.ops import paged_attention as pa
+from paddle_tpu_torch._kernels import build
+t1 = time.perf_counter()
+artifact, prompts_path, max_new = sys.argv[1], sys.argv[2], int(sys.argv[3])
+with open(prompts_path) as f:
+    prompts = json.load(f)
+pred = create_predictor(Config(artifact))
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+eng = pred.engine
+pa.launches = pa.launches_window = pa.launches_prefill = 0
+streams = pred.generate(prompts, max_new_tokens=max_new)
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+print("PHASE18 " + json.dumps({
+    "import_s": t1 - t0, "import_torch_s": t_torch - t0,
+    "load_to_ready_s": t2 - t1,
+    "stages": pred.ready_stages,
+    "executable_ready_s": metrics.registry().gauge(
+        "predictor_executable_ready_seconds").value,
+    "first_ttft_s": pred.last_ttft_s[0], "generate_s": t3 - t2,
+    "report": pred.precompile_report, "stats": eng._compile_cache.stats,
+    "cache_dir": eng._compile_cache.root,
+    "nvcc_reachable": build._find_nvcc() is not None,
+    "capture_counts": eng.capture_counts,
+    "launches": pa.launches, "launches_prefill": pa.launches_prefill,
+    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    "streams": streams}), flush=True)
+"""
+
+
+def warm_child(artifact, prompts_path, max_new, env, log_path):
+    """Run WARM_CHILD on `artifact`; returns (its PHASE18 record, the
+    parent's seconds from spawn to exit)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", WARM_CHILD, artifact,
+                        prompts_path, str(max_new)], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=WARM_CHILD_S)
+    wall = time.perf_counter() - t0
+    with open(log_path, "w") as f:
+        f.write(r.stdout + "\n--- stderr ---\n" + r.stderr)
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("PHASE18 ")]
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f"phase 18 child exited {r.returncode}:\n"
+                             f"{r.stderr[-3000:]}")
+    return json.loads(lines[-1][len("PHASE18 "):]), wall
+
+
+def no_compiler_env():
+    """This environment with every PATH entry holding nvcc removed and
+    CUDA_HOME pointed at a directory that does not exist."""
+    env = dict(os.environ)
+    env["PATH"] = os.pathsep.join(
+        d for d in env.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc")))
+    env["CUDA_HOME"] = os.path.join(ROOT, "chiprun_out", "no-cuda-home")
+    return env
+
+
+def warm_start(prompts, want, smi, max_new=32):
+    """Phase 18: phase 4's GPT-125M saved with `save_for_generation`, then
+    served by `inference.create_predictor` in a cold and a warm process."""
+    import shutil
+    from paddle_tpu_torch.serving import (PagedEngineConfig,
+                                          default_compile_cache_dir,
+                                          save_for_generation)
+    from paddle_tpu_torch.text.models import gpt_125m
+    out = os.path.join(ROOT, "chiprun_out", "phase18")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    artifact = os.path.join(out, "gpt125m")
+    cache_dir = default_compile_cache_dir(artifact)
+    try:
+        model = gpt_125m(device="cuda", seed=0)
+        cfg = PagedEngineConfig(**WARM_ENGINE)
+        t0 = time.perf_counter()
+        save_for_generation(model, artifact, engine_config=cfg)
+        save_s = time.perf_counter() - t0
+        del model
+        with open(artifact + ".gencfg") as f:
+            rec = json.load(f)["serving"]
+        if rec["config"] != cfg.as_dict() or rec["engine"] != "paged":
+            raise AssertionError(f"phase 18: .gencfg records {rec}, want "
+                                 f"paged {cfg.as_dict()}")
+        if os.path.exists(cache_dir) and os.listdir(cache_dir):
+            raise AssertionError("phase 18: the artifact's compile cache "
+                                 "is not empty before the cold child")
+        prompts_path = os.path.join(out, "prompts.json")
+        with open(prompts_path, "w") as f:
+            json.dump(prompts, f)
+        runs = {}
+        for what, env in (("cold", dict(os.environ)),
+                          ("warm", no_compiler_env())):
+            rec_c, wall = warm_child(artifact, prompts_path, max_new, env,
+                                     os.path.join(out, f"{what}.log"))
+            rec_c["spawn_to_exit_s"] = wall
+            runs[what] = rec_c
+        names = rec["executables"]
+        for what, want_how in (("cold", "miss"), ("warm", "hit")):
+            r = runs[what]
+            if r["report"] != dict.fromkeys(names, want_how):
+                raise AssertionError(f"phase 18 {what}: precompile "
+                                     f"reported {r['report']}")
+            if r["cache_dir"] != os.path.abspath(cache_dir):
+                raise AssertionError(f"phase 18 {what}: cache "
+                                     f"{r['cache_dir']}, want {cache_dir}")
+            if r["streams"] != want:
+                bad = [i for i, (a, b) in enumerate(zip(r["streams"], want))
+                       if a != b]
+                raise AssertionError(f"phase 18 {what}: streams differ from "
+                                     f"phase 4's at requests {bad}")
+            if r["launches"] <= 0 or r["launches_prefill"] <= 0:
+                raise AssertionError(f"phase 18 {what}: paged launches "
+                                     f"{r['launches']} ({r['launches_prefill']}"
+                                     " on the tile path)")
+            if r["capture_counts"] != dict.fromkeys(names, 1):
+                raise AssertionError(f"phase 18 {what}: capture counts "
+                                     f"{r['capture_counts']}")
+        cold, warm = runs["cold"], runs["warm"]
+        if cold["stats"]["misses"] < 1 or cold["stats"]["hits"] != 0:
+            raise AssertionError(f"phase 18 cold: cache {cold['stats']}")
+        if warm["stats"]["misses"] != 0 or warm["stats"]["hits"] < 1:
+            raise AssertionError(f"phase 18 warm: cache {warm['stats']}")
+        if warm["nvcc_reachable"]:
+            raise AssertionError("phase 18 warm: nvcc was reachable")
+        result = {"save_s": save_s, "cold": cold, "warm": warm, "card": smi}
+        for what, r in runs.items():
+            st = r["stages"]
+            log(f"warm start {what}: import {r['import_s']:.2f} s (torch "
+                f"{r['import_torch_s']:.2f}), load to "
+                f"ready {r['load_to_ready_s']:.2f} s (weights read "
+                f"{st['weights_read_s']:.2f}, model build "
+                f"{st['model_build_s']:.2f}, engine build "
+                f"{st['engine_build_s']:.2f}, libraries "
+                f"{st['libraries_s']:.2f}, captures {st['captures_s']:.2f}; "
+                f"executable ready {r['executable_ready_s']:.2f}), first "
+                f"TTFT {r['first_ttft_s']:.4f} s, spawn to exit "
+                f"{r['spawn_to_exit_s']:.2f} s, cache {r['stats']}, "
+                f"report {sorted(set(r['report'].values()))}, captures "
+                f"{sorted(set(r['capture_counts'].values()))}, paged "
+                f"launches {r['launches']} ({r['launches_prefill']} tile), "
+                f"peak {r['peak_mem_gb']:.2f} GB [{smi}]")
+        log(f"warm start: saved in {save_s:.2f} s; both children's "
+            f"{len(want)} streams equal phase 4's; the warm child had no "
+            f"nvcc [{smi}]")
+        for r in runs.values():
+            del r["streams"]
+        with open(os.path.join(out, "phase18.json"), "w") as f:
+            json.dump(result, f, indent=1)
+        return result
+    finally:
+        # the weights (~0.5 GB) and the libraries stay out of chiprun_out
+        for path in (artifact + ".pdiparams", cache_dir):
+            if os.path.isdir(path):
+                shutil.rmtree(path, ignore_errors=True)
+            elif os.path.exists(path):
+                os.remove(path)
+
+
 def main(argv):
     flash_only = "--flash-only" in argv
     try:
@@ -4144,6 +4333,15 @@ def main(argv):
     report["deviceprof_train"] = train_profile(smi, out17)
     report["phase17_s"] = time.perf_counter() - t17
     log(f"phase 17 took {report['phase17_s']:.1f} s [{smi}]")
+
+    # 18. warm start: save_for_generation and the Predictor ------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    report["warm_start"] = warm_start(prompts, [h.tokens for h in handles],
+                                      smi)
+    report["phase18_s"] = time.perf_counter() - t18
+    log(f"phase 18 took {report['phase18_s']:.1f} s [{smi}]")
 
     # summary ------------------------------------------------------------------------
     dec = next(c for c in cases if c["case"] == "decode_f32")

@@ -21,14 +21,20 @@ neither it nor JAX. Its slices so far:
     committed checkpoints (`framework/ckpt_commit.py`,
     `distributed/checkpoint.py`), and the worker verbs, router and
     worker process of `serving/distributed/`, which run prefill and
-    decode workers as separate processes on one card.
+    decode workers as separate processes on one card;
+  * warm start and deploy (the counterparts of `paddle_tpu.framework`'s
+    `io`, `flags` and `compile_cache` and of `paddle_tpu.inference`):
+    `serving.save_for_generation` writes a servable artifact, the kernel
+    libraries live in a persistent compile cache, and
+    `inference.create_predictor` serves the artifact cold in a new
+    process.
 
 Every entry point takes `device=` and defaults to "cuda"; without CUDA it
 raises unless the caller passes device="cpu", which runs the plain
 PyTorch versions of the kernels.
 """
 from . import core, cost_model, observability, ops, parallel  # noqa: F401
-from . import profiler  # noqa: F401
+from . import framework, inference, profiler  # noqa: F401
 from . import serving, text  # noqa: F401
 from .core.device import resolve_device  # noqa: F401
 from .serving import (  # noqa: F401
@@ -37,8 +43,10 @@ from .serving import (  # noqa: F401
 )
 from .text.models import GPT, GPTConfig, gpt_125m, gpt_tiny  # noqa: F401
 
-__all__ = ["core", "cost_model", "observability", "ops", "parallel",
-           "profiler",
+__version__ = "0.1.0"
+
+__all__ = ["core", "cost_model", "framework", "inference", "observability",
+           "ops", "parallel", "profiler",
            "serving", "text", "resolve_device",
            "EngineConfig", "GenerationEngine", "PagedEngineConfig",
            "PagedGenerationEngine", "Scheduler", "ServingConfig", "GPT",

@@ -9,7 +9,9 @@ continuous-batching scheduler (counterpart of `paddle_tpu.serving`).
   engine.py       — dense and paged prefill/decode engines, int8 decode
                     weights, logit capture, weight hot-swap, KV handoff
                     (extract, adopt, prefix restore), KV tiers under the
-                    prefix cache, LoRA adapters, `make_engine`
+                    prefix cache, LoRA adapters, `make_engine`, and the
+                    servable artifact: `save_for_generation`,
+                    `load_generation_model`, `default_compile_cache_dir`
   spec_decode.py  — speculative decode: draft proposals, one verify window
   scheduler.py    — priority queue, continuous batching, preemption,
                     speculative rounds, scheduled weight swaps, staged
@@ -30,7 +32,8 @@ from .blocks import (  # noqa: F401
 )
 from .engine import (  # noqa: F401
     EngineConfig, GenerationEngine, PagedEngineConfig, PagedGenerationEngine,
-    make_engine,
+    default_compile_cache_dir, load_generation_model, make_engine,
+    save_for_generation,
 )
 from .prefix_cache import PrefixCache, prefix_key  # noqa: F401
 from .scheduler import (  # noqa: F401
@@ -46,7 +49,8 @@ __all__ = [
     "BlockAllocError", "BlockPool", "PagedLayerKV", "QuantPagedLayerKV",
     "PrefixCache", "prefix_key",
     "EngineConfig", "GenerationEngine", "PagedEngineConfig",
-    "PagedGenerationEngine", "make_engine",
+    "PagedGenerationEngine", "make_engine", "save_for_generation",
+    "default_compile_cache_dir", "load_generation_model",
     "PRIORITIES", "LoadShedError", "QueueFullError", "RateLimitedError",
     "Request",
     "RequestHandle", "Scheduler",

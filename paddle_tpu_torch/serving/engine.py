@@ -96,10 +96,24 @@ for int8 ones), so the damage reaches the captured decode graph and never
 the prefill masters; a disarmed float engine's decode storage is the
 masters themselves, so there it reaches prefill too.
 
-Left out of this port: the persistent compile cache (ROADMAP A.12d).
+Warm start (`framework/compile_cache.py`): `EngineConfig(
+compile_cache_dir=)` gives the engine a private compile cache, through
+which `precompile()` (and the first call) resolves the kernel libraries
+its executables launch (`_kernels/build.py`: the private cache, else the
+attached global one, else the default build directory). What a warm
+process reuses is those libraries; the CUDA graphs are captured again in
+every process. `save_for_generation` writes a servable artifact: the
+weights in the JAX layout (`.pdiparams`, `framework.io`), and a `.gencfg`
+record of the GPT config, the engine kind, its `as_dict()` and the
+executable set, which `inference.Predictor` (and the JAX package's
+`load_generation_model`) rebuild from. No `.pdmodel` is written: there is
+no StableHLO program in the port.
 """
 import functools
 import gc
+import json
+import os
+import time
 
 import numpy as np
 import torch
@@ -119,9 +133,14 @@ from .kv_tiers import TieredBlockStore, corrupt_counter
 from .prefix_cache import PrefixCache, prefix_key
 
 __all__ = ["EngineConfig", "GenerationEngine", "PagedEngineConfig",
-           "PagedGenerationEngine", "DEFAULT_BUCKETS", "make_engine"]
+           "PagedGenerationEngine", "DEFAULT_BUCKETS", "make_engine",
+           "save_for_generation", "default_compile_cache_dir",
+           "load_generation_model", "read_gencfg", "artifact_prefix",
+           "GENCFG_SUFFIX", "COMPILE_CACHE_DIRNAME"]
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024)
+GENCFG_SUFFIX = ".gencfg"
+COMPILE_CACHE_DIRNAME = "_compile_cache"
 
 
 def _quantize_weight(w):
@@ -138,12 +157,18 @@ def _quantize_weight(w):
 
 
 class EngineConfig:
-    """Slot, bucket and strategy knobs for one GenerationEngine."""
+    """Slot, bucket and strategy knobs for one GenerationEngine.
+
+    `compile_cache_dir` gives the engine a private compile cache for the
+    kernel libraries its executables launch (see the module docstring).
+    The path is machine-local and not part of `as_dict()`: an artifact
+    records what to build, each loader decides where the libraries
+    live."""
 
     def __init__(self, slots=4, max_len=256, prefill_buckets=None,
                  decode_strategy="greedy", temperature=1.0, top_k=0,
                  top_p=1.0, eos_token_id=None, seed=0,
-                 numerics_taps=False):
+                 compile_cache_dir=None, numerics_taps=False):
         self.slots = int(slots)
         self.max_len = int(max_len)
         # the ladder always ends in a max_len bucket so every prompt the
@@ -157,9 +182,26 @@ class EngineConfig:
         self.top_p = float(top_p)
         self.eos_token_id = eos_token_id
         self.seed = int(seed)
+        self.compile_cache_dir = compile_cache_dir
         # arms the numerics taps in the executables (see the module
         # docstring); decided when the engine is built
         self.numerics_taps = bool(numerics_taps)
+
+    # the fields the `.gencfg` serving record round-trips, the JAX
+    # package's: seed is in (it keeps a rebuilt engine's sampled streams
+    # the saved one's), compile_cache_dir is out (machine-local)
+    _DICT_FIELDS = ("slots", "max_len", "prefill_buckets",
+                    "decode_strategy", "temperature", "top_k", "top_p",
+                    "eos_token_id", "seed", "numerics_taps")
+
+    def as_dict(self):
+        """JSON-serializable ctor kwargs: `type(cfg)(**cfg.as_dict())`
+        rebuilds the config, and the `.gencfg` record stores this."""
+        out = {}
+        for f in self._DICT_FIELDS:
+            v = getattr(self, f)
+            out[f] = list(v) if isinstance(v, tuple) else v
+        return out
 
 
 class GenerationEngine:
@@ -217,6 +259,14 @@ class GenerationEngine:
         self._adapter_bank = None
         self._adapter_tree = None
         self._slot_adapter = np.zeros((self.config.slots,), np.int32)
+        # the engine's private compile cache (None: the global or default
+        # one) and how this process got the libraries it launches
+        self._compile_cache = None
+        if self.config.compile_cache_dir:
+            from ..framework.compile_cache import CompileCache
+            self._compile_cache = CompileCache(self.config.compile_cache_dir)
+        self._libraries = None
+        self.last_precompile_stats = {}
         self._alloc_state()
 
     _config_cls = EngineConfig
@@ -710,6 +760,45 @@ class GenerationEngine:
     def slots(self):
         return self.config.slots
 
+    # -- the executables and their libraries -------------------------------
+    def executable_names(self):
+        """The serving executables, the JAX engine's list for the same
+        config: what `save_for_generation` records and `precompile()`
+        prepares (`_executable_set` of this engine's kind and config)."""
+        return _executable_set(_engine_kind(self.config), self.config)
+
+    def _executable_libraries(self, name):
+        """The kernel libraries executable `name` launches (none: the dense
+        engine runs plain PyTorch)."""
+        return []
+
+    def _ensure_libraries(self):
+        """Resolve every kernel library this engine's executables launch
+        through its compile cache (`_kernels.build.load`); returns {library:
+        "miss" | "hit"} as this process got each."""
+        if self._libraries is None:
+            from .._kernels import build
+            libs = sorted({lib for n in self.executable_names()
+                           for lib in self._executable_libraries(n)})
+            for lib in libs:
+                build.load(lib, cache=self._compile_cache)
+            self._libraries = {lib: build.outcome(lib) for lib in libs}
+        return self._libraries
+
+    def _under_cache(self):
+        """Whether a compile cache of the engine's own or the attached
+        global one resolves its libraries."""
+        from ..framework import compile_cache
+        return self._compile_cache is not None or \
+            compile_cache.active() is not None
+
+    def precompile(self):
+        """The dense engine runs eagerly: nothing to build or capture.
+        Returns {executable: "eager"}."""
+        self.last_precompile_stats = {"libraries_s": 0.0, "captures_s": 0.0,
+                                      "libraries": {}}
+        return dict.fromkeys(self.executable_names(), "eager")
+
     @property
     def capture_counts(self):
         """{executable: times captured as a CUDA graph}; the dense engine
@@ -792,6 +881,12 @@ class PagedEngineConfig(EngineConfig):
         self.disk_tier_dir = disk_tier_dir
         self.disk_tier_blocks = int(disk_tier_blocks)
         self.disk_tier_compact_threshold = float(disk_tier_compact_threshold)
+
+    _DICT_FIELDS = EngineConfig._DICT_FIELDS + (
+        "block_size", "num_blocks", "enable_prefix_cache", "attention_impl",
+        "kv_dtype", "weight_dtype", "capture_logits", "enable_kv_tiers",
+        "host_tier_blocks", "host_tier_dtype", "disk_tier_dir",
+        "disk_tier_blocks", "disk_tier_compact_threshold")
 
 
 class PagedGenerationEngine(GenerationEngine):
@@ -1062,11 +1157,13 @@ class PagedGenerationEngine(GenerationEngine):
             self.ensure_slot_capacity(s)
 
     # -- the executables ------------------------------------------------------
-    def executable_names(self):
-        """The engine's serving executables, the JAX engine's list for the
-        same config."""
-        return ["decode"] + [f"prefill[{b}]"
-                             for b in self.config.prefill_buckets]
+    def _executable_libraries(self, name):
+        """The paged kernel's library, for every executable on the kernel
+        path on the card (the gather path and the CPU launch none)."""
+        if self.device.type == "cuda" and \
+                self.config.attention_impl == "kernel":
+            return ["paged_attention"]
+        return []
 
     @property
     def capture_counts(self):
@@ -1090,20 +1187,45 @@ class PagedGenerationEngine(GenerationEngine):
 
     def precompile(self):
         """Capture every serving executable as a CUDA graph without serving
-        a request: the kernel library is built, each graph is warmed up
-        and captured over the safe state, and no RNG is drawn and no
-        engine state moves, so token streams are identical with or without
-        it. Returns {executable: "captured"}, or on the CPU, where the
-        executables run eagerly, {executable: "eager"}."""
+        a request: the kernel libraries are resolved through the compile
+        cache, each graph is warmed up and captured over the safe state,
+        and no RNG is drawn and no engine state moves, so token streams are
+        identical with or without it.
+
+        Returns, for each executable, under a compile cache (the engine's
+        own or the attached global one) the outcome of the libraries it
+        launches: "miss" in the process that built them (any of them),
+        "hit" in a later process that loaded them all from committed
+        entries; otherwise, or for an executable that launches none,
+        "captured". On the CPU, where the executables run eagerly,
+        "eager". The graphs are this process's: `capture_counts` reads 1
+        each after a warm start as after a cold one.
+        `last_precompile_stats` holds the seconds of the library stage
+        and of the captures, and the libraries' outcomes."""
         names = self.executable_names()
         if self.device.type != "cuda":
+            self.last_precompile_stats = {"libraries_s": 0.0,
+                                          "captures_s": 0.0, "libraries": {}}
             return dict.fromkeys(names, "eager")
         gc.collect()                  # free dead graphs' memory first
-        if self.config.attention_impl == "kernel":
-            _pa.decode_split_keys()             # builds the library
+        t0 = time.perf_counter()
+        libs = self._ensure_libraries()
+        if libs:
+            _pa.decode_split_keys()             # binds the library
+        t1 = time.perf_counter()
         for name in names:
             self._exe.capture(name, *self._executable(name))
-        return dict.fromkeys(names, "captured")
+        torch.cuda.synchronize(self.device)
+        self.last_precompile_stats = {
+            "libraries_s": t1 - t0, "captures_s": time.perf_counter() - t1,
+            "libraries": dict(libs)}
+        cached = self._under_cache()
+        out = {}
+        for name in names:
+            got = [libs[lib] for lib in self._executable_libraries(name)]
+            out[name] = ("miss" if "miss" in got else "hit") \
+                if cached and got else "captured"
+        return out
 
     def _adapter_ids(self):
         """The decode inputs' adapter field, uploaded before every call."""
@@ -1123,6 +1245,8 @@ class PagedGenerationEngine(GenerationEngine):
     def _run(self, name, upload=True):
         """Run executable `name` (a replay on the card) and count its
         paged-kernel launches."""
+        if self._libraries is None:
+            self._ensure_libraries()
         out, launches = self._exe.run(name, *self._executable(name),
                                       upload=upload)
         self.kernel_launches += launches
@@ -1674,23 +1798,162 @@ class PagedGenerationEngine(GenerationEngine):
                         pool[dst] = f.to(pool.dtype)
 
 
-def make_engine(model, kind, config_dict, device="cuda"):
+def default_compile_cache_dir(path):
+    """The compile cache that lives next to a serving artifact: what
+    `save_for_generation(precompile=True)` fills and a Predictor loads
+    from."""
+    return os.path.join(os.path.dirname(os.path.abspath(path)),
+                        COMPILE_CACHE_DIRNAME)
+
+
+def _engine_kind(config):
+    """"dense" | "paged" | "spec" for an EngineConfig-family instance
+    (most-derived class first). The JAX package's "tp", "pp" and
+    "spec_pp" kinds are multi-GPU serving, not ported yet (ROADMAP
+    A.10): no config of theirs exists in the port."""
+    from .spec_decode import SpecDecodeConfig
+    if isinstance(config, SpecDecodeConfig):
+        return "spec"
+    if isinstance(config, PagedEngineConfig):
+        return "paged"
+    if isinstance(config, EngineConfig):
+        return "dense"
+    raise TypeError(f"engine_config must be an EngineConfig, got "
+                    f"{type(config).__name__}")
+
+
+# the JAX package's multi-GPU engine kinds, which the port cannot build yet
+UNPORTED_KINDS = ("tp", "pp", "spec_pp")
+
+
+def make_engine(model, kind, config_dict, device="cuda",
+                compile_cache_dir=None):
     """An engine of `kind` ("dense", "paged" or "spec") over `model`,
-    its config built from `config_dict` (the ctor kwargs a serving
-    worker is started with). The tensor- and pipeline-parallel kinds of
-    the JAX `make_engine` ("tp", "pp", "spec_pp") are multi-GPU serving,
-    not ported yet."""
+    its config built from `config_dict` (a `.gencfg` record's config, or
+    the ctor kwargs a serving worker is started with) plus a
+    machine-local compile-cache dir. The tensor- and pipeline-parallel
+    kinds of the JAX `make_engine` ("tp", "pp", "spec_pp") are multi-GPU
+    serving, not ported yet: they raise NotImplementedError."""
     from .spec_decode import SpecDecodeConfig, SpeculativeEngine
     classes = {"dense": (GenerationEngine, EngineConfig),
                "paged": (PagedGenerationEngine, PagedEngineConfig),
                "spec": (SpeculativeEngine, SpecDecodeConfig)}
-    if kind in ("tp", "pp", "spec_pp"):
+    if kind in UNPORTED_KINDS:
         raise NotImplementedError(
             f"serving engine kind {kind!r} is multi-GPU serving, not "
             f"ported yet (ROADMAP A.10)")
     if kind not in classes:
         raise ValueError(
             f"unknown serving engine kind {kind!r}; want one of "
-            f"{sorted(classes) + ['tp', 'pp', 'spec_pp']}")
+            f"{sorted(classes) + list(UNPORTED_KINDS)}")
     engine_cls, cfg_cls = classes[kind]
-    return engine_cls(model, cfg_cls(**config_dict), device=device)
+    cfg = cfg_cls(compile_cache_dir=compile_cache_dir, **config_dict)
+    return engine_cls(model, cfg, device=device)
+
+
+_GPT_FIELDS = ("vocab_size", "max_position_embeddings", "hidden_size",
+               "num_layers", "num_heads", "intermediate_size",
+               "hidden_dropout", "attention_dropout", "initializer_range",
+               "tie_embeddings")
+
+
+def save_for_generation(model, path, input_spec=None, engine_config=None,
+                        precompile=False, compile_cache_dir=None):
+    """Write a servable artifact of a GPT at `path`: `path.pdiparams`
+    ({"params", "buffers", "feed_names"} through `framework.io`, the
+    weights in the JAX package's names and `[in, out]` layout) and
+    `path.gencfg` (the GPT config; with `engine_config`, the serving
+    record: the engine kind, `engine_config.as_dict()` and the executable
+    set), the files the JAX `save_for_generation` writes but its
+    `.pdmodel`. `input_spec` only names the feed (default "input_ids").
+
+    With `precompile=True` the recorded engine is built now on the
+    model's device, with the compile cache `compile_cache_dir` (default
+    `default_compile_cache_dir(path)`), and `precompile()`d: the kernel
+    libraries it launches are committed there, so a cold Predictor
+    loads them instead of compiling. Returns that report, or None."""
+    from ..framework import io as _io
+    from ..text.models.convert import to_jax_params
+    from ..text.models.gpt import GPT, GPTForGeneration
+    if isinstance(model, GPTForGeneration):
+        model = model.gpt
+    if not isinstance(model, GPT):
+        raise TypeError("save_for_generation expects a GPT/GPTForGeneration")
+    if precompile and engine_config is None:
+        raise ValueError("precompile=True needs an engine_config: the "
+                         "executable set to prepare is derived from it")
+    feed = [getattr(s, "name", None) or f"input_{i}"
+            for i, s in enumerate(input_spec or [])] or ["input_ids"]
+    _io.save({"params": to_jax_params(model), "buffers": {},
+              "feed_names": feed}, path + ".pdiparams")
+    meta = {"model_family": "gpt",
+            "config": {k: getattr(model.cfg, k) for k in _GPT_FIELDS}}
+    engine = None
+    if engine_config is not None:
+        kind = _engine_kind(engine_config)
+        if precompile:
+            engine = make_engine(
+                model, kind, engine_config.as_dict(), device=model.device,
+                compile_cache_dir=compile_cache_dir
+                or default_compile_cache_dir(path))
+        meta["serving"] = {"engine": kind, "config": engine_config.as_dict(),
+                           "executables": _executable_set(kind,
+                                                          engine_config)}
+    with open(path + GENCFG_SUFFIX, "w") as f:
+        json.dump(meta, f)
+    if engine is not None:
+        return engine.precompile()
+    return None
+
+
+def _executable_set(kind, config):
+    """The executable names of an engine of `kind` and `config`: what
+    every engine's `executable_names()` returns and a serving record
+    lists, known without building the engine."""
+    names = ["decode"] + [f"prefill[{b}]" for b in config.prefill_buckets]
+    if kind == "spec":
+        names += ["draft_decode", "spec_verify"]
+        names += [f"draft_prefill[{b}]" for b in config.prefill_buckets]
+    return names
+
+
+def artifact_prefix(path):
+    """An artifact's path without its suffix (`.pdmodel`, `.pdiparams` or
+    `.gencfg`)."""
+    for suffix in (".pdmodel", ".pdiparams", GENCFG_SUFFIX):
+        if path.endswith(suffix):
+            return path[:-len(suffix)]
+    return path
+
+
+def read_gencfg(path):
+    """The `.gencfg` record of the artifact at `path` (its prefix, or any
+    of its files), or None."""
+    try:
+        with open(artifact_prefix(path) + GENCFG_SUFFIX) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def load_generation_model(prog_file, params, device="cuda"):
+    """The GPT of a `.gencfg` record (the artifact's prefix, `.pdmodel`,
+    `.pdiparams` or `.gencfg` path) with `params` ({JAX name: array or
+    tensor} in the JAX layout, as `framework.io.load` reads a
+    `.pdiparams`) loaded, on `device`, in eval mode; None when the
+    artifact has no record. bfloat16 weights give a bfloat16 model."""
+    meta = read_gencfg(prog_file)
+    if meta is None:
+        return None
+    from ..text.models.convert import load_jax_params
+    from ..text.models.gpt import GPT, GPTConfig
+    first = next(iter(params.values()))
+    dtype = first.dtype if isinstance(first, torch.Tensor) and \
+        first.is_floating_point() else torch.float32
+    host = {n: v.detach().to("cpu", torch.float32).numpy()
+            if isinstance(v, torch.Tensor) else v for n, v in params.items()}
+    model = GPT(GPTConfig(**meta["config"]), device=device, dtype=dtype,
+                init_weights=False)
+    load_jax_params(model, host)
+    model.eval()
+    return model

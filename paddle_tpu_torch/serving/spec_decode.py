@@ -16,6 +16,8 @@ engine's plus `draft_decode` (the gamma+1 draft decodes of a round, which
 leave the window in a static buffer), `spec_verify` (the [slots, gamma+1]
 verify forward and `greedy_verify`, up to the round's one host read) and
 `draft_prefill[bucket]`; on the card each is a CUDA graph captured once.
+The draft's executables launch no kernel library, so `precompile()`
+reports them "captured" under a compile cache too.
 The draft's dense cache, its positions and the per-bucket one-slot caches
 of its prefill are static storage too.
 
@@ -131,6 +133,9 @@ class SpecDecodeConfig(PagedEngineConfig):
                 "engine: its decode is the verify window; point quality "
                 "checks at a PagedGenerationEngine")
 
+    # the `.gencfg` record's fields: the paged engine's and the knobs
+    _DICT_FIELDS = PagedEngineConfig._DICT_FIELDS + ("gamma", "draft_layers")
+
 
 class SpeculativeEngine(PagedGenerationEngine):
     """PagedGenerationEngine whose decode step is a speculative round.
@@ -228,13 +233,15 @@ class SpeculativeEngine(PagedGenerationEngine):
         self._draft_decode_params = out
 
     # -- the executables ------------------------------------------------------
-    def executable_names(self):
-        return super().executable_names() + \
-            ["draft_decode", "spec_verify"] + \
-            [f"draft_prefill[{b}]" for b in self.config.prefill_buckets]
-
     def _adapter_executables(self):
         return super()._adapter_executables() + ["spec_verify"]
+
+    def _executable_libraries(self, name):
+        """The draft's executables run on its dense cache and launch no
+        kernel library; the rest are the paged engine's."""
+        if name.startswith("draft_"):
+            return []
+        return super()._executable_libraries(name)
 
     def _executable(self, name):
         if name == "draft_decode":

@@ -1,5 +1,6 @@
-"""Carry weights from the JAX GPT (`paddle_tpu.text.models.gpt`) into the
-PyTorch one.
+"""Carry weights between the JAX GPT (`paddle_tpu.text.models.gpt`) and
+the PyTorch one: `load_jax_params` into the port, `to_jax_params` back
+(what `serving.save_for_generation` writes into `.pdiparams`).
 
 The JAX model's parameter names (`wte.weight`, `blocks.{i}.attn.qkv.weight`,
 `blocks.{i}.mlp.fc1.bias`, `ln_f.weight`, ...) are the port's module paths
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "to_jax_params"]
 
 
 def load_jax_params(model, params):
@@ -37,3 +38,18 @@ def load_jax_params(model, params):
                                  f"layout) != {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.ascontiguousarray(arr)).to(p.dtype))
     return model
+
+
+def to_jax_params(model):
+    """The reverse of `load_jax_params`: {jax name: CPU tensor} of every
+    parameter of `model`, Linear weights transposed to `[in, out]`
+    (contiguous), in the model's dtype."""
+    linear_weights = {f"{name}.weight" for name, mod in model.named_modules()
+                      if isinstance(mod, nn.Linear)}
+    out = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            t = p.detach().to("cpu")
+            out[name] = t.t().contiguous() if name in linear_weights \
+                else t.clone()
+    return out

@@ -153,23 +153,29 @@ class GPT(nn.Module):
     `torch.Generator` seeded `seed` (Normal(0, initializer_range) for
     weights and embeddings, zero biases, unit LayerNorm scales, as the JAX
     model initializes) and then moved to `device`, so a seed gives the same
-    weights on every device."""
+    weights on every device. `init_weights=False` skips that draw: the
+    modules are made on `device` with PyTorch's default initialization,
+    for a caller that loads every parameter (`serving.
+    load_generation_model`)."""
 
     def __init__(self, cfg: GPTConfig, device="cuda", seed=0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, init_weights=True):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.wpe = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
-        self.drop = nn.Dropout(cfg.hidden_dropout)
-        self.blocks = nn.ModuleList(GPTBlock(cfg)
-                                    for _ in range(cfg.num_layers))
-        self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS)
-        if not cfg.tie_embeddings:
-            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
-                                     bias=False)
-        self._init_weights(torch.Generator().manual_seed(int(seed)))
+        with torch.device("cpu" if init_weights else dev):
+            self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+            self.wpe = nn.Embedding(cfg.max_position_embeddings,
+                                    cfg.hidden_size)
+            self.drop = nn.Dropout(cfg.hidden_dropout)
+            self.blocks = nn.ModuleList(GPTBlock(cfg)
+                                        for _ in range(cfg.num_layers))
+            self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS)
+            if not cfg.tie_embeddings:
+                self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                         bias=False)
+        if init_weights:
+            self._init_weights(torch.Generator().manual_seed(int(seed)))
         self.to(device=dev, dtype=dtype)
         self.eval()
 

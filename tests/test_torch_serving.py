@@ -390,6 +390,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "        'paddle_tpu_torch.cost_model.analytical',\n"
             "        'paddle_tpu_torch.profiler.statistic',\n"
             "        'paddle_tpu_torch.framework.ckpt_commit',\n"
+            "        'paddle_tpu_torch.framework.io',\n"
+            "        'paddle_tpu_torch.framework.flags',\n"
+            "        'paddle_tpu_torch.framework.compile_cache',\n"
+            "        'paddle_tpu_torch.inference',\n"
             "        'paddle_tpu_torch.distributed.checkpoint',\n"
             "        'paddle_tpu_torch.distributed.ps.rpc',\n"
             "        'paddle_tpu_torch.serving.distributed.worker',\n"
@@ -397,6 +401,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "        'paddle_tpu_torch.serving.distributed.worker_main',\n"
             "        'paddle_tpu_torch._kernels.build'} <= set(mods), mods\n"
             "from paddle_tpu_torch.serving import make_engine\n"
+            "from paddle_tpu_torch.inference import create_predictor\n"
             "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]\n"

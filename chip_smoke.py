@@ -227,6 +227,27 @@ Phases (any exception ends the run with a non-zero exit):
      launch the paged kernel (decode and prefill tiles) and capture each
      executable once. The weights and the libraries are removed at the
      end; the children's logs and `phase18.json` stay.
+ 19. multi-device serving on one card (`serving/distributed/tp.py`,
+     `pp.py`): phase 4's GPT-125M weights, 8 slots, `max_len` 1024, block
+     16, the kernel path, phase 4's 16 prompts and 32 new tokens, greedy,
+     through the `Scheduler` on (a) `pp=2` (6 layers a stage,
+     `decode_microbatches=2`), (b) `tp=2` (6 heads a shard), (c) `tp=2,
+     pp=2` in f32 and with int8 KV (phase 5's four prompts), (d) `spec_pp`
+     with `pp=2, gamma=4, draft_layers=2`; every stage and shard on the
+     one card, each named by `kv_shard_report`. Each arm is precompiled
+     and must hold: streams equal to phase 4's token for token ((a)-(c)
+     f32; a departure prints the step and the single-device engine's top-2
+     gap there, and fails), phase 5's ((c) int8) or arm (a)'s ((d));
+     every stage executable captured once; `heads/tp` heads a shard;
+     `num_layers * tp` paged launches a forward (a microbatch through the
+     stages) over the decode steps and the prefills; the bubble gauge at
+     (pp-1)/(M+pp-1) over a decode window; each shard's pool bytes the
+     single pool's over tp*pp (`hbm_accounting`). Each arm prints its
+     decode step ms and TTFT with the card's name and power limit, and
+     phase 19's launches per kernel go to the report. No number of this
+     phase is a multi-card speed: every stage shares the one card.
+     `--parallel-only` runs phases 1-5 (4 and 5 for their streams) and
+     19.
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -3973,6 +3994,173 @@ def no_compiler_env():
     return env
 
 
+PAR_ENGINE = dict(slots=8, max_len=1024, block_size=16,
+                  attention_impl="kernel")
+PAR_ARMS = (            # (name, engine kind, config, prompt range, streams)
+    ("pp2", "pp", dict(pp=2, decode_microbatches=2), slice(0, 16), "p4"),
+    ("tp2", "tp", dict(tp=2), slice(0, 16), "p4"),
+    ("tp2pp2", "pp", dict(pp=2, tp=2, decode_microbatches=2), slice(0, 16),
+     "p4"),
+    ("tp2pp2_int8", "pp", dict(pp=2, tp=2, decode_microbatches=2,
+                               kv_dtype="int8"), slice(8, 12), "p5"),
+    ("spec_pp2", "spec_pp", dict(pp=2, decode_microbatches=2, gamma=4,
+                                 draft_layers=2), slice(0, 16), "pp2"))
+
+
+def parallel_arm(model, name, kind, kw, prompts, want, smi, max_new=32,
+                 profile_prompts=None):
+    """One arm of phase 19: an engine of `kind` over phase 4's model,
+    precompiled, serving `prompts` through the Scheduler; holds the
+    streams to `want`, the captures, the shards' heads and devices, the
+    paged launches a forward, the bubble gauge and the shards' pool
+    bytes; with `profile_prompts`, profiles 8 decode steps (rounds) of
+    the engine holding them (`profile_steps`). Returns (record,
+    streams)."""
+    import gc
+    import torch
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import make_engine
+    what = f"phase 19 {name}"
+    cfg = model.cfg
+    engine = make_engine(model, kind, dict(PAR_ENGINE, **kw),
+                         device=model.device)
+    c = engine.config
+    tp, pp = c.tp, getattr(c, "pp", 1)
+    M = getattr(c, "decode_microbatches", 1)
+    capture_s = precompile(engine, what)
+    pa.launches = pa.launches_window = pa.launches_prefill = 0
+    handles, m, wall = serve(engine, prompts, max_new)
+    launches = {"all": pa.launches, "window": pa.launches_window,
+                "prefill": pa.launches_prefill}
+    counts = check_captures(engine, what)
+    got = [h.tokens for h in handles]
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            t = next(j for j in range(len(w)) if g[j] != w[j])
+            gap = next_token_gap(model, list(prompts[i]) + list(w[:t]))
+            raise AssertionError(
+                f"{what}: request {i} departs at token {t}: {g[t]} != "
+                f"{w[t]}; the single-device engine's top-2 gap there is "
+                f"{gap:.3e}")
+    # heads/tp a shard, each shard on the card
+    report = engine.kv_shard_report()
+    heads = {r["heads"] for r in report.values()}
+    devices = {r["device"] for r in report.values()}
+    if len(report) != tp * pp or heads != {cfg.num_heads // tp} or \
+            devices != {str(engine.device)}:
+        raise AssertionError(f"{what}: shards {report}")
+    # num_layers * tp paged launches a forward: a decode step is M
+    # microbatch forwards (a speculative round verifies M windows), a
+    # prefill one forward (one chunk)
+    prefills = len(prompts) + m["requests"]["serving.preempted"]
+    per = cfg.num_layers * tp
+    steps = m["decode_steps"] * M
+    want_l = {"window": per * steps if kind == "spec_pp" else 0,
+              "prefill": per * prefills}
+    want_l["all"] = per * (steps + prefills)
+    if launches != want_l:
+        raise AssertionError(f"{what}: paged launches {launches}, want "
+                             f"{want_l} ({per} a forward over {steps} "
+                             f"decode forwards and {prefills} prefills)")
+    rec = {"kind": kind, "config": c.as_dict(), "requests": len(prompts),
+           "max_new_tokens": max_new, "decode_step_ms": m["decode_step_ms"],
+           "decode_steps": m["decode_steps"], "prefills": prefills,
+           "ttft_s_mean": sum(h.ttft_s for h in handles) / len(handles),
+           "ttft_s_max": max(h.ttft_s for h in handles),
+           "launches": launches, "launches_per_forward": per,
+           "capture_counts": counts, "capture_s": capture_s,
+           "shards": report, "wall_s": wall, "card": smi}
+    if profile_prompts is not None:
+        for slot, p in enumerate(profile_prompts):
+            engine.prefill(slot, p)
+        call = engine.decode_many if kind == "spec_pp" else engine.decode
+        rec["profile"] = profile_steps(call, 8)
+        pr = rec["profile"]
+        log(f"phase 19 {name} profiled: {pr['step_ms_untraced']:.3f} ms a "
+            f"{'round' if kind == 'spec_pp' else 'step'} (traced "
+            f"{pr['step_ms_traced']:.3f}), device busy "
+            f"{pr['device_busy_ms_per_step']:.3f} ms, idle share "
+            f"{pr['device_idle_share_untraced']:.3f}, "
+            f"{pr['kernels_per_step']:.0f} kernels and "
+            f"{pr['paged_launches_per_step']:.0f} paged launches "
+            f"({pr['paged_ms_per_step']:.4f} ms) a step; top "
+            f"{[(t['name'][:32], round(t['ms_per_step'], 4), t['count']) for t in pr['top'][:4]]} [{smi}]")
+        for slot in range(len(profile_prompts)):
+            engine.reset_slot(slot)
+    if pp > 1:
+        # the bubble over a decode window: (pp-1)/(M+pp-1)
+        engine.reset_pp_stats()
+        for _ in range(2):
+            engine.decode()
+        gauge = metrics.flatten_snapshot(
+            metrics.registry().snapshot(), kinds=("gauge",))[
+            "serving_pp_bubble_fraction"]
+        if abs(gauge - (pp - 1) / (M + pp - 1)) > 1e-12:
+            raise AssertionError(f"{what}: bubble gauge {gauge}, want "
+                                 f"{(pp - 1) / (M + pp - 1)}")
+        rec["bubble_fraction"] = gauge
+        rec["stage_report"] = engine.stage_report()
+    # each shard's pool bytes: the single pool's over tp*pp
+    acc = engine.hbm_accounting()
+    pool = engine._kv_block_bytes() * c.num_blocks
+    kv = {n: r["kv"] for n, r in acc["per_shard"].items() if n != "draft"}
+    if set(kv.values()) != {pool // (tp * pp)}:
+        raise AssertionError(f"{what}: shard pool bytes {kv}, want "
+                             f"{pool // (tp * pp)} each")
+    rec["hbm"] = acc
+    log(f"phase 19 {name} ({kind} {dict(kw)}): {len(prompts)} requests, "
+        f"streams equal, decode step {m['decode_step_ms']:.3f} ms, TTFT "
+        f"mean {rec['ttft_s_mean'] * 1e3:.2f} ms max "
+        f"{rec['ttft_s_max'] * 1e3:.2f} ms, paged launches {launches} "
+        f"({per} a forward), captures {len(counts)} (1 each) in "
+        f"{capture_s:.2f} s, bubble {rec.get('bubble_fraction', 0.0):.4f}, "
+        f"shards "
+        f"{ {k: (v['device'], v['heads']) for k, v in report.items()} }, "
+        f"shard KV {pool // (tp * pp) / 2**20:.1f} MiB each [{smi}]")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, got
+
+
+def parallel_phase(prompts, want4, want5, smi):
+    """Phase 19: the tensor-, pipeline- and spec x pipeline-parallel
+    engines on one card (module docstring). `want4`: phase 4's streams of
+    the 16 prompts; `want5`: phase 5's of prompts 8-11."""
+    from paddle_tpu_torch.text.models import gpt_125m
+    model = gpt_125m(device="cuda", seed=0)
+    # {prompt index: stream} of phases 4 and 5 and of each arm
+    streams = {"p4": dict(enumerate(want4)),
+               "p5": {8 + i: w for i, w in enumerate(want5)}}
+    out = {"arms": {}}
+    launches = {"paged_attention": 0, "paged_attention_int8": 0,
+                "paged_attention_window": 0, "paged_attention_prefill": 0}
+    # the single-device decode step beside the arms' (phase 4's engine)
+    base = profile_decode(model, prompts[8:16])
+    out["profile_single"] = base
+    log(f"phase 19 single-device profiled: {base['step_ms_untraced']:.3f} "
+        f"ms a step, device busy {base['device_busy_ms_per_step']:.3f} ms, "
+        f"{base['kernels_per_step']:.0f} kernels a step [{smi}]")
+    for name, kind, kw, sl, ref in PAR_ARMS:
+        idx = range(sl.start, sl.stop)
+        rec, got = parallel_arm(
+            model, name, kind, kw, prompts[sl],
+            [streams[ref][i] for i in idx], smi,
+            profile_prompts=None if "int8" in name else prompts[8:16])
+        streams[name] = dict(zip(idx, got))
+        out["arms"][name] = rec
+        la = rec["launches"]
+        decode = la["all"] - la["window"] - la["prefill"]
+        launches["paged_attention_int8" if kw.get("kv_dtype") == "int8"
+                 else "paged_attention"] += decode
+        launches["paged_attention_window"] += la["window"]
+        launches["paged_attention_prefill"] += la["prefill"]
+    out["launches"] = launches
+    log(f"phase 19 paged launches by kernel: {launches} [{smi}]")
+    return out
+
+
 def warm_start(prompts, want, smi, max_new=32):
     """Phase 18: phase 4's GPT-125M saved with `save_for_generation`, then
     served by `inference.create_predictor` in a cold and a warm process."""
@@ -4075,6 +4263,7 @@ def warm_start(prompts, want, smi, max_new=32):
 
 def main(argv):
     flash_only = "--flash-only" in argv
+    parallel_only = "--parallel-only" in argv
     try:
         import torch
     except ImportError:
@@ -4198,7 +4387,7 @@ def main(argv):
                                  kv_dtype="int8", device="cuda")
     precompile(eng8, "phase 5")
     pa.launches = pa.launches_prefill = 0
-    _, m8, wall8 = serve(eng8, prompts[8:12], max_new=32)
+    handles8, m8, wall8 = serve(eng8, prompts[8:12], max_new=32)
     check_captures(eng8, "phase 5")
     launches8 = pa.launches - pa.launches_prefill   # the decode launches
     if launches8 <= 0:
@@ -4211,6 +4400,20 @@ def main(argv):
         f"({launches8} decode) "
         f"decode_step_ms={m8['decode_step_ms']:.3f} [{smi}]")
     del eng8, engine
+    if parallel_only:
+        # phase 19 alone, against phases 4's and 5's streams
+        t19 = time.perf_counter()
+        del model
+        report["parallel"] = parallel_phase(
+            prompts, [h.tokens for h in handles],
+            [h.tokens for h in handles8], smi)
+        report["phase19_s"] = time.perf_counter() - t19
+        log(f"phase 19 took {report['phase19_s']:.1f} s [{smi}]")
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out",
+                               "chip_smoke_parallel.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        return 0
 
     # where a decode step's time goes ------------------------------------------------
     prof = profile_decode(model, prompts[8:16])
@@ -4342,6 +4545,15 @@ def main(argv):
                                       smi)
     report["phase18_s"] = time.perf_counter() - t18
     log(f"phase 18 took {report['phase18_s']:.1f} s [{smi}]")
+
+    # 19. multi-device serving on the one card -------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t19 = time.perf_counter()
+    report["parallel"] = parallel_phase(prompts, [h.tokens for h in handles],
+                                        [h.tokens for h in handles8], smi)
+    report["phase19_s"] = time.perf_counter() - t19
+    log(f"phase 19 took {report['phase19_s']:.1f} s [{smi}]")
 
     # summary ------------------------------------------------------------------------
     dec = next(c for c in cases if c["case"] == "decode_f32")

@@ -32,16 +32,14 @@ seconds of each stage (weights read, model build, engine build, library
 build or load, captures) and `precompile_report` the engine's report;
 the `predictor_executable_ready_seconds` gauge is set to the total.
 
-What may fall back: only a record of a multi-GPU kind the port cannot
-build ("tp", "pp", "spec_pp"; ROADMAP A.10) warns and leaves
-`generate()` a dense engine built on first use, as the reference
-degrades. Every error building a dense, paged or spec record (a bad
-field, a failed nvcc build, library load or capture) raises from the
-constructor; nothing falls back to the gather path or the CPU.
+Nothing falls back: every recorded kind is built, the tensor- and
+pipeline-parallel ones ("tp", "pp", "spec_pp") included, and every error
+building the record (a bad field, a failed nvcc build, library load or
+capture) raises from the constructor; nothing falls back to a dense
+engine, the gather path or the CPU.
 """
 import os
 import time
-import warnings
 
 import numpy as np
 
@@ -272,14 +270,13 @@ class Predictor:
             from ..observability import metrics as _obs_metrics
             from ..serving import Scheduler
             t0 = time.perf_counter()
-            engine = self._record_engine()
-            if engine is not None:
-                self._gen_sched = Scheduler(engine, device=self._device)
-                self._gen_sched_from_record = True
-                _obs_metrics.gauge(
-                    "predictor_executable_ready_seconds",
-                    "Predictor load-to-serving-ready wall time (AOT "
-                    "warmup included)").set(time.perf_counter() - t0)
+            self._gen_sched = Scheduler(self._record_engine(),
+                                        device=self._device)
+            self._gen_sched_from_record = True
+            _obs_metrics.gauge(
+                "predictor_executable_ready_seconds",
+                "Predictor load-to-serving-ready wall time (AOT "
+                "warmup included)").set(time.perf_counter() - t0)
 
     def get_input_names(self):
         return list(self._input_names)
@@ -317,20 +314,9 @@ class Predictor:
     def _record_engine(self):
         """The recorded engine, rebuilt with the artifact's compile cache
         and, with the warm-up on, `precompile()`d (its stages timed into
-        `ready_stages`); None, with a warning and the record dropped,
-        when the record names a multi-GPU kind the port cannot build
-        (`UNPORTED_KINDS`). Any error building a dense, paged or spec
-        record raises."""
-        from ..serving.engine import (UNPORTED_KINDS,
-                                      default_compile_cache_dir, make_engine)
+        `ready_stages`). Any error building the record raises."""
+        from ..serving.engine import default_compile_cache_dir, make_engine
         meta, cfg = self._serving_meta, self._config
-        if meta["engine"] in UNPORTED_KINDS:
-            self._serving_meta = None
-            warnings.warn(f"the recorded serving engine kind "
-                          f"{meta['engine']!r} cannot be built here "
-                          f"(ROADMAP A.10); generate() serves from a dense "
-                          f"engine built on first use")
-            return None
         cache_dir = None
         if cfg._compile_cache:
             cache_dir = cfg._compile_cache_dir or \

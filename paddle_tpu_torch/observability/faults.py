@@ -39,9 +39,13 @@ sites so far, each before any engine state moves:
                        scale, in the decode storage the captured graph
                        reads; fire() returns the spec and the engine does
                        the damage
+  serving.pp_handoff   the pipeline-parallel engines' stage boundary
+                       (`serving/distributed/pp.py`): on every hop, before
+                       the activation is copied into the next stage's
+                       input buffer; a raise fails the step mid-ring
+                       (the scheduler's quarantine contains it)
 
-The other sites arrive with the modules that own them (ROADMAP A.10,
-A.13).
+The other sites arrive with the modules that own them (ROADMAP A.13).
 
 Arming, in-process:
 

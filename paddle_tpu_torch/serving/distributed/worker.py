@@ -599,6 +599,16 @@ class ServingWorker:
             _M_MODEL_VERSION.set(float(self.version))
         return _kv.pack_payload(result)
 
+    def _parallel_shape(self):
+        """{"tp", "pp", "devices": {shard: device}} of the engine."""
+        ecfg = self.engine.config
+        shards = getattr(self.engine, "kv_shard_report", None)
+        devices = {name: rec["device"] for name, rec in shards().items()} \
+            if shards is not None else \
+            {"engine": str(getattr(self.engine, "device", "cpu"))}
+        return {"tp": int(getattr(ecfg, "tp", 1)),
+                "pp": int(getattr(ecfg, "pp", 1)), "devices": devices}
+
     def _h_stat(self, body, aux, reqid, rctx):
         """The hand-picked health/placement signals — wire shape
         unchanged, but every serving figure is now a THIN PROJECTION of
@@ -611,7 +621,6 @@ class ServingWorker:
         deployment shape (module docstring); tests hosting several
         workers in one process share these figures."""
         flat = _metrics.flatten_snapshot(_metrics.registry().snapshot())
-        ecfg = self.engine.config
         out = {"role": self.role, "version": self.version,
                "endpoint": self.endpoint,
                "kv_memory_tokens": getattr(self.engine,
@@ -620,10 +629,9 @@ class ServingWorker:
                                            "kv_usable_tokens", 0),
                "handoff_bytes": int(flat.get(
                    "serving_kv_handoff_bytes_total", 0)),
-               # the worker group's parallel shape (the port serves one
-               # device a process until multi-GPU serving, ROADMAP A.10)
-               "parallel": {"tp": int(getattr(ecfg, "tp", 1)),
-                            "pp": int(getattr(ecfg, "pp", 1))},
+               # the engine's parallel shape, and the device of each of
+               # its shards (shards that share a card name it alike)
+               "parallel": self._parallel_shape(),
                # CUDA-graph captures per executable: the port's answer to
                # the JAX engines' trace counts; and the paged-attention
                # kernel launches the engine made (a field of the port's)
@@ -634,6 +642,9 @@ class ServingWorker:
         if pool is not None:
             out["blocks_in_use"] = pool.in_use
             out["blocks_total"] = pool.capacity
+        pp_stats = getattr(self.engine, "pp_stats", None)
+        if pp_stats is not None:
+            out["pp_stats"] = _jsonable(pp_stats())
         if self.scheduler is not None:
             # keep the historical `requests` key set (zero-filled), with
             # VALUES read from the registry's serving_* counters — which

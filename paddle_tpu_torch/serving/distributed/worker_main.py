@@ -38,8 +38,8 @@ def main(argv=None):
     p.add_argument("--role", choices=("decode", "prefill"),
                    default="decode")
     p.add_argument("--engine", default="paged",
-                   help="serving engine kind: dense|paged|spec (tp, pp "
-                        "and spec_pp are multi-GPU serving, not ported)")
+                   help="serving engine kind: dense|paged|spec|tp|pp|"
+                        "spec_pp")
     p.add_argument("--model", default="gpt_tiny",
                    choices=("gpt_tiny", "gpt_125m"),
                    help="model factory in paddle_tpu_torch.text.models")
@@ -82,6 +82,13 @@ def main(argv=None):
         model.load_state_dict(load_state_dict(args.ckpt, device=device))
     engine = make_engine(model, args.engine, json.loads(args.engine_config),
                          device=device)
+    if args.engine in ("tp", "pp", "spec_pp"):
+        # the sharded engines hold their own copies on the stage devices
+        # and their masters on the host: the model's device tensors (the
+        # truncated draft's are the same ones) go back to the host
+        from paddle_tpu_torch.serving.distributed.pp import \
+            free_eager_device_copies
+        free_eager_device_copies(model)
     # every capture happens here, before a handler thread or the step
     # loop exists: a capture under traffic would be invalidated by their
     # CUDA work

@@ -23,7 +23,10 @@ port's counterpart of the JAX engines' compile-once executables.
 (`trace_counts`, the serving worker's STAT field, answers with them),
 and `kernel_launches` the paged-attention kernel launches the engine's
 calls made (0 for the gather path and on the CPU). `make_engine` builds
-an engine from a serving worker's kind and config. The KV handoff
+an engine from a serving worker's kind and config: "dense", "paged",
+"spec", and the multi-device "tp", "pp" and "spec_pp"
+(`distributed/tp.py`, `pp.py`). `hbm_accounting()` gives the resident
+bytes of weights and KV by shard and by device. The KV handoff
 (`extract_kv`, `extract_kv_wire`, `adopt_kv`, `prefix_probe`,
 `extract_prefix_kv`, `restore_prefix`) writes the pools in place, so the
 graphs keep reading the KV it moves.
@@ -113,6 +116,7 @@ import functools
 import gc
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -820,6 +824,65 @@ class GenerationEngine:
         """Longest prompt prefill can serve and still decode one token."""
         return min(self.config.prefill_buckets[-1], self.config.max_len - 1)
 
+    # -- resident bytes -----------------------------------------------------
+    def _weight_tensors(self):
+        """The resident weight tensors: the float set (prefill serves it)
+        and the decode set (int8 codes and scales with weight_dtype="int8",
+        storage of its own when the taps are armed)."""
+        out = []
+        for src in (self._params, self._decode_params):
+            for v in src.values():
+                out.extend((v["q"], v["scale"]) if isinstance(v, dict)
+                           else (v,))
+        return out
+
+    def _kv_tensors(self):
+        """The resident KV tensors (the dense cache here)."""
+        return [x for layer in self._cache.layers for x in (layer.k, layer.v)]
+
+    def _resident_groups(self):
+        """[(shard, device, weight tensors, KV tensors)] of the serving
+        state: one shard, "engine", on the engine's device here; the
+        sharded engines list each of theirs."""
+        return [("engine", self.device, self._weight_tensors(),
+                 self._kv_tensors())]
+
+    def hbm_accounting(self):
+        """Measured bytes of the resident serving state, from the tensors
+        the engine holds (a storage two names share counts once, where it
+        is first met): {"per_shard": {shard: {"device", "weights", "kv",
+        "total"}}, "per_device": {device: {"weights", "kv", "total"}},
+        "max_shard_total", "max_device_total", "weights_total",
+        "kv_total"}. Every shard names its device, so shards that share a
+        card add up on it in `per_device`. With weight_dtype="int8" the
+        float set stays resident for prefill beside the int8 decode set:
+        about 1.25x the float bytes, not a quarter of them. The model's
+        own parameters are not counted: they are the caller's."""
+        seen = set()
+        per_shard, per_dev = {}, {}
+        for name, dev, weights, kv in self._resident_groups():
+            rec = {"device": str(dev), "weights": 0, "kv": 0}
+            for kind, tensors in (("weights", weights), ("kv", kv)):
+                for t in tensors:
+                    key = (str(t.device), t.data_ptr(), t.numel())
+                    if key not in seen:
+                        seen.add(key)
+                        rec[kind] += t.numel() * t.element_size()
+            rec["total"] = rec["weights"] + rec["kv"]
+            per_shard[name] = rec
+            d = per_dev.setdefault(str(dev), {"weights": 0, "kv": 0,
+                                              "total": 0})
+            for k in ("weights", "kv", "total"):
+                d[k] += rec[k]
+        return {"per_shard": per_shard, "per_device": per_dev,
+                "max_shard_total": max(r["total"]
+                                       for r in per_shard.values()),
+                "max_device_total": max(d["total"]
+                                        for d in per_dev.values()),
+                "weights_total": sum(r["weights"]
+                                     for r in per_shard.values()),
+                "kv_total": sum(r["kv"] for r in per_shard.values())}
+
     @property
     def decode_write_tokens(self):
         """KV positions one decode step writes per slot."""
@@ -907,18 +970,35 @@ class PagedGenerationEngine(GenerationEngine):
     def kv_quantized(self):
         return self.config.kv_dtype == "int8"
 
+    def _alloc_pools(self, num_layers=None, num_heads=None, device=None):
+        """Zeroed K/V pools (int8 codes and scales with kv_dtype="int8"):
+        the whole model's by default, or `num_layers` layers of
+        `num_heads` heads on `device` (a shard's)."""
+        cfg = self._model.cfg
+        c = self.config
+        head_dim = cfg.hidden_size // cfg.num_heads
+        num_layers = cfg.num_layers if num_layers is None else num_layers
+        num_heads = cfg.num_heads if num_heads is None else num_heads
+        device = self.device if device is None else device
+        if self.kv_quantized:
+            return blocks.alloc_quant_pools(
+                num_layers, c.num_blocks, c.block_size, num_heads, head_dim,
+                device)
+        return blocks.alloc_pools(
+            num_layers, c.num_blocks, c.block_size, num_heads, head_dim,
+            self._model.wte.weight.dtype, device)
+
+    def _whole_pool(self):
+        """The whole model's pool, one layer cache a layer: what the
+        forwards, the handoff and the tiers index (here the pools
+        themselves)."""
+        return self._alloc_pools()
+
     def _alloc_state(self):
         cfg = self._model.cfg
         c = self.config
         head_dim = cfg.hidden_size // cfg.num_heads
-        if self.kv_quantized:
-            self._pool = blocks.alloc_quant_pools(
-                cfg.num_layers, c.num_blocks, c.block_size, cfg.num_heads,
-                head_dim, self.device)
-        else:
-            self._pool = blocks.alloc_pools(
-                cfg.num_layers, c.num_blocks, c.block_size, cfg.num_heads,
-                head_dim, self._model.wte.weight.dtype, self.device)
+        self._pool = self._whole_pool()
         self._io = graphs.StaticInputs(self._decode_fields(), self.device)
         self._last_tokens = self._io.host["tokens"]
         self._pos = self._io.host["pos"]
@@ -966,6 +1046,9 @@ class PagedGenerationEngine(GenerationEngine):
                 self._tier_stage(kv + (cfg.num_heads,), torch.float32)
         self.last_prefill_stats = {}
         self.last_logits = None
+
+    def _kv_tensors(self):
+        return [x for layer in self._pool for x in layer]
 
     def _kv_block_bytes(self):
         """Device bytes one pool block pins across every layer and both
@@ -1214,7 +1297,7 @@ class PagedGenerationEngine(GenerationEngine):
             _pa.decode_split_keys()             # binds the library
         t1 = time.perf_counter()
         for name in names:
-            self._exe.capture(name, *self._executable(name))
+            self._capture(name)
         torch.cuda.synchronize(self.device)
         self.last_precompile_stats = {
             "libraries_s": t1 - t0, "captures_s": time.perf_counter() - t1,
@@ -1242,13 +1325,26 @@ class PagedGenerationEngine(GenerationEngine):
         for name in self._adapter_executables():
             self._exe.invalidate(name)
 
+    def _executable_device(self, name):
+        """The device executable `name` runs on: the engine's (a pipeline
+        stage's executables run on the stage's)."""
+        return self.device
+
+    def _capture(self, name):
+        """Capture executable `name` as a CUDA graph unless it was (a
+        no-op on the CPU, where executables run eagerly)."""
+        device = self._executable_device(name)
+        if device.type == "cuda":
+            self._exe.capture(name, *self._executable(name), device=device)
+
     def _run(self, name, upload=True):
         """Run executable `name` (a replay on the card) and count its
         paged-kernel launches."""
         if self._libraries is None:
             self._ensure_libraries()
-        out, launches = self._exe.run(name, *self._executable(name),
-                                      upload=upload)
+        out, launches = self._exe.run(
+            name, *self._executable(name), upload=upload,
+            device=self._executable_device(name))
         self.kernel_launches += launches
         return out
 
@@ -1387,23 +1483,14 @@ class PagedGenerationEngine(GenerationEngine):
 
         suffix = prompt[nshared:]
         bucket = self.bucket_for(suffix.size)
-        pf = self._pf.host
-        pf["ids"][0, :bucket] = 0
-        pf["ids"][0, :suffix.size] = suffix
-        pf["row"][0] = row
-        pf["pos"][0] = nshared
-        pf["valid"][0] = suffix.size
         with RecordEvent("serving::prefill", TracerEventType.UserDefined,
                          {"bucket": bucket, "length": plen, "slot": slot,
                           "prefix_hit_tokens": nshared, "paged": True,
                           "kv_dtype": self.config.kv_dtype,
                           "attend": self.config.attention_impl}):
-            logits = self._run(f"prefill[{bucket}]")
-        if self._numerics_armed:
-            logits, packed = logits
-            self._ingest_numerics(self._unstack_sink(packed)[1])
+            last = self._prefill_execute(row, suffix, nshared, bucket)
         self._pos[slot] = nshared + suffix.size
-        first = int(self._select(logits[:, suffix.size - 1], slot)[0])
+        first = int(self._select(last, slot)[0])
         self._slot_gen[slot] += 1
         if self.prefix_cache is not None:
             # the prompt's fully written blocks become shareable
@@ -1420,6 +1507,22 @@ class PagedGenerationEngine(GenerationEngine):
             "tier_restore_s": tier["restore_s"]}
         self._last_tokens[slot] = first
         return first
+
+    def _prefill_execute(self, row, suffix, start, bucket):
+        """Run the suffix (positions start..) through the slot's table
+        `row` in bucket `bucket`, writing its K/V; returns the last real
+        token's logits [1, V] (armed: after ingesting the sink)."""
+        pf = self._pf.host
+        pf["ids"][0, :bucket] = 0
+        pf["ids"][0, :suffix.size] = suffix
+        pf["row"][0] = row
+        pf["pos"][0] = start
+        pf["valid"][0] = suffix.size
+        logits = self._run(f"prefill[{bucket}]")
+        if self._numerics_armed:
+            logits, packed = logits
+            self._ingest_numerics(self._unstack_sink(packed)[1])
+        return logits[:, suffix.size - 1]
 
     def decode(self):
         """Advance every slot one token; returns np.int32 [slots]. Active
@@ -1472,8 +1575,8 @@ class PagedGenerationEngine(GenerationEngine):
             return
         layer = self._pool[0]
         with torch.no_grad():
-            layer.k_scale[victim].mul_(64.0)
-            layer.v_scale[victim].mul_(64.0)
+            layer.k_scale[victim] *= 64.0
+            layer.v_scale[victim] *= 64.0
 
     def reset_slot(self, slot):
         """Free the slot: its table drops every reference (blocks return
@@ -1807,13 +1910,25 @@ def default_compile_cache_dir(path):
 
 
 def _engine_kind(config):
-    """"dense" | "paged" | "spec" for an EngineConfig-family instance
-    (most-derived class first). The JAX package's "tp", "pp" and
-    "spec_pp" kinds are multi-GPU serving, not ported yet (ROADMAP
-    A.10): no config of theirs exists in the port."""
+    """"dense" | "paged" | "spec" | "tp" | "pp" | "spec_pp" for an
+    EngineConfig-family instance (most-derived class first). The tp and
+    pp checks consult `sys.modules` instead of importing: their configs
+    exist only once their module is imported, so classifying another
+    config never imports the multi-device tier."""
     from .spec_decode import SpecDecodeConfig
+    pp_mod = sys.modules.get(__package__ + ".distributed.pp")
+    if pp_mod is not None and \
+            isinstance(config, pp_mod.PipelineParallelSpecConfig):
+        return "spec_pp"
     if isinstance(config, SpecDecodeConfig):
         return "spec"
+    if pp_mod is not None and \
+            isinstance(config, pp_mod.PipelineParallelEngineConfig):
+        return "pp"
+    tp_mod = sys.modules.get(__package__ + ".distributed.tp")
+    if tp_mod is not None and \
+            isinstance(config, tp_mod.TensorParallelEngineConfig):
+        return "tp"
     if isinstance(config, PagedEngineConfig):
         return "paged"
     if isinstance(config, EngineConfig):
@@ -1822,31 +1937,42 @@ def _engine_kind(config):
                     f"{type(config).__name__}")
 
 
-# the JAX package's multi-GPU engine kinds, which the port cannot build yet
-UNPORTED_KINDS = ("tp", "pp", "spec_pp")
+ENGINE_KINDS = ("dense", "paged", "spec", "tp", "pp", "spec_pp")
+
+
+def _engine_classes(kind):
+    """(engine class, config class) of `kind`; only the tp, pp and
+    spec_pp kinds import the multi-device tier."""
+    if kind == "dense":
+        return GenerationEngine, EngineConfig
+    if kind == "paged":
+        return PagedGenerationEngine, PagedEngineConfig
+    if kind == "spec":
+        from .spec_decode import SpecDecodeConfig, SpeculativeEngine
+        return SpeculativeEngine, SpecDecodeConfig
+    if kind == "tp":
+        from .distributed.tp import (TensorParallelEngineConfig,
+                                     TensorParallelPagedEngine)
+        return TensorParallelPagedEngine, TensorParallelEngineConfig
+    if kind == "pp":
+        from .distributed.pp import (PipelineParallelEngineConfig,
+                                     PipelineParallelPagedEngine)
+        return PipelineParallelPagedEngine, PipelineParallelEngineConfig
+    if kind == "spec_pp":
+        from .distributed.pp import (PipelineParallelSpecConfig,
+                                     PipelineParallelSpeculativeEngine)
+        return PipelineParallelSpeculativeEngine, PipelineParallelSpecConfig
+    raise ValueError(f"unknown serving engine kind {kind!r}; want one of "
+                     f"{list(ENGINE_KINDS)}")
 
 
 def make_engine(model, kind, config_dict, device="cuda",
                 compile_cache_dir=None):
-    """An engine of `kind` ("dense", "paged" or "spec") over `model`,
-    its config built from `config_dict` (a `.gencfg` record's config, or
-    the ctor kwargs a serving worker is started with) plus a
-    machine-local compile-cache dir. The tensor- and pipeline-parallel
-    kinds of the JAX `make_engine` ("tp", "pp", "spec_pp") are multi-GPU
-    serving, not ported yet: they raise NotImplementedError."""
-    from .spec_decode import SpecDecodeConfig, SpeculativeEngine
-    classes = {"dense": (GenerationEngine, EngineConfig),
-               "paged": (PagedGenerationEngine, PagedEngineConfig),
-               "spec": (SpeculativeEngine, SpecDecodeConfig)}
-    if kind in UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"serving engine kind {kind!r} is multi-GPU serving, not "
-            f"ported yet (ROADMAP A.10)")
-    if kind not in classes:
-        raise ValueError(
-            f"unknown serving engine kind {kind!r}; want one of "
-            f"{sorted(classes) + list(UNPORTED_KINDS)}")
-    engine_cls, cfg_cls = classes[kind]
+    """An engine of `kind` (one of `ENGINE_KINDS`) over `model`, its
+    config built from `config_dict` (a `.gencfg` record's config, or the
+    ctor kwargs a serving worker is started with) plus a machine-local
+    compile-cache dir."""
+    engine_cls, cfg_cls = _engine_classes(kind)
     cfg = cfg_cls(compile_cache_dir=compile_cache_dir, **config_dict)
     return engine_cls(model, cfg, device=device)
 
@@ -1910,6 +2036,10 @@ def _executable_set(kind, config):
     """The executable names of an engine of `kind` and `config`: what
     every engine's `executable_names()` returns and a serving record
     lists, known without building the engine."""
+    if kind in ("pp", "spec_pp"):
+        # a pp-kind config exists only once its module is imported
+        from .distributed.pp import pp_executable_names
+        return pp_executable_names(config, spec=(kind == "spec_pp"))
     names = ["decode"] + [f"prefill[{b}]" for b in config.prefill_buckets]
     if kind == "spec":
         names += ["draft_decode", "spec_verify"]

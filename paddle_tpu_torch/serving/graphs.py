@@ -110,28 +110,29 @@ class Executables:
     """One engine's executables by name. On the card each is a CUDA graph
     captured at most once and replayed; on the CPU each runs eagerly.
     `capture_counts[name]` counts captures, as the JAX engines'
-    `trace_counts` count traces."""
+    `trace_counts` count traces. An executable runs on the engine's
+    device unless its calls name another (`device=`: a pipeline stage's),
+    which gets a capture stream and a graph memory pool of its own."""
 
     def __init__(self, device):
         self.device = device
         self.capture_counts = {}
         self._graphs = {}            # name -> (graph, outputs, launches)
-        self._stream = None
-        self._pool = None
+        self._streams = {}           # device -> (capture stream, pool)
 
-    def run(self, name, fn, inputs, safe=None, upload=True):
+    def run(self, name, fn, inputs, safe=None, upload=True, device=None):
         """Upload `inputs` and run executable `name` (`fn` computes it over
         the engine's static storage). upload=False: the inputs are on the
         device as the previous call uploaded them (a capture made now
         uploads them again). Returns (outputs, paged-kernel launches the
         call made)."""
-        if self.device.type != "cuda":
+        if (device or self.device).type != "cuda":
             if upload:
                 inputs.upload()
             return fn(), 0
         if name not in self._graphs:
             upload = True                # the capture left the safe state
-        graph, out, launches = self.capture(name, fn, inputs, safe)
+        graph, out, launches = self.capture(name, fn, inputs, safe, device)
         if upload:
             inputs.upload()
         _replay(name, graph)
@@ -152,29 +153,33 @@ class Executables:
         reads is replaced, as when an engine attaches an adapter bank."""
         self._graphs.pop(name, None)
 
-    def capture(self, name, fn, inputs, safe=None):
+    def capture(self, name, fn, inputs, safe=None, device=None):
         """Capture `name` unless it was (see the module docstring); returns
         (graph, outputs, launch counts of one replay)."""
         entry = self._graphs.get(name)
         if entry is not None:
             return entry
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device=self.device)
-            self._pool = torch.cuda.graph_pool_handle()
+        device = device or self.device
+        key = str(device)
+        if key not in self._streams:
+            with torch.cuda.device(device):
+                self._streams[key] = (torch.cuda.Stream(device=device),
+                                      torch.cuda.graph_pool_handle())
+        stream, pool = self._streams[key]
         counts = _pa.launch_counts()
-        current = torch.cuda.current_stream(self.device)
+        current = torch.cuda.current_stream(device)
         inputs.upload(safe or {})
-        self._stream.wait_stream(current)
-        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+        stream.wait_stream(current)
+        with torch.cuda.device(device), torch.cuda.stream(stream):
             fn()
-        current.wait_stream(self._stream)
+        current.wait_stream(stream)
         warm = _pa.launch_counts()
         graph = torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.device(self.device), torch.cuda.graph(
-                    graph, pool=self._pool, stream=self._stream):
+            with torch.cuda.device(device), torch.cuda.graph(
+                    graph, pool=pool, stream=stream):
                 out = fn()
         finally:
             if collecting:

@@ -104,6 +104,7 @@ from ..observability import reqtimeline as _rt
 from ..observability import tracecontext as _tc
 from ..profiler import RecordEvent, TracerEventType
 from .blocks import BlockAllocError
+from .engine import _engine_kind as _config_kind
 
 __all__ = ["ServingConfig", "Scheduler", "Request", "RequestHandle",
            "QueueFullError", "LoadShedError", "RateLimitedError",
@@ -220,8 +221,14 @@ class RateLimitedError(QueueFullError):
 
 
 def _engine_kind(engine):
-    """"spec" | "paged" | "dense": labels the spec counters and the run
-    record."""
+    """The engine's kind ("dense", "paged", "spec", "tp", "pp",
+    "spec_pp", from its config): labels the spec counters and the run
+    record. An engine whose config is not an EngineConfig is classified by
+    what it does."""
+    try:
+        return _config_kind(engine.config)
+    except (AttributeError, TypeError):
+        pass
     if hasattr(engine, "decode_many"):
         return "spec"
     if hasattr(engine, "block_pool"):
@@ -499,6 +506,11 @@ class Scheduler:
         rec = {"kind": "run", "engine": self._engine_kind,
                "kv_dtype": getattr(cfg, "kv_dtype", "float32"),
                "weight_dtype": getattr(cfg, "weight_dtype", "float32")}
+        # the tensor/pipeline-parallel shape: serve_report labels the run
+        # and renders the per-stage column of a pp engine
+        tp, pp = getattr(cfg, "tp", 1), getattr(cfg, "pp", 1)
+        if tp != 1 or pp != 1:
+            rec["tp"], rec["pp"] = int(tp), int(pp)
         gamma = getattr(cfg, "gamma", None)
         if gamma is not None:
             rec["gamma"] = int(gamma)
@@ -1478,10 +1490,15 @@ class Scheduler:
     def _write_step_record(self, now, active):
         if not self._metrics_f:
             return
-        self._write_line({"kind": "step", "step": self._steps, "t": now,
-                          "queue_depth": len(self._queue),
-                          "active_slots": active,
-                          "tokens_generated": self._tokens})
+        rec = {"kind": "step", "step": self._steps, "t": now,
+               "queue_depth": len(self._queue), "active_slots": active,
+               "tokens_generated": self._tokens}
+        pp_stats = getattr(self.engine, "pp_stats", None)
+        if pp_stats is not None:
+            st = pp_stats()
+            rec["pp_bubble_fraction"] = round(st["bubble_fraction"], 6)
+            rec["pp_stage_busy"] = [round(b, 6) for b in st["stage_busy"]]
+        self._write_line(rec)
 
     def _build_timeline(self, req):
         """One reqtimeline.v1 record for a terminal request."""

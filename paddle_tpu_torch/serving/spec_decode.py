@@ -63,8 +63,9 @@ The draft runs the masters for its float tensors, so a corruption of the
 target's decode storage never reaches it; an int8 draft shares the
 target's quantized entries, so a damaged int8 scale reaches both.
 
-Left out of this port: the compile cache and the pipeline placement
-hooks.
+The pipeline-parallel speculative engine (`distributed/pp.py`) reuses
+this engine's draft and round, and runs the verify window on the stage
+ring.
 """
 import dataclasses
 import functools
@@ -231,6 +232,23 @@ class SpeculativeEngine(PagedGenerationEngine):
                 fresh[name] = t
         out.update(self._quantize_params(fresh))
         self._draft_decode_params = out
+
+    def _weight_tensors(self):
+        """The target's, plus the draft's own tensors (the truncated draft
+        shares the target's, which count once) and int8 codes."""
+        out = super()._weight_tensors()
+        for src in (self._draft_params, self._draft_decode_params):
+            for v in src.values():
+                out.extend((v["q"], v["scale"]) if isinstance(v, dict)
+                           else (v,))
+        return out
+
+    def _kv_tensors(self):
+        """The pools, plus the draft's dense cache and its per-bucket
+        prefill caches."""
+        return super()._kv_tensors() + [
+            x for cache in [self._draft_cache, *self._draft_local.values()]
+            for layer in cache.layers for x in (layer.k, layer.v)]
 
     # -- the executables ------------------------------------------------------
     def _adapter_executables(self):

@@ -18,6 +18,13 @@ paged attention runs the plain gather path or the CUDA kernel according to
 sink with a layer filter is open (the NaN localizer's probes). The
 uncached forward is plain masked causal attention.
 
+`GPTStage` is one pipeline stage of a GPT (embeddings on the first, blocks
+[start, stop), the final LayerNorm and head on the last), built over the
+parent's own submodules by `gpt_pipeline_stages` on the `gpt_stage_ranges`
+split; the pipeline-parallel serving engines take their stage split from
+it. `paged_attend` is the paged write-and-attend the cached attention runs,
+which the tensor-parallel engines call once a shard.
+
 `adapters` (cached forwards only; the engines pass it to decode and
 verify forwards) is the per-slot LoRA view {"slot": ids [B], "layers":
 per-layer {target: (A, B)}}: each of `qkv`, `out_proj`, `fc1` and `fc2`
@@ -38,7 +45,8 @@ from ...serving import sampling as _sampling
 from ...serving.tenancy.adapters import lora_apply
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPT",
-           "GPTForGeneration", "gpt_tiny", "gpt_125m"]
+           "GPTForGeneration", "GPTStage", "gpt_stage_ranges",
+           "gpt_pipeline_stages", "gpt_tiny", "gpt_125m"]
 
 LN_EPS = 1e-5     # the JAX LayerNorm default
 
@@ -89,22 +97,7 @@ class GPTAttention(nn.Module):
             return self.out_proj(out.reshape(B, S, H))
         q = q.contiguous()
         if tables is not None:
-            kernel = _blk.current_attention_impl() == "kernel"
-            if isinstance(cache, _blk.QuantPagedLayerKV):
-                k_pool, k_sc = _blk.quant_write(cache.k, cache.k_scale, k,
-                                                tables, pos, valid)
-                v_pool, v_sc = _blk.quant_write(cache.v, cache.v_scale, v,
-                                                tables, pos, valid)
-                attend = _blk.attend_kernel_quant if kernel \
-                    else _blk.attend_quant
-                out = attend(q, k_pool, v_pool, k_sc, v_sc, tables, pos)
-                new = _blk.QuantPagedLayerKV(k_pool, v_pool, k_sc, v_sc)
-            else:
-                k_pool = _blk.write(cache.k, k, tables, pos)
-                v_pool = _blk.write(cache.v, v, tables, pos)
-                attend = _blk.attend_kernel if kernel else _blk.attend
-                out = attend(q, k_pool, v_pool, tables, pos)
-                new = _blk.PagedLayerKV(k_pool, v_pool)
+            out, new = paged_attend(q, k, v, cache, tables, pos, valid)
         else:
             k_buf = _kvc.write(cache.k, k, pos)
             v_buf = _kvc.write(cache.v, v, pos)
@@ -112,6 +105,37 @@ class GPTAttention(nn.Module):
             new = _kvc.LayerKV(k_buf, v_buf)
         out = out.reshape(B, S, H)
         return lora_apply(self.out_proj(out), out, adapters, "out_proj"), new
+
+
+def paged_attend(q, k, v, cache, tables, pos, valid=None):
+    """Write this call's K/V [B, S, h, d] into a paged layer cache (a
+    `(Quant)PagedLayerKV`, in place) through `tables` and attend `q` over
+    it under `blocks.attention_impl`; returns (out [B, S, h, d], the
+    layer cache). The heads are whatever the pool holds: all of them, or
+    a tensor-parallel shard's (`serving/distributed/tp.py`)."""
+    kernel = _blk.current_attention_impl() == "kernel"
+    if isinstance(cache, _blk.QuantPagedLayerKV):
+        k_pool, k_sc = _blk.quant_write(cache.k, cache.k_scale, k,
+                                        tables, pos, valid)
+        v_pool, v_sc = _blk.quant_write(cache.v, cache.v_scale, v,
+                                        tables, pos, valid)
+        attend = _blk.attend_kernel_quant if kernel else _blk.attend_quant
+        out = attend(q, k_pool, v_pool, k_sc, v_sc, tables, pos)
+        return out, _blk.QuantPagedLayerKV(k_pool, v_pool, k_sc, v_sc)
+    k_pool = _blk.write(cache.k, k, tables, pos)
+    v_pool = _blk.write(cache.v, v, tables, pos)
+    attend = _blk.attend_kernel if kernel else _blk.attend
+    return attend(q, k_pool, v_pool, tables, pos), \
+        _blk.PagedLayerKV(k_pool, v_pool)
+
+
+def cached_positions(pos, S, max_positions):
+    """[B, S] int64 position ids pos + 0..S-1 of a cached forward.
+    Right-padded prefill tails may run past the position table; their rows
+    are discarded, so the lookup is clamped into range."""
+    return (pos.to(torch.int64)[:, None]
+            + torch.arange(S, device=pos.device)[None, :]).clamp(
+        max=max_positions - 1)
 
 
 class GPTMLP(nn.Module):
@@ -222,11 +246,7 @@ class GPT(nn.Module):
         tables = getattr(cache, "tables", None)
         valid = getattr(cache, "valid", None)
         pos = cache.pos
-        # right-padded prefill tails may run past the position table;
-        # their rows are discarded, so clamp the lookup into range
-        positions = (pos.to(torch.int64)[:, None]
-                     + torch.arange(S, device=ids.device)[None, :]).clamp(
-            max=self.cfg.max_position_embeddings - 1)
+        positions = cached_positions(pos, S, self.cfg.max_position_embeddings)
         x = self.drop(self.wte(ids) + self.wpe(positions))
         new_layers = []
         for i, (blk, lkv) in enumerate(zip(self.blocks, cache.layers)):
@@ -248,6 +268,106 @@ class GPT(nn.Module):
         if self.cfg.tie_embeddings:
             return F.linear(x, self.wte.weight)
         return self.lm_head(x)
+
+
+class GPTStage(nn.Module):
+    """One pipeline stage of a GPT for pipeline-parallel serving: the
+    parent's embeddings (first stage), blocks [start, stop) and final
+    LayerNorm and head (last stage), as the parent's own submodules (no
+    second copy of a weight). The tied embedding is the first stage's
+    input table and, as `head_wte`, the last stage's head matrix.
+
+    `forward(x, cache=..., pos=..., tables=..., valid=..., op=...)` runs
+    the cached paged path of `GPT.forward` over this stage's slice (the
+    cache holds this stage's layers):
+      op="block"       embed (first stage) + this stage's blocks
+                       -> (hidden, new layer caches)
+      op="block_head"  block + final LayerNorm + head -> (logits, caches)
+      op="head"        x is a last-block output: LayerNorm + head -> logits
+    The per-block localizer sites (`tap_layer`) carry global layer
+    indices."""
+
+    def __init__(self, gpt, start, stop):
+        super().__init__()
+        cfg = gpt.cfg
+        self.cfg = cfg
+        self.start, self.stop = int(start), int(stop)
+        self.is_first = self.start == 0
+        self.is_last = self.stop == cfg.num_layers
+        if self.is_first:
+            self.wte = gpt.wte
+            self.wpe = gpt.wpe
+            self.drop = gpt.drop
+        self.blocks = nn.ModuleList(gpt.blocks[i]
+                                    for i in range(self.start, self.stop))
+        if self.is_last:
+            self.ln_f = gpt.ln_f
+            if not cfg.tie_embeddings:
+                self.lm_head = gpt.lm_head
+            elif not self.is_first:
+                self.head_wte = gpt.wte
+        self.eval()
+
+    def _head(self, x):
+        if not self.cfg.tie_embeddings:
+            return self.lm_head(x)
+        w = self.wte.weight if self.is_first else self.head_wte.weight
+        return F.linear(x, w)
+
+    def forward(self, x, cache=None, pos=None, tables=None, valid=None,
+                op="block", adapters=None):
+        if op == "head":
+            return self._head(self.ln_f(x))
+        if self.is_first:
+            ids = x.to(torch.int64)
+            positions = cached_positions(pos, ids.shape[1],
+                                         self.cfg.max_position_embeddings)
+            x = self.drop(self.wte(ids) + self.wpe(positions))
+        new_layers = []
+        for i, (blk, lkv) in enumerate(zip(self.blocks, cache.layers)):
+            # `adapters["layers"]` is this stage's slice of the bank
+            lv = None if adapters is None else \
+                {"slot": adapters["slot"], **adapters["layers"][i]}
+            x, new_lkv = blk(x, cache=lkv, pos=pos, tables=tables,
+                             valid=valid, adapters=lv)
+            new_layers.append(new_lkv)
+            _numerics.tap_layer(self.start + i, "act", x)
+        if op == "block_head":
+            return self._head(self.ln_f(x)), tuple(new_layers)
+        return x, tuple(new_layers)
+
+
+def gpt_stage_ranges(num_layers, pp, stage_layers=None):
+    """Contiguous [start, stop) block ranges of `pp` stages: the uniform
+    split (the first `num_layers % pp` stages take one block more), or
+    `stage_layers`, explicit per-stage block counts summing to
+    num_layers."""
+    pp = int(pp)
+    if stage_layers is not None:
+        counts = [int(c) for c in stage_layers]
+        if len(counts) != pp or sum(counts) != num_layers \
+                or min(counts) < 1:
+            raise ValueError(
+                f"stage_layers {counts} must be {pp} positive counts "
+                f"summing to {num_layers}")
+    else:
+        if not 1 <= pp <= num_layers:
+            raise ValueError(f"pp={pp} must be in 1..num_layers="
+                             f"{num_layers}")
+        base, rem = divmod(num_layers, pp)
+        counts = [base + (1 if s < rem else 0) for s in range(pp)]
+    ranges, at = [], 0
+    for c in counts:
+        ranges.append((at, at + c))
+        at += c
+    return ranges
+
+
+def gpt_pipeline_stages(model, pp, stage_layers=None):
+    """`model` (a GPT) as `pp` GPTStage modules sharing its submodules."""
+    return [GPTStage(model, a, b)
+            for a, b in gpt_stage_ranges(model.cfg.num_layers, pp,
+                                         stage_layers)]
 
 
 class GPTForGeneration(nn.Module):

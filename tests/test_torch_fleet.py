@@ -644,7 +644,8 @@ def test_worker_verbs_stat_projects_the_snapshot(fleet_worker):
         v for k, v in flat.items()
         if k.startswith("serving_requests_total{status=completed"))
     assert stat["trace_counts"] == {}           # eager on the CPU
-    assert stat["parallel"] == {"tp": 1, "pp": 1}
+    assert stat["parallel"] == {"tp": 1, "pp": 1,
+                                "devices": {"engine": "cpu"}}
     # the terminal POLL carried the worker's own phase trail, joined
     # into the router record as worker_phases
     rec = fe.timeline_records()[-1]

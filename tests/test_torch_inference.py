@@ -19,15 +19,16 @@
     whose streams equal the first's;
   * defaults: a Predictor runs on the card unless `disable_gpu()`, and
     raises without CUDA; an artifact without `.gencfg` raises
-    NotImplementedError; a record of a multi-GPU kind the port cannot
-    build warns and serves from a dense engine, while a dense, paged or
-    spec record that fails to build raises from the constructor.
+    NotImplementedError; a "tp" record builds the tensor-parallel engine
+    with no warning, and a record that fails to build raises from the
+    constructor.
 """
 import json
 import os
 import subprocess
 import sys
 import textwrap
+import warnings
 
 import numpy as np
 import pytest
@@ -280,6 +281,9 @@ def test_artifact_without_a_record_raises(tmp_path):
 
 
 def test_a_record_the_port_cannot_build_falls_back(models, tmp_path):
+    """No record falls back any more: a "tp" record is built as the
+    tensor-parallel engine, with no warning, and serves the dense
+    engine's tokens; an unknown kind raises."""
     _, tm = models
     prefix = str(tmp_path / "tp")
     save_for_generation(tm, prefix, engine_config=EngineConfig(**ENGINE))
@@ -288,13 +292,19 @@ def test_a_record_the_port_cannot_build_falls_back(models, tmp_path):
     meta["serving"]["engine"] = "tp"
     with open(prefix + ".gencfg", "w") as f:
         json.dump(meta, f)
-    with pytest.warns(UserWarning, match="cannot be built here"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         pred = _cpu_predictor(prefix)
-    assert pred.engine is None
-    got = pred.generate([[1, 2, 3]], max_new_tokens=3, slots=1, max_len=32)
-    assert type(pred.engine) is GenerationEngine and len(got[0]) == 3
-    with pytest.raises(NotImplementedError, match="A.10"):
-        make_engine(tm, "pp", EngineConfig(**ENGINE).as_dict(), device="cpu")
+    from paddle_tpu_torch.serving.distributed import \
+        TensorParallelPagedEngine
+    assert type(pred.engine) is TensorParallelPagedEngine
+    got = pred.generate([[1, 2, 3]], max_new_tokens=3)
+    dense = GenerationEngine(tm, device="cpu", **ENGINE)
+    want = [dense.prefill(0, [1, 2, 3])]
+    want += [int(dense.decode()[0]) for _ in range(2)]
+    assert got[0] == want
+    with pytest.raises(ValueError, match="unknown serving engine kind"):
+        make_engine(tm, "tq", EngineConfig(**ENGINE).as_dict(), device="cpu")
 
 
 @pytest.mark.parametrize("field,value,error", [

@@ -33,8 +33,8 @@ event. Then:
     equal the JAX engine's over an evict-and-resubmit with a disk
     cascade, with zero divergences (tier residency included).
 
-Left out: the tensor- and pipeline-parallel engine kinds of the
-reference's on/off test (ROADMAP A.10), and the load harness
+The tensor- and pipeline-parallel kinds of the reference's on/off test
+are held in `tests/test_torch_pp.py`. Left out: the load harness
 (`tools/load_harness.py` builds JAX engines; the burst here is scripted).
 
 Metric values are read as deltas: registries are process-global.
@@ -118,7 +118,7 @@ class _RecordingExecutables(graphs.Executables):
     """The CUDA-graph bookkeeping on the CPU: the first run of a name
     counts as its capture; every run is eager."""
 
-    def run(self, name, fn, inputs, safe=None, upload=True):
+    def run(self, name, fn, inputs, safe=None, upload=True, device=None):
         if name not in self._graphs:
             self.capture_counts[name] = self.capture_counts.get(name, 0) + 1
             self._graphs[name] = True

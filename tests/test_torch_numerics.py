@@ -34,8 +34,8 @@ Then:
     the ledger's `tier_demote` carries its saturation into
     `tools/serve_report.py`'s residency join.
 
-Left out: the tensor- and pipeline-parallel engine kinds (ROADMAP A.10)
-and the eager optimizer's taps (A.13).
+The tensor- and pipeline-parallel engine kinds are held in
+`tests/test_torch_pp.py`. Left out: the eager optimizer's taps (A.13).
 """
 import json
 import math
@@ -105,7 +105,7 @@ class _RecordingExecutables(graphs.Executables):
     """The CUDA-graph bookkeeping on the CPU: the first run of a name
     counts as its capture; every run is eager."""
 
-    def run(self, name, fn, inputs, safe=None, upload=True):
+    def run(self, name, fn, inputs, safe=None, upload=True, device=None):
         if name not in self._graphs:
             self.capture_counts[name] = self.capture_counts.get(name, 0) + 1
             self._graphs[name] = True

@@ -183,9 +183,15 @@ def test_make_engine_kinds(params):
     dense = make_engine(m, "dense", dict(slots=2, max_len=64),
                         device="cpu")
     assert dense.trace_counts == {} and dense.slot_rng(0) == (0, 0)
-    for kind in ("tp", "pp", "spec_pp"):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            make_engine(m, kind, ENGINE_KW, device="cpu")
+    from paddle_tpu_torch.serving.distributed import (
+        PipelineParallelPagedEngine, PipelineParallelSpeculativeEngine,
+        TensorParallelPagedEngine)
+    for kind, cls in (("tp", TensorParallelPagedEngine),
+                      ("pp", PipelineParallelPagedEngine),
+                      ("spec_pp", PipelineParallelSpeculativeEngine)):
+        eng = make_engine(m, kind, ENGINE_KW, device="cpu")
+        assert type(eng) is cls
+        assert eng.config.tp * getattr(eng.config, "pp", 1) == 2
     with pytest.raises(ValueError, match="unknown serving engine kind"):
         make_engine(m, "bogus", ENGINE_KW, device="cpu")
     tiered = make_engine(m, "paged", dict(ENGINE_KW, enable_kv_tiers=True,

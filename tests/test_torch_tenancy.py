@@ -278,7 +278,7 @@ class _RecordingExecutables(graphs.Executables):
     the first after `invalidate`) counts as its capture; every run is
     eager."""
 
-    def run(self, name, fn, inputs, safe=None, upload=True):
+    def run(self, name, fn, inputs, safe=None, upload=True, device=None):
         if name not in self._graphs:
             self.capture_counts[name] = self.capture_counts.get(name, 0) + 1
             self._graphs[name] = True

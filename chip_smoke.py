@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py               # every phase, as the driver runs it
     python3 chip_smoke.py --flash-only  # phases 1, 2 and 7 only
+    python3 chip_smoke.py --train-parallel-only   # phases 1, 2 and 20
 
 Phases (any exception ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -248,6 +249,34 @@ Phases (any exception ends the run with a non-zero exit):
      phase is a multi-card speed: every stage shares the one card.
      `--parallel-only` runs phases 1-5 (4 and 5 for their streams) and
      19.
+ 20. multi-device training on one card (`parallel/gpt_spmd.py` with a
+     plan axis above 1, one controller driving every rank on the one
+     card): (a) the flash kernels (forward, dQ, dK/dV) at each plan's
+     per-rank shape of GPT-350M (bf16, causal, S=1024, D=64: B=4 H=16
+     for dp=2 / sharding=2, B=8 H=8 for mp=2 and ulysses sp=2, B=2 H=16
+     for pp=2 M=4, B=2 H=8 for dp=2 x mp=2 x pp=2 M=2) against their
+     plain versions at phase 7's tolerances, every backward repeated bit
+     for bit; (b) f32 parity at GPT-350M's widths and 4 layers (B=8, lr
+     1e-3, 3 steps, one seeded set of weights and state): dp=2,
+     sharding=2, mp=2, mp=2 with fused_ce_chunks=8, sp=2 ring and
+     ulysses, pp=2 M=4 under gpipe, 1f1b and eager1f1b, pp=2 vpp=2 M=4,
+     dp=2 x mp=2 x pp=2 M=2 and pp=2 x sp=2 x dp=2 M=2 (ring: the
+     all-gather route), each against `MeshPlan()`: losses within rtol
+     2e-4 (hybrids 5e-4), the gathered parameters within 1e-4, and the
+     flash launches each plan should make (none on the ring routes);
+     (c) timed bf16 arms at phase 8's configuration (24 layers, B=8, no
+     remat, unfused CE; 3 warm-up and 5 timed steps): the single device,
+     dp=2, sharding=2, mp=2, sp=2 ulysses, pp=2 M=4 1f1b, pp=2 vpp=2 M=4
+     and dp=2 x mp=2 x pp=2 M=2, each with its step ms, tokens/s, peak
+     memory, each rank's parameter, gradient and optimizer bytes, one
+     profiled step (device busy ms, kernels, idle share) and its flash
+     launches a step (checked against the plan); the loss finite and
+     falling, and sharding=2's m / v / master ceil(size / 2) floats a
+     leaf, half of dp=2's; (d) pp=4 M=8 at that configuration under
+     gpipe and 1f1b: each schedule's peak allocated bytes above its
+     resident parameters, state and gradients, 1F1B's below GPipe's.
+     No number of this phase is a multi-card speed: every rank shares
+     the one card. `--train-parallel-only` runs phases 1, 2 and 20.
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -2597,6 +2626,39 @@ def time_step_parts(cfg, step_fn, params, state, toks, labs):
     return out
 
 
+def profile_train_step(call, cpu=True):
+    """One training step under torch.profiler (phases 8 and 20): the
+    traced step ms, device busy ms, the idle share of the traced step,
+    kernels, device ms by kernel kind and the largest kernels. cpu=False
+    records the card alone (a lighter trace for steps of tens of
+    thousands of launches)."""
+    import torch
+    with card_profile(cpu=cpu) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0.0)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    by_kind = {}
+    for e in kernels:
+        kind = next((k for k, keys in KERNEL_KINDS if any(
+            x in e.key.lower() for x in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + dev_us(e) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    return {"traced_step_ms": traced_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": (1 - busy_ms / traced_ms if busy_ms
+                                  else None),
+            "kernels_per_step": sum(e.count for e in kernels),
+            "device_ms_by_kind": by_kind,
+            "top": [{"name": e.key[:70], "ms": dev_us(e) / 1e3,
+                     "count": e.count} for e in top]}
+
+
 def train_step_350m(smi, warmup=3, steps=10, B=8):
     """Phase 8: the flagship step through `make_train_step`."""
     import numpy as np
@@ -2643,23 +2705,8 @@ def train_step_350m(smi, warmup=3, steps=10, B=8):
     flops = step_flops(cfg, n_params, B, S)
     bf16_peak = device_peaks("bf16").peak_flops
 
-    with card_profile() as prof:
-        t0 = time.perf_counter()
-        step_fn(params, state, toks, labs)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3
-    kernels = device_kernels(prof)
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0.0)
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    by_kind = {}
-    for e in kernels:
-        kind = next((k for k, keys in KERNEL_KINDS if any(
-            x in e.key.lower() for x in keys)), "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + dev_us(e) / 1e3
+    prof = profile_train_step(lambda: step_fn(params, state, toks, labs))
+    traced_ms, busy_ms = prof["traced_step_ms"], prof["device_busy_ms"]
     rec = {"config": "gpt-350m", **TRAIN_350M, "B": B, "S": S,
            "dtype": "bfloat16", "remat": False, "lr": 2e-4,
            "n_params": n_params, "losses": losses,
@@ -2669,15 +2716,10 @@ def train_step_350m(smi, warmup=3, steps=10, B=8):
            "peak_memory_gb": peak / 1e9, "flops_per_step": flops,
            "mfu": flops / (step_ms / 1e3) / bf16_peak,
            "peak_bound_ms": flops / bf16_peak * 1e3,
-           "launches": launches, "traced_step_ms": traced_ms,
-           "device_busy_ms": busy_ms,
-           "device_idle_share": 1 - busy_ms / traced_ms if busy_ms else None,
+           "launches": launches, **prof,
            "device_idle_share_untraced": (1 - busy_ms / step_ms
                                           if busy_ms else None),
-           "kernels_per_step": sum(e.count for e in kernels),
-           "device_ms_by_kind": by_kind,
-           "top": [{"name": e.key[:70], "ms": dev_us(e) / 1e3,
-                    "count": e.count} for e in top], "card": smi}
+           "card": smi}
     log(f"train gpt-350m bf16 B={B} S={S}: step {step_ms:.2f} ms median "
         f"({mean_ms:.2f} mean), {rec['tokens_per_s']:.0f} tokens/s, peak "
         f"memory {rec['peak_memory_gb']:.2f} GB, {flops:.3e} flops/step, "
@@ -2691,8 +2733,8 @@ def train_step_350m(smi, warmup=3, steps=10, B=8):
         f"traced step, {rec['device_idle_share_untraced']} of the untraced "
         f"median, {rec['kernels_per_step']} kernels")
     log("  by kind: " + ", ".join(
-        f"{k} {v:.2f} ms" for k, v in sorted(by_kind.items(),
-                                              key=lambda kv: -kv[1])))
+        f"{k} {v:.2f} ms" for k, v in sorted(
+            prof["device_ms_by_kind"].items(), key=lambda kv: -kv[1])))
     for t in rec["top"]:
         log(f"  {t['ms']:.3f} ms x{t['count']} {t['name']}")
     rec["parts"] = time_step_parts(cfg, step_fn, params, state, toks, labs)
@@ -4261,9 +4303,463 @@ def warm_start(prompts, want, smi, max_new=32):
                 os.remove(path)
 
 
+# ------------------------------------- multi-device training on one card (20)
+# (a) the flash kernels at each plan's per-rank shape at GPT-350M (bf16,
+# causal, D=64, S=1024): (name, B, H)
+TRAIN_PAR_RANK_SHAPES = (("dp2_sharding2", 4, 16), ("mp2", 8, 8),
+                         ("pp2_M4", 2, 16), ("ulysses_sp2", 8, 8),
+                         ("dp2_mp2_pp2_M2", 2, 8))
+# (b) f32 parity arms at full width, 4 layers: (name, plan, config
+# override, loss rtol: the JAX suite's, 5e-4 for hybrids)
+TRAIN_PAR_PARITY = (
+    ("dp2", dict(dp=2), {}, 2e-4),
+    ("sharding2", dict(sharding=2), {}, 2e-4),
+    ("mp2", dict(mp=2), {}, 2e-4),
+    ("mp2_fused_ce8", dict(mp=2), {"fused_ce_chunks": 8}, 2e-4),
+    ("sp2_ring", dict(sp=2), {}, 2e-4),
+    ("sp2_ulysses", dict(sp=2, sp_mode="ulysses"), {}, 2e-4),
+    ("pp2_M4_gpipe", dict(pp=2, microbatches=4, schedule="gpipe"), {}, 2e-4),
+    ("pp2_M4_1f1b", dict(pp=2, microbatches=4), {}, 2e-4),
+    ("pp2_M4_eager1f1b", dict(pp=2, microbatches=4, schedule="eager1f1b"),
+     {}, 2e-4),
+    ("pp2_vpp2_M4", dict(pp=2, vpp=2, microbatches=4), {}, 2e-4),
+    ("dp2_mp2_pp2_M2", dict(dp=2, mp=2, pp=2, microbatches=2), {}, 5e-4),
+    ("pp2_sp2_dp2_M2_ring", dict(pp=2, sp=2, dp=2, microbatches=2), {},
+     5e-4))
+# Adam divides each gradient element by its own running scale, so an
+# element whose gradient is rounding noise (another plan sums in another
+# order) moves by up to about lr a step: the parameters are held to lr
+# (phase 9's rule), each leaf's update as a whole to 1e-2, and the first
+# step's moment m (0.1 x the clipped gradient, taken before the
+# parameters part: a double-counted or missing part shows at order 1,
+# where Adam's update would hide a scale) to 1e-3 of each leaf's largest
+TRAIN_PAR_LR = 1e-3
+TRAIN_PAR_PARAM_ATOL = TRAIN_PAR_LR
+TRAIN_PAR_UPDATE_RTOL = 1e-2
+TRAIN_PAR_M_RTOL = 1e-3
+# (c) timed bf16 arms at phase 8's configuration
+TRAIN_PAR_TIMED = (
+    ("single", {}), ("dp2", dict(dp=2)), ("sharding2", dict(sharding=2)),
+    ("mp2", dict(mp=2)), ("sp2_ulysses", dict(sp=2, sp_mode="ulysses")),
+    ("pp2_M4_1f1b", dict(pp=2, microbatches=4)),
+    ("pp2_vpp2_M4", dict(pp=2, vpp=2, microbatches=4)),
+    ("dp2_mp2_pp2_M2", dict(dp=2, mp=2, pp=2, microbatches=2)))
+
+
+def expected_flash_launches(plan, layers):
+    """Flash launches of one step: every rank's layers once a microbatch
+    forward and once backward; the 1F1B paths recompute each stage
+    forward in the backward and skip the last virtual stage's forward;
+    the sp ring and the all-gather route launch none."""
+    if plan.sp > 1 and plan.sp_mode == "ring":
+        return 0, 0
+    R, M = plan.n_devices, plan.microbatches if plan.pp > 1 else 1
+    per = R * layers // plan.pp * M
+    if plan.pp > 1 and (plan.vpp > 1 or plan.schedule != "gpipe"):
+        skipped = R // plan.pp * layers // (plan.pp * plan.vpp) * M
+        return 2 * per - skipped, per
+    return per, per
+
+
+def flash_rank_shapes():
+    """Phase 20 (a): forward, dQ and dK/dV at each rank shape against
+    their plain versions (phase 7's tolerances; every backward launched
+    twice and repeated bit for bit)."""
+    out = []
+    for j, (name, B, H) in enumerate(TRAIN_PAR_RANK_SHAPES):
+        rec, _ = flash_case_check(
+            100 + j, f"rank_{name}", dict(B=B, H=H, Hk=H, S=1024, D=64),
+            "bf16", True, False, 0.0, flush=None)
+        out.append(rec)
+    return out
+
+
+def _flash_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    return fa.launches_fwd, fa.launches_dq, fa.launches_dkv
+
+
+def rank_moment(state, params, grid, key="m"):
+    """[{leaf: the optimizer's `key` (m or v) in the rank's piece's
+    shape}] a rank: each rank's state shard joined over its `sharding`
+    group, the pad cut."""
+    import torch
+    out = []
+    for r in range(grid.size):
+        group = grid.ranks_where(**{a: c for a, c in grid.coords[r].items()
+                                    if a != "sharding"})
+        out.append({k: torch.cat([state[k][q][key] for q in group])
+                    [:p[r].numel()].reshape(p[r].shape)
+                    for k, p in params.items()})
+    return out
+
+
+def train_parallel_parity(smi, steps=3, B=8):
+    """Phase 20 (b): every parity arm from one seeded set of f32 weights
+    (and the zero state) against `MeshPlan()` on the same weights and
+    batches, compared on the card rank by rank against the reference's
+    window of each leaf: losses at the arm's rtol; the parameters within
+    TRAIN_PAR_PARAM_ATOL and each leaf's update within
+    TRAIN_PAR_UPDATE_RTOL after `steps` steps, the first step's moment
+    within TRAIN_PAR_M_RTOL."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.parallel import (GPTSpmdConfig, MeshPlan,
+                                           init_opt_state_leaf,
+                                           interleave_permutation,
+                                           make_train_step, param_specs)
+    from paddle_tpu_torch.parallel.collectives import RankGrid
+    from paddle_tpu_torch.parallel.gpt_spmd import (_BLOCK_LEAVES, _window,
+                                                    shard_leaf)
+    base_cfg = GPTSpmdConfig(**{**TRAIN_350M, "layers": 4}, remat=False)
+    S = base_cfg.max_seq_len
+    rng = np.random.RandomState(2)
+    data = [(torch.from_numpy(rng.randint(0, base_cfg.vocab_size, (B, S))),
+             torch.from_numpy(rng.randint(0, base_cfg.vocab_size, (B, S))))
+            for _ in range(steps)]
+    _, init = make_train_step(base_cfg, device="cuda")
+    p0 = init(7)[0]
+    specs = param_specs()
+    dev = p0["wte"].device
+
+    def stored(glob, plan):
+        """The global leaves in the plan's storage order (vpp)."""
+        if plan.vpp == 1:
+            return glob
+        perm = torch.from_numpy(interleave_permutation(
+            base_cfg.layers, plan.pp, plan.vpp)).to(dev)
+        return {k: (v[perm] if k in _BLOCK_LEAVES else v)
+                for k, v in glob.items()}
+
+    def run(cfg, plan):
+        step, _ = make_train_step(cfg, plan, learning_rate=TRAIN_PAR_LR,
+                                  device="cuda")
+        grid = RankGrid(plan.dims, [dev] * plan.n_devices)
+        params = {k: shard_leaf(v, specs[k], grid)
+                  for k, v in stored(p0, plan).items()}
+        state = {k: [init_opt_state_leaf(p, plan) for p in v]
+                 for k, v in params.items()}
+        if plan.n_devices == 1:
+            params = {k: v[0] for k, v in params.items()}
+            state = {k: v[0] for k, v in state.items()}
+        before = _flash_counts()
+        losses, m = [], None
+        for toks, labs in data:
+            loss, params, state = step(params, state, toks, labs)
+            losses.append(float(loss))
+            if m is None:       # the first step's m: 0.1 x its gradient
+                m = rank_moment(
+                    state if plan.n_devices > 1 else
+                    {k: [v] for k, v in state.items()},
+                    params if plan.n_devices > 1 else
+                    {k: [v] for k, v in params.items()}, grid)
+        launches = [a - b for a, b in zip(_flash_counts(), before)]
+        if plan.n_devices == 1:
+            params = {k: [v] for k, v in params.items()}
+        return losses, params, m, launches, grid
+
+    ref_losses, ref_p, ref_m, _, _ = run(base_cfg, MeshPlan())
+    ref_p = {k: v[0].detach() for k, v in ref_p.items()}
+    ref_m = ref_m[0]
+    out = {"reference": {"losses": ref_losses}, "arms": {}}
+    for name, kw, over, rtol in TRAIN_PAR_PARITY:
+        cfg = dataclasses.replace(base_cfg, **over)
+        plan = MeshPlan(**kw)
+        t0 = time.perf_counter()
+        losses, params, m, launches, grid = run(cfg, plan)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                            ref_losses))
+        want_p, want_m, start = (stored(d, plan) for d in (ref_p, ref_m,
+                                                           p0))
+        errs, upd, merr, over_1e4, noise = {}, {}, {}, {}, {}
+        for k, pieces in params.items():
+            d2 = u2 = 0.0
+            errs[k] = merr[k] = 0.0
+            over_1e4[k], noise_k = 0, 0.0
+            rms = float(want_m[k].pow(2).mean().sqrt())
+            mmax = float(want_m[k].abs().max())
+            seen = set()
+            for r, piece in enumerate(pieces):
+                win = _window(tuple(want_p[k].shape), specs[k], grid, r)
+                d = (piece.detach() - want_p[k][win]).abs()
+                errs[k] = max(errs[k], float(d.max()))
+                merr[k] = max(merr[k], float(
+                    (m[r][k] - want_m[k][win]).abs().max()) / mmax)
+                key = tuple((w.start, w.stop) for w in win)
+                if key in seen:
+                    continue
+                seen.add(key)
+                d2 += float(d.pow(2).sum())
+                u2 += float((want_p[k][win] - start[k][win]).pow(2).sum())
+                # where the parameters part by more than 1e-4, how large
+                # the reference's first gradient is against the leaf's RMS
+                big = d > 1e-4
+                over_1e4[k] += int(big.sum())
+                if bool(big.any()):
+                    noise_k = max(noise_k, float(
+                        want_m[k][win][big].abs().max()) / rms)
+            upd[k] = (d2 / u2) ** 0.5
+            if over_1e4[k]:
+                noise[k] = noise_k
+        del params, m
+        torch.cuda.empty_cache()
+        worst = max(errs, key=errs.get)
+        worst_u, worst_m = max(upd, key=upd.get), max(merr, key=merr.get)
+        want = expected_flash_launches(plan, cfg.layers)
+        rec = {"plan": kw, "config": over, "losses": losses,
+               "loss_max_rel_err": loss_err, "loss_rtol": rtol,
+               "param_max_abs_err": errs[worst], "param_worst_leaf": worst,
+               "param_max_abs_err_by_leaf": errs,
+               "param_elems_over_1e-4": over_1e4,
+               "m_over_rms_where_over_1e-4": noise,
+               "update_rel_err_by_leaf": upd, "m_rel_err_by_leaf": merr,
+               "tol": {"param_atol": TRAIN_PAR_PARAM_ATOL,
+                       "update_rtol": TRAIN_PAR_UPDATE_RTOL,
+                       "m_rtol": TRAIN_PAR_M_RTOL},
+               "flash_launches": launches,
+               "seconds": time.perf_counter() - t0}
+        out["arms"][name] = rec
+        log(f"train parallel parity {name} (f32, hidden 1024, 4 layers, "
+            f"B={B}, lr {TRAIN_PAR_LR}, {steps} steps): losses "
+            f"{[round(x, 6) for x in losses]} vs "
+            f"{[round(x, 6) for x in ref_losses]}, max rel err "
+            f"{loss_err:.2e} (rtol {rtol}); params max abs err "
+            f"{errs[worst]:.2e} in {worst} (atol {TRAIN_PAR_PARAM_ATOL}; "
+            f"{sum(over_1e4.values())} elements above 1e-4, where the "
+            f"reference's first gradient is at most "
+            f"{max(noise.values(), default=0.0):.2e} of its leaf's RMS); "
+            f"update rel err {upd[worst_u]:.2e} in {worst_u} (rtol "
+            f"{TRAIN_PAR_UPDATE_RTOL}); step-1 m rel err "
+            f"{merr[worst_m]:.2e} in "
+            f"{worst_m} (rtol {TRAIN_PAR_M_RTOL}); flash launches "
+            f"fwd/dq/dkv {launches} in {steps} steps, "
+            f"{rec['seconds']:.1f} s [{smi}]")
+        if not (loss_err <= rtol and errs[worst] <= TRAIN_PAR_PARAM_ATOL
+                and upd[worst_u] <= TRAIN_PAR_UPDATE_RTOL
+                and merr[worst_m] <= TRAIN_PAR_M_RTOL):
+            raise AssertionError(f"phase 20 (b) {name}: the plan departs "
+                                 "from MeshPlan()")
+        if launches != [x * steps for x in (want[0], want[1], want[1])]:
+            raise AssertionError(f"phase 20 (b) {name}: flash launches "
+                                 f"{launches}, want {want} a step")
+    return out
+
+
+def rank_bytes(params, state, grads_f32):
+    """[(param, grad, optimizer bytes)] a rank: the parameters, the
+    gradients the step holds (param dtype under autograd, f32 on the 1F1B
+    paths) and m + v + master."""
+    leaves = list(params.values())
+    if not isinstance(leaves[0], (list, tuple)):
+        params = {k: [v] for k, v in params.items()}
+        state = {k: [v] for k, v in state.items()}
+    out = []
+    for r in range(len(next(iter(params.values())))):
+        ps = [v[r] for v in params.values()]
+        pb = sum(p.numel() * p.element_size() for p in ps)
+        gb = sum(p.numel() * (4 if grads_f32 else p.element_size())
+                 for p in ps)
+        ob = sum(st[r][n].numel() * 4 for st in state.values()
+                 for n in ("m", "v", "master"))
+        out.append((pb, gb, ob))
+    return out
+
+
+def timed_train_config(B):
+    """Phase 8's configuration (GPT-350M, bf16, no remat, unfused CE) and
+    its fixed batch on the card (phase 20 (c), (d))."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.parallel import GPTSpmdConfig
+    cfg = GPTSpmdConfig(**TRAIN_350M, param_dtype="bfloat16",
+                        compute_dtype="bfloat16", remat=False)
+    rng = np.random.RandomState(0)
+    shape = (B, cfg.max_seq_len)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
+    labs = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
+    return cfg, toks, labs
+
+
+def train_parallel_timed(smi, warmup=3, steps=5, B=8):
+    """Phase 20 (c): each timed arm at phase 8's configuration: step ms
+    (median of `steps` synchronised steps after `warmup`), tokens/s, peak
+    memory, each rank's bytes, one profiled step (device busy ms, kernels,
+    idle share) and its flash launches a step."""
+    import gc
+    import torch
+    from paddle_tpu_torch.parallel import MeshPlan, make_train_step
+    cfg, toks, labs = timed_train_config(B)
+    S = cfg.max_seq_len
+    out = {}
+    for name, kw in TRAIN_PAR_TIMED:
+        plan = MeshPlan(**kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        baseline = torch.cuda.memory_allocated()    # earlier phases' leftovers
+        step, init = make_train_step(cfg, plan, learning_rate=2e-4,
+                                     device="cuda")
+        params, state = init(0)
+        losses = []
+        for _ in range(warmup):
+            losses.append(float(step(params, state, toks, labs)[0]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = _flash_counts()
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss = step(params, state, toks, labs)[0]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        launches = [(a - b) // steps for a, b in zip(_flash_counts(),
+                                                     before)]
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_train_step(lambda: step(params, state, toks, labs),
+                                  cpu=False)
+        manual = plan.pp > 1 and (plan.vpp > 1 or plan.schedule != "gpipe")
+        per_rank = rank_bytes(params, state, manual)
+        step_ms = sorted(times)[len(times) // 2] * 1e3
+        want = expected_flash_launches(plan, cfg.layers)
+        rec = {"plan": kw, "ranks": plan.n_devices, "losses": losses,
+               "step_ms_median": step_ms,
+               "step_ms_all": [t * 1e3 for t in times],
+               "tokens_per_s": B * S / (step_ms / 1e3),
+               "peak_memory_gb": peak / 1e9,
+               "peak_above_baseline_gb": (peak - baseline) / 1e9,
+               "rank_bytes": [{"param": p, "grad": g, "optimizer": o}
+                              for p, g, o in per_rank],
+               "flash_launches_per_step": launches,
+               "pipeline": dict(step.stats), **prof,
+               "device_idle_share_untraced": (
+                   1 - prof["device_busy_ms"] / step_ms), "card": smi}
+        if name == "sharding2":
+            rec["opt_leaf_elems"] = {
+                k: [st["m"].numel() for st in v] for k, v in state.items()}
+            rec["leaf_elems"] = {k: v[0].numel() for k, v in params.items()}
+        out[name] = rec
+        log(f"train parallel {name} bf16 B={B} S={S} ({plan.n_devices} "
+            f"ranks on one card): step {step_ms:.2f} ms median, "
+            f"{rec['tokens_per_s']:.0f} tokens/s, peak "
+            f"{rec['peak_memory_gb']:.2f} GB ("
+            f"{rec['peak_above_baseline_gb']:.2f} above what was allocated "
+            f"before the arm), rank 0 bytes param "
+            f"{per_rank[0][0] / 1e9:.3f} GB grad {per_rank[0][1] / 1e9:.3f}"
+            f" GB optimizer {per_rank[0][2] / 1e9:.3f} GB, device busy "
+            f"{prof['device_busy_ms']:.2f} ms of a "
+            f"{prof['traced_step_ms']:.2f} ms traced step "
+            f"({prof['kernels_per_step']} kernels, idle "
+            f"share {prof['device_idle_share']:.3f}; "
+            f"{rec['device_idle_share_untraced']:.3f} of the untraced "
+            f"median), flash launches a step fwd/dq/dkv {launches}, loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f} [{smi}]")
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"phase 20 (c) {name}: loss {losses}")
+        if launches != [want[0], want[1], want[1]]:
+            raise AssertionError(f"phase 20 (c) {name}: flash launches "
+                                 f"{launches} a step, want {want}")
+        del params, state, step, init
+    # ZeRO-2: sharding=2 holds ceil(size / 2) of each leaf's m / v / master
+    sh, dp = out["sharding2"], out["dp2"]
+    for k, n in sh["leaf_elems"].items():
+        if any(e != -(-n // 2) for e in sh["opt_leaf_elems"][k]):
+            raise AssertionError(f"phase 20 (c): sharding=2 state of {k} "
+                                 f"{sh['opt_leaf_elems'][k]}, want "
+                                 f"ceil({n} / 2) a rank")
+    ratio = sh["rank_bytes"][0]["optimizer"] / dp["rank_bytes"][0][
+        "optimizer"]
+    out["zero2_optimizer_ratio"] = ratio
+    log(f"ZeRO-2: sharding=2 holds {sh['rank_bytes'][0]['optimizer']} B of "
+        f"m/v/master a rank, dp=2 {dp['rank_bytes'][0]['optimizer']} B "
+        f"(ratio {ratio:.6f})")
+    if not 0.5 <= ratio <= 0.5 + 1e-6:
+        raise AssertionError(f"phase 20 (c): ZeRO-2 state ratio {ratio}")
+    return out
+
+
+def schedule_memory(smi, B=8):
+    """Phase 20 (d): pp=4, M=8 at the timed configuration under GPipe and
+    1F1B: each schedule's peak allocated bytes during a step minus what
+    it holds anyway (the resident parameters and state before the step,
+    and the gradients it keeps: param dtype under autograd, the f32
+    accumulators of 1F1B)."""
+    import gc
+    import torch
+    from paddle_tpu_torch.parallel import MeshPlan, make_train_step
+    cfg, toks, labs = timed_train_config(B)
+    out = {}
+    for sched in ("gpipe", "1f1b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        plan = MeshPlan(pp=4, microbatches=8, schedule=sched)
+        step, init = make_train_step(cfg, plan, learning_rate=2e-4,
+                                     device="cuda")
+        params, state = init(0)
+        float(step(params, state, toks, labs)[0])     # the state exists
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = float(step(params, state, toks, labs)[0])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        grads = sum(g for _, g, _ in rank_bytes(params, state,
+                                                sched != "gpipe"))
+        if sched != "gpipe":
+            # 1F1B accumulates wte twice: the embedding's and the head's
+            grads += sum(params["wte"][r].numel() * 4
+                         for r in range(plan.n_devices))
+        act = peak - resident - grads
+        out[sched] = {"peak_bytes": peak, "resident_bytes": resident,
+                      "grad_bytes": grads, "activation_peak_bytes": act,
+                      "step_ms": ms, "loss": loss,
+                      "pipeline": dict(step.stats)}
+        log(f"schedule memory pp=4 M=8 {sched}: peak {peak / 1e9:.3f} GB, "
+            f"resident {resident / 1e9:.3f} GB, gradients "
+            f"{grads / 1e9:.3f} GB, activations {act / 1e9:.3f} GB, one "
+            f"step {ms:.1f} ms, {step.stats} [{smi}]")
+        del params, state, step, init
+    ratio = out["1f1b"]["activation_peak_bytes"] / \
+        out["gpipe"]["activation_peak_bytes"]
+    out["ratio_1f1b_to_gpipe"] = ratio
+    log(f"1F1B / GPipe activation peak at pp=4, M=8: {ratio:.4f} (the JAX "
+        f"suite expects below 0.5 of its compiled temp bytes) [{smi}]")
+    if not ratio < 1.0:
+        raise AssertionError(f"phase 20 (d): 1F1B's activation peak is not "
+                             f"below GPipe's ({ratio})")
+    return out
+
+
+def train_parallel_phase(smi):
+    """Phase 20: the `gpt_spmd` plans with an axis above 1 on the one card
+    (module docstring)."""
+    import gc
+    import torch
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    for part, fn in (("rank_shapes", flash_rank_shapes),
+                     ("parity", lambda: train_parallel_parity(smi)),
+                     ("timed", lambda: train_parallel_timed(smi)),
+                     ("schedule_memory", lambda: schedule_memory(smi))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out[part] = fn()
+        secs[part] = time.perf_counter() - t
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = secs
+    log(f"phase 20 by part (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()) + f" [{smi}]")
+    return out
+
+
 def main(argv):
     flash_only = "--flash-only" in argv
     parallel_only = "--parallel-only" in argv
+    train_parallel_only = "--train-parallel-only" in argv
     try:
         import torch
     except ImportError:
@@ -4312,6 +4808,16 @@ def main(argv):
             f"{r['registers']} registers, "
             f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
             f"spill loads, {r['smem_dynamic']} B dynamic shared memory")
+    if train_parallel_only:
+        # phase 20 alone
+        report["train_parallel"] = train_parallel_phase(smi)
+        log(f"phase 20 took {report['train_parallel']['seconds']:.1f} s "
+            f"[{smi}]")
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out",
+                               "chip_smoke_train_parallel.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        return 0
     if flash_only:
         # the flash kernels alone, every case run and reported
         flush_buf = torch.empty(64 * 1024 * 1024, device="cuda")
@@ -4554,6 +5060,15 @@ def main(argv):
                                         [h.tokens for h in handles8], smi)
     report["phase19_s"] = time.perf_counter() - t19
     log(f"phase 19 took {report['phase19_s']:.1f} s [{smi}]")
+
+    # 20. multi-device training on the one card ------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["train_parallel"] = tp20 = train_parallel_phase(smi)
+    single = tp20["timed"]["single"]["step_ms_median"]
+    log(f"phase 20 took {tp20['seconds']:.1f} s; single-device step "
+        f"{single:.2f} ms in phase 20, {report['train']['step_ms_median']:.2f}"
+        f" ms in phase 8 [{smi}]")
 
     # summary ------------------------------------------------------------------------
     dec = next(c for c in cases if c["case"] == "decode_f32")

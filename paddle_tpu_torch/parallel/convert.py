@@ -3,13 +3,17 @@
 The port keeps the JAX leaf names and the stacked `[in, out]` layout, so
 the mapping is a checked copy: every name present and no other, shapes
 equal (to `param_shapes(cfg)` when a config is given), values copied
-through float32 (exact for bf16).
+through float32 (exact for bf16). With a `plan` of more than one rank the
+JAX global arrays are cut into each rank's piece (`param_specs`, the
+optimizer's `state_specs`), taking the vpp storage order as stored.
 """
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from .gpt_spmd import _BLOCK_LEAVES, param_shapes
+from .collectives import RankGrid
+from .gpt_spmd import (_BLOCK_LEAVES, _resolve_devices, param_shapes,
+                       param_specs, shard_leaf, state_specs)
 
 __all__ = ["params_from_jax", "opt_state_from_jax"]
 
@@ -32,41 +36,69 @@ def _tensor(arr, dtype, dev):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
 
-def params_from_jax(params, device="cuda", dtype=None, cfg=None):
+def _grid(plan, device, devices):
+    """The plan's rank grid, or None for a plan of one rank."""
+    if plan is None or plan.n_devices == 1:
+        return None
+    dev = resolve_device(device)
+    return RankGrid(plan.dims, _resolve_devices(
+        devices or [dev] * plan.n_devices, plan.n_devices))
+
+
+def params_from_jax(params, device="cuda", dtype=None, cfg=None, plan=None,
+                    devices=None):
     """{leaf: array} from the JAX `init_gpt_params` (or a trained step) ->
     {leaf: tensor} on `device`, in `dtype` (default: float32, or the
-    config's param_dtype when `cfg` is given)."""
-    dev = resolve_device(device)
+    config's param_dtype when `cfg` is given). With a `plan` of more than
+    one rank: {leaf: [one piece a rank]}, rank r's on `devices[r]`
+    (default `device`)."""
     _check_names(params, _LEAVES, "parameter")
     if dtype is None:
         dtype = torch.float32 if cfg is None else \
             {"float32": torch.float32,
              "bfloat16": torch.bfloat16}[cfg.param_dtype]
     shapes = param_shapes(cfg) if cfg is not None else None
+    grid = _grid(plan, device, devices)
+    host = torch.device("cpu") if grid is not None else \
+        resolve_device(device)
+    specs = param_specs(cfg)
     out = {}
     for name in _LEAVES:
-        t = _tensor(params[name], dtype, dev)
+        t = _tensor(params[name], dtype, host)
         if shapes is not None and tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != "
                              f"{shapes[name]}")
-        out[name] = t
+        out[name] = t if grid is None else shard_leaf(t, specs[name], grid)
     return out
 
 
-def opt_state_from_jax(state, device="cuda"):
-    """{leaf: {"m", "v", "master", "t"}} from the JAX
-    `init_opt_state_leaf` at sharding=1 -> the same in tensors (f32
-    vectors, int32 step count)."""
-    dev = resolve_device(device)
+def opt_state_from_jax(state, device="cuda", plan=None, devices=None):
+    """{leaf: {"m", "v", "master", "t"}} from the JAX `init_opt_state_leaf`
+    (or a trained step) -> the same in tensors (f32 vectors, int32 step
+    count). With a `plan` of more than one rank the JAX global state
+    arrays are cut into each rank's shard: {leaf: [one dict a rank]}."""
     _check_names(state, _LEAVES, "state")
+    grid = _grid(plan, device, devices)
+    host = torch.device("cpu") if grid is not None else \
+        resolve_device(device)
+    specs = state_specs()
     out = {}
     for name in _LEAVES:
         _check_names(state[name], _STATE, f"state[{name!r}]")
-        out[name] = {k: _tensor(state[name][k], torch.float32, dev)
-                     for k in ("m", "v", "master")}
-        out[name]["t"] = torch.tensor(int(np.asarray(state[name]["t"])),
-                                      dtype=torch.int32, device=dev)
-        n = out[name]["m"].numel()
-        if any(out[name][k].shape != (n,) for k in ("v", "master")):
+        leaf = {k: _tensor(state[name][k], torch.float32, host)
+                for k in ("m", "v", "master")}
+        n = leaf["m"].numel()
+        if any(leaf[k].shape != (n,) for k in ("v", "master")):
             raise ValueError(f"state[{name!r}]: m/v/master sizes differ")
+        t = int(np.asarray(state[name]["t"]))
+        if grid is None:
+            leaf["t"] = torch.tensor(t, dtype=torch.int32, device=host)
+            out[name] = leaf
+            continue
+        pieces = {k: shard_leaf(v, specs[name][k], grid)
+                  for k, v in leaf.items()}
+        out[name] = [{"m": pieces["m"][r], "v": pieces["v"][r],
+                      "master": pieces["master"][r],
+                      "t": torch.tensor(t, dtype=torch.int32, device=d)}
+                     for r, d in enumerate(grid.devices)]
     return out

@@ -371,6 +371,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "        'paddle_tpu_torch.serving.distributed.tp',\n"
             "        'paddle_tpu_torch.serving.distributed.pp',\n"
             "        'paddle_tpu_torch.parallel.pipeline_schedule',\n"
+            "        'paddle_tpu_torch.parallel.collectives',\n"
+            "        'paddle_tpu_torch.parallel.ring_attention',\n"
+            "        'paddle_tpu_torch.parallel.convert',\n"
             "        'paddle_tpu_torch.serving.kv_tiers.store',\n"
             "        'paddle_tpu_torch.serving.kv_tiers.host',\n"
             "        'paddle_tpu_torch.serving.kv_tiers.disk',\n"

@@ -233,15 +233,31 @@ def test_params_from_jax_bf16_is_exact(golden):
                                       jp[k].astype(np.float32))
 
 
-@pytest.mark.parametrize("what", ["dp", "mp", "dots", "dots+attn"])
-def test_unported_plans_and_remat_policies_raise(what):
-    if what in ("dp", "mp"):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            MeshPlan(**{what: 2})
-        return
-    cfg = GPTSpmdConfig(**{**CFG, "remat": what})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(cfg, device="cpu")
+@pytest.mark.parametrize("what", ["sp_mode", "ulysses_heads",
+                                  "fused_ce_local_shard", "absent_card"])
+def test_refused_plans_raise(what):
+    """What the port still refuses, each with the reference's reason: an
+    unknown sp_mode, ulysses with heads/mp not divisible by sp, a fused-CE
+    chunk count that does not divide the local vocab shard, and a rank
+    placed on a card the host lacks."""
+    cfg = GPTSpmdConfig(**CFG)
+    if what == "sp_mode":
+        with pytest.raises(ValueError, match="sp_mode"):
+            MeshPlan(sp=2, sp_mode="Ulysses")
+    elif what == "ulysses_heads":
+        with pytest.raises(ValueError, match="divisible by the sp axis"):
+            make_train_step(cfg, MeshPlan(sp=4, mp=2, sp_mode="ulysses"),
+                            device="cpu")
+    elif what == "fused_ce_local_shard":
+        cfg = dataclasses.replace(cfg, fused_ce_chunks=128)
+        with pytest.raises(ValueError, match="LOCAL shard"):
+            make_train_step(cfg, MeshPlan(mp=2), device="cpu")
+    else:
+        absent = f"cuda:{torch.cuda.device_count()}"
+        with pytest.raises((ValueError, RuntimeError),
+                           match="not on this host|CUDA is not available"):
+            make_train_step(cfg, MeshPlan(dp=2), device="cpu",
+                            devices=["cpu", absent])
 
 
 def test_default_device_raises_without_cuda():

@@ -4,6 +4,7 @@
     python3 chip_smoke.py               # every phase, as the driver runs it
     python3 chip_smoke.py --flash-only  # phases 1, 2 and 7 only
     python3 chip_smoke.py --train-parallel-only   # phases 1, 2 and 20
+    python3 chip_smoke.py --eager-only  # phases 1, 2 and 21
 
 Phases (any exception ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -277,6 +278,38 @@ Phases (any exception ends the run with a non-zero exit):
      resident parameters, state and gradients, 1F1B's below GPipe's.
      No number of this phase is a multi-card speed: every rank shares
      the one card. `--train-parallel-only` runs phases 1, 2 and 20.
+ 21. the eager core on the card (`core.tensor.Tensor`, `apply_op`, the
+     tape on torch autograd, `PyLayer`, the `tensor` op surface):
+     (a) bench_eager.py's MLP step (Linear D->H, ReLU, H->H, ReLU, H->C,
+     softmax cross-entropy, SGD at lr 0.05) in the port's eager ops
+     (`matmul`, `maximum`, `logsumexp`, `take_along_axis`, parameters
+     updated under `no_grad`) at B=256, D=64, H=256, C=8 and at
+     B=8192, D=H=4096, C=8, in three arms: the eager Tensor API, the
+     same ops on raw torch tensors, and that raw step captured once as
+     a CUDA graph and replayed, run in turns. Each arm's step ms
+     (quartiles of 60 steps after 5 of warm-up; a host read of the loss
+     closes each step), its
+     kernels and device ms a step (`deviceprof.capture` over 5 steps),
+     and the quartiles of (eager_i - torch_i) / 25 ops over the paired
+     steps; arms 1 and 2 give the same losses within 1e-6 and every loss
+     falls; and the host us the wrapper adds an op where a step's noise
+     cannot hide it: 60 rounds of 200 back-to-back add / multiply /
+     maximum / matmul calls on 8x8 f32 through the port and through
+     torch, in turns, no sync inside a round, inputs without and with
+     grad, quartiles of the paired rounds' difference;
+     (b) a `PyLayer` whose forward launches the flash forward kernel and
+     whose backward launches dQ and dK/dV, through paddle Tensors at
+     GPT-350M's attention shape (B=8, H=16, S=1024, D=64, bf16, causal):
+     each launch counter moves by exactly one, output and gradients held
+     to the plain versions at phase 7's bf16 tolerance; (c) with
+     `FLAGS_check_nan_inf` set, an op making a NaN or Inf raises naming
+     the op, and the small step's ms with the flag off and on (in
+     turns); (d) the
+     CPU tests' op table (`tests/test_torch_tensor_ops.py` `OP_TABLE`
+     and `INPLACE_TABLE`, the tie and order rules among them) on CUDA
+     against the port on the CPU: integer, bool and index results exact,
+     floats at each case's tolerance, values and gradients.
+     `--eager-only` runs phases 1, 2 and 21.
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -4756,10 +4789,464 @@ def train_parallel_phase(smi):
     return out
 
 
+# --------------------------------------------------- 21. the eager core
+EAGER_SIZES = (("small", 256, 64, 256, 8), ("large", 8192, 4096, 4096, 8))
+EAGER_LR = 0.05
+EAGER_WARMUP, EAGER_STEPS = 5, 60
+EAGER_OPS = 25            # ops a step that launch work: 13 forward + 2 a
+                          # parameter in the update (6 parameters)
+EAGER_LOSS_RTOL = 1e-6    # arms 1 and 2 run the same kernels in order
+WRAPPER_OPS = ("add", "multiply", "maximum", "matmul")
+WRAPPER_CALLS, WRAPPER_WARMUP, WRAPPER_ROUNDS = 200, 5, 60
+
+
+def flash_pylayer(meta):
+    """A PyLayer over the port's flash kernels: forward `flash_fwd`,
+    backward `flash_dq` and `flash_dkv`, on paddle Tensors of flattened
+    [B*H, S, D] rows (the wrappers take the plain versions on CPU
+    tensors)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.tensor import apply_op
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    class FlashAttention(pt.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            o, lse = apply_op(lambda a, b, c: fa.flash_fwd(a, b, c, None,
+                                                           meta),
+                              q, k, v, name="flash_fwd")
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensor()
+            do = apply_op(lambda t: t.contiguous(), do, name="contiguous")
+            delta = (do.astype("float32") * o.astype("float32")).sum(-1)
+            dq = apply_op(lambda *t: fa.flash_dq(*t, None, meta),
+                          q, k, v, do, lse, delta, name="flash_dq")
+            dk, dv = apply_op(lambda *t: fa.flash_dkv(*t, None, meta),
+                              q, k, v, do, lse, delta, name="flash_dkv")
+            return dq, dk, dv
+    return FlashAttention
+
+
+def mlp_init(dev, D, H, C):
+    """bench_eager.py's MLP (Linear D->H, ReLU, H->H, ReLU, H->C) as six
+    seeded tensors: weights scaled by fan_in ** -0.5, zero biases."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = []
+    for fi, fo in ((D, H), (H, H), (H, C)):
+        out.append(torch.randn((fi, fo), generator=g, device=dev)
+                   * fi ** -0.5)
+        out.append(torch.zeros((fo,), device=dev))
+    return out
+
+
+def mlp_data(dev, B, D, C):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(1)
+    return (torch.rand((B, D), generator=g, device=dev),
+            torch.randint(0, C, (B, 1), generator=g, device=dev))
+
+
+def eager_mlp_step(pt, x, y, ps, lr=EAGER_LR):
+    """One step of the MLP in the port's eager API: forward, softmax
+    cross-entropy, backward, SGD under no_grad. Returns the loss (a host
+    read, which closes the step)."""
+    w1, b1, w2, b2, w3, b3 = ps
+    h = pt.maximum(pt.matmul(x, w1) + b1, 0.0)
+    h = pt.maximum(pt.matmul(h, w2) + b2, 0.0)
+    z = pt.matmul(h, w3) + b3
+    loss = (pt.logsumexp(z, axis=-1)
+            - pt.take_along_axis(z, y, 1).squeeze(1)).mean()
+    loss.backward()
+    with pt.no_grad():
+        for p in ps:
+            p.subtract_(p.grad * lr)
+            p.clear_grad()
+    return float(loss)
+
+
+def raw_mlp_step(x, y, ps, zero, lr=EAGER_LR):
+    """The same ops on raw torch tensors (the SGD update in place);
+    returns the loss as a device tensor."""
+    import torch
+    w1, b1, w2, b2, w3, b3 = ps
+    h = torch.maximum(x @ w1 + b1, zero)
+    h = torch.maximum(h @ w2 + b2, zero)
+    z = h @ w3 + b3
+    loss = (torch.logsumexp(z, -1)
+            - torch.take_along_dim(z, y, 1).squeeze(1)).mean()
+    loss.backward()
+    with torch.no_grad():
+        for p in ps:
+            p.sub_(p.grad * lr)
+    return loss
+
+
+def interleaved_steps(arms, warmup, steps):
+    """Run the arms' steps in turns (a, b, c, then c, b, a, ...) so host
+    noise falls on each alike. Each step ends in a host read of its loss.
+    Returns {arm: losses of every step}, {arm: (p25, p50, p75) host ms
+    of the timed steps} and {arm: host ms of each timed step}."""
+    names = list(arms)
+    losses = {a: [] for a in names}
+    times = {a: [] for a in names}
+    for i in range(warmup + steps):
+        for a in (names if i % 2 == 0 else names[::-1]):
+            t0 = time.perf_counter()
+            losses[a].append(arms[a]())
+            if i >= warmup:
+                times[a].append((time.perf_counter() - t0) * 1e3)
+    return losses, {a: quartiles(ts) for a, ts in times.items()}, times
+
+
+def quartiles(values):
+    vs = sorted(values)
+    return tuple(vs[int(q * (len(vs) - 1))] for q in (0.25, 0.5, 0.75))
+
+
+def eager_wrapper_cost(smi, dev):
+    """Phase 21 (a), the wrapper's own cost, where a step's host noise
+    cannot hide it: rounds of WRAPPER_CALLS back-to-back calls (add,
+    multiply, maximum, matmul in turn) on 8x8 f32 tensors, through the
+    port's ops and through torch's, the two arms in turns; no sync inside
+    a round, one after it. Inputs that do not, then that do, require
+    grad. Per round, (port - torch) / WRAPPER_CALLS; quartiles over
+    WRAPPER_ROUNDS rounds."""
+    import torch
+    import paddle_tpu_torch as pt
+    raw = {"add": torch.add, "multiply": torch.mul,
+           "maximum": torch.maximum, "matmul": torch.matmul}
+    g = torch.Generator(device=dev).manual_seed(3)
+    a0, b0 = (torch.randn((8, 8), generator=g, device=dev)
+              for _ in range(2))
+
+    def timed(fns, x, y):
+        def run():
+            t0 = time.perf_counter()
+            for i in range(WRAPPER_CALLS):
+                fns[i % len(fns)](x, y)
+            t = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            return t * 1e6 / WRAPPER_CALLS
+        return run
+
+    out = {}
+    for label, req in (("no_grad_inputs", False), ("grad_inputs", True)):
+        ta, tb = (t.clone().requires_grad_(req) for t in (a0, b0))
+        pa, pb = (pt.to_tensor(t, stop_gradient=not req) for t in (a0, b0))
+        arms = {"port": timed([getattr(pt, n) for n in WRAPPER_OPS], pa, pb),
+                "torch": timed([raw[n] for n in WRAPPER_OPS], ta, tb)}
+        us, _, _ = interleaved_steps(arms, WRAPPER_WARMUP, WRAPPER_ROUNDS)
+        port, tor = (us[a][WRAPPER_WARMUP:] for a in ("port", "torch"))
+        out[label] = {
+            "port_us_per_op_quartiles": quartiles(port),
+            "torch_us_per_op_quartiles": quartiles(tor),
+            "wrapper_us_per_op_quartiles": quartiles(
+                p - t for p, t in zip(port, tor))}
+    log("wrapper cost (rounds of " + str(WRAPPER_CALLS) + " calls of "
+        + "/".join(WRAPPER_OPS) + " on 8x8 f32, no sync inside a round, "
+        f"turns, {WRAPPER_ROUNDS} rounds): " + "; ".join(
+            f"{k}: host us an op p25/p50/p75 port "
+            + "/".join(f"{v:.2f}" for v in r["port_us_per_op_quartiles"])
+            + ", torch "
+            + "/".join(f"{v:.2f}" for v in r["torch_us_per_op_quartiles"])
+            + ", port - torch (paired rounds) "
+            + "/".join(f"{v:.2f}" for v in r["wrapper_us_per_op_quartiles"])
+            for k, r in out.items()) + f" [{smi}]")
+    out["card"] = smi
+    return out
+
+
+def eager_mlp(smi, label, B, D, H, C, out_dir):
+    """Phase 21 (a) at one size: the three arms, their step ms, kernels a
+    step and the wrapper's host us an op; arms 1 and 2 must give the same
+    losses, and the loss must fall."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.observability import deviceprof
+    dev = torch.device("cuda")
+    init = mlp_init(dev, D, H, C)
+    x0, y0 = mlp_data(dev, B, D, C)
+    x, y = pt.to_tensor(x0), pt.to_tensor(y0)
+    ps1 = [pt.to_tensor(t, stop_gradient=False) for t in init]
+    ps2 = [t.clone().requires_grad_() for t in init]
+    ps3 = [t.clone().requires_grad_() for t in init]
+    zero = torch.tensor(0.0)
+
+    def step1():
+        return eager_mlp_step(pt, x, y, ps1)
+
+    def step2():
+        for p in ps2:
+            p.grad = None
+        return raw_mlp_step(x0, y0, ps2, zero).item()
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            for p in ps3:
+                p.grad = None
+            raw_mlp_step(x0, y0, ps3, zero)
+    torch.cuda.current_stream().wait_stream(side)
+    for p in ps3:
+        p.grad = None
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_loss = raw_mlp_step(x0, y0, ps3, zero)
+
+    def step3():
+        graph.replay()
+        return static_loss.item()
+
+    rec = {"B": B, "D": D, "H": H, "C": C, "ops_per_step": EAGER_OPS,
+           "card": smi}
+    arms = {"eager": step1, "torch": step2, "graph": step3}
+    losses, quart, times = interleaved_steps(arms, EAGER_WARMUP,
+                                             EAGER_STEPS)
+    for arm, step in arms.items():
+        rec[f"{arm}_step_ms"] = quart[arm][1]
+        rec[f"{arm}_step_ms_quartiles"] = quart[arm]
+        _, prof = deviceprof.capture(step, os.path.join(out_dir, label, arm),
+                                     iters=5, label=f"eager_{label}_{arm}")
+        rec[f"{arm}_kernels_per_step"] = prof["n_events"] / 5
+        rec[f"{arm}_device_ms_per_step"] = prof["total_device_ms"] / 5
+    a, b = np.asarray(losses["eager"]), np.asarray(losses["torch"])
+    rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-12)))
+    rec["loss_rel_err_eager_vs_torch"] = rel
+    rec["loss_first_last"] = {k: (v[0], v[-1]) for k, v in losses.items()}
+    # eager step i and torch step i ran back to back: their difference
+    # leaves out the host noise that moves both
+    rec["wrapper_us_per_op_paired_quartiles"] = quartiles(
+        (e - t) * 1e3 / EAGER_OPS for e, t in zip(times["eager"],
+                                                  times["torch"]))
+    q = {a: "/".join(f"{v:.4f}" for v in quart[a]) for a in quart}
+    log(f"eager MLP {label} (B={B} D={D} H={H} C={C}): step ms p25/p50/p75 "
+        f"eager {q['eager']}, torch {q['torch']}, graph {q['graph']} "
+        f"(turns, {EAGER_STEPS} each); kernels a step "
+        f"{rec['eager_kernels_per_step']:.1f} / "
+        f"{rec['torch_kernels_per_step']:.1f} / "
+        f"{rec['graph_kernels_per_step']:.1f}; device ms a step "
+        f"{rec['eager_device_ms_per_step']:.4f} / "
+        f"{rec['torch_device_ms_per_step']:.4f} / "
+        f"{rec['graph_device_ms_per_step']:.4f}; wrapper us an op "
+        "p25/p50/p75 of (eager - torch) step pairs over "
+        f"{EAGER_OPS} ops " + "/".join(
+            f"{v:.2f}" for v in rec["wrapper_us_per_op_paired_quartiles"])
+        + "; "
+        f"loss {losses['eager'][0]:.6f} -> {losses['eager'][-1]:.6f}, "
+        f"eager vs torch rel err {rel:.2e} [{smi}]")
+    if not rel <= EAGER_LOSS_RTOL:
+        raise AssertionError(f"phase 21 (a) {label}: eager and torch losses "
+                             f"differ by {rel} (tol {EAGER_LOSS_RTOL})")
+    for arm, ls in losses.items():
+        if not (np.all(np.isfinite(ls)) and ls[-1] < ls[0]):
+            raise AssertionError(f"phase 21 (a) {label} {arm}: the loss did "
+                                 f"not fall ({ls[0]} -> {ls[-1]})")
+    return rec, step1
+
+
+def eager_flash_pylayer(smi):
+    """Phase 21 (b): the PyLayer over the flash kernels at GPT-350M's
+    attention shape through paddle Tensors, each kernel launched once and
+    held to its plain version."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import flash_attention as fa
+    B, H, S, D = 8, 16, 1024, 64
+    c = flash_case(2100, B, H, H, S, D, "bf16", True, False, 0.0)
+    q0, k0, v0, do0, meta = (c[n] for n in ("q", "k", "v", "do", "meta"))
+    q, k, v = (pt.to_tensor(t, stop_gradient=False) for t in (q0, k0, v0))
+    before = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+    o = flash_pylayer(meta).apply(q, k, v)
+    mid = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+    o.backward(pt.to_tensor(do0))
+    torch.cuda.synchronize()
+    after = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+    moved = tuple(a - b for a, b in zip(after, before))
+    if mid[0] - before[0] != 1 or moved != (1, 1, 1):
+        raise AssertionError(f"phase 21 (b): flash launches moved by "
+                             f"{moved} (forward {mid[0] - before[0]}), want "
+                             "one of each")
+    po, plse = fa.fwd_plain(q0, k0, v0, None, meta)
+    delta = (do0.float() * po.float()).sum(-1)
+    pdq = fa.dq_plain(q0, k0, v0, do0, plse, delta, None, meta)
+    pdk, pdv = fa.dkv_plain(q0, k0, v0, do0, plse, delta, None, meta)
+    errs = {}
+    for name, got, want in (("o", o._data, po), ("dq", q.grad._data, pdq),
+                            ("dk", k.grad._data, pdk),
+                            ("dv", v.grad._data, pdv)):
+        got = got.detach()
+        err = (got.float() - want.float()).abs()
+        bad = (err > BF16_TOL + BF16_TOL * want.float().abs()) \
+            | ~torch.isfinite(got)
+        errs[name] = float(err.max())
+        if bool(bad.any()):
+            raise AssertionError(f"phase 21 (b): {name} disagrees with the "
+                                 f"plain version (max_abs_err "
+                                 f"{errs[name]}, tol {BF16_TOL})")
+    log(f"PyLayer over the flash kernels (B={B} H={H} S={S} D={D} bf16 "
+        f"causal): launches fwd/dq/dkv +{moved[0]}/+{moved[1]}/+{moved[2]}, "
+        "max_abs_err " + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+        + f" (tol {BF16_TOL}) [{smi}]")
+    return {"shape": [B, H, S, D], "launches": dict(zip(
+        ("fwd", "dq", "dkv"), moved)), "max_abs_err": errs,
+        "tol": BF16_TOL, "card": smi}
+
+
+def eager_nan_check(smi, step):
+    """Phase 21 (c): FLAGS_check_nan_inf raises naming the op on the card,
+    and what the flag costs the small MLP step (one host sync an op)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework.flags import set_flags
+
+    def flagged(on):
+        def run():
+            set_flags({"FLAGS_check_nan_inf": on})
+            return step()
+        return run
+
+    try:
+        _, quart, _ = interleaved_steps({"off": flagged(False),
+                                      "on": flagged(True)}, 3, 30)
+        set_flags({"FLAGS_check_nan_inf": True})
+        raised = {}
+        for op, fn in (("log", lambda: pt.log(pt.to_tensor([1.0, -1.0]))),
+                       ("matmul", lambda: pt.matmul(
+                           pt.to_tensor([[float("inf"), 1.0]]),
+                           pt.to_tensor([[0.0], [1.0]])))):
+            try:
+                fn()
+            except RuntimeError as e:
+                raised[op] = str(e).splitlines()[0]
+                if f"'{op}'" not in raised[op]:
+                    raise AssertionError(f"phase 21 (c): the error does not "
+                                         f"name {op}: {raised[op]}") from e
+            else:
+                raise AssertionError(f"phase 21 (c): {op} made a NaN/Inf "
+                                     "and nothing raised")
+    finally:
+        set_flags({"FLAGS_check_nan_inf": False})
+    off, on = quart["off"][1], quart["on"][1]
+    log(f"FLAGS_check_nan_inf on the small step (turns, 30 each): "
+        f"p25/p50/p75 ms off "
+        + "/".join(f"{v:.4f}" for v in quart["off"]) + ", on "
+        + "/".join(f"{v:.4f}" for v in quart["on"])
+        + f" (+{on - off:.4f} ms, {(on - off) * 1e3 / EAGER_OPS:.1f} us an "
+        f"op); raised: {raised} [{smi}]")
+    return {"step_ms_quartiles": quart, "cost_ms": on - off,
+            "raised": raised, "card": smi}
+
+
+def eager_op_table(smi):
+    """Phase 21 (d): the CPU tests' op table (and in-place table) run on
+    CUDA and compared with the port on the CPU: exact for integer, bool
+    and index results, the case's float tolerance otherwise, values and
+    gradients."""
+    import importlib.util
+    import numpy as np
+    import paddle_tpu_torch as pt
+    spec = importlib.util.spec_from_file_location(
+        "torch_op_table", os.path.join(ROOT, "tests",
+                                       "test_torch_tensor_ops.py"))
+    table = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(table)
+    failures, n = [], 0
+
+    def on(dev, fn):
+        prev = pt.get_device()
+        pt.set_device(dev)
+        try:
+            return fn()
+        finally:
+            pt.set_device(prev)
+
+    for case in table.OP_TABLE:
+        n += 1
+        try:
+            arrays = case.inputs()
+            grad = case.grad and any(a.dtype.kind == "f" for a in arrays)
+            res = {d: on(d, lambda: table.run_case(pt, case, arrays,
+                                                   grad=grad))
+                   for d in ("cpu", "gpu")}
+            got = [table.host(o) for o in res["gpu"][0]]
+            want = [table.host(o) for o in res["cpu"][0]]
+            if case.post is not None:
+                got = list(zip(case.post([g for g, _ in got]),
+                               [d for _, d in got]))
+                want = list(zip(case.post([w for w, _ in want]),
+                                [d for _, d in want]))
+            table.compare(got, want, case.tol, case.id)
+            if grad:
+                for i, (g, w) in enumerate(zip(res["gpu"][1],
+                                               res["cpu"][1])):
+                    if arrays[i].dtype.kind != "f":
+                        continue
+                    if (g is None) != (w is None):
+                        raise AssertionError(f"grad {i}: {g} vs {w}")
+                    if g is not None:
+                        np.testing.assert_allclose(
+                            g.numpy(), w.numpy(), rtol=case.tol,
+                            atol=case.tol, err_msg=f"grad of input {i}")
+        except Exception as e:      # noqa: BLE001 - every case is reported
+            failures.append(f"{case.id}: {type(e).__name__}: "
+                            f"{' '.join(str(e).split())[:400]}")
+    for name, args, maker in table.INPLACE_TABLE:
+        n += 1
+        try:
+            a = maker(np.random.RandomState(3))
+            outs = []
+            for dev in ("cpu", "gpu"):
+                def run():
+                    x = pt.to_tensor(a)
+                    getattr(x, name)(*args)
+                    return table.host(x)
+                outs.append(on(dev, run))
+            table.compare([outs[1]], [outs[0]], table.EW, name)
+        except Exception as e:      # noqa: BLE001
+            failures.append(f"{name}: {type(e).__name__}: {e}")
+    log(f"op table on CUDA against the CPU: {n - len(failures)} of {n} "
+        f"cases agree [{smi}]")
+    for f in failures:
+        log(f"  op table FAILED {f}")
+    if failures:
+        raise AssertionError(f"phase 21 (d): {len(failures)} of {n} op "
+                             "table cases disagree between CUDA and the CPU")
+    return {"cases": n, "card": smi}
+
+
+def eager_phase(smi):
+    """Phase 21: the eager core on the card (module docstring)."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    out_dir = os.path.join(ROOT, "chiprun_out", "phase21")
+    out, step_small = {}, None
+    out["wrapper_cost"] = eager_wrapper_cost(smi, torch.device("cuda"))
+    for label, B, D, H, C in EAGER_SIZES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[f"mlp_{label}"], step = eager_mlp(smi, label, B, D, H, C,
+                                              out_dir)
+        step_small = step_small or step
+    out["flash_pylayer"] = eager_flash_pylayer(smi)
+    out["nan_check"] = eager_nan_check(smi, step_small)
+    out["op_table"] = eager_op_table(smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 21 took {out['seconds']:.1f} s [{smi}]")
+    return out
+
+
 def main(argv):
     flash_only = "--flash-only" in argv
     parallel_only = "--parallel-only" in argv
     train_parallel_only = "--train-parallel-only" in argv
+    eager_only = "--eager-only" in argv
     try:
         import torch
     except ImportError:
@@ -4808,6 +5295,14 @@ def main(argv):
             f"{r['registers']} registers, "
             f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
             f"spill loads, {r['smem_dynamic']} B dynamic shared memory")
+    if eager_only:
+        # phase 21 alone
+        report["eager"] = eager_phase(smi)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out",
+                               "chip_smoke_eager.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        return 0
     if train_parallel_only:
         # phase 20 alone
         report["train_parallel"] = train_parallel_phase(smi)
@@ -5069,6 +5564,11 @@ def main(argv):
     log(f"phase 20 took {tp20['seconds']:.1f} s; single-device step "
         f"{single:.2f} ms in phase 20, {report['train']['step_ms_median']:.2f}"
         f" ms in phase 8 [{smi}]")
+
+    # 21. the eager core on the card ----------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["eager"] = eager_phase(smi)
 
     # summary ------------------------------------------------------------------------
     dec = next(c for c in cases if c["case"] == "decode_f32")

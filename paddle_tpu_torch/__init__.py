@@ -27,7 +27,21 @@ neither it nor JAX. Its slices so far:
     `serving.save_for_generation` writes a servable artifact, the kernel
     libraries live in a persistent compile cache, and
     `inference.create_predictor` serves the artifact cold in a new
-    process.
+    process;
+  * the eager core (counterpart of `paddle_tpu.core`, `.tensor`,
+    `.autograd`, `.device`): the `Tensor` over one torch tensor, whose
+    ops go through `core.tensor.apply_op` and whose tape is torch's
+    autograd, `PyLayer`, and the `paddle.tensor` op surface.
+
+Exports of the eager core at this level: `Tensor`, `Parameter`,
+`to_tensor`, every op of `tensor` (`add`, `matmul`, `reshape`, `topk`,
+`randn`, ... and the `op_` in-place variants), the dtypes (`float32`,
+`bfloat16`, `int64`, ...), `seed`, `get_rng_state`, `set_rng_state`,
+`set_device`, `get_device`, `CPUPlace`, `CUDAPlace`, `no_grad`,
+`enable_grad`, `is_grad_enabled`, `set_grad_enabled`, `grad`, and the
+modules `autograd`, `device` and `tensor`. The default place is the GPU:
+without CUDA, making a tensor raises unless `set_device("cpu")` or
+`place="cpu"` was given.
 
 Every entry point takes `device=` and defaults to "cuda"; without CUDA it
 raises unless the caller passes device="cpu", which runs the plain
@@ -36,7 +50,18 @@ PyTorch versions of the kernels.
 from . import core, cost_model, observability, ops, parallel  # noqa: F401
 from . import framework, inference, profiler  # noqa: F401
 from . import serving, text  # noqa: F401
+from . import autograd, device, tensor  # noqa: F401
+from .autograd import grad  # noqa: F401
+from .core import (  # noqa: F401
+    CPUPlace, CUDAPlace, Parameter, Tensor, bfloat16, bool_, complex64,
+    complex128, enable_grad, float16, float32, float64, get_default_dtype,
+    get_device, get_rng_state, int8, int16, int32, int64, is_grad_enabled,
+    no_grad, seed, set_default_dtype, set_device, set_grad_enabled,
+    set_rng_state, to_tensor, uint8,
+)
 from .core.device import resolve_device  # noqa: F401
+from .tensor import *  # noqa: F401,F403
+from .tensor import __all__ as _tensor_ops
 from .serving import (  # noqa: F401
     EngineConfig, GenerationEngine, PagedEngineConfig, PagedGenerationEngine,
     Scheduler, ServingConfig,
@@ -50,4 +75,11 @@ __all__ = ["core", "cost_model", "framework", "inference", "observability",
            "serving", "text", "resolve_device",
            "EngineConfig", "GenerationEngine", "PagedEngineConfig",
            "PagedGenerationEngine", "Scheduler", "ServingConfig", "GPT",
-           "GPTConfig", "gpt_125m", "gpt_tiny"]
+           "GPTConfig", "gpt_125m", "gpt_tiny", "autograd", "device",
+           "tensor", "grad", "CPUPlace", "CUDAPlace", "Parameter", "Tensor",
+           "bfloat16", "bool_", "complex64", "complex128", "enable_grad",
+           "float16", "float32", "float64", "get_default_dtype",
+           "get_device", "get_rng_state", "int8", "int16", "int32", "int64",
+           "is_grad_enabled", "no_grad", "seed", "set_default_dtype",
+           "set_device", "set_grad_enabled", "set_rng_state", "to_tensor",
+           "uint8"] + [n for n in _tensor_ops if n != "Tensor"]

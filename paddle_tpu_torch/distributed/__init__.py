@@ -6,8 +6,9 @@
                   circuit breakers, in-band error frames; the serving
                   fleet's verbs ride it
 
-The parameter-server tables and the graph verbs wait for ROADMAP A.13,
-collectives and mesh re-slicing for A.10.
+The parameter-server tables and the graph verbs wait for ROADMAP A.13.
+The collectives are `parallel/collectives.py`; re-slicing a checkpoint
+across plans is `checkpoint.load_state_dict(plan=)`.
 """
 from . import checkpoint  # noqa: F401
 from .checkpoint import (CheckpointCorruptError,  # noqa: F401

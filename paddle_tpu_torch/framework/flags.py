@@ -28,8 +28,12 @@ What each flag does in the port:
                                  merge their splits in a fixed order)
   FLAGS_flash_attention          recorded; the training step's attention is
                                  chosen by `make_train_step(attention=)`
-  FLAGS_check_nan_inf,           recorded; the eager framework surface that
-  FLAGS_benchmark, FLAGS_profile reads them is not ported (ROADMAP A.13)
+  FLAGS_check_nan_inf            read by `core.tensor.apply_op`: an eager op
+                                 whose float output holds NaN or Inf raises
+                                 naming the op (one host sync an op)
+  FLAGS_benchmark, FLAGS_profile recorded; the parts of the eager surface
+                                 that read them are not ported (ROADMAP
+                                 A.13b-h)
   FLAGS_int64_numpy_boundary     recorded; torch keeps int64 as int64, so
                                  there is no boundary to widen at
   FLAGS_allocator_strategy,      XLA allocator and executor knobs in the

@@ -19,10 +19,11 @@ framework's profiler.py `Profiler`):
   reference starts `jax.profiler.start_trace`; its chrome trace is
   exported under `log_dir` (`Profiler.last_trace`) and read by
   `observability.deviceprof`. The reference's Operator spans come from
-  the eager framework's `apply_op`; here a window records the session's
-  top-level aten ops (`aten::` events outside any other on their thread)
-  as its Operator spans, with their input shapes when
-  `record_shapes=True`, which `analyze()` prices.
+  the eager framework's `apply_op`; here a window records those of the
+  port's `core.tensor.apply_op` (one per eager op, named by the op, with
+  its input shapes and dtypes) and the session's top-level aten ops
+  (`aten::` events outside any other on their thread), with their input
+  shapes when `record_shapes=True`, which `analyze()` prices.
 - `profile_memory=True` samples `torch.cuda.memory_allocated()` at span
   boundaries (MemoryView); a CPU profiler has no allocator to sample.
 - `export_chrome_tracing` over the host spans, `statistic.py` for the

@@ -405,7 +405,26 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "        'paddle_tpu_torch.serving.distributed.worker',\n"
             "        'paddle_tpu_torch.serving.distributed.router',\n"
             "        'paddle_tpu_torch.serving.distributed.worker_main',\n"
-            "        'paddle_tpu_torch._kernels.build'} <= set(mods), mods\n"
+            "        'paddle_tpu_torch._kernels.build',\n"
+            "        'paddle_tpu_torch.core.tensor',\n"
+            "        'paddle_tpu_torch.core.dtype',\n"
+            "        'paddle_tpu_torch.core.random',\n"
+            "        'paddle_tpu_torch.core.autograd',\n"
+            "        'paddle_tpu_torch.autograd',\n"
+            "        'paddle_tpu_torch.tensor',\n"
+            "        'paddle_tpu_torch.tensor.creation',\n"
+            "        'paddle_tpu_torch.tensor.math',\n"
+            "        'paddle_tpu_torch.tensor.manipulation',\n"
+            "        'paddle_tpu_torch.tensor.logic',\n"
+            "        'paddle_tpu_torch.tensor.search',\n"
+            "        'paddle_tpu_torch.tensor.stat',\n"
+            "        'paddle_tpu_torch.tensor.linalg',\n"
+            "        'paddle_tpu_torch.tensor.random',\n"
+            "        'paddle_tpu_torch.tensor.einsum',\n"
+            "        'paddle_tpu_torch.tensor.inplace',\n"
+            "        'paddle_tpu_torch.tensor.extras',\n"
+            "        'paddle_tpu_torch.device',\n"
+            "        'paddle_tpu_torch.device.cuda'} <= set(mods), mods\n"
             "from paddle_tpu_torch.serving import make_engine\n"
             "from paddle_tpu_torch.inference import create_predictor\n"
             "runpy.run_path('chip_smoke.py', run_name='not_main')\n"

@@ -95,6 +95,23 @@ def _clean_faults():
     tfaults.disarm_all()
 
 
+@pytest.fixture
+def zeroed_gauges():
+    """Every gauge of both registries reads 0 for the test and gets its
+    value back after it: other tests in the worker leave gauges behind
+    (the fleet's `serving_slo_degraded`, the numerics tests' finite
+    fractions), and the scenario's snapshots read every gauge."""
+    saved = [(c, c.value)
+             for reg in (jmetrics.registry(), tmetrics.registry())
+             for m in list(reg._metrics.values()) if m.kind == "gauge"
+             for c in list(m._children.values())]
+    for c, _ in saved:
+        c.value = 0.0
+    yield
+    for c, v in saved:
+        c.value = v
+
+
 class Clock:
     """A clock that moves only when the script says so."""
 
@@ -279,7 +296,8 @@ def _drop(rec, *keys):
     return {k: v for k, v in rec.items() if k not in keys}
 
 
-def test_slo_scenario_matches_jax(models, tmp_path, monkeypatch):
+def test_slo_scenario_matches_jax(models, tmp_path, monkeypatch,
+                                  zeroed_gauges):
     runs = {pkg: _scenario(pkg, models, tmp_path, monkeypatch)
             for pkg in ("jax", "port")}
     (jh, js, _, jdelta, jraised) = runs["jax"]

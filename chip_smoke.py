@@ -5,6 +5,7 @@
     python3 chip_smoke.py --flash-only  # phases 1, 2 and 7 only
     python3 chip_smoke.py --train-parallel-only   # phases 1, 2 and 20
     python3 chip_smoke.py --eager-only  # phases 1, 2 and 21
+    python3 chip_smoke.py --nn-only     # phases 1, 2 and 22
 
 Phases (any exception ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -310,6 +311,41 @@ Phases (any exception ends the run with a non-zero exit):
      against the port on the CPU: integer, bool and index results exact,
      floats at each case's tolerance, values and gradients.
      `--eager-only` runs phases 1, 2 and 21.
+ 22. `nn`, `optimizer` and `amp` on the card: (a) a BERT-base-width
+     encoder (`nn.Embedding(30522, 768)`, `nn.TransformerEncoder` of 12
+     post-norm `TransformerEncoderLayer(768, 12, 3072, dropout=0.1,
+     activation="gelu")`, `nn.Linear(768, 30522)`; random weights) learns
+     to copy one seeded batch of B=8 x S=512 tokens with
+     `nn.CrossEntropyLoss`, a bool key-padding mask hiding the last 64
+     keys of half the rows, AdamW (LinearWarmup, decay 0.01 off biases and
+     norms, ClipGradByGlobalNorm(1.0)), in two arms from the same weights:
+     f32 (TF32 off) and bf16 parameters (`amp.decorate` O2, forward under
+     `auto_cast`). Each arm: its step-1 loss without dropout (bf16 within
+     2e-2 of f32), 30 steps with dropout (the loss falls), step ms (median
+     of 27 after 3), tokens/s, kernels and device-busy ms a step
+     (`deviceprof.capture`), the flash launches of every step (exactly 12
+     forward, 12 dQ and 12 dK/dV: one a layer, through their mask and
+     dropout builds) and every SDPA call on the kernel route; then the
+     encoder's last hidden states without dropout on the batch, bf16
+     against f32 (every batch row within 2.5e-2 relative; two f32
+     controls, the key padding dropped and every attention output
+     projection zeroed, must fall outside it); (b) phase
+     21's small MLP step written with `nn.Sequential`,
+     `nn.CrossEntropyLoss` and `optimizer.SGD` beside phase 21's raw-torch
+     step, in turns: host us of forward, backward, the update,
+     `clear_grad` and the loss read, quartiles over 200 steps; (c) every
+     optimizer arm of `tests/test_torch_optimizer.py`, plain and with clip
+     and decay, 3 steps on CUDA against the port on the CPU at 1e-5, and
+     `GradScaler` skipping an injected inf; (d) the CPU tests' functional
+     table (`tests/test_torch_nn_functional.py` `FN_TABLE`) and Layer
+     table (`tests/test_torch_nn_layers.py` `LAYER_TABLE`) on CUDA against
+     the port on the CPU, through the tests' own comparisons; SDPA at
+     head dim 256 and in float16 takes the kernel route and raises (no
+     kernel is built for them); (e) the flash forward, dQ and dK/dV kernels'
+     mask and mask + dropout (0.1) builds at B=8, H=12, S=512, D=64 bf16
+     with the encoder's [8, 1, 512, 512] f32 mask, timed and held to their
+     plain versions, beside SDPA with the same float mask.
+     `--nn-only` runs phases 1, 2 and 22.
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -319,6 +355,7 @@ goes to `chiprun_out/chip_smoke.json`.
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -5143,36 +5180,45 @@ def eager_nan_check(smi, step):
             "raised": raised, "card": smi}
 
 
+def _test_module(name):
+    """A CPU test file loaded as a module (its tables import nothing of
+    JAX); the tests directory goes on sys.path for its sibling imports."""
+    import importlib.util
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(tests, name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _on(pt, dev, fn):
+    prev = pt.get_device()
+    pt.set_device(dev)
+    try:
+        return fn()
+    finally:
+        pt.set_device(prev)
+
+
 def eager_op_table(smi):
     """Phase 21 (d): the CPU tests' op table (and in-place table) run on
     CUDA and compared with the port on the CPU: exact for integer, bool
     and index results, the case's float tolerance otherwise, values and
     gradients."""
-    import importlib.util
     import numpy as np
     import paddle_tpu_torch as pt
-    spec = importlib.util.spec_from_file_location(
-        "torch_op_table", os.path.join(ROOT, "tests",
-                                       "test_torch_tensor_ops.py"))
-    table = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(table)
+    table = _test_module("test_torch_tensor_ops")
     failures, n = [], 0
-
-    def on(dev, fn):
-        prev = pt.get_device()
-        pt.set_device(dev)
-        try:
-            return fn()
-        finally:
-            pt.set_device(prev)
-
     for case in table.OP_TABLE:
         n += 1
         try:
             arrays = case.inputs()
             grad = case.grad and any(a.dtype.kind == "f" for a in arrays)
-            res = {d: on(d, lambda: table.run_case(pt, case, arrays,
-                                                   grad=grad))
+            res = {d: _on(pt, d, lambda: table.run_case(pt, case, arrays,
+                                                        grad=grad))
                    for d in ("cpu", "gpu")}
             got = [table.host(o) for o in res["gpu"][0]]
             want = [table.host(o) for o in res["cpu"][0]]
@@ -5206,7 +5252,7 @@ def eager_op_table(smi):
                     x = pt.to_tensor(a)
                     getattr(x, name)(*args)
                     return table.host(x)
-                outs.append(on(dev, run))
+                outs.append(_on(pt, dev, run))
             table.compare([outs[1]], [outs[0]], table.EW, name)
         except Exception as e:      # noqa: BLE001
             failures.append(f"{name}: {type(e).__name__}: {e}")
@@ -5242,11 +5288,611 @@ def eager_phase(smi):
     return out
 
 
+# ------------------------------------------- 22. nn, optimizer, amp
+# (a) BertConfig's widths (paddle_tpu/text/models/bert.py:12-20), one card
+NN_CFG = {"vocab": 30522, "hidden": 768, "heads": 12, "ff": 3072,
+          "layers": 12, "B": 8, "S": 512, "pad": 64}
+NN_LR, NN_WARMUP_LR_STEPS = 5e-4, 5
+NN_WARMUP, NN_STEPS = 3, 27         # 30 training steps an arm, 27 timed
+NN_LOSS_RTOL = 2e-2                 # bf16 step-1 loss against f32's
+# the encoder's last hidden states, bf16 (O2) against f32, in eval mode:
+# the largest relative error of a batch row (||h - h_f32|| / ||h_f32||);
+# bf16 reads 7.4e-3 to 8.9e-3 a row on the H100, dropping the key padding
+# 8.7e-2 to 1.0e-1 on the padded rows (PERF.md, PR 17)
+NN_HIDDEN_RTOL = 2.5e-2
+NN_SMALL_WARMUP, NN_SMALL_STEPS = 10, 200
+NN_OPT_TOL = 1e-5
+NN_FLASH = dict(B=8, H=12, S=512, D=64, pad=64)
+
+
+def nn_encoder(pt, dropout):
+    """Embedding -> TransformerEncoder (post-norm, GELU) -> Linear, in the
+    port's `nn`, random weights from the current seed, on the current
+    place."""
+    nn, c = pt.nn, NN_CFG
+
+    class EncoderLM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(c["vocab"], c["hidden"])
+            self.encoder = nn.TransformerEncoder(nn.TransformerEncoderLayer(
+                c["hidden"], c["heads"], c["ff"], dropout=dropout,
+                activation="gelu"), c["layers"])
+            self.head = nn.Linear(c["hidden"], c["vocab"])
+
+        def forward(self, ids, mask):
+            return self.head(self.encoder(self.embed(ids), mask))
+    model = EncoderLM()
+    for n, p in model.named_parameters():
+        p.name = n                      # AdamW's decay rule reads names
+    return model
+
+
+def nn_batch(pt, dev):
+    """One seeded token-copying batch: labels are the inputs; a bool
+    key-padding mask [B, 1, 1, S] hides the last `pad` keys of the first
+    half of the rows, whose positions there carry no label."""
+    import torch
+    c = NN_CFG
+    B, S, pad = c["B"], c["S"], c["pad"]
+    g = torch.Generator(device=dev).manual_seed(22)
+    ids = torch.randint(0, c["vocab"], (B, S), generator=g, device=dev)
+    keep = torch.ones((B, 1, 1, S), dtype=torch.bool, device=dev)
+    keep[:B // 2, ..., S - pad:] = False
+    labels = ids.clone()
+    labels[:B // 2, S - pad:] = -100
+    return (pt.to_tensor(ids), pt.to_tensor(keep),
+            pt.to_tensor(labels.reshape(-1)))
+
+
+def _flash_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    return (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+
+
+def nn_train_arm(pt, smi, arm, state, out_dir):
+    """Phase 22 (a), one arm: the encoder from `state`, in f32 or as bf16
+    parameters (`amp.decorate` O2, forward under `auto_cast`), trained 30
+    steps by AdamW (LinearWarmup, decay 0.01 off biases and norms,
+    ClipGradByGlobalNorm(1.0)) with dropout 0.1; step-1 loss in eval mode
+    (no dropout) first."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.nn.functional import attention as ta
+    from paddle_tpu_torch.observability import deviceprof
+    c = NN_CFG
+    dev = torch.device(pt.get_device().replace("gpu", "cuda"))
+    model = nn_encoder(pt, 0.1)
+    model.set_state_dict(state)
+    sched = pt.optimizer.lr.LinearWarmup(NN_LR, NN_WARMUP_LR_STEPS, 1e-5,
+                                         NN_LR)
+    opt = pt.optimizer.AdamW(
+        sched, parameters=model.parameters(), weight_decay=0.01,
+        apply_decay_param_fun=lambda n: not (n.endswith("bias")
+                                             or "norm" in n),
+        grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+    bf16 = arm == "bf16"
+    if bf16:
+        model, opt = pt.amp.decorate(model, opt, level="O2",
+                                     dtype="bfloat16")
+    ids, mask, labels = nn_batch(pt, dev)
+    lf = pt.nn.CrossEntropyLoss()
+
+    def loss_of():
+        with pt.amp.auto_cast(enable=bf16, level="O2", dtype="bfloat16"):
+            logits = model(ids, mask)
+        return lf(logits.astype("float32").reshape([-1, c["vocab"]]),
+                  labels)
+
+    model.eval()
+    with pt.no_grad():
+        loss0 = float(loss_of())
+    model.train()
+    for k in ta.sdpa_routes:
+        ta.sdpa_routes[k] = 0
+    moved = []
+
+    def step():
+        before = _flash_counts()
+        loss = loss_of()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        value = float(loss)              # the host read closes the step
+        moved.append(tuple(a - b for a, b in zip(_flash_counts(), before)))
+        return value
+
+    losses, times = [], []
+    for i in range(NN_WARMUP + NN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        if i >= NN_WARMUP:
+            times.append((time.perf_counter() - t0) * 1e3)
+    routes = dict(ta.sdpa_routes)
+    n_prof = 3
+    _, prof = deviceprof.capture(step, os.path.join(out_dir, arm),
+                                 iters=n_prof, label=f"nn_encoder_{arm}")
+    quart = quartiles(times)
+    rec = {"arm": arm, "B": c["B"], "S": c["S"], "step1_loss": loss0,
+           "step_ms_quartiles": quart, "step_ms_median": quart[1],
+           "tokens_per_s": c["B"] * c["S"] / (quart[1] / 1e3),
+           "kernels_per_step": prof["n_events"] / n_prof,
+           "device_busy_ms_per_step": prof["total_device_ms"] / n_prof,
+           "flash_launches_per_step": sorted(set(moved)),
+           "sdpa_routes": routes, "losses": losses,
+           "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30
+           if dev.type == "cuda" else None, "card": smi}
+    rec["idle_share"] = 1.0 - rec["device_busy_ms_per_step"] / quart[1]
+    want = c["layers"]
+    if set(moved) != {(want, want, want)}:
+        raise AssertionError(f"phase 22 (a) {arm}: flash launches a step "
+                             f"{sorted(set(moved))}, want {want} of each "
+                             "(one a layer)")
+    if routes["plain"] or routes["kernel"] != want * len(losses):
+        raise AssertionError(f"phase 22 (a) {arm}: SDPA routes {routes}, "
+                             f"want every one of {want * len(losses)} "
+                             "calls on the kernel route")
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    if not (np.all(np.isfinite(losses)) and last < first):
+        raise AssertionError(f"phase 22 (a) {arm}: the loss did not fall "
+                             f"({first} -> {last})")
+    log(f"nn encoder {arm} (B={c['B']} S={c['S']} hidden {c['hidden']} "
+        f"x {c['layers']}, vocab {c['vocab']}): step ms p25/p50/p75 "
+        + "/".join(f"{v:.3f}" for v in quart)
+        + f" ({NN_STEPS} steps after {NN_WARMUP}), "
+        f"{rec['tokens_per_s']:.0f} tokens/s, {rec['kernels_per_step']:.0f}"
+        f" kernels a step, device busy {rec['device_busy_ms_per_step']:.3f}"
+        f" ms a step (idle {rec['idle_share']:.3f}), flash launches a step "
+        f"fwd/dq/dkv {moved[-1]}, SDPA routes {routes}; step-1 loss "
+        f"{loss0:.6f}, loss {losses[0]:.4f} -> {losses[-1]:.4f} [{smi}]")
+    del model, opt
+    return rec
+
+
+def nn_hidden(pt, state, arm, ids, mask):
+    """The encoder's last hidden states (B, S, hidden) in float32, eval
+    mode (no dropout), from `state`: arm "f32", "bf16" (O2 parameters,
+    forward under `auto_cast`), or one of two f32 controls, faults the
+    bf16 check must see: "no_mask" drops the key padding, "zero_attn"
+    zeroes every layer's attention output projection."""
+    import torch
+    model = nn_encoder(pt, 0.1)
+    if arm == "zero_attn":
+        state = {k: torch.zeros_like(v) if ".self_attn.out_proj." in k
+                 else v for k, v in state.items()}
+    model.set_state_dict(state)
+    bf16 = arm == "bf16"
+    if bf16:
+        model = pt.amp.decorate(model, level="O2", dtype="bfloat16")
+    model.eval()
+    with pt.no_grad(), pt.amp.auto_cast(enable=bf16, level="O2",
+                                        dtype="bfloat16"):
+        h = model.encoder(model.embed(ids),
+                          None if arm == "no_mask" else mask)
+    return h._data.float()
+
+
+def nn_hidden_check(pt, smi, state):
+    """Phase 22 (a)'s check of the bf16 path as a whole: the encoder's
+    last hidden states in bf16 against f32 on one batch, per batch row,
+    within NN_HIDDEN_RTOL; each control must fall outside it."""
+    import torch
+    dev = torch.device(pt.get_device().replace("gpu", "cuda"))
+    ids, mask, _ = nn_batch(pt, dev)
+    ref = nn_hidden(pt, state, "f32", ids, mask)
+    rel = {}
+    for arm in ("bf16", "no_mask", "zero_attn"):
+        h = nn_hidden(pt, state, arm, ids, mask)
+        if not bool(torch.isfinite(h).all()):
+            raise AssertionError(f"phase 22 (a): {arm} hidden states are "
+                                 "not finite")
+        rel[arm] = [float(x) for x in (h - ref).flatten(1).norm(dim=1)
+                    / ref.flatten(1).norm(dim=1)]
+    worst = {k: max(v) for k, v in rel.items()}
+    log("nn encoder last hidden states against f32 (eval, largest "
+        "relative error of a batch row; rows 0-3 padded): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (tol {NN_HIDDEN_RTOL}) [{smi}]")
+    if not worst["bf16"] <= NN_HIDDEN_RTOL:
+        raise AssertionError(f"phase 22 (a): bf16 hidden states differ "
+                             f"from f32's by {worst['bf16']} (per row "
+                             f"{rel['bf16']})")
+    for arm in ("no_mask", "zero_attn"):
+        if not worst[arm] > NN_HIDDEN_RTOL:
+            raise AssertionError(f"phase 22 (a): the {arm} control "
+                                 f"({worst[arm]}) passes the bf16 check")
+    return {"rel_err_per_row": rel, "worst": worst, "tol": NN_HIDDEN_RTOL}
+
+
+def nn_encoder_phase(pt, smi, out_dir):
+    """Phase 22 (a): both arms from one set of weights."""
+    import gc
+    import torch
+    pt.seed(22)
+    state = {k: v._data.detach().clone()
+             for k, v in nn_encoder(pt, 0.1).state_dict().items()}
+    out = {}
+    for arm in ("f32", "bf16"):
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        out[arm] = nn_train_arm(pt, smi, arm, state, out_dir)
+    gc.collect()
+    out["hidden"] = nn_hidden_check(pt, smi, state)
+    a, b = out["f32"]["step1_loss"], out["bf16"]["step1_loss"]
+    rel = abs(b - a) / abs(a)
+    out["step1_loss_rel_err"] = rel
+    log(f"nn encoder step-1 loss (dropout off) bf16 {b:.6f} vs f32 "
+        f"{a:.6f}: rel err {rel:.2e} (tol {NN_LOSS_RTOL}) [{smi}]")
+    if not rel <= NN_LOSS_RTOL:
+        raise AssertionError(f"phase 22 (a): bf16 step-1 loss {b} differs "
+                             f"from f32's {a} by {rel}")
+    return out
+
+
+def nn_small_stages(pt, smi, dev):
+    """Phase 22 (b): phase 21's small MLP step written with `nn.Sequential`,
+    `nn.CrossEntropyLoss` and `optimizer.SGD`, beside phase 21's raw-torch
+    step, in turns; the host us of each stage (forward, backward, the
+    update, clearing the gradients, the loss read that closes the step)."""
+    import numpy as np
+    import torch
+    _, B, D, H, C = EAGER_SIZES[0]
+    init = mlp_init(dev, D, H, C)
+    x0, y0 = mlp_data(dev, B, D, C)
+    nn = pt.nn
+    net = nn.Sequential(nn.Linear(D, H), nn.ReLU(), nn.Linear(H, H),
+                        nn.ReLU(), nn.Linear(H, C))
+    net.set_state_dict(dict(zip(("0.weight", "0.bias", "2.weight",
+                                 "2.bias", "4.weight", "4.bias"), init)))
+    lf = nn.CrossEntropyLoss()
+    opt = pt.optimizer.SGD(EAGER_LR, parameters=net.parameters())
+    x, y = pt.to_tensor(x0), pt.to_tensor(y0)
+    ps = [t.clone().requires_grad_() for t in init]
+    zero = torch.tensor(0.0)
+    stages = ("forward", "backward", "update", "clear_grad", "read")
+    times = {"layer": [], "torch": []}
+
+    def layer_step():
+        t = [time.perf_counter()]
+        loss = lf(net(x), y)
+        t.append(time.perf_counter())
+        loss.backward()
+        t.append(time.perf_counter())
+        opt.step()
+        t.append(time.perf_counter())
+        opt.clear_grad()
+        t.append(time.perf_counter())
+        v = float(loss)
+        t.append(time.perf_counter())
+        times["layer"].append([(b - a) * 1e6 for a, b in zip(t, t[1:])])
+        return v
+
+    def torch_step():
+        w1, b1, w2, b2, w3, b3 = ps
+        t = [time.perf_counter()]
+        h = torch.maximum(x0 @ w1 + b1, zero)
+        h = torch.maximum(h @ w2 + b2, zero)
+        z = h @ w3 + b3
+        loss = (torch.logsumexp(z, -1)
+                - torch.take_along_dim(z, y0, 1).squeeze(1)).mean()
+        t.append(time.perf_counter())
+        loss.backward()
+        t.append(time.perf_counter())
+        with torch.no_grad():
+            for p in ps:
+                p.sub_(p.grad * EAGER_LR)
+        t.append(time.perf_counter())
+        for p in ps:
+            p.grad = None
+        t.append(time.perf_counter())
+        v = loss.item()
+        t.append(time.perf_counter())
+        times["torch"].append([(b - a) * 1e6 for a, b in zip(t, t[1:])])
+        return v
+
+    losses, _, _ = interleaved_steps({"layer": layer_step,
+                                      "torch": torch_step},
+                                     NN_SMALL_WARMUP, NN_SMALL_STEPS)
+    rec = {"B": B, "D": D, "H": H, "C": C, "steps": NN_SMALL_STEPS,
+           "card": smi}
+    for arm, ts in times.items():
+        a = np.asarray(ts[NN_SMALL_WARMUP:])
+        rec[arm] = {s: quartiles(a[:, i]) for i, s in enumerate(stages)}
+        rec[arm]["step"] = quartiles(a.sum(1))
+    rec["excess_us_p50"] = {s: rec["layer"][s][1] - rec["torch"][s][1]
+                            for s in stages + ("step",)}
+    a, b = np.asarray(losses["layer"]), np.asarray(losses["torch"])
+    rec["loss_rel_err"] = float(np.max(np.abs(a - b) / np.abs(b)))
+    for arm in ("layer", "torch"):
+        log(f"nn small step {arm} (B={B} D={D} H={H} C={C}, {NN_SMALL_STEPS}"
+            " steps in turns), host us p25/p50/p75: " + "; ".join(
+                f"{s} " + "/".join(f"{v:.1f}" for v in rec[arm][s])
+                for s in stages + ("step",)) + f" [{smi}]")
+    log("nn small step, Layer API over raw torch at the median (us): "
+        + ", ".join(f"{s} {v:+.1f}" for s, v in rec["excess_us_p50"].items())
+        + f"; losses rel err {rec['loss_rel_err']:.2e} [{smi}]")
+    if not rec["loss_rel_err"] <= 1e-5:
+        raise AssertionError("phase 22 (b): the Layer step's losses differ "
+                             f"from raw torch's by {rec['loss_rel_err']}")
+    for arm, ls in losses.items():
+        if not ls[-1] < ls[0]:
+            raise AssertionError(f"phase 22 (b) {arm}: the loss did not "
+                                 f"fall ({ls[0]} -> {ls[-1]})")
+    return rec
+
+
+def nn_optimizers(pt, smi, cuda="gpu"):
+    """Phase 22 (c): every optimizer arm of the CPU tests, 3 steps from
+    fixed parameters and gradients, plain and with ClipGradByGlobalNorm
+    and the arm's decay, on CUDA against the port on the CPU (f32, TF32
+    off); and GradScaler skipping the step of an injected inf."""
+    import numpy as np
+    tests = _test_module("test_torch_optimizer")
+    rng = np.random.RandomState(4)
+    p0 = {"w": rng.randn(4, 3).astype(np.float32),
+          "bias": rng.randn(3).astype(np.float32)}
+    grads = [{n: rng.randn(*v.shape).astype(np.float32)
+              for n, v in p0.items()} for _ in range(3)]
+
+    def run(name, arm):
+        lin = pt.nn.Linear(4, 3)
+        lin.set_state_dict({"weight": p0["w"], "bias": p0["bias"]})
+        lin.weight.name, lin.bias.name = "w", "bias"
+        kw, decay = tests._OPTS[name]
+        kw = dict(kw)
+        if arm == "clip_decay":
+            kw.update(decay, grad_clip=pt.nn.ClipGradByGlobalNorm(0.05))
+        opt = tests._cls(pt, name)(parameters=lin.parameters(), **kw)
+        for g in grads:
+            lin.weight.grad, lin.bias.grad = g["w"], g["bias"]
+            opt.step()
+        return [lin.weight.numpy(), lin.bias.numpy()]
+
+    failures, n, worst = [], 0, 0.0
+    for name in tests._OPTS:
+        for arm in ("plain", "clip_decay"):
+            n += 1
+            got = _on(pt, cuda, lambda: run(name, arm))
+            want = _on(pt, "cpu", lambda: run(name, arm))
+            for g, w in zip(got, want):
+                worst = max(worst, float(np.max(np.abs(g - w)
+                                                / np.maximum(np.abs(w),
+                                                             1.0))))
+                if not np.allclose(g, w, rtol=NN_OPT_TOL, atol=NN_OPT_TOL):
+                    failures.append(f"{name}/{arm}")
+    amp = _test_module("test_torch_amp")
+    state = _on(pt, "cpu", lambda: {k: v.numpy() for k, v in
+                                    amp._net(pt).state_dict().items()})
+    sc_gpu, _ = _on(pt, cuda, lambda: amp._scaler_run(pt, state))
+    sc_cpu, _ = _on(pt, "cpu", lambda: amp._scaler_run(pt, state))
+    flags = [(s, k) for s, k, _ in sc_gpu]
+    if flags != [(s, k) for s, k, _ in sc_cpu] or not flags[2][1] \
+            or any(k for i, (_, k) in enumerate(flags) if i != 2):
+        failures.append(f"GradScaler: {flags}")
+    for (_, _, g), (_, _, w) in zip(sc_gpu, sc_cpu):
+        if not np.allclose(g, w, rtol=NN_OPT_TOL, atol=NN_OPT_TOL):
+            failures.append("GradScaler weights")
+    agree = n - len([f for f in failures if "/" in f])
+    log(f"optimizers on CUDA against the CPU: {agree} of {n} arms agree "
+        f"within {NN_OPT_TOL} (worst {worst:.2e}); GradScaler scale/skip "
+        f"{flags} [{smi}]")
+    if failures:
+        raise AssertionError(f"phase 22 (c): {failures}")
+    return {"arms": n, "worst_rel_err": worst, "scaler": flags, "card": smi}
+
+
+def nn_tables(pt, smi, cuda="gpu"):
+    """Phase 22 (d): the CPU tests' functional table (`FN_TABLE`) and Layer
+    table (`LAYER_TABLE`) on CUDA against the port on the CPU, through the
+    tests' own comparisons (`compare_fn_runs`, `compare_layer_runs`):
+    integer and index results exact, floats at each case's tolerance,
+    values and gradients (and a Layer's parameter gradients and buffers)."""
+    fn = _test_module("test_torch_nn_functional")
+    ly = _test_module("test_torch_nn_layers")
+    ops = _test_module("test_torch_tensor_ops")
+    failures, n = [], 0
+    for case in fn.FN_TABLE:
+        n += 1
+        try:
+            arrays = case.inputs()
+            grad = case.grad and any(a.dtype.kind == "f" for a in arrays)
+            got, want = (_on(pt, d, lambda: ops.run_case(pt, case, arrays,
+                                                         grad=grad))
+                         for d in (cuda, "cpu"))
+            fn.compare_fn_runs(got, want, case, arrays)
+        except Exception as e:      # noqa: BLE001 - every case is reported
+            failures.append(f"{case.id}: {type(e).__name__}: "
+                            f"{' '.join(str(e).split())[:300]}")
+    n_fn = n
+    for case in ly.LAYER_TABLE:
+        n += 1
+        try:
+            arrays = case.inputs()
+            state = _on(pt, "cpu", lambda: {
+                k: v.numpy() for k, v in case.ctor(pt).state_dict().items()})
+
+            def run(state=state):
+                layer = case.ctor(pt)
+                layer.set_state_dict(state)
+                return ly._run(pt, case, arrays, layer)
+            ly.compare_layer_runs(_on(pt, cuda, run), _on(pt, "cpu", run),
+                                  case, arrays)
+        except Exception as e:      # noqa: BLE001
+            failures.append(f"{case.id}: {type(e).__name__}: "
+                            f"{' '.join(str(e).split())[:300]}")
+    log(f"nn tables on CUDA against the CPU: {n - len(failures)} of {n} "
+        f"cases agree ({n_fn} functional, {n - n_fn} Layer) [{smi}]")
+    for f in failures:
+        log(f"  nn table FAILED {f}")
+    if failures:
+        raise AssertionError(f"phase 22 (d): {len(failures)} of {n} cases "
+                             "disagree between CUDA and the CPU")
+    return {"cases": n, "functional": n_fn, "layers": n - n_fn, "card": smi}
+
+
+def nn_flash_masked(smi):
+    """Phase 22 (e): the flash kernels' mask (and mask + dropout) builds at
+    the encoder's attention shape, against their plain versions, timed;
+    SDPA with the same float mask (no dropout) as the library
+    yardstick."""
+    import torch
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.ops import flash_attention as fa
+    c = NN_FLASH
+    B, H, S, D = c["B"], c["H"], c["S"], c["D"]
+    g = torch.Generator(device="cuda").manual_seed(2200)
+
+    def rnd():
+        return torch.randn((B * H, S, D), generator=g, device="cuda") \
+            .to(torch.bfloat16)
+    q, k, v, do = rnd(), rnd(), rnd(), rnd()
+    keep = torch.ones((B, 1, 1, S), dtype=torch.bool, device="cuda")
+    keep[:B // 2, ..., S - c["pad"]:] = False
+    add = torch.where(keep, 0.0, torch.finfo(torch.float32).min)
+    mask4 = add.broadcast_to((B, 1, S, S))
+    mf = mask4.contiguous().reshape(B, S, S)
+    flush_buf = torch.empty(64 * 1024 * 1024, device="cuda")
+    flush = lambda: _flush_l2(flush_buf)      # noqa: E731
+    out = {"shape": [B, H, S, D], "mask": [B, 1, S, S], "card": smi}
+    for rate in (0.0, 0.1):
+        meta = fa.Meta(H=H, Hk=H, Bm=B, Hm=1, causal=False, scale=D ** -0.5,
+                       rate=rate, seed=2201)
+        po, plse = fa.fwd_plain(q, k, v, mf, meta)
+        delta = (do.float() * po.float()).sum(-1)
+        kern = {"fwd": lambda: fa.flash_fwd(q, k, v, mf, meta),
+                "dq": lambda: fa.flash_dq(q, k, v, do, plse, delta, mf, meta),
+                "dkv": lambda: fa.flash_dkv(q, k, v, do, plse, delta, mf,
+                                            meta)}
+        plain = {"fwd": lambda: fa.fwd_plain(q, k, v, mf, meta),
+                 "dq": lambda: fa.dq_plain(q, k, v, do, plse, delta, mf,
+                                           meta),
+                 "dkv": lambda: fa.dkv_plain(q, k, v, do, plse, delta, mf,
+                                             meta)}
+        got = {w: kern[w]() for w in kern}
+        want = {w: plain[w]() for w in plain}
+        torch.cuda.synchronize()
+        errs = {}
+        for w, names in (("fwd", ("o",)), ("dq", ("dq",)),
+                         ("dkv", ("dk", "dv"))):
+            gs = got[w][:1] if w == "fwd" else (
+                (got[w],) if w == "dq" else got[w])
+            ws = want[w][:1] if w == "fwd" else (
+                (want[w],) if w == "dq" else want[w])
+            for name, a, b in zip(names, gs, ws):
+                err = (a.float() - b.float()).abs()
+                bad = (err > BF16_TOL + BF16_TOL * b.float().abs()) \
+                    | ~torch.isfinite(a)
+                errs[name] = float(err.max())
+                if bool(bad.any()):
+                    raise AssertionError(
+                        f"phase 22 (e) dropout={rate}: {name} disagrees "
+                        f"with the plain version (max_abs_err "
+                        f"{errs[name]}, tol {BF16_TOL})")
+        rec = {"max_abs_err": errs}
+        for w in kern:
+            bound, by, nbytes, flops = flash_bound(B, H, H, S, D, "bf16",
+                                                   False, w)
+            nbytes += B * S * S * 4             # the f32 mask, read once
+            t_bytes = nbytes / device_peaks("bf16").hbm_bw * 1e3
+            t_ops = flops / device_peaks("bf16").peak_flops * 1e3
+            rec[w] = {"ms": time_ms(kern[w], flush),
+                      "plain_ms": time_ms(plain[w], flush, iters=5),
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations"}
+        out[f"dropout_{rate}"] = rec
+        log(f"flash mask build at B={B} H={H} S={S} D={D} bf16, mask "
+            f"[{B}, 1, {S}, {S}] f32, dropout {rate}: " + "; ".join(
+                f"{w} {rec[w]['ms']:.4f} ms (plain {rec[w]['plain_ms']:.4f},"
+                f" bound {rec[w]['bound_ms']:.5f} {rec[w]['bound_by']})"
+                for w in kern) + "; max_abs_err " + " ".join(
+                f"{n_}={e:.2e}" for n_, e in errs.items())
+            + f" (tol {BF16_TOL}) [{smi}]")
+    q4, k4, v4, do4 = (t.reshape(B, H, S, D) for t in (q, k, v, do))
+    m4 = mask4.to(torch.bfloat16)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
+
+    def sdpa_fwd():
+        return TF.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4)
+
+    def sdpa_fwd_bwd():
+        o = TF.scaled_dot_product_attention(qg, kg, vg, attn_mask=m4)
+        torch.autograd.backward(o, do4)
+    lib_fwd = time_ms(sdpa_fwd, flush)
+    out["sdpa_fwd_ms"] = lib_fwd
+    out["sdpa_bwd_ms"] = time_ms(sdpa_fwd_bwd, flush) - lib_fwd
+    log(f"sdpa yardstick with the same mask (bf16, no dropout): forward "
+        f"{lib_fwd:.4f} ms, backward {out['sdpa_bwd_ms']:.4f} ms [{smi}]")
+    del flush_buf
+    return out
+
+
+def nn_sdpa_unbuilt(pt, smi):
+    """SDPA on inputs the reference sends to its flash kernels but the
+    port has no kernel built for (head dim 256, float16; ROADMAP B.4):
+    they take the kernel route and raise there, never the dense
+    attention, and launch nothing."""
+    import numpy as np
+    from paddle_tpu_torch.nn.functional import attention as ta
+    rng = np.random.RandomState(0)
+    refused = {}
+    for name, D, dtype in (("d256_bf16", 256, "bfloat16"),
+                           ("d64_fp16", 64, "float16")):
+        x = pt.to_tensor(rng.randn(1, 128, 2, D).astype(np.float32),
+                         place="gpu").astype(dtype)
+        routes, counts = dict(ta.sdpa_routes), _flash_counts()
+        try:
+            pt.nn.functional.scaled_dot_product_attention(x, x, x)
+        except (ValueError, TypeError) as e:
+            refused[name] = f"{type(e).__name__}: {e}"
+        else:
+            raise AssertionError(f"phase 22: SDPA {name} ran; no kernel is "
+                                 "built for it")
+        moved = {k: ta.sdpa_routes[k] - routes[k] for k in routes}
+        if moved != {"kernel": 1, "plain": 0} or _flash_counts() != counts:
+            raise AssertionError(f"phase 22: SDPA {name} routes {moved}, "
+                                 f"flash launches {counts} -> "
+                                 f"{_flash_counts()}")
+    log("SDPA on unbuilt inputs takes the kernel route and raises: "
+        + "; ".join(f"{k}: {v}" for k, v in refused.items()) + f" [{smi}]")
+    return refused
+
+
+def nn_phase(smi):
+    """Phase 22: the port's `nn`, `optimizer` and `amp` on the card
+    (module docstring)."""
+    import gc
+    import torch
+    import paddle_tpu_torch as pt
+    t0 = time.perf_counter()
+    # the encoder steps' traces are tens of MB: parsed, then removed
+    out_dir = os.path.join(ROOT, "build", "phase22")
+    pt.set_device("gpu")
+    try:
+        out = {"encoder": nn_encoder_phase(pt, smi, out_dir)}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["small_step"] = nn_small_stages(pt, smi, torch.device("cuda"))
+    out["optimizers"] = nn_optimizers(pt, smi)
+    out["tables"] = nn_tables(pt, smi)
+    out["sdpa_unbuilt"] = nn_sdpa_unbuilt(pt, smi)
+    out["flash_masked"] = nn_flash_masked(smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 22 took {out['seconds']:.1f} s [{smi}]")
+    return out
+
+
 def main(argv):
     flash_only = "--flash-only" in argv
     parallel_only = "--parallel-only" in argv
     train_parallel_only = "--train-parallel-only" in argv
     eager_only = "--eager-only" in argv
+    nn_only = "--nn-only" in argv
     try:
         import torch
     except ImportError:
@@ -5295,6 +5941,14 @@ def main(argv):
             f"{r['registers']} registers, "
             f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
             f"spill loads, {r['smem_dynamic']} B dynamic shared memory")
+    if nn_only:
+        # phase 22 alone
+        report["nn"] = nn_phase(smi)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out",
+                               "chip_smoke_nn.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        return 0
     if eager_only:
         # phase 21 alone
         report["eager"] = eager_phase(smi)
@@ -5569,6 +6223,11 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     report["eager"] = eager_phase(smi)
+
+    # 22. nn, optimizer and amp on the card -----------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["nn"] = nn_phase(smi)
 
     # summary ------------------------------------------------------------------------
     dec = next(c for c in cases if c["case"] == "decode_f32")

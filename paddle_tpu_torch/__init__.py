@@ -31,7 +31,12 @@ neither it nor JAX. Its slices so far:
   * the eager core (counterpart of `paddle_tpu.core`, `.tensor`,
     `.autograd`, `.device`): the `Tensor` over one torch tensor, whose
     ops go through `core.tensor.apply_op` and whose tape is torch's
-    autograd, `PyLayer`, and the `paddle.tensor` op surface.
+    autograd, `PyLayer`, and the `paddle.tensor` op surface;
+  * `nn`, `optimizer`, `amp` and `regularizer`: the eager `Layer` and
+    its containers, every `nn.functional`, the initializers, the common,
+    activation, norm, loss and transformer Layers (whose attention runs
+    on the flash kernels on the card, `nn/functional/attention.py`),
+    gradient clipping, the optimizers and LR schedules, and AMP.
 
 Exports of the eager core at this level: `Tensor`, `Parameter`,
 `to_tensor`, every op of `tensor` (`add`, `matmul`, `reshape`, `topk`,
@@ -51,6 +56,7 @@ from . import core, cost_model, observability, ops, parallel  # noqa: F401
 from . import framework, inference, profiler  # noqa: F401
 from . import serving, text  # noqa: F401
 from . import autograd, device, tensor  # noqa: F401
+from . import amp, nn, optimizer, regularizer  # noqa: F401
 from .autograd import grad  # noqa: F401
 from .core import (  # noqa: F401
     CPUPlace, CUDAPlace, Parameter, Tensor, bfloat16, bool_, complex64,
@@ -76,7 +82,7 @@ __all__ = ["core", "cost_model", "framework", "inference", "observability",
            "EngineConfig", "GenerationEngine", "PagedEngineConfig",
            "PagedGenerationEngine", "Scheduler", "ServingConfig", "GPT",
            "GPTConfig", "gpt_125m", "gpt_tiny", "autograd", "device",
-           "tensor", "grad", "CPUPlace", "CUDAPlace", "Parameter", "Tensor",
+           "tensor", "nn", "optimizer", "amp", "regularizer", "grad", "CPUPlace", "CUDAPlace", "Parameter", "Tensor",
            "bfloat16", "bool_", "complex64", "complex128", "enable_grad",
            "float16", "float32", "float64", "get_default_dtype",
            "get_device", "get_rng_state", "int8", "int16", "int32", "int64",

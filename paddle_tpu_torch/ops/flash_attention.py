@@ -349,17 +349,22 @@ def _flatten_mask(mask, B, H, S):
     while mask.dim() < 4:
         mask = mask[None]
     Bm, Hm = mask.shape[0], mask.shape[1]
-    if Bm not in (1, B) or Hm not in (1, H) or tuple(mask.shape[2:]) != (S, S):
+    if mask.dim() != 4 or Bm not in (1, B) or Hm not in (1, H) \
+            or any(n not in (1, S) for n in mask.shape[2:]):
         raise ValueError(f"mask shape {tuple(mask.shape)} does not broadcast "
                          f"to (B={B}, H={H}, {S}, {S})")
-    return mask.detach().float().reshape(Bm * Hm, S, S).contiguous(), Bm, Hm
+    # a key-padding [B, 1, 1, S] or causal [S, S] mask is expanded over its
+    # query and key axes only: one (S, S) plane per batch row, never per
+    # head, in one copy (the cast, where there is one, writes it)
+    mask = mask.detach().broadcast_to((Bm, Hm, S, S)).float()
+    return mask.reshape(Bm * Hm, S, S).contiguous(), Bm, Hm
 
 
 def flash_attention_bhsd(q, k, v, causal=False, scale=None, mask=None,
                          dropout_rate=0.0, dropout_seed=None):
     """q: (B, H, S, D); k/v: (B, Hk, S, D) with Hk dividing H. mask is
-    additive and broadcasts from (B|1, H|1, S, S); dropout_rate > 0 needs
-    dropout_seed (an int32 value). Returns (B, H, S, D) in q's dtype."""
+    additive and broadcasts from (B|1, H|1, S|1, S|1); dropout_rate > 0
+    needs dropout_seed (an int32 value). Returns (B, H, S, D) in q's dtype."""
     B, H, S, D = q.shape
     Hk = k.shape[1]
     if H % Hk:

@@ -424,7 +424,32 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "        'paddle_tpu_torch.tensor.inplace',\n"
             "        'paddle_tpu_torch.tensor.extras',\n"
             "        'paddle_tpu_torch.device',\n"
-            "        'paddle_tpu_torch.device.cuda'} <= set(mods), mods\n"
+            "        'paddle_tpu_torch.device.cuda',\n"
+            "        'paddle_tpu_torch.nn',\n"
+            "        'paddle_tpu_torch.nn.param_attr',\n"
+            "        'paddle_tpu_torch.nn.initializer',\n"
+            "        'paddle_tpu_torch.nn.clip',\n"
+            "        'paddle_tpu_torch.nn.layer',\n"
+            "        'paddle_tpu_torch.nn.layer.layers',\n"
+            "        'paddle_tpu_torch.nn.layer.container',\n"
+            "        'paddle_tpu_torch.nn.layer.common',\n"
+            "        'paddle_tpu_torch.nn.layer.activation',\n"
+            "        'paddle_tpu_torch.nn.layer.norm',\n"
+            "        'paddle_tpu_torch.nn.layer.loss',\n"
+            "        'paddle_tpu_torch.nn.layer.transformer',\n"
+            "        'paddle_tpu_torch.nn.functional',\n"
+            "        'paddle_tpu_torch.nn.functional.activation',\n"
+            "        'paddle_tpu_torch.nn.functional.common',\n"
+            "        'paddle_tpu_torch.nn.functional.norm',\n"
+            "        'paddle_tpu_torch.nn.functional.loss',\n"
+            "        'paddle_tpu_torch.nn.functional.conv',\n"
+            "        'paddle_tpu_torch.nn.functional.extras',\n"
+            "        'paddle_tpu_torch.nn.functional.attention',\n"
+            "        'paddle_tpu_torch.optimizer',\n"
+            "        'paddle_tpu_torch.optimizer.lr',\n"
+            "        'paddle_tpu_torch.optimizer.optimizer',\n"
+            "        'paddle_tpu_torch.amp',\n"
+            "        'paddle_tpu_torch.regularizer'} <= set(mods), mods\n"
             "from paddle_tpu_torch.serving import make_engine\n"
             "from paddle_tpu_torch.inference import create_predictor\n"
             "runpy.run_path('chip_smoke.py', run_name='not_main')\n"

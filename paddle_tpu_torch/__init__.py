@@ -36,7 +36,12 @@ neither it nor JAX. Its slices so far:
     its containers, every `nn.functional`, the initializers, the common,
     activation, norm, loss and transformer Layers (whose attention runs
     on the flash kernels on the card, `nn/functional/attention.py`),
-    gradient clipping, the optimizers and LR schedules, and AMP.
+    gradient clipping, the optimizers and LR schedules, and AMP;
+  * `io`, `metric`, `hapi`, `vision`, `callbacks`, `batch`, `reader`
+    and the conv and pooling Layers: `Model.fit` over the `DataLoader`,
+    whose worker processes return batches through the shared-memory
+    ring (`native/`), the metrics, the callbacks, `summary` / `flops`,
+    and the vision datasets, transforms, ops and model zoo.
 
 Exports of the eager core at this level: `Tensor`, `Parameter`,
 `to_tensor`, every op of `tensor` (`add`, `matmul`, `reshape`, `topk`,
@@ -57,6 +62,9 @@ from . import framework, inference, profiler  # noqa: F401
 from . import serving, text  # noqa: F401
 from . import autograd, device, tensor  # noqa: F401
 from . import amp, nn, optimizer, regularizer  # noqa: F401
+from . import callbacks, io, metric, native, reader, vision  # noqa: F401
+from .batch import batch  # noqa: F401
+from .hapi import Model, flops, summary  # noqa: F401
 from .autograd import grad  # noqa: F401
 from .core import (  # noqa: F401
     CPUPlace, CUDAPlace, Parameter, Tensor, bfloat16, bool_, complex64,
@@ -82,7 +90,9 @@ __all__ = ["core", "cost_model", "framework", "inference", "observability",
            "EngineConfig", "GenerationEngine", "PagedEngineConfig",
            "PagedGenerationEngine", "Scheduler", "ServingConfig", "GPT",
            "GPTConfig", "gpt_125m", "gpt_tiny", "autograd", "device",
-           "tensor", "nn", "optimizer", "amp", "regularizer", "grad", "CPUPlace", "CUDAPlace", "Parameter", "Tensor",
+           "tensor", "nn", "optimizer", "amp", "regularizer", "io",
+           "metric", "vision", "callbacks", "native", "reader", "batch",
+           "Model", "summary", "flops", "grad", "CPUPlace", "CUDAPlace", "Parameter", "Tensor",
            "bfloat16", "bool_", "complex64", "complex128", "enable_grad",
            "float16", "float32", "float64", "get_default_dtype",
            "get_device", "get_rng_state", "int8", "int16", "int32", "int64",

@@ -144,6 +144,61 @@ LAYER_TABLE = (
         L("LocalResponseNorm", nn("LocalResponseNorm", 3), [F(2, 5, 3, 3)]),
         L("SpectralNorm", nn("SpectralNorm", [4, 3, 2], dim=1,
                              power_iters=3), [F(4, 3, 2)]),
+        # ------------------------------------------------- conv and pooling
+        L("Conv1D", nn("Conv1D", 3, 4, 3, padding=1), [F(2, 3, 7)]),
+        L("Conv1D_stride_dil", nn("Conv1D", 2, 4, 3, stride=2, dilation=2),
+          [F(2, 2, 11)]),
+        L("Conv2D", nn("Conv2D", 3, 6, 3), [F(2, 3, 6, 6)]),
+        L("Conv2D_pad_stride", nn("Conv2D", 3, 6, 3, stride=2, padding=1),
+          [F(2, 3, 7, 7)]),
+        L("Conv2D_groups", nn("Conv2D", 4, 6, 3, groups=2, padding=1),
+          [F(1, 4, 5, 5)]),
+        L("Conv2D_same_nobias", nn("Conv2D", 3, 4, (3, 2), padding="SAME",
+                                   bias_attr=False), [F(1, 3, 5, 6)]),
+        L("Conv2D_nhwc", nn("Conv2D", 3, 4, 3, padding=1,
+                            data_format="NHWC"), [F(1, 5, 5, 3)]),
+        L("Conv3D", nn("Conv3D", 2, 3, 2, padding=1), [F(1, 2, 3, 4, 4)]),
+        L("Conv1DTranspose", nn("Conv1DTranspose", 3, 2, 3, stride=2),
+          [F(2, 3, 5)]),
+        L("Conv2DTranspose", nn("Conv2DTranspose", 4, 3, 3, stride=2,
+                                padding=1, output_padding=1),
+          [F(2, 4, 4, 4)]),
+        L("Conv2DTranspose_groups", nn("Conv2DTranspose", 4, 6, 2,
+                                       groups=2), [F(1, 4, 3, 3)]),
+        L("Conv3DTranspose", nn("Conv3DTranspose", 2, 2, 2, stride=2),
+          [F(1, 2, 2, 3, 3)]),
+        L("MaxPool1D", nn("MaxPool1D", 2), [F(2, 3, 8)]),
+        L("MaxPool2D", nn("MaxPool2D", 2, 2), [F(2, 3, 6, 6)]),
+        L("MaxPool2D_pad_ceil", nn("MaxPool2D", 3, 2, padding=1,
+                                   ceil_mode=True), [F(1, 2, 7, 7)]),
+        L("MaxPool2D_mask", nn("MaxPool2D", 2, return_mask=True),
+          [F(1, 2, 4, 4)]),
+        L("MaxPool3D", nn("MaxPool3D", 2), [F(1, 2, 4, 4, 4)]),
+        L("AvgPool1D", nn("AvgPool1D", 3, 2, padding=1), [F(2, 3, 9)]),
+        L("AvgPool2D", nn("AvgPool2D", 2, 2), [F(2, 3, 6, 6)]),
+        L("AvgPool2D_inclusive", nn("AvgPool2D", 3, 2, padding=1,
+                                    exclusive=False), [F(1, 2, 5, 5)]),
+        L("AvgPool2D_divisor", nn("AvgPool2D", 2, divisor_override=3),
+          [F(1, 2, 4, 4)]),
+        L("AvgPool3D", nn("AvgPool3D", 2), [F(1, 2, 4, 4, 4)]),
+        L("AdaptiveAvgPool1D", nn("AdaptiveAvgPool1D", 3), [F(2, 3, 7)]),
+        L("AdaptiveAvgPool2D", nn("AdaptiveAvgPool2D", 1), [F(2, 3, 5, 5)]),
+        L("AdaptiveAvgPool2D_uneven", nn("AdaptiveAvgPool2D", (2, 3)),
+          [F(1, 2, 5, 7)]),
+        L("AdaptiveAvgPool3D", nn("AdaptiveAvgPool3D", 2),
+          [F(1, 2, 4, 4, 4)]),
+        L("AdaptiveMaxPool1D", nn("AdaptiveMaxPool1D", 2), [F(2, 3, 6)]),
+        L("AdaptiveMaxPool2D", nn("AdaptiveMaxPool2D", (2, 2)),
+          [F(1, 3, 5, 5)]),
+        L("AdaptiveMaxPool3D", nn("AdaptiveMaxPool3D", 2),
+          [F(1, 2, 4, 4, 4)]),
+        L("MaxUnPool1D", lambda P: _unpool(P, 1), [F(1, 2, 8)]),
+        L("MaxUnPool2D", lambda P: _unpool(P, 2), [F(1, 2, 4, 4)]),
+        L("MaxUnPool3D", lambda P: _unpool(P, 3), [F(1, 1, 4, 4, 4)]),
+        L("Conv_stack", lambda P: P.nn.Sequential(
+            P.nn.Conv2D(3, 4, 3, padding=1), P.nn.BatchNorm2D(4),
+            P.nn.ReLU(), P.nn.MaxPool2D(2, 2), P.nn.Conv2D(4, 2, 1),
+            P.nn.AdaptiveAvgPool2D(1), P.nn.Flatten()), [F(2, 3, 6, 6)]),
         # ------------------------------------------------------- containers
         L("Sequential", lambda P: P.nn.Sequential(
             P.nn.Linear(5, 8), P.nn.ReLU(), P.nn.Linear(8, 3)), [F(4, 5)]),
@@ -160,6 +215,20 @@ LAYER_TABLE = (
           call=lambda m, x: x.matmul(m[0]) + m[1]),
     ]
 )
+
+
+def _unpool(P, nd):
+    """max_pool{nd}d with its mask, then MaxUnPool{nd}D (2-wide)."""
+    class Unpool(P.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.unpool = getattr(P.nn, f"MaxUnPool{nd}D")(2)
+
+        def forward(self, x):
+            y, idx = getattr(P.nn.functional, f"max_pool{nd}d")(
+                x, 2, return_mask=True)
+            return self.unpool(y, idx)
+    return Unpool()
 
 
 def _param_list(P):
@@ -549,3 +618,149 @@ def test_train_eval_propagation_and_sdpa_first_row(cpu):
     out = pt.nn.functional.scaled_dot_product_attention(
         pt.to_tensor(q), pt.to_tensor(q), pt.to_tensor(q), is_causal=True)
     np.testing.assert_allclose(out.numpy()[0, 0], q[0, 0], rtol=1e-5)
+
+
+# ------------------------------------------------ conv / pool and nn.utils
+
+def test_conv_pool_oracle_checks(cpu):
+    """`tests/test_nn_layers.py::TestConvPool`'s checks on the port."""
+    pt = cpu
+    nn, F = pt.nn, pt.nn.functional
+    rng = np.random.RandomState(3)
+    x = pt.to_tensor(rng.rand(2, 3, 8, 8).astype(np.float32))
+    assert nn.Conv2D(3, 6, 3)(x).shape == [2, 6, 6, 6]
+    assert nn.Conv2D(3, 6, 3, padding=1)(x).shape == [2, 6, 8, 8]
+    assert nn.Conv2D(3, 6, 3, stride=2, padding=1)(x).shape == [2, 6, 4, 4]
+    assert nn.Conv2D(3, 6, 3, groups=3, padding=1)(x).shape == [2, 6, 8, 8]
+    a = rng.rand(1, 1, 4, 4).astype(np.float32)
+    w = rng.rand(1, 1, 3, 3).astype(np.float32)
+    ref = np.zeros((1, 1, 2, 2), np.float32)
+    for i in range(2):
+        for j in range(2):
+            ref[0, 0, i, j] = (a[0, 0, i:i + 3, j:j + 3] * w[0, 0]).sum()
+    np.testing.assert_allclose(F.conv2d(pt.to_tensor(a),
+                                        pt.to_tensor(w)).numpy(), ref,
+                               rtol=1e-5)
+    xt = pt.to_tensor(rng.rand(2, 4, 5, 5).astype(np.float32))
+    assert nn.Conv2DTranspose(4, 3, 3, stride=2, padding=1,
+                              output_padding=1)(xt).shape == [2, 3, 10, 10]
+    assert nn.MaxPool2D(2, 2)(x).shape == [2, 3, 4, 4]
+    assert nn.AvgPool2D(2, 2)(x).shape == [2, 3, 4, 4]
+    np.testing.assert_allclose(nn.AdaptiveAvgPool2D(1)(x).numpy()[..., 0, 0],
+                               x.numpy().mean((2, 3)), rtol=1e-5)
+    np.testing.assert_allclose(F.max_pool2d(pt.to_tensor(a), 2, 2).numpy(),
+                               a.reshape(1, 1, 2, 2, 2, 2).max((3, 5)),
+                               rtol=1e-6)
+
+
+def test_conv_layers_draw_paddle_fans(cpu):
+    """Weights and biases in Uniform(+-1/sqrt(in/groups * k)), the
+    layouts [out, in/groups, k..] and [in, out/groups, k..]."""
+    pt = cpu
+    pt.seed(5)
+    c = pt.nn.Conv2D(8, 6, 3, groups=2)
+    t = pt.nn.Conv2DTranspose(8, 6, 3, groups=2)
+    assert c.weight.shape == [6, 4, 3, 3] and t.weight.shape == [8, 3, 3, 3]
+    for layer in (c, t):
+        bound = 1 / np.sqrt(4 * 9)
+        for p in (layer.weight, layer.bias):
+            v = p.numpy()
+            assert np.abs(v).max() <= bound and np.abs(v).max() > bound / 2
+    pt.seed(5)
+    np.testing.assert_array_equal(pt.nn.Conv2D(8, 6, 3, groups=2)
+                                  .weight.numpy(), c.weight.numpy())
+
+
+def _carry(src, dst):
+    missing, unexpected = dst.set_state_dict(
+        {k: v.numpy() for k, v in src.state_dict().items()})
+    assert missing == [] and unexpected == []
+
+
+def _loss_grads(P, layer, x, names):
+    out = layer(P.to_tensor(x))
+    w = np.random.RandomState(1).uniform(0.5, 1.5, out.shape)
+    (out * P.to_tensor(w.astype(np.float32))).sum().backward()
+    params = dict(layer.named_parameters())
+    return out.numpy(), [params[n].grad.numpy() for n in names]
+
+
+@pytest.mark.parametrize("kind", ["linear", "conv"])
+def test_weight_norm_matches_jax(cpu, kind):
+    import paddle_tpu as pj
+    pt = cpu
+
+    def build(P):
+        return P.nn.Linear(5, 4) if kind == "linear" else \
+            P.nn.Conv2D(3, 4, 3, padding=1)
+    jl, tl = build(pj), build(pt)
+    _carry(jl, tl)
+    dim = 1 if kind == "linear" else 0
+    jl = pj.nn.utils.weight_norm(jl, dim=dim)
+    tl = pt.nn.utils.weight_norm(tl, dim=dim)
+    assert [n for n, _ in tl.named_parameters()] == \
+        [n for n, _ in jl.named_parameters()]
+    x = np.random.RandomState(2).rand(
+        *((3, 5) if kind == "linear" else (2, 3, 5, 5))).astype(np.float32)
+    names = ["weight_g", "weight_v"]
+    got, want = _loss_grads(pt, tl, x, names), _loss_grads(pj, jl, x, names)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
+    for g, w in zip(got[1], want[1]):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+    pj.nn.utils.remove_weight_norm(jl)
+    pt.nn.utils.remove_weight_norm(tl)
+    np.testing.assert_allclose(tl.weight.numpy(), jl.weight.numpy(),
+                               rtol=1e-5, atol=1e-6)
+    assert [n for n, _ in tl.named_parameters()] == ["bias", "weight"] == \
+        [n for n, _ in jl.named_parameters()]
+    with pytest.raises(ValueError, match="no weight norm"):
+        pt.nn.utils.remove_weight_norm(tl)
+
+
+def test_spectral_norm_contract_and_jax(cpu):
+    """The estimate converges to the largest singular value; the same
+    seed draws the same u; the gradient reaches weight_orig; converged,
+    the forward equals the JAX package's."""
+    import paddle_tpu as pj
+    pt = cpu
+    jl, tl = pj.nn.Linear(6, 4), pt.nn.Linear(6, 4)
+    _carry(jl, tl)
+    w = tl.weight.numpy()
+    pt.seed(11)
+    tl = pt.nn.utils.spectral_norm(tl, n_power_iterations=30, dim=1)
+    jl = pj.nn.utils.spectral_norm(jl, n_power_iterations=30, dim=1)
+    sigma = np.linalg.svd(w, compute_uv=False)[0]
+    np.testing.assert_allclose(tl.weight.numpy(), w / sigma, rtol=1e-5,
+                               atol=1e-6)
+    x = np.random.RandomState(4).rand(3, 6).astype(np.float32)
+    got = _loss_grads(pt, tl, x, ["weight_orig"])
+    want = _loss_grads(pj, jl, x, ["weight_orig"])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[1][0], want[1][0], rtol=1e-4, atol=1e-5)
+    # the power-iteration vector comes from the port's generator
+    pt.seed(11)
+    a = pt.nn.utils.spectral_norm(pt.nn.Linear(6, 4), n_power_iterations=0)
+    pt.seed(11)
+    b = pt.nn.utils.spectral_norm(pt.nn.Linear(6, 4), n_power_iterations=0)
+    np.testing.assert_array_equal(a.weight.numpy(), b.weight.numpy())
+
+
+def test_parameters_to_vector_matches_jax(cpu):
+    import paddle_tpu as pj
+    pt = cpu
+    jl, tl = pj.nn.Conv2D(2, 3, 2), pt.nn.Conv2D(2, 3, 2)
+    _carry(jl, tl)
+    tv = pt.nn.utils.parameters_to_vector(tl.parameters())
+    jv = pj.nn.utils.parameters_to_vector(jl.parameters())
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv.numpy()))
+    ids = [id(p) for p in tl.parameters()]
+    new = np.arange(tv.shape[0], dtype=np.float32)
+    pt.nn.utils.vector_to_parameters(pt.to_tensor(new), tl.parameters())
+    pj.nn.utils.vector_to_parameters(pj.to_tensor(new), jl.parameters())
+    assert [id(p) for p in tl.parameters()] == ids
+    for (n, a), (_, b) in zip(tl.named_parameters(), jl.named_parameters()):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=n)
+        assert not a.stop_gradient
+    with pytest.raises(ValueError, match="elements"):
+        pt.nn.utils.vector_to_parameters(pt.to_tensor(new[:-1]),
+                                         tl.parameters())

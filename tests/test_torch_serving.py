@@ -449,7 +449,37 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "        'paddle_tpu_torch.optimizer.lr',\n"
             "        'paddle_tpu_torch.optimizer.optimizer',\n"
             "        'paddle_tpu_torch.amp',\n"
-            "        'paddle_tpu_torch.regularizer'} <= set(mods), mods\n"
+            "        'paddle_tpu_torch.regularizer',\n"
+            "        'paddle_tpu_torch.nn.layer.conv',\n"
+            "        'paddle_tpu_torch.nn.layer.pooling',\n"
+            "        'paddle_tpu_torch.nn.utils',\n"
+            "        'paddle_tpu_torch.native',\n"
+            "        'paddle_tpu_torch.io',\n"
+            "        'paddle_tpu_torch.io.worker',\n"
+            "        'paddle_tpu_torch.batch',\n"
+            "        'paddle_tpu_torch.reader',\n"
+            "        'paddle_tpu_torch.metric',\n"
+            "        'paddle_tpu_torch.callbacks',\n"
+            "        'paddle_tpu_torch.hapi',\n"
+            "        'paddle_tpu_torch.hapi.model',\n"
+            "        'paddle_tpu_torch.hapi.callbacks',\n"
+            "        'paddle_tpu_torch.hapi.model_summary',\n"
+            "        'paddle_tpu_torch.vision',\n"
+            "        'paddle_tpu_torch.vision.datasets',\n"
+            "        'paddle_tpu_torch.vision.transforms',\n"
+            "        'paddle_tpu_torch.vision.ops',\n"
+            "        'paddle_tpu_torch.vision.models',\n"
+            "        'paddle_tpu_torch.vision.models.resnet',\n"
+            "        'paddle_tpu_torch.vision.models.vgg',\n"
+            "        'paddle_tpu_torch.vision.models.alexnet',\n"
+            "        'paddle_tpu_torch.vision.models.lenet',\n"
+            "        'paddle_tpu_torch.vision.models.mobilenet',\n"
+            "        'paddle_tpu_torch.vision.models.mobilenetv3',\n"
+            "        'paddle_tpu_torch.vision.models.squeezenet',\n"
+            "        'paddle_tpu_torch.vision.models.densenet',\n"
+            "        'paddle_tpu_torch.vision.models.googlenet',\n"
+            "        'paddle_tpu_torch.vision.models.shufflenetv2',\n"
+            "        'paddle_tpu_torch.vision.models.ppyoloe'} <= set(mods), mods\n"
             "from paddle_tpu_torch.serving import make_engine\n"
             "from paddle_tpu_torch.inference import create_predictor\n"
             "runpy.run_path('chip_smoke.py', run_name='not_main')\n"

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --eager-only  # phases 1, 2 and 21
     python3 chip_smoke.py --nn-only     # phases 1, 2 and 22
     python3 chip_smoke.py --hapi-only   # phases 1, 2 and 23
+    python3 chip_smoke.py --text-only   # phases 1, 2 and 24
 
 Phases (any exception ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -341,8 +342,9 @@ Phases (any exception ends the run with a non-zero exit):
      table (`tests/test_torch_nn_functional.py` `FN_TABLE`) and Layer
      table (`tests/test_torch_nn_layers.py` `LAYER_TABLE`) on CUDA against
      the port on the CPU, through the tests' own comparisons; SDPA at
-     head dim 256 and in float16 takes the kernel route and raises (no
-     kernel is built for them); (e) the flash forward, dQ and dK/dV kernels'
+     head dim 256 and in float16 takes the kernel route, launches the
+     forward kernel once and agrees with the plain attention; (e) the
+     flash forward, dQ and dK/dV kernels'
      mask and mask + dropout (0.1) builds at B=8, H=12, S=512, D=64 bf16
      with the encoder's [8, 1, 512, 512] f32 mask, timed and held to their
      plain versions, beside SDPA with the same float mask.
@@ -376,6 +378,42 @@ Phases (any exception ends the run with a non-zero exit):
      where they flow), the conv and pool cases of the CPU tests' Layer
      table, and each zoo family's eval forward, on CUDA against the CPU.
      `--hapi-only` runs phases 1, 2 and 23.
+ 24. the head dims and float16 the kernels took last, then text and
+     audio: (c) first, every new kernel instance against its plain
+     version (launched twice, repeating bit for bit; timed beside its
+     bound and SDPA): the paged kernel at head dims 32 (8 heads) and 128
+     (16 heads) in f32, bf16 and int8, decode over ragged positions and
+     at the split edges, T=5 windows, T=128 and T=512 tiles; the flash
+     kernels in float16 at D 64 and 128 and at D=256 in f32, bf16 and
+     float16 (B=2, H=8, S=1024, causal), plus mask and dropout builds,
+     float16 held to 2e-3 with a control that rounds P and dS to bf16
+     and must fail that limit; SDPA at D=256 and in float16 on the
+     kernel route (with `--text-only`; the whole script runs it in
+     phase 22); (a) BERT-base
+     (`BertForPretraining(BertConfig())`, random weights, f32, TF32 off)
+     pretraining through `Model.fit` on seeded masked-LM data (two runs
+     of consecutive ids, NSP, 15% masked) through 2 ring workers, B=32,
+     S=128, AdamW, 63 steps: step ms over 20 after 3, sequences/s, the
+     device profile of a step, flash launches (12 each a step), SDPA
+     routes, the loader's wait, peak memory, the loss falling (the last 5
+     steps' mean under 0.8 of the first 5's); (b) GPT-1.3B at full width
+     (seeded f32 weights) through `PagedGenerationEngine(attention_impl=
+     "kernel")` under the `Scheduler` on CUDA graphs, 8 slots, block 16,
+     phase 4's 16 requests x 32 tokens, with f32 and with int8 pools:
+     decode step ms, TTFT, tokens/s, paged launches by path (24 a
+     forward), a profiled decode step, and every greedy stream
+     token-exact against the same engine on the plain attention; (d) a
+     2-layer bidirectional LSTM and a GRU (hidden 512, B=64, T=128,
+     ragged lengths, Adam): a training step's ms, kernels and busy ms,
+     and the first of those steps against a CPU step on every row (1e-4
+     of the largest magnitude); (e) Viterbi (B=64, T=128, 50 tags,
+     ragged) and beam search (beam 4 over a GRUCell) equal to the CPU's,
+     MelSpectrogram and
+     MFCC over 16 clips of 5 s at 44.1 kHz against the CPU (1e-5) and the
+     stft -> istft round trip (1e-4); (f) ERNIE 3.0 base sequence
+     classification at B=32, S=128 through `Model.train_batch`: step ms
+     and 12 flash launches of each kernel a step.
+     `--text-only` runs phases 1, 2 and 24.
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -385,6 +423,7 @@ goes to `chiprun_out/chip_smoke.json`.
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -397,6 +436,11 @@ SPEC_AGREE = 0.9            # phase 11: spec x int8 vs one-token int8
 QUANT_MATCH = 0.99          # phase 11: int8 weights vs float, greedy
 QUANT_KL = 1e-3             # phase 11: mean KL(float || int8 weights)
 BF16_TOL = 1e-2             # bf16 output rounding (8 mantissa bits)
+# float16 (11 significant bits): one rounding step of an output is at most
+# 2^-10 of its magnitude, and the kernels may differ from the plain version
+# by one; 2e-3 allows two. A build that rounds P or dS to bf16 (unit
+# roundoff 2^-8) exceeds it: phase 24 (c) holds such a control to it.
+F16_TOL = 2e-3
 GAP_MIN = 1e-3              # phase 6: below this the argmax is a near-tie
 # phase 9 (f32, lr 2e-4): the paths sum in other orders, and Adam divides
 # each gradient element by its own running scale, so where an element's
@@ -418,7 +462,8 @@ def device_peaks(kind):
     to f32 before they multiply it) outside the tensor cores, or bf16
     dense on the tensor cores; both read HBM3 at 3.35 TB/s."""
     from paddle_tpu_torch.cost_model import DEVICES
-    return DEVICES["h100-sxm" if kind == "bf16" else "h100-sxm-fp32"]
+    return DEVICES["h100-sxm" if kind in ("bf16", "f16")
+                   else "h100-sxm-fp32"]
 
 
 # ------------------------------------------------------------------ timing
@@ -604,17 +649,22 @@ def paged_cases(sp):
     ]
 
 
-def run_kernel_cases(flush):
+def run_kernel_cases(flush, cases=None, seed=100):
+    """Phase 3 (and phase 24 (c) with its own `cases`, whose shapes may
+    set H and D): each paged case against its plain version, launched
+    twice, then timed beside its bound and SDPA."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.serving import blocks
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops.paged_attention import paged_attention
 
-    cases = paged_cases(pa.decode_split_keys())
+    if cases is None:
+        cases = paged_cases(pa.decode_split_keys())
     results = []
     for i, (name, shape, kind) in enumerate(cases):
-        c = paged_case(100 + i, shape["S"], shape["T"], shape["pos"],
+        c = paged_case(seed + i, shape["S"], shape["T"], shape["pos"],
+                       H=shape.get("H", 12), D=shape.get("D", 64),
                        bs=shape.get("bs", 16),
                        kind="f32" if kind == "nan" else kind,
                        all_nan=kind == "nan")
@@ -2440,7 +2490,8 @@ def flash_case(seed, B, H, Hk, S, D, kind, causal, mask, rate):
     import torch
     from paddle_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(seed)
-    dt = torch.bfloat16 if kind == "bf16" else torch.float32
+    dt = {"bf16": torch.bfloat16, "f16": torch.float16}.get(kind,
+                                                             torch.float32)
 
     def rnd(rows):
         return torch.randn((rows, S, D), generator=g, device="cuda").to(dt)
@@ -2463,7 +2514,7 @@ def flash_bound(B, H, Hk, S, D, kind, causal, which):
     (query, key) pairs the call needs (the lower triangle when causal): 2*D
     flops a pair and head per product, 2 products in the forward, 3 in dq,
     4 in dkv, at the rate of the input type."""
-    el = 2 if kind == "bf16" else 4
+    el = 2 if kind in ("bf16", "f16") else 4
     qo = B * H * S * D * el                  # q, dO, O, dQ, dK, dV per head
     kv = B * Hk * S * D * el
     rows = B * H * S * 4                     # lse / delta, f32
@@ -2500,11 +2551,13 @@ def run_flash_cases(flush, keep_going=False):
     return results, timing, failures
 
 
-def flash_case_check(i, name, shp, kind, causal, mask, rate, flush):
-    """One phase-7 case; the first case is also timed (phase 7a)."""
+def flash_case_check(i, name, shp, kind, causal, mask, rate, flush,
+                     timed=False, seed=200):
+    """One phase-7 case; the first case (or any with `timed`) is also
+    timed (phase 7a)."""
     import torch
     from paddle_tpu_torch.ops import flash_attention as fa
-    c = flash_case(200 + i, **shp, kind=kind, causal=causal, mask=mask,
+    c = flash_case(seed + i, **shp, kind=kind, causal=causal, mask=mask,
                    rate=rate)
     q, k, v, do, mf, meta = (c[n] for n in ("q", "k", "v", "do", "mask",
                                             "meta"))
@@ -2517,21 +2570,27 @@ def flash_case_check(i, name, shp, kind, causal, mask, rate, flush):
     pdk, pdv = fa.dkv_plain(q, k, v, do, plse, delta, mf, meta)
     dq2 = fa.flash_dq(q, k, v, do, plse, delta, mf, meta)
     dk2, dv2 = fa.flash_dkv(q, k, v, do, plse, delta, mf, meta)
+    o2, lse2 = fa.flash_fwd(q, k, v, mf, meta)
     torch.cuda.synchronize()
-    # the backward kernels use no atomics: a second launch repeats the
-    # first bit for bit
-    for out, a, b in (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
+    # the kernels use no atomics: a second launch repeats the first bit
+    # for bit
+    for out, a, b in (("o", o, o2), ("lse", lse, lse2), ("dq", dq, dq2),
+                      ("dk", dk, dk2), ("dv", dv, dv2)):
         if not torch.equal(a, b):
             raise AssertionError(f"flash {name}: {out} differs between two "
                                  "launches on the same inputs")
-    tol = BF16_TOL if kind == "bf16" else ATOL
-    errs, wrong = {}, []
+    tol = {"bf16": BF16_TOL, "f16": F16_TOL}.get(kind, ATOL)
+    errs, refs, wrong = {}, {}, []
     for out, got, want, t in (("o", o, po, tol), ("lse", lse, plse, ATOL),
                               ("dq", dq, pdq, tol), ("dk", dk, pdk, tol),
                               ("dv", dv, pdv, tol)):
         err = (got.float() - want.float()).abs()
         bad = (err > t + t * want.float().abs()) | ~torch.isfinite(got)
         errs[out] = float(err.max())
+        refs[out] = float(want.float().abs().max())
+        if refs[out] == 0.0:
+            wrong.append(f"{out} (the plain version is all zeros: the "
+                         "comparison holds nothing)")
         if bool(bad.any()):
             wrong.append(f"{out} (max_abs_err={errs[out]}, tol {t}, "
                          f"{int(bad.sum())} bad, first at "
@@ -2547,15 +2606,55 @@ def flash_case_check(i, name, shp, kind, causal, mask, rate, flush):
                                  "must be exact zeros")
     rec = {"case": name, **shp, "kind": kind, "causal": causal,
            "mask": mask, "dropout": rate, "tol": tol,
-           "max_abs_err": errs}
+           "max_abs_err": errs, "max_abs_plain": refs}
+    if kind == "f16":
+        rec["bf16_control"] = f16_bf16_control(
+            name, q, k, v, do, plse, delta, mf, meta,
+            {"o": po, "dq": pdq, "dk": pdk, "dv": pdv})
     log(f"flash {name}: B={shp['B']} H={shp['H']} Hk={shp['Hk']} "
         f"S={shp['S']} D={shp['D']} {kind} causal={causal} mask={mask} "
         f"dropout={rate} max_abs_err "
         + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
-        + f" (tol {tol})")
+        + f" (tol {tol}; largest plain value "
+        + " ".join(f"{n}={e:.2e}" for n, e in refs.items()) + ")")
     timing = (time_flash(c, shp, kind, causal, plse, delta, flush)
-              if i == 0 else None)
+              if i == 0 or timed else None)
     return rec, timing
+
+
+def f16_bf16_control(name, q, k, v, do, lse, delta, mask, meta, plain):
+    """The float16 plain versions with P and dS rounded to bf16 instead of
+    float16 (a build that drops 3 mantissa bits there), held to F16_TOL
+    against the sound plain outputs. It must fail the limit somewhere, or
+    the limit could not tell such a build from the float16 one. Returns the
+    control's max abs errors and the elements over the limit."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    sound = fa._round
+    fa._round = lambda x, dtype: x.to(
+        torch.bfloat16 if dtype == torch.float16 else dtype).float()
+    try:
+        got = {"o": fa.fwd_plain(q, k, v, mask, meta)[0],
+               "dq": fa.dq_plain(q, k, v, do, lse, delta, mask, meta)}
+        got["dk"], got["dv"] = fa.dkv_plain(q, k, v, do, lse, delta, mask,
+                                            meta)
+    finally:
+        fa._round = sound
+    errs, over = {}, {}
+    for out, want in plain.items():
+        err = (got[out].float() - want.float()).abs()
+        errs[out] = float(err.max())
+        over[out] = int((err > F16_TOL + F16_TOL * want.float().abs())
+                        .sum())
+    log(f"flash {name}: control with P and dS rounded to bf16: "
+        "max_abs_err " + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+        + ", over the limit " + " ".join(f"{n}={c}" for n, c in over.items())
+        + f" (tol {F16_TOL})")
+    if not any(over.values()):
+        raise AssertionError(f"flash {name}: a control rounding P and dS to "
+                             f"bf16 passes the float16 limit {F16_TOL}: the "
+                             "check cannot tell the two apart")
+    return {"max_abs_err": errs, "over_limit": over}
 
 
 def time_flash(c, shp, kind, causal, lse, delta, flush):
@@ -2605,42 +2704,68 @@ def time_flash(c, shp, kind, causal, lse, delta, flush):
     return out
 
 
-def wgmma_resources():
-    """Registers and spills of the bf16 wgmma kernels, from the compiler's
-    report (`build.ptxas_report`), with their dynamic shared memory."""
-    import ctypes
-    import re
+_PTX_ARGS = re.compile(
+    r"13__nv_bfloat16|6__half|Li(\d+)E|Lb([01])|S\d*_|[fa]")
+
+
+def _short_kernel(mangled):
+    """`paged_tile_kernel<f32,i8,128,1>` from a mangled kernel name."""
+    m = re.search(r"\d+([a-z_]+_kernel)I(.+?)EEv", mangled)
+    if m is None:
+        return mangled
+    names = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32",
+             "a": "i8"}
+    args = []
+    for t in _PTX_ARGS.finditer(m.group(2)):
+        tok = t.group(0)
+        args.append(t.group(1) or t.group(2) or (
+            args[-1] if tok.startswith("S") else names[tok]))
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def ptxas_resources(lib):
+    """Registers and spills of every kernel of a built library, from the
+    compiler's report (`build.ptxas_report`)."""
     from paddle_tpu_torch._kernels import build
-    from paddle_tpu_torch.ops import flash_attention as fa
-    lib = fa._kernel_lib()
-    lib.flash_attention_wgmma_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    out, kernel = [], None
-    for line in build.ptxas_report("flash_attention").splitlines():
+    out, kernel, spills = [], None, (None, None)
+    for line in build.ptxas_report(lib).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            kernel = m.group(1) if "wgmma" in m.group(1) else None
-            spills = (None, None)
-            continue
-        if kernel is None:
+            kernel, spills = m.group(1), (None, None)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
-        if m:
-            # the smem query's kernel index: fwd 0, dq 1, dkv 2
-            which = (2 if "flash_dkv" in kernel else
-                     1 if "flash_dq" in kernel else 0)
-            D = 128 if "ILi128E" in kernel else 64
-            out.append({"kernel": kernel, "D": D,
-                        "general": "Lb1E" in kernel,
+        if m and kernel is not None:
+            out.append({"kernel": _short_kernel(kernel), "mangled": kernel,
                         "registers": int(m.group(1)),
-                        "spill_stores": spills[0], "spill_loads": spills[1],
-                        "smem_dynamic":
-                            lib.flash_attention_wgmma_smem(which, D),
-                        "ptxas": line.strip()})
+                        "spill_stores": spills[0], "spill_loads": spills[1]})
             kernel = None
+    return out
+
+
+def wgmma_resources(flash_rows):
+    """The 16-bit wgmma kernels among the flash library's `ptxas_resources`
+    rows, with their head dim, type, build and dynamic shared memory."""
+    import ctypes
+    from paddle_tpu_torch.ops import flash_attention as fa
+    lib = fa._kernel_lib()
+    lib.flash_attention_wgmma_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    out = []
+    for r in flash_rows:
+        kernel = r["mangled"]
+        if "wgmma" not in kernel:
+            continue
+        # the smem query's kernel index: fwd 0, dq 1, dkv 2
+        which = (2 if "flash_dkv" in kernel else
+                 1 if "flash_dq" in kernel else 0)
+        D = 128 if "Li128E" in kernel else 64
+        out.append({**r, "D": D,
+                    "dtype": "f16" if "6__half" in kernel else "bf16",
+                    "general": "Lb1E" in kernel,
+                    "smem_dynamic": lib.flash_attention_wgmma_smem(which, D)})
     return out
 
 
@@ -5860,35 +5985,44 @@ def nn_flash_masked(smi):
     return out
 
 
-def nn_sdpa_unbuilt(pt, smi):
-    """SDPA on inputs the reference sends to its flash kernels but the
-    port has no kernel built for (head dim 256, float16; ROADMAP B.4):
-    they take the kernel route and raise there, never the dense
-    attention, and launch nothing."""
+def nn_sdpa_new_builds(pt, smi):
+    """SDPA on the inputs the reference sends to its flash kernels and
+    the port built kernels for in PR 19 (head dim 256, float16; ROADMAP
+    B.4): each takes the kernel route, launches the forward kernel once
+    and agrees with the plain attention on the same inputs."""
     import numpy as np
+    import torch
     from paddle_tpu_torch.nn.functional import attention as ta
+    from paddle_tpu_torch.ops import flash_attention as fa
     rng = np.random.RandomState(0)
-    refused = {}
+    out = {}
     for name, D, dtype in (("d256_bf16", 256, "bfloat16"),
-                           ("d64_fp16", 64, "float16")):
+                           ("d64_fp16", 64, "float16"),
+                           ("d256_fp16", 256, "float16")):
         x = pt.to_tensor(rng.randn(1, 128, 2, D).astype(np.float32),
                          place="gpu").astype(dtype)
         routes, counts = dict(ta.sdpa_routes), _flash_counts()
-        try:
-            pt.nn.functional.scaled_dot_product_attention(x, x, x)
-        except (ValueError, TypeError) as e:
-            refused[name] = f"{type(e).__name__}: {e}"
-        else:
-            raise AssertionError(f"phase 22: SDPA {name} ran; no kernel is "
-                                 "built for it")
+        got = pt.nn.functional.scaled_dot_product_attention(x, x, x)
+        torch.cuda.synchronize()
         moved = {k: ta.sdpa_routes[k] - routes[k] for k in routes}
-        if moved != {"kernel": 1, "plain": 0} or _flash_counts() != counts:
-            raise AssertionError(f"phase 22: SDPA {name} routes {moved}, "
-                                 f"flash launches {counts} -> "
-                                 f"{_flash_counts()}")
-    log("SDPA on unbuilt inputs takes the kernel route and raises: "
-        + "; ".join(f"{k}: {v}" for k, v in refused.items()) + f" [{smi}]")
-    return refused
+        launched = [a - b for a, b in zip(_flash_counts(), counts)]
+        if moved != {"kernel": 1, "plain": 0} or launched != [1, 0, 0]:
+            raise AssertionError(f"SDPA {name}: routes {moved}, flash "
+                                 f"launches {launched}; want the kernel "
+                                 "route and one forward launch")
+        t = x._data.transpose(1, 2)
+        want = fa.reference_attention_bhsd(t, t, t).transpose(1, 2).float()
+        diff = (got._data.float() - want).abs()
+        tol = F16_TOL if dtype == "float16" else BF16_TOL
+        err = float(diff.max())
+        if bool((diff > tol + tol * want.abs()).any()):
+            raise AssertionError(f"SDPA {name}: kernel route differs from "
+                                 f"the plain attention by {err} (tol {tol})")
+        out[name] = {"max_abs_err": err, "tol": tol}
+    log("SDPA at head dim 256 and in float16 on the kernel route: "
+        + "; ".join(f"{k} max_abs_err {v['max_abs_err']:.2e}"
+                    for k, v in out.items()) + f" [{smi}]")
+    return out
 
 
 def nn_phase(smi):
@@ -5910,7 +6044,7 @@ def nn_phase(smi):
     out["small_step"] = nn_small_stages(pt, smi, torch.device("cuda"))
     out["optimizers"] = nn_optimizers(pt, smi)
     out["tables"] = nn_tables(pt, smi)
-    out["sdpa_unbuilt"] = nn_sdpa_unbuilt(pt, smi)
+    out["sdpa_new_builds"] = nn_sdpa_new_builds(pt, smi)
     out["flash_masked"] = nn_flash_masked(smi)
     out["seconds"] = time.perf_counter() - t0
     log(f"phase 22 took {out['seconds']:.1f} s [{smi}]")
@@ -6656,6 +6790,616 @@ def hapi_phase(smi):
     return json.loads(json.dumps(out, default=float))
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the head dims and float16 the kernels took in PR 19 (ROADMAP
+# B.4), then text and audio (ROADMAP A.13d)
+# ---------------------------------------------------------------------------
+
+TEXT_PAGED_DIMS = ((32, 8), (128, 16))  # (head dim, heads): gpt_tiny's
+                                        # head dim, gpt_1p3b's
+TEXT_FLASH_SHAPE = dict(B=2, H=8, Hk=8, S=1024)
+TEXT_FLASH_CASES = [
+    # name, head dim, dtype, causal, mask, dropout rate, timed
+    ("t_f16_D64", 64, "f16", True, False, 0.0, True),
+    ("t_f16_D128", 128, "f16", True, False, 0.0, True),
+    ("t_f32_D256", 256, "f32", True, False, 0.0, True),
+    ("t_bf16_D256", 256, "bf16", True, False, 0.0, True),
+    ("t_f16_D256", 256, "f16", True, False, 0.0, True),
+    # the mask and dropout builds of the new instances, and GQA
+    ("t_f16_D64_mask", 64, "f16", False, True, 0.0, False),
+    ("t_f16_D128_dropout", 128, "f16", True, False, 0.1, False),
+    ("t_bf16_D256_mask", 256, "bf16", False, True, 0.0, False),
+    ("t_f16_D256_dropout", 256, "f16", True, False, 0.1, False),
+]
+
+
+def text_paged_cases(sp):
+    """Phase 24 (c)'s paged cases at head dims 32 and 128: decode over
+    ragged positions up to 1000 and at the split edges phase 3 runs at 64,
+    verify windows (T=5) and prefill tiles (T=128, 512), in every mode."""
+    ragged = [0, 15, 16, 17, 255, 511, 777, 1000]
+    verify5 = [0, 12, 14, 255, 500, 777, 1000, 1019]
+    edges = [sp - 2, sp - 1, sp, 2 * sp - 2, 2 * sp - 1, 2 * sp, 1023, -1]
+    out = []
+    for D, H in TEXT_PAGED_DIMS:
+        for kind in ("f32", "bf16", "int8"):
+            hd = dict(H=H, D=D)
+            out += [
+                (f"d{D}_decode_{kind}", dict(S=8, T=1, pos=ragged, **hd),
+                 kind),
+                (f"d{D}_decode_edges_{kind}", dict(S=8, T=1, pos=edges, **hd),
+                 kind),
+                (f"d{D}_verify_{kind}_T5", dict(S=8, T=5, pos=verify5, **hd),
+                 kind),
+                (f"d{D}_prefill_{kind}_T128",
+                 dict(S=2, T=128, pos=[0, 256], **hd), kind),
+                (f"d{D}_prefill_{kind}_T512",
+                 dict(S=2, T=512, pos=[0, 256], **hd), kind)]
+    return out
+
+
+def text_kernel_builds(pt, smi):
+    """Phase 24 (c): every new kernel instance against its plain version
+    on the card (each launched twice and required to repeat bit for bit),
+    timed beside its bound and SDPA; the float16 flash cases also hold a
+    control that rounds P and dS to bf16 to their limit, which it must
+    fail."""
+    import torch
+    from paddle_tpu_torch.ops import paged_attention as pa
+    flush_buf = torch.empty(64 * 1024 * 1024, device="cuda")
+
+    def flush():
+        _flush_l2(flush_buf)
+    paged = run_kernel_cases(flush, text_paged_cases(pa.decode_split_keys()),
+                             seed=2400)
+    flash, timing = [], {}
+    for i, (name, D, kind, causal, mask, rate, timed) in \
+            enumerate(TEXT_FLASH_CASES):
+        shp = dict(TEXT_FLASH_SHAPE, D=D)
+        rec, t = flash_case_check(i, name, shp, kind, causal, mask, rate,
+                                  flush, timed=timed, seed=2450)
+        flash.append(rec)
+        if t is not None:
+            timing[name] = t
+    del flush_buf
+    return {"paged": paged, "flash": flash, "flash_timing": timing}
+
+
+TEXT_BERT_B, TEXT_BERT_S = 32, 128     # (a): BERT's first pretraining phase
+TEXT_BERT_WARMUP, TEXT_BERT_TIMED = 3, 20
+TEXT_ERNIE_WARMUP, TEXT_ERNIE_STEPS = 3, 10    # (f)
+TEXT_BERT_STEPS = 63                   # 60 after the warm-up: the loss's run
+TEXT_BERT_RANGE = 512                  # the ids a sequence's run may hold
+# the last 5 steps' mean loss over the first 5's; call 2 (the first to
+# run (a)) read 0.631
+TEXT_BERT_LOSS_SHARE = 0.8
+TEXT_BERT_MASK_ID = 103                # [MASK] in BERT's vocabulary
+TEXT_GPT_ENGINE = dict(slots=8, max_len=1024, block_size=16)
+TEXT_RNN = dict(B=64, T=128, I=256, H=512)
+TEXT_RNN_RTOL = 1e-4                   # (d): of the CPU's largest magnitude
+TEXT_AUDIO = dict(clips=16, seconds=5, sr=44100, n_fft=2048, hop=512,
+                  n_mels=128, n_mfcc=40)
+TEXT_AUDIO_RTOL = 1e-5                 # (e): of the CPU's largest magnitude
+TEXT_ISTFT_ATOL = 1e-4                 # (e): the stft -> istft round trip
+
+
+def _bert_dataset(pt, n):
+    """Masked-LM pretraining data that can be learnt: each sequence is two
+    runs of consecutive ids (within TEXT_BERT_RANGE of 1000); the second
+    continues the first (NSP label 1) or starts afresh (0); 15% of the
+    positions are masked ([MASK]) and carry their id as the MLM label, the
+    rest -1. The labels ride as one [S + 1] row: MLM labels, then NSP."""
+    import numpy as np
+    S, half = TEXT_BERT_S, TEXT_BERT_S // 2
+
+    class MaskedLM(pt.io.Dataset):
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            rng = np.random.RandomState(2400 + i)
+            a = rng.randint(0, TEXT_BERT_RANGE)
+            nsp = int(rng.rand() < 0.5)
+            b = a + half if nsp else rng.randint(0, TEXT_BERT_RANGE)
+            ids = 1000 + np.concatenate(
+                [(a + np.arange(half)) % TEXT_BERT_RANGE,
+                 (b + np.arange(half)) % TEXT_BERT_RANGE]).astype(np.int64)
+            tt = np.repeat(np.arange(2, dtype=np.int64), half)
+            masked = rng.rand(S) < 0.15
+            labels = np.where(masked, ids, -1).astype(np.int64)
+            ids = np.where(masked, TEXT_BERT_MASK_ID, ids)
+            return ids, tt, np.append(labels, nsp)
+    return MaskedLM()
+
+
+def _pretrain_loss(pt, vocab):
+    """The callable Model._compute_loss takes over (mlm_logits,
+    nsp_logits, labels): BertForPretraining.loss's MLM (ignore_index=-1)
+    plus NSP cross entropy."""
+    F = pt.nn.functional
+
+    def loss(mlm_logits, nsp_logits, labels):
+        mlm = F.cross_entropy(mlm_logits.reshape([-1, vocab]),
+                              labels[:, :-1].reshape([-1]), ignore_index=-1)
+        return mlm + F.cross_entropy(nsp_logits, labels[:, -1])
+    return loss
+
+
+class _FlashSteps:
+    """A Model callback: flash launches (fwd, dq, dkv) each train step."""
+
+    @staticmethod
+    def make(pt):
+        class L(pt.callbacks.Callback):
+            def __init__(self):
+                super().__init__()
+                self.moved = []
+
+            def on_train_batch_begin(self, step, logs=None):
+                self._before = _flash_counts()
+
+            def on_train_batch_end(self, step, logs=None):
+                self.moved.append(tuple(a - b for a, b in
+                                        zip(_flash_counts(), self._before)))
+        return L()
+
+
+def text_bert_fit(pt, smi):
+    """Phase 24 (a): BERT-base pretraining (MLM + NSP) through Model.fit,
+    fed by two ring workers: step ms, sequences/s, the device profile of a
+    step, flash launches a step, SDPA routes, the loader's wait, peak
+    memory, and the loss falling over 60 steps."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.nn.functional import attention as ta
+    from paddle_tpu_torch.observability import deviceprof
+    from paddle_tpu_torch.text.models import BertConfig, BertForPretraining
+    out_dir = os.path.join(ROOT, "build", "phase24")
+    pt.seed(24)
+    cfg = BertConfig()
+    net = BertForPretraining(cfg)
+    model = pt.Model(net)
+    model.prepare(pt.optimizer.AdamW(1e-4, parameters=net.parameters(),
+                                     weight_decay=0.01),
+                  _pretrain_loss(pt, cfg.vocab_size))
+    ds = _bert_dataset(pt, TEXT_BERT_B * TEXT_BERT_STEPS)
+    loader = _TimedLoader(tio.DataLoader(ds, batch_size=TEXT_BERT_B,
+                                         shuffle=False, num_workers=2,
+                                         drop_last=True))
+    timer, flash = _StepTimer.make(pt), _FlashSteps.make(pt)
+    for k in ta.sdpa_routes:
+        ta.sdpa_routes[k] = 0
+    tio.reset_engine_stats()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.fit(loader, epochs=1, verbose=0, callbacks=[timer, flash])
+    fit_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    routes, stats = dict(ta.sdpa_routes), tio.engine_stats()
+    timed = timer.ms[TEXT_BERT_WARMUP:TEXT_BERT_WARMUP + TEXT_BERT_TIMED]
+    quart = quartiles(timed)
+    losses = timer.losses[TEXT_BERT_WARMUP:]
+    share = float(np.mean(losses[-5:]) / np.mean(losses[:5]))
+    L = cfg.num_hidden_layers
+    rec = {"B": TEXT_BERT_B, "S": TEXT_BERT_S, "steps": TEXT_BERT_STEPS,
+           "step_ms_quartiles": quart, "step_ms_median": quart[1],
+           "sequences_per_s": TEXT_BERT_B / (quart[1] / 1e3),
+           "flash_launches_per_step": sorted(set(flash.moved)),
+           "sdpa_routes": routes, "engine": stats,
+           "wait_ms_quartiles": quartiles(loader.waits[TEXT_BERT_WARMUP:]),
+           "first_wait_ms": loader.waits[0], "peak_gb": peak_gb,
+           "losses": timer.losses, "loss_share": share,
+           "loss_share_limit": TEXT_BERT_LOSS_SHARE, "fit_s": fit_s,
+           "card": smi}
+    # one fixed batch: the device profile of a step
+    ids, tt, lab = next(iter(tio.DataLoader(ds, batch_size=TEXT_BERT_B)))
+    try:
+        _, prof = deviceprof.capture(
+            lambda: model.train_batch([ids, tt], [lab]), out_dir, iters=3,
+            label="bert_base")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    busy = prof["total_device_ms"] / 3
+    rec.update({"kernels_per_step": prof["n_events"] / 3,
+                "device_busy_ms_per_step": busy,
+                "idle_share": 1.0 - busy / quart[1]})
+    log(f"text bert-base Model.fit (B={TEXT_BERT_B}, S={TEXT_BERT_S}, MLM + "
+        f"NSP, AdamW, f32, TF32 off, 2 ring workers): step ms p25/p50/p75 "
+        + "/".join(f"{v:.3f}" for v in quart)
+        + f" ({TEXT_BERT_TIMED} after {TEXT_BERT_WARMUP}), "
+        f"{rec['sequences_per_s']:.1f} sequences/s; "
+        f"{rec['kernels_per_step']:.0f} kernels, busy {busy:.3f} ms a step "
+        f"(idle {rec['idle_share']:.3f}); flash fwd/dq/dkv a step "
+        f"{rec['flash_launches_per_step']}; SDPA routes {routes}; the wait "
+        f"a step p25/p50/p75 "
+        + "/".join(f"{v:.3f}" for v in rec["wait_ms_quartiles"])
+        + f" ms; peak {peak_gb:.2f} GB; loss {timer.losses[0]:.4f} -> "
+        f"{timer.losses[-1]:.4f} (last 5 / first 5 of 60: {share:.3f}, "
+        f"limit {TEXT_BERT_LOSS_SHARE}) [{smi}]")
+    if set(flash.moved) != {(L, L, L)}:
+        raise AssertionError(f"phase 24 (a): flash launches a step "
+                             f"{sorted(set(flash.moved))}, want {L} each")
+    if routes["plain"] or routes["kernel"] != L * TEXT_BERT_STEPS:
+        raise AssertionError(f"phase 24 (a): SDPA routes {routes}")
+    if stats["ring"] != TEXT_BERT_STEPS:
+        raise AssertionError(f"phase 24 (a): the ring engine handed over "
+                             f"{stats}")
+    if not np.all(np.isfinite(timer.losses)) or \
+            not share < TEXT_BERT_LOSS_SHARE:
+        raise AssertionError(f"phase 24 (a): the loss did not fall: last "
+                             f"5 / first 5 {share}")
+    return rec
+
+
+def text_gpt_serving(pt, smi):
+    """Phase 24 (b): GPT-1.3B at full width through the paged kernel at
+    head dim 128 under the Scheduler on CUDA graphs, phase 4's requests;
+    the greedy streams token-exact against the same engine on the plain
+    (gather) attention, with f32 pools and with int8 pools."""
+    import gc
+    import torch
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import PagedGenerationEngine
+    from paddle_tpu_torch.text.models import gpt_1p3b
+    model = gpt_1p3b(device="cuda", seed=0)
+    cfg = model.cfg
+    L = cfg.num_layers
+    lengths = [1, 5, 17, 64, 100, 200, 255, 512,
+               257, 290, 300, 333, 400, 480, 600, 700]
+    prompts = make_prompts(0, lengths, shared_from=8, vocab=cfg.vocab_size)
+    out = {"model": "gpt_1p3b", "head_dim": cfg.hidden_size // cfg.num_heads,
+           "card": smi}
+    for kv in ("f32", "int8"):
+        kw = {} if kv == "f32" else {"kv_dtype": "int8"}
+        eng = PagedGenerationEngine(model, attention_impl="kernel",
+                                    device="cuda", **TEXT_GPT_ENGINE, **kw)
+        cap_s = precompile(eng, f"phase 24 (b) {kv}")
+        pa.set_launch_counts((0, 0, 0))
+        handles, m, wall = serve(eng, prompts, max_new=32)
+        counts = check_captures(eng, f"phase 24 (b) {kv}")
+        launches, window, prefill = pa.launch_counts()
+        prefills = len(prompts) + m["requests"]["serving.preempted"]
+        if launches != L * (m["decode_steps"] + prefills) or \
+                prefill != L * prefills or window:
+            raise AssertionError(
+                f"phase 24 (b) {kv}: {launches} paged launches ({prefill} "
+                f"tiles, {window} windows), want {L} a forward over "
+                f"{m['decode_steps']} decode steps + {prefills} prefills")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        plain = PagedGenerationEngine(model, attention_impl="gather",
+                                      device="cuda", **TEXT_GPT_ENGINE, **kw)
+        want, _, _ = serve(plain, prompts, max_new=32)
+        del plain
+        for i, (h, w) in enumerate(zip(handles, want)):
+            if h.tokens != w.tokens:
+                t = next(j for j, (a, b) in enumerate(zip(h.tokens, w.tokens))
+                         if a != b)
+                gap = next_token_gap(model, list(prompts[i])
+                                     + list(w.tokens[:t]))
+                raise AssertionError(
+                    f"phase 24 (b) {kv}: request {i} token {t}: kernel "
+                    f"{h.tokens[t]} != plain {w.tokens[t]} (top-2 gap "
+                    f"{gap:.3e})")
+        ttfts = [h.ttft_s for h in handles]
+        rec = {"decode_step_ms": m["decode_step_ms"],
+               "decode_steps": m["decode_steps"], "prefills": prefills,
+               "decode_only_tok_s": decode_only_tok_s(m),
+               "decode_tokens_per_s": m["decode_tokens_per_s"],
+               "ttft_s_mean": sum(ttfts) / len(ttfts),
+               "ttft_s_max": max(ttfts), "launches": launches,
+               "launches_decode": launches - prefill,
+               "launches_prefill": prefill, "capture_s": cap_s,
+               "capture_counts": counts, "wall_s": wall,
+               "streams_equal_plain": len(handles)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        prof = profile_decode(model, prompts[8:16], **kw)
+        rec.update({k: prof[k] for k in (
+            "device_busy_ms_per_step", "kernels_per_step",
+            "paged_ms_per_step", "paged_launches_per_step",
+            "step_ms_untraced", "device_idle_share_untraced")})
+        out[kv] = rec
+        log(f"text serve gpt_1p3b (D={out['head_dim']}) {kv} KV: decode step "
+            f"{rec['decode_step_ms']:.3f} ms, {rec['decode_only_tok_s']:.1f} "
+            f"decode tokens/s, TTFT mean {rec['ttft_s_mean']:.4f} s max "
+            f"{rec['ttft_s_max']:.4f} s; paged launches {launches} "
+            f"({rec['launches_decode']} decode, {prefill} tile) = {L} a "
+            f"forward x ({m['decode_steps']} decode + {prefills} prefill); "
+            f"profiled decode step {rec['step_ms_untraced']:.3f} ms, busy "
+            f"{rec['device_busy_ms_per_step']:.3f} ms over "
+            f"{rec['kernels_per_step']:.0f} kernels, paged "
+            f"{rec['paged_ms_per_step']:.4f} ms x "
+            f"{rec['paged_launches_per_step']:.0f}; captured in {cap_s:.1f} "
+            f"s; 16 streams token-exact against the plain attention [{smi}]")
+    del model
+    return out
+
+
+def _rnn_step(pt, net, opt, x, seq):
+    """One training step of a sequence model: forward, a loss over the
+    outputs and the final states, backward, the update."""
+    out, st = net(x, sequence_length=seq)
+    h = st[0] if isinstance(st, tuple) else st
+    loss = out.square().mean() + h.square().mean()
+    loss.backward()
+    grads = {n: p.grad._data.detach().clone()
+             for n, p in net.named_parameters()}
+    opt.step()
+    opt.clear_grad()
+    return out, h, loss, grads
+
+
+def text_rnns(pt, smi):
+    """Phase 24 (d): a 2-layer bidirectional LSTM and a GRU (hidden 512,
+    B=64, T=128, ragged sequence_length): a training step's ms and kernels
+    on the card. The first of those steps (profile_steps' warm-up, from the
+    initial weights) is held to one step on the CPU from the same weights
+    and inputs, every row: outputs, final states, loss and gradients within
+    TEXT_RNN_RTOL of the CPU's largest magnitude."""
+    import numpy as np
+    c = TEXT_RNN
+    rng = np.random.RandomState(24)
+    x_np = rng.randn(c["B"], c["T"], c["I"]).astype(np.float32)
+    seq_np = rng.randint(1, c["T"] + 1, c["B"]).astype(np.int64)
+    seq_np[:2] = (c["T"], 1)
+    out = {}
+    for name, make in (
+            ("lstm_2layer_bidirect", lambda: pt.nn.LSTM(
+                c["I"], c["H"], num_layers=2, direction="bidirect")),
+            ("gru", lambda: pt.nn.GRU(c["I"], c["H"]))):
+        pt.set_device("gpu")
+        pt.seed(24)
+        net = make()
+        state = {k: v.numpy() for k, v in net.state_dict().items()}
+        opt = pt.optimizer.Adam(1e-3, parameters=net.parameters())
+        x, seq = pt.to_tensor(x_np, stop_gradient=False), pt.to_tensor(seq_np)
+        first = []
+
+        def step():
+            res = _rnn_step(pt, net, opt, x, seq)
+            res[2].item()
+            if not first:
+                first.append(res)
+        t0 = time.perf_counter()
+        # one traced step: the LSTM's ~32,000 kernels a step make the
+        # trace's parse the phase's largest cost
+        prof = profile_steps(step, 1)
+        prof_s = time.perf_counter() - t0
+        pt.set_device("cpu")
+        net_c = make()
+        net_c.set_state_dict(state)
+        cpu = _rnn_step(
+            pt, net_c, pt.optimizer.Adam(1e-3, parameters=net_c.parameters()),
+            pt.to_tensor(x_np, stop_gradient=False), pt.to_tensor(seq_np))
+        pt.set_device("gpu")
+        card = first[0]
+        errs = {}
+        for i, part in enumerate(("output", "state", "loss")):
+            a = card[i]._data.detach().cpu().double()
+            b = cpu[i]._data.detach().double()
+            errs[part] = float((a - b).abs().max() / b.abs().max())
+        errs["grads"] = max(
+            float((card[3][n].cpu().double() - g.double()).abs().max()
+                  / g.double().abs().max())
+            for n, g in cpu[3].items())
+        rec = {"step_ms": prof["step_ms_untraced"],
+               "kernels_per_step": prof["kernels_per_step"],
+               "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+               "idle_share": prof["device_idle_share_untraced"],
+               "rel_err": errs, "tol": TEXT_RNN_RTOL,
+               "compared_rows": c["B"], "profile_s": prof_s,
+               "compare_s": time.perf_counter() - t0 - prof_s}
+        out[name] = rec
+        log(f"text rnn {name} (hidden {c['H']}, B={c['B']}, T={c['T']}, "
+            f"ragged lengths, Adam): training step {rec['step_ms']:.2f} ms, "
+            f"{rec['kernels_per_step']:.0f} kernels, busy "
+            f"{rec['device_busy_ms_per_step']:.2f} ms (idle "
+            f"{rec['idle_share']:.3f}); its first step against the CPU, all "
+            f"{c['B']} rows (of the CPU's largest magnitude) "
+            + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" (tol {TEXT_RNN_RTOL}); profiled in {prof_s:.1f} s, CPU "
+            f"step and comparison {rec['compare_s']:.1f} s [{smi}]")
+        if not all(v <= TEXT_RNN_RTOL for v in errs.values()):
+            raise AssertionError(f"phase 24 (d) {name}: card and CPU differ "
+                                 f"{errs}")
+    return out
+
+
+def _timed_ms(fn, n=5):
+    """Host ms of fn() ending in a synchronize, the median of n after one
+    warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return quartiles(ms)[1]
+
+
+def text_decoders_audio(pt, smi):
+    """Phase 24 (e): Viterbi and beam search on the card against the CPU
+    (paths and tokens equal), the audio features over ESC-50's shape
+    against the CPU, and the stft -> istft round trip."""
+    import numpy as np
+    rng = np.random.RandomState(24)
+    out = {}
+    # Viterbi: B=64, T=128, 50 tags, ragged lengths
+    pot = rng.randn(64, 128, 50).astype(np.float32)
+    trans = rng.randn(50, 50).astype(np.float32)
+    lens = rng.randint(1, 129, 64).astype(np.int64)
+    res = {}
+    for dev in ("gpu", "cpu"):
+        pt.set_device(dev)
+        args = [pt.to_tensor(a) for a in (pot, trans, lens)]
+        res[dev] = pt.text.viterbi_decode(*args)
+        if dev == "gpu":
+            vit_ms = _timed_ms(lambda: pt.text.viterbi_decode(*args)[1]
+                               .numpy())
+    pt.set_device("gpu")
+    if not np.array_equal(res["gpu"][1].numpy(), res["cpu"][1].numpy()):
+        raise AssertionError("phase 24 (e): Viterbi paths differ from the "
+                             "CPU's")
+    score_err = float(np.abs(res["gpu"][0].numpy()
+                             - res["cpu"][0].numpy()).max())
+    out["viterbi"] = {"ms": vit_ms, "score_max_abs_err": score_err}
+    # beam search (beam 4) over a GRUCell
+    V, Hd, B = 1000, 256, 16
+    ids = {}
+    for dev in ("gpu", "cpu"):
+        pt.set_device(dev)
+        pt.seed(24)
+        cell = pt.nn.GRUCell(Hd, Hd)
+        emb = pt.nn.Embedding(V, Hd)
+        proj = pt.nn.Linear(Hd, V)
+        layers = {"cell": cell, "emb": emb, "proj": proj}
+        if dev == "gpu":
+            state = {n: {k: v.numpy() for k, v in layer.state_dict().items()}
+                     for n, layer in layers.items()}
+            # wide logits: the ranked candidates lie far apart
+            state["proj"]["weight"] = rng.randn(Hd, V).astype(np.float32) \
+                * 0.5
+            h0 = rng.rand(B, Hd).astype(np.float32)
+        for n, layer in layers.items():
+            layer.set_state_dict(state[n])
+        dec = pt.nn.BeamSearchDecoder(cell, 0, V - 1, beam_size=4,
+                                      embedding_fn=emb, output_fn=proj)
+
+        def run():
+            return pt.nn.dynamic_decode(dec, inits=pt.to_tensor(h0),
+                                        max_step_num=32)
+        ids[dev] = run()
+        if dev == "gpu":
+            beam_ms = _timed_ms(lambda: run()[0].numpy(), n=3)
+    pt.set_device("gpu")
+    if not np.array_equal(ids["gpu"][0].numpy(), ids["cpu"][0].numpy()):
+        raise AssertionError("phase 24 (e): beam search tokens differ from "
+                             "the CPU's")
+    out["beam_search"] = {"ms": beam_ms, "steps": int(ids["gpu"][0].shape[-1]),
+                          "score_max_abs_err": float(np.abs(
+                              ids["gpu"][1].numpy()
+                              - ids["cpu"][1].numpy()).max())}
+    # audio at ESC-50's shape: 16 clips of 5 s at 44.1 kHz
+    a = TEXT_AUDIO
+    n = a["sr"] * a["seconds"]
+    t = np.arange(n) / a["sr"]
+    clips = (np.sin(2 * np.pi * rng.uniform(100, 4000, (a["clips"], 1)) * t)
+             + 0.1 * rng.randn(a["clips"], n)).astype(np.float32)
+    feats = {}
+    for dev in ("gpu", "cpu"):
+        pt.set_device(dev)
+        x = pt.to_tensor(clips)
+        mel = pt.audio.MelSpectrogram(sr=a["sr"], n_fft=a["n_fft"],
+                                      hop_length=a["hop"],
+                                      n_mels=a["n_mels"])
+        mfcc = pt.audio.MFCC(sr=a["sr"], n_mfcc=a["n_mfcc"],
+                             n_fft=a["n_fft"], hop_length=a["hop"],
+                             n_mels=a["n_mels"])
+        win = pt.audio.functional.get_window("hann", a["n_fft"])
+        spec = pt.signal.stft(x, a["n_fft"], a["hop"], window=win)
+        back = pt.signal.istft(spec, a["n_fft"], a["hop"], window=win,
+                               length=n)
+        feats[dev] = {"mel": mel(x).numpy(), "mfcc": mfcc(x).numpy(),
+                      "roundtrip": float(np.abs(back.numpy() - clips).max())}
+        if dev == "gpu":
+            ms = {"mel": _timed_ms(lambda: mel(x).numpy()),
+                  "mfcc": _timed_ms(lambda: mfcc(x).numpy()),
+                  "stft_istft": _timed_ms(lambda: pt.signal.istft(
+                      pt.signal.stft(x, a["n_fft"], a["hop"], window=win),
+                      a["n_fft"], a["hop"], window=win, length=n).numpy())}
+    pt.set_device("gpu")
+    errs = {k: float(np.abs(feats["gpu"][k] - feats["cpu"][k]).max()
+                     / np.abs(feats["cpu"][k]).max()) for k in ("mel", "mfcc")}
+    out["audio"] = {"ms": ms, "rel_err": errs, "tol": TEXT_AUDIO_RTOL,
+                    "roundtrip_max_abs_err": feats["gpu"]["roundtrip"],
+                    "roundtrip_tol": TEXT_ISTFT_ATOL,
+                    "mel_shape": list(feats["gpu"]["mel"].shape)}
+    log(f"text viterbi (B=64, T=128, 50 tags, ragged): {vit_ms:.2f} ms, paths "
+        f"equal the CPU's (scores {score_err:.2e}); beam search (beam 4, "
+        f"GRUCell 256, vocab {V}, B={B}, {out['beam_search']['steps']} "
+        f"steps): {beam_ms:.2f} ms, tokens equal the CPU's; audio over "
+        f"{a['clips']} x {a['seconds']} s at {a['sr']} Hz: MelSpectrogram "
+        f"{ms['mel']:.3f} ms, MFCC {ms['mfcc']:.3f} ms, stft -> istft "
+        f"{ms['stft_istft']:.3f} ms; against the CPU mel {errs['mel']:.2e} "
+        f"mfcc {errs['mfcc']:.2e} (tol {TEXT_AUDIO_RTOL}); round trip "
+        f"{feats['gpu']['roundtrip']:.2e} (tol {TEXT_ISTFT_ATOL}) [{smi}]")
+    if not all(v <= TEXT_AUDIO_RTOL for v in errs.values()) or \
+            not feats["gpu"]["roundtrip"] <= TEXT_ISTFT_ATOL:
+        raise AssertionError(f"phase 24 (e): audio {out['audio']}")
+    return out
+
+
+def text_ernie(pt, smi):
+    """Phase 24 (f): ERNIE 3.0 base sequence classification, train steps
+    through Model at B=32, S=128: step ms and flash launches a step."""
+    import numpy as np
+    from paddle_tpu_torch.text.models import (ErnieForSequenceClassification,
+                                              ernie_3_base_config)
+    pt.seed(24)
+    cfg = ernie_3_base_config()
+    net = ErnieForSequenceClassification(cfg, num_classes=2)
+    model = pt.Model(net)
+    model.prepare(pt.optimizer.AdamW(1e-4, parameters=net.parameters()),
+                  pt.nn.CrossEntropyLoss())
+    rng = np.random.RandomState(24)
+    ids = pt.to_tensor(rng.randint(0, cfg.vocab_size, (32, 128)))
+    labels = pt.to_tensor(rng.randint(0, 2, (32,)))
+    ms, moved, losses = [], [], []
+    for i in range(TEXT_ERNIE_WARMUP + TEXT_ERNIE_STEPS):
+        before = _flash_counts()
+        t = time.perf_counter()
+        losses.append(float(model.train_batch([ids], [labels])[0][0]))
+        ms.append((time.perf_counter() - t) * 1e3)
+        moved.append(tuple(a - b for a, b in zip(_flash_counts(), before)))
+    L = cfg.num_hidden_layers
+    quart = quartiles(ms[TEXT_ERNIE_WARMUP:])
+    rec = {"step_ms_quartiles": quart, "flash_launches_per_step":
+           sorted(set(moved)), "losses": losses, "card": smi}
+    log(f"text ernie-3.0-base sequence classification (B=32, S=128, "
+        f"AdamW, f32): step ms p25/p50/p75 "
+        + "/".join(f"{v:.3f}" for v in quart)
+        + f", flash fwd/dq/dkv a step {sorted(set(moved))}, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} [{smi}]")
+    if set(moved) != {(L, L, L)} or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"phase 24 (f): flash launches {moved}, "
+                             f"losses {losses}")
+    return rec
+
+
+def text_phase(smi, sdpa_builds):
+    """Phase 24 (module docstring): parts run in the order c, a, b, d, e,
+    f; each raises on failure. With `sdpa_builds` (phase 22 has not run)
+    part (c) ends with phase 22's check of SDPA on the new builds."""
+    import gc
+    import torch
+    import paddle_tpu_torch as pt
+    t0 = time.perf_counter()
+    pt.set_device("gpu")
+    out, secs = {}, {}
+    steps = (("c", text_kernel_builds), ("a", text_bert_fit),
+             ("b", text_gpt_serving), ("d", text_rnns),
+             ("e", text_decoders_audio), ("f", text_ernie))
+    for key, fn in steps:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        out[key] = fn(pt, smi)
+        if key == "c" and sdpa_builds:
+            out[key]["sdpa"] = nn_sdpa_new_builds(pt, smi)
+        secs[key] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = secs
+    log(f"phase 24 took {out['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + f") [{smi}]")
+    return out
+
+
 def main(argv):
     flash_only = "--flash-only" in argv
     parallel_only = "--parallel-only" in argv
@@ -6663,6 +7407,7 @@ def main(argv):
     eager_only = "--eager-only" in argv
     nn_only = "--nn-only" in argv
     hapi_only = "--hapi-only" in argv
+    text_only = "--text-only" in argv
     try:
         import torch
     except ImportError:
@@ -6700,17 +7445,28 @@ def main(argv):
     libs = build.build_all()
     report["build_s"] = time.perf_counter() - t0
     log(f"built {sorted(libs)} in {report['build_s']:.1f} s")
-    for name in sorted(libs):
-        for line in build.ptxas_report(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}:", line.strip())
-    report["wgmma_resources"] = wgmma_resources()
+    report["ptxas"] = {name: ptxas_resources(name) for name in sorted(libs)}
+    for name, rows in report["ptxas"].items():
+        for r in rows:
+            log(f"ptxas {name} {r['kernel']}: {r['registers']} registers, "
+                f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
+                "spill loads")
+    report["wgmma_resources"] = wgmma_resources(
+        report["ptxas"]["flash_attention"])
     for r in report["wgmma_resources"]:
-        log(f"wgmma kernel {r['kernel']} (D={r['D']}, "
+        log(f"wgmma kernel {r['kernel']} (D={r['D']} {r['dtype']}, "
             f"{'mask/dropout' if r['general'] else 'plain'} build): "
             f"{r['registers']} registers, "
             f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
             f"spill loads, {r['smem_dynamic']} B dynamic shared memory")
+    if text_only:
+        # phase 24 alone
+        report["text"] = text_phase(smi, sdpa_builds=True)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out",
+                               "chip_smoke_text.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        return 0
     if hapi_only:
         # phase 23 alone
         report["hapi"] = hapi_phase(smi)
@@ -7012,18 +7768,26 @@ def main(argv):
     torch.cuda.empty_cache()
     report["hapi"] = hapi_phase(smi)
 
+    # 24. head dims 32 / 128 / 256 and float16; text and audio ---------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["text"] = text_phase(smi, sdpa_builds=False)
+
     # summary ------------------------------------------------------------------------
+    # every kernel's max_abs_err covers phase 3's cases and phase 24's at
+    # the other head dims and dtypes
+    every = cases + report["text"]["c"]["paged"]
     dec = next(c for c in cases if c["case"] == "decode_f32")
     dec8 = next(c for c in cases if c["case"] == "decode_int8")
     win = next(c for c in cases if c["case"] == "verify_f32_T5")
     tile = next(c for c in cases if c["case"] == "prefill_f32_T512")
-    err_w = max(c["max_abs_err"] for c in cases
+    err_w = max(c["max_abs_err"] for c in every
                 if c["kind"] == "f32" and 1 < c["T"] <= pa.WINDOW_ROWS)
-    err_t = max(c["max_abs_err"] for c in cases
+    err_t = max(c["max_abs_err"] for c in every
                 if c["kind"] == "f32" and c["T"] > pa.WINDOW_ROWS)
-    err_f = max(c["max_abs_err"] for c in cases if c["kind"] in ("f32",
+    err_f = max(c["max_abs_err"] for c in every if c["kind"] in ("f32",
                                                                   "nan"))
-    err_8 = max(c["max_abs_err"] for c in cases if c["kind"] == "int8")
+    err_8 = max(c["max_abs_err"] for c in every if c["kind"] == "int8")
 
     def entry(name, replaces, launches, c, err):
         return {"name": name, "route": "cuda",
@@ -7061,7 +7825,8 @@ def main(argv):
             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces,
             "launches": report["train"]["launches"][which],
-            "max_abs_err": max(c["max_abs_err"][o] for c in flash_cases
+            "max_abs_err": max(c["max_abs_err"][o] for c in
+                               flash_cases + report["text"]["c"]["flash"]
                                for o in outs),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -41,7 +41,9 @@ neither it nor JAX. Its slices so far:
     and the conv and pooling Layers: `Model.fit` over the `DataLoader`,
     whose worker processes return batches through the shared-memory
     ring (`native/`), the metrics, the callbacks, `summary` / `flops`,
-    and the vision datasets, transforms, ops and model zoo.
+    and the vision datasets, transforms, ops and model zoo;
+  * `fft`, `signal`, `audio`, the RNN Layers and beam search of `nn`,
+    and `text` (datasets, Viterbi, BERT, ERNIE, the GPT family).
 
 Exports of the eager core at this level: `Tensor`, `Parameter`,
 `to_tensor`, every op of `tensor` (`add`, `matmul`, `reshape`, `topk`,
@@ -63,6 +65,7 @@ from . import serving, text  # noqa: F401
 from . import autograd, device, tensor  # noqa: F401
 from . import amp, nn, optimizer, regularizer  # noqa: F401
 from . import callbacks, io, metric, native, reader, vision  # noqa: F401
+from . import audio, fft, signal  # noqa: F401
 from .batch import batch  # noqa: F401
 from .hapi import Model, flops, summary  # noqa: F401
 from .autograd import grad  # noqa: F401
@@ -92,6 +95,7 @@ __all__ = ["core", "cost_model", "framework", "inference", "observability",
            "GPTConfig", "gpt_125m", "gpt_tiny", "autograd", "device",
            "tensor", "nn", "optimizer", "amp", "regularizer", "io",
            "metric", "vision", "callbacks", "native", "reader", "batch",
+           "fft", "signal", "audio",
            "Model", "summary", "flops", "grad", "CPUPlace", "CUDAPlace", "Parameter", "Tensor",
            "bfloat16", "bool_", "complex64", "complex128", "enable_grad",
            "float16", "float32", "float64", "get_default_dtype",

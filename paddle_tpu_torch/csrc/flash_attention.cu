@@ -3,8 +3,9 @@
 // binds them with ctypes).
 //
 // Replaces the three Pallas TPU kernels of
-// paddle_tpu/ops/pallas/flash_attention.py, each in an f32 build and a bf16
-// build:
+// paddle_tpu/ops/pallas/flash_attention.py, each in an f32 build and a
+// 16-bit build (bf16 or float16, one template) at head dims 64 and 128, and
+// a CUDA-core build for every dtype at head dim 256 (below):
 //   * forward <- `_fwd_kernel` (launched by `_mha_forward`): online-softmax
 //     forward, writes O and a per-row logsumexp. f32: flash_fwd_kernel;
 //     bf16: flash_fwd_wgmma_kernel;
@@ -23,8 +24,9 @@
 // is the murmur3 finalizer of the absolute (row, col), the seed and the
 // flattened (batch * H + head) index, and kept values are divided by
 // (1 - rate) in PV, in dP and in P^T for dV, while dS uses the undropped P;
-// bf16 inputs round P to bf16 before PV, dS before dS.K and dS^T.Q, and the
-// dropped P before P^T.dO, with every product accumulated in f32. GQA: query
+// 16-bit inputs round P to their type before PV, dS before dS.K and
+// dS^T.Q, and the dropped P before P^T.dO, with every product accumulated
+// in f32. GQA: query
 // head b reads KV row (b / H) * Hk + (b % H) / (H / Hk); dK/dV come out per
 // query head and the wrapper sums the group.
 //
@@ -70,15 +72,27 @@
 //     tile of every head is launched first); causal dK/dV blocks are
 //     longest first in launch order already. In dQ, a warpgroup whose rows
 //     end before a tile's first key skips the tile's products.
+// The float16 builds at D 64 and 128 are the same kernels with the wgmma
+// type fields, the tensor maps and the conversions of float16.
 // The f32 builds run on the CUDA cores in full f32, which is what the f32
 // contract asks (tensor cores would round the operands to TF32): 256
 // threads form a 16 x 16 grid; each thread owns a 4 x 4 block of the 64 x 64
 // score tile and 4 rows of the output tile at columns tx*4 + 64*n; operands
 // sit in shared memory with their contraction index major, so two 16-byte
-// loads feed 16 fused multiply-adds.
+// loads feed 16 fused multiply-adds. At head dim 256 the same kernels run
+// for every dtype, loading bf16 or float16 rows widened to f32 and
+// rounding P and dS to the inputs' type where the 16-bit builds do: a
+// simple build that is right, not a fast one (a wgmma build at D = 256
+// would need 256 accumulator registers a thread for dK and dV at 64 rows).
+// Their forward keeps Q, K and V staged whole (218 KB of shared memory);
+// dQ and dK/dV contract Q.K^T and dO.V^T over 64-column chunks of the
+// operands, restaged for every tile, so that theirs fits (150 and 216 KB).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -148,20 +162,63 @@ __device__ __forceinline__ float score(const Params& p, const float* mask,
   return x;
 }
 
-// --------------------------------------------------- f32: the CUDA cores
+using bf16 = __nv_bfloat16;
 
-// Rows [r0, r0 + 64) of a [S][D] f32 matrix into a transposed tile t[d][r]
-// (stride kLdT). Consecutive threads take consecutive rows, so the shared
-// stores do not conflict; rows past S are 0.
-template <int D>
-__device__ __forceinline__ void load_t(float* t, const float* src, int r0,
-                                       int S) {
+// Four consecutive elements (16 or 8 bytes, aligned to their size),
+// widened to f32.
+__device__ __forceinline__ float4 load4f(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4f(const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 load4f(const __half* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&raw.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// An f32 value stored as T (round to nearest even).
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void put(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
+
+// x rounded to T's precision and widened back: where the TPU kernels cast
+// P or dS to the inputs' dtype before a product (the identity for f32).
+template <typename T>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (std::is_same<T, bf16>::value)
+    return __bfloat162float(__float2bfloat16(x));
+  else if constexpr (std::is_same<T, __half>::value)
+    return __half2float(__float2half_rn(x));
+  else
+    return x;
+}
+
+// ------------------------------------------ CUDA cores: f32, and D = 256
+
+// Rows [r0, r0 + 64) of C columns of a [S][ld] matrix of T (C <= ld; a
+// column chunk starts at `src`) into a transposed f32 tile t[c][r] (stride
+// kLdT). Consecutive threads take consecutive rows, so the shared stores
+// do not conflict; rows past S are 0.
+template <typename T, int C>
+__device__ __forceinline__ void load_t(float* t, const T* src, int r0, int S,
+                                       int ld) {
   const int r = threadIdx.x % kTile;
-  for (int c = threadIdx.x / kTile; c < D / 4; c += kThreads / kTile) {
+  for (int c = threadIdx.x / kTile; c < C / 4; c += kThreads / kTile) {
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + r < S)
-      x = *reinterpret_cast<const float4*>(
-          src + static_cast<long long>(r0 + r) * D + c * 4);
+      x = load4f(src + static_cast<long long>(r0 + r) * ld + c * 4);
     t[(c * 4 + 0) * kLdT + r] = x.x;
     t[(c * 4 + 1) * kLdT + r] = x.y;
     t[(c * 4 + 2) * kLdT + r] = x.z;
@@ -169,17 +226,16 @@ __device__ __forceinline__ void load_t(float* t, const float* src, int r0,
   }
 }
 
-// Rows [r0, r0 + 64) of a [S][D] f32 matrix into a row-major tile t[r][d]
-// (stride D + 4); rows past S are 0.
-template <int D>
-__device__ __forceinline__ void load_r(float* t, const float* src, int r0,
+// Rows [r0, r0 + 64) of a [S][D] matrix of T into a row-major f32 tile
+// t[r][d] (stride D + 4); rows past S are 0.
+template <typename T, int D>
+__device__ __forceinline__ void load_r(float* t, const T* src, int r0,
                                        int S) {
   for (int idx = threadIdx.x; idx < kTile * D / 4; idx += kThreads) {
     const int r = idx / (D / 4), c = idx % (D / 4);
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + r < S)
-      x = *reinterpret_cast<const float4*>(
-          src + static_cast<long long>(r0 + r) * D + c * 4);
+      x = load4f(src + static_cast<long long>(r0 + r) * D + c * 4);
     *reinterpret_cast<float4*>(t + r * (D + 4) + c * 4) = x;
   }
 }
@@ -234,13 +290,13 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// f32 forward
+// forward (inputs of T, f32 math)
 template <int D>
 constexpr size_t fwd_smem() {
   return sizeof(float) * (2 * D * kLdT + kTile * (D + 4) + kTile * kLdT);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   constexpr int NB = D / 64;
   constexpr int LDR = D + 4;
@@ -255,12 +311,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   const int q0 = qt * kTile;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const long long plane = static_cast<long long>(p.S) * D;
-  const float* q = static_cast<const float*>(p.q) + b * plane;
-  const float* k = static_cast<const float*>(p.k) + kv_row(p, b) * plane;
-  const float* v = static_cast<const float*>(p.v) + kv_row(p, b) * plane;
+  const T* q = static_cast<const T*>(p.q) + b * plane;
+  const T* k = static_cast<const T*>(p.k) + kv_row(p, b) * plane;
+  const T* v = static_cast<const T*>(p.v) + kv_row(p, b) * plane;
   const float* mask = mask_rows(p, b);
 
-  load_t<D>(sQt, q, q0, p.S);
+  load_t<T, D>(sQt, q, q0, p.S, D);
   float m[4], l[4], acc[4][4 * NB];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -274,8 +330,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   const int last = p.causal ? qt : nk - 1;
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * kTile;
-    load_t<D>(sKt, k, k0, p.S);
-    load_r<D>(sV, v, k0, p.S);
+    load_t<T, D>(sKt, k, k0, p.S, D);
+    load_r<T, D>(sV, v, k0, p.S);
     __syncthreads();
 
     float s[4][4] = {};
@@ -300,7 +356,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
         sum += e;
         if (p.dropout)
           e = keep(p, b, row, k0 + tx * 4 + j) ? e / p.keep_div : 0.f;
-        s[i][j] = e;
+        s[i][j] = rnd<T>(e);  // P in V's dtype before PV
       }
       l[i] = l[i] * alpha[i] + row_sum(sum);
       m[i] = m_new;
@@ -317,7 +373,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     __syncthreads();
   }
 
-  float* o = static_cast<float*>(p.o) + b * plane;
+  T* o = static_cast<T*>(p.o) + b * plane;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
@@ -327,29 +383,33 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     for (int n = 0; n < NB; ++n)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        o[static_cast<long long>(row) * D + n * 64 + tx * 4 + j] =
-            acc[i][n * 4 + j] / l_safe;
+        put(&o[static_cast<long long>(row) * D + n * 64 + tx * 4 + j],
+            acc[i][n * 4 + j] / l_safe);
     if (tx == 0)
       p.lse[static_cast<long long>(b) * p.S + row] = m[i] + logf(l_safe);
   }
 }
 
-// f32 dq
-template <int D>
+// dq (inputs of T, f32 math). Q . K^T and dO . V^T contract over D in
+// chunks of DC columns: at DC = D, Q and dO stay staged for the whole walk;
+// at DC < D (D = 256, where four [D][kLdT] tiles would not fit) each k-tile
+// restages a chunk of Q, dO, K and V at a time.
+template <int D, int DC>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * D * kLdT + kTile * (D + 4) + kTile * kLdT);
+  return sizeof(float) * (4 * DC * kLdT + kTile * (D + 4) + kTile * kLdT);
 }
 
-template <int D>
+template <typename T, int D, int DC>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
   constexpr int NB = D / 64;
   constexpr int LDR = D + 4;
+  constexpr bool kChunked = DC < D;
   extern __shared__ float4 smem4[];
-  float* sQt = reinterpret_cast<float*>(smem4);  // [D][kLdT]
-  float* sdOt = sQt + D * kLdT;                  // [D][kLdT]
-  float* sKt = sdOt + D * kLdT;                  // [D][kLdT]
-  float* sVt = sKt + D * kLdT;                   // [D][kLdT]
-  float* sK = sVt + D * kLdT;                    // [kTile][LDR]
+  float* sQt = reinterpret_cast<float*>(smem4);  // [DC][kLdT]
+  float* sdOt = sQt + DC * kLdT;                 // [DC][kLdT]
+  float* sKt = sdOt + DC * kLdT;                 // [DC][kLdT]
+  float* sVt = sKt + DC * kLdT;                  // [DC][kLdT]
+  float* sK = sVt + DC * kLdT;                   // [kTile][LDR]
   float* sdSt = sK + kTile * LDR;                // [kTile keys][kLdT rows]
 
   const int b = blockIdx.y;
@@ -357,14 +417,16 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
   const int q0 = qt * kTile;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const long long plane = static_cast<long long>(p.S) * D;
-  const float* q = static_cast<const float*>(p.q) + b * plane;
-  const float* dout = static_cast<const float*>(p.dout) + b * plane;
-  const float* k = static_cast<const float*>(p.k) + kv_row(p, b) * plane;
-  const float* v = static_cast<const float*>(p.v) + kv_row(p, b) * plane;
+  const T* q = static_cast<const T*>(p.q) + b * plane;
+  const T* dout = static_cast<const T*>(p.dout) + b * plane;
+  const T* k = static_cast<const T*>(p.k) + kv_row(p, b) * plane;
+  const T* v = static_cast<const T*>(p.v) + kv_row(p, b) * plane;
   const float* mask = mask_rows(p, b);
 
-  load_t<D>(sQt, q, q0, p.S);
-  load_t<D>(sdOt, dout, q0, p.S);
+  if constexpr (!kChunked) {
+    load_t<T, D>(sQt, q, q0, p.S, D);
+    load_t<T, D>(sdOt, dout, q0, p.S, D);
+  }
   float lse[4], delta[4], acc[4][4 * NB];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -380,14 +442,21 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
   const int last = p.causal ? qt : nk - 1;
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * kTile;
-    load_t<D>(sKt, k, k0, p.S);
-    load_t<D>(sVt, v, k0, p.S);
-    load_r<D>(sK, k, k0, p.S);
-    __syncthreads();
-
+    load_r<T, D>(sK, k, k0, p.S);
     float s[4][4] = {}, dp[4][4] = {};
-    mma_acc<1>(s, sQt, kLdT, sKt, kLdT, D, ty, tx);
-    mma_acc<1>(dp, sdOt, kLdT, sVt, kLdT, D, ty, tx);
+#pragma unroll 1
+    for (int c = 0; c < D; c += DC) {
+      if constexpr (kChunked) {
+        load_t<T, DC>(sQt, q + c, q0, p.S, D);
+        load_t<T, DC>(sdOt, dout + c, q0, p.S, D);
+      }
+      load_t<T, DC>(sKt, k + c, k0, p.S, D);
+      load_t<T, DC>(sVt, v + c, k0, p.S, D);
+      __syncthreads();
+      mma_acc<1>(s, sQt, kLdT, sKt, kLdT, DC, ty, tx);
+      mma_acc<1>(dp, sdOt, kLdT, sVt, kLdT, DC, ty, tx);
+      if constexpr (kChunked) __syncthreads();  // before the next chunk
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + ty * 4 + i;
@@ -399,7 +468,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
         pr = x <= 0.5f * kMask ? 0.f : pr;
         float d = dp[i][j];
         if (p.dropout) d = keep(p, b, row, col) ? d / p.keep_div : 0.f;
-        s[i][j] = pr * (d - delta[i]) * p.scale;
+        s[i][j] = rnd<T>(pr * (d - delta[i]) * p.scale);  // dS in K's dtype
       }
     }
     store_t(sdSt, s, ty, tx);
@@ -409,7 +478,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
     __syncthreads();
   }
 
-  float* dq = static_cast<float*>(p.dq) + b * plane;
+  T* dq = static_cast<T*>(p.dq) + b * plane;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
@@ -418,28 +487,31 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
     for (int n = 0; n < NB; ++n)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        dq[static_cast<long long>(row) * D + n * 64 + tx * 4 + j] =
-            acc[i][n * 4 + j];
+        put(&dq[static_cast<long long>(row) * D + n * 64 + tx * 4 + j],
+            acc[i][n * 4 + j]);
   }
 }
 
-// f32 dkv
-template <int D>
+// dkv (inputs of T, f32 math). K . Q^T and V . dO^T contract over D in
+// chunks of DC columns, as in dq: at DC < D each q-tile restages a chunk of
+// K, V, Q and dO at a time.
+template <int D, int DC>
 constexpr size_t dkv_smem() {
   return sizeof(float) *
-         (4 * D * kLdT + 2 * kTile * (D + 4) + kTile * kLdT + 2 * kTile);
+         (4 * DC * kLdT + 2 * kTile * (D + 4) + kTile * kLdT + 2 * kTile);
 }
 
-template <int D>
+template <typename T, int D, int DC>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
   constexpr int NB = D / 64;
   constexpr int LDR = D + 4;
+  constexpr bool kChunked = DC < D;
   extern __shared__ float4 smem4[];
-  float* sKt = reinterpret_cast<float*>(smem4);  // [D][kLdT]
-  float* sVt = sKt + D * kLdT;                   // [D][kLdT]
-  float* sQt = sVt + D * kLdT;                   // [D][kLdT]
-  float* sdOt = sQt + D * kLdT;                  // [D][kLdT]
-  float* sQ = sdOt + D * kLdT;                   // [kTile][LDR]
+  float* sKt = reinterpret_cast<float*>(smem4);  // [DC][kLdT]
+  float* sVt = sKt + DC * kLdT;                  // [DC][kLdT]
+  float* sQt = sVt + DC * kLdT;                  // [DC][kLdT]
+  float* sdOt = sQt + DC * kLdT;                 // [DC][kLdT]
+  float* sQ = sdOt + DC * kLdT;                  // [kTile][LDR]
   float* sdO = sQ + kTile * LDR;                 // [kTile][LDR]
   float* sBuf = sdO + kTile * LDR;               // [kTile rows][kLdT keys]
   float* sLse = sBuf + kTile * kLdT;             // [kTile]
@@ -450,14 +522,16 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
   const int k0 = kt * kTile;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const long long plane = static_cast<long long>(p.S) * D;
-  const float* q = static_cast<const float*>(p.q) + b * plane;
-  const float* dout = static_cast<const float*>(p.dout) + b * plane;
-  const float* k = static_cast<const float*>(p.k) + kv_row(p, b) * plane;
-  const float* v = static_cast<const float*>(p.v) + kv_row(p, b) * plane;
+  const T* q = static_cast<const T*>(p.q) + b * plane;
+  const T* dout = static_cast<const T*>(p.dout) + b * plane;
+  const T* k = static_cast<const T*>(p.k) + kv_row(p, b) * plane;
+  const T* v = static_cast<const T*>(p.v) + kv_row(p, b) * plane;
   const float* mask = mask_rows(p, b);
 
-  load_t<D>(sKt, k, k0, p.S);
-  load_t<D>(sVt, v, k0, p.S);
+  if constexpr (!kChunked) {
+    load_t<T, D>(sKt, k, k0, p.S, D);
+    load_t<T, D>(sVt, v, k0, p.S, D);
+  }
   float dk[4][4 * NB], dv[4][4 * NB];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -467,22 +541,30 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
   const int nq = (p.S + kTile - 1) / kTile;
   for (int qt = p.causal ? kt : 0; qt < nq; ++qt) {
     const int q0 = qt * kTile;
-    load_t<D>(sQt, q, q0, p.S);
-    load_t<D>(sdOt, dout, q0, p.S);
-    load_r<D>(sQ, q, q0, p.S);
-    load_r<D>(sdO, dout, q0, p.S);
+    load_r<T, D>(sQ, q, q0, p.S);
+    load_r<T, D>(sdO, dout, q0, p.S);
     if (threadIdx.x < kTile) {
       const int row = q0 + threadIdx.x;
       const long long at = static_cast<long long>(b) * p.S + row;
       sLse[threadIdx.x] = row < p.S ? p.lse_in[at] : 0.f;
       sDelta[threadIdx.x] = row < p.S ? p.delta[at] : 0.f;
     }
-    __syncthreads();
 
     // transposed tiles: st[i][j] is (key k0 + ty*4 + i, query q0 + tx*4 + j)
     float st[4][4] = {}, dpt[4][4] = {};
-    mma_acc<1>(st, sKt, kLdT, sQt, kLdT, D, ty, tx);
-    mma_acc<1>(dpt, sVt, kLdT, sdOt, kLdT, D, ty, tx);
+#pragma unroll 1
+    for (int c = 0; c < D; c += DC) {
+      if constexpr (kChunked) {
+        load_t<T, DC>(sKt, k + c, k0, p.S, D);
+        load_t<T, DC>(sVt, v + c, k0, p.S, D);
+      }
+      load_t<T, DC>(sQt, q + c, q0, p.S, D);
+      load_t<T, DC>(sdOt, dout + c, q0, p.S, D);
+      __syncthreads();
+      mma_acc<1>(st, sKt, kLdT, sQt, kLdT, DC, ty, tx);
+      mma_acc<1>(dpt, sVt, kLdT, sdOt, kLdT, DC, ty, tx);
+      if constexpr (kChunked) __syncthreads();  // before the next chunk
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int col = k0 + ty * 4 + i;
@@ -498,8 +580,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
           pd = kp ? pr / p.keep_div : 0.f;
           d = kp ? d / p.keep_div : 0.f;
         }
-        st[i][j] = pd;
-        dpt[i][j] = pr * (d - sDelta[tx * 4 + j]) * p.scale;
+        st[i][j] = rnd<T>(pd);  // P_drop in dO's dtype, dS in Q's
+        dpt[i][j] = rnd<T>(pr * (d - sDelta[tx * 4 + j]) * p.scale);
       }
     }
     store_t(sBuf, st, ty, tx);  // P_drop as [query][key]
@@ -512,8 +594,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
     __syncthreads();
   }
 
-  float* dkp = static_cast<float*>(p.dk) + b * plane;
-  float* dvp = static_cast<float*>(p.dv) + b * plane;
+  T* dkp = static_cast<T*>(p.dk) + b * plane;
+  T* dvp = static_cast<T*>(p.dv) + b * plane;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ty * 4 + i;
@@ -524,13 +606,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
       for (int j = 0; j < 4; ++j) {
         const long long at = static_cast<long long>(row) * D + n * 64 +
                              tx * 4 + j;
-        dkp[at] = dk[i][n * 4 + j];
-        dvp[at] = dv[i][n * 4 + j];
+        put(&dkp[at], dk[i][n * 4 + j]);
+        put(&dvp[at], dv[i][n * 4 + j]);
       }
   }
 }
-
-using bf16 = __nv_bfloat16;
 
 // Max and sum over the 4 lanes that hold one row of a `wgmma` accumulator
 // fragment.
@@ -577,7 +657,7 @@ struct FwdShape {
   static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
 };
 
-template <int D, bool kGeneral>
+template <typename T, int D, bool kGeneral>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -666,7 +746,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int off = (kk / 4) * C::kM * 128 + (kk % 4) * 32;
-        hw::wgmma_ss_n128(sc, dQ + (off >> 4), dK + (off >> 4), 1);
+        hw::wgmma_ss_n128<T>(sc, dQ + (off >> 4), dK + (off >> 4), 1);
       }
       hw::wg_commit();
       hw::wg_wait<0>();
@@ -751,14 +831,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       // O += P . V: P rounded to bf16 in registers, V read as it lies
       // ([key][d], MN-major) through the transpose flag
       uint32_t pa[C::kN / 16][4];
-      hw::acc_to_a<C::kN>(pa, sc);
+      hw::acc_to_a<C::kN, T>(pa, sc);
       const uint64_t dV = hw::desc(sV);
       hw::wg_fence();
 #pragma unroll
       for (int pn = 0; pn < C::kPanels; ++pn)
 #pragma unroll
         for (int j = 0; j < C::kN / 16; ++j)
-          hw::wgmma_rs_n64_tb(o[pn], pa[j],
+          hw::wgmma_rs_n64_tb<T>(o[pn], pa[j],
                               dV + ((pn * C::kN * 128 + j * 2048) >> 4));
       hw::wg_commit();
       hw::wg_wait<0>();
@@ -775,7 +855,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       if (row < p.S && (t & 3) == 0)
         p.lse[static_cast<long long>(b) * p.S + row] = m[h] + logf(l_safe[h]);
     }
-    bf16* out = static_cast<bf16*>(p.o) + static_cast<long long>(b) * p.S * D;
+    T* out = static_cast<T*>(p.o) + static_cast<long long>(b) * p.S * D;
 #pragma unroll
     for (int pn = 0; pn < C::kPanels; ++pn)
 #pragma unroll
@@ -783,10 +863,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         const int h = (i >> 1) & 1;
         const int row = r0 + hw::acc_row(t, i);
         if (row < p.S)
-          *reinterpret_cast<__nv_bfloat162*>(
+          *reinterpret_cast<uint32_t*>(
               out + static_cast<long long>(row) * D + pn * 64 +
               hw::acc_col(t, i)) =
-              __floats2bfloat162_rn(o[pn][i] / l_safe[h],
+              hw::pack16<T>(o[pn][i] / l_safe[h],
                                     o[pn][i + 1] / l_safe[h]);
       }
   }
@@ -812,7 +892,7 @@ struct DkvShape {
   static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
 };
 
-template <int D, bool kGeneral>
+template <typename T, int D, bool kGeneral>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -927,8 +1007,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         const int pn = kk / 4, ko = (kk % 4) * 32;  // panel, k slice
         const int kv_off = (pn * C::kN * 128 + ko) >> 4;
         const int q_off = (pn * C::kM * 128 + ko) >> 4;
-        hw::wgmma_ss_n64(st, dK + kv_off, dQ + q_off, kk > 0);
-        hw::wgmma_ss_n64(dpt, dV + kv_off, ddO + q_off, kk > 0);
+        hw::wgmma_ss_n64<T>(st, dK + kv_off, dQ + q_off, kk > 0);
+        hw::wgmma_ss_n64<T>(dpt, dV + kv_off, ddO + q_off, kk > 0);
       }
       hw::wg_commit();
       hw::wg_wait<0>();
@@ -980,8 +1060,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
       // dV += P_drop^T . dO and dK += dS^T . Q, B read as it lies
       uint32_t pa[C::kM / 16][4], dsa[C::kM / 16][4];
-      hw::acc_to_a<C::kM>(pa, st);
-      hw::acc_to_a<C::kM>(dsa, dpt);
+      hw::acc_to_a<C::kM, T>(pa, st);
+      hw::acc_to_a<C::kM, T>(dsa, dpt);
       hw::fence_regs(pa);
       hw::fence_regs(dsa);
 #pragma unroll
@@ -995,8 +1075,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
         for (int j = 0; j < C::kM / 16; ++j) {
           const int off = (pn * C::kM * 128 + j * 2048) >> 4;
-          hw::wgmma_rs_n64_tb(dv[pn], pa[j], ddO + off);
-          hw::wgmma_rs_n64_tb(dk[pn], dsa[j], dQ + off);
+          hw::wgmma_rs_n64_tb<T>(dv[pn], pa[j], ddO + off);
+          hw::wgmma_rs_n64_tb<T>(dk[pn], dsa[j], dQ + off);
         }
       hw::wg_commit();
       hw::wg_wait<0>();
@@ -1009,8 +1089,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
 
     const long long plane = static_cast<long long>(p.S) * D;
-    bf16* dkp = static_cast<bf16*>(p.dk) + b * plane;
-    bf16* dvp = static_cast<bf16*>(p.dv) + b * plane;
+    T* dkp = static_cast<T*>(p.dk) + b * plane;
+    T* dvp = static_cast<T*>(p.dv) + b * plane;
 #pragma unroll
     for (int pn = 0; pn < C::kPanels; ++pn)
 #pragma unroll
@@ -1019,10 +1099,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         if (row >= p.S) continue;
         const long long at =
             static_cast<long long>(row) * D + pn * 64 + hw::acc_col(t, i);
-        *reinterpret_cast<__nv_bfloat162*>(dkp + at) =
-            __floats2bfloat162_rn(dk[pn][i], dk[pn][i + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dvp + at) =
-            __floats2bfloat162_rn(dv[pn][i], dv[pn][i + 1]);
+        *reinterpret_cast<uint32_t*>(dkp + at) =
+            hw::pack16<T>(dk[pn][i], dk[pn][i + 1]);
+        *reinterpret_cast<uint32_t*>(dvp + at) =
+            hw::pack16<T>(dv[pn][i], dv[pn][i + 1]);
       }
   }
 }
@@ -1045,7 +1125,7 @@ struct DqShape {
   static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
 };
 
-template <int D, bool kGeneral>
+template <typename T, int D, bool kGeneral>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -1158,8 +1238,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           const int pn = kk / 4, ko = (kk % 4) * 32;  // panel, k slice
           const int q_off = (pn * C::kM * 128 + ko) >> 4;
           const int kv_off = (pn * C::kN * 128 + ko) >> 4;
-          hw::wgmma_ss_n64(sc, dQ + q_off, dK + kv_off, kk > 0);
-          hw::wgmma_ss_n64(dp, ddO + q_off, dV + kv_off, kk > 0);
+          hw::wgmma_ss_n64<T>(sc, dQ + q_off, dK + kv_off, kk > 0);
+          hw::wgmma_ss_n64<T>(dp, ddO + q_off, dV + kv_off, kk > 0);
         }
         hw::wg_commit();
         hw::wg_wait<0>();
@@ -1196,7 +1276,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
         // dQ += dS . K, K read as it lies ([key][d], MN-major)
         uint32_t dsa[C::kN / 16][4];
-        hw::acc_to_a<C::kN>(dsa, sc);
+        hw::acc_to_a<C::kN, T>(dsa, sc);
         hw::fence_regs(dsa);
 #pragma unroll
         for (int pn = 0; pn < C::kPanels; ++pn) hw::fence_regs(dq[pn]);
@@ -1205,7 +1285,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         for (int pn = 0; pn < C::kPanels; ++pn)
 #pragma unroll
           for (int j = 0; j < C::kN / 16; ++j)
-            hw::wgmma_rs_n64_tb(dq[pn], dsa[j],
+            hw::wgmma_rs_n64_tb<T>(dq[pn], dsa[j],
                                 dK + ((pn * C::kN * 128 + j * 2048) >> 4));
         hw::wg_commit();
         hw::wg_wait<0>();
@@ -1215,17 +1295,17 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       if ((t & 31) == 0) hw::mbar_arrive(&empty[s]);
     }
 
-    bf16* out = static_cast<bf16*>(p.dq) + static_cast<long long>(b) * p.S * D;
+    T* out = static_cast<T*>(p.dq) + static_cast<long long>(b) * p.S * D;
 #pragma unroll
     for (int pn = 0; pn < C::kPanels; ++pn)
 #pragma unroll
       for (int i = 0; i < 32; i += 2) {
         const int row = r0 + hw::acc_row(t, i);
         if (row < p.S)
-          *reinterpret_cast<__nv_bfloat162*>(
+          *reinterpret_cast<uint32_t*>(
               out + static_cast<long long>(row) * D + pn * 64 +
               hw::acc_col(t, i)) =
-              __floats2bfloat162_rn(dq[pn][i], dq[pn][i + 1]);
+              hw::pack16<T>(dq[pn][i], dq[pn][i + 1]);
       }
   }
 }
@@ -1245,19 +1325,26 @@ cudaError_t launch(Kern kern, size_t smem, int threads, int tiles, int BH,
 
 enum Which { kFwd, kDq, kDkv };
 
-// f32 inputs: the CUDA-core kernels
+// The CUDA-core kernels: f32 inputs at D 64 and 128, and every dtype at
+// D = 256, where dQ and dK/dV stage 64 columns of their score operands at
+// a time so that the shared memory fits.
 template <int D>
-cudaError_t run_f32(Which which, int BH, const Params& p, cudaStream_t st) {
+constexpr int score_chunk() { return D > 128 ? 64 : D; }
+
+template <typename T, int D>
+cudaError_t run_cuda_cores(Which which, int BH, const Params& p,
+                           cudaStream_t st) {
+  constexpr int DC = score_chunk<D>();
   const int tiles = (p.S + kTile - 1) / kTile;
   switch (which) {
     case kFwd:
-      return launch(flash_fwd_kernel<D>, fwd_smem<D>(), kThreads,
+      return launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), kThreads,
                     tiles, BH, p, st);
     case kDq:
-      return launch(flash_dq_kernel<D>, dq_smem<D>(), kThreads, tiles,
-                    BH, p, st);
+      return launch(flash_dq_kernel<T, D, DC>, dq_smem<D, DC>(), kThreads,
+                    tiles, BH, p, st);
     case kDkv:
-      return launch(flash_dkv_kernel<D>, dkv_smem<D>(), kThreads,
+      return launch(flash_dkv_kernel<T, D, DC>, dkv_smem<D, DC>(), kThreads,
                     tiles, BH, p, st);
   }
   return cudaErrorInvalidValue;
@@ -1277,10 +1364,11 @@ cudaError_t launch_wgmma(Kern kern, size_t smem, int BH, int tiles,
   return cudaGetLastError();
 }
 
-// bf16 forward, dQ and dK/dV. They read their tiles through tensor maps
-// over [rows][S][D], so a box past S reads zeros, never the next row's
-// data. Q and dO boxes are the kernel's kM rows, K and V boxes its kN.
-template <int D, bool kGeneral>
+// bf16 and float16 forward, dQ and dK/dV. They read their tiles through
+// tensor maps over [rows][S][D], so a box past S reads zeros, never the
+// next row's data. Q and dO boxes are the kernel's kM rows, K and V boxes
+// its kN.
+template <typename T, int D, bool kGeneral>
 cudaError_t run_wgmma(Which which, int BH, const Params& p, cudaStream_t st) {
   if (hw::encode_tiled() == nullptr) return cudaErrorNotSupported;
   const int kv_rows = BH / p.H * p.Hk;
@@ -1291,45 +1379,55 @@ cudaError_t run_wgmma(Which which, int BH, const Params& p, cudaStream_t st) {
                 : which == kDq ? DqShape<D>::kN
                                : DkvShape<D>::kN;
   CUtensorMap tq, tk, tv, tdo;
-  if (!hw::make_map_bf16(&tq, p.q, BH, p.S, D, m) ||
-      !hw::make_map_bf16(&tk, p.k, kv_rows, p.S, D, n) ||
-      !hw::make_map_bf16(&tv, p.v, kv_rows, p.S, D, n) ||
-      (which != kFwd && !hw::make_map_bf16(&tdo, p.dout, BH, p.S, D, m)))
+  if (!hw::make_map_16<T>(&tq, p.q, BH, p.S, D, m) ||
+      !hw::make_map_16<T>(&tk, p.k, kv_rows, p.S, D, n) ||
+      !hw::make_map_16<T>(&tv, p.v, kv_rows, p.S, D, n) ||
+      (which != kFwd && !hw::make_map_16<T>(&tdo, p.dout, BH, p.S, D, m)))
     return cudaErrorInvalidValue;
   switch (which) {
     case kFwd:
-      return launch_wgmma(flash_fwd_wgmma_kernel<D, kGeneral>,
+      return launch_wgmma(flash_fwd_wgmma_kernel<T, D, kGeneral>,
                           FwdShape<D>::kSmem, BH, (p.S + m - 1) / m, p, st,
                           tq, tk, tv);
     case kDq:
-      return launch_wgmma(flash_dq_wgmma_kernel<D, kGeneral>,
+      return launch_wgmma(flash_dq_wgmma_kernel<T, D, kGeneral>,
                           DqShape<D>::kSmem, BH, (p.S + m - 1) / m, p, st,
                           tq, tk, tv, tdo);
     case kDkv:
-      return launch_wgmma(flash_dkv_wgmma_kernel<D, kGeneral>,
+      return launch_wgmma(flash_dkv_wgmma_kernel<T, D, kGeneral>,
                           DkvShape<D>::kSmem, BH, (p.S + n - 1) / n, p, st,
                           tq, tk, tv, tdo);
   }
   return cudaErrorInvalidValue;
 }
 
-// bf16 inputs: the tensor-core kernels. A mask or dropout selects the
-// build that carries the per-element rules.
-template <int D>
-cudaError_t run_bf16(Which which, int BH, const Params& p, cudaStream_t st) {
+// bf16 and float16 inputs at D 64 and 128: the tensor-core kernels. A mask
+// or dropout selects the build that carries the per-element rules.
+template <typename T, int D>
+cudaError_t run_16(Which which, int BH, const Params& p, cudaStream_t st) {
   if (p.mask != nullptr || p.dropout)
-    return run_wgmma<D, true>(which, BH, p, st);
-  return run_wgmma<D, false>(which, BH, p, st);
+    return run_wgmma<T, D, true>(which, BH, p, st);
+  return run_wgmma<T, D, false>(which, BH, p, st);
 }
 
+// dtype: 0 = f32, 1 = bf16, 2 = float16
 cudaError_t dispatch(Which which, int BH, int D, int dtype, const Params& p,
                      cudaStream_t st) {
   if (BH <= 0 || p.S <= 0 || BH > 65535 || p.Hk <= 0 || p.H % p.Hk)
     return cudaErrorInvalidValue;
-  if (dtype == 0 && D == 64) return run_f32<64>(which, BH, p, st);
-  if (dtype == 0 && D == 128) return run_f32<128>(which, BH, p, st);
-  if (dtype == 1 && D == 64) return run_bf16<64>(which, BH, p, st);
-  if (dtype == 1 && D == 128) return run_bf16<128>(which, BH, p, st);
+  if (dtype == 0 && D == 64)
+    return run_cuda_cores<float, 64>(which, BH, p, st);
+  if (dtype == 0 && D == 128)
+    return run_cuda_cores<float, 128>(which, BH, p, st);
+  if (dtype == 1 && D == 64) return run_16<bf16, 64>(which, BH, p, st);
+  if (dtype == 1 && D == 128) return run_16<bf16, 128>(which, BH, p, st);
+  if (dtype == 2 && D == 64) return run_16<__half, 64>(which, BH, p, st);
+  if (dtype == 2 && D == 128) return run_16<__half, 128>(which, BH, p, st);
+  if (D == 256) {
+    if (dtype == 0) return run_cuda_cores<float, 256>(which, BH, p, st);
+    if (dtype == 1) return run_cuda_cores<bf16, 256>(which, BH, p, st);
+    if (dtype == 2) return run_cuda_cores<__half, 256>(which, BH, p, st);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -1355,8 +1453,10 @@ Params make_params(int H, int Hk, int S, int Bm, int Hm, float scale,
 // Tensors are contiguous and 16-byte aligned: q, dO, O, dQ, dK, dV
 // [BH][S][D]; k, v [BH / H * Hk][S][D]; lse, delta [BH][S] f32; mask
 // [Bm * Hm][S][S] f32 or null. flags: bit 0 causal, bit 1 dropout. dtype:
-// 0 = f32 (CUDA cores), 1 = bf16 (tensor cores). Head dims 64 and 128. Each
-// returns cudaGetLastError() after its launch (0 on success).
+// 0 = f32, 1 = bf16, 2 = float16. Head dims 64 and 128 (f32 on the CUDA
+// cores, bf16 and float16 on the tensor cores) and 256 (every dtype on the
+// CUDA cores). Each returns cudaGetLastError() after its launch (0 on
+// success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* mask, void* o,
                                    void* lse, int BH, int H, int Hk, int S,
@@ -1413,9 +1513,10 @@ extern "C" int flash_attention_dkv(const void* q, const void* k,
   return dispatch(kDkv, BH, D, dtype, p, static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory of the bf16 forward (which = 0), dQ (which = 1)
-// and dK/dV (which = 2) kernels at head dim D, in bytes (0 for anything
-// else).
+// Dynamic shared memory of the 16-bit forward (which = 0), dQ (which = 1)
+// and dK/dV (which = 2) kernels at head dim D, in bytes: the wgmma builds
+// (bf16 and float16 share their shapes) at D 64 and 128, the CUDA-core
+// builds at D = 256 (0 for anything else).
 extern "C" int flash_attention_wgmma_smem(int which, int D) {
   if (which == kFwd && D == 64) return FwdShape<64>::kSmem;
   if (which == kFwd && D == 128) return FwdShape<128>::kSmem;
@@ -1423,6 +1524,9 @@ extern "C" int flash_attention_wgmma_smem(int which, int D) {
   if (which == kDq && D == 128) return DqShape<128>::kSmem;
   if (which == kDkv && D == 64) return DkvShape<64>::kSmem;
   if (which == kDkv && D == 128) return DkvShape<128>::kSmem;
+  if (which == kFwd && D == 256) return fwd_smem<256>();
+  if (which == kDq && D == 256) return dq_smem<256, score_chunk<256>()>();
+  if (which == kDkv && D == 256) return dkv_smem<256, score_chunk<256>()>();
   return 0;
 }
 

@@ -8,7 +8,9 @@
 // of every other kernel library).
 //
 // Tile layout. Every operand tile is a stack of 64-column panels: panel p
-// holds columns [64p, 64p + 64) of `rows` rows, each row 128 bytes of bf16,
+// holds columns [64p, 64p + 64) of `rows` rows, each row 128 bytes of bf16
+// or float16 (the products, the fragments and the maps take either type,
+// a template argument; the accumulator is f32 in both),
 // swizzled as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes it (16-byte chunk c
 // of row r lands at chunk c ^ (r % 8) of that row, within 1024-byte atoms
 // of 8 rows). A panel must start on a 1024-byte boundary. `wgmma` reads the
@@ -24,8 +26,11 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -186,65 +191,99 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
+// True for float16 operands (the wgmma type field "f16"), false for bf16.
+template <typename T>
+constexpr bool kF16 = std::is_same<T, __half>::value;
+
 #define HOPPER_D8(i)                                                    \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define HOPPER_D32 HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
+#define HOPPER_D64                                                      \
+  HOPPER_D32, HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
+#define HOPPER_SS_N64(TY)                                               \
+  "{\n"                                                                 \
+  ".reg .pred p;\n"                                                     \
+  "setp.ne.b32 p, %34, 0;\n"                                            \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"                          \
+  "}\n"
+#define HOPPER_SS_N128(TY)                                              \
+  "{\n"                                                                 \
+  ".reg .pred p;\n"                                                     \
+  "setp.ne.b32 p, %66, 0;\n"                                            \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
+  "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
+  "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"       \
+  "}\n"
+#define HOPPER_RS_N64_TB(TY)                                            \
+  "{\n"                                                                 \
+  ".reg .pred p;\n"                                                     \
+  "setp.ne.b32 p, %37, 0;\n"                                            \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"             \
+  "}\n"
 
 // d[64 x 64] (+)= A[64 x 16] . B[16 x 64]: A and B K-major in shared memory.
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (kF16<T>)
+    asm volatile(HOPPER_SS_N64("f16")
+                 : HOPPER_D32
+                 : "l"(da), "l"(db), "r"(accumulate));
+  else
+    asm volatile(HOPPER_SS_N64("bf16")
+                 : HOPPER_D32
+                 : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // d[64 x 128] (+)= A[64 x 16] . B[16 x 128]: A and B K-major in shared
 // memory.
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                               uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24),
-        HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (kF16<T>)
+    asm volatile(HOPPER_SS_N128("f16")
+                 : HOPPER_D64
+                 : "l"(da), "l"(db), "r"(accumulate));
+  else
+    asm volatile(HOPPER_SS_N128("bf16")
+                 : HOPPER_D64
+                 : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // d[64 x 64] += A[64 x 16] . B[16 x 64]: A in registers (the layout of an
-// accumulator fragment, two bf16 a register), B MN-major in shared memory
-// (read through the transpose flag).
+// accumulator fragment, two 16-bit values a register), B MN-major in
+// shared memory (read through the transpose flag).
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
                                                 const uint32_t (&a)[4],
                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kF16<T>)
+    asm volatile(HOPPER_RS_N64_TB("f16")
+                 : HOPPER_D32
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(1));
+  else
+    asm volatile(HOPPER_RS_N64_TB("bf16")
+                 : HOPPER_D32
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(1));
 }
 
+#undef HOPPER_SS_N64
+#undef HOPPER_SS_N128
+#undef HOPPER_RS_N64_TB
+#undef HOPPER_D64
+#undef HOPPER_D32
 #undef HOPPER_D8
 
 // Accumulator fragment of a 64 x N wgmma result: element i of thread t of
@@ -257,22 +296,30 @@ __device__ __forceinline__ int acc_col(int t, int i) {
   return 8 * (i >> 2) + 2 * (t & 3) + (i & 1);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two f32 values rounded to T (round to nearest even) in one register,
+// `lo` in the low half: a pair of an A operand, or of an output row.
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  if constexpr (kF16<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
-// Columns [16j, 16j + 16) of an f32 accumulator fragment, rounded to bf16,
+// Columns [16j, 16j + 16) of an f32 accumulator fragment, rounded to T,
 // as the register A operand of a product over those columns.
-template <int N>
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4],
                                          const float (&s)[N / 2]) {
 #pragma unroll
   for (int j = 0; j < N / 16; ++j) {
-    a[j][0] = pack_bf16(s[8 * j + 0], s[8 * j + 1]);
-    a[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
-    a[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
-    a[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+    a[j][0] = pack16<T>(s[8 * j + 0], s[8 * j + 1]);
+    a[j][1] = pack16<T>(s[8 * j + 2], s[8 * j + 3]);
+    a[j][2] = pack16<T>(s[8 * j + 4], s[8 * j + 5]);
+    a[j][3] = pack16<T>(s[8 * j + 6], s[8 * j + 7]);
   }
 }
 
@@ -303,12 +350,13 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor [n][rows][cols] (contiguous, cols a multiple of 64) as a
-// 3-D map whose box is one 64-column panel of `box_rows` rows, 128B
+// A bf16 or float16 tensor [n][rows][cols] (contiguous, cols a multiple of
+// 64) as a 3-D map whose box is one 64-column panel of `box_rows` rows, 128B
 // swizzled. Boxes that reach past `rows` (or `n`) read zeros there, never
 // the next matrix's rows. Returns false when the map cannot be encoded.
-inline bool make_map_bf16(CUtensorMap* map, const void* base, int n, int rows,
-                          int cols, int box_rows) {
+template <typename T = __nv_bfloat16>
+inline bool make_map_16(CUtensorMap* map, const void* base, int n, int rows,
+                        int cols, int box_rows) {
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
@@ -319,7 +367,10 @@ inline bool make_map_bf16(CUtensorMap* map, const void* base, int n, int rows,
       static_cast<cuuint64_t>(cols) * 2 * static_cast<cuuint64_t>(rows)};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+  return enc(map,
+             kF16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             3, const_cast<void*>(base),
              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -47,10 +47,12 @@
 // in every block, so each staged K/V row is read once per (slot, head,
 // split) and used for all T rows. The rows live in registers, templated on
 // T rounded up (R = 2, 4, 8, 16); the lane's four elements of every row sit
-// beside its four elements of the staged key. Each half-warp takes one key
-// a pass and keeps its own online softmax per row, with one exp per (key,
-// row): the larger of the running max and the score becomes the max. The
-// eight half-warp states merge in shared memory over the finished ring.
+// beside its four elements of the staged key, so a key row takes D / 4
+// lanes: each group of them (a half-warp at D = 64, a quarter at D = 32,
+// the whole warp at D = 128) takes one key a pass and keeps its own online
+// softmax per row, with one exp per (key, row): the larger of the running
+// max and the score becomes the max. The groups' states (8 at D = 64)
+// merge in shared memory over the finished ring.
 //
 // Tiles (T > kWindowRows, prefill buckets), `paged_tile_kernel`: one block
 // per (split of kTileSplit keys, tile of 64 query rows, head, slot), the
@@ -59,9 +61,10 @@
 // are free of bank conflicts) stream through a cp.async ring, the next
 // chunk in flight while one computes; keys past the last one the tile can
 // see are never read (zero-filled). Products are tiled into registers:
-// each thread holds a 4-row x 8-key block of scores and a 4-row x 8-column
-// block of the output, so a shared-memory read feeds 8 to 16 FMAs, not
-// one. The 8 threads of a row group reduce the row max with shuffles and
+// each thread holds a 4-row x 8-key block of scores and a 4-row x D/8-column
+// block of the output (columns b * 32 + 4 * its group .. + 3), so a
+// shared-memory read feeds 8 to 16 FMAs, not one. The 8 threads of a row
+// group reduce the row max with shuffles and
 // keep their partial sums apart until the end; p goes through shared
 // memory (a warp's own rows only) into the P . V product.
 //
@@ -113,15 +116,14 @@ __device__ __forceinline__ float elem(const uint4& raw, int t) {
 
 // Four consecutive pool elements in shared memory (16, 8 or 4 bytes,
 // aligned to their size), widened to f32.
-__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+__device__ __forceinline__ void load4(const float* p, float* x) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   x[0] = v.x;
   x[1] = v.y;
   x[2] = v.z;
   x[3] = v.w;
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p,
-                                      float (&x)[4]) {
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* x) {
   const uint2 raw = *reinterpret_cast<const uint2*>(p);
   const float2 a =
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
@@ -132,7 +134,7 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p,
   x[2] = b.x;
   x[3] = b.y;
 }
-__device__ __forceinline__ void load4(const int8_t* p, float (&x)[4]) {
+__device__ __forceinline__ void load4(const int8_t* p, float* x) {
   const char4 c = *reinterpret_cast<const char4*>(p);
   x[0] = static_cast<float>(c.x);
   x[1] = static_cast<float>(c.y);
@@ -217,10 +219,15 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   constexpr int VN = 16 / sizeof(KVT);  // elements per 16 bytes
   constexpr int G = D / VN;             // lanes that share one key row
   constexpr int KP = 32 / G;            // keys a warp covers per pass
-  constexpr int PASSES = kWarpKeys / KP;
+  // a pass may cover more keys than a step stages (D = 32 over int8
+  // pools: 16 keys of 2 lanes); its lanes past the step's keys idle
+  constexpr bool WIDE = KP > kWarpKeys;
+  constexpr int PASSES = WIDE ? 1 : kWarpKeys / KP;
+  constexpr int COPY = kWarpKeys * G;   // 16-byte copies of a step
   constexpr int RB = D * sizeof(KVT);   // bytes of one key row of a head
   constexpr int STAGE = 2 * kWarpKeys * RB;
-  static_assert(D % VN == 0 && 32 % G == 0 && kWarpKeys % KP == 0,
+  static_assert(D % VN == 0 && 32 % G == 0 &&
+                    (WIDE ? KP % kWarpKeys : kWarpKeys % KP) == 0,
                 "a warp pass covers whole 16-byte chunks of whole rows");
 
   const int split_i = blockIdx.x;
@@ -275,11 +282,11 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     uint8_t* sk = ring + (step % kRing) * STAGE;
     const int jb = first_key(step);
 #pragma unroll
-    for (int r = 0; r < kWarpKeys * G / 32; ++r) {
+    for (int r = 0; r < (COPY + 31) / 32; ++r) {
       const int x = lane + 32 * r;
       const int c = x / G, ch = x % G;
       const int j = jb + c;
-      if (j < j_end) {
+      if ((COPY % 32 == 0 || x < COPY) && j < j_end) {
         const int blk = sblk[j / bs - e0];
         const long long off =
             (static_cast<long long>(blk) * bs + j % bs) * tok +
@@ -329,11 +336,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     float mc = kMask;
 #pragma unroll
     for (int pp = 0; pp < PASSES; ++pp) {
-      const int c = pp * KP + lane / G;
+      const int c0 = pp * KP + lane / G;
+      const bool in = !WIDE || c0 < kWarpKeys;  // an idle lane reads key 0
+      const int c = in ? c0 : 0;
       const int j = jb + c;
+      const bool live = in && j < j_end;
       const uint4 raw =
           *reinterpret_cast<const uint4*>(sk + c * RB + (lane % G) * 16);
-      const float ks = QUANT && j < j_end ? sks[j / bs - e0] : 1.f;
+      const float ks = QUANT && live ? sks[j / bs - e0] : 1.f;
       float dot = 0.f;
 #pragma unroll
       for (int e = 0; e < VN; ++e) {
@@ -344,7 +354,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 #pragma unroll
       for (int off = G / 2; off > 0; off >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      sc[pp] = j < j_end ? dot * scale : kMask;
+      sc[pp] = live ? dot * scale : kMask;
       mc = fmaxf(mc, sc[pp]);
     }
     // over the warp's keys (lanes that differ in the key bits)
@@ -370,9 +380,11 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     for (int e = 0; e < VN; ++e) acc[e] *= alpha;
 #pragma unroll
     for (int pp = 0; pp < PASSES; ++pp) {
-      const int c = pp * KP + lane / G;
+      const int c0 = pp * KP + lane / G;
+      const bool in = !WIDE || c0 < kWarpKeys;
+      const int c = in ? c0 : 0;
       const int j = jb + c;
-      const bool live = j < j_end;
+      const bool live = in && j < j_end;
       const uint4 raw =
           *reinterpret_cast<const uint4*>(sv + c * RB + (lane % G) * 16);
       const float vs = QUANT && live ? svs[j / bs - e0] : 1.f;
@@ -446,12 +458,13 @@ constexpr int kWindowRows = 16;
 int window_rows(int t) { return t <= 2 ? 2 : t <= 4 ? 4 : t <= 8 ? 8 : 16; }
 
 // Shared memory of a window launch with R rows: the warps' rings, which the
-// eight half-warp states [8][R][D + 2] overlay once the walk is done, then
+// lane groups' states [512 / D][R][D + 2] overlay once the walk is done, then
 // the split's table entries with their K and V scale / qmax.
 size_t window_smem_bytes(int r, int d, int kv_size) {
   const size_t ring =
       static_cast<size_t>(kWarps) * kRing * 2 * kWarpKeys * d * kv_size;
-  const size_t states = sizeof(float) * 2 * kWarps * r * (d + 2);
+  const size_t states =
+      sizeof(float) * (128 / d) * kWarps * r * (d + 2);  // NG = 128 / D
   return (ring > states ? ring : states) + sizeof(int) * 3 * kSplitEntries;
 }
 
@@ -467,15 +480,18 @@ __global__ void __launch_bounds__(kThreads) paged_window_kernel(
   constexpr int G = D / VN;              // copies: lanes per key row
   constexpr int RB = D * sizeof(KVT);    // bytes of one key row of a head
   constexpr int STAGE = 2 * kWarpKeys * RB;
-  constexpr int CL = 16;                 // products: lanes per key row
-  constexpr int CE = D / CL;             // products: elements per lane
-  constexpr int PASSES = kWarpKeys / 2;  // a pass: one key per half-warp
-  constexpr int NG = 2 * kWarps;         // softmax states of a block
+  constexpr int COPY = kWarpKeys * G;    // 16-byte copies of a step
+  constexpr int CE = 4;                  // products: elements per lane
+  constexpr int CL = D / CE;             // products: lanes per key row
+  constexpr int KG = 32 / CL;            // products: keys a pass, one a
+                                         // lane group (2 at D = 64)
+  constexpr int PASSES = kWarpKeys / KG;
+  constexpr int NG = KG * kWarps;        // softmax states of a block
   constexpr int RS = D + 2;              // (m, l, acc[D]) of one row
   constexpr size_t RING_BYTES = static_cast<size_t>(kWarps) * kRing * STAGE;
   constexpr size_t STATE_BYTES = sizeof(float) * NG * R * RS;
-  static_assert(CE == 4 && D % VN == 0 && 32 % G == 0 &&
-                    (kWarpKeys * G) % 32 == 0,
+  static_assert(CL <= 32 && 32 % CL == 0 && kWarpKeys % KG == 0 &&
+                    D % VN == 0 && 32 % G == 0,
                 "a lane takes four elements of a row; copies cover whole "
                 "16-byte chunks of whole rows");
 
@@ -486,7 +502,7 @@ __global__ void __launch_bounds__(kThreads) paged_window_kernel(
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int half = lane / CL;
+  const int half = lane / CL;  // the lane group
   const int cl = lane % CL;
   const long long tok = static_cast<long long>(H) * D;  // token stride
   // row r of the window's output at o + r * tok
@@ -535,11 +551,11 @@ __global__ void __launch_bounds__(kThreads) paged_window_kernel(
     uint8_t* sk = ring + (step % kRing) * STAGE;
     const int jb = first_key(step);
 #pragma unroll
-    for (int r = 0; r < kWarpKeys * G / 32; ++r) {
+    for (int r = 0; r < (COPY + 31) / 32; ++r) {
       const int x = lane + 32 * r;
       const int c = x / G, ch = x % G;
       const int j = jb + c;
-      if (j < j_end) {
+      if ((COPY % 32 == 0 || x < COPY) && j < j_end) {
         const int blk = sblk[j / bs - e0];
         const long long off =
             (static_cast<long long>(blk) * bs + j % bs) * tok +
@@ -589,7 +605,7 @@ __global__ void __launch_bounds__(kThreads) paged_window_kernel(
     const int jb = first_key(step);
 #pragma unroll
     for (int pp = 0; pp < PASSES; ++pp) {
-      const int c = pp * 2 + half;
+      const int c = pp * KG + half;
       const int j = jb + c;
       const bool live = j < j_end;
       float kx[CE], vx[CE];
@@ -635,7 +651,7 @@ __global__ void __launch_bounds__(kThreads) paged_window_kernel(
   __syncthreads();  // every warp is done with its ring: the states overlay it
 
   {
-    float* ws = wstate + (warp * 2 + half) * R * RS;
+    float* ws = wstate + (warp * KG + half) * R * RS;
 #pragma unroll
     for (int r = 0; r < R; ++r)
       if (r < T) {
@@ -738,8 +754,10 @@ __global__ void __launch_bounds__(kThreads) paged_tile_kernel(
   constexpr int RPT = kTileRowsPer;
   constexpr int KPT = kTileKeys / 8;    // keys of a thread: cg + 8 * jj
   constexpr int RS = D + 4;             // tile_row_floats
-  static_assert(D == 64 && (kTileKeys * CPR) % kThreads == 0,
-                "a thread's output columns are cg*4.. and 32 + cg*4..");
+  constexpr int NCB = D / 32;           // the thread's blocks of 4 columns
+  constexpr int NC = 4 * NCB;           // the thread's output columns
+  static_assert(D % 32 == 0 && (kTileKeys * CPR) % kThreads == 0,
+                "a thread's output columns are b * 32 + cg * 4 .. + 3");
 
   const int split_i = blockIdx.x;
   const int n_split = gridDim.x;
@@ -750,7 +768,7 @@ __global__ void __launch_bounds__(kThreads) paged_tile_kernel(
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int rg = tid / 8;  // row group: rows rg * RPT .. + RPT - 1
-  const int cg = tid % 8;  // keys cg + 8 * jj; columns cg * 4, 32 + cg * 4
+  const int cg = tid % 8;  // keys cg + 8 * jj; columns b * 32 + cg * 4
   const long long tok = static_cast<long long>(H) * D;  // token stride
   const int q0 = tile * kTileRows;
   const int rows = min(kTileRows, T - q0);
@@ -823,13 +841,13 @@ __global__ void __launch_bounds__(kThreads) paged_tile_kernel(
     hopper::cp_async_commit();  // empty groups keep the count uniform
   };
 
-  float m[RPT], l[RPT], acc[RPT][8];
+  float m[RPT], l[RPT], acc[RPT][NC];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     m[i] = kMask;
     l[i] = 0.f;  // this thread's share of the row sum, until the end
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+    for (int e = 0; e < NC; ++e) acc[i][e] = 0.f;
   }
   const int rl = (rg % 4) * RPT;  // the thread's first row in its warp's 16
   float* spw = sp + warp * kTileKeys * kTilePS;
@@ -920,7 +938,7 @@ __global__ void __launch_bounds__(kThreads) paged_tile_kernel(
       l[i] = l[i] * alpha + sum;
       m[i] = m_new;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[i][e] *= alpha;
+      for (int e = 0; e < NC; ++e) acc[i][e] *= alpha;
     }
 #pragma unroll
     for (int jj = 0; jj < KPT; ++jj)
@@ -935,24 +953,18 @@ __global__ void __launch_bounds__(kThreads) paged_tile_kernel(
                                                           rl);
       const float pr[RPT] = {p4.x, p4.y, p4.z, p4.w};
       const KVT* vrow = reinterpret_cast<const KVT*>(sv + c * RBP);
-      float v0[4], v1[4];
-      load4(vrow + cg * 4, v0);
-      load4(vrow + 32 + cg * 4, v1);
+      float vx[NC];
+#pragma unroll
+      for (int b = 0; b < NCB; ++b) load4(vrow + b * 32 + cg * 4, vx + 4 * b);
       if (QUANT) {
         const float vs = sck[kTileKeys + c];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          v0[e] = v0[e] * vs;
-          v1[e] = v1[e] * vs;
-        }
+        for (int e = 0; e < NC; ++e) vx[e] = vx[e] * vs;
       }
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[i][e] = fmaf(pr[i], v0[e], acc[i][e]);
-          acc[i][4 + e] = fmaf(pr[i], v1[e], acc[i][4 + e]);
-        }
+        for (int e = 0; e < NC; ++e) acc[i][e] = fmaf(pr[i], vx[e], acc[i][e]);
     }
   }
   hopper::cp_async_wait<0>();  // only empty groups can be left
@@ -970,10 +982,10 @@ __global__ void __launch_bounds__(kThreads) paged_tile_kernel(
       if (r >= rows) continue;
       const float L = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        store(&o[r * tok + cg * 4 + e], acc[i][e] / L);
-        store(&o[r * tok + 32 + cg * 4 + e], acc[i][4 + e] / L);
-      }
+      for (int b = 0; b < NCB; ++b)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          store(&o[r * tok + b * 32 + cg * 4 + e], acc[i][4 * b + e] / L);
     }
     return;
   }
@@ -991,10 +1003,11 @@ __global__ void __launch_bounds__(kThreads) paged_tile_kernel(
       x[0] = m[i];
       x[1] = l[i];
     }
-    *reinterpret_cast<float4*>(x + 4 + cg * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(x + 4 + 32 + cg * 4) =
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+#pragma unroll
+    for (int b = 0; b < NCB; ++b)
+      *reinterpret_cast<float4*>(x + 4 + b * 32 + cg * 4) =
+          make_float4(acc[i][4 * b], acc[i][4 * b + 1], acc[i][4 * b + 2],
+                      acc[i][4 * b + 3]);
   }
 
   // the last split of this (slot, head, tile) to finish merges them all
@@ -1007,32 +1020,30 @@ __global__ void __launch_bounds__(kThreads) paged_tile_kernel(
     for (int k = 0; k < n_live; ++k)
       M = fmaxf(M, __ldcg(pb + (static_cast<long long>(k) * kTileRows + r) *
                                    RS));
-    float L = 0.f, A[8];
+    float L = 0.f, A[NC];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) A[e] = 0.f;
+    for (int e = 0; e < NC; ++e) A[e] = 0.f;
     for (int k = 0; k < n_live; ++k) {  // in split order
       const float* x = pb + (static_cast<long long>(k) * kTileRows + r) * RS;
       const float mk = __ldcg(x);
       const float wt = mk <= 0.5f * kMask ? 0.f : expf(mk - M);
       L += __ldcg(x + 1) * wt;
-      const float4 a = __ldcg(reinterpret_cast<const float4*>(x + 4 + cg * 4));
-      const float4 b =
-          __ldcg(reinterpret_cast<const float4*>(x + 4 + 32 + cg * 4));
-      A[0] += a.x * wt;
-      A[1] += a.y * wt;
-      A[2] += a.z * wt;
-      A[3] += a.w * wt;
-      A[4] += b.x * wt;
-      A[5] += b.y * wt;
-      A[6] += b.z * wt;
-      A[7] += b.w * wt;
+#pragma unroll
+      for (int b = 0; b < NCB; ++b) {
+        const float4 a = __ldcg(
+            reinterpret_cast<const float4*>(x + 4 + b * 32 + cg * 4));
+        A[4 * b] += a.x * wt;
+        A[4 * b + 1] += a.y * wt;
+        A[4 * b + 2] += a.z * wt;
+        A[4 * b + 3] += a.w * wt;
+      }
     }
     L = L == 0.f ? 1.f : L;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      store(&o[r * tok + cg * 4 + e], A[e] / L);
-      store(&o[r * tok + 32 + cg * 4 + e], A[4 + e] / L);
-    }
+    for (int b = 0; b < NCB; ++b)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        store(&o[r * tok + b * 32 + cg * 4 + e], A[4 * b + e] / L);
   }
 }
 
@@ -1166,8 +1177,9 @@ int kv_size(int mode) { return mode == 0 ? 4 : mode == 1 ? 2 : 1; }
 }  // namespace
 
 // mode: 0 = f32 q / f32 pools, 1 = bf16 q / bf16 pools,
-//       2 = f32 q / int8 pools + f32 scales. Head dim 64 only (GPT-125M's,
-//       the one the card checks run). `part` is f32 scratch of
+//       2 = f32 q / int8 pools + f32 scales. Head dims 32, 64 and 128 (the
+//       GPT family's: gpt_tiny, gpt_125m / 350m, gpt_1p3b / 6p7b); the
+//       constants were tuned at 64. `part` is f32 scratch of
 //       `paged_attention_partial_floats(...)` floats (no initial value);
 //       `tickets` int32, `paged_attention_ticket_count(...)` of them, all 0
 //       before the first call and left 0 by every call; calls that share
@@ -1181,10 +1193,22 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pool,
                                    int bs, int nb, float scale, float qmax,
                                    int mode, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D != 64) return cudaErrorInvalidValue;
-  return dispatch_mode<64>(mode, q, k_pool, v_pool, k_scale, v_scale, tables,
-                           pos, out, part, tickets, S, T, H, bs, nb, scale,
-                           qmax, st);
+  switch (D) {
+    case 32:
+      return dispatch_mode<32>(mode, q, k_pool, v_pool, k_scale, v_scale,
+                               tables, pos, out, part, tickets, S, T, H, bs,
+                               nb, scale, qmax, st);
+    case 64:
+      return dispatch_mode<64>(mode, q, k_pool, v_pool, k_scale, v_scale,
+                               tables, pos, out, part, tickets, S, T, H, bs,
+                               nb, scale, qmax, st);
+    case 128:
+      return dispatch_mode<128>(mode, q, k_pool, v_pool, k_scale, v_scale,
+                                tables, pos, out, part, tickets, S, T, H, bs,
+                                nb, scale, qmax, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // Shared memory one launch needs (the wrapper refuses what the card lacks).

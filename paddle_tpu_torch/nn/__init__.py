@@ -2,8 +2,8 @@
 
 Ported: `Layer` and its containers, every functional, the initializers,
 the common, activation, conv, pooling, norm, loss and transformer Layers,
-gradient clipping, `ParamAttr` and `nn.utils`. The RNN Layers and
-`decode` come with ROADMAP A.13d (their functionals are here)."""
+gradient clipping, `ParamAttr`, `nn.utils`, the RNN Layers and the
+beam-search `decode`."""
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
 from .clip import (  # noqa: F401
@@ -24,8 +24,13 @@ from .layer.norm import (  # noqa: F401
     LocalResponseNorm, SpectralNorm, SyncBatchNorm,
 )
 from .layer.pooling import *  # noqa: F401,F403
+from .layer.rnn import (  # noqa: F401
+    BiRNN, GRU, GRUCell, LSTM, LSTMCell, RNN, RNNCellBase, SimpleRNN,
+    SimpleRNNCell,
+)
 from .layer.transformer import (  # noqa: F401
     MultiHeadAttention, Transformer, TransformerDecoder,
     TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,
 )
+from .decode import BeamSearchDecoder, dynamic_decode  # noqa: F401
 from . import utils  # noqa: F401

@@ -18,16 +18,19 @@ TPU kernels', to the places where values are rounded:
     the threshold (`dropout_keep`, bit for bit the TPU kernel's); kept
     values are scaled by 1 / (1 - rate) in PV, in dP, and in P^T for dV,
     while dS uses the undropped P;
-  * bf16 inputs round P to V's dtype before PV, dS to K's (Q's) dtype
-    before dS.K (dS^T.Q), and the dropped P to dO's dtype before P^T.dO;
-    every product accumulates in f32;
+  * bf16 and float16 inputs round P to V's dtype before PV, dS to K's
+    (Q's) dtype before dS.K (dS^T.Q), and the dropped P to dO's dtype
+    before P^T.dO; every product accumulates in f32;
   * GQA: query head b reads KV row (b // H) * Hk + (b % H) // (H / Hk); dK
     and dV come out per query head and are summed over the group here.
 
 Dispatch is by the device of the tensors and nothing else: CPU tensors
 run the plain versions (`fwd_plain`, `dq_plain`, `dkv_plain`), CUDA
 tensors launch the kernels or raise. The kernels take any S >= 1 (the
-ragged last tile is masked inside) and head dims 64 and 128.
+ragged last tile is masked inside), head dims 64, 128 and 256 (the JAX
+dispatch's), and float32, bfloat16 and float16: at 64 and 128, f32 runs
+on the CUDA cores and the 16-bit types on the tensor cores (`wgmma`); at
+256 every dtype runs on the CUDA cores (a simple build, ROADMAP B).
 
 The kernels read contiguous [B*H, S, D] rows: `flash_attention_bhsd`
 copies q, k and v to contiguous memory before the call (the GPT's
@@ -54,10 +57,10 @@ launches_fwd = 0
 launches_dq = 0
 launches_dkv = 0
 
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (64, 128, 256)
 NEG_INF = -1e30
 _M32 = 0xFFFFFFFF
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _lib = None
 
 

@@ -49,7 +49,9 @@ launches_prefill = 0
 # longer calls run the tile path
 WINDOW_ROWS = 16
 
-SUPPORTED_HEAD_DIMS = (64,)
+# the GPT family's head dims (gpt_tiny 32; gpt_125m and 350m 64; gpt_1p3b
+# and 6p7b 128)
+SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _MAX_SMEM = 232448             # bytes a block may use on sm_90
 _MODES = {(torch.float32, torch.float32): 0,
           (torch.bfloat16, torch.bfloat16): 1,

@@ -46,7 +46,8 @@ from ...serving.tenancy.adapters import lora_apply
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPT",
            "GPTForGeneration", "GPTStage", "gpt_stage_ranges",
-           "gpt_pipeline_stages", "gpt_tiny", "gpt_125m"]
+           "gpt_pipeline_stages", "gpt_tiny", "gpt_125m", "gpt_350m",
+           "gpt_1p3b", "gpt_6p7b"]
 
 LN_EPS = 1e-5     # the JAX LayerNorm default
 
@@ -455,4 +456,26 @@ def gpt_125m(device="cuda", seed=0, **kw):
     """GPT-125M at full width: hidden 768, 12 layers, 12 heads, vocab
     50304, 1024 positions, tied head."""
     return GPT(GPTConfig(hidden_size=768, num_layers=12, num_heads=12, **kw),
+               device=device, seed=seed)
+
+
+def gpt_350m(device="cuda", seed=0, **kw):
+    """GPT-350M: hidden 1024, 24 layers, 16 heads (head dim 64)."""
+    return GPT(GPTConfig(hidden_size=1024, num_layers=24, num_heads=16, **kw),
+               device=device, seed=seed)
+
+
+def gpt_1p3b(device="cuda", seed=0, **kw):
+    """GPT-1.3B: hidden 2048, 24 layers, 16 heads (head dim 128), 2048
+    positions."""
+    return GPT(GPTConfig(hidden_size=2048, num_layers=24, num_heads=16,
+                         max_position_embeddings=2048, **kw),
+               device=device, seed=seed)
+
+
+def gpt_6p7b(device="cuda", seed=0, **kw):
+    """GPT-6.7B: hidden 4096, 32 layers, 32 heads (head dim 128), 2048
+    positions."""
+    return GPT(GPTConfig(hidden_size=4096, num_layers=32, num_heads=32,
+                         max_position_embeddings=2048, **kw),
                device=device, seed=seed)

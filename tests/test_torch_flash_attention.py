@@ -16,7 +16,9 @@ kernels take only S that their blocks divide).
 
 Tolerances: float32 atol 2e-5 forward, 1e-4 gradients (the kernels sum
 in blocks, the plain versions over whole rows); bf16 2e-2 (8 mantissa
-bits, and P is rounded against a different running max).
+bits, and P is rounded against a different running max); float16 5e-3
+(11 mantissa bits, the same rounding points). The `d256*` and `fp16*`
+cases cover the head dim and the dtype the CUDA kernels took last.
 """
 import importlib
 
@@ -33,7 +35,8 @@ from paddle_tpu_torch.ops import flash_attention as fa
 jpf = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
 
 BLOCK = 64
-F32_FWD, F32_GRAD, BF16 = 2e-5, 1e-4, 2e-2
+F32_FWD, F32_GRAD, BF16, F16 = 2e-5, 1e-4, 2e-2, 5e-3
+TOL16 = {"bfloat16": BF16, "float16": F16}
 
 # name -> (B, H, Hk, S, D, causal, mask kind, dropout rate, dtype)
 CASES = {
@@ -44,6 +47,12 @@ CASES = {
     "dropout": (1, 2, 2, 128, 32, True, None, 0.1, "float32"),
     "gqa": (1, 4, 2, 128, 32, True, None, 0.0, "float32"),
     "bf16": (2, 2, 2, 128, 64, True, None, 0.0, "bfloat16"),
+    "d256": (1, 2, 2, 128, 256, True, None, 0.0, "float32"),
+    "d256_mask_b1ss": (2, 2, 2, 128, 256, False, "b1ss", 0.0, "float32"),
+    "d256_bf16": (1, 2, 2, 128, 256, True, None, 0.0, "bfloat16"),
+    "fp16": (2, 2, 2, 128, 64, True, None, 0.0, "float16"),
+    "fp16_d128_dropout": (1, 2, 2, 128, 128, True, None, 0.1, "float16"),
+    "fp16_d256_gqa": (1, 4, 2, 128, 256, True, None, 0.0, "float16"),
 }
 SEED = 1234
 
@@ -62,8 +71,8 @@ def _inputs(case, seed=0):
         mask[rng.rand(Bm, 1, S, S) < 0.2] = -np.inf
         mask[:, :, 5, :] = -np.inf                     # a fully masked row
         mask[:, :, 70, :] = -1e9
-    if dtype == "bfloat16":
-        q, k, v = (np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+    if dtype != "float32":
+        q, k, v = (np.asarray(jnp.asarray(x, jnp.dtype(dtype)), np.float32)
                    for x in (q, k, v))
     return dict(q=q, k=k, v=v, w=w, mask=mask, causal=causal, rate=rate,
                 dtype=dtype, H=H, Hk=Hk)
@@ -77,7 +86,8 @@ def _t(x, dtype, grad=False):
     if x is None:
         return None
     t = torch.from_numpy(np.ascontiguousarray(x)).to(
-        {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype])
+        {"float32": torch.float32, "bfloat16": torch.bfloat16,
+         "float16": torch.float16}[dtype])
     return t.requires_grad_(grad)
 
 
@@ -140,7 +150,7 @@ def test_forward_and_lse_match_pallas(case):
     o, lse = fa.flash_fwd(_t(c["q"], dt).reshape(B * H, S, D),
                           _t(c["k"], dt).reshape(-1, S, D),
                           _t(c["v"], dt).reshape(-1, S, D), mf, meta)
-    tol = BF16 if dt == "bfloat16" else F32_FWD
+    tol = TOL16.get(dt, F32_FWD)
     np.testing.assert_allclose(_np(o).reshape(B, H, S, D), _np(jo),
                                atol=tol, rtol=tol)
     np.testing.assert_allclose(_np(lse), _np(jlse), atol=tol, rtol=tol)
@@ -151,7 +161,8 @@ def test_forward_and_lse_match_pallas(case):
         assert np.all(_np(o).reshape(B, H, S, D)[:, :, 5] == 0)
 
 
-@pytest.mark.parametrize("case", [n for n in CASES if n != "bf16"])
+@pytest.mark.parametrize("case", [n for n in CASES
+                                  if CASES[n][-1] == "float32"])
 def test_grads_match_pallas(case):
     c = _inputs(case, seed=1)
     jg = _jax_grads(c)
@@ -162,13 +173,27 @@ def test_grads_match_pallas(case):
 
 
 def test_bf16_grads_match_pallas():
-    c = _inputs("bf16", seed=2)
+    _check_16bit_grads("bf16")
+
+
+@pytest.mark.parametrize("case", ["d256_bf16", "fp16", "fp16_d128_dropout",
+                                  "fp16_d256_gqa"])
+def test_16bit_grads_match_pallas(case):
+    """bf16 at head dim 256 and float16 at 64, 128 (with dropout) and 256
+    (with GQA): dQ, dK, dV in the inputs' dtype against the Pallas
+    backward."""
+    _check_16bit_grads(case)
+
+
+def _check_16bit_grads(case):
+    c = _inputs(case, seed=2)
+    dt = c["dtype"]
     jg = _jax_grads(c)
     _, tg = _port(c, grad=True)
     for a, b, name in zip(tg, jg, "qkv"):
-        assert a.grad.dtype == torch.bfloat16
-        np.testing.assert_allclose(_np(a.grad), _np(b), atol=BF16, rtol=BF16,
-                                   err_msg=f"d{name}")
+        assert a.grad.dtype == _t(np.zeros(1), dt).dtype
+        np.testing.assert_allclose(_np(a.grad), _np(b), atol=TOL16[dt],
+                                   rtol=TOL16[dt], err_msg=f"d{name}")
 
 
 @pytest.mark.parametrize("seed,rate", [(0, 0.1), (-7, 0.5), (2 ** 31 - 1,
@@ -240,7 +265,8 @@ def test_bshd_layout_and_reference_attention():
                                rtol=F32_FWD)
 
 
-@pytest.mark.parametrize("D,match", [(256, "head_dim 256 is not built"),
+@pytest.mark.parametrize("D,match", [(32, "head_dim 32 is not built"),
+                                     (512, "head_dim 512 is not built"),
                                      (64, "unsupported device meta")])
 def test_non_cpu_tensors_raise_before_any_launch(D, match):
     """A non-CPU tensor never takes the plain version: what the kernels do

@@ -13,6 +13,11 @@ and window kernels (T = 1..WINDOW_ROWS) and their merge of the splits'
 softmax states; it is held to the same references at the same tolerance,
 so the merge rule is checked here and the kernels themselves against the
 plain version on the card.
+
+The kernels take head dims 32, 64 and 128 (the GPT family's); the `_d128`
+tests run the same checks at 128 (gpt_1p3b's), and `_bf16` ones hold bf16
+q and pools to the Pallas kernel (8 mantissa bits; the plain
+version rounds its output to bf16 once, the kernel too) at 2e-2.
 """
 import numpy as np
 import pytest
@@ -32,12 +37,12 @@ H, D = 4, 32          # the tiny GPT's heads and head_dim
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _state(seed, S, bs, nb, N, poison=False):
+def _state(seed, S, bs, nb, N, poison=False, d=D):
     """Pools + tables where every slot's table is filled with distinct real
     blocks (the engine invariant: a visible position is backed)."""
     rng = np.random.RandomState(seed)
-    kp = rng.randn(N, bs, H, D).astype(np.float32)
-    vp = rng.randn(N, bs, H, D).astype(np.float32)
+    kp = rng.randn(N, bs, H, d).astype(np.float32)
+    vp = rng.randn(N, bs, H, d).astype(np.float32)
     if poison:
         kp[jblk.GARBAGE_BLOCK] = np.nan
         vp[jblk.GARBAGE_BLOCK] = np.inf
@@ -46,10 +51,10 @@ def _state(seed, S, bs, nb, N, poison=False):
     return kp, vp, tables
 
 
-def _quant_state(seed, S, bs, nb, N):
+def _quant_state(seed, S, bs, nb, N, d=D):
     rng = np.random.RandomState(seed)
-    kq = rng.randint(-127, 128, (N, bs, H, D)).astype(np.int8)
-    vq = rng.randint(-127, 128, (N, bs, H, D)).astype(np.int8)
+    kq = rng.randint(-127, 128, (N, bs, H, d)).astype(np.int8)
+    vq = rng.randint(-127, 128, (N, bs, H, d)).astype(np.int8)
     ks = (rng.rand(N, H) * 3 + 0.1).astype(np.float32)
     vs = (rng.rand(N, H) * 3 + 0.1).astype(np.float32)
     tables = rng.permutation(np.arange(1, N))[:S * nb] \
@@ -85,10 +90,14 @@ def _all_three(q, kp, vp, tables, pos, **scales):
     (16, [0, 9, 32]),                  # prefill windows over ragged slots
 ])
 def test_attend_matches_jax_across_blocks(T, pos):
+    _check_attend(T, pos, D)
+
+
+def _check_attend(T, pos, d):
     bs, nb = 8, 6
     S = len(pos)
-    kp, vp, tables = _state(T, S, bs, nb, N=S * nb + 1)
-    q = np.random.RandomState(10 + T).randn(S, T, H, D).astype(np.float32)
+    kp, vp, tables = _state(T, S, bs, nb, N=S * nb + 1, d=d)
+    q = np.random.RandomState(10 + T).randn(S, T, H, d).astype(np.float32)
     pos = np.asarray(pos, np.int32)
     want, pallas, port = _all_three(q, kp, vp, tables, pos)
     np.testing.assert_allclose(port, want, **TOL)
@@ -127,7 +136,7 @@ def test_all_masked_rows_emit_zeros():
 
 
 # ------------------------------------------- decode split-and-merge rule
-def _ragged_state(seed, pos, bs, nb, quant, T=1):
+def _ragged_state(seed, pos, bs, nb, quant, T=1, d=D):
     """Each slot owns exactly the blocks its positions up to pos + T - 1
     need; every later table entry points at the garbage block 0, which
     holds NaN K and inf V (NaN and inf scales for int8 pools)."""
@@ -139,15 +148,15 @@ def _ragged_state(seed, pos, bs, nb, quant, T=1):
     for s, n in enumerate(live):
         tables[s, :n] = [next(ids) for _ in range(n)]
     if quant:
-        kp = rng.randint(-127, 128, (N, bs, H, D)).astype(np.int8)
-        vp = rng.randint(-127, 128, (N, bs, H, D)).astype(np.int8)
+        kp = rng.randint(-127, 128, (N, bs, H, d)).astype(np.int8)
+        vp = rng.randint(-127, 128, (N, bs, H, d)).astype(np.int8)
         ks = (rng.rand(N, H) * 3 + 0.1).astype(np.float32)
         vs = (rng.rand(N, H) * 3 + 0.1).astype(np.float32)
         ks[jblk.GARBAGE_BLOCK] = np.nan
         vs[jblk.GARBAGE_BLOCK] = np.inf
         return kp, vp, tables, dict(k_scale=ks, v_scale=vs)
-    kp = rng.randn(N, bs, H, D).astype(np.float32)
-    vp = rng.randn(N, bs, H, D).astype(np.float32)
+    kp = rng.randn(N, bs, H, d).astype(np.float32)
+    vp = rng.randn(N, bs, H, d).astype(np.float32)
     kp[jblk.GARBAGE_BLOCK] = np.nan
     vp[jblk.GARBAGE_BLOCK] = np.inf
     return kp, vp, tables, {}
@@ -161,12 +170,16 @@ def test_split_merge_model_matches_jax(split, bs, quant):
     1, 2 * split, 2 * split + 1), the full table, a pos = -1 slot beside
     the long ones, later splits wholly past a slot's last key, and the
     garbage block poisoned. Tolerance: f32 rtol = atol = 1e-5."""
+    _check_split_merge(split, bs, quant, D)
+
+
+def _check_split_merge(split, bs, quant, d):
     nb = (2 * split + 2 * bs) // bs
     pos = [split - 2, -1, split - 1, split, 2 * split - 1, 2 * split,
            nb * bs - 1]
     kp, vp, tables, scales = _ragged_state(split + quant, pos, bs, nb,
-                                           quant)
-    q = np.random.RandomState(split).randn(len(pos), 1, H, D) \
+                                           quant, d=d)
+    q = np.random.RandomState(split).randn(len(pos), 1, H, d) \
         .astype(np.float32)
     pos = np.asarray(pos, np.int32)
     want, pallas, _ = _all_three(q, kp, vp, tables, pos, **scales)
@@ -190,12 +203,16 @@ def test_window_split_merge_model_matches_jax(T, split, bs, quant):
     pos = -1 slot (its first row sees no key, the others the keys before
     them); the garbage block poisoned. Tolerance: f32 rtol = atol =
     1e-5."""
+    _check_window_split_merge(T, split, bs, quant, D)
+
+
+def _check_window_split_merge(T, split, bs, quant, d):
     nb = (2 * split + 2 * bs) // bs
     pos = [split - T, split - T + 1, -1, bs - 1, 2 * split - 2,
            nb * bs - T, 0]
     kp, vp, tables, scales = _ragged_state(T + split + quant, pos, bs, nb,
-                                           quant, T=T)
-    q = np.random.RandomState(T + split).randn(len(pos), T, H, D) \
+                                           quant, T=T, d=d)
+    q = np.random.RandomState(T + split).randn(len(pos), T, H, d) \
         .astype(np.float32)
     pos = np.asarray(pos, np.int32)
     want, pallas, port = _all_three(q, kp, vp, tables, pos, **scales)
@@ -227,15 +244,76 @@ def test_split_merge_model_rejects_prefill_windows():
 # -------------------------------------------------------------- int8 pools
 @pytest.mark.parametrize("T,pos", [(1, [0, 8, 17, 47]), (8, [0, 3, 33])])
 def test_attend_quant_matches_jax(T, pos):
+    _check_attend_quant(T, pos, D)
+
+
+def _check_attend_quant(T, pos, d):
     bs, nb = 8, 6
     S = len(pos)
-    kq, vq, ks, vs, tables = _quant_state(20 + T, S, bs, nb, N=S * nb + 1)
-    q = np.random.RandomState(30 + T).randn(S, T, H, D).astype(np.float32)
+    kq, vq, ks, vs, tables = _quant_state(20 + T, S, bs, nb, N=S * nb + 1,
+                                          d=d)
+    q = np.random.RandomState(30 + T).randn(S, T, H, d).astype(np.float32)
     pos = np.asarray(pos, np.int32)
     want, pallas, port = _all_three(q, kq, vq, tables, pos, k_scale=ks,
                                     v_scale=vs)
     np.testing.assert_allclose(port, want, **TOL)
     np.testing.assert_allclose(port, pallas, **TOL)
+
+
+# ------------------------------------------- head dim 128 (gpt_1p3b's)
+@pytest.mark.parametrize("T,pos", [
+    (1, [0, 7, 8, 9, 21, 46, 47]),
+    (5, [0, 5, 40]),
+    (16, [0, 9, 32]),
+    (24, [0, 3, 20]),                  # the tile path (T > WINDOW_ROWS)
+])
+def test_attend_matches_jax_d128(T, pos):
+    """Float pools at head dim 128: decode, window and tile lengths."""
+    _check_attend(T, pos, 128)
+
+
+@pytest.mark.parametrize("T,pos", [(1, [0, 8, 17, 47]), (8, [0, 3, 33]),
+                                   (20, [0, 27])])
+def test_attend_quant_matches_jax_d128(T, pos):
+    _check_attend_quant(T, pos, 128)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("split,bs", [(16, 8), (128, 16)])
+def test_split_merge_model_matches_jax_d128(split, bs, quant):
+    _check_split_merge(split, bs, quant, 128)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("T", [2, 5, 16])
+def test_window_split_merge_model_matches_jax_d128(T, quant):
+    _check_window_split_merge(T, 16, 8, quant, 128)
+
+
+# ------------------------------------------------------------ bf16 pools
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("T,pos", [(1, [0, 9, 46]), (5, [0, 40]),
+                                   (20, [0, 27])])
+def test_attend_bf16_matches_jax(T, pos, d):
+    """bf16 q and pools (the kernel's mode 1) against the Pallas kernel on
+    the same bf16 values: 2e-2 (the output is rounded to bf16, and the
+    Pallas kernel rounds P to bf16 before P.V where the port's products
+    stay in f32)."""
+    bs, nb = 8, 6
+    S = len(pos)
+    kp, vp, tables = _state(60 + T, S, bs, nb, N=S * nb + 1, d=d)
+    q = np.random.RandomState(70 + T).randn(S, T, H, d).astype(np.float32)
+    pos = np.asarray(pos, np.int32)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, kp, vp))
+    pallas = jax_paged_attention(jq, jk, jv, jnp.asarray(tables),
+                                 jnp.asarray(pos), interpret=True)
+    tq, tk, tv = (torch.from_numpy(np.array(x.astype(jnp.float32)))
+                  .to(torch.bfloat16) for x in (jq, jk, jv))
+    port = paged_attention(tq, tk, tv, _t(tables), _t(pos))
+    assert port.dtype == torch.bfloat16
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(pallas.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
 
 
 def test_dequant_and_quantize_expressions_match_jax():

@@ -179,9 +179,10 @@ def test_dropout_keep_mask_is_the_tpu_hash(cpu):
     assert 0.85 < got.mean() < 0.95
 
 
-# the reference's `_use_pallas` rule on CUDA: head dim 256 and float16
-# take the kernel route and raise there (no kernel is built for them yet),
-# never the dense attention
+# the reference's `_use_pallas` rule on CUDA: head dims 64, 128 and 256 in
+# any float dtype take the kernel route, and the kernels are built for
+# every input the rule sends them (head dim 256 and float16 since ROADMAP
+# B.4's repair); other head dims take the dense attention
 @pytest.mark.parametrize("q,k,dtype,device,want", [
     ((2, 128, 12, 64), (2, 128, 12, 64), "float32", "cuda", "kernel"),
     ((2, 512, 12, 64), (2, 512, 4, 64), "bfloat16", "cuda", "kernel"),
@@ -203,8 +204,10 @@ def test_sdpa_route_rule(q, k, dtype, device, want):
         t = torch.zeros((1, 1, 1, q[3]), dtype=getattr(torch, dtype))
         with pytest.raises(ValueError, match="not built"):
             fa._check_kernel_args("fwd", t, t, t, None, ())
-    if dtype == "float16":
-        assert torch.float16 not in fa._DTYPES
+    if want == "kernel":
+        # a kernel is built for what the route sends it
+        assert q[3] in fa.SUPPORTED_HEAD_DIMS
+        assert getattr(torch, dtype) in fa._DTYPES
 
 
 def test_kernel_mask_broadcasts_without_a_copy_per_head():

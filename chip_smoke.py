@@ -8,6 +8,7 @@
     python3 chip_smoke.py --nn-only     # phases 1, 2 and 22
     python3 chip_smoke.py --hapi-only   # phases 1, 2 and 23
     python3 chip_smoke.py --text-only   # phases 1, 2 and 24
+    python3 chip_smoke.py --jit-only    # phases 1, 2 and 25
 
 Phases (any exception ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -414,6 +415,25 @@ Phases (any exception ends the run with a non-zero exit):
      classification at B=32, S=128 through `Model.train_batch`: step ms
      and 12 flash launches of each kernel a step.
      `--text-only` runs phases 1, 2 and 24.
+ 25. jit, static and the Predictor over a saved program: BERT-base
+     (`Bert(BertConfig())`, random weights, eval, f32, TF32 off) at
+     B=32, S=128 with a key-padding mask: (a) the `to_static` program's
+     forward against the eager forward (ATOL / RTOL), 12 flash forward
+     launches a forward in both, ms a forward (median of 20, each ending
+     in a host read), kernels, device busy ms and idle share of each;
+     (b) `jit.save` on the card, then `inference.create_predictor` in a
+     fresh process that imports only `paddle_tpu_torch`: `run()` at B=1,
+     8 and 32 from the one artifact, 12 flash launches a run, the
+     `ready_stages` seconds and ms a run, each output held against the
+     eager Layer and against the same inputs through the plain attention
+     (`reference_attention_bhsd`) on the card (ATOL / RTOL); a program
+     saved on the CPU is refused on the card; (c) `static.Program.capture`
+     of the encoder forward, the `amp` pass: bf16 casts in `to_string()`,
+     the flash node kept, the output's relative error (2-norm) against
+     the f32 program's within BF16_TOL; (d) a dy2static function with
+     a tensor-dependent `while`, `break` and `if` on CUDA tensors
+     against its eager Python run. `--jit-only` runs phases 1, 2 and
+     25.
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -7400,6 +7420,384 @@ def text_phase(smi, sdpa_builds):
     return out
 
 
+JIT_B, JIT_S = 32, 128              # phase 25: BERT-base at its phase-1 shape
+JIT_BATCHES = (1, 8, 32)            # (b): run() sizes from one artifact
+JIT_TIMED = 20                      # (a): forwards timed, after a warm-up
+JIT_CHILD_S = 600
+JIT_CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+sys.modules["jax"] = None           # the child must not reach JAX
+sys.modules["paddle_tpu"] = None
+import numpy as np
+import torch
+from paddle_tpu_torch import inference
+from paddle_tpu_torch.ops import flash_attention as fa
+prefix, inputs, out_path, batches = sys.argv[1], sys.argv[2], sys.argv[3], \
+    [int(b) for b in sys.argv[4].split(",")]
+t_import = time.perf_counter() - t0
+t1 = time.perf_counter()
+pred = inference.create_predictor(inference.Config(prefix + ".pdmodel",
+                                                   prefix + ".pdiparams"))
+load_s = time.perf_counter() - t1
+z = np.load(inputs)
+ins = [z["ids"], z["token_types"], z["mask"]]
+rec, outs = {"import_s": t_import, "load_to_ready_s": load_s,
+             "ready_stages": pred.ready_stages,
+             "names": pred.get_input_names(), "runs": {}}, {}
+for B in batches:
+    args = [a[:B] for a in ins]
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    got = pred.run(args)
+    launches = [fa.launches_fwd, fa.launches_dq, fa.launches_dkv]
+    ms = []
+    for _ in range(10):
+        t = time.perf_counter()
+        pred.run(args)              # ends in the host copy of the outputs
+        ms.append((time.perf_counter() - t) * 1e3)
+    ms.sort()
+    rec["runs"][B] = {"launches": launches, "ms_median": ms[len(ms) // 2],
+                      "ms_all": ms}
+    outs[f"seq{B}"], outs[f"pooled{B}"] = got
+np.savez(out_path, **outs)
+print("JIT_CHILD " + json.dumps(rec), flush=True)
+"""
+
+
+def jit_inputs(pt, cfg, B, S, seed=25):
+    """Seeded ids and token types, and an additive key-padding mask whose
+    every fourth row keeps its first S - 16 * (b % 4) keys."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int64)
+    tt = rng.randint(0, 2, (B, S)).astype(np.int64)
+    mask = np.zeros((B, 1, 1, S), np.float32)
+    for b in range(B):
+        if b % 4:
+            mask[b, ..., S - 16 * (b % 4):] = -1e4
+    return ids, tt, mask
+
+
+def _bert_pair(pt):
+    """The eager BERT-base and a second instance with its weights, which
+    `to_static` takes over."""
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    pt.seed(25)
+    cfg = BertConfig()
+    net = Bert(cfg)
+    net.eval()
+    twin = Bert(cfg)
+    twin.set_state_dict(net.state_dict())
+    twin.eval()
+    return cfg, net, twin
+
+
+def _launched(fn):
+    """fn() with the flash counters set to 0 just before it; returns
+    (fn's value, (fwd, dq, dkv) launches)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    out = fn()
+    return out, (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+
+
+def _max_err(a, b):
+    import numpy as np
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def jit_to_static(pt, smi, net, twin, args):
+    """Phase 25 (a): the to_static program against the eager forward."""
+    import numpy as np
+    st = pt.jit.to_static(twin)
+    eager = lambda: [o.numpy() for o in net(*args)]          # noqa: E731
+    static = lambda: [o.numpy() for o in st(*args)]          # noqa: E731
+    t0 = time.perf_counter()
+    static()                        # traces the program
+    trace_s = time.perf_counter() - t0
+    want, l_eager = _launched(eager)
+    got, l_static = _launched(static)
+    errs = [_max_err(g, w) for g, w in zip(got, want)]
+    rec = {"trace_s": trace_s, "launches_eager": l_eager,
+           "launches_static": l_static, "max_abs_err": errs}
+    for name, fn in (("eager", eager), ("to_static", static)):
+        ms = []
+        for _ in range(JIT_TIMED):
+            t = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t) * 1e3)
+        prof = profile_steps(fn, 5)
+        rec[name] = {"ms_quartiles": quartiles(ms),
+                     "kernels_per_forward": prof["kernels_per_step"],
+                     "device_busy_ms": prof["device_busy_ms_per_step"],
+                     "device_idle_share": prof["device_idle_share"],
+                     "traced_ms": prof["step_ms_traced"]}
+    (prog,) = st.forward.concrete_programs.values()
+    rec["graph_nodes"] = len(prog.graph.nodes)
+    rec["flash_nodes"] = sum("flash_fwd" in str(n.target)
+                             for n in prog.graph.nodes)
+    log(f"jit (a) BERT-base B={JIT_B} S={JIT_S} f32 eval: to_static "
+        f"traced in {trace_s:.1f} s ({rec['graph_nodes']} nodes, "
+        f"{rec['flash_nodes']} flash_fwd); ms a forward p25/p50/p75 eager "
+        + "/".join(f"{v:.3f}" for v in rec["eager"]["ms_quartiles"])
+        + ", to_static "
+        + "/".join(f"{v:.3f}" for v in rec["to_static"]["ms_quartiles"])
+        + f"; kernels {rec['eager']['kernels_per_forward']:.0f} / "
+        f"{rec['to_static']['kernels_per_forward']:.0f}, busy "
+        f"{rec['eager']['device_busy_ms']:.3f} / "
+        f"{rec['to_static']['device_busy_ms']:.3f} ms, idle share "
+        f"{rec['eager']['device_idle_share']:.3f} / "
+        f"{rec['to_static']['device_idle_share']:.3f}; flash launches "
+        f"{l_eager} / {l_static}; max abs err {errs} [{smi}]")
+    if l_eager != (12, 0, 0) or l_static != (12, 0, 0) or \
+            rec["flash_nodes"] != 12:
+        raise AssertionError(f"phase 25 (a): flash launches {l_eager} / "
+                             f"{l_static}, {rec['flash_nodes']} nodes")
+    if not all(np.allclose(g, w, atol=ATOL, rtol=RTOL)
+               for g, w in zip(got, want)):
+        raise AssertionError(f"phase 25 (a): to_static differs: {errs}")
+    return rec
+
+
+def jit_predictor(pt, smi, cfg, net, ins, out_dir):
+    """Phase 25 (b): jit.save on the card, the Predictor in a fresh
+    process, each batch held to the eager Layer and to the plain
+    attention; a CPU-saved program refused on the card."""
+    import numpy as np
+    from paddle_tpu_torch.nn.functional import attention as ta
+    from paddle_tpu_torch.static import InputSpec
+    prefix = os.path.join(out_dir, "bert")
+    specs = [InputSpec([None, JIT_S], "int64", "input_ids"),
+             InputSpec([None, JIT_S], "int64", "token_type_ids"),
+             InputSpec([None, 1, 1, JIT_S], "float32", "attention_mask")]
+    t0 = time.perf_counter()
+    pt.jit.save(net, prefix, input_spec=specs)
+    save_s = time.perf_counter() - t0
+    sizes = {s: os.path.getsize(prefix + s) for s in (".pdmodel",
+                                                     ".pdiparams")}
+    np.savez(os.path.join(out_dir, "inputs.npz"), ids=ins[0],
+             token_types=ins[1], mask=ins[2])
+    want, plain = {}, {}
+    route = ta.sdpa_route
+    for B in JIT_BATCHES:
+        args = [pt.to_tensor(a[:B]) for a in ins]
+        want[B] = [o.numpy() for o in net(*args)]
+        ta.sdpa_route = lambda q, k, d: "plain"
+        try:
+            plain[B] = [o.numpy() for o in net(*args)]
+        finally:
+            ta.sdpa_route = route
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out_path = os.path.join(out_dir, "served.npz")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", JIT_CHILD, prefix,
+                        os.path.join(out_dir, "inputs.npz"), out_path,
+                        ",".join(map(str, JIT_BATCHES))], env=env,
+                       capture_output=True, text=True, timeout=JIT_CHILD_S)
+    child_s = time.perf_counter() - t0
+    with open(os.path.join(ROOT, "chiprun_out", "phase25_child.log"),
+              "w") as f:
+        f.write(p.stdout + "\n--- stderr ---\n" + p.stderr)
+    if p.returncode != 0:
+        raise AssertionError(f"phase 25 (b): the Predictor process failed "
+                             f"({p.returncode}): {p.stderr[-2000:]}")
+    rec = json.loads(next(l for l in p.stdout.splitlines()
+                          if l.startswith("JIT_CHILD "))[len("JIT_CHILD "):])
+    served = np.load(out_path)
+    rec.update({"save_s": save_s, "bytes": sizes, "child_s": child_s})
+    for B in JIT_BATCHES:
+        r = rec["runs"][str(B)]
+        got = [served[f"seq{B}"], served[f"pooled{B}"]]
+        r["max_abs_err_eager"] = [_max_err(g, w) for g, w in
+                                  zip(got, want[B])]
+        r["max_abs_err_plain"] = [_max_err(g, w) for g, w in
+                                  zip(got, plain[B])]
+        r["eager_plain_max_abs_err"] = [_max_err(g, w) for g, w in
+                                        zip(want[B], plain[B])]
+        ok = all(np.allclose(g, w, atol=ATOL, rtol=RTOL)
+                 for ref in (want[B], plain[B]) for g, w in zip(got, ref))
+        log(f"jit (b) Predictor B={B}: {r['ms_median']:.3f} ms a run(), "
+            f"flash launches {r['launches']}, max abs err vs eager "
+            f"{r['max_abs_err_eager']}, vs the plain attention "
+            f"{r['max_abs_err_plain']} [{smi}]")
+        if r["launches"] != [12, 0, 0] or not ok:
+            raise AssertionError(f"phase 25 (b): B={B} {r}")
+    log(f"jit (b) save {save_s:.1f} s (.pdmodel {sizes['.pdmodel']} B, "
+        f".pdiparams {sizes['.pdiparams']} B); child import "
+        f"{rec['import_s']:.2f} s, load to ready {rec['load_to_ready_s']:.2f}"
+        f" s, ready_stages "
+        + ", ".join(f"{k} {v:.3f}" for k, v in rec["ready_stages"].items())
+        + f"; the child took {child_s:.1f} s [{smi}]")
+    # a program traced on the CPU holds the plain attention: refused here
+    pt.set_device("cpu")
+    try:
+        small = pt.nn.Linear(8, 4)
+        cpu_prefix = os.path.join(out_dir, "cpu_saved")
+        pt.jit.save(small, cpu_prefix, input_spec=[InputSpec([None, 8])])
+    finally:
+        pt.set_device("gpu")
+    refused = []
+    for what, call in (
+            ("jit.load", lambda: pt.jit.load(cpu_prefix, device="gpu")),
+            ("create_predictor", lambda: pt.inference.create_predictor(
+                pt.inference.Config(cpu_prefix + ".pdmodel",
+                                    cpu_prefix + ".pdiparams")))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "traced on cpu" not in str(e):
+                raise
+            refused.append(what)
+    rec["cpu_saved_refused"] = refused
+    log(f"jit (b) a CPU-saved program on the card: refused by {refused}")
+    if refused != ["jit.load", "create_predictor"]:
+        raise AssertionError("phase 25 (b): a CPU-saved program ran on "
+                             "the card")
+    return rec
+
+
+def jit_capture_amp(pt, smi, net, ins):
+    """Phase 25 (c): Program.capture of the encoder forward and the amp
+    pass."""
+    import numpy as np
+    from paddle_tpu_torch.distributed import passes
+    from paddle_tpu_torch.static import InputSpec, Program
+    x = net.embeddings(pt.to_tensor(ins[0]), pt.to_tensor(ins[1]))
+    mask = pt.to_tensor(ins[2])
+    prog = Program.capture(
+        lambda h, m: net.encoder(h, m),
+        InputSpec([JIT_B, JIT_S, 768]), InputSpec([JIT_B, 1, 1, JIT_S]),
+        device=x._data.device)
+    f32, l32 = _launched(lambda: prog.run_captured(x, mask)[0]
+                         .detach().cpu().numpy())
+    want = net.encoder(x, mask).numpy()
+    passes.new_pass("amp").apply(prog)
+    text = prog.to_string()
+    types = [o.type() for o in prog.ops()]
+    bf16, l16 = _launched(lambda: prog.run_captured(x, mask)[0]
+                          .detach().cpu().numpy())
+    rec = {"flash_nodes": types.count("flash_fwd"),
+           "bf16_in_ir": "bf16" in text, "casts": types.count("_to_copy"),
+           "launches_f32": l32, "launches_bf16": l16,
+           "max_abs_err_f32_vs_eager": _max_err(f32, want),
+           "max_abs_err_bf16_vs_f32": _max_err(bf16, f32),
+           # the products round to 8 mantissa bits in each of 12 layers:
+           # the relative error of the whole output, not each element
+           "rel_err_bf16_vs_f32": float(np.linalg.norm(bf16 - f32)
+                                        / np.linalg.norm(f32)),
+           "max_abs_f32": float(np.abs(f32).max()), "tol": BF16_TOL}
+    log(f"jit (c) encoder program: amp pass {rec['casts']} casts, bf16 in "
+        f"the IR {rec['bf16_in_ir']}, {rec['flash_nodes']} flash_fwd "
+        f"nodes, launches f32 {l32} / bf16 {l16}; f32 program vs eager "
+        f"{rec['max_abs_err_f32_vs_eager']:.2e}, bf16 vs f32 relative "
+        f"{rec['rel_err_bf16_vs_f32']:.2e} (tol {BF16_TOL}), max abs "
+        f"{rec['max_abs_err_bf16_vs_f32']:.2e} (|f32| max "
+        f"{rec['max_abs_f32']:.2f}) [{smi}]")
+    if not rec["bf16_in_ir"] or rec["flash_nodes"] != 12 or \
+            l32 != (12, 0, 0) or l16 != (12, 0, 0) or \
+            not np.allclose(f32, want, atol=ATOL, rtol=RTOL) or \
+            not rec["rel_err_bf16_vs_f32"] <= BF16_TOL:
+        raise AssertionError(f"phase 25 (c): {rec}")
+    return rec
+
+
+def jit_control_flow(pt, smi):
+    """Phase 25 (d): tensor-dependent while / break / if on CUDA tensors,
+    the to_static program against the eager Python run."""
+    import numpy as np
+    from paddle_tpu_torch.static import op_type
+
+    def fn(x, limit):
+        s = pt.zeros_like(x[0])
+        row = x[0]                  # carried: bound before the loop
+        i = pt.to_tensor(np.int64(0))
+        while i < x.shape[0]:
+            row = x[i]
+            if row.sum() > limit:
+                break
+            if row.mean() > 0:
+                s = s + row
+            else:
+                s = s - row * 0.5
+            i = i + 1
+        return s, i
+
+    rng = np.random.RandomState(25)
+    st = pt.jit.to_static(fn)
+    rec = {"cases": []}
+    for rows, limit in ((64, 1e9), (64, 30.0), (256, 60.0)):
+        x = pt.to_tensor(rng.randn(rows, 1024).astype(np.float32))
+        lim = pt.to_tensor(np.float32(limit))
+        want = [o.numpy() for o in fn(x, lim)]
+        got = [o.numpy() for o in st(x, lim)]
+        err = _max_err(got[0], want[0])
+        rec["cases"].append({"rows": rows, "limit": limit, "stopped_at":
+                             int(got[1]), "max_abs_err": err})
+        if int(got[1]) != int(want[1]) or \
+                not np.allclose(got[0], want[0], atol=ATOL, rtol=RTOL):
+            raise AssertionError(f"phase 25 (d): {rec['cases'][-1]}")
+    kinds = set()
+    for g in st.concrete_programs.values():
+        kinds |= {op_type(n.target) for m in g.modules()
+                  if hasattr(m, "graph") for n in m.graph.nodes
+                  if n.op == "call_function"}
+    rec["hops"] = sorted(kinds & {"cond", "while_loop", "scan"})
+    log(f"jit (d) dy2static while/break/if on CUDA: {rec['cases']}, "
+        f"program HOPs {rec['hops']} [{smi}]")
+    if rec["hops"] != ["cond", "while_loop"]:
+        raise AssertionError(f"phase 25 (d): HOPs {rec['hops']}")
+    return rec
+
+
+def jit_phase(smi):
+    """Phase 25 (module docstring): parts a, b, c, d; each raises on
+    failure. Returns the record and the flash forward launches of its
+    paths (each counted from 0 just before it, the Predictor's in its
+    process)."""
+    import gc
+    import torch
+    import paddle_tpu_torch as pt
+    t0 = time.perf_counter()
+    pt.set_device("gpu")
+    out_dir = os.path.join(ROOT, "build", "phase25")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    secs = {}
+    try:
+        cfg, net, twin = _bert_pair(pt)
+        ins = jit_inputs(pt, cfg, JIT_B, JIT_S)
+        args = [pt.to_tensor(a) for a in ins]
+        t1 = time.perf_counter()
+        out = {"a": jit_to_static(pt, smi, net, twin, args)}
+        secs["a"] = time.perf_counter() - t1
+        del twin
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        out["b"] = jit_predictor(pt, smi, cfg, net, ins, out_dir)
+        secs["b"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["c"] = jit_capture_amp(pt, smi, net, ins)
+        secs["c"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["d"] = jit_control_flow(pt, smi)
+        secs["d"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    a, b, c = out["a"], out["b"], out["c"]
+    out["launches_fwd"] = (a["launches_eager"][0] + a["launches_static"][0]
+                           + sum(r["launches"][0] for r in b["runs"].values())
+                           + c["launches_f32"][0] + c["launches_bf16"][0])
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = secs
+    log(f"phase 25 took {out['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f"); flash forward launches {out['launches_fwd']} [{smi}]")
+    return out
+
+
 def main(argv):
     flash_only = "--flash-only" in argv
     parallel_only = "--parallel-only" in argv
@@ -7408,6 +7806,7 @@ def main(argv):
     nn_only = "--nn-only" in argv
     hapi_only = "--hapi-only" in argv
     text_only = "--text-only" in argv
+    jit_only = "--jit-only" in argv
     try:
         import torch
     except ImportError:
@@ -7459,6 +7858,14 @@ def main(argv):
             f"{r['registers']} registers, "
             f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
             f"spill loads, {r['smem_dynamic']} B dynamic shared memory")
+    if jit_only:
+        # phase 25 alone
+        report["jit"] = jit_phase(smi)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out",
+                               "chip_smoke_jit.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        return 0
     if text_only:
         # phase 24 alone
         report["text"] = text_phase(smi, sdpa_builds=True)
@@ -7773,6 +8180,11 @@ def main(argv):
     torch.cuda.empty_cache()
     report["text"] = text_phase(smi, sdpa_builds=False)
 
+    # 25. jit, static and the Predictor over a saved program -----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["jit"] = jit_phase(smi)
+
     # summary ------------------------------------------------------------------------
     # every kernel's max_abs_err covers phase 3's cases and phase 24's at
     # the other head dims and dtypes
@@ -7824,7 +8236,9 @@ def main(argv):
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces,
-            "launches": report["train"]["launches"][which],
+            # phase 8's step, and for the forward phase 25's programs
+            "launches": report["train"]["launches"][which]
+            + (report["jit"]["launches_fwd"] if which == "fwd" else 0),
             "max_abs_err": max(c["max_abs_err"][o] for c in
                                flash_cases + report["text"]["c"]["flash"]
                                for o in outs),

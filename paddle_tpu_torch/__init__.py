@@ -43,7 +43,12 @@ neither it nor JAX. Its slices so far:
     ring (`native/`), the metrics, the callbacks, `summary` / `flops`,
     and the vision datasets, transforms, ops and model zoo;
   * `fft`, `signal`, `audio`, the RNN Layers and beam search of `nn`,
-    and `text` (datasets, Viterbi, BERT, ERNIE, the GPT family).
+    and `text` (datasets, Viterbi, BERT, ERNIE, the GPT family);
+  * `jit`, `static`, `onnx` and `distributed.passes`: `to_static` and
+    the dy2static transpiler over `torch.fx` graphs, `jit.save` /
+    `jit.load` of `torch.export` programs (which the `inference`
+    Predictor serves), `static.Program` / `Executor` / the IR passes,
+    and `static.nn`.
 
 Exports of the eager core at this level: `Tensor`, `Parameter`,
 `to_tensor`, every op of `tensor` (`add`, `matmul`, `reshape`, `topk`,
@@ -66,6 +71,9 @@ from . import autograd, device, tensor  # noqa: F401
 from . import amp, nn, optimizer, regularizer  # noqa: F401
 from . import callbacks, io, metric, native, reader, vision  # noqa: F401
 from . import audio, fft, signal  # noqa: F401
+from . import jit, onnx, static  # noqa: F401
+from .distributed import passes as _passes  # noqa: F401
+from .jit import to_static  # noqa: F401
 from .batch import batch  # noqa: F401
 from .hapi import Model, flops, summary  # noqa: F401
 from .autograd import grad  # noqa: F401
@@ -95,7 +103,7 @@ __all__ = ["core", "cost_model", "framework", "inference", "observability",
            "GPTConfig", "gpt_125m", "gpt_tiny", "autograd", "device",
            "tensor", "nn", "optimizer", "amp", "regularizer", "io",
            "metric", "vision", "callbacks", "native", "reader", "batch",
-           "fft", "signal", "audio",
+           "fft", "signal", "audio", "jit", "static", "onnx", "to_static",
            "Model", "summary", "flops", "grad", "CPUPlace", "CUDAPlace", "Parameter", "Tensor",
            "bfloat16", "bool_", "complex64", "complex128", "enable_grad",
            "float16", "float32", "float64", "get_default_dtype",

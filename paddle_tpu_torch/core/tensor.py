@@ -410,6 +410,11 @@ class Tensor:
 
     def __getitem__(self, idx):
         idx = _convert_index(idx, self._data.device)
+        if _is_traced_scalar_index(idx):
+            # x[i] for a 0-d integer tensor i being traced (a loop counter
+            # of a `jit` program): torch would read i as a Python int
+            return apply_op(lambda x: torch.index_select(
+                x, 0, idx.reshape(1)).squeeze(0), self, name="getitem")
         return apply_op(lambda x: x[idx], self, name="getitem")
 
     def __setitem__(self, idx, value):
@@ -512,6 +517,20 @@ def _wrap(t):
     return o
 
 
+def is_traced(d):
+    """True for a torch tensor being traced (a fake tensor, or a
+    functional one over it: `make_fx`, `torch.export`), which has no
+    values to read."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch._subclasses.functional_tensor import FunctionalTensor
+    return isinstance(d, (FakeTensor, FunctionalTensor))
+
+
+def _is_traced_scalar_index(idx):
+    return is_traced(idx) and idx.dim() == 0 and \
+        not idx.is_floating_point() and idx.dtype != torch.bool
+
+
 def _convert_index(idx, device):
     def conv(i):
         if isinstance(i, Tensor):
@@ -597,10 +616,14 @@ def _op_name(fn, name):
 def _check_finite(outs, opname):
     """FLAGS_check_nan_inf per-op scan (reference: eager/nan_inf_utils.cc):
     raise naming the op the moment a float output holds NaN or Inf. Each
-    check syncs the host with the device."""
+    check syncs the host with the device. Values being traced (a `jit`
+    program, `torch.export`) have none to read and are skipped, as the
+    reference skips tracers under jit."""
     out_list = outs if isinstance(outs, tuple) else (outs,)
     for i, o in enumerate(out_list):
         d = o._data if isinstance(o, Tensor) else o
+        if is_traced(d):
+            continue
         if isinstance(d, torch.Tensor) and (d.is_floating_point()
                                             or d.is_complex()):
             if not bool(torch.isfinite(d).all()):
@@ -731,7 +754,9 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True):
         if dev.type == "cpu":
             t = torch.from_numpy(np.array(a, order="C", copy=True))
         else:
-            t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            # ascontiguousarray makes a 0-d array 1-d: keep the shape
+            t = torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape)
+                                 ).to(dev)
         if d is not None and t.dtype != d:
             t = t.to(d)
     out = _wrap(t)

@@ -28,11 +28,16 @@ time to, so the device profile joins the model by exact match.
 
 Backward ops are priced when `fn` calls `.backward()` or
 `torch.autograd.grad`: the autograd engine dispatches them under the same
-modes. Fake tensors live on the CPU, so the port's kernel wrappers take
-their plain paths (dense attention for the flash kernels, the gather path
-for the paged kernel) and no kernel library is ever called with a fake
-tensor; the reference likewise prices the XLA attention fallback on a CPU
-host. Code that builds its own tensors (masks, positions, caches, a
+modes. The flash kernels' launches are custom ops
+(`paddle_tpu_torch::flash_fwd` / `flash_dq` / `flash_dkv`): on fake
+tensors they run their fake versions, and they are priced as the
+kernels, under `deviceprof`'s names for them (`flash_attention_fwd`,
+...): the products of the dense attention they compute (4, 6 and 8 x
+BH·S²·D FLOPs: the plain versions' matmuls) and their inputs and
+outputs as bytes. Fake tensors live on the CPU, so the paged kernel's
+wrapper takes its plain path (the gather path), and no kernel library is
+ever called with a fake tensor; the reference prices the XLA attention
+fallback on a CPU host. Code that builds its own tensors (masks, positions, caches, a
 model) must build them under the same fake mode: `fake_mode()` gives it.
 """
 import contextlib
@@ -160,7 +165,18 @@ _FREE = {"aten::empty", "aten::empty_strided", "aten::empty_like",
          "aten::lift_fresh", "aten::_unsafe_view"}
 
 
+# the flash custom ops: deviceprof's op name and the BH·S²·D multiple of
+# their products (fwd: Q·K^T, P·V; dq: + dO·V^T, dS·K; dkv: Q·K^T,
+# dO·V^T, P^T·dO, dS^T·Q)
+_FLASH_OPS = {"paddle_tpu_torch::flash_fwd": ("flash_attention_fwd", 4),
+              "paddle_tpu_torch::flash_dq": ("flash_attention_dq", 6),
+              "paddle_tpu_torch::flash_dkv": ("flash_attention_dkv", 8)}
+
+
 def _flops(name, args, out):
+    if name in _FLASH_OPS:
+        q = args[0]                                       # [BH, S, D]
+        return float(_FLASH_OPS[name][1] * _numel(q) * q.shape[1])
     base = name.split("::", 1)[1].rstrip("_")
     if base in ("mm", "bmm"):
         return _mm_flops(args[0], args[1])
@@ -192,11 +208,13 @@ class _Walk(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         name = func._schema.name
-        if func.is_view or name in _FREE or not name.startswith("aten::"):
+        key = _FLASH_OPS[name][0] if name in _FLASH_OPS else name
+        if key == name and (func.is_view or name in _FREE
+                            or not name.startswith("aten::")):
             return out
         moved = sum(_nbytes(t) for t in _tensors((args, kwargs))) \
             + sum(_nbytes(t) for t in _tensors(out))
-        agg = self.report.by_op.setdefault(name, OpCost())
+        agg = self.report.by_op.setdefault(key, OpCost())
         agg.flops += _flops(name, args, out)
         agg.bytes += moved
         agg.count += 1

@@ -5,6 +5,9 @@
   ps/rpc.py     — the RPC fabric: framing, extension verbs, retries,
                   circuit breakers, in-band error frames; the serving
                   fleet's verbs ride it
+  passes.py     — `new_pass` / `PassManager` / `PassContext` over the
+                  program rewrites of `static.ir_pass` (imported on
+                  first use: it needs `static`)
 
 The parameter-server tables and the graph verbs wait for ROADMAP A.13.
 The collectives are `parallel/collectives.py`; re-slicing a checkpoint

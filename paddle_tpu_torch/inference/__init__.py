@@ -1,21 +1,29 @@
-"""The deploy entry point: a Predictor over a saved generation artifact.
+"""The deploy entry point: a Predictor over a saved artifact.
 
 Counterpart of `paddle_tpu/inference/__init__.py` (the reference's
 `AnalysisPredictor` and `AnalysisConfig` surface): `Config`, the IO
 handles (`Tensor`), `Predictor`, `create_predictor`, `PredictorPool` and
 the enums and helpers beside them.
 
-Artifacts. `serving.save_for_generation` writes `prefix.pdiparams` (the
-weights in the JAX layout, `framework.io`) and `prefix.gencfg` (the GPT
-config and the serving record). The port writes no `.pdmodel` (it has
-no StableHLO program) and ignores the one a JAX artifact carries; so
-`Config(model_dir)` finds an artifact by its `.gencfg`, and
-`Config(prefix)` / `Config(prefix.pdmodel)` name one by its prefix. A
-JAX artifact of `save_for_generation` loads here unchanged. `run()`
-runs the GPT forward rebuilt from the record: `input_ids [B, S]` in,
-logits `[B, S, vocab]` out. An artifact without a `.gencfg` (a
-jit-saved arbitrary Layer) raises NotImplementedError: that needs the
-eager framework surface (ROADMAP A.13).
+Artifacts, two kinds:
+
+  * a generation artifact: `serving.save_for_generation` writes
+    `prefix.pdiparams` (the weights in the JAX layout, `framework.io`)
+    and `prefix.gencfg` (the GPT config and the serving record), and no
+    `.pdmodel` (the port ignores the StableHLO one a JAX artifact
+    carries). A JAX artifact of `save_for_generation` loads here
+    unchanged. `run()` runs the GPT forward rebuilt from the record:
+    `input_ids [B, S]` in, logits `[B, S, vocab]` out;
+  * a program: `jit.save` (or `static.save_inference_model`) writes
+    `prefix.pdmodel` (a `torch.export` program) and `prefix.pdiparams`.
+    The input handles come from the program's inputs and the saved
+    `feed_names`; `run()` calls the program, at any size of its dynamic
+    dims. A program runs only on the device type it was traced on, and a
+    JAX `.pdmodel` (StableHLO) raises and says what it is (`jit.load`).
+
+A `.gencfg` wins: `Config(model_dir)` finds an artifact by its
+`.gencfg` first, then by its `.pdmodel`; `Config(prefix)` /
+`Config(prefix.pdmodel)` name one by its prefix.
 
 Device. A Predictor runs on the card ("cuda", `enable_use_gpu`'s device
 id) unless the config asked for the CPU (`disable_gpu()`); without CUDA
@@ -72,11 +80,12 @@ class Config:
     def __init__(self, prog_file=None, params_file=None):
         if prog_file is not None and params_file is None:
             if os.path.isdir(prog_file):
-                found = sorted(f for f in os.listdir(prog_file)
-                               if f.endswith(GENCFG_SUFFIX))
+                names = sorted(os.listdir(prog_file))
+                found = [f for f in names if f.endswith(GENCFG_SUFFIX)] or \
+                    [f for f in names if f.endswith(".pdmodel")]
                 if not found:
                     raise FileNotFoundError(
-                        f"no {GENCFG_SUFFIX} in {prog_file}")
+                        f"no {GENCFG_SUFFIX} or .pdmodel in {prog_file}")
                 prog_file = os.path.join(prog_file, found[0])
             params_file = artifact_prefix(prog_file) + ".pdiparams"
         self._prog_file = prog_file
@@ -223,7 +232,8 @@ class _Handle:
 
 
 class Predictor:
-    """AnalysisPredictor's counterpart over a generation artifact."""
+    """AnalysisPredictor's counterpart over a generation artifact or a
+    saved program."""
 
     def __init__(self, config):
         import torch
@@ -236,12 +246,11 @@ class Predictor:
         self._device = resolve_device(config.torch_device())
         prefix = config.artifact_prefix()
         meta = read_gencfg(prefix)
+        self._program = None
+        self._gen_sched = None
         if meta is None:
-            raise NotImplementedError(
-                f"{prefix} has no {GENCFG_SUFFIX} record: the port serves "
-                "artifacts of serving.save_for_generation; an arbitrary "
-                "jit-saved Layer needs the eager framework surface "
-                "(ROADMAP A.13)")
+            self._init_program(prefix)
+            return
         self.ready_stages = {}
         self.precompile_report = None
         t0 = time.perf_counter()
@@ -278,6 +287,82 @@ class Predictor:
                 "Predictor load-to-serving-ready wall time (AOT "
                 "warmup included)").set(time.perf_counter() - t0)
 
+    def _init_program(self, prefix):
+        """A `jit.save` program: load it (refused unless traced for this
+        device type), read the weights, and run it once on zeros with
+        every dynamic dim at 1. `ready_stages` times the three."""
+        import torch
+
+        from ..framework.io import load as _load
+        from ..jit import load_program
+        self.ready_stages = {}
+        self.precompile_report = None
+        self._serving_meta = None
+        self.last_ttft_s = []
+        t0 = time.perf_counter()
+        prog_file = self._config.prog_file()
+        if prog_file is None or not prog_file.endswith(".pdmodel"):
+            prog_file = prefix + ".pdmodel"
+        if not os.path.exists(prog_file):
+            raise FileNotFoundError(
+                f"{prefix} has neither a {GENCFG_SUFFIX} record nor a "
+                f"program ({prog_file})")
+        ep = load_program(prog_file, self._device)
+        t1 = time.perf_counter()
+        self.ready_stages["program_load_s"] = t1 - t0
+        payload = _load(self._config.params_file(), device=self._device)
+        self._params = payload["params"]
+        self._buffers = payload["buffers"]
+        self._program = ep.module()
+        t2 = time.perf_counter()
+        self.ready_stages["weights_read_s"] = t2 - t1
+        n_state = len(self._params) + len(self._buffers)
+        vals = [n.meta["val"] for n in ep.graph.nodes
+                if n.op == "placeholder"
+                and n.name in set(ep.graph_signature.user_inputs)]
+        vals = vals[n_state:]
+        saved = payload.get("feed_names")
+        self._input_names = list(saved) if saved and \
+            len(saved) == len(vals) else [f"input_{i}"
+                                          for i in range(len(vals))]
+        self._specs = {}
+        self._inputs = {}
+        for n, v in zip(self._input_names, vals):
+            shape = tuple(d if isinstance(d, int) else -1 for d in v.shape)
+            self._specs[n] = (shape, v.dtype)
+            self._inputs[n] = _Handle(n, shape, str(v.dtype).split(".")[-1])
+        self._output_names = []
+        self._outputs = {}
+        warm = [torch.zeros(tuple(max(d, 1) for d in shape), dtype=dt,
+                            device=self._device)
+                for shape, dt in self._specs.values()]
+        self._call_program(warm)
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        self.ready_stages["first_run_s"] = time.perf_counter() - t2
+
+    def _call_program(self, args):
+        import torch
+        with torch.no_grad():
+            out = self._program(self._params, self._buffers, tuple(args))
+        return list(out) if isinstance(out, (tuple, list)) else [out]
+
+    def _run_program(self, inputs):
+        import torch
+        args = [torch.as_tensor(np.asarray(self._inputs[n]._value),
+                                dtype=self._specs[n][1], device=self._device)
+                for n in self._input_names]
+        outs = self._call_program(args)
+        self._output_names = [f"output_{i}" for i in range(len(outs))]
+        self._outputs = {}
+        for n, o in zip(self._output_names, outs):
+            h = _Handle(n, tuple(o.shape), str(o.dtype).split(".")[-1])
+            h._value = o
+            self._outputs[n] = h
+        if inputs is not None:
+            return [h.copy_to_cpu() for h in self._outputs.values()]
+        return True
+
     def get_input_names(self):
         return list(self._input_names)
 
@@ -285,12 +370,15 @@ class Predictor:
         return self._inputs[name]
 
     def run(self, inputs=None):
-        """Run the GPT forward. Either feed the handles and call run(), or
-        pass a list of arrays (returns the list of numpy outputs)."""
+        """Run the program, or the GPT forward of a generation artifact.
+        Either feed the handles and call run(), or pass a list of arrays
+        (returns the list of numpy outputs)."""
         import torch
         if inputs is not None:
             for n, arr in zip(self._input_names, inputs):
                 self._inputs[n].copy_from_cpu(np.asarray(arr))
+        if self._program is not None:
+            return self._run_program(inputs)
         ids = torch.as_tensor(
             np.asarray(self._inputs[self._input_names[0]]._value),
             dtype=torch.int64, device=self._device)
@@ -373,6 +461,10 @@ class Predictor:
         `last_ttft_s` holds each request's seconds from submit to its
         first token."""
         from ..serving import QueueFullError
+        if self._program is not None:
+            raise TypeError("a jit.save program has no generation engine: "
+                            "generate() serves save_for_generation "
+                            "artifacts; call run()")
         prompts = [list(map(int, np.asarray(p).reshape(-1)))
                    for p in input_ids]
         sched = self._generation_scheduler(**engine_kwargs)

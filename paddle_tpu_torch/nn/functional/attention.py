@@ -31,10 +31,16 @@ clamp at -1e30, a row with no live key is zero); the plain route zeroes
 only NaN rows, so with a finite mask such a row is the mean of V.
 
 The dropout seed is drawn from the CPU generator of `core.random` (one
-int32, as the reference draws it from its key stream): `Meta.seed` is a
-host int, and a draw on the card would cost a host sync per call. Given
+int32, as the reference draws it from its key stream) as a 0-d int64 CPU
+tensor: the kernel ops read it on the host (a draw on the card would
+cost a host sync per call), and inside a traced program (`jit`) the draw
+is a node of the program, so every run draws a fresh seed, as the
+reference threads a fresh key into each call of a jitted program. Given
 the seed, both routes keep the same elements (`dropout_keep`, the TPU
 kernel's hash bit for bit).
+
+`sdpa_route` is decided when the program is traced: a program traced on
+the CPU holds the plain attention, one traced on the card the kernel.
 """
 import numpy as np
 import torch
@@ -62,8 +68,8 @@ def sdpa_route(q_shape, k_shape, device):
 
 
 def _dropout_seed():
-    return int(torch.randint(0, _INT32_MAX, (), dtype=torch.int64,
-                             generator=generator(torch.device("cpu"))))
+    return torch.randint(0, _INT32_MAX, (), dtype=torch.int64,
+                         generator=generator(torch.device("cpu")))
 
 
 def _attend(route, q, k, v, mask, causal, scale, rate, seed):

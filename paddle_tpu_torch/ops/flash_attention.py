@@ -34,16 +34,29 @@ on the CUDA cores and the 16-bit types on the tensor cores (`wgmma`); at
 
 The kernels read contiguous [B*H, S, D] rows: `flash_attention_bhsd`
 copies q, k and v to contiguous memory before the call (the GPT's
-head-major qkv split hands it strided views), and the launch wrappers
-refuse anything else.
+head-major qkv split hands it strided views), and the ops copy any
+operand that is still strided or misaligned (a program traced over
+dynamic shapes decides at run time whether a reshape copies) before
+the checks the launch makes.
 
 `launches_fwd`, `launches_dq` and `launches_dkv` count kernel launches
 (CPU calls do not count), so a run can show that its main path went
 through the kernels.
+
+The three launches are `torch.library` custom ops,
+`torch.ops.paddle_tpu_torch.flash_fwd`, `.flash_dq` and `.flash_dkv`,
+registered when this module is imported. `make_fx` and `torch.export`
+record each as one node (their fake implementations give the output
+shapes), so a traced or exported program calls the kernels, and a saved
+program that holds them loads wherever `paddle_tpu_torch` is imported.
+`Meta`'s fields are the ops' scalar arguments; the dropout seed is a
+0-d int64 CPU tensor (or None), which the op reads on the host: drawn
+inside a traced program, it is drawn anew at every run.
 """
 import ctypes
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -67,7 +80,8 @@ _lib = None
 @dataclass(frozen=True)
 class Meta:
     """What the kernels need besides the tensors: heads, mask broadcast,
-    causal flag, scale and dropout."""
+    causal flag, scale and dropout. `seed` is an int or a 0-d int64 CPU
+    tensor."""
     H: int
     Hk: int
     Bm: int = 1
@@ -75,7 +89,7 @@ class Meta:
     causal: bool = False
     scale: float = 1.0
     rate: float = 0.0
-    seed: int = 0
+    seed: object = 0
 
 
 # ------------------------------------------------------------------ dropout
@@ -93,10 +107,15 @@ def dropout_keep(seed, b, row, col, rate):
     """Keep mask of `pallas/flash_attention.py:_dropout_keep` in int64
     arithmetic masked to 32 bits: bit-identical to the TPU kernel's uint32
     hash. seed is an int (int32 range, wrapped as the TPU kernel's cast
-    does); b, row and col are integer tensors that broadcast."""
+    does) or a 0-d integer tensor (a seed drawn inside a traced program);
+    b, row and col are integer tensors that broadcast."""
     b, row, col = (t.to(torch.int64) & _M32 for t in (b, row, col))
+    if isinstance(seed, torch.Tensor):
+        seed = seed.to(device=b.device, dtype=torch.int64)
+    else:
+        seed = int(seed)
     x = (_mul32(row, 0x9E3779B9) + _mul32(col, 0x85EBCA6B)) & _M32
-    x = x ^ (((int(seed) & _M32) + _mul32(b, 0xC2B2AE35)) & _M32)
+    x = x ^ (((seed & _M32) + _mul32(b, 0xC2B2AE35)) & _M32)
     x = x ^ (x >> 16)
     x = _mul32(x, 0x85EBCA6B)
     x = x ^ (x >> 13)
@@ -276,12 +295,51 @@ def _run(fn_name, ptrs, q, meta):
         raise RuntimeError(f"{fn_name} launch failed: {msg} (cudaError {rc})")
 
 
-def flash_fwd(q, k, v, mask, meta):
-    """Forward: the CUDA kernel on CUDA tensors, the plain version on CPU
-    tensors. Returns (O, lse [BH,S] f32)."""
+# ------------------------------------------------------------ custom ops
+def _seed_arg(meta):
+    """Meta.seed as the ops take it: None without dropout, else a 0-d
+    int64 CPU tensor."""
+    if meta.rate <= 0.0:
+        return None
+    s = meta.seed
+    if isinstance(s, torch.Tensor):
+        return s
+    return torch.tensor(int(s), dtype=torch.int64)
+
+
+def _dense(t):
+    """t as the kernels read it: contiguous and 16-byte aligned (copied
+    if not). The Python wrappers hand the ops contiguous rows; a program
+    traced over dynamic shapes may not, because whether a reshape copies
+    is decided by the sizes it runs at (at batch 1 a head-major reshape
+    is a strided view)."""
+    if t is None:
+        return None
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _meta(H, Hk, Bm, Hm, causal, scale, rate, seed):
+    """The ops' scalar arguments back as a Meta with an int seed (read on
+    the host: the seed tensor lives on the CPU)."""
+    if seed is not None and seed.device.type != "cpu":
+        raise ValueError("flash_attention: the dropout seed must be a CPU "
+                         "tensor (reading a device seed would sync)")
+    return Meta(H=H, Hk=Hk, Bm=Bm, Hm=Hm, causal=causal, scale=scale,
+                rate=rate, seed=0 if seed is None else int(seed))
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor], H: int, Hk: int, Bm: int,
+                  Hm: int, causal: bool, scale: float, rate: float,
+                  seed: Optional[torch.Tensor]
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     global launches_fwd
+    meta = _meta(H, Hk, Bm, Hm, causal, scale, rate, seed)
     if q.device.type == "cpu":
         return fwd_plain(q, k, v, mask, meta)
+    q, k, v, mask = (_dense(t) for t in (q, k, v, mask))
     _check_kernel_args("fwd", q, k, v, mask, ())
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
@@ -290,11 +348,24 @@ def flash_fwd(q, k, v, mask, meta):
     return o, lse
 
 
-def flash_dq(q, k, v, do, lse, delta, mask, meta):
-    """dQ: the CUDA kernel on CUDA tensors, the plain version on CPU."""
+@_flash_fwd_op.register_fake
+def _(q, k, v, mask, H, Hk, Bm, Hm, causal, scale, rate, seed):
+    return (q.new_empty(q.shape),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_dq", mutates_args=())
+def _flash_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 mask: Optional[torch.Tensor], H: int, Hk: int, Bm: int,
+                 Hm: int, causal: bool, scale: float, rate: float,
+                 seed: Optional[torch.Tensor]) -> torch.Tensor:
     global launches_dq
+    meta = _meta(H, Hk, Bm, Hm, causal, scale, rate, seed)
     if q.device.type == "cpu":
         return dq_plain(q, k, v, do, lse, delta, mask, meta)
+    q, k, v, do, lse, delta, mask = (_dense(t) for t in
+                                     (q, k, v, do, lse, delta, mask))
     _check_kernel_args("dq", q, k, v, mask, (do, lse, delta))
     dq = torch.empty_like(q)
     _run("flash_attention_dq", [q, k, v, do, lse, delta, mask, dq], q, meta)
@@ -302,12 +373,25 @@ def flash_dq(q, k, v, do, lse, delta, mask, meta):
     return dq
 
 
-def flash_dkv(q, k, v, do, lse, delta, mask, meta):
-    """dK, dV per query head: the CUDA kernel on CUDA tensors, the plain
-    version on CPU."""
+@_flash_dq_op.register_fake
+def _(q, k, v, do, lse, delta, mask, H, Hk, Bm, Hm, causal, scale, rate,
+      seed):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_dkv", mutates_args=())
+def _flash_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  mask: Optional[torch.Tensor], H: int, Hk: int, Bm: int,
+                  Hm: int, causal: bool, scale: float, rate: float,
+                  seed: Optional[torch.Tensor]
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     global launches_dkv
+    meta = _meta(H, Hk, Bm, Hm, causal, scale, rate, seed)
     if q.device.type == "cpu":
         return dkv_plain(q, k, v, do, lse, delta, mask, meta)
+    q, k, v, do, lse, delta, mask = (_dense(t) for t in
+                                     (q, k, v, do, lse, delta, mask))
     _check_kernel_args("dkv", q, k, v, mask, (do, lse, delta))
     dk = torch.empty(q.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=v.dtype, device=q.device)
@@ -315,6 +399,47 @@ def flash_dkv(q, k, v, do, lse, delta, mask, meta):
          meta)
     launches_dkv += 1
     return dk, dv
+
+
+@_flash_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, mask, H, Hk, Bm, Hm, causal, scale, rate,
+      seed):
+    return (q.new_empty(q.shape, dtype=k.dtype),
+            q.new_empty(q.shape, dtype=v.dtype))
+
+
+def _scalars(name, q, k, v, mask, extra, meta):
+    """The ops' scalar arguments. A tensor on neither the CPU nor CUDA
+    (the meta device, whose calls would take the ops' fake versions) is
+    refused here, before anything runs."""
+    if q.device.type not in ("cpu", "cuda"):
+        _check_kernel_args(name, q, k, v, mask, extra)
+    return (meta.H, meta.Hk, meta.Bm, meta.Hm, bool(meta.causal),
+            float(meta.scale), float(meta.rate), _seed_arg(meta))
+
+
+def flash_fwd(q, k, v, mask, meta):
+    """Forward: the CUDA kernel on CUDA tensors, the plain version on CPU
+    tensors (the op `paddle_tpu_torch::flash_fwd`). Returns (O, lse [BH,S]
+    f32)."""
+    return torch.ops.paddle_tpu_torch.flash_fwd(
+        q, k, v, mask, *_scalars("fwd", q, k, v, mask, (), meta))
+
+
+def flash_dq(q, k, v, do, lse, delta, mask, meta):
+    """dQ: the CUDA kernel on CUDA tensors, the plain version on CPU (the
+    op `paddle_tpu_torch::flash_dq`)."""
+    return torch.ops.paddle_tpu_torch.flash_dq(
+        q, k, v, do, lse, delta, mask,
+        *_scalars("dq", q, k, v, mask, (do, lse, delta), meta))
+
+
+def flash_dkv(q, k, v, do, lse, delta, mask, meta):
+    """dK, dV per query head: the CUDA kernel on CUDA tensors, the plain
+    version on CPU (the op `paddle_tpu_torch::flash_dkv`)."""
+    return torch.ops.paddle_tpu_torch.flash_dkv(
+        q, k, v, do, lse, delta, mask,
+        *_scalars("dkv", q, k, v, mask, (do, lse, delta), meta))
 
 
 # ---------------------------------------------------------------- autograd
@@ -346,14 +471,21 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _one(n):
+    return isinstance(n, int) and n == 1
+
+
 def _flatten_mask(mask, B, H, S):
     if mask is None:
         return None, 1, 1
     while mask.dim() < 4:
         mask = mask[None]
     Bm, Hm = mask.shape[0], mask.shape[1]
-    if mask.dim() != 4 or Bm not in (1, B) or Hm not in (1, H) \
-            or any(n not in (1, S) for n in mask.shape[2:]):
+    # `_one` tests for a concrete 1 only: comparing a symbolic batch size
+    # (a torch.export trace's dynamic dim) with 1 would pin its range
+    if mask.dim() != 4 or not (_one(Bm) or Bm == B) \
+            or not (_one(Hm) or Hm == H) \
+            or any(not (_one(n) or n == S) for n in mask.shape[2:]):
         raise ValueError(f"mask shape {tuple(mask.shape)} does not broadcast "
                          f"to (B={B}, H={H}, {S}, {S})")
     # a key-padding [B, 1, 1, S] or causal [S, S] mask is expanded over its
@@ -367,7 +499,11 @@ def flash_attention_bhsd(q, k, v, causal=False, scale=None, mask=None,
                          dropout_rate=0.0, dropout_seed=None):
     """q: (B, H, S, D); k/v: (B, Hk, S, D) with Hk dividing H. mask is
     additive and broadcasts from (B|1, H|1, S|1, S|1); dropout_rate > 0
-    needs dropout_seed (an int32 value). Returns (B, H, S, D) in q's dtype."""
+    needs dropout_seed (an int32 value, or a 0-d int64 CPU tensor).
+    Returns (B, H, S, D) in q's dtype. Without autograd (grad mode off,
+    or no input requiring grad) the forward op is called directly, which
+    is what `torch.export` records; otherwise `_Flash` wraps the three
+    ops."""
     B, H, S, D = q.shape
     Hk = k.shape[1]
     if H % Hk:
@@ -381,12 +517,21 @@ def flash_attention_bhsd(q, k, v, causal=False, scale=None, mask=None,
     if rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     mf, Bm, Hm = _flatten_mask(mask, B, H, S)
+    if rate <= 0.0:
+        seed = 0
+    elif isinstance(dropout_seed, torch.Tensor):
+        seed = dropout_seed
+    else:
+        seed = int(dropout_seed)
     meta = Meta(H=H, Hk=Hk, Bm=Bm, Hm=Hm, causal=bool(causal),
-                scale=float(scale), rate=rate,
-                seed=int(dropout_seed) if rate > 0.0 else 0)
-    o = _Flash.apply(q.reshape(B * H, S, D).contiguous(),
-                     k.reshape(B * Hk, S, D).contiguous(),
-                     v.reshape(B * Hk, S, D).contiguous(), mf, meta)
+                scale=float(scale), rate=rate, seed=seed)
+    args = (q.reshape(B * H, S, D).contiguous(),
+            k.reshape(B * Hk, S, D).contiguous(),
+            v.reshape(B * Hk, S, D).contiguous(), mf)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        o = _Flash.apply(*args, meta)
+    else:
+        o = flash_fwd(*args, meta)[0]
     return o.reshape(B, H, S, D)
 
 

@@ -19,11 +19,18 @@ __all__ = [
     "as_real", "as_complex", "tensordot", "shard_index"]
 
 
+def _dim(s):
+    """One entry of a shape argument as an int; a symbolic size (a
+    torch.export trace's dynamic dim) stays symbolic."""
+    if isinstance(s, torch.SymInt):
+        return s
+    return int(s._data) if isinstance(s, Tensor) else int(s)
+
+
 def _shape_arg(shape):
     if isinstance(shape, Tensor):
         return tuple(int(s) for s in shape.numpy().reshape(-1))
-    return tuple(int(s._data) if isinstance(s, Tensor) else int(s)
-                 for s in shape)
+    return tuple(_dim(s) for s in shape)
 
 
 def _int(v):

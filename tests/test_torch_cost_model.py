@@ -159,9 +159,10 @@ def test_profile_measure_on_the_cpu():
 
 
 def test_no_kernel_library_under_the_fake_mode(monkeypatch):
-    """The wrappers see fake CPU tensors and take their plain paths: no
-    ctypes library is loaded, so no data_ptr of a fake tensor reaches
-    one."""
+    """Under fake CPU tensors no ctypes library is loaded, so no data_ptr
+    of a fake tensor reaches one: the flash launches run their custom
+    ops' fake versions (priced as the kernels), the paged wrapper its
+    plain path."""
     from paddle_tpu_torch._kernels import build
     from paddle_tpu_torch.serving import PagedGenerationEngine
     from paddle_tpu_torch.text.models import gpt_tiny
@@ -174,7 +175,10 @@ def test_no_kernel_library_under_the_fake_mode(monkeypatch):
         params, state = init_fn(0)
         toks = torch.zeros((2, 64), dtype=torch.int64)
         r = estimate(step_fn, params, state, toks, toks)
-    assert r.by_op["aten::bmm"].count > 0          # the plain attention
+    fwd = r.by_op["flash_attention_fwd"]            # the kernels, priced
+    assert fwd.count > 0 and fwd.flops > 0 and fwd.bytes > 0
+    assert r.by_op["flash_attention_dq"].flops == \
+        1.5 * fwd.flops
     model = gpt_tiny(device="cpu")
     with fake_mode():
         eng = PagedGenerationEngine(model, slots=2, max_len=64,

@@ -317,3 +317,76 @@ def test_edge_shapes_match_xla_reference(case):
         assert a.grad.dtype == a.dtype
         np.testing.assert_allclose(_np(a.grad), _np(b), atol=grad,
                                    rtol=grad, err_msg=f"d{name}")
+
+
+# ------------------------------------------------------ the custom ops
+def _flash_targets(gm):
+    return [str(n.target) for n in gm.graph.nodes
+            if "paddle_tpu_torch" in str(n.target)]
+
+
+def test_flash_ops_trace_as_one_node_each():
+    """The three launches are `torch.library` custom ops: make_fx of a
+    forward records one `flash_fwd` node (fake tensors: nothing runs), a
+    forward + `torch.autograd.grad` records `flash_dq` and `flash_dkv`,
+    and the traced graphs give the eager values."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    c = _inputs("causal")
+    q, k, v = (torch.from_numpy(c[n]) for n in "qkv")
+
+    def fwd(q, k, v):
+        return fa.flash_attention_bhsd(q, k, v, causal=True)
+
+    gm = make_fx(fwd, tracing_mode="fake")(q, k, v)
+    assert _flash_targets(gm) == ["paddle_tpu_torch.flash_fwd.default"]
+    np.testing.assert_array_equal(gm(q, k, v).numpy(), fwd(q, k, v).numpy())
+
+    def fwd_bwd(q, k, v, do):
+        o = fa.flash_attention_bhsd(q, k, v, causal=True)
+        return torch.autograd.grad(o, (q, k, v), do)
+
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    do = torch.from_numpy(np.random.RandomState(1).randn(*q.shape)
+                          .astype(np.float32))
+    gm = make_fx(fwd_bwd, tracing_mode="fake")(qg, kg, vg, do)
+    assert sorted(_flash_targets(gm)) == [
+        "paddle_tpu_torch.flash_dkv.default",
+        "paddle_tpu_torch.flash_dq.default",
+        "paddle_tpu_torch.flash_fwd.default"]
+    for a, b in zip(gm(qg, kg, vg, do), fwd_bwd(qg, kg, vg, do)):
+        np.testing.assert_array_equal(a.detach().numpy(),
+                                      b.detach().numpy())
+
+
+def test_flash_op_exports_with_a_dynamic_batch():
+    """torch.export records the forward op (no autograd wrapper when no
+    input needs grad) over a dynamic batch; the exported module runs at
+    another batch size and gives the eager values; a seed tensor drawn
+    inside the program reaches the op."""
+    c = _inputs("dropout")
+    q = torch.from_numpy(c["q"])
+    q = torch.cat([q, q.flip(2)])          # batch 2: export pins 0 and 1
+
+    class M(torch.nn.Module):
+        def forward(self, q, k, v, seed):
+            return fa.flash_attention_bhsd(q, k, v, causal=True,
+                                           dropout_rate=0.1,
+                                           dropout_seed=seed)
+
+    seed = torch.tensor(SEED, dtype=torch.int64)
+    B = torch.export.Dim("B", min=1)
+    ep = torch.export.export(M(), (q, q, q, seed), strict=False,
+                             dynamic_shapes=({0: B}, {0: B}, {0: B}, None))
+    assert _flash_targets(ep.graph_module) == \
+        ["paddle_tpu_torch.flash_fwd.default"]
+    q3 = torch.cat([q, q[:1]])
+    np.testing.assert_array_equal(
+        ep.module()(q3, q3, q3, seed).numpy(),
+        M()(q3, q3, q3, seed).numpy())
+    # the op reads the tensor seed as the int the kernels take
+    with torch.no_grad():
+        got = fa.flash_attention_bhsd(q, q, q, causal=True, dropout_rate=0.1,
+                                      dropout_seed=seed)
+        want = fa.flash_attention_bhsd(q, q, q, causal=True,
+                                       dropout_rate=0.1, dropout_seed=SEED)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())

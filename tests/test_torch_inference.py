@@ -18,8 +18,8 @@
     "eager" on the CPU) and serves; a second process loads a Predictor
     whose streams equal the first's;
   * defaults: a Predictor runs on the card unless `disable_gpu()`, and
-    raises without CUDA; an artifact without `.gencfg` raises
-    NotImplementedError; a "tp" record builds the tensor-parallel engine
+    raises without CUDA; weights without a `.gencfg` or a program raise
+    FileNotFoundError; a "tp" record builds the tensor-parallel engine
     with no warning, and a record that fails to build raises from the
     constructor.
 """
@@ -271,13 +271,15 @@ def test_predictor_defaults_to_the_card(jax_artifacts):
 
 
 def test_artifact_without_a_record_raises(tmp_path):
+    """Weights with neither a `.gencfg` record nor a program raise; the
+    `jit.save` program of a Layer serves (tests/test_torch_jit.py)."""
     from paddle_tpu_torch.framework import io as tio
     tio.save({"params": {}, "buffers": {}, "feed_names": ["x"]},
              str(tmp_path / "layer.pdiparams"))
-    with pytest.raises(NotImplementedError, match="A.13"):
+    with pytest.raises(FileNotFoundError, match="neither"):
         _cpu_predictor(str(tmp_path / "layer"))
     with pytest.raises(FileNotFoundError):
-        Config(str(tmp_path))          # no .gencfg in the directory
+        Config(str(tmp_path))   # no .gencfg or .pdmodel in the directory
 
 
 def test_a_record_the_port_cannot_build_falls_back(models, tmp_path):

@@ -468,6 +468,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "        'paddle_tpu_torch.vision.datasets',\n"
             "        'paddle_tpu_torch.vision.transforms',\n"
             "        'paddle_tpu_torch.vision.ops',\n"
+            "        'paddle_tpu_torch.jit',\n"
+            "        'paddle_tpu_torch.jit.dy2static',\n"
+            "        'paddle_tpu_torch.static',\n"
+            "        'paddle_tpu_torch.static.ir_pass',\n"
+            "        'paddle_tpu_torch.static.nn',\n"
+            "        'paddle_tpu_torch.static.extras',\n"
+            "        'paddle_tpu_torch.static.amp',\n"
+            "        'paddle_tpu_torch.static.sparsity',\n"
+            "        'paddle_tpu_torch.onnx',\n"
+            "        'paddle_tpu_torch.distributed.passes',\n"
             "        'paddle_tpu_torch.vision.models',\n"
             "        'paddle_tpu_torch.vision.models.resnet',\n"
             "        'paddle_tpu_torch.vision.models.vgg',\n"

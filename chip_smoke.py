@@ -9,6 +9,7 @@
     python3 chip_smoke.py --hapi-only   # phases 1, 2 and 23
     python3 chip_smoke.py --text-only   # phases 1, 2 and 24
     python3 chip_smoke.py --jit-only    # phases 1, 2 and 25
+    python3 chip_smoke.py --dist-only   # phases 1, 2 and 26
 
 Phases (any exception ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -434,6 +435,29 @@ Phases (any exception ends the run with a non-zero exit):
      a tensor-dependent `while`, `break` and `if` on CUDA tensors
      against its eager Python run. `--jit-only` runs phases 1, 2 and
      25.
+ 26. the process layer and data parallelism (ROADMAP A.13f(i)): the
+     port's launcher (`python -m paddle_tpu_torch.distributed.launch`,
+     `--nproc_per_node 2 --devices 0`) starts two ranks of this script
+     (`--dist-child`) that join a gloo process group on the one card
+     (NCCL takes one rank a device); each rank writes JSON the parent
+     reads, and a failed rank fails the phase. (b) `all_reduce` SUM / MAX
+     / MIN / PROD / AVG (and SUM in bf16), `broadcast(src=1)`,
+     `all_gather`, `reduce_scatter`, `all_gather_object`, `barrier` and
+     the TCPStore across the two ranks on CUDA tensors, exact; then a
+     one-rank NCCL group's `all_reduce` and `broadcast` on the card.
+     (a) ResNet-50 `Model.train_batch` at a global batch of 128
+     (3x32x32, f32, phase 23's weights at lr 0.01, SyncBatchNorm), each
+     rank on its 64 rows; each of 5 steps held to the one-process step
+     from the same weights, optimizer state and batch (rank 0 runs it:
+     the loss within DIST_LOSS_RTOL, the update within
+     DIST_UPDATE_RTOL); then 5 timed steps: step ms, the gradient
+     all-reduce's ms and share of the step (102 MB of f32 through
+     gloo's host staging), kernels a step. (c) the
+     multi-controller `gpt_spmd` dp2 step at GPT-125M's widths (hidden
+     768, 12 heads, S=1024, vocab 50304, bf16, 2 layers, B=8), 3 steps,
+     one rank a process, held to the one-controller dp2 plan
+     (DIST_GPT_RTOL) and launching the flash kernels 2 x 3 times each in
+     each process. `--dist-only` runs phases 1, 2 and 26.
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -6141,9 +6165,11 @@ class _StepTimer:
         return T()
 
 
-def _resnet_model(pt, seed=23, wd=5e-4, lr=0.1):
+def _resnet_model(pt, seed=23, wd=5e-4, lr=0.1, sync_bn=False):
     pt.seed(seed)
     net = pt.vision.models.resnet50(num_classes=10)
+    if sync_bn:
+        net = pt.nn.SyncBatchNorm.convert_sync_batchnorm(net)
     model = pt.Model(net)
     model.prepare(pt.optimizer.Momentum(learning_rate=lr, momentum=0.9,
                                         parameters=net.parameters(),
@@ -7798,6 +7824,509 @@ def jit_phase(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the process layer and data parallelism (ROADMAP A.13f(i))
+# ---------------------------------------------------------------------------
+
+DIST_B = 128                    # (a): phase 23's global batch, 64 a rank
+DIST_STEPS = 5                  # (a): steps held to the one-process step
+DIST_SEED = 26
+# (a): phase 23 (a)'s weights and optimizer at lr 0.01: at its lr 0.1 the
+# loss on random labels diverges (3.73 -> 48.2 in 5 steps on the card,
+# PERF.md), which grows any rounding difference without bound
+DIST_LR = 0.01
+# (a): each dp2 step against the one-process step from the same weights,
+# optimizer state and batch (the two never drift apart: a 1e-6 change of
+# the input moves ResNet-50's second loss by 3.6% on random labels, and
+# the two paths' rounding differs). The loss, |a - b| / |b|: the forward
+# differs by the statistics' sum and sum of squares against the two-pass
+# variance and by the convolutions' order at B=64 against B=128; the CPU
+# read 5e-7 to 6.9e-6. The update, ||p_dp - p_one|| / ||p_one - p_before||
+# over every parameter: the CPU read 0.0024 to 0.021 (the same step in
+# float64 statistics 0.006 to 0.014; the backward of BatchNorm over
+# 128 values at layer4's 1x1 maps amplifies rounding); a gradient summed
+# where it should be averaged reads 1.0
+DIST_LOSS_RTOL = 1e-4
+DIST_UPDATE_RTOL = 0.1
+DIST_GPT = dict(vocab_size=50304, max_seq_len=1024, hidden=768, layers=2,
+                heads=12)       # (c): GPT-125M's widths, 2 layers
+DIST_GPT_B, DIST_GPT_STEPS = 8, 3
+DIST_GPT_RTOL = 1e-5            # (c): the same sums in the same order
+DIST_CHILD_S = 900              # a launch of ranks, imports and builds in
+DIST_CHILD_SCRIPT = os.path.join(ROOT, "chip_smoke.py")
+
+
+def _dist_batches(B, steps, seed=DIST_SEED):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return [(rng.rand(B, 3, 32, 32).astype("float32"),
+             rng.randint(0, 10, (B,)).astype("int64"))
+            for _ in range(steps)]
+
+
+def _dist_gpt(B=DIST_GPT_B, steps=DIST_GPT_STEPS, seed=DIST_SEED):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.parallel import GPTSpmdConfig
+    cfg = GPTSpmdConfig(**DIST_GPT, param_dtype="bfloat16",
+                        compute_dtype="bfloat16", remat=False)
+    rng = np.random.RandomState(seed)
+    shape = (B, cfg.max_seq_len)
+    data = [(torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda(),
+             torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda())
+            for _ in range(steps)]
+    return cfg, data
+
+
+def dist_child_collectives(pt, rec):
+    """Phase 26 (b), in each rank: the eager collectives over the gloo
+    group on CUDA tensors and the TCPStore, with their exact values."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.core.device import current_device
+    D = pt.distributed
+    me, n = D.get_rank(), D.get_world_size()
+    dev = current_device()
+
+    def full(v, k=3, dt="float32"):
+        return pt.to_tensor(np.full((k,), v, dt), place="gpu")
+    got = {}
+    for op, dt, v in (("SUM", "float32", me + 1.0), ("MAX", "float32",
+                                                      me + 1.0),
+                      ("MIN", "float32", me + 1.0), ("PROD", "int64", me + 2),
+                      ("AVG", "float32", me + 1.0), ("SUM", "bfloat16",
+                                                      me + 1.0)):
+        t = full(v, dt=dt) if dt != "bfloat16" else \
+            full(v).astype("bfloat16")
+        D.all_reduce(t, getattr(D.ReduceOp, op))
+        if t._data.device != dev:
+            raise AssertionError(f"phase 26 (b): all_reduce {op} left "
+                                 f"{dev} for {t._data.device}")
+        got[f"all_reduce_{op}_{dt}"] = t.astype("float32").numpy().tolist()
+    b = full(10.0 * (me + 1), 2)
+    D.broadcast(b, src=1)
+    got["broadcast_src1"] = b.numpy().tolist()
+    parts = []
+    D.all_gather(parts, full(float(me), 2))
+    got["all_gather"] = [p.numpy().tolist() for p in parts]
+    got["reduce_scatter"] = D.reduce_scatter(pt.to_tensor(
+        np.arange(4, dtype="float32") * (me + 1), place="gpu")).numpy() \
+        .tolist()
+    objs = []
+    D.all_gather_object(objs, {"rank": me, "card": torch.cuda.current_device()})
+    got["all_gather_object"] = objs
+    D.barrier()
+    store = D.TCPStore(is_master=True, world_size=n) if me == 0 else None
+    port = [None] * n
+    torch.distributed.all_gather_object(port, store.port if store else None)
+    if store is None:
+        store = D.TCPStore(port=port[0], world_size=n)
+    store.set(f"k{me}", f"v{me}")
+    adds = store.add("count", 1)
+    store.barrier("phase26")
+    got["store"] = [store.get(f"k{1 - me}").decode(), adds]
+    D.barrier()                 # every rank done with the store: rank 0's
+    store.stop()                # server may go
+    want = {"all_reduce_SUM_float32": [3.0] * 3,
+            "all_reduce_MAX_float32": [2.0] * 3,
+            "all_reduce_MIN_float32": [1.0] * 3,
+            "all_reduce_PROD_int64": [6.0] * 3,
+            "all_reduce_AVG_float32": [1.5] * 3,
+            "all_reduce_SUM_bfloat16": [3.0] * 3,
+            "broadcast_src1": [20.0] * 2,
+            "all_gather": [[0.0, 0.0], [1.0, 1.0]],
+            "reduce_scatter": [[0.0, 3.0], [6.0, 9.0]][me],
+            "all_gather_object": [{"rank": 0, "card": 0},
+                                  {"rank": 1, "card": 0}]}
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if bad or got["store"][0] != f"v{1 - me}":
+        raise AssertionError(f"phase 26 (b) rank {me}: {bad or got['store']}")
+    rec["collectives"] = got
+
+
+def _tree_clone(state):
+    import torch
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                    else t, state)
+
+
+def dist_child_resnet(pt, rec, out_dir):
+    """Phase 26 (a), in each rank: ResNet-50 `Model.train_batch` on this
+    rank's 64 rows of each global batch (the dp route, SyncBatchNorm).
+    For DIST_STEPS steps rank 0 first runs the one-process step (phase
+    23's model, plain BatchNorm, no mesh) from the dp model's weights and
+    optimizer state on the whole batch, and holds the dp step's loss and
+    update to it; then DIST_STEPS timed steps with the gradient
+    all-reduce timed inside each, and one step under a device capture."""
+    import torch
+    from paddle_tpu_torch.distributed import collective as dc
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.observability import deviceprof
+    me = pt.distributed.get_rank()
+    model = _resnet_model(pt, lr=DIST_LR, sync_bn=True)
+    mesh = env.get_mesh()
+    if model._dp_mesh() is not mesh or mesh.dims != {"dp": 2}:
+        raise AssertionError(f"phase 26 (a): the dp route is off "
+                             f"({mesh and mesh.dims})")
+    ref = _resnet_model(pt, lr=DIST_LR) if me == 0 else None
+    batches = _dist_batches(DIST_B, DIST_STEPS)
+    losses, ref_losses, ref_ms, upd_err = [], [], [], []
+    for x, y in batches:
+        if ref is not None:
+            before = {k: v._data.clone()
+                      for k, v in model.network.state_dict().items()}
+            ref.network.set_state_dict(before)
+            ref._opt_state = _tree_clone(model._opt_state)
+            env.set_mesh(None)          # the plain one-process step
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref_losses.append(ref.train_batch([x], [y])[0][0])
+                ref_ms.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                env.set_mesh(mesh)
+        pt.distributed.barrier()
+        losses.append(model.train_batch([x], [y])[0][0])
+        if ref is not None:
+            num = den = 0.0
+            got = model.network.state_dict()
+            for k, v in ref.network.state_dict().items():
+                if k.endswith(("_mean", "_variance")):
+                    continue
+                want, b = v._data.double(), before[k].double()
+                num += float(((got[k]._data.double() - want) ** 2).sum())
+                den += float(((want - b) ** 2).sum())
+            upd_err.append((num / den) ** 0.5)
+    # the timed steps: the gradient all-reduce, and apart from it every
+    # other reduction across the processes (the BatchNorms' statistics,
+    # forward and backward), each timed from a synchronized card
+    ar_ms, grad_bytes, comm = [], [], []
+    inner, inner_reduce = dc.all_reduce_mean_, dc._world_reduce
+    in_grads = []
+
+    def timed_all_reduce(ts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        in_grads.append(True)
+        try:
+            out = inner(ts)
+        finally:
+            in_grads.pop()
+        torch.cuda.synchronize()
+        ar_ms.append((time.perf_counter() - t0) * 1e3)
+        grad_bytes.append(sum(t.numel() * 4 for t in ts))
+        return out
+
+    def timed_reduce(x, op):
+        if in_grads:
+            return inner_reduce(x, op)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner_reduce(x, op)
+        torch.cuda.synchronize()
+        comm.append((time.perf_counter() - t0) * 1e3)
+        return out
+    dc.all_reduce_mean_, dc._world_reduce = timed_all_reduce, timed_reduce
+    step_ms, comm_ms, comm_calls = [], [], []
+    try:
+        for x, y in batches:
+            pt.distributed.barrier()
+            torch.cuda.synchronize()
+            del comm[:]
+            t0 = time.perf_counter()
+            model.train_batch([x], [y])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            comm_ms.append(sum(comm))
+            comm_calls.append(len(comm))
+    finally:
+        dc.all_reduce_mean_, dc._world_reduce = inner, inner_reduce
+    _, prof = deviceprof.capture(
+        lambda: model.train_batch([batches[0][0]], [batches[0][1]]),
+        out_dir, iters=1, label="phase26_resnet50")
+    rec["resnet"] = {"losses": losses, "one_process_losses": ref_losses,
+                     "one_process_step_ms": ref_ms, "update_rel_err": upd_err,
+                     "step_ms": step_ms, "allreduce_ms": ar_ms[:DIST_STEPS],
+                     "comm_ms": comm_ms, "comm_calls": comm_calls,
+                     "grad_bytes": grad_bytes[0],
+                     "kernels_per_step": prof["n_events"],
+                     "device_busy_ms": prof["total_device_ms"],
+                     "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def dist_child_gpt(pt, rec):
+    """Phase 26 (c), in each rank: the multi-controller `gpt_spmd` dp2
+    step (this process drives one rank), its flash launches counted."""
+    import torch
+    from paddle_tpu_torch.parallel import MeshPlan, make_train_step
+    cfg, data = _dist_gpt()
+    step_fn, init_fn = make_train_step(cfg, MeshPlan(dp=2), device="cuda",
+                                       learning_rate=1e-3)
+    params, state = init_fn(DIST_SEED)
+    if len(params["wte"]) != 1:
+        raise AssertionError("phase 26 (c): a process holds "
+                             f"{len(params['wte'])} ranks, want 1")
+    c0 = _flash_counts()
+    losses, step_ms = [], []
+    for toks, labs in data:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, params, state = step_fn(params, state, toks, labs)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    c1 = _flash_counts()
+    rec["gpt"] = {"losses": losses, "step_ms": step_ms,
+                  "flash_launches": {k: b - a for k, a, b in
+                                     zip(("fwd", "dq", "dkv"), c0, c1)},
+                  "wte_sum": float(params["wte"][0].detach().double().sum())}
+
+
+def dist_child_nccl(rec):
+    """Phase 26 (b), the one-rank NCCL group: the port's all_reduce and
+    broadcast on the card through the nccl backend."""
+    import socket
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    calls = []
+    for name in ("all_reduce", "broadcast"):
+        fn = getattr(torch.distributed, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls.append(_name)
+            return _fn(*a, **k)
+        setattr(torch.distributed, name, counted)
+    t = pt.to_tensor(np.arange(4, dtype="float32") + 1, place="gpu")
+    pt.distributed.all_reduce(t)
+    pt.distributed.broadcast(t, src=0)
+    torch.cuda.synchronize()
+    rec["nccl"] = {"backend": pt.distributed.get_backend(),
+                   "values": t.numpy().tolist(), "calls": calls}
+    if rec["nccl"] != {"backend": "nccl", "values": [1.0, 2.0, 3.0, 4.0],
+                       "calls": ["all_reduce", "broadcast"]}:
+        raise AssertionError(f"phase 26 (b) nccl: {rec['nccl']}")
+    torch.distributed.destroy_process_group()
+
+
+def dist_child(arm, out_dir):
+    """A rank of phase 26, started by the port's launcher (`--dist-child
+    ARM DIR`); writes DIR/ARM_rank<r>.json."""
+    import faulthandler
+    faulthandler.dump_traceback_later(DIST_CHILD_S, exit=True)
+    sys.path.insert(0, ROOT)
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = {"pid": os.getpid()}
+    if arm == "nccl":
+        dist_child_nccl(rec)
+        me = 0
+    else:
+        import paddle_tpu_torch as pt
+        pt.distributed.init_parallel_env(backend="gloo")
+        me = pt.distributed.get_rank()
+        rec.update(rank=me, world=pt.distributed.get_world_size(),
+                   backend=pt.distributed.get_backend(),
+                   device=str(torch.cuda.current_device()))
+        dist_child_collectives(pt, rec)
+        dist_child_resnet(pt, rec, os.path.join(out_dir, f"capture{me}"))
+        torch.cuda.empty_cache()
+        dist_child_gpt(pt, rec)
+        pt.distributed.destroy_process_group()
+    with open(os.path.join(out_dir, f"{arm}_rank{me}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def dist_launch(arm, nproc, out_dir, log_dir):
+    """Start `nproc` ranks of `dist_child(arm)` through `python -m
+    paddle_tpu_torch.distributed.launch`, in a session of their own that
+    is killed whole at the end; returns the ranks' records."""
+    import signal
+    os.makedirs(out_dir, exist_ok=True)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(nproc), "--devices", "0",
+           "--log_dir", os.path.join(log_dir, arm),
+           DIST_CHILD_SCRIPT, "--dist-child", arm, out_dir]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=ROOT, env=env, start_new_session=True)
+    try:
+        rc = p.wait(timeout=DIST_CHILD_S + 60)
+    except subprocess.TimeoutExpired:
+        rc = "timeout"
+    finally:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        p.wait()
+    if rc != 0:
+        tails = []
+        for r in range(nproc):
+            path = os.path.join(log_dir, arm, f"workerlog.{r}")
+            if os.path.exists(path):
+                with open(path) as f:
+                    tails.append(f"--- rank {r} ---\n{f.read()[-3000:]}")
+        raise AssertionError(f"phase 26 ({arm}): the launch exited {rc}\n"
+                             + "\n".join(tails))
+    recs = []
+    for r in range(nproc):
+        with open(os.path.join(out_dir, f"{arm}_rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs, time.perf_counter() - t0
+
+
+def _rel_err(got, want):
+    return max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(got, want))
+
+
+def dist_phase(smi):
+    """Phase 26: (a) ResNet-50 `Model.train_batch` as a dp2 job of two
+    processes on the one card over gloo, held to the one-process step;
+    (b) the eager collectives on CUDA tensors and a one-rank NCCL group;
+    (c) the multi-controller `gpt_spmd` dp2 step at GPT-125M's widths,
+    held to the one-controller dp2 plan, with its flash launches."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.parallel import MeshPlan, make_train_step
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "phase26")
+    log_dir = os.path.join(ROOT, "chiprun_out", "phase26")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(log_dir, exist_ok=True)
+    rec = {"card": smi}
+
+    # (c)'s one-controller reference, on the same weights and batches
+    cfg, data = _dist_gpt()
+    step_fn, init_fn = make_train_step(cfg, MeshPlan(dp=2), device="cuda",
+                                       learning_rate=1e-3)
+    params, state = init_fn(DIST_SEED)
+    c0 = _flash_counts()
+    gpt_ref = []
+    for toks, labs in data:
+        loss, params, state = step_fn(params, state, toks, labs)
+        gpt_ref.append(float(loss))
+    c1 = _flash_counts()
+    gpt_ref_sum = float(params["wte"][0].detach().double().sum())
+    ref_flash = [b - a for a, b in zip(c0, c1)]
+    del params, state, step_fn, init_fn
+    torch.cuda.empty_cache()
+
+    # the two-process job and the one-rank NCCL group
+    ranks, launch_s = dist_launch("gloo", 2, work, log_dir)
+    nccl, nccl_s = dist_launch("nccl", 1, work, log_dir)
+    rec.update(launch_s=launch_s, nccl_launch_s=nccl_s, nccl=nccl[0]["nccl"],
+               collectives=ranks[0]["collectives"])
+    for r, rr in enumerate(ranks):
+        if (rr["rank"], rr["world"], rr["backend"], rr["device"]) != \
+                (r, 2, "gloo", "0"):
+            raise AssertionError(f"phase 26: rank {r} reads {rr}")
+    log(f"dist launch: 2 ranks (gloo, both on card 0) through "
+        f"`python -m paddle_tpu_torch.distributed.launch` in "
+        f"{launch_s:.1f} s; the one-rank nccl group in {nccl_s:.1f} s "
+        f"(backend {nccl[0]['nccl']['backend']}, "
+        f"{nccl[0]['nccl']['calls']}) [{smi}]")
+    log(f"dist collectives on CUDA tensors over the gloo group: "
+        f"{sorted(ranks[0]['collectives'])} exact on both ranks [{smi}]")
+
+    # (a) ResNet-50 dp2 against the one-process step
+    a = [rr["resnet"] for rr in ranks]
+    a0 = a[0]
+    if a[1]["losses"] != a0["losses"]:
+        raise AssertionError(f"phase 26 (a): the ranks' losses differ: "
+                             f"{a0['losses']} / {a[1]['losses']}")
+    loss_err = [abs(d - o) / abs(o) for d, o in
+                zip(a0["losses"], a0["one_process_losses"])]
+    if max(loss_err) > DIST_LOSS_RTOL or \
+            max(a0["update_rel_err"]) > DIST_UPDATE_RTOL:
+        raise AssertionError(
+            f"phase 26 (a): dp2 losses {a0['losses']} against the "
+            f"one-process step {a0['one_process_losses']} (rel err "
+            f"{loss_err}, limit {DIST_LOSS_RTOL}); update rel err "
+            f"{a0['update_rel_err']} (limit {DIST_UPDATE_RTOL})")
+    steps = [ms for ar in a for ms in ar["step_ms"][1:]]
+    ars = [ms for ar in a for ms in ar["allreduce_ms"][1:]]
+    bn = [c for ar in a for c in ar["comm_ms"][1:]]
+    share = [x / s for ar in a for x, s in zip(ar["allreduce_ms"][1:],
+                                               ar["step_ms"][1:])]
+    rec["resnet"] = {
+        "ranks": a, "loss_rel_err": loss_err,
+        "update_rel_err": a0["update_rel_err"],
+        "step_ms_quartiles": quartiles(steps),
+        "allreduce_ms_quartiles": quartiles(ars),
+        "allreduce_share_quartiles": quartiles(share),
+        "bn_sync_ms_quartiles": quartiles(bn),
+        "comm_calls_per_step": a0["comm_calls"][-1],
+        "one_process_step_ms_quartiles": quartiles(
+            a0["one_process_step_ms"][1:])}
+    q, qa, qs = (rec["resnet"][k] for k in (
+        "step_ms_quartiles", "allreduce_ms_quartiles",
+        "allreduce_share_quartiles"))
+    log(f"dist resnet50 dp2 (2 processes, 1 card, gloo, B={DIST_B} global, "
+        f"f32, SyncBatchNorm route, lr {DIST_LR}): losses "
+        f"{[round(v, 6) for v in a0['losses']]}, each step against the "
+        f"one-process step from the same state: loss rel err "
+        f"{max(loss_err):.3g}, update rel err "
+        f"{max(a0['update_rel_err']):.3g}; step ms p25/p50/p75 "
+        + "/".join(f"{v:.2f}" for v in q) + " (one process "
+        + "/".join(f"{v:.2f}" for v in
+                   rec["resnet"]["one_process_step_ms_quartiles"])
+        + "); gradient all-reduce "
+        f"({a0['grad_bytes'] / 1e6:.1f} MB f32 a step through gloo's host "
+        f"staging) ms " + "/".join(f"{v:.2f}" for v in qa)
+        + ", share of the step " + "/".join(f"{v:.3f}" for v in qs)
+        + "; the other reductions across the processes (the BatchNorms' "
+        "statistics forward and backward, and the loss: "
+        f"{rec['resnet']['comm_calls_per_step']} a step, each from a "
+        "synchronized card) ms " + "/".join(
+            f"{v:.2f}" for v in rec["resnet"]["bn_sync_ms_quartiles"])
+        + f"; {a0['kernels_per_step']} / {a[1]['kernels_per_step']} kernels "
+        f"a step, device busy {a0['device_busy_ms']:.2f} / "
+        f"{a[1]['device_busy_ms']:.2f} ms (ranks 0 / 1); peak "
+        f"{a0['peak_gb']:.2f} / {a[1]['peak_gb']:.2f} GB [{smi}]")
+
+    # (c) the multi-controller gpt_spmd dp2 step
+    c = [rr["gpt"] for rr in ranks]
+    per_rank = cfg.layers * DIST_GPT_STEPS      # one rank a process
+    if ref_flash != [2 * per_rank] * 3:
+        raise AssertionError(f"phase 26 (c): the one-controller plan "
+                             f"launched {ref_flash}, want {2 * per_rank} each")
+    for r, cr in enumerate(c):
+        err = _rel_err(cr["losses"], gpt_ref)
+        fl = cr["flash_launches"]
+        if err > DIST_GPT_RTOL or abs(cr["wte_sum"] - gpt_ref_sum) > \
+                DIST_GPT_RTOL * abs(gpt_ref_sum) + 1e-6:
+            raise AssertionError(
+                f"phase 26 (c) rank {r}: losses {cr['losses']} vs "
+                f"{gpt_ref} ({err:.3g}), wte sum {cr['wte_sum']} vs "
+                f"{gpt_ref_sum}")
+        if fl != {"fwd": per_rank, "dq": per_rank, "dkv": per_rank}:
+            raise AssertionError(f"phase 26 (c) rank {r}: flash launches "
+                                 f"{fl}, want {per_rank} each")
+    rec["gpt"] = {"ranks": c, "one_controller_losses": gpt_ref,
+                  "one_controller_flash": ref_flash,
+                  "loss_rel_err": max(_rel_err(cr["losses"], gpt_ref)
+                                      for cr in c)}
+    log(f"dist gpt_spmd dp2 multi-controller (GPT-125M widths, 2 layers, "
+        f"bf16, B={DIST_GPT_B}, S=1024, 2 processes on 1 card): losses "
+        f"{c[0]['losses']} vs one controller {gpt_ref}, worst rel err "
+        f"{rec['gpt']['loss_rel_err']:.3g}; step ms "
+        f"{[round(v, 1) for v in c[0]['step_ms']]}; flash launches "
+        f"{c[0]['flash_launches']} / {c[1]['flash_launches']} (ranks 0 / 1) "
+        f"[{smi}]")
+    shutil.rmtree(work, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 26 took {rec['seconds']:.1f} s [{smi}]")
+    return rec
+
+
 def main(argv):
     flash_only = "--flash-only" in argv
     parallel_only = "--parallel-only" in argv
@@ -7807,6 +8336,7 @@ def main(argv):
     hapi_only = "--hapi-only" in argv
     text_only = "--text-only" in argv
     jit_only = "--jit-only" in argv
+    dist_only = "--dist-only" in argv
     try:
         import torch
     except ImportError:
@@ -7821,6 +8351,9 @@ def main(argv):
               "(paddle_tpu_torch/ not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if "--dist-child" in argv:
+        i = argv.index("--dist-child")
+        return dist_child(argv[i + 1], argv[i + 2])
     t_start = time.perf_counter()
     report = {}
 
@@ -7858,6 +8391,14 @@ def main(argv):
             f"{r['registers']} registers, "
             f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
             f"spill loads, {r['smem_dynamic']} B dynamic shared memory")
+    if dist_only:
+        # phase 26 alone
+        report["dist"] = dist_phase(smi)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out",
+                               "chip_smoke_dist.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        return 0
     if jit_only:
         # phase 25 alone
         report["jit"] = jit_phase(smi)
@@ -8185,6 +8726,11 @@ def main(argv):
     torch.cuda.empty_cache()
     report["jit"] = jit_phase(smi)
 
+    # 26. the process layer and data parallelism: dp2 in two processes -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["dist"] = dist_phase(smi)
+
     # summary ------------------------------------------------------------------------
     # every kernel's max_abs_err covers phase 3's cases and phase 24's at
     # the other head dims and dtypes
@@ -8236,8 +8782,11 @@ def main(argv):
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces,
-            # phase 8's step, and for the forward phase 25's programs
+            # phase 8's step, phase 26 (c)'s two processes, and for the
+            # forward phase 25's programs
             "launches": report["train"]["launches"][which]
+            + sum(r["flash_launches"][which]
+                  for r in report["dist"]["gpt"]["ranks"])
             + (report["jit"]["launches_fwd"] if which == "fwd" else 0),
             "max_abs_err": max(c["max_abs_err"][o] for c in
                                flash_cases + report["text"]["c"]["flash"]

@@ -48,7 +48,10 @@ neither it nor JAX. Its slices so far:
     the dy2static transpiler over `torch.fx` graphs, `jit.save` /
     `jit.load` of `torch.export` programs (which the `inference`
     Predictor serves), `static.Program` / `Executor` / the IR passes,
-    and `static.nn`.
+    and `static.nn`;
+  * `distributed`: the process group and the mesh of ranks (`env`), the
+    collectives, `TCPStore` over the port's `kvstore.cc`, the launcher
+    and elastic relaunch, `DataParallel`, and `Model`'s dp route.
 
 Exports of the eager core at this level: `Tensor`, `Parameter`,
 `to_tensor`, every op of `tensor` (`add`, `matmul`, `reshape`, `topk`,
@@ -72,7 +75,8 @@ from . import amp, nn, optimizer, regularizer  # noqa: F401
 from . import callbacks, io, metric, native, reader, vision  # noqa: F401
 from . import audio, fft, signal  # noqa: F401
 from . import jit, onnx, static  # noqa: F401
-from .distributed import passes as _passes  # noqa: F401
+from . import distributed  # noqa: F401
+from .distributed import DataParallel  # noqa: F401
 from .jit import to_static  # noqa: F401
 from .batch import batch  # noqa: F401
 from .hapi import Model, flops, summary  # noqa: F401
@@ -104,6 +108,7 @@ __all__ = ["core", "cost_model", "framework", "inference", "observability",
            "tensor", "nn", "optimizer", "amp", "regularizer", "io",
            "metric", "vision", "callbacks", "native", "reader", "batch",
            "fft", "signal", "audio", "jit", "static", "onnx", "to_static",
+           "distributed", "DataParallel",
            "Model", "summary", "flops", "grad", "CPUPlace", "CUDAPlace", "Parameter", "Tensor",
            "bfloat16", "bool_", "complex64", "complex128", "enable_grad",
            "float16", "float32", "float64", "get_default_dtype",

@@ -1,21 +1,75 @@
-"""Distributed pieces of the port (counterpart of `paddle_tpu.distributed`).
+"""paddle.distributed of the port (counterpart of `paddle_tpu.distributed`).
 
-  checkpoint.py — state-dict checkpoints in the JAX package's layout,
-                  committed through `framework.ckpt_commit`
-  ps/rpc.py     — the RPC fabric: framing, extension verbs, retries,
-                  circuit breakers, in-band error frames; the serving
-                  fleet's verbs ride it
-  passes.py     — `new_pass` / `PassManager` / `PassContext` over the
-                  program rewrites of `static.ir_pass` (imported on
-                  first use: it needs `static`)
+  env.py         — the process group (`init_parallel_env` over the
+                   launcher's PADDLE_* variables), the mesh of ranks
+                   (`build_mesh`: a `parallel.collectives.RankGrid`,
+                   one block of ranks a process) and the live-axis
+                   contexts
+  collective.py  — the collectives across processes (`torch.distributed`),
+                   in a one-controller manual region (the list
+                   collectives of `parallel/collectives.py`) and eagerly
+                   over a one-process mesh axis; `communication.stream`
+                   and `comm_extras.py` complete the namespace
+  store.py       — `TCPStore` over the port's `native/src/kvstore.cc`
+  launch/        — `python -m paddle_tpu_torch.distributed.launch`;
+                   `fleet/elastic` relaunches a failed job
+  parallel_layers.py — `DataParallel`
+  checkpoint.py  — state-dict checkpoints in the JAX package's layout,
+                   committed through `framework.ckpt_commit`
+  ps/rpc.py      — the RPC fabric the serving fleet's verbs ride
+  passes.py      — `new_pass` / `PassManager` / `PassContext` over the
+                   program rewrites of `static.ir_pass`
 
-The parameter-server tables and the graph verbs wait for ROADMAP A.13.
-The collectives are `parallel/collectives.py`; re-slicing a checkpoint
-across plans is `checkpoint.load_state_dict(plan=)`.
+Fleet's hybrid parallelism (`fleet.init`, the mp layers behind `split`,
+`meta_parallel`, `sharding`, `auto_parallel`) comes with ROADMAP
+A.13f(ii); the parameter-server tables with A.13g.
 """
 from . import checkpoint  # noqa: F401
+from . import env  # noqa: F401
+from . import fleet  # noqa: F401
+from . import communication  # noqa: F401
 from .checkpoint import (CheckpointCorruptError,  # noqa: F401
                          load_state_dict, save_state_dict)
+from .collective import (  # noqa: F401
+    Group, ReduceOp, all_gather, all_gather_concat, all_reduce, alltoall,
+    alltoall_single, barrier, broadcast, destroy_process_group, get_backend,
+    get_group, is_initialized, new_group, p2p_shift, recv, reduce,
+    reduce_scatter, scatter, send, wait,
+)
+from .env import (  # noqa: F401
+    ParallelEnv, build_mesh, get_mesh, get_rank, get_world_size,
+    init_parallel_env, set_mesh,
+)
+from .parallel_layers import DataParallel  # noqa: F401
+from .store import TCPStore  # noqa: F401
+from .comm_extras import (  # noqa: F401
+    CountFilterEntry, InMemoryDataset, ParallelMode, ProbabilityEntry,
+    QueueDataset, ShowClickEntry, all_gather_object, gloo_barrier,
+    gloo_init_parallel_env, gloo_release, irecv, isend, split)
 
-__all__ = ["checkpoint", "load_state_dict", "save_state_dict",
-           "CheckpointCorruptError"]
+__all__ = [
+    "checkpoint", "env", "fleet", "communication", "load_state_dict",
+    "save_state_dict", "CheckpointCorruptError", "Group", "ReduceOp",
+    "all_gather", "all_gather_concat", "all_reduce", "alltoall",
+    "alltoall_single", "barrier", "broadcast", "destroy_process_group",
+    "get_backend", "get_group", "is_initialized", "new_group", "p2p_shift",
+    "recv", "reduce", "reduce_scatter", "scatter", "send", "wait",
+    "ParallelEnv", "build_mesh", "get_mesh", "get_rank", "get_world_size",
+    "init_parallel_env", "set_mesh", "DataParallel", "TCPStore",
+    "CountFilterEntry", "InMemoryDataset", "ParallelMode",
+    "ProbabilityEntry", "QueueDataset", "ShowClickEntry",
+    "all_gather_object", "gloo_barrier", "gloo_init_parallel_env",
+    "gloo_release", "irecv", "isend", "split", "spawn", "launch"]
+
+
+def spawn(func, args=(), nprocs=-1, join=True, daemon=False, **options):
+    """paddle.distributed.spawn (reference: distributed/__init__.py:27-38):
+    `init_parallel_env()` and then `func(*args)` once in this process, as
+    the reference does. Start one process a rank with `launch`."""
+    init_parallel_env()
+    func(*args)
+
+
+def launch():
+    from .launch.main import main
+    main()

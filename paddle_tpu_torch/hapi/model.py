@@ -24,11 +24,27 @@ Spans, while the port's profiler records: `Model.train_batch.fused_step`
 read), `Model.train_batch.write_back` (Optimization) and
 `Model.eval_batch` (Forward).
 
-The reference's mesh routes (dp / mp through `distributed.env.get_mesh()`,
-pp through the compiled pipeline) come with the port's `distributed.env`
-(ROADMAP A.13f); until then `Model` takes the single-device path, which
-is the reference's path when no mesh is set.
+The dp route. With a mesh whose "dp" (or "mp") axis is above 1
+(`_dp_mesh()`), the reference compiles one GSPMD program with the batch
+sharded over dp: its loss, gradients and BatchNorm statistics are the
+global batch's. The port reproduces that step:
+  * under a process group (one block of ranks a process), every process
+    passes the same global batch and computes its own ranks' rows; every
+    BatchNorm in the step reduces its statistics over the processes
+    (`distributed.env.global_batch`), the gradients are mean-all-reduced
+    before the update, the loss is the processes' mean and the outputs
+    the metrics read are gathered: the single-process step, computed in
+    parts;
+  * on a one-process mesh the one controller computes that same global
+    step, which is the plain step (it gains nothing on one card:
+    ROADMAP C.21).
+A batch whose leading size does not split over dp takes the plain step in
+every process (`_train_step_plain` records it), as in the reference. The
+mp half of the route (fleet's `split_axis` parameters) and the pp route
+come with ROADMAP A.13f(ii); a mesh with pp > 1, or with mp > 1 under a
+process group, raises.
 """
+import contextlib
 import os
 
 import numpy as np
@@ -57,12 +73,13 @@ class Model:
         self._metrics = []
         self._opt_state = None
         self._strategy = {}
+        self._train_step_plain = None
         self.stop_training = False
 
     # ---------------------------------------------------------------- prep
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None, strategy=None):
-        """`strategy` is kept for the pipeline route (ROADMAP A.13f)."""
+        """`strategy` is kept for the pipeline route (ROADMAP A.13f(ii))."""
         self._optimizer = optimizer
         self._loss = loss
         if metrics is None:
@@ -109,29 +126,70 @@ class Model:
             out.append(t.detach().to(dev, non_blocking=True))
         return tuple(out)
 
-    def _train_step(self, params, buffers, in_raw, lab_raw, lr):
+    @staticmethod
+    def _dp_mesh():
+        """The installed mesh when its dp or mp axis is above 1 (the
+        reference's `_hybrid_mesh`), else None."""
+        from ..distributed import env
+        mesh = env.get_mesh()
+        if mesh is None:
+            return None
+        if mesh.dims.get("pp", 1) > 1:
+            raise NotImplementedError(
+                "Model over a mesh with pp > 1 (the compiled pipeline "
+                "route) comes with ROADMAP A.13f(ii)")
+        useful = any(mesh.dims.get(a, 1) > 1 for a in ("dp", "mp"))
+        return mesh if useful else None
+
+    @staticmethod
+    def _rows(raws, mesh):
+        """This process's block of rows of each global-batch tensor."""
+        out = []
+        for t in raws:
+            per = t.shape[0] // mesh.nproc
+            out.append(t[mesh.proc * per:(mesh.proc + 1) * per])
+        return tuple(out)
+
+    def _train_step(self, params, buffers, in_raw, lab_raw, lr, mesh=None):
+        """One step. `mesh`: split over processes, this process computes
+        its rows of the global batch (the dp route)."""
+        from ..distributed import collective as dc
+        from ..distributed import env
+        if mesh is not None:
+            in_raw, lab_raw = self._rows(in_raw, mesh), \
+                self._rows(lab_raw, mesh)
         names = [n for n, p in params.items() if p.requires_grad]
-        outputs, new_buffers = functional_call(
-            self.network, params, buffers,
-            args=tuple(_wrap(i) for i in in_raw), train=True)
-        loss = self._compute_loss(outputs, tuple(_wrap(v) for v in lab_raw))
-        got = torch.autograd.grad(loss._data, [params[n] for n in names],
-                                  allow_unused=True)
+        scope = env.global_batch() if mesh is not None \
+            else contextlib.nullcontext()
+        with scope:
+            outputs, new_buffers = functional_call(
+                self.network, params, buffers,
+                args=tuple(_wrap(i) for i in in_raw), train=True)
+            loss = self._compute_loss(outputs,
+                                      tuple(_wrap(v) for v in lab_raw))
+            got = torch.autograd.grad(loss._data,
+                                      [params[n] for n in names],
+                                      allow_unused=True)
+        raw_outs = [o._data.detach() for o in _as_list(outputs)]
+        loss_d = loss._data.detach()
+        if mesh is not None:
+            dc.all_reduce_mean_([g for g in got if g is not None])
+            loss_d = dc._world_reduce(loss_d, dc.ReduceOp.AVG)
+            raw_outs = [torch.cat(dc._world_gather(o)) for o in raw_outs]
         grads = {n: None for n in params}
         grads.update(zip(names, got))
         with torch.no_grad():
             new_params, new_opt_state = \
                 self._optimizer.apply_gradients_functional(
                     params, grads, self._opt_state, lr=lr)
-        raw_outs = [o._data.detach() for o in _as_list(outputs)]
-        return loss._data.detach(), new_params, new_buffers, new_opt_state, \
-            raw_outs
+        return loss_d, new_params, new_buffers, new_opt_state, raw_outs
 
     def train_batch(self, inputs, labels=None, update=True):
         dev = self._device()
         in_raw = self._raw(_as_list(inputs), dev)
         lab_raw = self._raw(None if labels is None else _as_list(labels),
                             dev)
+        split = self._dp_split(in_raw + lab_raw)
         params, buffers = functional_state(self.network)
         if self._opt_state is None:
             self._opt_state = self._optimizer.functional_state(params)
@@ -142,7 +200,8 @@ class Model:
             if _TRACER.enabled else None
         try:
             loss, new_params, new_buffers, self._opt_state, outs = \
-                self._train_step(params, buffers, in_raw, lab_raw, lr)
+                self._train_step(params, buffers, in_raw, lab_raw, lr,
+                                 split)
             loss_val = float(loss)
         finally:
             _TRACER.end(rec)
@@ -154,6 +213,29 @@ class Model:
             _TRACER.end(rec)
         metrics_out = self._update_metrics(outs, lab_raw)
         return [loss_val], metrics_out
+
+    def _dp_split(self, raws):
+        """The mesh to split this batch over processes with, or None for
+        the plain step (no dp mesh, one process, or a ragged batch)."""
+        from ..distributed import env
+        mesh = self._dp_mesh()
+        if mesh is None:
+            return None
+        dp = mesh.dims.get("dp", 1)
+        if any(r.dim() and r.shape[0] % dp for r in raws):
+            # a ragged batch does not split over dp: the plain step, in
+            # every process alike
+            self._train_step_plain = self._train_step
+            return None
+        if mesh.nproc == 1:
+            return None
+        if any(v > 1 for a, v in mesh.dims.items() if a != "dp") \
+                or not env.process_group_live():
+            raise NotImplementedError(
+                f"Model over mesh {mesh.dims} across processes: only the "
+                "dp axis is split over processes here; the mp route comes "
+                "with ROADMAP A.13f(ii)")
+        return mesh
 
     def eval_batch(self, inputs, labels=None):
         dev = self._device()

@@ -18,8 +18,9 @@ Sampling draws from numpy's global state as the reference does
 (`RandomSampler`, `random_split`), and `DistributedBatchSampler` shuffles
 with `RandomState(epoch)`: one `np.random.seed` gives both packages the
 same batch order. `DistributedBatchSampler`'s `num_replicas` and `rank`
-default to `PADDLE_TRAINERS_NUM` and `PADDLE_TRAINER_ID` (1 and 0): the
-port has no `distributed.env` yet (ROADMAP C.16).
+default to `distributed.get_world_size()` and `get_rank()`, as the
+reference's do (the port counts ranks where the reference counts
+devices: ROADMAP C.21).
 
 Every batch the loop takes is a `DataLoader.next` span (Dataloader type;
 recorded for the flight recorder alone when only a ring is attached),
@@ -241,10 +242,10 @@ class DistributedBatchSampler(BatchSampler):
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
+        from ..distributed import env
         self.nranks = num_replicas if num_replicas is not None else \
-            int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
-        self.local_rank = rank if rank is not None else \
-            int(os.environ.get("PADDLE_TRAINER_ID", "0"))
+            env.get_world_size()
+        self.local_rank = rank if rank is not None else env.get_rank()
         self.epoch = 0
         self.num_samples = int(np.ceil(len(dataset) / self.nranks))
         self.total_size = self.num_samples * self.nranks

@@ -11,9 +11,10 @@ decides by the same rule, a pure function of shapes and device
 
   * "kernel": a CUDA tensor with Sq == Sk, S % 128 == 0 and D in
     (64, 128, 256) runs `flash_attention_bhsd`, whose forward, dQ and
-    dK/dV are the hand-written CUDA kernels. Inputs the kernels are not
-    built for (head dim 256, float16; ROADMAP B.4) raise from the
-    wrapper's own checks: they never run the dense attention on the card;
+    dK/dV are the hand-written CUDA kernels, built for every input the
+    rule sends there (head dims 64, 128 and 256 in f32, bf16 and
+    float16); a failure raises from the wrapper's own checks and never
+    runs the dense attention on the card;
   * "plain": everything else runs `reference_attention_bhsd`, the port of
     `_ref_attention_bhsd`, where the reference runs it too: cross-length
     attention (a decode `Cache` whose keys have grown), S not a multiple

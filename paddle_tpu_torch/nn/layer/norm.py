@@ -1,9 +1,12 @@
 """Norm layers (counterpart of `paddle_tpu/nn/layer/norm.py`).
 
-`SyncBatchNorm` reduces its batch statistics over the "dp" axis when one
-is live in the reference. The port has no `distributed.env` yet (ROADMAP
-A.13f), so it always takes the local path, which is the reference's on a
-single device (ROADMAP C.15); `convert_sync_batchnorm` is ported.
+A training BatchNorm reduces its batch statistics over the processes of
+the process group (`_sync_batch_norm`: sum, sum of squares and count in
+f32, one differentiable all-reduce) where the reference's would see more
+than the local rows: `SyncBatchNorm` under a process group of world > 1
+(the reference's live "dp" axis), and every BatchNorm inside `Model`'s dp
+route (`distributed.env.global_batch`), whose one program sees the
+global batch in the reference. Otherwise it is the local BatchNorm.
 """
 import torch
 
@@ -11,6 +14,7 @@ from ...core.random import generator
 from ...core.device import current_device
 from ...core.tensor import Tensor, _wrap, apply_op
 from .. import functional as F
+from ..functional.norm import _affine
 from ..initializer import Constant
 from .layers import Layer
 
@@ -48,6 +52,10 @@ class _BatchNormBase(Layer):
             (num_features,), device=dev)), persistable=True)
 
     def forward(self, x):
+        use_stats = (not self.training) if self._use_global_stats is None \
+            else self._use_global_stats
+        if not use_stats and _syncs(self):
+            return _sync_batch_norm(self, x)
         return F.batch_norm(x, self._mean, self._variance, self.weight,
                             self.bias, training=self.training,
                             momentum=self._momentum, epsilon=self._epsilon,
@@ -56,6 +64,51 @@ class _BatchNormBase(Layer):
 
     def extra_repr(self):
         return f"num_features={self._num_features}, momentum={self._momentum}"
+
+
+def _syncs(layer):
+    from ...distributed import env
+    if env.global_batch_live():
+        return True
+    return isinstance(layer, SyncBatchNorm) and env.process_group_live()
+
+
+def _sync_batch_norm(layer, x):
+    """Training BatchNorm over the process group's rows: per channel, the
+    sum, the sum of squares and the count, in f32, all-reduced (its
+    backward all-reduces the cotangent, psum's transpose). The running
+    variance is unbiased over the global count, as `F.batch_norm`'s."""
+    from ...distributed.collective import world_sum
+    ch = 1 if layer._data_format.startswith("NC") else x.ndim - 1
+    red = tuple(i for i in range(x.ndim) if i != ch)
+    shape = [1] * x.ndim
+    shape[ch] = -1
+    eps = layer._epsilon
+
+    def fn(a, *wb):
+        af = a.float()
+        n = torch.full((1,), a.numel() // a.shape[ch], dtype=torch.float32,
+                       device=a.device)
+        stats = world_sum(torch.cat([af.sum(red), (af * af).sum(red), n]))
+        c = a.shape[ch]
+        count = stats[2 * c]
+        mean = stats[:c] / count
+        var = stats[c:2 * c] / count - mean * mean
+        out = (af - mean.reshape(shape)) * torch.rsqrt(
+            var.reshape(shape) + eps)
+        out = _affine(out.to(a.dtype), wb, shape)
+        return out, mean.detach(), var.detach(), count.detach()
+
+    wb = [t for t in (layer.weight, layer.bias) if t is not None]
+    out, mean, var, count = apply_op(fn, x, *wb, name="sync_batch_norm")
+    m = layer._momentum
+    mean, var, n = mean._data, var._data, float(count._data)
+    unbiased = var * (n / max(n - 1, 1))
+    layer._mean._rebind(lambda r: r * m + mean.to(r.dtype) * (1 - m),
+                        tracked=False)
+    layer._variance._rebind(lambda r: r * m + unbiased.to(r.dtype) * (1 - m),
+                            tracked=False)
+    return out
 
 
 class BatchNorm(_BatchNormBase):
@@ -96,9 +149,10 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """Cross-replica BatchNorm. With no "dp" axis (the port has no
-    `distributed.env` before A.13f) it is the local BatchNorm, as the
-    reference is on one device."""
+    """Cross-replica BatchNorm: in training under a process group of
+    world > 1 its statistics are the group's (`_sync_batch_norm`);
+    otherwise it is the local BatchNorm, as the reference's is with no
+    live "dp" axis."""
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):

@@ -45,7 +45,13 @@ sites so far, each before any engine state moves:
                        input buffer; a raise fails the step mid-ring
                        (the scheduler's quarantine contains it)
 
-The other sites arrive with the modules that own them (ROADMAP A.13).
+The other seven are fired by the modules that own them:
+`ps.rpc.connect`, `ps.rpc.send` and `serving.rpc.serve`
+(`distributed/ps/rpc.py`), `checkpoint.write`
+(`framework/ckpt_commit.py`), `serving.adapter_swap` (the engine's and
+the scheduler's adapter swaps), `serving.kv_spill`
+(`serving/kv_tiers/store.py`) and `dataloader.next` (`io/__init__.py`):
+all 16 sites of `SITES` are fired.
 
 Arming, in-process:
 

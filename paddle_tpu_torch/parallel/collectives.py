@@ -11,7 +11,9 @@ input i, and no two outputs share storage.
 
 `RankGrid` lays ranks out over `AXES` in the order `MeshPlan.build_mesh`
 reshapes devices (rank id = the row-major index of its coordinates) and
-applies a group collective to every group of an axis (`over`).
+applies a group collective to every group of an axis (`over`); the
+mesh of `distributed.env.build_mesh` is a `RankGrid` over the axes it
+names, in the order it names them.
 
 Autograd. The collectives are plain differentiable ops, and the gradient
 autograd gives each is the transpose JAX gives it under `check_vma=False`:
@@ -163,18 +165,37 @@ def axis_index(grid, rank, axis):
 class RankGrid:
     """Ranks over the mesh axes, each with its device.
 
-    dims: {axis: size} over `AXES`; devices: one torch.device a rank."""
+    dims: {axis: size} over `axes` (default `AXES`; an axis left out has
+    size 1); devices: one torch.device a rank (None for a rank another
+    process drives). The ranks split into `nproc` consecutive blocks, one
+    a process; this process (`proc`) drives `local_ranks`."""
 
-    def __init__(self, dims, devices):
-        self.dims = {a: int(dims.get(a, 1)) for a in AXES}
-        self.shape = tuple(self.dims[a] for a in AXES)
+    def __init__(self, dims, devices, axes=AXES, nproc=1, proc=0):
+        self.axes = tuple(axes)
+        unknown = set(dims) - set(self.axes)
+        if unknown:
+            raise ValueError(f"axes {sorted(unknown)} are not among "
+                             f"{self.axes}")
+        self.dims = {a: int(dims.get(a, 1)) for a in self.axes}
+        self.shape = tuple(self.dims[a] for a in self.axes)
         self.size = math.prod(self.shape)
         if len(devices) != self.size:
             raise ValueError(f"{len(devices)} devices for {self.size} ranks")
         self.devices = list(devices)
-        self.coords = [dict(zip(AXES, (int(i) for i in
-                                       np.unravel_index(r, self.shape))))
+        self.coords = [dict(zip(self.axes, (int(i) for i in
+                                            np.unravel_index(r, self.shape))))
                        for r in range(self.size)]
+        if self.size % nproc:
+            raise ValueError(f"{self.size} ranks do not split over {nproc} "
+                             "processes")
+        self.nproc, self.proc = nproc, proc
+        self.per_proc = self.size // nproc
+        self.local_ranks = list(range(proc * self.per_proc,
+                                      (proc + 1) * self.per_proc))
+
+    def process_of(self, rank):
+        """The process that drives `rank`."""
+        return rank // self.per_proc
 
     def ranks_where(self, **coords):
         """Rank ids whose coordinates equal `coords`, in rank order."""
@@ -195,7 +216,8 @@ class RankGrid:
         want = math.prod(self.dims[a] for a in axes)
         buckets = {}
         for pos, r in enumerate(ranks):
-            key = tuple(self.coords[r][a] for a in AXES if a not in axes)
+            key = tuple(self.coords[r][a] for a in self.axes
+                        if a not in axes)
             buckets.setdefault(key, []).append(pos)
         out = []
         for g in buckets.values():

@@ -5,14 +5,15 @@ the mapping is a checked copy: every name present and no other, shapes
 equal (to `param_shapes(cfg)` when a config is given), values copied
 through float32 (exact for bf16). With a `plan` of more than one rank the
 JAX global arrays are cut into each rank's piece (`param_specs`, the
-optimizer's `state_specs`), taking the vpp storage order as stored.
+optimizer's `state_specs`), taking the vpp storage order as stored;
+under a process group, into the pieces of the ranks this process drives,
+as `make_train_step` splits them.
 """
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from .collectives import RankGrid
-from .gpt_spmd import (_BLOCK_LEAVES, _resolve_devices, param_shapes,
+from .gpt_spmd import (_BLOCK_LEAVES, _process_grid, param_shapes,
                        param_specs, shard_leaf, state_specs)
 
 __all__ = ["params_from_jax", "opt_state_from_jax"]
@@ -37,12 +38,11 @@ def _tensor(arr, dtype, dev):
 
 
 def _grid(plan, device, devices):
-    """The plan's rank grid, or None for a plan of one rank."""
+    """The plan's rank grid as `make_train_step` splits it over the
+    processes, or None for a plan of one rank."""
     if plan is None or plan.n_devices == 1:
         return None
-    dev = resolve_device(device)
-    return RankGrid(plan.dims, _resolve_devices(
-        devices or [dev] * plan.n_devices, plan.n_devices))
+    return _process_grid(plan, resolve_device(device), devices)
 
 
 def params_from_jax(params, device="cuda", dtype=None, cfg=None, plan=None,
@@ -50,8 +50,8 @@ def params_from_jax(params, device="cuda", dtype=None, cfg=None, plan=None,
     """{leaf: array} from the JAX `init_gpt_params` (or a trained step) ->
     {leaf: tensor} on `device`, in `dtype` (default: float32, or the
     config's param_dtype when `cfg` is given). With a `plan` of more than
-    one rank: {leaf: [one piece a rank]}, rank r's on `devices[r]`
-    (default `device`)."""
+    one rank: {leaf: [one piece a rank this process drives]}, on
+    `devices` as `make_train_step` takes them (default `device`)."""
     _check_names(params, _LEAVES, "parameter")
     if dtype is None:
         dtype = torch.float32 if cfg is None else \
@@ -97,8 +97,9 @@ def opt_state_from_jax(state, device="cuda", plan=None, devices=None):
             continue
         pieces = {k: shard_leaf(v, specs[name][k], grid)
                   for k, v in leaf.items()}
-        out[name] = [{"m": pieces["m"][r], "v": pieces["v"][r],
-                      "master": pieces["master"][r],
-                      "t": torch.tensor(t, dtype=torch.int32, device=d)}
-                     for r, d in enumerate(grid.devices)]
+        out[name] = [{"m": pieces["m"][i], "v": pieces["v"][i],
+                      "master": pieces["master"][i],
+                      "t": torch.tensor(t, dtype=torch.int32,
+                                        device=grid.devices[r])}
+                     for i, r in enumerate(grid.local_ranks)]
     return out

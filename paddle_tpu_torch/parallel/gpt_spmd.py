@@ -308,10 +308,12 @@ def _global_shape(local_shape, spec, grid):
 
 
 def shard_leaf(x, spec, grid):
-    """A global tensor -> one piece a rank (`spec`, `grid`), each a fresh
-    contiguous copy on its rank's device."""
+    """A global tensor -> one piece a rank this process drives
+    (`grid.local_ranks`; `spec`), each a fresh contiguous copy on its
+    rank's device."""
     out = []
-    for r, dev in enumerate(grid.devices):
+    for r in grid.local_ranks:
+        dev = grid.devices[r]
         piece = x[_window(tuple(x.shape), spec, grid, r)]
         out.append(torch.empty(piece.shape, dtype=x.dtype, device=dev)
                    .copy_(piece))
@@ -619,7 +621,7 @@ class _Program:
     def pipeline_loss(self, toks, labs, P, stats):
         """GPipe (and pp == 1): one loss a rank, differentiable."""
         grid, plan = self.grid, self.plan
-        ranks = list(range(grid.size))
+        ranks = grid.local_ranks
         if plan.pp == 1:
             h = self.embed(ranks, toks, P)
             h = self.stage_blocks(ranks, h, P)
@@ -990,8 +992,8 @@ def _check_plan(cfg, plan):
 
 
 def _split_batch(x, grid, plan):
-    """Global (B, S) -> each rank's block: batch over (dp, sharding),
-    sequence over sp."""
+    """Global (B, S) -> the block of each rank this process drives: batch
+    over (dp, sharding), sequence over sp."""
     nb = plan.dp * plan.sharding
     B, S = x.shape
     if B % nb or S % plan.sp:
@@ -1002,7 +1004,8 @@ def _split_batch(x, grid, plan):
         raise ValueError(f"local batch {Bl} does not split into "
                          f"{plan.microbatches} microbatches")
     out = []
-    for r, dev in enumerate(grid.devices):
+    for r in grid.local_ranks:
+        dev = grid.devices[r]
         b = grid.flat_index(r, ("dp", "sharding"))
         s = grid.coords[r]["sp"]
         out.append(x[b * Bl:(b + 1) * Bl, s * Sl:(s + 1) * Sl].to(dev))
@@ -1025,6 +1028,32 @@ def _global_grad_sq(grid, grads):
     return total
 
 
+def _process_grid(plan, dev, devices):
+    """The rank grid of the step, split over the processes.
+
+    One controller drives every rank. Under a `torch.distributed` process
+    group of world W > 1 (the multi-controller step, in place of the JAX
+    `_put_global`'s `jax.distributed` branch) the ranks are split into W
+    consecutive blocks and this process drives its block
+    (`grid.local_ranks`); only the dp axis may be above 1 there (mp, pp,
+    sharding and sp across processes come with ROADMAP A.13f(ii))."""
+    import torch.distributed as dist
+    from ..distributed.env import new_mesh
+    n = plan.n_devices
+    world, me = 1, 0
+    if n > 1 and dist.is_initialized():
+        world, me = dist.get_world_size(), dist.get_rank()
+    if world > 1 and any(v > 1 for a, v in plan.dims.items() if a != "dp"):
+        raise NotImplementedError(
+            f"make_train_step across processes with plan {plan.dims}: "
+            "only dp is split over processes; mp, pp, sharding and sp "
+            "across processes come with ROADMAP A.13f(ii)")
+    if n % world:
+        raise ValueError(f"{n} ranks do not split over {world} processes")
+    local = _resolve_devices(devices or [dev] * (n // world), n // world)
+    return new_mesh(plan.dims, local, world, me)
+
+
 def make_train_step(cfg: GPTSpmdConfig, plan: MeshPlan = None,
                     learning_rate=3e-4, weight_decay=0.1, grad_clip=1.0,
                     device="cuda", attention="kernel", devices=None):
@@ -1044,19 +1073,27 @@ def make_train_step(cfg: GPTSpmdConfig, plan: MeshPlan = None,
     Rank r runs on `devices[r]` (default `device` for each of the
     plan's ranks); a CUDA device the host lacks raises. attention="kernel"
     runs the flash-attention kernels (their plain versions on CPU
-    tensors); "plain" runs dense attention with autograd."""
+    tensors); "plain" runs dense attention with autograd.
+
+    Under a process group of world W > 1, a dp plan runs as W
+    controllers (`_process_grid`): each process passes the same global
+    batch and drives its block of ranks, `devices` names its block's
+    devices, a leaf holds one tensor a local rank, init_fn builds the
+    local ranks' leaves from the same seed in every process, and the dp
+    mean of the gradients and the loss sums the local ranks in f32 in
+    rank order, then all-reduces across processes."""
+    from ..distributed.collective import ReduceOp, region_reduce
     plan = plan or MeshPlan()
     _check_plan(cfg, plan)
     dev = resolve_device(device)
-    grid = RankGrid(plan.dims, _resolve_devices(devices or [dev] *
-                                                plan.n_devices,
-                                                plan.n_devices))
+    grid = _process_grid(plan, dev, devices)
+    ranks = grid.local_ranks
+    devs = [grid.devices[r] for r in ranks]
     prog = _Program(cfg, plan, grid, _attend_fn(attention))
     specs = param_specs(cfg)
     manual = plan.pp > 1 and (plan.vpp > 1 or plan.schedule != "gpipe")
     sync_axes = tuple(a for a in ("dp", "sp", "sharding")
                       if plan.dims[a] > 1)
-    ranks = list(range(grid.size))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1065,17 +1102,18 @@ def make_train_step(cfg: GPTSpmdConfig, plan: MeshPlan = None,
         if single:
             P, S = [params], [opt_state]
         else:
-            P = [{k: v[r] for k, v in params.items()} for r in ranks]
-            S = [{k: v[r] for k, v in opt_state.items()} for r in ranks]
-        if len(P) != grid.size and not (single and grid.size == 1):
-            raise ValueError(f"params hold {len(P)} ranks, the plan "
-                             f"{grid.size}")
+            P = [{k: v[i] for k, v in params.items()}
+                 for i in range(len(ranks))]
+            S = [{k: v[i] for k, v in opt_state.items()}
+                 for i in range(len(ranks))]
+        if len(P) != len(ranks) and not (single and grid.size == 1):
+            raise ValueError(f"params hold {len(P)} ranks, this process "
+                             f"drives {len(ranks)}")
         lr_v = learning_rate if lr is None else lr
         lrs = [torch.tensor(lr_v, dtype=torch.float32, device=d)
-               for d in grid.devices]
+               for d in devs]
         if grid.size == 1:
-            toks, labs = [tokens.to(grid.devices[0])], \
-                [labels.to(grid.devices[0])]
+            toks, labs = [tokens.to(devs[0])], [labels.to(devs[0])]
         else:
             toks = _split_batch(tokens, grid, plan)
             labs = _split_batch(labels, grid, plan)
@@ -1105,11 +1143,12 @@ def make_train_step(cfg: GPTSpmdConfig, plan: MeshPlan = None,
                 # grad sync over every data axis BEFORE the clip, so the
                 # global norm sees the true batch gradient
                 for k in specs:
-                    col = grid.over(ranks, sync_axes, C.pmean,
-                                    [g[k] for g in grads])
+                    col = region_reduce([g[k] for g in grads], sync_axes,
+                                        ReduceOp.AVG, grid)
                     for g, v in zip(grads, col):
                         g[k] = v
-                losses = grid.over(ranks, sync_axes, C.pmean, losses)
+                losses = region_reduce(losses, sync_axes, ReduceOp.AVG,
+                                       grid)
             if plan.pp > 1:
                 # pp-replicated leaves: stage-disjoint parts, summed
                 for k, spec in specs.items():
@@ -1118,7 +1157,7 @@ def make_train_step(cfg: GPTSpmdConfig, plan: MeshPlan = None,
                                         [g[k] for g in grads])
                         for g, v in zip(grads, col):
                             g[k] = v
-            clips = [torch.ones((), device=d) for d in grid.devices]
+            clips = [torch.ones((), device=d) for d in devs]
             if grad_clip:
                 if plan.mp > 1 or plan.pp > 1:
                     sq = _global_grad_sq(grid, grads)
@@ -1138,11 +1177,11 @@ def make_train_step(cfg: GPTSpmdConfig, plan: MeshPlan = None,
     step_fn.stats = {}
 
     def init_fn(seed=0):
-        gen = torch.Generator(device=grid.devices[0]).manual_seed(int(seed))
-        full = init_gpt_params(cfg, gen, grid.devices[0])
+        gen = torch.Generator(device=devs[0]).manual_seed(int(seed))
+        full = init_gpt_params(cfg, gen, devs[0])
         if plan.vpp > 1:
             perm = torch.from_numpy(interleave_permutation(
-                cfg.layers, plan.pp, plan.vpp)).to(grid.devices[0])
+                cfg.layers, plan.pp, plan.vpp)).to(devs[0])
             full = {k: (v[perm] if k in _BLOCK_LEAVES else v)
                     for k, v in full.items()}
         if grid.size == 1:

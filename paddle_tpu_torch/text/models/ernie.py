@@ -5,8 +5,8 @@ hidden 768, 12 heads, task_type_vocab_size 3) on the port's
 heads, and the `ernie_3_base` / `ernie_tiny` factories.
 
 `ernie_pipeline_descs` (the PipelineLayer description of the mp+pp
-driver config) needs `distributed.fleet.meta_parallel`, which the port
-does not have yet (ROADMAP A.13f); it is not ported here.
+driver config) needs `distributed.fleet.meta_parallel`, which comes with
+fleet's hybrid parallelism (ROADMAP A.13f(ii)); it is not ported here.
 """
 from dataclasses import dataclass
 

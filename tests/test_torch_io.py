@@ -126,13 +126,15 @@ def test_sampler_matches_jax(name):
 
 
 def test_distributed_sampler_env_defaults(monkeypatch):
-    monkeypatch.setenv("PADDLE_TRAINERS_NUM", "4")
-    monkeypatch.setenv("PADDLE_TRAINER_ID", "3")
+    # the defaults are distributed.get_world_size() / get_rank(), as in
+    # the reference (ROADMAP C.21)
+    from paddle_tpu_torch.distributed import env
+    monkeypatch.setattr(env, "get_world_size", lambda group=None: 4)
+    monkeypatch.setattr(env, "get_rank", lambda group=None: 3)
     s = tio.DistributedBatchSampler(list(range(10)), 2)
     assert (s.nranks, s.local_rank) == (4, 3)
     assert list(s) == [[3, 7], [1]]
-    monkeypatch.delenv("PADDLE_TRAINERS_NUM")
-    monkeypatch.delenv("PADDLE_TRAINER_ID")
+    monkeypatch.undo()
     s = tio.DistributedBatchSampler(list(range(10)), 4)
     assert (s.nranks, s.local_rank) == (1, 0) and len(s) == 3
 

@@ -478,6 +478,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "        'paddle_tpu_torch.static.sparsity',\n"
             "        'paddle_tpu_torch.onnx',\n"
             "        'paddle_tpu_torch.distributed.passes',\n"
+            "        'paddle_tpu_torch.distributed.env',\n"
+            "        'paddle_tpu_torch.distributed.collective',\n"
+            "        'paddle_tpu_torch.distributed.communication',\n"
+            "        'paddle_tpu_torch.distributed.communication.stream',\n"
+            "        'paddle_tpu_torch.distributed.comm_extras',\n"
+            "        'paddle_tpu_torch.distributed.store',\n"
+            "        'paddle_tpu_torch.distributed.launch',\n"
+            "        'paddle_tpu_torch.distributed.launch.main',\n"
+            "        'paddle_tpu_torch.distributed.launch.__main__',\n"
+            "        'paddle_tpu_torch.distributed.fleet',\n"
+            "        'paddle_tpu_torch.distributed.fleet.elastic',\n"
+            "        'paddle_tpu_torch.distributed.parallel_layers',\n"
             "        'paddle_tpu_torch.vision.models',\n"
             "        'paddle_tpu_torch.vision.models.resnet',\n"
             "        'paddle_tpu_torch.vision.models.vgg',\n"

@@ -10,6 +10,7 @@
     python3 chip_smoke.py --text-only   # phases 1, 2 and 24
     python3 chip_smoke.py --jit-only    # phases 1, 2 and 25
     python3 chip_smoke.py --dist-only   # phases 1, 2 and 26
+    python3 chip_smoke.py --fleet-only  # phases 1, 2 and 27
 
 Phases (any exception ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -458,6 +459,26 @@ Phases (any exception ends the run with a non-zero exit):
      one rank a process, held to the one-controller dp2 plan
      (DIST_GPT_RTOL) and launching the flash kernels 2 x 3 times each in
      each process. `--dist-only` runs phases 1, 2 and 26.
+ 27. fleet and hybrid parallelism (`fleet_phase`): (a) ERNIE-3.0-Base
+     (12 layers, hidden 768, vocab 40000, dropouts 0, f32) as
+     `ernie_pipeline_descs` -> `PipelineLayer(num_stages=2)` through
+     `Model.fit` over a {"pp": 2} mesh on the one card, B=32, S=128,
+     microbatches 4, SGD, 3 steps, each held to the unpipelined step of
+     the same PipelineLayer from the same weights (loss, update), with
+     step ms, flash launches and kernels a step; (b) two ranks through the
+     port's launcher (gloo, card 0): `fleet.init(mp_degree=2)`,
+     `distributed_model` / `distributed_optimizer` and `Model` over
+     tests/test_hapi_hybrid.py's TinyErnie structure at ERNIE-3.0-Base's
+     widths (VocabParallelEmbedding, 12 Column->Row blocks, a
+     vocab-parallel head and ParallelCrossEntropy), B=32, S=128, 3 steps
+     held to the one-process step from the same state, the mp
+     collectives' share of the step; (c) in the same ranks, the
+     `gpt_spmd` plans of tests/dist_hybrid_worker.py at GPT-125M's widths
+     (2 layers a stage, bf16) with pp, mp and sharding across the two
+     processes, 3 steps each, held bit for bit to the one-controller plan
+     run in the parent (the losses, and a SHA-256 of every leaf of every
+     rank), and each process's flash launches.
+     `--fleet-only` runs phases 1, 2 and 27.
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -8005,12 +8026,12 @@ def dist_child_resnet(pt, rec, out_dir):
     inner, inner_reduce = dc.all_reduce_mean_, dc._world_reduce
     in_grads = []
 
-    def timed_all_reduce(ts):
+    def timed_all_reduce(ts, *rest):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         in_grads.append(True)
         try:
-            out = inner(ts)
+            out = inner(ts, *rest)
         finally:
             in_grads.pop()
         torch.cuda.synchronize()
@@ -8018,12 +8039,12 @@ def dist_child_resnet(pt, rec, out_dir):
         grad_bytes.append(sum(t.numel() * 4 for t in ts))
         return out
 
-    def timed_reduce(x, op):
+    def timed_reduce(x, op, *rest):
         if in_grads:
-            return inner_reduce(x, op)
+            return inner_reduce(x, op, *rest)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = inner_reduce(x, op)
+        out = inner_reduce(x, op, *rest)
         torch.cuda.synchronize()
         comm.append((time.perf_counter() - t0) * 1e3)
         return out
@@ -8327,6 +8348,527 @@ def dist_phase(smi):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# 27. fleet and hybrid parallelism
+# ---------------------------------------------------------------------------
+
+FLEET_ERNIE = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+FLEET_PP_B, FLEET_PP_S, FLEET_PP_M, FLEET_PP_STEPS = 32, 128, 4, 3
+FLEET_PP_LR = 0.05
+# (a): each pipelined step against the unpipelined step from the same
+# weights: the loss is a mean over 4 microbatch means against one mean
+# over the batch, and the gradients sum 4 microbatches' in f32; both
+# differ only by the reductions' order (f32, TF32 off)
+FLEET_PP_LOSS_RTOL = 1e-5
+FLEET_PP_UPDATE_RTOL = 1e-3
+# (b): ERNIE-3.0-Base's widths through fleet's mp layers, mp=2 across two
+# processes; the one-process step computes the same sums in another
+# order (the row layers' partial products summed across the processes)
+FLEET_MP = dict(vocab=40000, hidden=768, ffn=3072, blocks=12, B=32, S=128)
+FLEET_MP_STEPS, FLEET_MP_LR = 3, 0.05
+FLEET_MP_LOSS_RTOL = 1e-5
+FLEET_MP_UPDATE_RTOL = 1e-3
+# (c): the gpt_spmd plans of tests/dist_hybrid_worker.py at GPT-125M's
+# widths, 2 layers a stage, bf16; (tag, plan, the axis across processes)
+FLEET_GPT = dict(vocab_size=50304, max_seq_len=1024, hidden=768, heads=12)
+FLEET_GPT_PLANS = (
+    ("dp2_pp2_mp2_pp_cross", dict(dp=2, pp=2, mp=2, microbatches=2),
+     ("pp",)),
+    ("dp4_mp2_mp_cross", dict(dp=4, mp=2), ("mp",)),
+    ("dp4_sharding2_sharding_cross", dict(dp=4, sharding=2), ("sharding",)))
+FLEET_GPT_STEPS = 3
+FLEET_GPT_SEED = 27
+FLEET_CHILD_S = 900
+FLEET_DEV = "cuda"             # the torch device phase 27 runs on
+
+
+def _place():
+    return "gpu" if FLEET_DEV == "cuda" else FLEET_DEV
+
+
+def _fleet_gpt(plan, dev):
+    """(cfg, tokens, labels) of a phase 27 (c) plan: one row a rank and
+    microbatch."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.parallel import GPTSpmdConfig
+    layers = 2 * plan.get("pp", 1)
+    cfg = GPTSpmdConfig(**FLEET_GPT, layers=layers, ffn=4 * FLEET_GPT["hidden"],
+                        param_dtype="bfloat16", compute_dtype="bfloat16",
+                        remat=False)
+    B = plan.get("dp", 1) * plan.get("sharding", 1) * \
+        plan.get("microbatches", 1)
+    rng = np.random.RandomState(FLEET_GPT_SEED)
+    shape = (B, cfg.max_seq_len)
+    return (cfg, torch.from_numpy(rng.randint(0, cfg.vocab_size, shape))
+            .to(dev), torch.from_numpy(rng.randint(0, cfg.vocab_size, shape))
+            .to(dev))
+
+
+def fleet_gpt_run(plan, axis_order=None):
+    """FLEET_GPT_STEPS steps of a phase 27 (c) plan from init_fn's seed:
+    losses, step ms, this process's flash launches and a SHA-256 of the
+    bytes of every leaf of each local rank ("<rank>/<leaf>")."""
+    import hashlib
+    import torch
+    from paddle_tpu_torch.parallel import MeshPlan, make_train_step
+    dev = FLEET_DEV
+    cfg, toks, labs = _fleet_gpt(plan, dev)
+    step_fn, init_fn = make_train_step(cfg, MeshPlan(**plan), device=dev,
+                                       learning_rate=1e-3,
+                                       axis_order=axis_order)
+    params, state = init_fn(FLEET_GPT_SEED)
+    c0 = _flash_counts()
+    losses, ms = [], []
+    for _ in range(FLEET_GPT_STEPS):
+        _sync()
+        t0 = time.perf_counter()
+        loss, params, state = step_fn(params, state, toks, labs)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    c1 = _flash_counts()
+    digests = {f"{r}/{k}": hashlib.sha256(
+        v[i].detach().reshape(-1).contiguous().cpu().view(torch.uint8)
+        .numpy().tobytes()).hexdigest()
+        for i, r in enumerate(step_fn.grid.local_ranks)
+        for k, v in params.items()}
+    return {"losses": losses, "step_ms": ms, "leaf_sha256": digests,
+            "flash_launches": [b - a for a, b in zip(c0, c1)]}
+
+
+def _sync(dev=None):
+    import torch
+    if str(dev or FLEET_DEV) != "cpu" and torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _mlm_loss(pt):
+    def mlm_loss(logits, labels):
+        return pt.nn.functional.cross_entropy(
+            logits.reshape([-1, logits.shape[-1]]), labels.reshape([-1]))
+    return mlm_loss
+
+
+def fleet_ernie_pp(pt, smi):
+    """Phase 27 (a): ERNIE-3.0-Base as a pp2 PipelineLayer through
+    Model.fit on the one card, each step held to the unpipelined step of
+    the same PipelineLayer from the same weights."""
+    import numpy as np
+    from paddle_tpu_torch.distributed import env as denv
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import PipelineLayer
+    from paddle_tpu_torch.text.models import ernie as te
+    pt.set_device(_place())
+    cfg = te.ernie_3_base_config(**FLEET_ERNIE)
+    loss_fn = _mlm_loss(pt)
+    pt.seed(27)
+    pl = PipelineLayer(te.ernie_pipeline_descs(cfg, loss_fn=loss_fn),
+                       num_stages=2, loss_fn=loss_fn)
+    ref = PipelineLayer(te.ernie_pipeline_descs(cfg, loss_fn=loss_fn),
+                        num_stages=2, loss_fn=loss_fn)
+    prev = denv.get_mesh()
+    denv.build_mesh({"pp": 2})
+    model = pt.Model(pl)
+    model.prepare(pt.optimizer.SGD(FLEET_PP_LR, parameters=pl.parameters()),
+                  None, strategy={"microbatches": FLEET_PP_M})
+    o_ref = pt.optimizer.SGD(FLEET_PP_LR, parameters=ref.parameters())
+    rng = np.random.RandomState(27)
+    shape = (FLEET_PP_B, FLEET_PP_S)
+    batches = [(rng.randint(0, cfg.vocab_size, shape),
+                rng.randint(0, cfg.vocab_size, shape))
+               for _ in range(FLEET_PP_STEPS)]
+    rec = {"losses": [], "ref_losses": [], "step_ms": [], "ref_step_ms": [],
+           "update_rel_err": [], "flash_launches": [], "ref_flash": [],
+           "kernels_per_step": None, "card": smi}
+    try:
+        for x, y in batches:
+            ref.set_state_dict({k: v for k, v in pl.state_dict().items()})
+            before = {n: p._data.detach().clone()
+                      for n, p in pl.named_parameters()}
+            c0 = _flash_counts()
+            _sync()
+            t0 = time.perf_counter()
+            lg = loss_fn(ref(pt.to_tensor(x)), pt.to_tensor(y))
+            lg.backward()
+            o_ref.step()
+            o_ref.clear_grad()
+            rec["ref_losses"].append(float(lg))
+            rec["ref_step_ms"].append((time.perf_counter() - t0) * 1e3)
+            c1 = _flash_counts()
+            _sync()
+            t0 = time.perf_counter()
+            rec["losses"].append(model.train_batch([x], [y])[0][0])
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            c2 = _flash_counts()
+            rec["ref_flash"].append([b - a for a, b in zip(c0, c1)])
+            rec["flash_launches"].append([b - a for a, b in zip(c1, c2)])
+            num = den = 0.0
+            refp = dict(ref.named_parameters())
+            for n, p in pl.named_parameters():
+                a, b = p._data.detach(), refp[n]._data.detach()
+                num += float(((a - b).double() ** 2).sum())
+                den += float(((b - before[n]).double() ** 2).sum())
+            rec["update_rel_err"].append(math.sqrt(num / max(den, 1e-30)))
+        if FLEET_DEV == "cuda":
+            x, y = batches[-1]
+            prof = profile_steps(lambda: model.train_batch([x], [y]), 1)
+            rec["kernels_per_step"] = prof["kernels_per_step"]
+    finally:
+        denv.set_mesh(prev)
+    rec["loss_rel_err"] = [abs(a - b) / abs(b) for a, b in
+                           zip(rec["losses"], rec["ref_losses"])]
+    rec["stats"] = {k: v for k, v in model._pp_step.stats.items()}
+    L = cfg.num_hidden_layers
+    log(f"fleet ernie-3.0-base pp2 PipelineLayer (one controller, B="
+        f"{FLEET_PP_B}, S={FLEET_PP_S}, f32, SGD {FLEET_PP_LR}, microbatches "
+        f"{FLEET_PP_M}, {rec['stats']['schedule']} over "
+        f"{rec['stats']['ticks']} ticks, {rec['stats']['slots']} slots): "
+        f"losses {[round(v, 6) for v in rec['losses']]} vs unpipelined "
+        f"{[round(v, 6) for v in rec['ref_losses']]}, loss rel err "
+        f"{max(rec['loss_rel_err']):.3g}, update rel err "
+        f"{max(rec['update_rel_err']):.3g}; step ms "
+        f"{[round(v, 1) for v in rec['step_ms']]} vs unpipelined "
+        f"{[round(v, 1) for v in rec['ref_step_ms']]}; flash fwd/dq/dkv a "
+        f"step {rec['flash_launches'][-1]} vs unpipelined "
+        f"{rec['ref_flash'][-1]}; kernels a step {rec['kernels_per_step']} "
+        f"[{smi}]")
+    if max(rec["loss_rel_err"]) > FLEET_PP_LOSS_RTOL or \
+            max(rec["update_rel_err"]) > FLEET_PP_UPDATE_RTOL or \
+            not all(np.isfinite(rec["losses"])):
+        raise AssertionError(
+            f"phase 27 (a): pipelined losses {rec['losses']} vs "
+            f"{rec['ref_losses']} (limit {FLEET_PP_LOSS_RTOL}); update rel "
+            f"err {rec['update_rel_err']} (limit {FLEET_PP_UPDATE_RTOL})")
+    fw, dq, dkv = rec["flash_launches"][-1]
+    if dq != FLEET_PP_M * L or dkv != FLEET_PP_M * L or fw <= FLEET_PP_M * L:
+        raise AssertionError(f"phase 27 (a): flash launches "
+                             f"{rec['flash_launches']}, want dq = dkv = "
+                             f"{FLEET_PP_M * L} and more forwards")
+    return rec
+
+
+def _mp_ernie(pt, cfg, mp_layers):
+    """Phase 27 (b)'s network: TinyErnie's structure (tests/
+    test_hapi_hybrid.py:29-55) at ERNIE-3.0-Base's widths, the vocab
+    through VocabParallelEmbedding and a vocab-parallel head."""
+    nn = pt.nn
+    M = mp_layers
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ln = nn.LayerNorm(cfg["hidden"])
+            self.fc1 = M.ColumnParallelLinear(cfg["hidden"], cfg["ffn"],
+                                              gather_output=False)
+            self.act = nn.GELU()
+            self.fc2 = M.RowParallelLinear(cfg["ffn"], cfg["hidden"],
+                                           input_is_parallel=True)
+
+        def forward(self, x):
+            return x + self.fc2(self.act(self.fc1(self.ln(x))))
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = M.VocabParallelEmbedding(cfg["vocab"], cfg["hidden"])
+            self.blocks = nn.LayerList([Block() for _ in
+                                        range(cfg["blocks"])])
+            self.head = M.ColumnParallelLinear(cfg["hidden"], cfg["vocab"],
+                                               gather_output=False)
+
+        def forward(self, ids):
+            h = self.emb(ids)
+            for b in self.blocks:
+                h = b(h)
+            return self.head(h)
+    return Net()
+
+
+def _gather_full(net, n):
+    """{name: the whole parameter} of an mp network whose marked
+    parameters hold this process's rows (an all_gather each)."""
+    import torch
+    import torch.distributed as tdist
+    out = {}
+    for name, p in net.named_parameters():
+        loc = getattr(p, "_mp_local", None)
+        d = p._data.detach()
+        if loc is None:
+            out[name] = d.clone()
+            continue
+        c = d.contiguous().cpu()
+        parts = [torch.empty_like(c) for _ in range(n)]
+        tdist.all_gather(parts, c, group=loc[2])
+        out[name] = torch.cat(parts, p.split_axis).to(d.device)
+    return out
+
+
+class _CommTimer:
+    """Times the torch.distributed collectives the mp layers call in a
+    window (the card synchronized around each)."""
+
+    def __init__(self, dev):
+        import torch.distributed as tdist
+        self.dev, self.ms, self.calls = dev, 0.0, 0
+        self._saved = {}
+        for name in ("all_reduce", "all_gather"):
+            fn = getattr(tdist, name)
+            self._saved[name] = fn
+
+            def timed(*a, _fn=fn, **k):
+                _sync(self.dev)
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    _sync(self.dev)
+                    self.ms += (time.perf_counter() - t0) * 1e3
+                    self.calls += 1
+            setattr(tdist, name, timed)
+
+    def close(self):
+        import torch.distributed as tdist
+        for name, fn in self._saved.items():
+            setattr(tdist, name, fn)
+
+
+def fleet_child_mp(pt, rec):
+    """Phase 27 (b), in each rank: fleet.init(mp_degree=2), the mp network
+    through distributed_model / distributed_optimizer and Model, each
+    step held (in rank 0) to the one-process step from the same state."""
+    import numpy as np
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.layers import mp_layers
+    cfg = FLEET_MP
+    me = pt.distributed.get_rank()
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs["mp_degree"] = 2
+    fleet.init(is_collective=True, strategy=s)
+    pt.seed(271)
+    net = _mp_ernie(pt, cfg, mp_layers)
+    golden = _mp_ernie(pt, cfg, mp_layers) if me == 0 else None
+    net = fleet.distributed_model(net)
+    opt = fleet.distributed_optimizer(pt.optimizer.SGD(
+        FLEET_MP_LR, parameters=net.parameters()))
+    pce = mp_layers.ParallelCrossEntropy()
+    model = pt.Model(net)
+    model.prepare(opt, lambda logits, labels: pce(logits, labels).mean())
+    if golden is not None:
+        # the one-process step: the plain layers and loss, eagerly (a
+        # Model would take the mp route of the installed mesh)
+        g_opt = pt.optimizer.SGD(FLEET_MP_LR, parameters=golden.parameters())
+        g_loss = _mlm_loss(pt)
+    rng = np.random.RandomState(272)
+    shape = (cfg["B"], cfg["S"])
+    out = {"losses": [], "one_process_losses": [], "update_rel_err": [],
+           "step_ms": [], "comm_ms": [], "comm_calls": []}
+    for _ in range(FLEET_MP_STEPS):
+        x = rng.randint(0, cfg["vocab"], shape)
+        y = rng.randint(0, cfg["vocab"], shape)
+        full = _gather_full(net, 2)
+        if golden is not None:
+            golden.set_state_dict({k[len("_layers."):]: v
+                                   for k, v in full.items()})
+            loss = g_loss(golden(pt.to_tensor(x)), pt.to_tensor(y))
+            loss.backward()
+            g_opt.step()
+            g_opt.clear_grad()
+            out["one_process_losses"].append(float(loss))
+        timer = _CommTimer(FLEET_DEV)
+        _sync()
+        t0 = time.perf_counter()
+        try:
+            out["losses"].append(model.train_batch([x], [y])[0][0])
+        finally:
+            timer.close()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["comm_ms"].append(timer.ms)
+        out["comm_calls"].append(timer.calls)
+        after = _gather_full(net, 2)
+        if golden is not None:
+            num = den = 0.0
+            gp = dict(golden.named_parameters())
+            for k, v in after.items():
+                g = gp[k[len("_layers."):]]._data
+                num += float(((v - g).double() ** 2).sum())
+                den += float(((g - full[k]).double() ** 2).sum())
+            out["update_rel_err"].append(math.sqrt(num / max(den, 1e-30)))
+    fc1 = dict(net.named_parameters())["_layers.blocks.0.fc1.weight"]
+    out["fc1_shape"] = list(fc1.shape)
+    rec["mp"] = out
+    del golden, net, model
+    gc_cuda()
+
+
+def fleet_child(out_dir):
+    """A rank of phase 27 (b) and (c), started by the port's launcher
+    (`--fleet-child DIR`); writes DIR/fleet_rank<r>.json."""
+    import faulthandler
+    faulthandler.dump_traceback_later(FLEET_CHILD_S, exit=True)
+    sys.path.insert(0, ROOT)
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch as pt
+    pt.set_device(_place())
+    pt.distributed.init_parallel_env(backend="gloo")
+    me = pt.distributed.get_rank()
+    rec = {"pid": os.getpid(), "rank": me,
+           "world": pt.distributed.get_world_size()}
+    fleet_child_mp(pt, rec)
+    rec["gpt"] = {}
+    for tag, plan, order in FLEET_GPT_PLANS:
+        rec["gpt"][tag] = fleet_gpt_run(plan, order)
+        gc_cuda()
+    pt.distributed.barrier()
+    with open(os.path.join(out_dir, f"fleet_rank{me}.json"), "w") as f:
+        json.dump(rec, f)
+    pt.distributed.destroy_process_group()
+    return 0
+
+
+def fleet_launch(out_dir, log_dir):
+    """Two ranks of `fleet_child` through `python -m
+    paddle_tpu_torch.distributed.launch` on card 0, in a session of their
+    own killed whole at the end: (records, seconds)."""
+    import signal
+    os.makedirs(out_dir, exist_ok=True)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", "2", "--devices", "0", "--log_dir", log_dir,
+           DIST_CHILD_SCRIPT, "--fleet-child", out_dir]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=ROOT, env=env, start_new_session=True)
+    try:
+        rc = p.wait(timeout=FLEET_CHILD_S + 60)
+    except subprocess.TimeoutExpired:
+        rc = "timeout"
+    finally:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        p.wait()
+    if rc != 0:
+        tails = []
+        for r in range(2):
+            path = os.path.join(log_dir, f"workerlog.{r}")
+            if os.path.exists(path):
+                with open(path) as f:
+                    tails.append(f"--- rank {r} ---\n{f.read()[-3000:]}")
+        raise AssertionError(f"phase 27: the launch exited {rc}\n"
+                             + "\n".join(tails))
+    recs = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"fleet_rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs, time.perf_counter() - t0
+
+
+def fleet_phase(smi):
+    """Phase 27: (a) ERNIE-3.0-Base as a pp2 PipelineLayer through
+    Model.fit on the one card; (b) fleet's mp layers at ERNIE-3.0-Base's
+    widths with mp=2 across two processes; (c) the `gpt_spmd` hybrid plans
+    with pp, mp and sharding across two processes, held to the
+    one-controller plans."""
+    import paddle_tpu_torch as pt
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "phase27")
+    log_dir = os.path.join(ROOT, "chiprun_out", "phase27")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(log_dir, exist_ok=True)
+    rec = {"card": smi}
+    rec["a"] = fleet_ernie_pp(pt, smi)
+    gc_cuda()
+    # (c)'s one-controller plans, on the same seeds and batches
+    ref = {}
+    for tag, plan, _ in FLEET_GPT_PLANS:
+        ref[tag] = fleet_gpt_run(plan)
+        gc_cuda()
+    ranks, launch_s = fleet_launch(work, log_dir)
+    rec["launch_s"] = launch_s
+    for r, rr in enumerate(ranks):
+        if (rr["rank"], rr["world"]) != (r, 2):
+            raise AssertionError(f"phase 27: rank {r} reads {rr}")
+    # (b)
+    b = ranks[0]["mp"]
+    if ranks[1]["mp"]["losses"] != b["losses"]:
+        raise AssertionError(f"phase 27 (b): the ranks' losses differ: "
+                             f"{b['losses']} / {ranks[1]['mp']['losses']}")
+    b_err = [abs(x - y) / abs(y) for x, y in
+             zip(b["losses"], b["one_process_losses"])]
+    rec["b"] = {"ranks": [rr["mp"] for rr in ranks], "loss_rel_err": b_err}
+    share = [c / s for c, s in zip(b["comm_ms"], b["step_ms"])]
+    log(f"fleet mp2 across 2 processes (gloo, one card; ERNIE-3.0-Base "
+        f"widths: vocab {FLEET_MP['vocab']} through VocabParallelEmbedding, "
+        f"{FLEET_MP['blocks']} Column->Row blocks of {FLEET_MP['hidden']}/"
+        f"{FLEET_MP['ffn']}, ParallelCrossEntropy on the vocab-parallel "
+        f"head; B={FLEET_MP['B']}, S={FLEET_MP['S']}, f32, SGD): losses "
+        f"{[round(v, 6) for v in b['losses']]} vs one process "
+        f"{[round(v, 6) for v in b['one_process_losses']]}, loss rel err "
+        f"{max(b_err):.3g}, update rel err {max(b['update_rel_err']):.3g}; "
+        f"step ms {[round(v, 1) for v in b['step_ms']]}, mp collectives "
+        f"{[round(v, 1) for v in b['comm_ms']]} ms ({b['comm_calls'][-1]} "
+        f"calls a step), share {[round(v, 3) for v in share]}; fc1 rows "
+        f"{b['fc1_shape']} a process [{smi}]")
+    if max(b_err) > FLEET_MP_LOSS_RTOL or \
+            max(b["update_rel_err"]) > FLEET_MP_UPDATE_RTOL or \
+            b["fc1_shape"] != [FLEET_MP["hidden"], FLEET_MP["ffn"] // 2]:
+        raise AssertionError(f"phase 27 (b): {rec['b']}")
+    # (c)
+    rec["c"] = {}
+    for tag, plan, order in FLEET_GPT_PLANS:
+        one = ref[tag]
+        got = [rr["gpt"][tag] for rr in ranks]
+        leaves = {}
+        for g in got:
+            leaves.update(g["leaf_sha256"])
+        loss_err = max(_rel_err(g["losses"], one["losses"]) for g in got)
+        differ = sorted(k for k, v in one["leaf_sha256"].items()
+                        if leaves.get(k) != v)
+        if set(leaves) != set(one["leaf_sha256"]):
+            differ.append(f"leaf sets {len(leaves)} vs "
+                          f"{len(one['leaf_sha256'])}")
+        rec["c"][tag] = {"ranks": got, "one_controller": one,
+                         "loss_rel_err": loss_err, "leaves_differ": differ}
+        log(f"fleet gpt_spmd {tag} across 2 processes ({order[0]} across; "
+            f"GPT-125M widths, {2 * plan.get('pp', 1)} layers, bf16): losses "
+            f"{got[0]['losses']} vs one controller {one['losses']}, loss "
+            f"rel err {loss_err:.3g}, {len(leaves) - len(differ)} of "
+            f"{len(one['leaf_sha256'])} rank leaves equal bit for bit; "
+            f"step ms {[round(v, 1) for v in got[0]['step_ms']]}"
+            f" / {[round(v, 1) for v in got[1]['step_ms']]} (ranks 0 / 1) vs "
+            f"one controller {[round(v, 1) for v in one['step_ms']]}; flash "
+            f"fwd/dq/dkv {got[0]['flash_launches']} / "
+            f"{got[1]['flash_launches']} (one controller "
+            f"{one['flash_launches']}) [{smi}]")
+        if loss_err > 0 or differ:
+            raise AssertionError(f"phase 27 (c) {tag}: not bit for bit the "
+                                 f"one-controller plan: {rec['c'][tag]}")
+        if any(min(g["flash_launches"]) <= 0 for g in got):
+            raise AssertionError(f"phase 27 (c) {tag}: a process launched "
+                                 f"no flash kernel: {rec['c'][tag]}")
+    shutil.rmtree(work, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 27 took {rec['seconds']:.1f} s [{smi}]")
+    return rec
+
+
+def fleet_launches(rec, which):
+    """Phase 27's flash launches of kernel `which` ("fwd", "dq", "dkv"):
+    (a)'s pipelined steps and every process of (c)."""
+    i = ("fwd", "dq", "dkv").index(which)
+    return sum(f[i] for f in rec["a"]["flash_launches"]) + sum(
+        r["flash_launches"][i] for c in rec["c"].values() for r in c["ranks"])
+
+
+def gc_cuda():
+    import gc
+    import torch
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 def main(argv):
     flash_only = "--flash-only" in argv
     parallel_only = "--parallel-only" in argv
@@ -8337,6 +8879,7 @@ def main(argv):
     text_only = "--text-only" in argv
     jit_only = "--jit-only" in argv
     dist_only = "--dist-only" in argv
+    fleet_only = "--fleet-only" in argv
     try:
         import torch
     except ImportError:
@@ -8354,6 +8897,8 @@ def main(argv):
     if "--dist-child" in argv:
         i = argv.index("--dist-child")
         return dist_child(argv[i + 1], argv[i + 2])
+    if "--fleet-child" in argv:
+        return fleet_child(argv[argv.index("--fleet-child") + 1])
     t_start = time.perf_counter()
     report = {}
 
@@ -8391,6 +8936,14 @@ def main(argv):
             f"{r['registers']} registers, "
             f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
             f"spill loads, {r['smem_dynamic']} B dynamic shared memory")
+    if fleet_only:
+        # phase 27 alone
+        report["fleet"] = fleet_phase(smi)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out",
+                               "chip_smoke_fleet.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        return 0
     if dist_only:
         # phase 26 alone
         report["dist"] = dist_phase(smi)
@@ -8731,6 +9284,12 @@ def main(argv):
     torch.cuda.empty_cache()
     report["dist"] = dist_phase(smi)
 
+    # 27. fleet and hybrid parallelism: pp on one card, mp / pp / sharding
+    # across two processes ------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["fleet"] = fleet_phase(smi)
+
     # summary ------------------------------------------------------------------------
     # every kernel's max_abs_err covers phase 3's cases and phase 24's at
     # the other head dims and dtypes
@@ -8782,11 +9341,13 @@ def main(argv):
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces,
-            # phase 8's step, phase 26 (c)'s two processes, and for the
-            # forward phase 25's programs
+            # phase 8's step, phase 26 (c)'s two processes, phase 27 (a)'s
+            # pipeline and (c)'s two processes, and for the forward phase
+            # 25's programs
             "launches": report["train"]["launches"][which]
             + sum(r["flash_launches"][which]
                   for r in report["dist"]["gpt"]["ranks"])
+            + fleet_launches(report["fleet"], which)
             + (report["jit"]["launches_fwd"] if which == "fwd" else 0),
             "max_abs_err": max(c["max_abs_err"][o] for c in
                                flash_cases + report["text"]["c"]["flash"]

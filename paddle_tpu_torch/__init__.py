@@ -76,6 +76,7 @@ from . import callbacks, io, metric, native, reader, vision  # noqa: F401
 from . import audio, fft, signal  # noqa: F401
 from . import jit, onnx, static  # noqa: F401
 from . import distributed  # noqa: F401
+from . import incubate  # noqa: F401
 from .distributed import DataParallel  # noqa: F401
 from .jit import to_static  # noqa: F401
 from .batch import batch  # noqa: F401

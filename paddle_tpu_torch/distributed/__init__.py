@@ -13,20 +13,28 @@
   store.py       — `TCPStore` over the port's `native/src/kvstore.cc`
   launch/        — `python -m paddle_tpu_torch.distributed.launch`;
                    `fleet/elastic` relaunches a failed job
-  parallel_layers.py — `DataParallel`
+  parallel_layers.py — `DataParallel`, `HybridParallelOptimizer`,
+                   `param_partition_spec`, `wrap_distributed_model`
+  fleet/         — `fleet.init` and the hybrid topology, the mp layers
+                   behind `split`, `meta_parallel` (PipelineLayer and
+                   the pipeline runner), the meta optimizers, `utils`
+                   (recompute); `fleet/elastic` relaunches a failed job
+  sharding/      — ZeRO's `group_sharded_parallel`
+  auto_parallel/ — `ProcessMesh`, `shard_tensor` / `shard_op`, `Engine`
   checkpoint.py  — state-dict checkpoints in the JAX package's layout,
                    committed through `framework.ckpt_commit`
   ps/rpc.py      — the RPC fabric the serving fleet's verbs ride
   passes.py      — `new_pass` / `PassManager` / `PassContext` over the
                    program rewrites of `static.ir_pass`
 
-Fleet's hybrid parallelism (`fleet.init`, the mp layers behind `split`,
-`meta_parallel`, `sharding`, `auto_parallel`) comes with ROADMAP
-A.13f(ii); the parameter-server tables with A.13g.
+The parameter-server tables come with ROADMAP A.13g.
 """
 from . import checkpoint  # noqa: F401
 from . import env  # noqa: F401
 from . import fleet  # noqa: F401
+from . import auto_parallel  # noqa: F401
+from . import sharding  # noqa: F401
+from . import passes  # noqa: F401
 from . import communication  # noqa: F401
 from .checkpoint import (CheckpointCorruptError,  # noqa: F401
                          load_state_dict, save_state_dict)
@@ -48,7 +56,8 @@ from .comm_extras import (  # noqa: F401
     gloo_init_parallel_env, gloo_release, irecv, isend, split)
 
 __all__ = [
-    "checkpoint", "env", "fleet", "communication", "load_state_dict",
+    "checkpoint", "env", "fleet", "auto_parallel", "sharding", "passes",
+    "communication", "load_state_dict",
     "save_state_dict", "CheckpointCorruptError", "Group", "ReduceOp",
     "all_gather", "all_gather_concat", "all_reduce", "alltoall",
     "alltoall_single", "barrier", "broadcast", "destroy_process_group",

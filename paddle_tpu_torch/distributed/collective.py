@@ -23,17 +23,22 @@ mesh of every process's devices. The port has four, chosen per call:
 2. Inside a one-controller manual region (`env.axis_context(dp="dp")`):
    the value is a list with one Tensor a local rank of the mesh
    (`mesh.local_ranks`), and the collective applies the list collectives
-   of `parallel/collectives.py` to each group of the live axis. A group
-   that spans this process's ranks and other processes' sums its local
-   ranks in f32 in rank order and then all-reduces across processes
-   (MAX / MIN the same with their op; PROD and the data-moving
-   collectives gather the group's members). Only groups that span every
-   process are taken; others raise (ROADMAP A.13f(ii)).
+   of `parallel/collectives.py` to each group of the live axis
+   (`RankGrid.over`). A group that spans this process's ranks and other
+   processes' gathers its members through the `torch.distributed` group
+   of the processes it spans (the world, or a subgroup made once:
+   `parallel.collectives.process_group_of`) and runs the collective on
+   the whole group in every member process: the same result, bit for
+   bit, as one controller's.
 3. Eagerly over an axis of a one-process mesh (an explicit axis group,
    no live axis): as the reference's `_eager_axis_op`, the value is taken
    as replicated over the axis, so SUM over `dp`=8 gives 8·x, MAX / MIN /
    AVG give x, PROD x**8, broadcast x. The reference's other collectives
-   raise there (an unbound axis name), and so do the port's.
+   raise there (an unbound axis name), and so do the port's. On a mesh
+   split over processes with one rank of the axis group a process (the
+   groups of fleet's `HybridCommunicateGroup` across processes),
+   `all_reduce` and `broadcast` run over the group's processes
+   (`Group.process_group`).
 4. Outside all three, the single participant's identity, as in the
    reference.
 
@@ -116,6 +121,31 @@ class Group:
         if self._ranks is not None:
             return self._ranks.index(rank) if rank in self._ranks else -1
         return rank
+
+    def _procs(self):
+        """The processes holding this process's group of the axis, one
+        entry a member in rank order; None without a process group."""
+        mesh = self.mesh
+        if not dist.is_initialized() or mesh is None or \
+                self.axis_name is None:
+            return None
+        g = mesh.whole_groups(mesh.local_ranks[:1], (self.axis_name,))[0]
+        return [mesh.process_of(r) for r in g]
+
+    @property
+    def process_group(self):
+        """The `torch.distributed` group of the processes that hold this
+        process's group of the axis (None for the world, or without a
+        process group), made once."""
+        procs = self._procs()
+        return None if procs is None else C.process_group_of(procs)
+
+    def spans_processes(self):
+        """True when this axis group's ranks lie one a process, in more
+        than one process: its eager collectives run across them."""
+        procs = self._procs()
+        return procs is not None and len(procs) > 1 and \
+            len(set(procs)) == len(procs)
 
     @property
     def process_ids(self):
@@ -212,6 +242,13 @@ def _cross_process(group):
             and (group is None or group.axis_name is None))
 
 
+def _axis_across(group):
+    """True for an eager call on an axis group whose ranks lie one a
+    process over several processes (no axis live)."""
+    return (group is not None and not env.in_manual_region()
+            and group.spans_processes())
+
+
 def _comm(x):
     """`x` as the process group takes it: contiguous, on the host under
     gloo."""
@@ -221,11 +258,12 @@ def _comm(x):
     return x
 
 
-def _world_gather(x):
-    """Every process's `x`, in process order, on `x`'s device."""
+def _world_gather(x, pg=None):
+    """Every process's `x` (of the group `pg`, default the world), in
+    process order, on `x`'s device."""
     c = _comm(x)
-    parts = [torch.empty_like(c) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, c)
+    parts = [torch.empty_like(c) for _ in range(dist.get_world_size(pg))]
+    dist.all_gather(parts, c, group=pg)
     return [p.to(x.device) for p in parts]
 
 
@@ -246,27 +284,30 @@ def _reduce_stack(st, op, dtype):
     return st.amin(0)
 
 
-def _world_reduce(x, op):
-    """Reduce torch tensor `x` over the world's processes."""
+def _world_reduce(x, op, pg=None):
+    """Reduce torch tensor `x` over the world's processes (or those of
+    the group `pg`)."""
     if op == ReduceOp.PROD or (op in (ReduceOp.SUM, ReduceOp.AVG)
                                and not x.is_floating_point()):
-        return _reduce_stack(torch.stack(_world_gather(x)), op, x.dtype)
+        return _reduce_stack(torch.stack(_world_gather(x, pg)), op, x.dtype)
     wide = x.is_floating_point() and x.element_size() < 4 \
         and op in (ReduceOp.SUM, ReduceOp.AVG)
     y = _comm(x.float() if wide else x)
     if y is x:
         y = x.clone()
-    dist.all_reduce(y, _DIST_OP[op])
+    dist.all_reduce(y, _DIST_OP[op], group=pg)
     if op == ReduceOp.AVG:
-        y = y / dist.get_world_size()
+        y = y / dist.get_world_size(pg)
     return y.to(x.device, x.dtype)
 
 
-def _world_broadcast(x, src):
+def _world_broadcast(x, src, pg=None):
+    """`x` of the process with group rank `src` of `pg` (the world)."""
     y = _comm(x)
     if y is x:
         y = x.clone()
-    dist.broadcast(y, src)
+    dist.broadcast(y, src if pg is None else dist.get_global_rank(pg, src),
+                   group=pg)
     return y.to(x.device)
 
 
@@ -289,14 +330,15 @@ def world_sum(x):
     return _WorldSum.apply(x)
 
 
-def all_reduce_mean_(tensors):
-    """Average torch tensors in place over the processes with one
-    all-reduce of their f32 concatenation (the gradient all-reduce of
-    `DataParallel` and `Model`'s dp route)."""
+def all_reduce_mean_(tensors, pg=None):
+    """Average torch tensors in place over the processes (of `pg`, default
+    the world) with one all-reduce of their f32 concatenation (the
+    gradient all-reduce of `DataParallel`, `HybridParallelOptimizer` and
+    `Model`'s dp route)."""
     if not tensors:
         return tensors
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    flat = _world_reduce(flat, ReduceOp.AVG)
+    flat = _world_reduce(flat, ReduceOp.AVG, pg)
     i = 0
     for t in tensors:
         n = t.numel()
@@ -320,81 +362,22 @@ def _raw_list(xs):
     return [x._data if isinstance(x, Tensor) else x for x in xs]
 
 
-def _check_spans_world(mesh, g):
-    procs = sorted({mesh.process_of(r) for r in g})
-    if procs != list(range(mesh.nproc)):
-        raise NotImplementedError(
-            f"a group of ranks {g} spans processes {procs} of "
-            f"{mesh.nproc}: groups over a subset of the processes come "
-            "with fleet's hybrid parallelism (ROADMAP A.13f(ii))")
-
-
-def _region_groups(mesh, axes):
-    """(group of global ranks, this process's positions in it) for every
-    group of `axes`, in the order of their first rank."""
-    pos = {r: i for i, r in enumerate(mesh.local_ranks)}
-    out = []
-    for g in mesh.groups(list(range(mesh.size)), axes):
-        mine = [pos[r] for r in g if r in pos]
-        if mine:
-            out.append((g, mine))
-    return out
-
-
 def _region_apply(xs, axis, fn, mesh=None):
     """Apply the one-controller group collective `fn` (a list of torch
     tensors, one a group member in rank order -> the same) to every group
-    of `axis`; a group spanning processes gathers its members first.
-    `mesh` defaults to the installed one."""
+    of `axis` (`RankGrid.over`; a group spanning processes gathers its
+    members first). `mesh` defaults to the installed one."""
     mesh = mesh or _region_mesh()
-    xs = _raw_list(xs)
-    if mesh.nproc == 1:
-        return mesh.over(mesh.local_ranks, axis, fn, xs)
-    out = [None] * len(xs)
-    for g, mine in _region_groups(mesh, axis):
-        if len(mine) == len(g):
-            for p, y in zip(mine, fn([xs[p] for p in mine])):
-                out[p] = y
-            continue
-        _check_spans_world(mesh, g)
-        parts = _world_gather(torch.stack([xs[p] for p in mine]))
-        members = [t for part in parts for t in part.unbind(0)]
-        res = fn(members)
-        local = [g.index(mesh.local_ranks[p]) for p in mine]
-        for p, k in zip(mine, local):
-            out[p] = res[k].to(xs[p].device)
-    return out
+    return mesh.over(mesh.local_ranks, axis, fn, _raw_list(xs))
 
 
 def region_reduce(xs, axis, op, mesh=None):
     """all_reduce over `axis` (an axis name or a tuple of them) in a
-    manual region (see the module docstring): local ranks first, in f32
-    for SUM / AVG, then the other processes. `xs`: one value a rank of
-    `mesh.local_ranks`; `mesh` defaults to the installed one."""
-    mesh = mesh or _region_mesh()
-    xs = _raw_list(xs)
-    local_fn = functools.partial(_list_reduce, op=op)
-    if mesh.nproc == 1 or op == ReduceOp.PROD:
-        return _region_apply(xs, axis, local_fn, mesh)
-    out = [None] * len(xs)
-    for g, mine in _region_groups(mesh, axis):
-        if len(mine) == len(g):
-            for p, y in zip(mine, local_fn([xs[p] for p in mine])):
-                out[p] = y
-            continue
-        _check_spans_world(mesh, g)
-        vals = [xs[p] for p in mine]
-        if op in (ReduceOp.SUM, ReduceOp.AVG):
-            part = C._sum_f32(vals, vals[0].device)
-            tot = _world_reduce(part, ReduceOp.SUM)
-            if op == ReduceOp.AVG:
-                tot = tot / len(g)
-        else:
-            part = _list_reduce(vals, op)[0]
-            tot = _world_reduce(part, op)
-        for p in mine:
-            out[p] = tot.to(xs[p].device, xs[p].dtype, copy=True)
-    return out
+    manual region: each group reduced in rank order (SUM / AVG in f32),
+    across processes too. `xs`: one value a rank of `mesh.local_ranks`;
+    `mesh` defaults to the installed one."""
+    return _region_apply(xs, axis, functools.partial(_list_reduce, op=op),
+                         mesh)
 
 
 def _list_reduce(xs, op):
@@ -460,6 +443,9 @@ def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True,
         return _rebind_all(tensor, region_reduce(tensor, axis, op))
     if _cross_process(group):
         tensor._data = _world_reduce(tensor._data, op)
+        return tensor
+    if _axis_across(group):
+        tensor._data = _world_reduce(tensor._data, op, group.process_group)
         return tensor
     axis = _axis_of(group)
     n = None if axis is None else _eager_axis_size(axis)
@@ -568,6 +554,10 @@ def broadcast(tensor, src=0, group=None, sync_op=True):
                                     for x in xs]))
     if _cross_process(group):
         tensor._data = _world_broadcast(tensor._data, src)
+        return tensor
+    if _axis_across(group):
+        tensor._data = _world_broadcast(tensor._data, src,
+                                        group.process_group)
         return tensor
     ax = _axis_of(group)
     if ax is not None:

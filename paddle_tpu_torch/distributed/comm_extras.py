@@ -3,8 +3,8 @@
 collectives, ParallelMode, gloo shims, the PS entry-attr config classes
 and the PS datasets.
 
-`split` builds fleet's tensor-parallel layers, which come with ROADMAP
-A.13f(ii); here it raises naming that item.
+`split` builds fleet's tensor-parallel layers (`fleet.layers.mp_layers`)
+and applies them.
 """
 import pickle
 
@@ -84,13 +84,42 @@ def all_gather_object(object_list, obj, group=None):
 def split(x, size, operation, axis=0, num_partitions=1, gather_out=True,
           weight_attr=None, bias_attr=None, name=None):
     """Tensor-parallel op splitter (reference:
-    fleet/layers/mpu/mp_ops.py:582). It builds fleet's parallel embedding
-    / column / row layers, which come with fleet's hybrid parallelism
-    (ROADMAP A.13f(ii))."""
-    raise NotImplementedError(
-        "distributed.split builds fleet's tensor-parallel layers "
-        "(VocabParallelEmbedding, ColumnParallelLinear, RowParallelLinear), "
-        "which the port brings in ROADMAP A.13f(ii)")
+    fleet/layers/mpu/mp_ops.py:582): builds fleet's parallel embedding /
+    column / row layer and applies it. axis=0 of a linear splits the
+    input features (row-parallel), axis=1 the output features
+    (column-parallel). The layer takes the mp context it is called in
+    (`mp_layers.py`); when fleet's mp axis spans the processes, one rank
+    a process, it keeps this process's rows of its weight."""
+    from .fleet import get_hybrid_communicate_group
+    from .fleet.layers.mp_layers import (ColumnParallelLinear,
+                                         RowParallelLinear,
+                                         VocabParallelEmbedding,
+                                         shard_mp_params)
+    if operation == "embedding":
+        layer = VocabParallelEmbedding(size[0], size[1],
+                                       weight_attr=weight_attr)
+    elif operation == "linear":
+        if axis == 0:
+            layer = RowParallelLinear(size[0], size[1],
+                                      weight_attr=weight_attr,
+                                      has_bias=bias_attr is not False,
+                                      input_is_parallel=not gather_out)
+        else:
+            layer = ColumnParallelLinear(size[0], size[1],
+                                         weight_attr=weight_attr,
+                                         has_bias=bias_attr is not False,
+                                         gather_output=gather_out)
+    else:
+        raise ValueError(f"split: unsupported operation {operation!r} "
+                         f"(embedding|linear)")
+    hcg = get_hybrid_communicate_group()
+    if hcg is not None and hcg.get_model_parallel_world_size() > 1:
+        group = hcg.get_model_parallel_group()
+        if group.spans_processes():
+            shard_mp_params(layer, hcg.get_model_parallel_rank(),
+                            hcg.get_model_parallel_world_size(),
+                            group.process_group)
+    return layer(x)
 
 
 # ------------------------------------------------------------- gloo shims

@@ -123,8 +123,10 @@ def init_parallel_env(backend=None, device=None):
                 f"processes, the process group {dist.get_world_size()}")
         world, me = dist.get_world_size(), dist.get_rank()
         per = mesh.size // world
-        set_mesh(new_mesh(mesh.dims, mesh.devices[me * per:(me + 1) * per],
-                          world, me))
+        by_slot = sorted(range(mesh.size), key=mesh.slots.__getitem__)
+        set_mesh(new_mesh(mesh.dims, [mesh.devices[r] for r in
+                                      by_slot[me * per:(me + 1) * per]],
+                          world, me, mesh.order))
     _initialized = True
     return ParallelEnv()
 
@@ -177,12 +179,14 @@ def set_mesh(mesh):
     return mesh
 
 
-def new_mesh(dims, local_devices, nproc=1, proc=0):
+def new_mesh(dims, local_devices, nproc=1, proc=0, order=None):
     """The port's mesh: a `RankGrid` over the axes of `dims` (in their
-    order) whose ranks are split into consecutive blocks, one block a
-    process (`nproc`, `proc`; this process drives `local_ranks`).
-    `local_devices`: one device for the block, or one a rank of it; a
-    remote rank's device is None."""
+    order) whose ranks are split into blocks of device slots, one block a
+    process (`nproc`, `proc`; this process drives `local_ranks`). `order`:
+    the axes slowest first over the devices (default the order of
+    `dims`), so its first axis is the one whose groups span the processes.
+    `local_devices`: one device for the block, or one a rank of it, in
+    `local_ranks` order; a remote rank's device is None."""
     size = math.prod(int(v) for v in dims.values())
     if size % nproc:
         raise ValueError(f"mesh {dict(dims)} of {size} ranks does not "
@@ -193,18 +197,20 @@ def new_mesh(dims, local_devices, nproc=1, proc=0):
     if len(local_devices) != per:
         raise ValueError(f"{len(local_devices)} devices for this "
                          f"process's {per} ranks")
-    devices = [None] * size
-    devices[proc * per:(proc + 1) * per] = list(local_devices)
     from ..parallel.collectives import RankGrid
-    return RankGrid(dict(dims), devices, axes=tuple(dims), nproc=nproc,
-                    proc=proc)
+    grid = RankGrid(dict(dims), [None] * size, axes=tuple(dims),
+                    nproc=nproc, proc=proc, order=order)
+    for r, d in zip(grid.local_ranks, local_devices):
+        grid.devices[r] = d
+    return grid
 
 
-def build_mesh(axis_dims, axis_names=None, devices=None):
+def build_mesh(axis_dims, axis_names=None, devices=None, order=None):
     """Create and install the global mesh; axis_dims like
     {'dp': 2, 'mp': 2}. `devices`: this process's ranks' devices (one for
     all of them, or one a rank; default the current place's device).
-    Under a process group the ranks split into one block a process."""
+    Under a process group the ranks split into one block a process, over
+    `order` (see `new_mesh`)."""
     if isinstance(axis_dims, dict):
         dims = {str(k): int(v) for k, v in axis_dims.items()}
     else:
@@ -215,7 +221,7 @@ def build_mesh(axis_dims, axis_names=None, devices=None):
     devices = [torch.device(d) for d in devices]
     nproc, proc = (dist.get_world_size(), dist.get_rank()) \
         if dist.is_initialized() else (1, 0)
-    return set_mesh(new_mesh(dims, devices, nproc, proc))
+    return set_mesh(new_mesh(dims, devices, nproc, proc, order))
 
 
 class ParallelEnv:

@@ -24,10 +24,11 @@ Spans, while the port's profiler records: `Model.train_batch.fused_step`
 read), `Model.train_batch.write_back` (Optimization) and
 `Model.eval_batch` (Forward).
 
-The dp route. With a mesh whose "dp" (or "mp") axis is above 1
+The dp and mp routes. With a mesh whose "dp" (or "mp") axis is above 1
 (`_dp_mesh()`), the reference compiles one GSPMD program with the batch
-sharded over dp: its loss, gradients and BatchNorm statistics are the
-global batch's. The port reproduces that step:
+sharded over dp and every parameter that fleet's mp layers mark with a
+`split_axis` sharded over mp: its loss, gradients and BatchNorm
+statistics are the global batch's. The port reproduces that step:
   * under a process group (one block of ranks a process), every process
     passes the same global batch and computes its own ranks' rows; every
     BatchNorm in the step reduces its statistics over the processes
@@ -35,14 +36,29 @@ global batch's. The port reproduces that step:
     before the update, the loss is the processes' mean and the outputs
     the metrics read are gathered: the single-process step, computed in
     parts;
+  * when the mp axis spans the processes, one rank a process, each
+    process keeps its mp rows of every `split_axis` parameter
+    (`mp_layers.shard_mp_params`) and computes the whole batch through the
+    mp layers' collectives across the processes: its loss is the one
+    process's loss, and no gradient is averaged (dp within a process is
+    the plain step's);
   * on a one-process mesh the one controller computes that same global
     step, which is the plain step (it gains nothing on one card:
-    ROADMAP C.21).
+    ROADMAP C.21, C.22). The split the reference's `_param_shardings`
+    gives each parameter is recorded as its `partition_spec`
+    (`param_partition_spec`).
 A batch whose leading size does not split over dp takes the plain step in
-every process (`_train_step_plain` records it), as in the reference. The
-mp half of the route (fleet's `split_axis` parameters) and the pp route
-come with ROADMAP A.13f(ii); a mesh with pp > 1, or with mp > 1 under a
-process group, raises.
+every process (`_train_step_plain` records it), as in the reference. Both
+dp and mp across processes at once, and sharding or sp across processes,
+raise (ROADMAP A.13f(iii)).
+
+The pp route. With a mesh whose "pp" axis is above 1 the network must be
+a fleet `PipelineLayer`: `train_batch` runs the pipeline runner
+(`fleet/meta_parallel/pp_compiled.py`) over `prepare(strategy=
+{"microbatches": M, "schedule": ...})`, writes the gradients to `.grad`
+and steps the optimizer eagerly, as the reference does. Its span is
+`Model.train_batch.pipeline_step`. The pipeline runs in one process; a
+pp mesh split over processes raises (ROADMAP A.13f(iii)).
 """
 import contextlib
 import os
@@ -74,12 +90,14 @@ class Model:
         self._opt_state = None
         self._strategy = {}
         self._train_step_plain = None
+        self._pp_step = None
         self.stop_training = False
 
     # ---------------------------------------------------------------- prep
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None, strategy=None):
-        """`strategy` is kept for the pipeline route (ROADMAP A.13f(ii))."""
+        """`strategy`: the pipeline route's {"microbatches": M (default
+        2), "schedule": "1f1b" | "gpipe"}."""
         self._optimizer = optimizer
         self._loss = loss
         if metrics is None:
@@ -89,6 +107,7 @@ class Model:
         else:
             self._metrics = list(metrics)
         self._strategy = dict(strategy or {})
+        self._pp_step = None
 
     def _compute_loss(self, outputs, labels):
         outs = _as_list(outputs)
@@ -134,12 +153,28 @@ class Model:
         mesh = env.get_mesh()
         if mesh is None:
             return None
-        if mesh.dims.get("pp", 1) > 1:
-            raise NotImplementedError(
-                "Model over a mesh with pp > 1 (the compiled pipeline "
-                "route) comes with ROADMAP A.13f(ii)")
         useful = any(mesh.dims.get(a, 1) > 1 for a in ("dp", "mp"))
         return mesh if useful else None
+
+    @staticmethod
+    def _pp_mesh():
+        from ..distributed import env
+        mesh = env.get_mesh()
+        if mesh is not None and mesh.dims.get("pp", 1) > 1:
+            return mesh
+        return None
+
+    def _param_shardings(self, mesh):
+        """{name: the reference's NamedSharding spec as a tuple}: a
+        `split_axis` parameter of fleet's mp layers over "mp" when the mp
+        axis is above 1, the rest replicated (())."""
+        from ..distributed.parallel_layers import param_partition_spec
+        dims = {"mp": mesh.dims.get("mp", 1)}
+        out = {}
+        for n, p in self.network.named_parameters():
+            spec = param_partition_spec(p, dims)
+            out[n] = spec if any(spec) else ()
+        return out
 
     @staticmethod
     def _rows(raws, mesh):
@@ -189,6 +224,9 @@ class Model:
         in_raw = self._raw(_as_list(inputs), dev)
         lab_raw = self._raw(None if labels is None else _as_list(labels),
                             dev)
+        pp_mesh = self._pp_mesh()
+        if pp_mesh is not None:
+            return self._train_batch_pp(in_raw, lab_raw, pp_mesh)
         split = self._dp_split(in_raw + lab_raw)
         params, buffers = functional_state(self.network)
         if self._opt_state is None:
@@ -216,11 +254,17 @@ class Model:
 
     def _dp_split(self, raws):
         """The mesh to split this batch over processes with, or None for
-        the plain step (no dp mesh, one process, or a ragged batch)."""
+        the plain step (no dp mesh, one process, a ragged batch, or mp
+        across the processes)."""
+        from ..distributed import collective as dc
         from ..distributed import env
         mesh = self._dp_mesh()
         if mesh is None:
             return None
+        if mesh.nproc == 1 and mesh.dims.get("mp", 1) > 1:
+            specs = self._param_shardings(mesh)
+            for n, p in self.network.named_parameters():
+                p.partition_spec = specs[n]
         dp = mesh.dims.get("dp", 1)
         if any(r.dim() and r.shape[0] % dp for r in raws):
             # a ragged batch does not split over dp: the plain step, in
@@ -229,13 +273,79 @@ class Model:
             return None
         if mesh.nproc == 1:
             return None
-        if any(v > 1 for a, v in mesh.dims.items() if a != "dp") \
-                or not env.process_group_live():
+        across = [a for a in mesh.dims if mesh.dims[a] > 1 and
+                  any(mesh.process_of(r) != mesh.proc for r in
+                      mesh.whole_groups(mesh.local_ranks[:1], (a,))[0])]
+        if not env.process_group_live() or len(across) != 1 or \
+                across[0] not in ("dp", "mp"):
             raise NotImplementedError(
-                f"Model over mesh {mesh.dims} across processes: only the "
-                "dp axis is split over processes here; the mp route comes "
-                "with ROADMAP A.13f(ii)")
+                f"Model over mesh {mesh.dims} with axes {across} across "
+                "processes: the dp route or the mp route (one of them "
+                "across the processes) runs here; the rest comes with "
+                "ROADMAP A.13f(iii)")
+        if across[0] == "mp":
+            group = dc.Group(axis_name="mp", mesh=mesh)
+            if not group.spans_processes():
+                raise NotImplementedError(
+                    f"Model's mp route across processes takes one mp rank "
+                    f"a process; mesh {mesh.dims} puts more in one "
+                    "(ROADMAP A.13f(iii))")
+            from ..distributed.fleet.layers.mp_layers import shard_mp_params
+            shard_mp_params(self.network, group.rank, group.nranks,
+                            group.process_group)
+            return None
+        if len(mesh.whole_groups(mesh.local_ranks[:1], ("dp",))[0]) != \
+                mesh.dims["dp"] or mesh.dims["dp"] % mesh.nproc:
+            raise NotImplementedError(
+                f"Model's dp route over mesh {mesh.dims}: the dp axis must "
+                "hold every process (ROADMAP A.13f(iii))")
         return mesh
+
+    def _train_batch_pp(self, in_raw, lab_raw, mesh):
+        """The pp route: the network must be a fleet PipelineLayer; the
+        pipeline runner computes the loss and gradients, and the optimizer
+        steps eagerly on them (reference: hapi's static adapter
+        dispatching to fleet, python/paddle/hapi/model.py:591-599)."""
+        from ..distributed.fleet.meta_parallel.pp_compiled import \
+            make_compiled_pipeline_step
+        from ..distributed.fleet.meta_parallel.pp_layers import PipelineLayer
+        if not isinstance(self.network, PipelineLayer):
+            raise ValueError(
+                "Model.fit over a 'pp' mesh axis needs the network to be a "
+                "fleet PipelineLayer (mp/dp axes compose with it through "
+                "the compiled pipeline)")
+        if len(in_raw) != 1 or len(lab_raw) != 1:
+            raise ValueError("pipeline Model.fit expects one input and one "
+                             "label tensor")
+        micro = int(self._strategy.get("microbatches", 2))
+        if in_raw[0].shape[0] % micro:
+            raise ValueError(
+                f"pipeline Model.fit: batch size {in_raw[0].shape[0]} is not "
+                f"divisible by microbatches={micro}; set drop_last=True or "
+                f"pick a matching batch size")
+        if self._pp_step is None:
+            self._pp_step = make_compiled_pipeline_step(
+                self.network, mesh, microbatches=micro,
+                schedule=self._strategy.get("schedule", "1f1b"))
+        params, buffers = functional_state(self.network)
+        rec = _TRACER.begin("Model.train_batch.pipeline_step", "Forward",
+                            {"fused": "1f1b pipeline (eager tick tables)"}) \
+            if _TRACER.enabled else None
+        try:
+            loss, grads, new_buffers = self._pp_step(params, buffers,
+                                                     in_raw[0], lab_raw[0])
+            loss_val = float(loss)
+        finally:
+            _TRACER.end(rec)
+        for n, p in self.network.named_parameters():
+            g = grads.get(n)
+            p._data.grad = None if g is None else g.to(p._data.dtype)
+        for n, b in self.network.named_buffers():
+            if n in new_buffers:
+                b._data = new_buffers[n].detach()
+        self._optimizer.step()
+        self._optimizer.clear_grad()
+        return [loss_val], []
 
     def eval_batch(self, inputs, labels=None):
         dev = self._device()

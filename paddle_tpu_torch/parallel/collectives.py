@@ -15,6 +15,20 @@ applies a group collective to every group of an axis (`over`); the
 mesh of `distributed.env.build_mesh` is a `RankGrid` over the axes it
 names, in the order it names them.
 
+Across processes. The ranks of a grid split over `nproc` processes, one
+block of device slots a process; a rank's slot is its row-major index over
+`order` (the axes slowest first: the reference's device-array transpose),
+so the axis named first is the one whose groups span the processes. A
+group of `over` whose members lie in other processes gathers them through
+a `torch.distributed` group of those processes (`_ProcGather`), runs the
+group collective on the whole group in every member process, and keeps its
+own members' outputs: the same sums in the same order as one controller.
+The gather's backward sums the processes' cotangents of each member and
+hands them to its owner, so autograd through `over` gives each rank the
+gradient one controller gives it. Each process receives (members - 1) x
+the value's bytes of a group, more than a ring reduce-scatter's
+(n - 1)/n: the price of one controller's order.
+
 Autograd. The collectives are plain differentiable ops, and the gradient
 autograd gives each is the transpose JAX gives it under `check_vma=False`:
 all_gather's is a reduce-scatter, ppermute's the inverse permutation,
@@ -32,6 +46,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = ["AXES", "RankGrid", "psum", "pmean", "pmax", "all_gather",
            "psum_scatter", "ppermute", "all_to_all", "axis_psum", "mp_copy",
@@ -162,15 +177,74 @@ def axis_index(grid, rank, axis):
     return grid.coords[rank][axis]
 
 
+_SUBGROUPS = {}
+
+
+def process_group_of(procs):
+    """The `torch.distributed` group over the processes `procs` (sorted
+    process ranks): None for the whole world, else a group made once and
+    kept (`new_group` with local synchronization: only members call it)."""
+    procs = tuple(sorted(int(p) for p in procs))
+    if procs == tuple(range(dist.get_world_size())):
+        return None
+    if procs not in _SUBGROUPS:
+        _SUBGROUPS[procs] = dist.new_group(list(procs),
+                                           use_local_synchronization=True)
+    return _SUBGROUPS[procs]
+
+
+def _dc():
+    """`distributed.collective` (imported late: it imports this module),
+    whose `_world_gather` / `_world_reduce` move values between
+    processes."""
+    from ..distributed import collective
+    return collective
+
+
+class _ProcGather(torch.autograd.Function):
+    """The processes' stacks of `pg`, in process order (all_gather),
+    whose backward all-reduces (SUM) the cotangent of the whole stack
+    over the processes and hands back the local rows (all_gather's
+    transpose)."""
+
+    @staticmethod
+    def forward(ctx, pg, local):
+        ctx.pg = pg
+        ctx.me = dist.get_rank(pg) if pg is not None else dist.get_rank()
+        return torch.stack(_dc()._world_gather(local, pg))
+
+    @staticmethod
+    def backward(ctx, g):
+        dc = _dc()
+        return None, dc._world_reduce(g, dc.ReduceOp.SUM, ctx.pg)[ctx.me]
+
+
+def _gather_members(pg, locals_):
+    """Every process's list of local member values (same shapes and
+    dtypes in every process), in process order: differentiable for
+    floating values."""
+    local = torch.stack([x.to(locals_[0].device) for x in locals_])
+    if local.is_floating_point() and torch.is_grad_enabled() and \
+            any(x.requires_grad for x in locals_):
+        full = _ProcGather.apply(pg, local)
+    else:
+        full = torch.stack(_dc()._world_gather(local, pg))
+    return [list(part.unbind(0)) for part in full.unbind(0)]
+
+
 class RankGrid:
     """Ranks over the mesh axes, each with its device.
 
     dims: {axis: size} over `axes` (default `AXES`; an axis left out has
     size 1); devices: one torch.device a rank (None for a rank another
-    process drives). The ranks split into `nproc` consecutive blocks, one
-    a process; this process (`proc`) drives `local_ranks`."""
+    process drives). The ranks split into `nproc` blocks of device slots,
+    one a process; a rank's slot is its row-major index over `order` (the
+    axes slowest first; default `axes`, so the blocks are consecutive
+    ranks, and axes left out of `order` follow it in `axes` order). This
+    process (`proc`) drives `local_ranks`, in slot order."""
 
-    def __init__(self, dims, devices, axes=AXES, nproc=1, proc=0):
+    def __init__(self, dims, devices, axes=AXES, nproc=1, proc=0,
+                 order=None):
         self.axes = tuple(axes)
         unknown = set(dims) - set(self.axes)
         if unknown:
@@ -188,14 +262,22 @@ class RankGrid:
         if self.size % nproc:
             raise ValueError(f"{self.size} ranks do not split over {nproc} "
                              "processes")
+        order = tuple(order or ())
+        if set(order) - set(self.axes) or len(set(order)) != len(order):
+            raise ValueError(f"order {order} is not a list of distinct axes "
+                             f"of {self.axes}")
+        self.order = order + tuple(a for a in self.axes if a not in order)
+        self.slots = [self.flat_index(r, self.order)
+                      for r in range(self.size)]
         self.nproc, self.proc = nproc, proc
         self.per_proc = self.size // nproc
-        self.local_ranks = list(range(proc * self.per_proc,
-                                      (proc + 1) * self.per_proc))
+        self.local_ranks = sorted(
+            (r for r in range(self.size) if self.process_of(r) == proc),
+            key=self.slots.__getitem__)
 
     def process_of(self, rank):
         """The process that drives `rank`."""
-        return rank // self.per_proc
+        return self.slots[rank] // self.per_proc
 
     def ranks_where(self, **coords):
         """Rank ids whose coordinates equal `coords`, in rank order."""
@@ -230,12 +312,81 @@ class RankGrid:
 
     def over(self, ranks, axes, fn, xs):
         """Apply the group collective `fn` to each group of `axes` among
-        `ranks` (xs: one value a rank of `ranks`)."""
+        `ranks` (xs: one value a rank of `ranks`; a value may be a tuple,
+        which `fn` receives whole). Under processes, a group whose other
+        members are remote ranks gathers them (see the module
+        docstring)."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         if all(self.dims[a] == 1 for a in axes):
             return list(xs)
         out = [None] * len(xs)
-        for g in self.groups(ranks, axes):
-            for pos, y in zip(g, fn([xs[p] for p in g])):
-                out[pos] = y
+        if self.nproc == 1:
+            for g in self.groups(ranks, axes):
+                for pos, y in zip(g, fn([xs[p] for p in g])):
+                    out[pos] = y
+            return out
+        pos_of = {r: i for i, r in enumerate(ranks)}
+        mine = set(self.local_ranks)
+        spanning = {}                # process set -> [group], rank order
+        for g in self.whole_groups(ranks, axes):
+            if all(r in pos_of for r in g):
+                for r, y in zip(g, fn([xs[pos_of[r]] for r in g])):
+                    out[pos_of[r]] = y
+                continue
+            if not all(r in pos_of or r not in mine for r in g):
+                raise ValueError(f"ranks {ranks} hold part of this "
+                                 f"process's group {g}")
+            procs = tuple(sorted({self.process_of(r) for r in g}))
+            spanning.setdefault(procs, []).append(g)
+        # every process takes its process sets, and the groups in each,
+        # in one global order, so their gathers meet
+        for procs in sorted(spanning):
+            self._over_spanning(procs, sorted(spanning[procs]), pos_of, fn,
+                                xs, out)
         return out
+
+    def whole_groups(self, ranks, axes):
+        """The groups of `axes` that the ranks of `ranks` belong to: each
+        the whole group of global ranks, in rank order, in the order of
+        the first rank of `ranks` each holds."""
+        seen, out = set(), []
+        for r in ranks:
+            key = tuple(self.coords[r][a] for a in self.axes
+                        if a not in axes)
+            if key in seen:
+                continue
+            seen.add(key)
+            fixed = {a: self.coords[r][a] for a in self.axes
+                     if a not in axes}
+            out.append(self.ranks_where(**fixed))
+        return out
+
+    def _over_spanning(self, procs, groups, pos_of, fn, xs, out):
+        """`fn` over groups whose members lie in the processes `procs`:
+        one gather of the local members of all of them (one per tuple
+        component), then each group in full, keeping the local outputs."""
+        members = [r for g in groups for r in g
+                   if self.process_of(r) == self.proc]
+        per_proc = {p: [r for g in groups for r in g
+                        if self.process_of(r) == p] for p in procs}
+        if len({len(v) for v in per_proc.values()}) != 1:
+            raise ValueError(f"groups {groups} hold unequal numbers of "
+                             f"ranks in processes {procs}")
+        pg = process_group_of(procs)
+        local_vals = [xs[pos_of[r]] for r in members]
+        tup = isinstance(local_vals[0], (tuple, list))
+        comps = list(zip(*local_vals)) if tup else [local_vals]
+        value = {}
+        for c, vals in enumerate(comps):
+            got = _gather_members(pg, list(vals))
+            for p, part in zip(procs, got):
+                for r, v in zip(per_proc[p], part):
+                    value.setdefault(r, [None] * len(comps))[c] = v
+        for r in members:           # a local member keeps its own value
+            value[r] = list(local_vals[members.index(r)]) if tup \
+                else [local_vals[members.index(r)]]
+        for g in groups:
+            res = fn([tuple(value[r]) if tup else value[r][0] for r in g])
+            for r, y in zip(g, res):
+                if r in pos_of:
+                    out[pos_of[r]] = y

@@ -37,28 +37,29 @@ def _tensor(arr, dtype, dev):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
 
-def _grid(plan, device, devices):
+def _grid(plan, device, devices, axis_order=None):
     """The plan's rank grid as `make_train_step` splits it over the
     processes, or None for a plan of one rank."""
     if plan is None or plan.n_devices == 1:
         return None
-    return _process_grid(plan, resolve_device(device), devices)
+    return _process_grid(plan, resolve_device(device), devices, axis_order)
 
 
 def params_from_jax(params, device="cuda", dtype=None, cfg=None, plan=None,
-                    devices=None):
+                    devices=None, axis_order=None):
     """{leaf: array} from the JAX `init_gpt_params` (or a trained step) ->
     {leaf: tensor} on `device`, in `dtype` (default: float32, or the
     config's param_dtype when `cfg` is given). With a `plan` of more than
     one rank: {leaf: [one piece a rank this process drives]}, on
-    `devices` as `make_train_step` takes them (default `device`)."""
+    `devices` as `make_train_step` takes them (default `device`) and
+    over its `axis_order`."""
     _check_names(params, _LEAVES, "parameter")
     if dtype is None:
         dtype = torch.float32 if cfg is None else \
             {"float32": torch.float32,
              "bfloat16": torch.bfloat16}[cfg.param_dtype]
     shapes = param_shapes(cfg) if cfg is not None else None
-    grid = _grid(plan, device, devices)
+    grid = _grid(plan, device, devices, axis_order)
     host = torch.device("cpu") if grid is not None else \
         resolve_device(device)
     specs = param_specs(cfg)
@@ -72,13 +73,14 @@ def params_from_jax(params, device="cuda", dtype=None, cfg=None, plan=None,
     return out
 
 
-def opt_state_from_jax(state, device="cuda", plan=None, devices=None):
+def opt_state_from_jax(state, device="cuda", plan=None, devices=None,
+                       axis_order=None):
     """{leaf: {"m", "v", "master", "t"}} from the JAX `init_opt_state_leaf`
     (or a trained step) -> the same in tensors (f32 vectors, int32 step
     count). With a `plan` of more than one rank the JAX global state
     arrays are cut into each rank's shard: {leaf: [one dict a rank]}."""
     _check_names(state, _LEAVES, "state")
-    grid = _grid(plan, device, devices)
+    grid = _grid(plan, device, devices, axis_order)
     host = torch.device("cpu") if grid is not None else \
         resolve_device(device)
     specs = state_specs()

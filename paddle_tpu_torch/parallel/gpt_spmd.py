@@ -76,7 +76,9 @@ Where the two differ:
     `train::forward`, each backward (its recompute included) under
     `train::backward`.
   * Multi-process training (the JAX `_put_global` multi-controller path)
-    is not ported: one process drives every rank.
+    is several controllers, each driving its block of ranks
+    (`make_train_step`'s docstring); one controller drives every rank
+    without a process group.
 """
 import math
 from dataclasses import dataclass
@@ -627,9 +629,18 @@ class _Program:
             h = self.stage_blocks(ranks, h, P)
             return self.head_loss(ranks, h, labs, P)
         pp, M = plan.pp, plan.microbatches
-        stage = [grid.ranks_where(pp=s) for s in range(pp)]
-        tok_mb = [t.reshape(M, -1, t.shape[-1]) for t in toks]
-        lab_mb = [t.reshape(M, -1, t.shape[-1]) for t in labs]
+        mine = set(ranks)
+        stage = [[r for r in grid.ranks_where(pp=s) if r in mine]
+                 for s in range(pp)]
+        if any(not rs for rs in stage):
+            raise NotImplementedError(
+                "the GPipe schedule with its pp axis across processes: use "
+                "schedule='1f1b' (ROADMAP A.13f(iii))")
+        P = dict(zip(ranks, P))
+        tok_mb = {r: t.reshape(M, -1, t.shape[-1])
+                  for r, t in zip(ranks, toks)}
+        lab_mb = {r: t.reshape(M, -1, t.shape[-1])
+                  for r, t in zip(ranks, labs)}
         loss_sum = {r: torch.zeros((), device=grid.devices[r])
                     for r in ranks}
         held = [0] * pp
@@ -663,6 +674,41 @@ class _Program:
         return self.grid.over(ranks, "pp", C.axis_psum, losses)
 
     # -- 1F1B / interleaved --------------------------------------------------
+    def _hop(self, hops, mine, act_shape):
+        """The values of this tick's hops (kind 0 an activation, 1 a
+        cotangent; chunk, source rank, destination rank, the source's
+        per-chunk list or None) that land on this process's ranks: a
+        local source hands its value over; a remote one sends it with
+        `torch.distributed` point to point (under gloo through the host),
+        one message a hop, tagged by its ranks."""
+        import torch.distributed as dist
+        grid = self.grid
+        out = [None] * len(hops)
+        reqs, recvd = [], []
+        for i, (kind, c, src, dst, vals) in enumerate(hops):
+            local_src, local_dst = src in mine, dst in mine
+            if not (local_src or local_dst):
+                continue
+            tag = (kind * grid.size + src) * grid.size + dst
+            if local_src and local_dst:
+                out[i] = vals[c]
+            elif local_src:
+                v = vals[c].to(self.cdt).contiguous()
+                if v.is_cuda and dist.get_backend() == "gloo":
+                    v = v.cpu()
+                reqs.append(dist.isend(v, grid.process_of(dst), tag=tag))
+                recvd.append(v)          # kept alive until sent
+            else:
+                dev = grid.devices[dst]
+                on_host = dev.type == "cuda" and dist.get_backend() == "gloo"
+                b = torch.empty(act_shape[dst], dtype=self.cdt,
+                                device="cpu" if on_host else dev)
+                reqs.append(dist.irecv(b, grid.process_of(src), tag=tag))
+                out[i] = b
+        for q in reqs:
+            q.wait()
+        return out
+
     @staticmethod
     def _vjp(fn, leaves, outs_grads):
         """Recompute `fn(leaves)` under enable_grad and pull `outs_grads`
@@ -689,11 +735,20 @@ class _Program:
         farr, garr = arrival_tables(ftbl, btbl, pp, V)
         W = required_slots(ftbl, btbl, farr, garr, M, pp, V)
         T = ftbl.shape[0]
-        R = grid.size
-        stage = [grid.ranks_where(pp=s) for s in range(pp)]
-        tok_mb = [t.reshape(M, -1, t.shape[-1]) for t in toks]
-        lab_mb = [t.reshape(M, -1, t.shape[-1]) for t in labs]
-        Lk = P[0]["w_qkv"].shape[0] // V
+        local = grid.local_ranks
+        mine = set(local)
+        full_stage = [grid.ranks_where(pp=s) for s in range(pp)]
+        stage = [[r for r in rs if r in mine] for rs in full_stage]
+        if V > 1 and grid.nproc > 1:
+            raise NotImplementedError(
+                "the interleaved schedule across processes comes with "
+                "ROADMAP A.13f(iii)")
+        P = dict(zip(local, P))
+        tok_mb = {r: t.reshape(M, -1, t.shape[-1])
+                  for r, t in zip(local, toks)}
+        lab_mb = {r: t.reshape(M, -1, t.shape[-1])
+                  for r, t in zip(local, labs)}
+        Lk = P[local[0]]["w_qkv"].shape[0] // V
         hp_keys, ep_keys = ("lnf_w", "lnf_b", "wte"), ("wte", "wpe")
         nb = len(_BLOCK_LEAVES)
 
@@ -705,20 +760,23 @@ class _Program:
                     for i in range(n)]
 
         f32 = torch.float32
-        g_bp = [{k: torch.zeros(P[r][k].shape, dtype=f32,
-                                device=grid.devices[r])
-                 for k in _BLOCK_LEAVES} for r in range(R)]
-        g_hp = [{k: torch.zeros(P[r][k].shape, dtype=f32,
-                                device=grid.devices[r])
-                 for k in hp_keys} for r in range(R)]
-        g_ep = [{k: torch.zeros(P[r][k].shape, dtype=f32,
-                                device=grid.devices[r])
-                 for k in ep_keys} for r in range(R)]
-        loss_sum = [torch.zeros((), device=grid.devices[r]) for r in range(R)]
-        buf = [[[None] * W for _ in range(V)] for _ in range(R)]
-        gbuf = [[[None] * W for _ in range(V)] for _ in range(R)]
-        fchan = [[None] * V for _ in range(R)]
-        gchan = [[None] * V for _ in range(R)]
+        g_bp = {r: {k: torch.zeros(P[r][k].shape, dtype=f32,
+                                   device=grid.devices[r])
+                    for k in _BLOCK_LEAVES} for r in local}
+        g_hp = {r: {k: torch.zeros(P[r][k].shape, dtype=f32,
+                                   device=grid.devices[r])
+                    for k in hp_keys} for r in local}
+        g_ep = {r: {k: torch.zeros(P[r][k].shape, dtype=f32,
+                                   device=grid.devices[r])
+                    for k in ep_keys} for r in local}
+        loss_sum = {r: torch.zeros((), device=grid.devices[r])
+                    for r in local}
+        buf = {r: [[None] * W for _ in range(V)] for r in local}
+        gbuf = {r: [[None] * W for _ in range(V)] for r in local}
+        fchan = {r: [None] * V for r in local}
+        gchan = {r: [None] * V for r in local}
+        act_shape = {r: tuple(tok_mb[r].shape[1:]) + (cfg.hidden,)
+                     for r in local}
         peak = [0] * pp
 
         def park(slots, i, x, what):
@@ -789,10 +847,12 @@ class _Program:
                     g_ep[r]["wpe"] += ge[2 * i + 1].float()
 
         for t in range(T):
-            new_y = [[None] * V for _ in range(R)]
-            new_g = [[None] * V for _ in range(R)]
+            new_y = {r: [None] * V for r in local}
+            new_g = {r: [None] * V for r in local}
             for s in range(pp):
                 rs = stage[s]
+                if not rs:
+                    continue
                 first, last = s == 0, s == pp - 1
                 for c in range(V):
                     fi, bi = int(ftbl[t, s, c]), int(btbl[t, s, c])
@@ -836,28 +896,37 @@ class _Program:
                            for r in rs for c in range(V))
                 peak[s] = max(peak[s], live)
             # the hops: activations to the next stage, cotangents back
-            fchan = [[None] * V for _ in range(R)]
-            gchan = [[None] * V for _ in range(R)]
+            fchan = {r: [None] * V for r in local}
+            gchan = {r: [None] * V for r in local}
+            hops = []          # (kind, source rank, destination rank, value)
             for s in range(pp):
-                nxt, prv = stage[(s + 1) % pp], stage[(s - 1) % pp]
-                for i, r in enumerate(stage[s]):
+                nxt, prv = full_stage[(s + 1) % pp], full_stage[(s - 1) % pp]
+                for i, r in enumerate(full_stage[s]):
                     for c in range(V):
-                        if new_y[r][c] is not None:
-                            fchan[nxt[i]][c] = new_y[r][c].to(
-                                grid.devices[nxt[i]], copy=True)
                         # virtual stage 0's cotangent feeds its embedding
-                        # only
-                        if new_g[r][c] is not None and (s, c) != (0, 0):
-                            gchan[prv[i]][c] = new_g[r][c].to(
-                                grid.devices[prv[i]], self.cdt, copy=True)
+                        # only; the last virtual stage sends nothing on
+                        if int(ftbl[t, s, c]) >= 0 and not (
+                                c == V - 1 and s == pp - 1):
+                            hops.append((0, c, r, nxt[i], new_y.get(r)))
+                        if int(btbl[t, s, c]) >= 0 and (s, c) != (0, 0):
+                            hops.append((1, c, r, prv[i], new_g.get(r)))
+            got = self._hop(hops, mine, act_shape)
+            for (kind, c, src, dst, _), v in zip(hops, got):
+                if v is None:
+                    continue
+                if kind == 0:
+                    fchan[dst][c] = v.to(grid.devices[dst], copy=True)
+                else:
+                    gchan[dst][c] = v.to(grid.devices[dst], self.cdt,
+                                         copy=True)
         stats.update(schedule=plan.schedule if V == 1 else "interleaved",
                      ticks=T, slots=W, peak_live=peak)
-        last = set(stage[pp - 1])
+        last = set(full_stage[pp - 1])
         losses = [loss_sum[r] / M if r in last else loss_sum[r]
-                  for r in range(R)]
-        losses = grid.over(list(range(R)), "pp", C.psum, losses)
+                  for r in local]
+        losses = grid.over(local, "pp", C.psum, losses)
         grads = []
-        for r in range(R):      # in place: the f32 accumulators are large
+        for r in local:         # in place: the f32 accumulators are large
             g = {k: v.div_(M) for k, v in g_bp[r].items()}
             g["wte"] = g_ep[r]["wte"].add_(g_hp[r]["wte"]).div_(M)
             g["wpe"] = g_ep[r]["wpe"].div_(M)
@@ -910,20 +979,20 @@ def _zero2_update_(grid, ps, gs, sts, lrs, clips, wd):
     """Reduce-scatter the (clipped, f32) gradient over `sharding` and
     divide by its size, update each rank's shard of the f32 master,
     all-gather the masters and write the parameters in place. `ps`,
-    `gs`, `sts`, `lrs`, `clips`: one a rank, every rank."""
+    `gs`, `sts`, `lrs`, `clips`: one a rank this process drives."""
     n = grid.dims["sharding"]
     size = ps[0].numel()
     shard = -(-size // n)
     pad = shard * n - size
     gfs = [g.reshape(-1).float() * clip for g, clip in zip(gs, clips)]
-    ranks = list(range(grid.size))
+    ranks = grid.local_ranks
     if n > 1:
         gfs = [F.pad(g, (0, pad)) for g in gfs]
         g_sh = grid.over(ranks, "sharding",
                          lambda g: C.psum_scatter(g, 0), gfs)
         g_sh = [g / n for g in g_sh]
         p_sh = []
-        for r, p in enumerate(ps):
+        for r, p in zip(ranks, ps):
             i = grid.coords[r]["sharding"]
             p_sh.append(F.pad(p.reshape(-1).float(), (0, pad))
                         [i * shard:(i + 1) * shard])
@@ -1017,8 +1086,8 @@ def _global_grad_sq(grid, grads):
     sum psummed over the mp / pp axes that shard it (a replicated leaf
     counted once)."""
     specs = param_specs()
-    ranks = list(range(grid.size))
-    total = [torch.zeros((), device=d) for d in grid.devices]
+    ranks = grid.local_ranks
+    total = [torch.zeros((), device=grid.devices[r]) for r in ranks]
     for name in grads[0]:
         sq = [(g[name].float() ** 2).sum() for g in grads]
         for a in specs[name]:
@@ -1028,35 +1097,41 @@ def _global_grad_sq(grid, grads):
     return total
 
 
-def _process_grid(plan, dev, devices):
+def _process_grid(plan, dev, devices, axis_order=None):
     """The rank grid of the step, split over the processes.
 
     One controller drives every rank. Under a `torch.distributed` process
     group of world W > 1 (the multi-controller step, in place of the JAX
     `_put_global`'s `jax.distributed` branch) the ranks are split into W
-    consecutive blocks and this process drives its block
-    (`grid.local_ranks`); only the dp axis may be above 1 there (mp, pp,
-    sharding and sp across processes come with ROADMAP A.13f(ii))."""
+    blocks of device slots over `axis_order` (the axes slowest first, the
+    reference's device-array transpose; default `AXES`), and this process
+    drives its block (`grid.local_ranks`): the axis named first is the
+    one whose groups span the processes. dp, pp, sharding and mp may
+    cross the processes; sp across processes raises (ROADMAP
+    A.13f(iii))."""
     import torch.distributed as dist
     from ..distributed.env import new_mesh
     n = plan.n_devices
     world, me = 1, 0
     if n > 1 and dist.is_initialized():
         world, me = dist.get_world_size(), dist.get_rank()
-    if world > 1 and any(v > 1 for a, v in plan.dims.items() if a != "dp"):
-        raise NotImplementedError(
-            f"make_train_step across processes with plan {plan.dims}: "
-            "only dp is split over processes; mp, pp, sharding and sp "
-            "across processes come with ROADMAP A.13f(ii)")
     if n % world:
         raise ValueError(f"{n} ranks do not split over {world} processes")
     local = _resolve_devices(devices or [dev] * (n // world), n // world)
-    return new_mesh(plan.dims, local, world, me)
+    grid = new_mesh(plan.dims, local, world, me, axis_order)
+    if world > 1 and plan.sp > 1 and any(
+            grid.process_of(r) != me for r in
+            grid.whole_groups(grid.local_ranks[:1], ("sp",))[0]):
+        raise NotImplementedError(
+            f"make_train_step with plan {plan.dims}: sp across processes "
+            "comes with ROADMAP A.13f(iii)")
+    return grid
 
 
 def make_train_step(cfg: GPTSpmdConfig, plan: MeshPlan = None,
                     learning_rate=3e-4, weight_decay=0.1, grad_clip=1.0,
-                    device="cuda", attention="kernel", devices=None):
+                    device="cuda", attention="kernel", devices=None,
+                    axis_order=None):
     """Returns (step_fn, init_fn).
 
     step_fn(params, opt_state, tokens, labels, lr=None) -> (loss, params,
@@ -1075,18 +1150,22 @@ def make_train_step(cfg: GPTSpmdConfig, plan: MeshPlan = None,
     runs the flash-attention kernels (their plain versions on CPU
     tensors); "plain" runs dense attention with autograd.
 
-    Under a process group of world W > 1, a dp plan runs as W
-    controllers (`_process_grid`): each process passes the same global
-    batch and drives its block of ranks, `devices` names its block's
-    devices, a leaf holds one tensor a local rank, init_fn builds the
-    local ranks' leaves from the same seed in every process, and the dp
-    mean of the gradients and the loss sums the local ranks in f32 in
-    rank order, then all-reduces across processes."""
-    from ..distributed.collective import ReduceOp, region_reduce
+    Under a process group of world W > 1 the plan runs as W controllers
+    (`_process_grid`, its ranks over `axis_order`): each process passes
+    the same global batch and drives its block of ranks, `devices` names
+    its block's devices, a leaf holds one tensor a local rank, and
+    init_fn builds the local ranks' leaves from the same seed in every
+    process. A collective whose group spans the processes gathers the
+    group's members and reduces them in rank order in every member
+    process (`RankGrid.over`), so the step's sums are one controller's;
+    the 1F1B pipeline sends its activations and cotangents between
+    processes point to point. Across processes the pipeline takes the
+    1F1B / eager-1F1B schedules (GPipe and vpp > 1 raise) and sp
+    stays within a process."""
     plan = plan or MeshPlan()
     _check_plan(cfg, plan)
     dev = resolve_device(device)
-    grid = _process_grid(plan, dev, devices)
+    grid = _process_grid(plan, dev, devices, axis_order)
     ranks = grid.local_ranks
     devs = [grid.devices[r] for r in ranks]
     prog = _Program(cfg, plan, grid, _attend_fn(attention))
@@ -1143,12 +1222,11 @@ def make_train_step(cfg: GPTSpmdConfig, plan: MeshPlan = None,
                 # grad sync over every data axis BEFORE the clip, so the
                 # global norm sees the true batch gradient
                 for k in specs:
-                    col = region_reduce([g[k] for g in grads], sync_axes,
-                                        ReduceOp.AVG, grid)
+                    col = grid.over(ranks, sync_axes, C.pmean,
+                                    [g[k] for g in grads])
                     for g, v in zip(grads, col):
                         g[k] = v
-                losses = region_reduce(losses, sync_axes, ReduceOp.AVG,
-                                       grid)
+                losses = grid.over(ranks, sync_axes, C.pmean, losses)
             if plan.pp > 1:
                 # pp-replicated leaves: stage-disjoint parts, summed
                 for k, spec in specs.items():
@@ -1175,6 +1253,7 @@ def make_train_step(cfg: GPTSpmdConfig, plan: MeshPlan = None,
         return losses[0], params, opt_state
 
     step_fn.stats = {}
+    step_fn.grid = grid
 
     def init_fn(seed=0):
         gen = torch.Generator(device=devs[0]).manual_seed(int(seed))

@@ -8,7 +8,8 @@ from .gpt import (  # noqa: F401
 from .bert import Bert, BertConfig, BertForPretraining  # noqa: F401
 from .ernie import (  # noqa: F401
     Ernie, ErnieConfig, ErnieForPretraining, ErnieForSequenceClassification,
-    ernie_3_base, ernie_3_base_config, ernie_tiny, ernie_tiny_config,
+    ernie_3_base, ernie_3_base_config, ernie_pipeline_descs, ernie_tiny,
+    ernie_tiny_config,
 )
 
 __all__ = ["GPT", "GPTAttention", "GPTBlock", "GPTConfig", "GPTForGeneration",
@@ -17,4 +18,5 @@ __all__ = ["GPT", "GPTAttention", "GPTBlock", "GPTConfig", "GPTForGeneration",
            "load_jax_params", "Bert", "BertConfig", "BertForPretraining",
            "Ernie", "ErnieConfig", "ErnieForPretraining",
            "ErnieForSequenceClassification", "ernie_3_base",
-           "ernie_3_base_config", "ernie_tiny", "ernie_tiny_config"]
+           "ernie_3_base_config", "ernie_pipeline_descs", "ernie_tiny",
+           "ernie_tiny_config"]

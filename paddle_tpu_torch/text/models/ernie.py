@@ -4,9 +4,10 @@ hidden 768, 12 heads, task_type_vocab_size 3) on the port's
 `nn.TransformerEncoder`, its sequence-classification and pretraining
 heads, and the `ernie_3_base` / `ernie_tiny` factories.
 
-`ernie_pipeline_descs` (the PipelineLayer description of the mp+pp
-driver config) needs `distributed.fleet.meta_parallel`, which comes with
-fleet's hybrid parallelism (ROADMAP A.13f(ii)); it is not ported here.
+`ernie_pipeline_descs` is the `PipelineLayer` description of ERNIE's
+mp+pp hybrid-parallel configuration: the embeddings, the encoder layers
+and the MLM head tied to the word embeddings through one
+`SharedLayerDesc`.
 """
 from dataclasses import dataclass
 
@@ -17,7 +18,8 @@ from ...nn.initializer import Normal
 
 __all__ = ["Ernie", "ErnieConfig", "ErnieForSequenceClassification",
            "ErnieForPretraining", "ernie_3_base", "ernie_tiny",
-           "ernie_3_base_config", "ernie_tiny_config"]
+           "ernie_3_base_config", "ernie_tiny_config",
+           "ernie_pipeline_descs"]
 
 
 @dataclass
@@ -158,3 +160,48 @@ def ernie_3_base(**kw):
 
 def ernie_tiny(**kw):
     return Ernie(ernie_tiny_config(**kw))
+
+
+def ernie_pipeline_descs(cfg: ErnieConfig, loss_fn=None):
+    """The desc list for fleet.meta_parallel.PipelineLayer (ERNIE's mp+pp
+    hybrid-parallel configuration): embeddings | N encoder layers | tied
+    MLM head. The embedding table and the output projection are ONE
+    parameter through SharedLayerDesc: the first and last stages share
+    the layer object, so both gradients accumulate into the same table."""
+    from ...distributed.fleet.meta_parallel import (LayerDesc,
+                                                    SharedLayerDesc)
+
+    class _SharedEmbed(Layer):
+        """Owns the embedding tables: stage 0's embedding and the last
+        stage's vocab projection (tied)."""
+
+        def __init__(self):
+            super().__init__()
+            self.inner = ErnieEmbeddings(cfg)
+
+        def forward(self, ids):
+            return self.inner(ids)
+
+    def _embed_fwd(layer, ids):
+        return layer.inner(ids)
+
+    def _head_fwd(layer, x):
+        from ...tensor.linalg import matmul
+        return matmul(x, layer.inner.word_embeddings.weight,
+                      transpose_y=True)
+
+    class _Block(Layer):
+        def __init__(self):
+            super().__init__()
+            self.inner = TransformerEncoderLayer(
+                cfg.hidden_size, cfg.num_attention_heads,
+                cfg.intermediate_size, dropout=cfg.hidden_dropout_prob,
+                activation="gelu",
+                attn_dropout=cfg.attention_probs_dropout_prob)
+
+        def forward(self, x):
+            return self.inner(x)
+
+    return ([SharedLayerDesc("embed", _SharedEmbed, _embed_fwd)] +
+            [LayerDesc(_Block) for _ in range(cfg.num_hidden_layers)] +
+            [SharedLayerDesc("embed", _SharedEmbed, _head_fwd)])

@@ -16,8 +16,9 @@ virtual CPU devices.
   * The `comm.<kind>` Communication spans carry the reference's
     attributes (`tests/test_profiler_statistic.py:70-88`).
   * The namespace extras of `tests/test_namespace_completion.py:171-183`
-    and `tests/test_final_namespaces.py:156-166` (`split` raises here:
-    ROADMAP A.13f(ii)).
+    and `tests/test_final_namespaces.py:156-166` (`split` is tested in
+    `tests/test_torch_dist_env.py` and, across processes, in
+    `tests/test_torch_dist_hybrid.py`).
 """
 import jax
 import numpy as np

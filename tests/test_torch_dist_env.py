@@ -149,9 +149,18 @@ def test_spawn_calls_once_after_init():
 
 
 def test_split_raises_naming_its_slice():
-    with pytest.raises(NotImplementedError, match=r"A\.13f\(ii\)"):
-        pt.distributed.split(pt.to_tensor(np.array([[0, 1]], "int64")),
-                             (8, 4), "embedding")
+    """split builds fleet's mp layers (an embedding here, equal to the
+    plain lookup of the same seeded weight without a live mp axis) and
+    raises naming the operations it takes for any other."""
+    ids = pt.to_tensor(np.array([[0, 1]], "int64"))
+    pt.seed(3)
+    got = pt.distributed.split(ids, (8, 4), "embedding")
+    pt.seed(3)
+    want = pt.distributed.fleet.layers.mp_layers.VocabParallelEmbedding(
+        8, 4)(ids)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    with pytest.raises(ValueError, match="embedding.linear"):
+        pt.distributed.split(ids, (8, 4), "conv")
 
 
 # ------------------------------------------------------------- the store
@@ -347,7 +356,20 @@ def test_model_dp_ragged_batch_takes_the_plain_step():
 
 
 def test_model_refuses_routes_of_the_next_slice():
+    """Over a pp mesh Model needs a PipelineLayer; a pp mesh split over
+    processes raises naming the next slice."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        LayerDesc, PipelineLayer)
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.pp_compiled \
+        import make_compiled_pipeline_step
     env.build_mesh({"pp": 2})
     m = pt.Model(pt.nn.Linear(4, 2))
-    with pytest.raises(NotImplementedError, match=r"A\.13f\(ii\)"):
-        m._dp_mesh()
+    m.prepare(pt.optimizer.SGD(0.1, parameters=m.parameters()),
+              pt.nn.CrossEntropyLoss())
+    with pytest.raises(ValueError, match="PipelineLayer"):
+        m.train_batch([np.ones((2, 4), "float32")], [np.zeros(2, "int64")])
+    pl = PipelineLayer([LayerDesc(pt.nn.Linear, 4, 4)] * 2, num_stages=2,
+                       loss_fn=pt.nn.MSELoss())
+    split = env.new_mesh({"pp": 2}, [pt.core.device.place_device()], 2, 0)
+    with pytest.raises(NotImplementedError, match=r"A\.13f\(iii\)"):
+        make_compiled_pipeline_step(pl, split, 2)

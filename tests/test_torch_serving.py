@@ -490,6 +490,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "        'paddle_tpu_torch.distributed.fleet',\n"
             "        'paddle_tpu_torch.distributed.fleet.elastic',\n"
             "        'paddle_tpu_torch.distributed.parallel_layers',\n"
+            "        'paddle_tpu_torch.distributed.fleet.base.topology',\n"
+            "        'paddle_tpu_torch.distributed.fleet.base.distributed_strategy',\n"
+            "        'paddle_tpu_torch.distributed.fleet.layers.mp_layers',\n"
+            "        'paddle_tpu_torch.distributed.fleet.meta_parallel',\n"
+            "        'paddle_tpu_torch.distributed.fleet.meta_parallel.pp_layers',\n"
+            "        'paddle_tpu_torch.distributed.fleet.meta_parallel.pp_compiled',\n"
+            "        'paddle_tpu_torch.distributed.fleet.meta_optimizers',\n"
+            "        'paddle_tpu_torch.distributed.fleet.utils',\n"
+            "        'paddle_tpu_torch.distributed.sharding',\n"
+            "        'paddle_tpu_torch.distributed.auto_parallel',\n"
+            "        'paddle_tpu_torch.incubate',\n"
+            "        'paddle_tpu_torch.incubate.distributed',\n"
+            "        'paddle_tpu_torch.incubate.distributed.fleet',\n"
+            "        'paddle_tpu_torch.incubate.distributed.moe',\n"
+            "        'paddle_tpu_torch.incubate.distributed.moe.functional',\n"
+            "        'paddle_tpu_torch.incubate.distributed.moe.gate',\n"
+            "        'paddle_tpu_torch.incubate.distributed.moe.grad_clip',\n"
+            "        'paddle_tpu_torch.incubate.distributed.moe.moe_layer',\n"
             "        'paddle_tpu_torch.vision.models',\n"
             "        'paddle_tpu_torch.vision.models.resnet',\n"
             "        'paddle_tpu_torch.vision.models.vgg',\n"

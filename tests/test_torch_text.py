@@ -387,7 +387,8 @@ def test_ernie_factories_and_configs(pt):
     assert vars(M.ernie_3_base_config()) == vars(J.ernie_3_base_config())
     assert vars(M.ernie_tiny_config()) == vars(J.ernie_tiny_config())
     assert isinstance(M.ernie_tiny(), M.Ernie)
-    assert not hasattr(M, "ernie_pipeline_descs")     # ROADMAP A.13f
+    assert callable(M.ernie_pipeline_descs) and \
+        callable(J.ernie_pipeline_descs)
 
 
 def test_ernie_forward_and_classification(pt):

@@ -489,6 +489,7 @@ import json
 import math
 import os
 import re
+import statistics
 import shutil
 import subprocess
 import sys
@@ -8449,10 +8450,11 @@ def _mlm_loss(pt):
     return mlm_loss
 
 
-def fleet_ernie_pp(pt, smi):
+def fleet_ernie_pp(pt, smi, save_to=None):
     """Phase 27 (a): ERNIE-3.0-Base as a pp2 PipelineLayer through
     Model.fit on the one card, each step held to the unpipelined step of
-    the same PipelineLayer from the same weights."""
+    the same PipelineLayer from the same weights. `save_to`: a file for
+    the weights after the steps."""
     import numpy as np
     from paddle_tpu_torch.distributed import env as denv
     from paddle_tpu_torch.distributed.fleet.meta_parallel import PipelineLayer
@@ -8508,6 +8510,12 @@ def fleet_ernie_pp(pt, smi):
                 num += float(((a - b).double() ** 2).sum())
                 den += float(((b - before[n]).double() ** 2).sum())
             rec["update_rel_err"].append(math.sqrt(num / max(den, 1e-30)))
+        if save_to:
+            # phase 28 (a) holds its two processes' stages to these weights
+            import torch
+            os.makedirs(os.path.dirname(save_to), exist_ok=True)
+            torch.save({n: p._data.detach().cpu()
+                        for n, p in pl.named_parameters()}, save_to)
         if FLEET_DEV == "cuda":
             x, y = batches[-1]
             prof = profile_steps(lambda: model.train_batch([x], [y]), 1)
@@ -8726,20 +8734,21 @@ def fleet_child(out_dir):
     return 0
 
 
-def fleet_launch(out_dir, log_dir):
-    """Two ranks of `fleet_child` through `python -m
-    paddle_tpu_torch.distributed.launch` on card 0, in a session of their
-    own killed whole at the end: (records, seconds)."""
+def fleet_launch(out_dir, log_dir, child="--fleet-child", prefix="fleet",
+                 what="phase 27", timeout=FLEET_CHILD_S):
+    """Two ranks of `fleet_child` (or another `child` flag's) through
+    `python -m paddle_tpu_torch.distributed.launch` on card 0, in a
+    session of their own killed whole at the end: (records, seconds)."""
     import signal
     os.makedirs(out_dir, exist_ok=True)
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
            "--nproc_per_node", "2", "--devices", "0", "--log_dir", log_dir,
-           DIST_CHILD_SCRIPT, "--fleet-child", out_dir]
+           DIST_CHILD_SCRIPT, child, out_dir]
     env = dict(os.environ, PYTHONPATH=ROOT)
     t0 = time.perf_counter()
     p = subprocess.Popen(cmd, cwd=ROOT, env=env, start_new_session=True)
     try:
-        rc = p.wait(timeout=FLEET_CHILD_S + 60)
+        rc = p.wait(timeout=timeout + 60)
     except subprocess.TimeoutExpired:
         rc = "timeout"
     finally:
@@ -8755,11 +8764,11 @@ def fleet_launch(out_dir, log_dir):
             if os.path.exists(path):
                 with open(path) as f:
                     tails.append(f"--- rank {r} ---\n{f.read()[-3000:]}")
-        raise AssertionError(f"phase 27: the launch exited {rc}\n"
+        raise AssertionError(f"{what}: the launch exited {rc}\n"
                              + "\n".join(tails))
     recs = []
     for r in range(2):
-        with open(os.path.join(out_dir, f"fleet_rank{r}.json")) as f:
+        with open(os.path.join(out_dir, f"{prefix}_rank{r}.json")) as f:
             recs.append(json.load(f))
     return recs, time.perf_counter() - t0
 
@@ -8777,7 +8786,7 @@ def fleet_phase(smi):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(log_dir, exist_ok=True)
     rec = {"card": smi}
-    rec["a"] = fleet_ernie_pp(pt, smi)
+    rec["a"] = fleet_ernie_pp(pt, smi, save_to=FLEET3_ONE)
     gc_cuda()
     # (c)'s one-controller plans, on the same seeds and batches
     ref = {}
@@ -8861,6 +8870,474 @@ def fleet_launches(rec, which):
         r["flash_launches"][i] for c in rec["c"].values() for r in c["ranks"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: fleet across processes (pp, sp, GPipe, vpp) on two processes
+# ---------------------------------------------------------------------------
+
+FLEET3_DIR = os.path.join(ROOT, "build", "phase28")
+FLEET3_ONE = os.path.join(FLEET3_DIR, "ernie_one.pt")
+# (b): GPT-125M's widths, 2 layers a stage (DIST_GPT's cut), bf16, one
+# row a rank and microbatch; (tag, plan, the axis across processes)
+FLEET3_GPT_PLANS = (
+    ("sp2_ulysses_sp_cross", dict(sp=2, sp_mode="ulysses"), ("sp",)),
+    ("sp2_ring_sp_cross", dict(sp=2, sp_mode="ring"), ("sp",)),
+    ("pp2_gpipe_pp_cross", dict(pp=2, microbatches=2, schedule="gpipe"),
+     ("pp",)),
+    ("pp2_vpp2_pp_cross", dict(pp=2, microbatches=4, vpp=2), ("pp",)))
+FLEET3_CHILD_S = 600
+# (a): the same weights, batches and schedule as phase 27 (a)'s one
+# controller; only the tied embedding's gradient is added across the two
+# processes (its two stages' sums, added in stage order in both runs)
+FLEET3_PP_LOSS_RTOL = 1e-6
+FLEET3_PP_UPDATE_RTOL = 1e-6
+
+
+def fleet3_ernie_pp(pt, rec):
+    """Phase 28 (a), in each rank: phase 27 (a)'s ERNIE-3.0-Base pp2
+    PipelineLayer through Model.fit, this process running one stage:
+    losses, step ms, flash launches, and this stage's weights after the
+    steps against the one controller's (FLEET3_ONE)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import env as denv
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import PipelineLayer
+    from paddle_tpu_torch.text.models import ernie as te
+    cfg = te.ernie_3_base_config(**FLEET_ERNIE)
+    loss_fn = _mlm_loss(pt)
+    pt.seed(27)
+    pl = PipelineLayer(te.ernie_pipeline_descs(cfg, loss_fn=loss_fn),
+                       num_stages=2, loss_fn=loss_fn)
+    before = {n: p._data.detach().clone() for n, p in pl.named_parameters()}
+    mesh = denv.build_mesh({"pp": 2}, order=("pp",))
+    model = pt.Model(pl)
+    model.prepare(pt.optimizer.SGD(FLEET_PP_LR, parameters=pl.parameters()),
+                  None, strategy={"microbatches": FLEET_PP_M})
+    rng = np.random.RandomState(27)
+    shape = (FLEET_PP_B, FLEET_PP_S)
+    batches = [(rng.randint(0, cfg.vocab_size, shape),
+                rng.randint(0, cfg.vocab_size, shape))
+               for _ in range(FLEET_PP_STEPS)]
+    out = {"losses": [], "step_ms": [], "flash_launches": []}
+    for x, y in batches:
+        c0 = _flash_counts()
+        _sync()
+        t0 = time.perf_counter()
+        out["losses"].append(model.train_batch([x], [y])[0][0])
+        _sync()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["flash_launches"].append([b - a for a, b in
+                                      zip(c0, _flash_counts())])
+    stage = mesh.coords[mesh.local_ranks[0]]["pp"]
+    owned = set()
+    for i, (layer, _) in enumerate(pl._built):
+        if pl.stage_of_layer(i) == stage and hasattr(layer, "parameters"):
+            ids = {id(p) for p in layer.parameters()}
+            owned |= {n for n, p in pl.named_parameters() if id(p) in ids}
+    one = torch.load(FLEET3_ONE)
+    num = den = 0.0
+    equal = 0
+    for n in sorted(owned):
+        a = dict(pl.named_parameters())[n]._data.detach().cpu()
+        b = one[n]
+        equal += int(torch.equal(a, b))
+        num += float(((a - b).double() ** 2).sum())
+        den += float(((b - before[n].cpu()).double() ** 2).sum())
+    out.update(stage=stage, params=len(owned), params_equal=equal,
+               update_rel_err=math.sqrt(num / max(den, 1e-30)),
+               stats=dict(model._pp_step.stats))
+    rec["a"] = out
+    denv.set_mesh(None)
+
+
+def fleet3_child(out_dir):
+    """A rank of phase 28, started by the port's launcher (`--fleet3-child
+    DIR`); writes DIR/fleet3_rank<r>.json."""
+    import faulthandler
+    faulthandler.dump_traceback_later(FLEET3_CHILD_S, exit=True)
+    sys.path.insert(0, ROOT)
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch as pt
+    pt.set_device(_place())
+    pt.distributed.init_parallel_env(backend="gloo")
+    me = pt.distributed.get_rank()
+    rec = {"pid": os.getpid(), "rank": me,
+           "world": pt.distributed.get_world_size()}
+    fleet3_ernie_pp(pt, rec)
+    gc_cuda()
+    rec["gpt"] = {}
+    for tag, plan, order in FLEET3_GPT_PLANS:
+        rec["gpt"][tag] = fleet_gpt_run(plan, order)
+        gc_cuda()
+    pt.distributed.barrier()
+    with open(os.path.join(out_dir, f"fleet3_rank{me}.json"), "w") as f:
+        json.dump(rec, f)
+    pt.distributed.destroy_process_group()
+    return 0
+
+
+def fleet3_phase(smi, fleet):
+    """Phase 28: (a) phase 27 (a)'s ERNIE-3.0-Base pp2 PipelineLayer
+    through Model.fit with one stage a process; (b) `gpt_spmd` at
+    GPT-125M's widths with sp (Ulysses, ring) and pp (GPipe, vpp=2)
+    across two processes, held to the one-controller plans; (c) phase 27
+    (c)'s plan 3, whose sharding sums now run as partial sums and one
+    all-reduce / reduce-scatter, against the step when those sums were
+    gathers (PERF.md)."""
+    t_phase = time.perf_counter()
+    log_dir = os.path.join(ROOT, "chiprun_out", "phase28")
+    work = os.path.join(FLEET3_DIR, "run")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(log_dir, exist_ok=True)
+    rec = {"card": smi}
+    ref = {}
+    for tag, plan, _ in FLEET3_GPT_PLANS:
+        ref[tag] = fleet_gpt_run(plan)
+        gc_cuda()
+    ranks, rec["launch_s"] = fleet_launch(work, log_dir, child="--fleet3-child",
+                                          prefix="fleet3", what="phase 28",
+                                          timeout=FLEET3_CHILD_S)
+    for r, rr in enumerate(ranks):
+        if (rr["rank"], rr["world"]) != (r, 2):
+            raise AssertionError(f"phase 28: rank {r} reads {rr}")
+    # (a)
+    one = fleet["a"]
+    a = [rr["a"] for rr in ranks]
+    loss_err = max(_rel_err(x["losses"], one["losses"]) for x in a)
+    upd = max(x["update_rel_err"] for x in a)
+    rec["a"] = {"ranks": a, "loss_rel_err": loss_err,
+                "update_rel_err": upd}
+    log(f"fleet3 ernie-3.0-base pp2 PipelineLayer, one stage a process "
+        f"(gloo, one card; B={FLEET_PP_B}, S={FLEET_PP_S}, f32, SGD "
+        f"{FLEET_PP_LR}, microbatches {FLEET_PP_M}, "
+        f"{a[0]['stats']['schedule']} over {a[0]['stats']['ticks']} ticks): "
+        f"losses {a[0]['losses']} / {a[1]['losses']} (ranks 0 / 1) vs one "
+        f"controller {one['losses']}, loss rel err {loss_err:.3g}; stage "
+        f"weights equal bit for bit {a[0]['params_equal']}/"
+        f"{a[0]['params']} and {a[1]['params_equal']}/{a[1]['params']}, "
+        f"update rel err {upd:.3g}; step ms "
+        f"{[round(v, 1) for v in a[0]['step_ms']]} / "
+        f"{[round(v, 1) for v in a[1]['step_ms']]} vs one controller "
+        f"{[round(v, 1) for v in one['step_ms']]}; flash fwd/dq/dkv a step "
+        f"{a[0]['flash_launches'][-1]} / {a[1]['flash_launches'][-1]} vs "
+        f"one controller {one['flash_launches'][-1]} [{smi}]")
+    if loss_err > FLEET3_PP_LOSS_RTOL or upd > FLEET3_PP_UPDATE_RTOL or \
+            a[0]["losses"] != a[1]["losses"] or \
+            sorted(x["stage"] for x in a) != [0, 1]:
+        raise AssertionError(f"phase 28 (a): {rec['a']}")
+    if [sum(x) for x in zip(a[0]["flash_launches"][-1],
+                            a[1]["flash_launches"][-1])] != \
+            list(one["flash_launches"][-1]):
+        raise AssertionError(f"phase 28 (a): flash launches {a} against "
+                             f"the one controller's {one['flash_launches']}")
+    # (b)
+    rec["b"] = {}
+    for tag, plan, order in FLEET3_GPT_PLANS:
+        o = ref[tag]
+        got = [rr["gpt"][tag] for rr in ranks]
+        leaves = {}
+        for g in got:
+            leaves.update(g["leaf_sha256"])
+        lerr = max(_rel_err(g["losses"], o["losses"]) for g in got)
+        differ = sorted(k for k, v in o["leaf_sha256"].items()
+                        if leaves.get(k) != v)
+        if set(leaves) != set(o["leaf_sha256"]):
+            differ.append(f"leaf sets {len(leaves)} vs "
+                          f"{len(o['leaf_sha256'])}")
+        rec["b"][tag] = {"ranks": got, "one_controller": o,
+                         "loss_rel_err": lerr, "leaves_differ": differ}
+        log(f"fleet3 gpt_spmd {tag} across 2 processes ({order[0]} across; "
+            f"GPT-125M widths, {2 * plan.get('pp', 1)} layers, bf16, S="
+            f"{FLEET_GPT['max_seq_len']}): losses {got[0]['losses']} vs one "
+            f"controller {o['losses']}, loss rel err {lerr:.3g}, "
+            f"{len(leaves) - len(differ)} of {len(o['leaf_sha256'])} rank "
+            f"leaves equal bit for bit; step ms "
+            f"{[round(v, 1) for v in got[0]['step_ms']]} / "
+            f"{[round(v, 1) for v in got[1]['step_ms']]} (ranks 0 / 1) vs "
+            f"one controller {[round(v, 1) for v in o['step_ms']]}; flash "
+            f"fwd/dq/dkv a process {got[0]['flash_launches']} / "
+            f"{got[1]['flash_launches']} (one controller "
+            f"{o['flash_launches']}) [{smi}]")
+        if lerr > 0 or differ:
+            raise AssertionError(f"phase 28 (b) {tag}: not bit for bit the "
+                                 f"one-controller plan: {rec['b'][tag]}")
+        ring = plan.get("sp_mode") == "ring"
+        if any((min(g["flash_launches"]) <= 0) != ring for g in got):
+            raise AssertionError(f"phase 28 (b) {tag}: flash launches "
+                                 f"{[g['flash_launches'] for g in got]}")
+    # (c)
+    tag = "dp4_sharding2_sharding_cross"
+    c = fleet["c"][tag]
+    steps = [g["step_ms"] for g in c["ranks"]]
+    rec["c"] = {"step_ms": steps, "one_controller_ms": c["one_controller"][
+        "step_ms"], "leaves_differ": c["leaves_differ"],
+        "gathered_step_s": [5.1, 7.3]}
+    log(f"fleet3 plan 3 {tag} (phase 27 (c)): sharding reduce-scatter and "
+        f"data-axis means as partial sums and one collective across the "
+        f"processes; step ms {[[round(v, 1) for v in x] for x in steps]} "
+        f"(ranks 0 / 1) against 5100-7300 ms with gathered sums (PERF.md) "
+        f"and one controller's {[round(v, 1) for v in c['one_controller']['step_ms']]}; "
+        f"leaves' largest difference from the one-controller plan 0 (all "
+        f"{len(c['one_controller']['leaf_sha256'])} SHA-256 equal) [{smi}]")
+    shutil.rmtree(FLEET3_DIR, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 28 took {rec['seconds']:.1f} s [{smi}]")
+    return rec
+
+
+def fleet3_launches(rec, which):
+    """Phase 28's flash launches of kernel `which`: (a)'s and (b)'s, in
+    both processes."""
+    i = ("fwd", "dq", "dkv").index(which)
+    return sum(f[i] for r in rec["a"]["ranks"]
+               for f in r["flash_launches"]) + sum(
+        r["flash_launches"][i] for b in rec["b"].values()
+        for r in b["ranks"])
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: the parameter-server tables and the device embedding cache
+# ---------------------------------------------------------------------------
+
+# a MemorySparseTable (adagrad, dim 64) of 2^21 keys held whole on the card
+# for one pass; a Criteo-shaped batch: 26 categorical slots, 4096 rows, each
+# slot's ids Zipf-skewed over its own 2^21 / 26 of the keys
+PS_DIM, PS_KEYS, PS_SLOTS, PS_B, PS_STEPS = 64, 1 << 21, 26, 4096, 100
+PS_LR, PS_ZIPF = 0.05, 1.2
+PS_SEED = 29                    # `--seed N` sets it
+PS_REL = 1e-6                   # the largest relative difference admitted
+PS_DEV = "cuda"
+
+
+def _ps_batches(seed):
+    """PS_STEPS batches of (ids (B, slots) int64, labels (B,) f32), drawn
+    in bulk; a row's label is the parity of its first slot's id, so the
+    embeddings can learn it."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    per = PS_KEYS // PS_SLOTS
+    z = rng.zipf(PS_ZIPF, (PS_STEPS, PS_B, PS_SLOTS)) - 1
+    ids = ((z % per) + np.arange(PS_SLOTS, dtype=np.int64) * per).astype(
+        np.int64)
+    return ids, (ids[..., 0] % 2).astype(np.float32)
+
+
+def _ps_head(seed):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(PS_SLOTS * PS_DIM, 1, generator=g) * 0.05).to(PS_DEV)
+
+
+def _ps_step(rows, head, labels):
+    """The fixed linear head's BCE loss over the concatenated slot rows:
+    (loss, d loss / d rows)."""
+    import torch
+    rows = rows.detach().requires_grad_()
+    logit = rows.reshape(rows.shape[0], -1) @ head
+    loss = torch.nn.functional.binary_cross_entropy_with_logits(
+        logit[:, 0], labels)
+    g, = torch.autograd.grad(loss, rows)
+    return loss, g
+
+
+def ps_phase(smi, seed=PS_SEED):
+    """Phase 29: (a) a DeviceEmbeddingCache holding a 2^21-key adagrad table
+    (dim 64) on the card trains PS_STEPS Criteo-shaped steps, is flushed,
+    and every row and its state is held to the same steps run against the
+    host table directly; (b) one step's PULL / PUSH over two shard servers
+    in child processes."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.distributed import ps
+    t_phase = time.perf_counter()
+    rec = {"card": smi, "seed": seed}
+    ids, labels = _ps_batches(seed)
+    lab = torch.from_numpy(labels).to(PS_DEV)
+    head = _ps_head(seed)
+    keys = np.arange(PS_KEYS, dtype=np.int64)
+    cached = native.SparseTable(PS_DIM, rule="adagrad", lr=PS_LR, seed=seed)
+    host = native.SparseTable(PS_DIM, rule="adagrad", lr=PS_LR, seed=seed)
+    t0 = time.perf_counter()
+    cache = ps.DeviceEmbeddingCache(cached, device=PS_DEV).build_pass(keys)
+    _sync(PS_DEV)
+    rec["build_pass_s"] = time.perf_counter() - t0
+    rec["device_bytes"] = (cache._values.numel() * 4 +
+                           cache._state.numel() * 4)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)] \
+        if PS_DEV == "cuda" else None
+    # the same steps against the host table directly, in lockstep: a step
+    # whose host rows equal the cache's has the cache's gradient and
+    # merge; one whose rows differ computes its own
+    look_ms, upd_ms, merge_ms, step_ms, losses = [], [], [], [], []
+    host_losses, diverged = [], []
+    for s in range(PS_STEPS):
+        _sync(PS_DEV)
+        t0 = time.perf_counter()
+        sl = cache.slots(ids[s])
+        if ev:
+            ev[0].record()
+        rows = cache.gather(sl).reshape(PS_B, PS_SLOTS, PS_DIM)
+        if ev:
+            ev[1].record()
+        loss, g = _ps_step(rows, head, lab[s])
+        t1 = time.perf_counter()
+        slots, gm = cache.merge(ids[s], g)
+        merge_ms.append((time.perf_counter() - t1) * 1e3)
+        if ev:
+            ev[2].record()
+        cache.apply_merged(slots, gm)
+        if ev:
+            ev[3].record()
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if ev:
+            look_ms.append(ev[0].elapsed_time(ev[1]))
+            upd_ms.append(ev[2].elapsed_time(ev[3]))
+        hrows = torch.from_numpy(host.pull(ids[s].reshape(-1))).to(
+            PS_DEV).reshape(PS_B, PS_SLOTS, PS_DIM)
+        if torch.equal(hrows, rows):
+            host.push(cache.keys[slots.cpu().numpy()], gm.cpu().numpy())
+            host_losses.append(float(loss))
+        else:
+            diverged.append(s)
+            hloss, hg = _ps_step(hrows, head, lab[s])
+            host.push(*ps.merge_by_key(ids[s], hg.cpu().numpy(), PS_DIM))
+            host_losses.append(float(hloss))
+    t0 = time.perf_counter()
+    cache.flush()
+    rec["flush_s"] = time.perf_counter() - t0
+    del cache
+    gc_cuda()
+    a = np.concatenate(cached.pull_with_state(keys), 1)
+    b = np.concatenate(host.pull_with_state(keys), 1)
+    equal = bool(np.array_equal(a, b))
+    rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+    touched = int(np.unique(ids).size)
+    rec["a"] = {"losses": losses[::10], "host_losses": host_losses[::10],
+                "bit_for_bit": equal, "max_rel_diff": rel,
+                "steps_diverged": diverged,
+                "rows": PS_KEYS, "rows_touched": touched,
+                "lookup_ms": look_ms, "update_ms": upd_ms,
+                "merge_ms": merge_ms, "step_ms": step_ms}
+    med = statistics.median
+    log(f"ps device cache: adagrad dim {PS_DIM}, {PS_KEYS} keys on the card "
+        f"({rec['device_bytes'] / 2**20:.0f} MiB values + state), "
+        f"{PS_STEPS} steps of {PS_B} x {PS_SLOTS} Zipf({PS_ZIPF}) ids "
+        f"(seed {seed}; {touched} rows touched): build_pass "
+        f"{rec['build_pass_s']:.3f} s, lookup {med(look_ms or [0]):.4f} ms "
+        f"and update {med(upd_ms or [0]):.4f} ms on the device a step "
+        f"(median; host merge {med(merge_ms):.1f} ms, step "
+        f"{med(step_ms):.1f} ms), flush {rec['flush_s']:.3f} s; every row "
+        f"and state against the host table: "
+        f"{'bit for bit' if equal else f'max rel diff {rel:.3g}'} (host "
+        f"rows apart from the cache's before {len(diverged)} of {PS_STEPS} "
+        f"steps); loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f} (host {host_losses[-1]:.6f}) "
+        f"[{smi}]")
+    k = max(PS_STEPS // 10, 1)
+    if not (equal or rel <= PS_REL) or not all(np.isfinite(losses)) or \
+            np.mean(losses[-k:]) >= np.mean(losses[:k]):
+        raise AssertionError(f"phase 29 (a): {rec['a']}")
+    cached.destroy()
+    host.destroy()
+    rec["b"] = ps_shards(smi, ids[0], head, lab[0], seed)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 29 took {rec['seconds']:.1f} s [{smi}]")
+    return rec
+
+
+PS_SERVER = r"""
+import os, sys
+sys.path.insert(0, sys.argv[3])
+from paddle_tpu_torch.distributed.ps import PSServer, SparseTable
+srv = PSServer(SparseTable(int(sys.argv[4]), rule="adagrad",
+                           lr=float(sys.argv[5]), seed=int(sys.argv[2])))
+tmp = sys.argv[1] + ".tmp"
+with open(tmp, "w") as f:
+    f.write(srv.endpoint)
+os.replace(tmp, sys.argv[1])
+srv._stop.wait()
+"""
+
+
+def ps_shards(smi, ids, head, lab, seed):
+    """Phase 29 (b): one training step's PULL and PUSH over a two-shard
+    server pair in child processes (`DistributedSparseTable`), the rows
+    held to local tables of the same seeds."""
+    import numpy as np
+    import signal
+    import torch
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.distributed import ps
+    work = os.path.join(ROOT, "build", "phase29")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs, eps = [], []
+    try:
+        for shard in range(2):
+            ep = os.path.join(work, f"shard{shard}.ep")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", PS_SERVER, ep, str(seed + shard),
+                 ROOT, str(PS_DIM), str(PS_LR)], env=env,
+                start_new_session=True))
+            eps.append(ep)
+        t_end = time.monotonic() + 120
+        while not all(os.path.exists(e) for e in eps):
+            if time.monotonic() > t_end or any(p.poll() is not None
+                                               for p in procs):
+                raise AssertionError("phase 29 (b): a shard server did not "
+                                     "start")
+            time.sleep(0.05)
+        table = ps.DistributedSparseTable(
+            [open(e).read().strip() for e in eps], PS_DIM)
+        flat = ids.reshape(-1)
+        uniq = np.unique(flat)
+        t0 = time.perf_counter()
+        rows = table.pull(flat)
+        pull_ms = (time.perf_counter() - t0) * 1e3
+        loss, g = _ps_step(torch.from_numpy(rows).to(PS_DEV).reshape(
+            PS_B, PS_SLOTS, PS_DIM), head, lab)
+        merged = ps.merge_by_key(flat, g.cpu().numpy(), PS_DIM)
+        t0 = time.perf_counter()
+        table.push(*merged)
+        push_ms = (time.perf_counter() - t0) * 1e3
+        after = table.pull(uniq)
+        local = [native.SparseTable(PS_DIM, rule="adagrad", lr=PS_LR,
+                                    seed=seed + s) for s in range(2)]
+        own = ps.shard_for(merged[0], 2)
+        for s in range(2):
+            local[s].push(merged[0][own == s], merged[1][own == s])
+        want = np.stack([local[o].pull(merged[0][i:i + 1])[0]
+                         for i, o in enumerate(own)])
+        equal = bool(np.array_equal(after, want))
+        table.client.stop_servers()
+        table.client.close()
+    finally:
+        for p in procs:
+            try:
+                p.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"pull_ms": pull_ms, "push_ms": push_ms, "ids": int(flat.size),
+           "unique": int(uniq.size), "bit_for_bit": equal,
+           "pull_bytes": int(flat.size * (8 + 4 * PS_DIM)),
+           "push_bytes": int(uniq.size * (8 + 4 * PS_DIM))}
+    log(f"ps shards: 2 server processes, one step's PULL of {flat.size} ids "
+        f"{pull_ms:.1f} ms ({out['pull_bytes'] / 2**20:.1f} MiB), PUSH of "
+        f"{uniq.size} merged rows {push_ms:.1f} ms "
+        f"({out['push_bytes'] / 2**20:.1f} MiB); rows after the push "
+        f"{'equal to' if equal else 'DIFFER from'} local tables of the same "
+        f"seeds [{smi}]")
+    if not equal:
+        raise AssertionError(f"phase 29 (b): {out}")
+    return out
+
+
 def gc_cuda():
     import gc
     import torch
@@ -8880,6 +9357,10 @@ def main(argv):
     jit_only = "--jit-only" in argv
     dist_only = "--dist-only" in argv
     fleet_only = "--fleet-only" in argv
+    fleet3_only = "--fleet3-only" in argv
+    ps_only = "--ps-only" in argv
+    seed = int(argv[argv.index("--seed") + 1]) if "--seed" in argv \
+        else PS_SEED
     try:
         import torch
     except ImportError:
@@ -8899,6 +9380,8 @@ def main(argv):
         return dist_child(argv[i + 1], argv[i + 2])
     if "--fleet-child" in argv:
         return fleet_child(argv[argv.index("--fleet-child") + 1])
+    if "--fleet3-child" in argv:
+        return fleet3_child(argv[argv.index("--fleet3-child") + 1])
     t_start = time.perf_counter()
     report = {}
 
@@ -8936,6 +9419,24 @@ def main(argv):
             f"{r['registers']} registers, "
             f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
             f"spill loads, {r['smem_dynamic']} B dynamic shared memory")
+    if ps_only:
+        # phase 29 alone
+        report["ps"] = ps_phase(smi, seed)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out",
+                               "chip_smoke_ps.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        return 0
+    if fleet3_only:
+        # phases 27 and 28 alone
+        report["fleet"] = fleet_phase(smi)
+        gc_cuda()
+        report["fleet3"] = fleet3_phase(smi, report["fleet"])
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out",
+                               "chip_smoke_fleet3.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        return 0
     if fleet_only:
         # phase 27 alone
         report["fleet"] = fleet_phase(smi)
@@ -9290,6 +9791,18 @@ def main(argv):
     torch.cuda.empty_cache()
     report["fleet"] = fleet_phase(smi)
 
+    # 28. fleet across processes: sp, GPipe, vpp and the pipeline runner
+    # over two processes -------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["fleet3"] = fleet3_phase(smi, report["fleet"])
+
+    # 29. the parameter-server tables: a device embedding cache on the card,
+    # two shard servers in child processes --------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["ps"] = ps_phase(smi, seed)
+
     # summary ------------------------------------------------------------------------
     # every kernel's max_abs_err covers phase 3's cases and phase 24's at
     # the other head dims and dtypes
@@ -9342,12 +9855,13 @@ def main(argv):
             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces,
             # phase 8's step, phase 26 (c)'s two processes, phase 27 (a)'s
-            # pipeline and (c)'s two processes, and for the forward phase
-            # 25's programs
+            # pipeline and (c)'s two processes, phase 28's two processes,
+            # and for the forward phase 25's programs
             "launches": report["train"]["launches"][which]
             + sum(r["flash_launches"][which]
                   for r in report["dist"]["gpt"]["ranks"])
             + fleet_launches(report["fleet"], which)
+            + fleet3_launches(report["fleet3"], which)
             + (report["jit"]["launches_fwd"] if which == "fwd" else 0),
             "max_abs_err": max(c["max_abs_err"][o] for c in
                                flash_cases + report["text"]["c"]["flash"]

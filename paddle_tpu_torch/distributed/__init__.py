@@ -23,11 +23,14 @@
   auto_parallel/ — `ProcessMesh`, `shard_tensor` / `shard_op`, `Engine`
   checkpoint.py  — state-dict checkpoints in the JAX package's layout,
                    committed through `framework.ckpt_commit`
-  ps/rpc.py      — the RPC fabric the serving fleet's verbs ride
+  ps/            — the parameter server: the sparse tables
+                   (`make_table`, the native `SparseTable`, the disk
+                   tier), `SparseEmbedding` and the `AsyncCommunicator`,
+                   the device embedding cache, the graph table, and
+                   `rpc.py`, the transport of their verbs and of the
+                   serving fleet's
   passes.py      — `new_pass` / `PassManager` / `PassContext` over the
                    program rewrites of `static.ir_pass`
-
-The parameter-server tables come with ROADMAP A.13g.
 """
 from . import checkpoint  # noqa: F401
 from . import env  # noqa: F401

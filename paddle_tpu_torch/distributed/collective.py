@@ -25,11 +25,13 @@ mesh of every process's devices. The port has four, chosen per call:
    (`mesh.local_ranks`), and the collective applies the list collectives
    of `parallel/collectives.py` to each group of the live axis
    (`RankGrid.over`). A group that spans this process's ranks and other
-   processes' gathers its members through the `torch.distributed` group
-   of the processes it spans (the world, or a subgroup made once:
-   `parallel.collectives.process_group_of`) and runs the collective on
-   the whole group in every member process: the same result, bit for
-   bit, as one controller's.
+   processes' runs over the `torch.distributed` group of the processes it
+   spans (the world, or a subgroup made once:
+   `parallel.collectives.process_group_of`): a floating SUM / AVG and a
+   SUM reduce_scatter as each process's partial sum and one all-reduce
+   (reduce-scatter) of them, the rest by gathering the members and
+   running the collective on the whole group in every member process,
+   bit for bit as one controller's.
 3. Eagerly over an axis of a one-process mesh (an explicit axis group,
    no live axis): as the reference's `_eager_axis_op`, the value is taken
    as replicated over the axis, so SUM over `dp`=8 gives 8·x, MAX / MIN /
@@ -317,17 +319,19 @@ class _WorldSum(torch.autograd.Function):
     distinct part of the global loss."""
 
     @staticmethod
-    def forward(ctx, x):
-        return _world_reduce(x, ReduceOp.SUM)
+    def forward(ctx, x, pg):
+        ctx.pg = pg
+        return _world_reduce(x, ReduceOp.SUM, pg)
 
     @staticmethod
     def backward(ctx, g):
-        return _world_reduce(g, ReduceOp.SUM)
+        return _world_reduce(g, ReduceOp.SUM, ctx.pg), None
 
 
-def world_sum(x):
-    """Differentiable SUM of torch tensor `x` over the processes."""
-    return _WorldSum.apply(x)
+def world_sum(x, pg=None):
+    """Differentiable SUM of torch tensor `x` over the processes (of the
+    group `pg`, default the world)."""
+    return _WorldSum.apply(x, pg)
 
 
 def all_reduce_mean_(tensors, pg=None):
@@ -374,10 +378,15 @@ def _region_apply(xs, axis, fn, mesh=None):
 def region_reduce(xs, axis, op, mesh=None):
     """all_reduce over `axis` (an axis name or a tuple of them) in a
     manual region: each group reduced in rank order (SUM / AVG in f32),
-    across processes too. `xs`: one value a rank of `mesh.local_ranks`;
-    `mesh` defaults to the installed one."""
-    return _region_apply(xs, axis, functools.partial(_list_reduce, op=op),
-                         mesh)
+    across processes too (floating SUM / AVG there as partial sums and
+    one all-reduce: `RankGrid.over`). `xs`: one value a rank of
+    `mesh.local_ranks`; `mesh` defaults to the installed one."""
+    fn = functools.partial(_list_reduce, op=op)
+    raw = _raw_list(xs)
+    if raw and all(torch.is_tensor(x) and x.is_floating_point()
+                   for x in raw):
+        fn = {ReduceOp.SUM: C.psum, ReduceOp.AVG: C.pmean}.get(op, fn)
+    return _region_apply(xs, axis, fn, mesh)
 
 
 def _list_reduce(xs, op):
@@ -526,10 +535,10 @@ def reduce_scatter(tensor, tensor_or_tensor_list=None, op=ReduceOp.SUM,
             return [_wrap(v) for v in _raw_list(src)]
 
         def fn(xs):
-            if op == ReduceOp.SUM:
-                return C.psum_scatter(xs, 0)
             full = _list_reduce(xs, op)
             return [_chunk_of(f, len(xs), i) for i, f in enumerate(full)]
+        if op == ReduceOp.SUM:
+            fn = functools.partial(C.psum_scatter, dim=0)
         return [_wrap(v) for v in _region_apply(src, ax, fn)]
     if isinstance(src, (list, tuple)):
         src = _wrap(torch.cat([s._data for s in src], 0))

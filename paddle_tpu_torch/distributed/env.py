@@ -320,18 +320,28 @@ def axis_size(mesh_or_name, name=None):
 
 class global_batch:
     """While open, every training BatchNorm reduces its statistics over
-    the process group (each process holds its rank's rows of one global
-    batch): `Model`'s dp route, the reference's GSPMD program over the
-    whole batch."""
+    the processes of `pg` (default the world; each holds its rows of one
+    global batch): `Model`'s dp route, the reference's GSPMD program over
+    the whole batch."""
+
+    def __init__(self, pg=None):
+        self.pg = pg
 
     def __enter__(self):
-        self._saved = getattr(_state, "global_batch", False)
-        _state.global_batch = True
+        self._saved = (getattr(_state, "global_batch", False),
+                       getattr(_state, "global_batch_pg", None))
+        _state.global_batch, _state.global_batch_pg = True, self.pg
         return self
 
     def __exit__(self, *exc):
-        _state.global_batch = self._saved
+        _state.global_batch, _state.global_batch_pg = self._saved
         return False
+
+
+def global_batch_group():
+    """The process group of the open `global_batch` scope (None: the
+    world)."""
+    return getattr(_state, "global_batch_pg", None)
 
 
 def global_batch_live():

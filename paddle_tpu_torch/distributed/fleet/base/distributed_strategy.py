@@ -48,8 +48,8 @@ class DistributedStrategy:
         self.sync_batch_norm = False
         self.a_sync = False
         self.a_sync_configs = {}
-        # the parameter-server table tier (read by the tables of ROADMAP
-        # A.13g)
+        # the parameter-server table tier (read by
+        # `distributed.ps.PSContext.create_table_from_strategy`)
         self.sparse_table_configs = {"table_class": "MemorySparseTable",
                                      "shard_num": 1, "ssd_path": None,
                                      "hot_capacity": 4096,

@@ -34,20 +34,49 @@ controller, eagerly, over the same tick tables
     (ROADMAP C.22), and every BatchNorm sees the statistics the
     reference's SyncBatchNorm syncs.
 
-The pipeline runs in one process; a mesh split over processes raises
-(ROADMAP A.13f(iii)).
+Across processes (a mesh split over processes with its pp axis first in
+the order, so each stage's ranks lie in one process), each process runs
+the ticks of its own stages. An activation or cotangent whose next stage
+lives in another process goes by `torch.distributed` send / recv at the
+tick's end (an activation after a header with its shape and dtype); the
+loss is broadcast from the last stage's process; a shared parameter's
+gradient is summed over the processes whose stages use it, and each
+stage's buffers are written back by the process that runs it. A
+parameter no local stage uses gets no gradient. Shared gradients are
+accumulated a stage at a time and the stages' sums added in stage order,
+in one process as across processes, so both give the same bits for a
+parameter two stages share.
 """
 from contextlib import nullcontext
 
 import torch
+import torch.distributed as dist
 
 from ....core.tensor import _wrap
 from ....nn.layer.layers import Layer, functional_call
+from ....parallel import collectives as C
 from ....parallel.pipeline_schedule import (arrival_tables, build_tables,
                                             required_slots)
 from ... import env
 
 __all__ = ["make_compiled_pipeline_step"]
+
+_HEAD = 10                   # ndim, dtype code, up to 8 dimensions
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64,
+           torch.int64, torch.int32, torch.bool)
+
+
+def _header(y):
+    if y.dim() > _HEAD - 2:
+        raise ValueError(f"a stage output of {y.dim()} dims is more than "
+                         f"the pipeline's hop header carries")
+    h = [y.dim(), _DTYPES.index(y.dtype)] + list(y.shape)
+    return torch.tensor(h + [0] * (_HEAD - len(h)), dtype=torch.int64)
+
+
+def _unheader(h):
+    h = h.tolist()
+    return tuple(h[2:2 + h[0]]), _DTYPES[h[1]]
 
 
 def _param_ownership(pl, pp):
@@ -109,11 +138,16 @@ def make_compiled_pipeline_step(pl, mesh, microbatches, schedule="1f1b"):
     if pl.get_num_stages() != pp:
         raise ValueError(f"the PipelineLayer has {pl.get_num_stages()} "
                          f"stages, the mesh's pp axis {pp}")
-    if mesh.nproc > 1:
-        raise NotImplementedError(
-            "the pipeline runner drives every stage from one process; a "
-            f"mesh split over {mesh.nproc} processes comes with ROADMAP "
-            "A.13f(iii)")
+    owner = []
+    for s in range(pp):
+        procs = {mesh.process_of(r) for r in mesh.ranks_where(pp=s)}
+        if len(procs) != 1:
+            raise ValueError(
+                f"pipeline stage {s}'s ranks lie in processes "
+                f"{sorted(procs)}: build the mesh with order=('pp',) so "
+                "each stage lies in one process")
+        owner.append(procs.pop())
+    mine = [s for s in range(pp) if owner[s] == mesh.proc]
     if schedule not in ("1f1b", "eager1f1b", "gpipe"):
         raise ValueError(f"unknown pipeline schedule {schedule!r}; "
                          "expected 1f1b | eager1f1b | gpipe")
@@ -134,6 +168,9 @@ def make_compiled_pipeline_step(pl, mesh, microbatches, schedule="1f1b"):
             f"mp-distributed params shared across pipeline stages are not "
             f"supported in the compiled mp x pp path: {bad}")
     devs = [mesh.devices[mesh.ranks_where(pp=s)[0]] for s in range(pp)]
+    # a shared parameter: the processes whose stages use it
+    shared_procs = {n: sorted({owner[s] for s in range(pp)
+                               if n in used[s]}) for n in shared}
     f_t, b_t, _ = build_tables(M, pp, schedule)
     ftbl, btbl = f_t[:, :, None], b_t[:, :, None]
     farr, garr = arrival_tables(ftbl, btbl, pp, 1)
@@ -169,20 +206,20 @@ def make_compiled_pipeline_step(pl, mesh, microbatches, schedule="1f1b"):
             .transpose(0, 1).reshape((M, B // M) + tuple(t.shape[1:]))
 
     def step(params, buffers, x, y):
-        plain = {}
-        for s in range(pp):
+        # another process's stage keeps its parameters where they are
+        plain = {n: p.detach() for n, p in params.items()}
+        for s in mine:
             for n in owned[s]:
                 plain[n] = params[n].detach().to(devs[s])
-        for n in shared:
-            plain[n] = params[n].detach()
         bufs = dict(buffers)
-        x_mb = micro(x.to(devs[0]))
-        y_mb = micro(y.to(devs[pp - 1]))
-        acc = {}
+        x_mb = micro(x.to(devs[0])) if 0 in mine else None
+        y_mb = micro(y.to(devs[pp - 1])) if pp - 1 in mine else None
+        acc = {}                 # name (and stage, if shared) -> f32 sum
         losses = []                                 # the last stage's
         buf = [[None] * W for _ in range(pp)]       # parked inputs
         gbuf = [[None] * W for _ in range(pp)]      # parked cotangents
         snap = [[None] * W for _ in range(pp)]      # buffers a forward saw
+        out_like = [{} for _ in range(pp)]  # sent outputs' shape, dtype
         fchan, gchan = [None] * pp, [None] * pp
         peak = [0] * pp
 
@@ -216,14 +253,15 @@ def make_compiled_pipeline_step(pl, mesh, microbatches, schedule="1f1b"):
             for n, g in zip(names, got):
                 if g is not None:
                     g = g.float()
-                    acc[n] = g if n not in acc else acc[n] + g.to(
-                        acc[n].device)
+                    key = (n, s) if n in shared_procs else n
+                    acc[key] = g if key not in acc else acc[key] + g.to(
+                        acc[key].device)
             buf[s][bi % W] = gbuf[s][bi % W] = snap[s][bi % W] = None
             return got[-1] if want_x else None
 
         for t in range(T):
             new_y, new_g = [None] * pp, [None] * pp
-            for s in range(pp):
+            for s in mine:
                 a_f, a_g = int(farr[t, s, 0]), int(garr[t, s, 0])
                 if a_f >= 0:
                     buf[s][a_f % W] = fchan[s]
@@ -238,6 +276,9 @@ def make_compiled_pipeline_step(pl, mesh, microbatches, schedule="1f1b"):
                     for n in stage_bufs[s]:
                         bufs[n] = nb[n]
                     new_y[s] = out
+                    if owner[s + 1] != mesh.proc and \
+                            out.is_floating_point():
+                        out_like[s][fi] = (out.shape, out.dtype)
                 # microbatches live at the stage: parked, or forwarded and
                 # waiting for their backward
                 peak[s] = max(peak[s], sum(
@@ -247,17 +288,93 @@ def make_compiled_pipeline_step(pl, mesh, microbatches, schedule="1f1b"):
                     new_g[s] = backward(s, bi)
             fchan, gchan = [None] * pp, [None] * pp
             for s in range(pp - 1):
-                if new_y[s] is not None:
+                if new_y[s] is not None and owner[s + 1] == mesh.proc:
                     fchan[s + 1] = new_y[s].to(devs[s + 1])
             for s in range(1, pp):
-                if new_g[s] is not None:
+                if new_g[s] is not None and owner[s - 1] == mesh.proc:
                     gchan[s - 1] = new_g[s].to(devs[s - 1])
+            if mesh.nproc > 1:
+                _exchange(t, new_y, new_g, fchan, gchan, out_like)
+        if mesh.nproc > 1:
+            loss = torch.zeros((), dtype=torch.float32) if not losses \
+                else torch.stack(losses).sum().cpu() / M
+            dist.broadcast(loss, owner[pp - 1])
+            loss = loss.to(params[next(iter(params))].device)
+        else:
+            loss = torch.stack(losses).sum() / M
+        for n, procs in shared_procs.items():
+            # a stage's sum at a time, the stages added in stage order
+            parts = [acc.pop((n, s)) for s in range(pp) if (n, s) in acc]
+            spans = len(procs) > 1 and mesh.proc in procs
+            if not parts:
+                if not spans:
+                    continue
+                # every process of the set joins the all-reduce
+                parts = [torch.zeros(params[n].shape, dtype=torch.float32,
+                                     device=params[n].device)]
+            tot = parts[0]
+            for p in parts[1:]:
+                tot = tot + p.to(tot.device)
+            if spans:
+                tot = C._dc()._world_reduce(
+                    tot, C._dc().ReduceOp.SUM, C.process_group_of(procs))
+            acc[n] = tot
         grads = {n: None for n in params}
         for n, g in acc.items():
             grads[n] = (g / M).to(params[n].device, params[n].dtype)
         step.stats = {"schedule": schedule, "ticks": T, "slots": W,
                       "peak_live": peak, "microbatches": M}
-        return torch.stack(losses).sum() / M, grads, bufs
+        return loss, grads, bufs
+
+    def _exchange(t, new_y, new_g, fchan, gchan, out_like):
+        """This tick's hops between processes: stage s's activation to
+        stage s + 1 (a header of its shape and dtype code, then the
+        values), stage s's cotangent to stage s - 1 (the shape of the
+        activation it answers, known there)."""
+        size = pp * (M + 1)
+        sends, heads = [], []
+        for s in range(pp - 1):
+            fi = int(ftbl[t, s, 0])
+            if fi < 0:
+                continue
+            if owner[s] == mesh.proc and owner[s + 1] != mesh.proc:
+                y = new_y[s]
+                sends.append((owner[s + 1], 2 * (s * size + fi) + 1, y))
+                heads.append((owner[s + 1], 2 * (s * size + fi),
+                              _header(y)))
+        recv_heads = [(owner[s], 2 * (s * size + int(ftbl[t, s, 0])),
+                       torch.zeros(_HEAD, dtype=torch.int64))
+                      for s in range(pp - 1)
+                      if int(ftbl[t, s, 0]) >= 0 and
+                      owner[s] != mesh.proc and owner[s + 1] == mesh.proc]
+        got_heads = C._p2p(heads, recv_heads)
+        recvs, into = [], []
+        for (proc, tag, _), h in zip(recv_heads, got_heads):
+            s = (tag // 2) // size
+            shape, dtype = _unheader(h)
+            recvs.append((proc, tag + 1, torch.empty(shape, dtype=dtype,
+                                                     device=devs[s + 1])))
+            into.append(("f", s + 1))
+        gtag = 2 * pp * size
+        for s in range(1, pp):
+            bi = int(btbl[t, s, 0])
+            if bi < 0:
+                continue
+            if owner[s] == mesh.proc and owner[s - 1] != mesh.proc and \
+                    new_g[s] is not None:
+                sends.append((owner[s - 1], gtag + s * size + bi, new_g[s]))
+            elif owner[s] != mesh.proc and owner[s - 1] == mesh.proc and \
+                    bi in out_like[s - 1]:
+                shape, dtype = out_like[s - 1].pop(bi)
+                recvs.append((owner[s], gtag + s * size + bi,
+                              torch.empty(shape, dtype=dtype,
+                                          device=devs[s - 1])))
+                into.append(("g", s - 1))
+        for (kind, s), v in zip(into, C._p2p(sends, recvs)):
+            if kind == "f":
+                fchan[s] = v
+            else:
+                gchan[s] = v
 
     step.stats = {}
     step.stage_devices = devs

@@ -1,16 +1,27 @@
-"""The RPC fabric: framing, extension verbs, retries, breakers, errors.
+"""The parameter server's transport: framing, the sparse and graph verbs,
+extension verbs, retries, breakers, errors.
 
-Counterpart of the fabric part of `paddle_tpu/distributed/ps/rpc.py`,
-copied: the header and frames, both riders, the opcode numbers, the
-retry loop, the circuit breakers, the in-band error frames, the fault
+Counterpart of `paddle_tpu/distributed/ps/rpc.py`, copied: the header and
+frames, both riders, the opcode numbers, the retry loop, the circuit
+breakers, the in-band error frames, PUSH's exactly-once dedup, the fault
 sites and the `ps_*` metric families are the JAX module's, so a JAX
 client talks to a port server and a port client to a JAX server, byte
 for byte. The serving fleet's verbs (`serving/distributed/worker.py`)
 ride it as extension verbs.
 
 Wire format (little-endian):
-  header:   u8 op | u32 n | u32 aux
+  header:   u8 op | u32 n | u32 aux        (aux = dim for sparse ops,
+                                             sample_size k for GSAMPLE,
+                                             0 otherwise)
+  PULL:     hdr | n*i64 keys           -> u32 n | n*dim*f32 values
+  PUSH:     hdr | n*i64 | n*dim*f32    -> u32 0
   PING/STOP hdr                        -> u32 0
+  GSAMPLE:  hdr | i32 seed | u8 weighted | u16 tlen | tlen etype | n*i64
+            -> u32 total | n*i32 counts | total*i64 neighbors
+  GFEAT:    hdr | u16 tlen | tlen ntype | n*i64
+            -> u32 feat_dim | n*feat_dim*f32
+  GDEGREE:  hdr | u16 tlen | tlen etype | n*i64
+            -> u32 n | n*i64 degrees
   extension hdr | n payload bytes      -> u32 len | len bytes
   error     any request                -> u32 0xFFFFFFFF | u32 len | text
 
@@ -32,11 +43,15 @@ open (`PSUnavailableError`) and half-opens one probe after a cooldown. A
 handler that raises answers with an in-band error frame
 (`PSServerError` at the caller) and the connection stays usable.
 
-PULL, PUSH and the graph verbs (GSAMPLE, GFEAT, GDEGREE) keep their
-opcodes, but the port's server carries no sparse or graph table until
-ROADMAP A.13: it consumes their bodies and answers with the error frame
-a JAX `PSServer` without a table answers. An unknown op closes the
-connection, as the JAX server does.
+`PSServer(table=..., graph=...)` serves one shard: PULL and PUSH on a
+sparse table (`distributed.ps.make_table`, a `DiskSparseTable`), the
+graph verbs on a `GraphTable`; a server without the table a verb needs
+answers with an error frame, as the JAX server does. A PUSH with a
+request id is applied once: a retry whose first copy landed answers OK
+without touching the table. `PSClient` / `DistributedSparseTable` and
+`DistGraphClient` route keys and node ids to their shard
+(`shard_for`: id % shards). An unknown op closes the connection, as the
+JAX server does.
 
 Metrics: `ps_client_request_seconds` / `ps_server_request_seconds` per
 verb, `ps_client_bytes_total` / `ps_server_bytes_total`,
@@ -44,6 +59,7 @@ verb, `ps_client_bytes_total` / `ps_server_bytes_total`,
 `ps_retries_total{verb}` and `ps_breaker_state{endpoint}` (0 closed, 1
 open, 2 half-open), in the port's own registry.
 """
+import collections
 import itertools
 import os
 import random
@@ -52,6 +68,7 @@ import struct
 import threading
 import time
 
+import numpy as np
 
 from ...observability import faults as _faults
 from ...observability import metrics as _metrics
@@ -60,7 +77,8 @@ from ...profiler import TracerEventType, _tracer
 
 __all__ = ["OP_PULL", "OP_PUSH", "OP_PING", "OP_STOP", "OP_GSAMPLE",
            "OP_GFEAT", "OP_GDEGREE", "READONLY_VERBS", "register_verb",
-           "RetryPolicy", "PSServer", "ShardClientBase", "PSServerError",
+           "RetryPolicy", "PSServer", "ShardClientBase", "PSClient",
+           "DistGraphClient", "DistributedSparseTable", "PSServerError",
            "PSUnavailableError"]
 
 OP_PULL, OP_PUSH, OP_PING, OP_STOP = 0, 1, 2, 3
@@ -125,6 +143,7 @@ _IDEMPOTENT_OPS = frozenset((OP_PULL, OP_PING, OP_GSAMPLE, OP_GFEAT,
 # graph on this server, bad shapes) reach the caller as PSServerError with
 # the real cause, and the connection stays usable
 _ERR = 0xFFFFFFFF
+_PUSH_SEEN_CAP = 65536            # server-side dedup LRU entries
 
 # RPC-fabric metrics (module-level families: every client/server in the
 # process reports into the same labeled series)
@@ -302,10 +321,14 @@ def _recv_exact(sock, n):
 
 
 class PSServer:
-    """Serves extension verbs (`handlers`) plus PING and STOP over TCP.
+    """Serves one shard (a sparse `table`, a `graph` GraphTable, or both)
+    and extension verbs (`handlers`), plus PING and STOP, over TCP.
     `port=0` picks a free port (exposed as .port after start)."""
 
-    def __init__(self, host="127.0.0.1", port=0, handlers=None):
+    def __init__(self, table=None, host="127.0.0.1", port=0, graph=None,
+                 handlers=None):
+        self.table = table
+        self.graph = graph
         # extension verbs (register_verb): {op: fn(payload_bytes, aux,
         # reqid, rctx) -> response payload bytes}. The server consumes
         # the n-byte body BEFORE dispatch (header n = payload length for
@@ -314,6 +337,11 @@ class PSServer:
         # caller's (trace_id, span_id) or None, for handlers that fan
         # out further RPCs under the same trace.
         self.handlers = dict(handlers or {})
+        # PUSH dedup: (client_id, seq) of pushes already applied, a
+        # bounded LRU shared across connections (a retry arrives on a new
+        # socket)
+        self._push_seen = collections.OrderedDict()
+        self._push_seen_lock = threading.Lock()
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind((host, port))
@@ -462,26 +490,96 @@ class PSServer:
             except OSError:
                 pass
 
-    @staticmethod
-    def _serve_sparse(conn, op, n, dim, reqid=None):
-        """PULL/PUSH: consume the body, then answer as a JAX server
-        without a sparse table does (ROADMAP A.13 brings the tables)."""
-        _recv_exact(conn, 8 * n)
-        if op == OP_PUSH:
-            _recv_exact(conn, 4 * n * dim)
-        raise PSServerError("this server carries no sparse table")
+    def _push_begin(self, reqid):
+        """Claim a push id: ('dup', None) when it was already APPLIED,
+        ('wait', event) when another thread is applying it right now,
+        ('mine', event) when this thread owns the apply. The in-progress
+        sentinel closes the check-then-act race where a client-timeout
+        retry lands while the original apply is still running — the
+        retry must wait, not re-apply."""
+        with self._push_seen_lock:
+            st = self._push_seen.get(reqid)
+            if st is True:
+                self._push_seen.move_to_end(reqid)
+                return "dup", None
+            if st is not None:
+                return "wait", st
+            ev = threading.Event()
+            self._push_seen[reqid] = ev
+            return "mine", ev
 
-    @staticmethod
-    def _serve_graph(conn, op, n, aux, reqid=None):
-        """GSAMPLE/GFEAT/GDEGREE: consume the body, then answer as a JAX
-        server without a graph table does."""
+    def _push_end(self, reqid, ev, applied):
+        with self._push_seen_lock:
+            if applied:
+                self._push_seen[reqid] = True
+                self._push_seen.move_to_end(reqid)
+                if len(self._push_seen) > _PUSH_SEEN_CAP:
+                    # trim APPLIED markers only — evicting a live
+                    # in-progress Event would reopen the double-apply
+                    # race it exists to close
+                    for key in list(self._push_seen.keys()):
+                        if len(self._push_seen) <= _PUSH_SEEN_CAP:
+                            break
+                        if self._push_seen[key] is True:
+                            del self._push_seen[key]
+            else:
+                # a FAILED apply releases the id: the retry may land it
+                self._push_seen.pop(reqid, None)
+        ev.set()
+
+    def _serve_sparse(self, conn, op, n, dim, reqid=None):
+        keys = np.frombuffer(_recv_exact(conn, 8 * n), np.int64)
+        if op == OP_PULL:
+            if self.table is None:
+                raise PSServerError("this server carries no sparse table")
+            vals = self.table.pull(keys)
+            return _U32.pack(n) + vals.tobytes()
+        grads = np.frombuffer(_recv_exact(conn, 4 * n * dim),
+                              np.float32).reshape(n, dim)
+        if self.table is None:
+            raise PSServerError("this server carries no sparse table")
+        # dedup AFTER the body is consumed (stream stays in sync)
+        if reqid is None:
+            self.table.push(keys, grads)
+            return _U32.pack(0)
+        while True:
+            state, ev = self._push_begin(reqid)
+            if state == "dup":
+                return _U32.pack(0)
+            if state == "mine":
+                break
+            ev.wait(timeout=30)   # re-check: applied -> dup, failed -> mine
+        try:
+            self.table.push(keys, grads)
+        except BaseException:
+            self._push_end(reqid, ev, applied=False)
+            raise
+        self._push_end(reqid, ev, applied=True)
+        return _U32.pack(0)
+
+    def _serve_graph(self, conn, op, n, aux, reqid=None):
         if op == OP_GSAMPLE:
-            _, _, tlen = _GS.unpack(_recv_exact(conn, _GS.size))
+            seed, weighted, tlen = _GS.unpack(_recv_exact(conn, _GS.size))
         else:
             (tlen,) = _TL.unpack(_recv_exact(conn, _TL.size))
-        _recv_exact(conn, tlen)
-        _recv_exact(conn, 8 * n)
-        raise PSServerError("this server carries no graph table")
+        tname = _recv_exact(conn, tlen).decode() if tlen else ""
+        ids = np.frombuffer(_recv_exact(conn, 8 * n), np.int64)
+        if self.graph is None:
+            raise PSServerError("this server carries no graph table")
+        if op == OP_GSAMPLE:
+            nbrs, counts = self.graph.sample_neighbors(
+                ids, sample_size=int(aux) if aux else -1, edge_type=tname,
+                strategy="weighted" if weighted else "uniform",
+                seed=None if seed < 0 else seed)
+            return (_U32.pack(int(nbrs.size))
+                    + np.ascontiguousarray(counts, np.int32).tobytes()
+                    + np.ascontiguousarray(nbrs, np.int64).tobytes())
+        if op == OP_GFEAT:
+            rows = self.graph.pull_features(ids, node_type=tname)
+            return (_U32.pack(rows.shape[1])
+                    + np.ascontiguousarray(rows, np.float32).tobytes())
+        deg = self.graph.node_degree(ids, edge_type=tname)
+        return _U32.pack(n) + np.ascontiguousarray(deg, np.int64).tobytes()
 
     def shutdown(self):
         self._stop.set()
@@ -718,6 +816,11 @@ class ShardClientBase:
         finally:
             _tracer.end(span)
 
+    def _route(self, keys):
+        from . import shard_for
+        keys = np.ascontiguousarray(keys, np.int64).reshape(-1)
+        return keys, shard_for(keys, len(self.endpoints))
+
     def _ack(self, s):
         (n,) = _U32.unpack(_recv_exact(s, 4))
         if n == _ERR:
@@ -742,3 +845,156 @@ class ShardClientBase:
             self._drop_sock(i)
 
 
+class PSClient(ShardClientBase):
+    """Routes sparse pull/push over the shard servers (reference:
+    brpc_ps_client's per-shard request fan-out)."""
+
+    def __init__(self, endpoints, dim, **kwargs):
+        super().__init__(endpoints, **kwargs)
+        self.dim = int(dim)
+
+    def _request(self, i, op, keys, grads=None):
+        msg = _HDR.pack(op, keys.size, self.dim) + keys.tobytes()
+        if grads is not None:
+            msg += grads.tobytes()
+
+        def reader(s):
+            n = self._ack(s)
+            if op == OP_PULL:
+                return np.frombuffer(_recv_exact(s, 4 * n * self.dim),
+                                     np.float32).reshape(n, self.dim)
+            return None
+
+        return self._exchange(i, msg, reader)
+
+    def pull(self, keys):
+        keys, owner = self._route(keys)
+        out = np.empty((keys.size, self.dim), np.float32)
+        for i in range(len(self.endpoints)):
+            m = owner == i
+            if m.any():
+                out[m] = self._request(i, OP_PULL,
+                                       np.ascontiguousarray(keys[m]))
+        return out
+
+    def push(self, keys, grads):
+        keys, owner = self._route(keys)
+        grads = np.ascontiguousarray(grads, np.float32)
+        for i in range(len(self.endpoints)):
+            m = owner == i
+            if m.any():
+                self._request(i, OP_PUSH, np.ascontiguousarray(keys[m]),
+                              np.ascontiguousarray(grads[m]))
+
+
+class DistGraphClient(ShardClientBase):
+    """Client half of the distributed GraphTable (reference: fleet
+    DistGraphClient over graph_brpc_client.cc): node ids route to their
+    owner shard, per-shard results reassemble into query order."""
+
+    def sample_neighbors(self, ids, sample_size=-1, edge_type="",
+                         strategy="uniform", seed=None):
+        """(neighbors int64 concat in query order, counts int32)."""
+        ids, owner = self._route(np.asarray(
+            ids.numpy() if hasattr(ids, "numpy") else ids))
+        counts = np.zeros(ids.size, np.int32)
+        per_node = [None] * ids.size
+        k = 0 if sample_size is None or sample_size <= 0 else int(sample_size)
+        for i in range(len(self.endpoints)):
+            m = owner == i
+            if not m.any():
+                continue
+            sub = np.ascontiguousarray(ids[m])
+            # decorrelate shards under an explicit seed, keep determinism
+            sseed = -1 if seed is None else (int(seed) + i) % (2 ** 31)
+            msg = (_HDR.pack(OP_GSAMPLE, sub.size, k)
+                   + _GS.pack(sseed, 1 if strategy == "weighted" else 0,
+                              len(edge_type.encode()))
+                   + edge_type.encode() + sub.tobytes())
+
+            def reader(s, nsub=sub.size):
+                total = self._ack(s)
+                cnts = np.frombuffer(_recv_exact(s, 4 * nsub), np.int32)
+                nbrs = np.frombuffer(_recv_exact(s, 8 * total), np.int64)
+                return cnts, nbrs
+            cnts, nbrs = self._exchange(i, msg, reader)
+            pos = np.nonzero(m)[0]
+            parts = np.split(nbrs, np.cumsum(cnts)[:-1]) if cnts.size else []
+            for p, c, part in zip(pos, cnts, parts):
+                counts[p] = c
+                per_node[p] = part
+        chunks = [p for p in per_node if p is not None and p.size]
+        neighbors = np.concatenate(chunks) if chunks else np.zeros(0, np.int64)
+        return neighbors, counts
+
+    def pull_features(self, ids, node_type=""):
+        """(n, feat_dim) float32 rows in query order. A shard with no rows
+        for the node type answers feat_dim=0 and its nodes come back zero
+        (partial feature loads never crash serving); shards that DO hold
+        rows must agree on the dim."""
+        ids, owner = self._route(np.asarray(
+            ids.numpy() if hasattr(ids, "numpy") else ids))
+        shard_rows = []
+        fd = 0
+        for i in range(len(self.endpoints)):
+            m = owner == i
+            if not m.any():
+                continue
+            sub = np.ascontiguousarray(ids[m])
+            msg = (_HDR.pack(OP_GFEAT, sub.size, 0)
+                   + _TL.pack(len(node_type.encode()))
+                   + node_type.encode() + sub.tobytes())
+
+            def reader(s, nsub=sub.size):
+                d = self._ack(s)
+                return np.frombuffer(_recv_exact(s, 4 * nsub * d),
+                                     np.float32).reshape(nsub, d)
+            rows = self._exchange(i, msg, reader)
+            if rows.shape[1]:
+                if fd and rows.shape[1] != fd:
+                    raise ValueError(
+                        f"graph shards disagree on feature dim for node "
+                        f"type {node_type!r}: {fd} vs {rows.shape[1]}")
+                fd = rows.shape[1]
+            shard_rows.append((m, rows))
+        out = np.zeros((ids.size, fd), np.float32)
+        for m, rows in shard_rows:
+            if rows.shape[1]:
+                out[m] = rows
+        return out
+
+    def node_degree(self, ids, edge_type=""):
+        """Out-degree per queried node (int64), resolved on the owner
+        shard."""
+        ids, owner = self._route(np.asarray(
+            ids.numpy() if hasattr(ids, "numpy") else ids))
+        out = np.zeros(ids.size, np.int64)
+        for i in range(len(self.endpoints)):
+            m = owner == i
+            if not m.any():
+                continue
+            sub = np.ascontiguousarray(ids[m])
+            msg = (_HDR.pack(OP_GDEGREE, sub.size, 0)
+                   + _TL.pack(len(edge_type.encode()))
+                   + edge_type.encode() + sub.tobytes())
+
+            def reader(s, nsub=sub.size):
+                n = self._ack(s)
+                return np.frombuffer(_recv_exact(s, 8 * n), np.int64)
+            out[m] = self._exchange(i, msg, reader)
+        return out
+
+
+class DistributedSparseTable:
+    """SparseTable-compatible facade over PSClient, so SparseEmbedding and
+    the AsyncCommunicator work unchanged against remote shards."""
+
+    def __init__(self, endpoints, dim, **kwargs):
+        self.dim = int(dim)
+        self.client = PSClient(endpoints, dim, **kwargs)
+
+    def pull(self, keys):
+        return self.client.pull(keys)
+
+    def push(self, keys, grads):
+        self.client.push(keys, grads)

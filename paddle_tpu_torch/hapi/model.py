@@ -30,35 +30,36 @@ sharded over dp and every parameter that fleet's mp layers mark with a
 `split_axis` sharded over mp: its loss, gradients and BatchNorm
 statistics are the global batch's. The port reproduces that step:
   * under a process group (one block of ranks a process), every process
-    passes the same global batch and computes its own ranks' rows; every
-    BatchNorm in the step reduces its statistics over the processes
+    passes the same global batch. When the dp axis spans the processes,
+    each computes the rows of its block of dp ranks; every BatchNorm in
+    the step reduces its statistics over the processes of the dp group
     (`distributed.env.global_batch`), the gradients are mean-all-reduced
-    before the update, the loss is the processes' mean and the outputs
-    the metrics read are gathered: the single-process step, computed in
-    parts;
-  * when the mp axis spans the processes, one rank a process, each
-    process keeps its mp rows of every `split_axis` parameter
-    (`mp_layers.shard_mp_params`) and computes the whole batch through the
-    mp layers' collectives across the processes: its loss is the one
-    process's loss, and no gradient is averaged (dp within a process is
-    the plain step's);
+    over them before the update, the loss is their mean and the outputs
+    the metrics read are gathered from them: the single-process step,
+    computed in parts;
+  * when the mp axis spans the processes, each process keeps the rows of
+    its block of mp ranks of every `split_axis` parameter
+    (`mp_layers.shard_mp_params`, over the processes of the mp group) and
+    computes its batch through the mp layers' collectives over those
+    processes. Both axes may span the processes at once, each over its
+    own process subgroup; an axis within a process is the plain step's;
   * on a one-process mesh the one controller computes that same global
     step, which is the plain step (it gains nothing on one card:
     ROADMAP C.21, C.22). The split the reference's `_param_shardings`
     gives each parameter is recorded as its `partition_spec`
     (`param_partition_spec`).
 A batch whose leading size does not split over dp takes the plain step in
-every process (`_train_step_plain` records it), as in the reference. Both
-dp and mp across processes at once, and sharding or sp across processes,
-raise (ROADMAP A.13f(iii)).
+every process (`_train_step_plain` records it), as in the reference. An
+axis other than dp and mp across the processes raises.
 
 The pp route. With a mesh whose "pp" axis is above 1 the network must be
 a fleet `PipelineLayer`: `train_batch` runs the pipeline runner
 (`fleet/meta_parallel/pp_compiled.py`) over `prepare(strategy=
 {"microbatches": M, "schedule": ...})`, writes the gradients to `.grad`
 and steps the optimizer eagerly, as the reference does. Its span is
-`Model.train_batch.pipeline_step`. The pipeline runs in one process; a
-pp mesh split over processes raises (ROADMAP A.13f(iii)).
+`Model.train_batch.pipeline_step`. Over a mesh split over processes
+(pp first in its order), each process runs its own stages and steps the
+parameters they use.
 """
 import contextlib
 import os
@@ -177,24 +178,28 @@ class Model:
         return out
 
     @staticmethod
-    def _rows(raws, mesh):
+    def _rows(raws, split):
         """This process's block of rows of each global-batch tensor."""
+        idx, n, _ = split
         out = []
         for t in raws:
-            per = t.shape[0] // mesh.nproc
-            out.append(t[mesh.proc * per:(mesh.proc + 1) * per])
+            per = t.shape[0] // n
+            out.append(t[idx * per:(idx + 1) * per])
         return tuple(out)
 
-    def _train_step(self, params, buffers, in_raw, lab_raw, lr, mesh=None):
-        """One step. `mesh`: split over processes, this process computes
-        its rows of the global batch (the dp route)."""
+    def _train_step(self, params, buffers, in_raw, lab_raw, lr, split=None):
+        """One step. `split`: (index, count, process group) of the
+        processes that share the dp axis; this process computes its rows
+        of the global batch (the dp route)."""
         from ..distributed import collective as dc
         from ..distributed import env
-        if mesh is not None:
-            in_raw, lab_raw = self._rows(in_raw, mesh), \
-                self._rows(lab_raw, mesh)
+        pg = None
+        if split is not None:
+            in_raw, lab_raw = self._rows(in_raw, split), \
+                self._rows(lab_raw, split)
+            pg = split[2]
         names = [n for n, p in params.items() if p.requires_grad]
-        scope = env.global_batch() if mesh is not None \
+        scope = env.global_batch(pg) if split is not None \
             else contextlib.nullcontext()
         with scope:
             outputs, new_buffers = functional_call(
@@ -207,10 +212,10 @@ class Model:
                                       allow_unused=True)
         raw_outs = [o._data.detach() for o in _as_list(outputs)]
         loss_d = loss._data.detach()
-        if mesh is not None:
-            dc.all_reduce_mean_([g for g in got if g is not None])
-            loss_d = dc._world_reduce(loss_d, dc.ReduceOp.AVG)
-            raw_outs = [torch.cat(dc._world_gather(o)) for o in raw_outs]
+        if split is not None:
+            dc.all_reduce_mean_([g for g in got if g is not None], pg)
+            loss_d = dc._world_reduce(loss_d, dc.ReduceOp.AVG, pg)
+            raw_outs = [torch.cat(dc._world_gather(o, pg)) for o in raw_outs]
         grads = {n: None for n in params}
         grads.update(zip(names, got))
         with torch.no_grad():
@@ -253,9 +258,10 @@ class Model:
         return [loss_val], metrics_out
 
     def _dp_split(self, raws):
-        """The mesh to split this batch over processes with, or None for
-        the plain step (no dp mesh, one process, a ragged batch, or mp
-        across the processes)."""
+        """(index, count, process group) of the processes that split this
+        batch over dp, or None for the plain step (no dp mesh, one
+        process, a ragged batch, or dp within the process); shards the mp
+        layers when mp spans the processes."""
         from ..distributed import collective as dc
         from ..distributed import env
         mesh = self._dp_mesh()
@@ -274,32 +280,47 @@ class Model:
         if mesh.nproc == 1:
             return None
         across = [a for a in mesh.dims if mesh.dims[a] > 1 and
-                  any(mesh.process_of(r) != mesh.proc for r in
-                      mesh.whole_groups(mesh.local_ranks[:1], (a,))[0])]
-        if not env.process_group_live() or len(across) != 1 or \
-                across[0] not in ("dp", "mp"):
-            raise NotImplementedError(
-                f"Model over mesh {mesh.dims} with axes {across} across "
-                "processes: the dp route or the mp route (one of them "
-                "across the processes) runs here; the rest comes with "
-                "ROADMAP A.13f(iii)")
-        if across[0] == "mp":
-            group = dc.Group(axis_name="mp", mesh=mesh)
-            if not group.spans_processes():
-                raise NotImplementedError(
-                    f"Model's mp route across processes takes one mp rank "
-                    f"a process; mesh {mesh.dims} puts more in one "
-                    "(ROADMAP A.13f(iii))")
+                  len(self._axis_procs(mesh, a)) > 1]
+        if not env.process_group_live():
+            raise RuntimeError(f"Model over mesh {mesh.dims} split over "
+                               "processes needs their process group")
+        other = [a for a in across if a not in ("dp", "mp")]
+        if other:
+            raise ValueError(
+                f"Model over mesh {mesh.dims}: axes {other} across "
+                "processes; its routes split the batch over dp and the "
+                "mp layers over mp (pp takes the pipeline route)")
+        if "mp" in across:
+            idx, n, pg = self._axis_block(mesh, "mp")
             from ..distributed.fleet.layers.mp_layers import shard_mp_params
-            shard_mp_params(self.network, group.rank, group.nranks,
-                            group.process_group)
+            shard_mp_params(self.network, idx, n, pg)
+        if "dp" not in across:
             return None
-        if len(mesh.whole_groups(mesh.local_ranks[:1], ("dp",))[0]) != \
-                mesh.dims["dp"] or mesh.dims["dp"] % mesh.nproc:
-            raise NotImplementedError(
-                f"Model's dp route over mesh {mesh.dims}: the dp axis must "
-                "hold every process (ROADMAP A.13f(iii))")
-        return mesh
+        return self._axis_block(mesh, "dp")
+
+    @staticmethod
+    def _axis_procs(mesh, axis):
+        """The processes of this process's group over `axis`."""
+        return sorted({mesh.process_of(r) for r in
+                       mesh.whole_groups(mesh.local_ranks[:1], (axis,))[0]})
+
+    def _axis_block(self, mesh, axis):
+        """(this process's index among the processes of its `axis`
+        group, their number, their torch.distributed group): each holds a
+        contiguous block of the axis's ranks, the same size in each."""
+        from ..parallel.collectives import process_group_of
+        procs = self._axis_procs(mesh, axis)
+        n, idx = len(procs), procs.index(mesh.proc)
+        per = mesh.dims[axis] // n
+        mine = sorted({mesh.coords[r][axis] for r in mesh.local_ranks})
+        if mesh.dims[axis] % n or mine != list(range(idx * per,
+                                                      (idx + 1) * per)):
+            raise ValueError(
+                f"Model over mesh {mesh.dims}: process {mesh.proc} holds "
+                f"{axis} ranks {mine}, not one contiguous block of "
+                f"{mesh.dims[axis]} // {n}; put {axis!r} earlier in the "
+                "mesh's order")
+        return idx, n, process_group_of(procs)
 
     def _train_batch_pp(self, in_raw, lab_raw, mesh):
         """The pp route: the network must be a fleet PipelineLayer; the

@@ -1,14 +1,24 @@
-"""ctypes bindings to the port's native runtime (counterpart of the
-`ShmRing` and `TCPStore` halves of `paddle_tpu/native/__init__.py`).
+"""ctypes bindings to the port's native runtime (counterpart of
+`paddle_tpu/native/__init__.py`).
 
-Two sources, copies of the reference's, each built into a library of its
-own:
+Five sources, copies of the reference's, each built into a library of
+its own:
   * `src/shm_ring.cc`: a cross-process blocking queue of byte records in
     one POSIX shared-memory segment, the transport of the `DataLoader`'s
     worker processes (`ShmRing`);
   * `src/kvstore.cc`: the TCP key-value store, the user-level rendezvous
     of `distributed.TCPStore`, the launcher and the elastic manager
-    (`TCPStoreServer`, `TCPStoreClient`).
+    (`TCPStoreServer`, `TCPStoreClient`);
+  * `src/arena.cc`: a best-fit auto-growth host allocator (`HostArena`);
+  * `src/monitor.cc`: named process-wide counters with peaks (`stat_add`,
+    `stat_get`, `stat_peak`, `stat_reset`);
+  * `src/ps_table.cc`: the parameter server's sparse table: striped hash
+    map of id -> row and optimizer slots, the sgd / adagrad / adam rules
+    applied on push, rows created on first pull from a seeded uniform
+    draw, binary save / load (`SparseTable`; `distributed.ps`). The same
+    source and flags as the reference's, so a seed, keys and pushes give
+    the same rows bit for bit, and either package loads the other's
+    saved table.
 
 Each is built with g++ at first use, with the reference Makefile's flags,
 
@@ -20,11 +30,8 @@ the flags, so an edited source is never served a stale library; a build
 writes a private temporary file and renames it into place, so processes
 that build at once never load a torn one. Where g++ is missing or fails,
 `available(name)` is False: the `DataLoader` then takes its thread
-engine, and a `TCPStore` raises naming the build error.
-
-The reference's other native sources (the host arena, the stat registry,
-the parameter-server table) come with the slice that uses them (ROADMAP
-A.13g).
+engine, and a `TCPStore`, a `HostArena` or a `SparseTable` raises naming
+the build error; the stat functions then return 0, as the reference's.
 """
 import ctypes
 import hashlib
@@ -33,11 +40,12 @@ import subprocess
 import threading
 
 __all__ = ["available", "build_error", "ShmRing", "TCPStoreServer",
-           "TCPStoreClient", "library_path", "build_dir", "CXX_FLAGS",
-           "SOURCES"]
+           "TCPStoreClient", "HostArena", "SparseTable", "stat_add",
+           "stat_get", "stat_peak", "stat_reset", "library_path",
+           "build_dir", "CXX_FLAGS", "SOURCES"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("shm_ring", "kvstore")
+SOURCES = ("shm_ring", "kvstore", "arena", "monitor", "ps_table")
 CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared")
 _libs = {}
 _build_errors = {}
@@ -100,6 +108,8 @@ def _sigs():
     P, U64, I64, I32 = (ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int64,
                         ctypes.c_int)
     S = ctypes.c_char_p
+    F, PF = ctypes.c_float, ctypes.POINTER(ctypes.c_float)
+    PI64 = ctypes.POINTER(ctypes.c_int64)
     return {
         "shm_ring": {
             "ptn_ring_create": (P, [S, U64]),
@@ -124,6 +134,33 @@ def _sigs():
                                      ctypes.POINTER(U64)]),
             "ptn_store_add": (I32, [P, S, I64, ctypes.POINTER(I64)]),
             "ptn_store_delete": (I32, [P, S]),
+        },
+        "arena": {
+            "ptn_arena_create": (P, [U64]),
+            "ptn_arena_alloc": (P, [P, U64]),
+            "ptn_arena_free": (I32, [P, P]),
+            "ptn_arena_stats": (None, [P, ctypes.POINTER(U64),
+                                       ctypes.POINTER(U64),
+                                       ctypes.POINTER(U64)]),
+            "ptn_arena_destroy": (None, [P]),
+        },
+        "monitor": {
+            "ptn_stat_add": (I64, [S, I64]),
+            "ptn_stat_get": (I64, [S]),
+            "ptn_stat_peak": (I64, [S]),
+            "ptn_stat_reset": (None, [S]),
+        },
+        "ps_table": {
+            "ptn_pstable_create": (P, [I32, S, F, F, U64]),
+            "ptn_pstable_pull": (None, [P, PI64, I64, PF]),
+            "ptn_pstable_push": (None, [P, PI64, I64, PF]),
+            "ptn_pstable_pull_state": (None, [P, PI64, I64, PF, PF]),
+            "ptn_pstable_assign": (None, [P, PI64, I64, PF, PF]),
+            "ptn_pstable_erase": (None, [P, PI64, I64]),
+            "ptn_pstable_size": (I64, [P]),
+            "ptn_pstable_save": (I32, [P, S]),
+            "ptn_pstable_load": (I32, [P, S]),
+            "ptn_pstable_destroy": (None, [P]),
         },
     }
 
@@ -286,3 +323,172 @@ class TCPStoreClient:
         if self._h:
             self._lib.ptn_store_client_close(self._h)
             self._h = None
+
+
+class HostArena:
+    """Best-fit auto-growth host allocator; returns memoryviews over the
+    arena's mmap'd chunks."""
+
+    def __init__(self, chunk_bytes=64 << 20):
+        self._lib = lib = _need("arena")
+        self._h = lib.ptn_arena_create(chunk_bytes)
+        self._live = {}
+
+    def alloc(self, size):
+        p = self._lib.ptn_arena_alloc(self._h, size)
+        if not p:
+            raise MemoryError(f"arena alloc({size}) failed")
+        buf = (ctypes.c_ubyte * size).from_address(p)
+        mv = memoryview(buf).cast("B")
+        self._live[id(mv)] = (p, mv)
+        return mv
+
+    def free(self, mv):
+        entry = self._live.pop(id(mv), None)
+        if entry is None:
+            raise ValueError("unknown arena buffer")
+        mv.release()
+        if self._lib.ptn_arena_free(self._h, entry[0]) != 0:
+            raise RuntimeError("double free")
+
+    def stats(self):
+        a, r, p = ctypes.c_uint64(), ctypes.c_uint64(), ctypes.c_uint64()
+        self._lib.ptn_arena_stats(self._h, ctypes.byref(a), ctypes.byref(r),
+                                  ctypes.byref(p))
+        return {"allocated": a.value, "reserved": r.value, "peak": p.value}
+
+    def destroy(self):
+        if self._h:
+            for _, mv in self._live.values():
+                mv.release()
+            self._live.clear()
+            self._lib.ptn_arena_destroy(self._h)
+            self._h = None
+
+
+class SparseTable:
+    """Sharded feature-id -> embedding-row store with server-side sparse
+    optimizer rules (sgd / adagrad / adam): the C++ half of the parameter
+    server (`distributed.ps`)."""
+
+    def __init__(self, dim, rule="adagrad", lr=0.05, init_range=0.01,
+                 seed=0):
+        import numpy as np
+        self._lib = lib = _need("ps_table")
+        self._np = np
+        self.dim = int(dim)
+        self.rule = rule
+        self.lr = float(lr)
+        self._h = lib.ptn_pstable_create(self.dim, rule.encode(), float(lr),
+                                         float(init_range), int(seed))
+
+    def _keys_ptr(self, keys):
+        arr = self._np.ascontiguousarray(keys, dtype=self._np.int64)
+        return arr, arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+    def _f32(self, a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+    def pull(self, keys):
+        """keys: int64 (n,) -> float32 (n, dim); a missing row is created
+        from the table's seeded uniform draw."""
+        arr, kp = self._keys_ptr(keys)
+        out = self._np.empty((arr.size, self.dim), dtype=self._np.float32)
+        self._lib.ptn_pstable_pull(self._h, kp, arr.size, self._f32(out))
+        return out
+
+    def push(self, keys, grads):
+        """Apply the table's rule to each key's row with its gradient row
+        (keys repeated apply one after another)."""
+        arr, kp = self._keys_ptr(keys)
+        g = self._np.ascontiguousarray(grads, dtype=self._np.float32)
+        if g.shape != (arr.size, self.dim):
+            raise ValueError(f"grads shape {g.shape} != ({arr.size}, "
+                             f"{self.dim})")
+        self._lib.ptn_pstable_push(self._h, kp, arr.size, self._f32(g))
+
+    @property
+    def slot(self):
+        """Optimizer-state floats a row (0 sgd, dim adagrad, 2*dim+1
+        adam), as `ps_table.cc` lays them out."""
+        return {"sgd": 0, "adagrad": self.dim, "adam": 2 * self.dim + 1}[
+            self.rule]
+
+    def pull_with_state(self, keys):
+        """(values (n, dim), state (n, slot)): rows and optimizer slots,
+        for the device cache."""
+        arr, kp = self._keys_ptr(keys)
+        out = self._np.empty((arr.size, self.dim), dtype=self._np.float32)
+        st = self._np.empty((arr.size, max(self.slot, 1)),
+                            dtype=self._np.float32)
+        self._lib.ptn_pstable_pull_state(self._h, kp, arr.size,
+                                         self._f32(out), self._f32(st))
+        return out, st[:, :self.slot]
+
+    def assign(self, keys, values, state=None):
+        """Set rows (and optimizer state) directly: the device cache's
+        write-back."""
+        arr, kp = self._keys_ptr(keys)
+        v = self._np.ascontiguousarray(values, dtype=self._np.float32)
+        if v.shape != (arr.size, self.dim):
+            raise ValueError(f"values shape {v.shape} != ({arr.size}, "
+                             f"{self.dim})")
+        sp = None
+        if state is not None and self.slot:
+            s = self._np.ascontiguousarray(state, dtype=self._np.float32)
+            if s.shape != (arr.size, self.slot):
+                raise ValueError(f"state shape {s.shape} != ({arr.size}, "
+                                 f"{self.slot})")
+            sp = self._f32(s)
+        self._lib.ptn_pstable_assign(self._h, kp, arr.size, self._f32(v), sp)
+
+    def erase(self, keys):
+        """Drop rows: an erased key is drawn again on its next pull unless
+        reloaded first (the disk tier's eviction)."""
+        arr, kp = self._keys_ptr(keys)
+        self._lib.ptn_pstable_erase(self._h, kp, arr.size)
+
+    def __len__(self):
+        return int(self._lib.ptn_pstable_size(self._h))
+
+    def save(self, path):
+        if self._lib.ptn_pstable_save(self._h, path.encode()) != 0:
+            raise IOError(f"pstable save failed: {path}")
+
+    def load(self, path):
+        rc = self._lib.ptn_pstable_load(self._h, path.encode())
+        if rc != 0:
+            raise IOError(f"pstable load failed ({rc}): {path}")
+
+    def destroy(self):
+        if getattr(self, "_h", None):
+            self._lib.ptn_pstable_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.destroy()
+        except Exception:       # noqa: BLE001 (interpreter shutdown)
+            pass
+
+
+def stat_add(name, delta=1):
+    """Add `delta` to the named counter; returns its new value."""
+    lib = _load("monitor")
+    return lib.ptn_stat_add(name.encode(), delta) if lib else 0
+
+
+def stat_get(name):
+    lib = _load("monitor")
+    return lib.ptn_stat_get(name.encode()) if lib else 0
+
+
+def stat_peak(name):
+    lib = _load("monitor")
+    return lib.ptn_stat_peak(name.encode()) if lib else 0
+
+
+def stat_reset(name):
+    lib = _load("monitor")
+    if lib:
+        lib.ptn_stat_reset(name.encode())

@@ -78,7 +78,9 @@ def _sync_batch_norm(layer, x):
     sum, the sum of squares and the count, in f32, all-reduced (its
     backward all-reduces the cotangent, psum's transpose). The running
     variance is unbiased over the global count, as `F.batch_norm`'s."""
+    from ...distributed import env
     from ...distributed.collective import world_sum
+    pg = env.global_batch_group() if env.global_batch_live() else None
     ch = 1 if layer._data_format.startswith("NC") else x.ndim - 1
     red = tuple(i for i in range(x.ndim) if i != ch)
     shape = [1] * x.ndim
@@ -89,7 +91,8 @@ def _sync_batch_norm(layer, x):
         af = a.float()
         n = torch.full((1,), a.numel() // a.shape[ch], dtype=torch.float32,
                        device=a.device)
-        stats = world_sum(torch.cat([af.sum(red), (af * af).sum(red), n]))
+        stats = world_sum(torch.cat([af.sum(red), (af * af).sum(red), n]),
+                          pg)
         c = a.shape[ch]
         count = stats[2 * c]
         mean = stats[:c] / count

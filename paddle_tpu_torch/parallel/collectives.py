@@ -18,16 +18,26 @@ names, in the order it names them.
 Across processes. The ranks of a grid split over `nproc` processes, one
 block of device slots a process; a rank's slot is its row-major index over
 `order` (the axes slowest first: the reference's device-array transpose),
-so the axis named first is the one whose groups span the processes. A
-group of `over` whose members lie in other processes gathers them through
-a `torch.distributed` group of those processes (`_ProcGather`), runs the
-group collective on the whole group in every member process, and keeps its
-own members' outputs: the same sums in the same order as one controller.
-The gather's backward sums the processes' cotangents of each member and
-hands them to its owner, so autograd through `over` gives each rank the
-gradient one controller gives it. Each process receives (members - 1) x
-the value's bytes of a group, more than a ring reduce-scatter's
-(n - 1)/n: the price of one controller's order.
+so the axis named first is the one whose groups span the processes. For a
+group of `over` whose members lie in other processes:
+  * a reduction (`psum`, `pmean`, `axis_psum`, `mp_copy`, and
+    `functools.partial(psum_scatter, dim=d)` without autograd) adds each
+    process's members in f32 in rank order and runs one
+    `torch.distributed` all-reduce (reduce-scatter) of those partial sums
+    over the processes, as XLA lowers a psum: (n - 1)/n of the value's
+    bytes a process for a reduce-scatter. With one member a process
+    among two processes this is one controller's sum bit for bit;
+    elsewhere the order of the sum differs (within 1e-6 of the largest
+    magnitude in f32, per step, in the tests);
+  * anything else gathers the members through a `torch.distributed`
+    group of those processes (`_ProcGather`), runs the group collective
+    on the whole group in every member process and keeps its own
+    members' outputs: one controller's result, at (members - 1) x the
+    value's bytes a group. The gather's backward sums the processes'
+    cotangents of each member and hands them to its owner.
+`shift_over` and `all_to_all_over` give a rank that holds only its own
+value a `ppermute` (send / recv) and an `all_to_all` (one
+`torch.distributed.all_to_all`) over a group spanning processes.
 
 Autograd. The collectives are plain differentiable ops, and the gradient
 autograd gives each is the transpose JAX gives it under `check_vma=False`:
@@ -42,6 +52,7 @@ axis.
 
 Sums run in float32 in rank order and are cast back to the input's dtype.
 """
+import functools
 import math
 
 import numpy as np
@@ -50,7 +61,7 @@ import torch.distributed as dist
 
 __all__ = ["AXES", "RankGrid", "psum", "pmean", "pmax", "all_gather",
            "psum_scatter", "ppermute", "all_to_all", "axis_psum", "mp_copy",
-           "axis_index"]
+           "axis_index", "shift_over", "all_to_all_over"]
 
 AXES = ("dp", "pp", "sharding", "sp", "mp")
 
@@ -232,6 +243,128 @@ def _gather_members(pg, locals_):
     return [list(part.unbind(0)) for part in full.unbind(0)]
 
 
+def _reduction(fn, xs):
+    """The kind of reduction `fn` is, for `RankGrid.over` to run across
+    processes as a collective of partial sums: ("sum",), ("mean",),
+    ("axis_psum",), ("mp_copy",) or ("scatter", dim); None for anything
+    else (and for a differentiable reduce-scatter, or values that are not
+    floating tensors), which gathers the members instead."""
+    if not xs or not all(isinstance(x, torch.Tensor) and
+                         x.is_floating_point() for x in xs):
+        return None
+    if fn is psum:
+        return ("sum",)
+    if fn is pmean:
+        return ("mean",)
+    if fn is axis_psum:
+        return ("axis_psum",)
+    if fn is mp_copy:
+        return ("mp_copy",)
+    if isinstance(fn, functools.partial) and fn.func is psum_scatter and \
+            not fn.args and set(fn.keywords) == {"dim"}:
+        if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+            return None
+        return ("scatter", fn.keywords["dim"])
+    return None
+
+
+def _allreduce_partials(pg, counts, vals, scale):
+    """Each group's sum over every process: `vals` holds this process's
+    members, `counts[i]` of them for group i (rank order); their f32
+    partial sums travel as one flat all-reduce. One f32 tensor a group,
+    on its first member's device, times `scale[i]`."""
+    parts, i = [], 0
+    for c in counts:
+        parts.append(_sum_f32(vals[i:i + c], vals[i].device))
+        i += c
+    dc = _dc()
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    got = dc._comm(flat)
+    dist.all_reduce(got, dist.ReduceOp.SUM, group=pg)
+    got = got.to(vals[0].device)
+    out, off = [], 0
+    for p, k in zip(parts, scale):
+        n = p.numel()
+        g = got[off:off + n].view(p.shape).to(p.device)
+        out.append(g if k == 1 else g / k)
+        off += n
+    return out
+
+
+def _spread_groups(sums, counts, like):
+    """Each group's sum handed to its members (their dtype and device),
+    in the order of `like`."""
+    out, i = [], 0
+    for s, c in zip(sums, counts):
+        out.extend(_spread(s, like[i:i + c]))
+        i += c
+    return out
+
+
+class _ProcReduce(torch.autograd.Function):
+    """psum / pmean / axis_psum / mp_copy over groups spanning processes,
+    as local partial sums and one all-reduce. Backward: psum's and
+    pmean's transpose is the same reduction of the cotangents,
+    axis_psum's the identity, mp_copy's a psum."""
+
+    @staticmethod
+    def forward(ctx, meta, *vals):
+        pg, counts, sizes, kind = meta
+        ctx.meta = meta
+        if kind == "mp_copy":
+            return tuple(v.view_as(v) for v in vals)
+        scale = sizes if kind == "mean" else [1] * len(sizes)
+        return tuple(_spread_groups(
+            _allreduce_partials(pg, counts, vals, scale), counts, vals))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        pg, counts, sizes, kind = ctx.meta
+        if kind == "axis_psum":
+            return (None,) + gs
+        scale = sizes if kind == "mean" else [1] * len(sizes)
+        gs = [torch.zeros_like(g) if g is None else g for g in gs]
+        return (None,) + tuple(_spread_groups(
+            _allreduce_partials(pg, counts, gs, scale), counts, gs))
+
+
+def _scatter_partials(grid, procs, groups, mine, pg, dim, vals):
+    """psum_scatter(dim) over groups spanning processes: this process's
+    f32 partial sum of each group is cut into the members' chunks, the
+    chunks are laid out process by process (each process's members of
+    each group, rank order), and one reduce-scatter over the processes
+    hands each process its members' chunks of the sum."""
+    dc = _dc()
+    partial = []
+    for g, vs in zip(groups, vals):
+        n = len(g)
+        if vs[0].shape[dim] % n:
+            raise ValueError(f"psum_scatter: dim {dim} of size "
+                             f"{vs[0].shape[dim]} does not split {n} ways")
+        partial.append(_sum_f32(vs, vs[0].device).chunk(n, dim))
+    order = []                       # (process, group, position) blocks
+    for p in procs:
+        for gi, g in enumerate(groups):
+            for i, r in enumerate(g):
+                if grid.process_of(r) == p:
+                    order.append((p, gi, i))
+    flat = dc._comm(torch.cat([partial[gi][i].reshape(-1)
+                               for _, gi, i in order]))
+    got = torch.empty(flat.numel() // len(procs), dtype=torch.float32,
+                      device=flat.device)
+    dist.reduce_scatter_tensor(got, flat, dist.ReduceOp.SUM, group=pg)
+    out, off = [], 0
+    for gi, loc in enumerate(mine):
+        for r in loc:
+            i = groups[gi].index(r)
+            c = partial[gi][i]
+            x = vals[gi][loc.index(r)]
+            out.append(got[off:off + c.numel()].view(c.shape)
+                       .to(x.device, x.dtype))
+            off += c.numel()
+    return out
+
+
 class RankGrid:
     """Ranks over the mesh axes, each with its device.
 
@@ -314,7 +447,8 @@ class RankGrid:
         """Apply the group collective `fn` to each group of `axes` among
         `ranks` (xs: one value a rank of `ranks`; a value may be a tuple,
         which `fn` receives whole). Under processes, a group whose other
-        members are remote ranks gathers them (see the module
+        members are remote ranks runs a reduction as partial sums and
+        one collective, anything else by gathering them (see the module
         docstring)."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         if all(self.dims[a] == 1 for a in axes):
@@ -339,10 +473,15 @@ class RankGrid:
             procs = tuple(sorted({self.process_of(r) for r in g}))
             spanning.setdefault(procs, []).append(g)
         # every process takes its process sets, and the groups in each,
-        # in one global order, so their gathers meet
+        # in one global order, so their collectives meet
+        kind = _reduction(fn, xs)
         for procs in sorted(spanning):
-            self._over_spanning(procs, sorted(spanning[procs]), pos_of, fn,
-                                xs, out)
+            if kind is None:
+                self._over_spanning(procs, sorted(spanning[procs]), pos_of,
+                                    fn, xs, out)
+            else:
+                self._reduce_spanning(procs, sorted(spanning[procs]), pos_of,
+                                      kind, xs, out)
         return out
 
     def whole_groups(self, ranks, axes):
@@ -360,6 +499,26 @@ class RankGrid:
                      if a not in axes}
             out.append(self.ranks_where(**fixed))
         return out
+
+    def _reduce_spanning(self, procs, groups, pos_of, kind, xs, out):
+        """A reduction over groups whose members lie in the processes
+        `procs`: each process sums its members of each group (f32, rank
+        order), and one `torch.distributed` all-reduce (reduce-scatter for
+        `psum_scatter`) of those partial sums runs over the processes."""
+        mine = [[r for r in g if self.process_of(r) == self.proc]
+                for g in groups]
+        pg = process_group_of(procs)
+        vals = [xs[pos_of[r]] for loc in mine for r in loc]
+        if kind[0] == "scatter":
+            res = _scatter_partials(self, procs, groups, mine, pg, kind[1],
+                                    [[xs[pos_of[r]] for r in loc]
+                                     for loc in mine])
+        else:
+            sizes = [len(g) for g in groups]
+            res = _ProcReduce.apply(
+                (pg, [len(loc) for loc in mine], sizes, kind[0]), *vals)
+        for r, y in zip((r for loc in mine for r in loc), res):
+            out[pos_of[r]] = y
 
     def _over_spanning(self, procs, groups, pos_of, fn, xs, out):
         """`fn` over groups whose members lie in the processes `procs`:
@@ -390,3 +549,188 @@ class RankGrid:
             for r, y in zip(g, res):
                 if r in pos_of:
                     out[pos_of[r]] = y
+
+
+# ---------------------------------------------------------------------------
+# One value a local rank, its group's other members in other processes
+# ---------------------------------------------------------------------------
+
+def _wire(t):
+    """`t` as gloo / NCCL take it: contiguous, on the host under gloo,
+    bf16 and f16 widened to f32 for gloo (exact)."""
+    t = _dc()._comm(t)
+    if dist.get_backend() == "gloo" and t.dtype in (torch.bfloat16,
+                                                   torch.float16):
+        t = t.float()
+    return t
+
+
+def _p2p(sends, recvs):
+    """Post every send (process, tag, tensor) and receive (process, tag,
+    tensor like the one expected) at once, then wait for all of them.
+    Returns the received tensors, each in the dtype and on the device of
+    its template."""
+    reqs, keep, bufs = [], [], []
+    for proc, tag, t in sends:
+        w = _wire(t)
+        keep.append(w)
+        reqs.append(dist.isend(w, proc, tag=tag))
+    for proc, tag, like in recvs:
+        on = _wire(like.reshape(-1)[:0])      # the wire's dtype and device
+        w = torch.empty(like.shape, dtype=on.dtype, device=on.device)
+        bufs.append(w)
+        reqs.append(dist.irecv(w, proc, tag=tag))
+    for q in reqs:
+        q.wait()
+    return [b.to(like.device, like.dtype)
+            for b, (_, _, like) in zip(bufs, recvs)]
+
+
+def _peer(grid, r, axis, j):
+    """The rank at index `j` of `r`'s group over `axis`."""
+    c = dict(grid.coords[r])
+    c[axis] = j % grid.dims[axis]
+    return grid.ranks_where(**c)[0]
+
+
+def _shift_values(grid, ranks, axis, shift, vals):
+    n = grid.dims[axis]
+    pos_of = {r: i for i, r in enumerate(ranks)}
+    out = [None] * len(ranks)
+    sends, recvs, into = [], [], []
+    for p, r in enumerate(ranks):
+        i = grid.coords[r][axis]
+        dst, src = _peer(grid, r, axis, i + shift), \
+            _peer(grid, r, axis, i - shift)
+        if dst in pos_of:
+            out[pos_of[dst]] = vals[p].to(grid.devices[dst], copy=True)
+        else:
+            sends.append((grid.process_of(dst), r * grid.size + dst,
+                          vals[p]))
+        if src not in pos_of:
+            recvs.append((grid.process_of(src), src * grid.size + r,
+                          vals[p]))
+            into.append(p)
+    for p, v in zip(into, _p2p(sends, recvs)):
+        out[p] = v
+    return out
+
+
+class _Shift(torch.autograd.Function):
+    """ppermute over processes: forward by `shift`, backward by -shift."""
+
+    @staticmethod
+    def forward(ctx, meta, *vals):
+        ctx.meta = meta
+        grid, ranks, axis, shift = meta
+        return tuple(_shift_values(grid, ranks, axis, shift, vals))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        grid, ranks, axis, shift = ctx.meta
+        gs = [torch.zeros_like(g) if g is None else g for g in gs]
+        return (None,) + tuple(_shift_values(grid, ranks, axis, -shift, gs))
+
+
+def shift_over(grid, ranks, axis, xs, shift=1):
+    """`ppermute` over `axis` for the ranks this process drives (`ranks`,
+    one value each, all of one shape): the value of the rank at index i
+    moves to index (i + shift) mod n of its group, by a copy within the
+    process and by `torch.distributed` send / recv across processes.
+    Differentiable (the backward shifts the cotangents back)."""
+    if grid.dims[axis] == 1:
+        return list(xs)
+    return list(_Shift.apply((grid, tuple(ranks), axis, shift), *xs))
+
+
+def _a2a_values(grid, ranks, axis, vals, split_dim, concat_dim):
+    n = grid.dims[axis]
+    pos_of = {r: i for i, r in enumerate(ranks)}
+    groups = sorted({tuple(_peer(grid, r, axis, j) for j in range(n))
+                     for r in ranks})
+    procs = sorted({grid.process_of(r) for g in groups for r in g})
+    for g in groups:
+        if any(grid.process_of(r) == grid.proc and r not in pos_of
+               for r in g):
+            raise ValueError(f"ranks {list(ranks)} hold part of this "
+                             f"process's group {list(g)}")
+    parts = [v.chunk(n, split_dim) for v in vals]
+    like = parts[0][0]
+
+    def members(g, p):
+        return [r for r in g if grid.process_of(r) == p]
+    send, recv_sizes = [], []
+    for q in procs:
+        pieces = [parts[pos_of[s]][g.index(d)].reshape(-1)
+                  for g in groups for s in members(g, grid.proc)
+                  for d in members(g, q)]
+        send.append(_wire(torch.cat(pieces)) if pieces else
+                    _wire(like.reshape(-1)[:0]))
+        recv_sizes.append(sum(len(members(g, q)) *
+                              len(members(g, grid.proc))
+                              for g in groups) * like.numel())
+    got = [torch.empty(k, dtype=send[0].dtype, device=send[0].device)
+           for k in recv_sizes]
+    pg = process_group_of(procs)
+    if dist.get_backend(pg) == "gloo":
+        # gloo has no all_to_all in every release: the same exchange as
+        # one send and one receive with each other process
+        me = procs.index(grid.proc)
+        got[me] = send[me]
+        others = [i for i in range(len(procs)) if i != me]
+        tag = 1 << 30              # apart from every point-to-point tag
+        for i, v in zip(others, _p2p(
+                [(procs[i], tag + grid.proc, send[i]) for i in others],
+                [(procs[i], tag + procs[i], got[i]) for i in others])):
+            got[i] = v
+    else:
+        dist.all_to_all(got, send, group=pg)
+    chunk = {}                       # (source, destination) -> chunk
+    for q, buf in zip(procs, got):
+        off = 0
+        for g in groups:
+            for s in members(g, q):
+                for d in members(g, grid.proc):
+                    chunk[s, d] = buf[off:off + like.numel()].view(
+                        like.shape)
+                    off += like.numel()
+    out = [None] * len(ranks)
+    for g in groups:
+        for d in members(g, grid.proc):
+            x = vals[pos_of[d]]
+            out[pos_of[d]] = torch.cat(
+                [chunk[s, d].to(x.device, x.dtype) for s in g], concat_dim)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """all_to_all over processes; its transpose swaps the two dims."""
+
+    @staticmethod
+    def forward(ctx, meta, *vals):
+        ctx.meta = meta
+        grid, ranks, axis, a, b = meta
+        return tuple(_a2a_values(grid, ranks, axis, vals, a, b))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        grid, ranks, axis, a, b = ctx.meta
+        gs = [torch.zeros_like(g) if g is None else g for g in gs]
+        return (None,) + tuple(_a2a_values(grid, ranks, axis, gs, b, a))
+
+
+def all_to_all_over(grid, ranks, axis, xs, split_dim, concat_dim):
+    """`all_to_all` over `axis` for the ranks this process drives (one
+    value each, all of one shape; the groups of `ranks` hold every one of
+    their local members): the chunks bound for each process ride one
+    `torch.distributed.all_to_all` over the processes the groups span
+    (under gloo, one send and one receive with each other process).
+    Differentiable (the backward is the reverse exchange)."""
+    n = grid.dims[axis]
+    if n == 1:
+        return list(xs)
+    if xs[0].shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of size "
+                         f"{xs[0].shape[split_dim]} does not split {n} ways")
+    return list(_AllToAll.apply((grid, tuple(ranks), axis, split_dim,
+                                 concat_dim), *xs))

@@ -78,8 +78,11 @@ Where the two differ:
   * Multi-process training (the JAX `_put_global` multi-controller path)
     is several controllers, each driving its block of ranks
     (`make_train_step`'s docstring); one controller drives every rank
-    without a process group.
+    without a process group. The gradient mean over the data axes runs
+    one axis at a time (dp, sp, sharding), where the JAX step psums over
+    the axes at once.
 """
+import functools
 import math
 from dataclasses import dataclass
 
@@ -446,6 +449,9 @@ class _Program:
     def __init__(self, cfg, plan, grid, attend):
         self.cfg, self.plan, self.grid, self.attend = cfg, plan, grid, attend
         self.cdt = _DTYPES[cfg.compute_dtype]
+        # GPipe across processes: the sends' roots that join the step's
+        # backward, and the backward's sends still in flight
+        self.roots, self.pending = [], []
 
     def mp_copy(self, ranks, xs):
         return self.grid.over(ranks, "mp", C.mp_copy, xs)
@@ -502,10 +508,26 @@ class _Program:
 
     def attend_sp(self, ranks, qs, ks, vs):
         """Causal attention of each rank's queries, by the plan's route."""
-        plan = self.plan
+        plan, grid = self.plan, self.grid
         if plan.sp == 1:
             return [self.attend(q, k, v, causal=True)
                     for q, k, v in zip(qs, ks, vs)]
+        across = grid.nproc > 1 and any(
+            grid.process_of(r) != grid.proc
+            for r in grid.whole_groups(ranks[:1], ("sp",))[0])
+        if across and plan.sp_mode == "ulysses":
+            # one all-to-all over the sp processes each way
+            return ulysses_attention(
+                qs, ks, vs, causal=True, size=plan.sp,
+                attn_fn=lambda q, k, v: self.attend(q, k, v, causal=True),
+                exchange=lambda xs, a, b: C.all_to_all_over(
+                    grid, ranks, "sp", xs, a, b))
+        if across and plan.pp == 1:
+            # the K/V blocks go round the ring by send / recv
+            return ring_attention(
+                qs, ks, vs, causal=True, size=plan.sp,
+                index=[grid.coords[r]["sp"] for r in ranks],
+                shift=lambda xs: C.shift_over(grid, ranks, "sp", xs))
         if plan.sp_mode == "ulysses":
             def fn(g):
                 return ulysses_attention(
@@ -630,12 +652,8 @@ class _Program:
             return self.head_loss(ranks, h, labs, P)
         pp, M = plan.pp, plan.microbatches
         mine = set(ranks)
-        stage = [[r for r in grid.ranks_where(pp=s) if r in mine]
-                 for s in range(pp)]
-        if any(not rs for rs in stage):
-            raise NotImplementedError(
-                "the GPipe schedule with its pp axis across processes: use "
-                "schedule='1f1b' (ROADMAP A.13f(iii))")
+        full_stage = [grid.ranks_where(pp=s) for s in range(pp)]
+        stage = [[r for r in rs if r in mine] for rs in full_stage]
         P = dict(zip(ranks, P))
         tok_mb = {r: t.reshape(M, -1, t.shape[-1])
                   for r, t in zip(ranks, toks)}
@@ -645,11 +663,12 @@ class _Program:
                     for r in ranks}
         held = [0] * pp
         chan = [None] * pp
+        hop = _Hops(grid, self.cdt, M)
         for t in range(M + pp - 1):
             # last stage first: stage s reads what s-1 sent last tick
             for s in reversed(range(pp)):
                 mb = t - s
-                if not 0 <= mb < M:
+                if not 0 <= mb < M or not stage[s]:
                     continue
                 rs = stage[s]
                 if s == 0:
@@ -664,17 +683,30 @@ class _Program:
                                         [P[r] for r in rs])
                     for r, lv in zip(rs, ls):
                         loss_sum[r] = loss_sum[r] + lv
-                else:
+                elif stage[s + 1]:
                     chan[s + 1] = [v.to(grid.devices[r2], copy=True)
                                    for v, r2 in zip(y, stage[s + 1])]
+                else:       # the next stage lives in other processes
+                    hop.send(mb, s, y, full_stage)
+            # what a remote stage s sent this tick, for stage s + 1 here
+            for s in range(pp - 1):
+                mb = t - s
+                if 0 <= mb < M and stage[s + 1] and not stage[s]:
+                    chan[s + 1] = hop.recv(
+                        mb, s, full_stage, stage[s + 1],
+                        {r: tuple(tok_mb[r].shape[1:]) + (self.cfg.hidden,)
+                         for r in stage[s + 1]})
+            hop.wait()
         stats.update(schedule="gpipe", ticks=M + pp - 1, peak_live=held)
+        self.roots = hop.roots
+        self.pending = hop.pending
         last = set(stage[pp - 1])
         losses = [loss_sum[r] / M if r in last else loss_sum[r]
                   for r in ranks]
         return self.grid.over(ranks, "pp", C.axis_psum, losses)
 
     # -- 1F1B / interleaved --------------------------------------------------
-    def _hop(self, hops, mine, act_shape):
+    def _hop(self, hops, mine, act_shape, V):
         """The values of this tick's hops (kind 0 an activation, 1 a
         cotangent; chunk, source rank, destination rank, the source's
         per-chunk list or None) that land on this process's ranks: a
@@ -689,7 +721,9 @@ class _Program:
             local_src, local_dst = src in mine, dst in mine
             if not (local_src or local_dst):
                 continue
-            tag = (kind * grid.size + src) * grid.size + dst
+            # above every tag `collectives.shift_over` uses
+            tag = (1 + kind * V + c) * grid.size ** 2 \
+                + src * grid.size + dst
             if local_src and local_dst:
                 out[i] = vals[c]
             elif local_src:
@@ -739,10 +773,6 @@ class _Program:
         mine = set(local)
         full_stage = [grid.ranks_where(pp=s) for s in range(pp)]
         stage = [[r for r in rs if r in mine] for rs in full_stage]
-        if V > 1 and grid.nproc > 1:
-            raise NotImplementedError(
-                "the interleaved schedule across processes comes with "
-                "ROADMAP A.13f(iii)")
         P = dict(zip(local, P))
         tok_mb = {r: t.reshape(M, -1, t.shape[-1])
                   for r, t in zip(local, toks)}
@@ -910,7 +940,7 @@ class _Program:
                             hops.append((0, c, r, nxt[i], new_y.get(r)))
                         if int(btbl[t, s, c]) >= 0 and (s, c) != (0, 0):
                             hops.append((1, c, r, prv[i], new_g.get(r)))
-            got = self._hop(hops, mine, act_shape)
+            got = self._hop(hops, mine, act_shape, V)
             for (kind, c, src, dst, _), v in zip(hops, got):
                 if v is None:
                     continue
@@ -934,6 +964,94 @@ class _Program:
             g["lnf_b"] = g_hp[r]["lnf_b"].div_(M)
             grads.append(g)
         return losses, grads
+
+
+class _SendAct(torch.autograd.Function):
+    """Posts the send of a stage's activation to another process and
+    returns a 0-d zero to join the step's backward; its backward receives
+    the activation's cotangent from that process."""
+
+    @staticmethod
+    def forward(ctx, x, hops, proc, tag):
+        ctx.hops, ctx.proc, ctx.tag = hops, proc, tag
+        ctx.like = (x.shape, x.dtype, x.device)
+        hops.post_send(proc, tag, x)
+        return x.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.like
+        got = C._p2p([], [(ctx.proc, ctx.tag + ctx.hops.back,
+                           torch.empty(shape, dtype=dtype, device=device))])
+        return got[0], None, None, None
+
+
+class _RecvAct(torch.autograd.Function):
+    """A received activation (`buf`) in the graph; its backward posts the
+    send of the cotangent back to the process it came from."""
+
+    @staticmethod
+    def forward(ctx, anchor, buf, hops, proc, tag):
+        ctx.hops, ctx.proc, ctx.tag = hops, proc, tag
+        return buf.view_as(buf)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.hops.post_send(ctx.proc, ctx.tag + ctx.hops.back,
+                           g.contiguous(), backward=True)
+        return None, None, None, None, None
+
+
+class _Hops:
+    """The GPipe schedule's hops between processes: activations forward
+    (tagged by microbatch, source and destination rank), cotangents back
+    in the backward through `_SendAct` / `_RecvAct`. Forward sends are
+    posted as a stage finishes and waited at the tick's end; the
+    backward's sends are waited once the step's backward is done
+    (`pending`)."""
+
+    def __init__(self, grid, cdt, M):
+        self.grid, self.cdt = grid, cdt
+        self.size = grid.size
+        self.back = M * grid.size * grid.size
+        self.reqs, self.roots, self.pending = [], [], []
+
+    def tag(self, mb, src, dst):
+        # above every tag `collectives.shift_over` uses
+        return (1 + mb) * self.size * self.size + src * self.size + dst
+
+    def post_send(self, proc, tag, x, backward=False):
+        w = C._wire(x)
+        req = torch.distributed.isend(w, proc, tag=tag)
+        (self.pending if backward else self.reqs).append((req, w))
+
+    def send(self, mb, s, ys, full_stage):
+        g = self.grid
+        for y, r in zip(ys, [r for r in full_stage[s]
+                             if r in g.local_ranks]):
+            dst = full_stage[s + 1][full_stage[s].index(r)]
+            self.roots.append(_SendAct.apply(
+                y.to(self.cdt), self, g.process_of(dst),
+                self.tag(mb, r, dst)))
+
+    def recv(self, mb, s, full_stage, rs, shapes):
+        g = self.grid
+        recvs = []
+        for r2 in rs:
+            src = full_stage[s][full_stage[s + 1].index(r2)]
+            recvs.append((g.process_of(src), self.tag(mb, src, r2),
+                          torch.empty(shapes[r2], dtype=self.cdt,
+                                      device=g.devices[r2])))
+        got = C._p2p([], recvs)
+        anchor = torch.zeros((), requires_grad=True)
+        return [_RecvAct.apply(anchor, b, self, p, tag)
+                for b, (p, tag, _) in zip(got, recvs)]
+
+    def wait(self):
+        for req, _ in self.reqs:
+            req.wait()
+        self.reqs = []
+
 
 def _allgather_sp_attention(group):
     """The JAX `_allgather_sp_attention` over one sp group of (q, k, v):
@@ -989,7 +1107,7 @@ def _zero2_update_(grid, ps, gs, sts, lrs, clips, wd):
     if n > 1:
         gfs = [F.pad(g, (0, pad)) for g in gfs]
         g_sh = grid.over(ranks, "sharding",
-                         lambda g: C.psum_scatter(g, 0), gfs)
+                         functools.partial(C.psum_scatter, dim=0), gfs)
         g_sh = [g / n for g in g_sh]
         p_sh = []
         for r, p in zip(ranks, ps):
@@ -1106,9 +1224,7 @@ def _process_grid(plan, dev, devices, axis_order=None):
     blocks of device slots over `axis_order` (the axes slowest first, the
     reference's device-array transpose; default `AXES`), and this process
     drives its block (`grid.local_ranks`): the axis named first is the
-    one whose groups span the processes. dp, pp, sharding and mp may
-    cross the processes; sp across processes raises (ROADMAP
-    A.13f(iii))."""
+    one whose groups span the processes. Every axis may cross them."""
     import torch.distributed as dist
     from ..distributed.env import new_mesh
     n = plan.n_devices
@@ -1119,12 +1235,6 @@ def _process_grid(plan, dev, devices, axis_order=None):
         raise ValueError(f"{n} ranks do not split over {world} processes")
     local = _resolve_devices(devices or [dev] * (n // world), n // world)
     grid = new_mesh(plan.dims, local, world, me, axis_order)
-    if world > 1 and plan.sp > 1 and any(
-            grid.process_of(r) != me for r in
-            grid.whole_groups(grid.local_ranks[:1], ("sp",))[0]):
-        raise NotImplementedError(
-            f"make_train_step with plan {plan.dims}: sp across processes "
-            "comes with ROADMAP A.13f(iii)")
     return grid
 
 
@@ -1155,13 +1265,16 @@ def make_train_step(cfg: GPTSpmdConfig, plan: MeshPlan = None,
     the same global batch and drives its block of ranks, `devices` names
     its block's devices, a leaf holds one tensor a local rank, and
     init_fn builds the local ranks' leaves from the same seed in every
-    process. A collective whose group spans the processes gathers the
-    group's members and reduces them in rank order in every member
-    process (`RankGrid.over`), so the step's sums are one controller's;
-    the 1F1B pipeline sends its activations and cotangents between
-    processes point to point. Across processes the pipeline takes the
-    1F1B / eager-1F1B schedules (GPipe and vpp > 1 raise) and sp
-    stays within a process."""
+    process. A sum, mean or reduce-scatter whose group spans the
+    processes adds each process's members and runs one all-reduce or
+    reduce-scatter of those partial sums (`RankGrid.over`); the data
+    axes' gradients are averaged one axis at a time, so a group of one
+    member a process sums exactly as one controller does. Other
+    collectives gather the group's members. Every pipeline schedule
+    (GPipe, 1F1B, eager-1F1B, interleaved) sends its activations and
+    cotangents between processes point to point; sp's ring sends its K/V
+    blocks round the processes and Ulysses runs one all-to-all over them
+    each way."""
     plan = plan or MeshPlan()
     _check_plan(cfg, plan)
     dev = resolve_device(device)
@@ -1210,9 +1323,13 @@ def make_train_step(cfg: GPTSpmdConfig, plan: MeshPlan = None,
                 with RecordEvent("train::backward",
                                  TracerEventType.Backward):
                     total = losses[0]
-                    for lv in losses[1:]:
+                    for lv in losses[1:] + prog.roots:
                         total = total + lv.to(total.device)
-                    total.backward()
+                    if total.requires_grad:
+                        total.backward()
+                    for req, _ in prog.pending:
+                        req.wait()
+                    prog.roots, prog.pending = [], []
             grads = [{k: torch.zeros_like(p) if p.grad is None else p.grad
                       for k, p in d.items()} for d in P]
             losses = [lv.detach() for lv in losses]
@@ -1220,13 +1337,18 @@ def make_train_step(cfg: GPTSpmdConfig, plan: MeshPlan = None,
                                           TracerEventType.Optimization):
             if sync_axes:
                 # grad sync over every data axis BEFORE the clip, so the
-                # global norm sees the true batch gradient
+                # global norm sees the true batch gradient; one axis at a
+                # time (dp, sp, sharding), so a group that spans the
+                # processes one member a process sums exactly as one
+                # controller does
                 for k in specs:
-                    col = grid.over(ranks, sync_axes, C.pmean,
-                                    [g[k] for g in grads])
+                    col = [g[k] for g in grads]
+                    for a in sync_axes:
+                        col = grid.over(ranks, a, C.pmean, col)
                     for g, v in zip(grads, col):
                         g[k] = v
-                losses = grid.over(ranks, sync_axes, C.pmean, losses)
+                for a in sync_axes:
+                    losses = grid.over(ranks, a, C.pmean, losses)
             if plan.pp > 1:
                 # pp-replicated leaves: stage-disjoint parts, summed
                 for k, spec in specs.items():

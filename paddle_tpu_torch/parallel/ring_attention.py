@@ -19,6 +19,14 @@ rank; `collectives.py`): rank i holds q, k and v of shape
     them), full-length attention runs on `heads / n` heads a rank (the
     flash kernels by default), and one all-to-all restores the sequence
     shards.
+
+Both also run with the group split over processes: the caller passes the
+members it drives, their indices on the axis (`index`), the group's size
+and the exchange that moves values between members (`shift` for the
+ring: `collectives.shift_over`, send / recv of the K/V blocks;
+`exchange` for Ulysses: `collectives.all_to_all_over`, one
+`torch.distributed` all-to-all each way). A member computes exactly what
+it computes under one controller.
 """
 import math
 
@@ -50,10 +58,14 @@ def _block_attend(q, k, v, m, l, o, row_off, col_off, causal, scale):
     return m_new, l_new, o_new
 
 
-def ring_attention(qs, ks, vs, causal=True, scale=None):
+def ring_attention(qs, ks, vs, causal=True, scale=None, index=None,
+                   size=None, shift=ppermute):
     """Blockwise ring attention over one group: lists of (B, H, S_loc, D)
-    in axis order -> the list of outputs in q's dtype."""
-    n = len(qs)
+    in axis order -> the list of outputs in q's dtype. `index` / `size` /
+    `shift`: the members' indices on the axis, the group's size and the
+    ring step (default: every member, in order, moved by `ppermute`)."""
+    n = len(qs) if size is None else size
+    index = list(range(len(qs))) if index is None else list(index)
     B, H, S_loc, D = qs[0].shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
@@ -65,14 +77,14 @@ def ring_attention(qs, ks, vs, causal=True, scale=None):
                       torch.zeros((B, H, S_loc, D), device=q.device)))
     k_cur, v_cur = list(ks), list(vs)
     for step in range(n):
-        for my in range(n):
+        for j, my in enumerate(index):
             # the kv rank `my` holds now came from rank (my - step) mod n
             col_off = ((my - step) % n) * S_loc
-            state[my] = _block_attend(qs[my].float(), k_cur[my].float(),
-                                      v_cur[my], *state[my], my * S_loc,
-                                      col_off, causal, scale)
+            state[j] = _block_attend(qs[j].float(), k_cur[j].float(),
+                                     v_cur[j], *state[j], my * S_loc,
+                                     col_off, causal, scale)
         if step < n - 1:     # no trailing rotation after the last block
-            k_cur, v_cur = ppermute(k_cur), ppermute(v_cur)
+            k_cur, v_cur = shift(k_cur), shift(v_cur)
     return [(o / l.clamp(min=1e-30)[..., None]).to(q.dtype)
             for (_, l, o), q in zip(state, qs)]
 
@@ -85,12 +97,15 @@ def ring_attention_bshd(qs, ks, vs, causal=True, scale=None):
     return [o.transpose(1, 2) for o in out]
 
 
-def ulysses_attention(qs, ks, vs, causal=True, scale=None, attn_fn=None):
+def ulysses_attention(qs, ks, vs, causal=True, scale=None, attn_fn=None,
+                      size=None, exchange=all_to_all):
     """Ulysses sequence parallelism over one group: lists of
     (B, H, S_loc, D) in axis order -> the list of outputs. Needs H
     divisible by the group size. `attn_fn(q, k, v)` runs the full-length
-    attention on (B, H/n, S, D); the default is the flash kernels."""
-    n = len(qs)
+    attention on (B, H/n, S, D); the default is the flash kernels.
+    `size` / `exchange(values, split_dim, concat_dim)`: the group's size
+    and its all-to-all (default: every member, `all_to_all`)."""
+    n = len(qs) if size is None else size
     B, H, S_loc, D = qs[0].shape
     if H % n:
         raise ValueError(f"ulysses_attention needs heads ({H}) divisible "
@@ -107,7 +122,7 @@ def ulysses_attention(qs, ks, vs, causal=True, scale=None, attn_fn=None):
 
     qkv = [torch.cat([chunks(q), chunks(k), chunks(v)], dim=2)
            .reshape(B, 3 * H, S_loc, D) for q, k, v in zip(qs, ks, vs)]
-    qkv_h = all_to_all(qkv, split_dim=1, concat_dim=2)   # (B, 3h_loc, S, D)
+    qkv_h = exchange(qkv, 1, 2)                          # (B, 3h_loc, S, D)
     out = [attn_fn(t[:, :h_loc], t[:, h_loc:2 * h_loc], t[:, 2 * h_loc:])
            for t in qkv_h]                               # (B, h_loc, S, D)
-    return all_to_all(out, split_dim=2, concat_dim=1)    # (B, H, S_loc, D)
+    return exchange(out, 2, 1)                           # (B, H, S_loc, D)

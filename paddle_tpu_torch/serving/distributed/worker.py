@@ -144,6 +144,48 @@ _M_MODEL_VERSION = _metrics.gauge("serving_model_version")
 _DONE_CACHE_CAP = 1024               # per-worker keyed-result retention
 
 
+class _HandoffLock:
+    """A re-entrant lock that counts the threads waiting for it, so its
+    holder can hand it over (`ServingWorker._step_loop`): Python's lock
+    is not fair, and a loop that releases and re-takes it at once wins
+    the race against a woken waiter now and then, costing that waiter a
+    whole decode step each time it loses."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._count = threading.Lock()
+        self.waiting = 0
+
+    def acquire(self, blocking=True, timeout=-1):
+        if self._lock.acquire(blocking=False):
+            return True
+        if not blocking:
+            return False
+        with self._count:
+            self.waiting += 1
+        try:
+            return self._lock.acquire(True, timeout)
+        finally:
+            with self._count:
+                self.waiting -= 1
+
+    def release(self):
+        self._lock.release()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+        return False
+
+
+# the longest a busy loop holds off for a waiting handler before it steps
+# again (a handler that never comes for the lock costs this once)
+_HANDOFF_S = 0.05
+
+
 def load_checkpoint_params(path):
     """Raw {name: np array} weights from a ckpt_commit-committed
     checkpoint (distributed/checkpoint.py layout) — digest-verified,
@@ -169,7 +211,8 @@ class ServingWorker:
         self.model = model
         self.engine = engine
         self.version = version
-        self._lock = threading.RLock()       # scheduler/engine guard
+        self._lock = _HandoffLock()          # scheduler/engine guard
+        self.loop_yields = 0                 # busy steps that yielded it
         self._requests = {}                  # key -> RequestHandle
         self._staged = {}                    # key -> (ks, vs, meta)
         self._prefill_done = {}              # key -> cached PREFILL reply
@@ -228,8 +271,13 @@ class ServingWorker:
             else:
                 # yield between busy steps: the lock is not fair, and a
                 # loop that re-takes it at once starves the handler
-                # threads waiting on it (SUBMIT, POLL cancels, SWAP)
+                # threads waiting on it (SUBMIT, POLL cancels, SWAP), so
+                # the loop steps again only once they have taken it
+                self.loop_yields += 1
                 time.sleep(0)
+                until = time.monotonic() + _HANDOFF_S
+                while self._lock.waiting and time.monotonic() < until:
+                    time.sleep(0.0002)
 
     def shutdown(self):
         self._stop.set()

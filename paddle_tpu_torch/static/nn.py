@@ -454,13 +454,16 @@ def multi_box_head(inputs, image, base_size, num_classes, aspect_ratios,
 def sparse_embedding(input, size, padding_idx=None, is_test=False,
                      entry=None, table_class="MemorySparseTable",
                      param_attr=None, dtype="float32", slot=None):
-    """reference: static/nn/common.py sparse_embedding -> PS-backed lookup
-    over the native striped hash table, which the port has not yet
-    (ROADMAP A.13g)."""
-    raise NotImplementedError(
-        "sparse_embedding needs the parameter-server tables "
-        "(distributed.ps SparseEmbedding over the native ps_table), which "
-        "come with ROADMAP A.13g; use nn.Embedding")
+    """reference: static/nn/common.py sparse_embedding -> a lookup through
+    a parameter-server table (`distributed.ps.SparseEmbedding` over a
+    fresh table of the native `ps_table.cc`, rows `size[1]` wide; a hash
+    table needs no vocabulary size), on the device of `input`; the rows'
+    gradient is pushed into the table. The JAX package passes `size[1]`
+    as the table's rule and raises (ROADMAP C.23)."""
+    from ..distributed.ps import SparseEmbedding
+    dev = input._data.device if isinstance(input, Tensor) else "cuda"
+    emb = SparseEmbedding(int(size[1]), device=dev)
+    return emb(input)
 
 
 def crf_decoding(input, param_attr, label=None, length=None):

@@ -180,7 +180,7 @@ def test_store_set_get_add():
     s.stop()
     assert native.library_path("kvstore") != native.library_path()
     with pytest.raises(ValueError, match="unknown native source"):
-        native.library_path("arena")
+        native.library_path("nope")
 
 
 def test_store_wait_blocks_until_set():
@@ -356,8 +356,9 @@ def test_model_dp_ragged_batch_takes_the_plain_step():
 
 
 def test_model_refuses_routes_of_the_next_slice():
-    """Over a pp mesh Model needs a PipelineLayer; a pp mesh split over
-    processes raises naming the next slice."""
+    """Over a pp mesh Model needs a PipelineLayer; the pipeline runner
+    over a mesh split over processes needs each stage's ranks in one
+    process (pp first in the mesh's order)."""
     from paddle_tpu_torch.distributed.fleet.meta_parallel import (
         LayerDesc, PipelineLayer)
     from paddle_tpu_torch.distributed.fleet.meta_parallel.pp_compiled \
@@ -370,6 +371,10 @@ def test_model_refuses_routes_of_the_next_slice():
         m.train_batch([np.ones((2, 4), "float32")], [np.zeros(2, "int64")])
     pl = PipelineLayer([LayerDesc(pt.nn.Linear, 4, 4)] * 2, num_stages=2,
                        loss_fn=pt.nn.MSELoss())
-    split = env.new_mesh({"pp": 2}, [pt.core.device.place_device()], 2, 0)
-    with pytest.raises(NotImplementedError, match=r"A\.13f\(iii\)"):
+    dev = [pt.core.device.place_device()]
+    split = env.new_mesh({"dp": 2, "pp": 2}, dev, 2, 0)
+    with pytest.raises(ValueError, match=r"order=\('pp',\)"):
         make_compiled_pipeline_step(pl, split, 2)
+    by_stage = env.new_mesh({"dp": 2, "pp": 2}, dev, 2, 0, order=("pp",))
+    step = make_compiled_pipeline_step(pl, by_stage, 2)
+    assert step.stage_devices[1] is None      # stage 1: the other process

@@ -11,6 +11,9 @@
     python3 chip_smoke.py --jit-only    # phases 1, 2 and 25
     python3 chip_smoke.py --dist-only   # phases 1, 2 and 26
     python3 chip_smoke.py --fleet-only  # phases 1, 2 and 27
+    python3 chip_smoke.py --fleet3-only # phases 1, 2, 27 and 28
+    python3 chip_smoke.py --ps-only     # phases 1, 2 and 29
+    python3 chip_smoke.py --rest-only   # phases 1, 2 and 30
 
 Phases (any exception ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -479,6 +482,40 @@ Phases (any exception ends the run with a non-zero exit):
      run in the parent (the losses, and a SHA-256 of every leaf of every
      rank), and each process's flash launches.
      `--fleet-only` runs phases 1, 2 and 27.
+ 28. fleet across processes: ERNIE-3.0-Base pp2 one stage a process and
+     the `gpt_spmd` plans of `FLEET3_GPT_PLANS` in one launch of two
+     ranks, held to the parent's one-controller runs. `--fleet3-only`
+     runs phases 1, 2, 27 and 28.
+ 29. the parameter-server tables: the device embedding cache over a
+     2^21-key table and two shard servers in child processes.
+     `--ps-only` runs phases 1, 2 and 29.
+ 30. the rest of the surface (ROADMAP A.13h): (a) the custom-op recipe's
+     hand-written kernel (`utils/cpp_extension/recipe/scale_shift.cu`),
+     built by the port's `cpp_extension.load` in phase 2's time (a thread
+     beside the other nvccs), against its plain version `x * a + b` on
+     2^26 elements in f32 and bf16, aligned and not, bit for bit; its time
+     with L2 flushed beside the bytes bound and `torch.add(b, x, alpha=a)`;
+     the recipe's path (the eager op with its gradient `g * a`, and the
+     op inside a `to_static` program) counted from 0; (b) the first blocks
+     of SECOND's sparse middle encoder (SubmConv3D 4->16, 16->16, Conv3D
+     16->32 stride 2, SubmConv3D 32->32, padding 1) on KITTI's voxel grid
+     [41, 1600, 1408] over two generated LiDAR-like sweeps of 20,000
+     voxels: each layer's device rulebook index for index against the
+     host plain rulebook, the pairs per offset, the values against the
+     same Layers on the CPU (1e-4), the device forward and the host
+     rulebooks' times; (c) `incubate.nn.FusedMultiTransformer` at
+     GPT-1.3B's widths (24 layers, 2048, 16 heads, 8192, f32): a prefill
+     B=4, S=512 under an additive causal mask through fresh caches, 24
+     flash forward launches by the counter, `sdpa_routes` and the
+     profiler, then 16 decode steps on the plain route, held to the same
+     stack on the plain attention (max |diff| / RMS <= 1e-4); (d)
+     ResNet-50 at B=128, 3x32x32 through `fuse_conv_bn` and
+     `PostTrainingQuantization(algo="KL")` with per-channel weights over
+     4 batches, `jit.save`, served by the Predictor in a fresh process
+     within 1e-5 of the in-process model; BERT-base's Linear weights
+     pruned 2:4 by `incubate.asp` and one `decorate`d AdamW step on the
+     card keeping 2:4. `--rest-only` runs phases 1, 2 and 30 (record
+     `chiprun_out/chip_smoke_rest.json`).
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -9338,6 +9375,563 @@ def ps_shards(smi, ids, head, lab, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: the rest of the surface (ROADMAP A.13h): the custom-op recipe's
+# kernel, the sparse backbone, the fused transformer, quantised deploy, ASP
+# ---------------------------------------------------------------------------
+
+REST_SEED = 30
+REST_DEV = "cuda"
+REST_N = 1 << 26                # (a): the recipe kernel's elements
+REST_A, REST_B = 1.7, -0.3      # (a): o = x * a + b
+# (a): built by cpp_extension.load in phase 2's time (a thread beside
+# build_all's nvccs), into a fresh directory so the build is real
+REST_BUILD = os.path.join(ROOT, "build", "phase30_recipe")
+_recipe_build = {}
+# (b): the first blocks of SECOND's sparse middle encoder on KITTI
+# (Yan et al. 2018; voxel grid z, y, x of 0.1 x 0.05 x 0.05 m over
+# [-3, 1] x [-40, 40] x [0, 70.4] m): two generated sweeps of ~20,000
+# active voxels, 4 input channels (x, y, z, reflectance)
+REST_GRID = (41, 1600, 1408)
+REST_SWEEPS = 2
+REST_RINGS, REST_BOXES = 22, 18     # ~20,500 distinct voxels a sweep
+# (b): the card's index_add_ sums each output row's terms with atomics in
+# an order of their own; f32 sums of up to 27 * Cin products
+SPARSE_TOL = 1e-4
+# (c): GPT-1.3B's widths (text/models/gpt.py), f32, eval
+REST_FMT = dict(embed_dim=2048, num_heads=16, dim_feedforward=8192,
+                num_layers=24)
+REST_FMT_B, REST_FMT_S, REST_DECODE = 4, 512, 16
+FMT_REL = 1e-4                  # (c): max |kernel - plain| / RMS(plain)
+# (d): phase 23's ResNet-50 shape; PTQ over 4 batches
+REST_RN_B, REST_RN_BATCHES = 128, 4
+REST_CHILD_S = 600
+REST_CHILD = r"""
+import json, sys, time
+sys.modules["jax"] = None           # the child must not reach JAX
+sys.modules["paddle_tpu"] = None
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from paddle_tpu_torch import inference
+prefix, inp, out_path = sys.argv[1:4]
+t0 = time.perf_counter()
+pred = inference.create_predictor(inference.Config(prefix + ".pdmodel",
+                                                   prefix + ".pdiparams"))
+load_s = time.perf_counter() - t0
+x = np.load(inp)
+h = pred.get_input_handle(pred.get_input_names()[0])
+h.copy_from_cpu(x)
+pred.run()
+got = pred.get_output_handle(pred.get_output_names()[0]).copy_to_cpu()
+np.save(out_path, got)
+print("REST_CHILD " + json.dumps({"load_to_ready_s": load_s}), flush=True)
+"""
+
+
+def start_recipe_build():
+    """Phase 2: build the recipe's `.cu` with the port's
+    `cpp_extension.load` in a thread, beside build_all's nvccs."""
+    import threading
+
+    def run():
+        from paddle_tpu_torch.utils.cpp_extension import recipe
+        t0 = time.perf_counter()
+        try:
+            recipe.build(build_directory=REST_BUILD)
+            _recipe_build["s"] = time.perf_counter() - t0
+        except BaseException as e:          # re-raised by phase 30 (a)
+            _recipe_build["error"] = e
+    shutil.rmtree(REST_BUILD, ignore_errors=True)
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    _recipe_build["thread"] = th
+
+
+def rest_recipe(pt, smi):
+    """Phase 30 (a): the recipe's hand-written kernel against its plain
+    version at 2^26 elements in f32 and bf16 (bit for bit), its gradient,
+    the op traced by to_static, and its time beside the bound and one
+    PyTorch call."""
+    import torch
+    from paddle_tpu_torch.utils.cpp_extension import recipe
+    _recipe_build["thread"].join()
+    if "error" in _recipe_build:
+        raise _recipe_build["error"]
+    build_s = _recipe_build["s"]
+    g = torch.Generator(device=REST_DEV).manual_seed(REST_SEED)
+    x = torch.randn(REST_N, generator=g, device=REST_DEV)
+    xb = x.to(torch.bfloat16)
+    errs, equal = {}, {}
+    for name, t in (("f32", x), ("bf16", xb), ("f32_unaligned", x[1:]),
+                    ("bf16_unaligned", xb[3:])):
+        got = recipe.scale_shift_raw(t, REST_A, REST_B)
+        want = recipe.scale_shift_plain(t, REST_A, REST_B)
+        torch.cuda.synchronize()
+        equal[name] = bool(torch.equal(got, want))
+        errs[name] = float((got.float() - want.float()).abs().max())
+    flush_buf = torch.empty(64 * 1024 * 1024, device=REST_DEV)
+    flush = lambda: _flush_l2(flush_buf)          # noqa: E731
+    t = {}
+    for name, t_in in (("f32", x), ("bf16", xb)):
+        b_t = torch.tensor(REST_B, device=REST_DEV, dtype=t_in.dtype)
+        t[name] = {
+            "ms": time_ms(lambda: recipe.scale_shift_raw(t_in, REST_A,
+                                                         REST_B), flush),
+            "plain_ms": time_ms(lambda: recipe.scale_shift_plain(
+                t_in, REST_A, REST_B), flush),
+            # one PyTorch call: b + a * x in one elementwise launch
+            "library_ms": time_ms(lambda: torch.add(b_t, t_in, alpha=REST_A),
+                                  flush),
+            # one read and one write an element; one multiply and one add
+            # an element on the non-tensor-core f32 peak
+            "bound_bytes_ms": 2 * t_in.numel() * t_in.element_size()
+            / device_peaks("f32").hbm_bw * 1e3,
+            "bound_ops_ms": 2 * t_in.numel()
+            / device_peaks("f32").peak_flops * 1e3}
+    for r in t.values():
+        r["bound_ms"] = max(r["bound_bytes_ms"], r["bound_ops_ms"])
+        r["bound_by"] = "bytes" if r["bound_bytes_ms"] >= r["bound_ops_ms"] \
+            else "operations"
+    del flush_buf
+    # the recipe's path, counted from 0: the eager Tensor op and its
+    # gradient, and the op inside a to_static program
+    recipe.launches = 0
+    xt = pt.to_tensor(x, stop_gradient=False)
+    out = recipe.scale_shift(xt, REST_A, REST_B)
+    out.sum().backward()
+
+    @pt.jit.to_static
+    def traced(v):
+        return recipe.scale_shift(v, REST_A, REST_B)
+
+    st = traced(pt.to_tensor(x))
+    torch.cuda.synchronize()
+    launches = recipe.launches
+    want = recipe.scale_shift_plain(x, REST_A, REST_B)
+    grad_ok = bool(torch.all(xt.grad._data == REST_A))
+    path_ok = bool(torch.equal(out._data, want)) and \
+        bool(torch.equal(st._data, want))
+    (prog,) = traced.concrete_programs.values()
+    nodes = sum("scale_shift" in str(n.target) for n in prog.graph.nodes)
+    rec = {"build_s": build_s, "n": REST_N, "equal": equal,
+           "max_abs_err": errs, "timing": t, "launches": launches,
+           "grad_ok": grad_ok, "path_ok": path_ok, "traced_nodes": nodes,
+           "library_call": "torch.add(b, x, alpha=a)"}
+    log(f"rest (a) recipe scale_shift: cpp_extension.load built "
+        f"scale_shift.cu in {build_s:.1f} s; {REST_N} elements, bit for bit "
+        f"with x * a + b: {equal}; f32 {t['f32']['ms']:.4f} ms (plain "
+        f"{t['f32']['plain_ms']:.4f}, torch.add(b, x, alpha=a) "
+        f"{t['f32']['library_ms']:.4f}, bound {t['f32']['bound_ms']:.4f} ms "
+        f"{t['f32']['bound_by']}), bf16 {t['bf16']['ms']:.4f} ms (plain "
+        f"{t['bf16']['plain_ms']:.4f}, torch.add "
+        f"{t['bf16']['library_ms']:.4f}, bound {t['bf16']['bound_ms']:.4f}); "
+        f"recipe path launches {launches} (eager op + to_static program, "
+        f"{nodes} op node), gradient g * a {grad_ok} [{smi}]")
+    if not all(equal.values()) or not grad_ok or not path_ok or \
+            launches != 2 or nodes != 1:
+        raise AssertionError(f"phase 30 (a): {rec}")
+    return rec
+
+
+def lidar_voxels(seed):
+    """LiDAR-like sweeps on SECOND's KITTI grid, generated from `seed`: the
+    sensor at (y=800, x=0) looks down +x over a 90-degree field; REST_RINGS
+    scan rings hit a ground plane at ranges growing by 10% a ring (points
+    every 0.0016 rad, so near rings fill runs of adjacent voxels and far
+    ones thin out), and REST_BOXES car-sized boxes (80 x 36 x 15 voxels,
+    4 x 1.8 x 1.5 m) show a front and a side face to 5 scan lines each.
+    Returns (indices (4, nnz) [b, z, y, x], features (nnz, 4): the
+    normalised coordinates and a reflectance)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    Z, Y, X = REST_GRID
+    th = np.arange(-0.78, 0.78, 0.0016)
+    sweeps = []
+    for b in range(REST_SWEEPS):
+        pts = []
+        for k in range(REST_RINGS):
+            r = 60 * 1.1 ** k
+            x = r * np.cos(th)
+            pts.append(np.stack([8 + 0.002 * x + rng.randn(len(th)) * 0.3,
+                                 800 + r * np.sin(th), x], 1))
+        for _ in range(REST_BOXES):
+            cx, cy = rng.uniform(150, 1250), rng.uniform(250, 1314)
+            side = cy if cy > 800 else cy + 36
+            for line in range(5):
+                z = 9 + 2.6 * line
+                ys = np.arange(cy, cy + 36, 0.5)
+                xs = np.arange(cx, cx + 80, 0.5)
+                pts.append(np.stack([np.full_like(ys, z), ys,
+                                     np.full_like(ys, cx)], 1))
+                pts.append(np.stack([np.full_like(xs, z),
+                                     np.full_like(xs, side), xs], 1))
+        p = np.floor(np.concatenate(pts)).astype(np.int64)
+        ok = (p[:, 0] >= 0) & (p[:, 0] < Z) & (p[:, 1] >= 0) & \
+            (p[:, 1] < Y) & (p[:, 2] >= 0) & (p[:, 2] < X)
+        vox = np.unique(p[ok], axis=0)
+        vox = vox[rng.permutation(len(vox))]     # a sweep's own order
+        sweeps.append(np.concatenate([np.full((len(vox), 1), b), vox], 1))
+    idx = np.concatenate(sweeps).T.astype(np.int64)
+    feats = np.concatenate([idx[1:].T / np.asarray(REST_GRID) * 2 - 1,
+                            rng.rand(idx.shape[1], 1)], 1).astype(np.float32)
+    return idx, feats
+
+
+def rest_sparse(pt, smi):
+    """Phase 30 (b): SECOND's first sparse blocks on the card: each
+    layer's device rulebook index for index against the host plain
+    rulebook, the values against the same Layers on the CPU."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.sparse.nn import conv as sconv
+    idx, feats = lidar_voxels(REST_SEED)
+    pt.seed(REST_SEED)
+    specs = [("subm", 4, 16, 1), ("subm", 16, 16, 1), ("conv", 16, 32, 2),
+             ("subm", 32, 32, 1)]
+    layers = []
+    for kind, cin, cout, stride in specs:
+        cls = pt.sparse.nn.SubmConv3D if kind == "subm" else \
+            pt.sparse.nn.Conv3D
+        layers.append(cls(cin, cout, 3, stride=stride, padding=1))
+    shape = [REST_SWEEPS, *REST_GRID, 4]
+    xg = pt.sparse.SparseCooTensor(pt.to_tensor(idx), pt.to_tensor(feats),
+                                   shape)
+    pt.set_device("cpu")
+    try:
+        cpu_layers = []
+        for (kind, cin, cout, stride), l in zip(specs, layers):
+            cls = pt.sparse.nn.SubmConv3D if kind == "subm" else \
+                pt.sparse.nn.Conv3D
+            c = cls(cin, cout, 3, stride=stride, padding=1)
+            c.set_state_dict({k: v.numpy() for k, v in
+                              l.state_dict().items()})
+            cpu_layers.append(c)
+        xc = pt.sparse.SparseCooTensor(pt.to_tensor(idx),
+                                       pt.to_tensor(feats), shape)
+    finally:
+        pt.set_device("gpu")
+    rec = {"voxels": idx.shape[1], "layers": []}
+    for (kind, cin, cout, stride), l, c in zip(specs, layers, cpu_layers):
+        k3 = (3, 3, 3)
+        s3, p3 = (stride,) * 3, (1, 1, 1)
+        in_idx = xg.indices()._data
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev = sconv.rulebook(in_idx, xg.shape, k3, s3, p3, (1, 1, 1),
+                             kind == "subm")
+        torch.cuda.synchronize()
+        dev_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        host = sconv.rulebook_plain(in_idx.cpu().numpy(), xg.shape, k3, s3,
+                                    p3, (1, 1, 1), kind == "subm")
+        host_s = time.perf_counter() - t0
+        same = np.array_equal(dev[0].cpu().numpy(), host[0]) and \
+            tuple(dev[2]) == tuple(host[2]) and all(
+                np.array_equal(g.cpu().numpy(), hg) and
+                np.array_equal(s.cpu().numpy(), hs)
+                for (g, s), (hg, hs) in zip(dev[1], host[1]))
+        pairs = [int(len(hg)) for hg, _ in host[1]]
+        y = pt.sparse.relu(l(xg))
+        yc = pt.sparse.relu(c(xc))
+        got, want = y.values().numpy(), yc.values().numpy()
+        err = _max_err(got, want)
+        ok = np.array_equal(y.indices().numpy(), yc.indices().numpy()) and \
+            np.allclose(got, want, rtol=SPARSE_TOL, atol=SPARSE_TOL)
+        r = {"kind": kind, "cin": cin, "cout": cout, "stride": stride,
+             "in_sites": int(in_idx.shape[1]), "out_sites":
+             int(y.indices().shape[1]), "pairs_per_offset": pairs,
+             "rulebook_equal": bool(same), "device_rulebook_ms": dev_ms,
+             "host_rulebook_s": host_s, "max_abs_err": err,
+             "values_ok": bool(ok)}
+        rec["layers"].append(r)
+        log(f"rest (b) {kind} {cin}->{cout} stride {stride}: "
+            f"{r['in_sites']} -> {r['out_sites']} sites, rulebook equal to "
+            f"the host's {same} (device {dev_ms:.1f} ms, host loop "
+            f"{host_s:.2f} s), pairs per offset {pairs}, values vs the CPU "
+            f"max abs err {err:.3g} [{smi}]")
+        if not same or not ok:
+            raise AssertionError(f"phase 30 (b): {r}")
+        xg, xc = y, yc
+
+    def forward():
+        h = pt.sparse.SparseCooTensor(pt.to_tensor(idx), pt.to_tensor(feats),
+                                      shape)
+        for l in layers:
+            h = pt.sparse.relu(l(h))
+        torch.cuda.synchronize()
+        return h
+    forward()
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        forward()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    rec["forward_ms"] = sorted(ms)[1]
+    rec["host_rulebook_s_total"] = sum(r["host_rulebook_s"]
+                                       for r in rec["layers"])
+    log(f"rest (b) SECOND blocks on {rec['voxels']} voxels in "
+        f"{REST_SWEEPS} sweeps of the {REST_GRID} grid: device forward "
+        f"(rulebooks included) {rec['forward_ms']:.1f} ms (median of 3), host rulebooks "
+        f"{rec['host_rulebook_s_total']:.1f} s [{smi}]")
+    return rec
+
+
+def rest_fused_transformer(pt, smi):
+    """Phase 30 (c): FusedMultiTransformer at GPT-1.3B's widths: a prefill
+    through fresh caches on the flash kernel (24 launches, by the counter,
+    the routes and the profiler), 16 decode steps on the plain route, both
+    held to the same stack with every attention on the plain route."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.nn.functional import attention as ta
+    from paddle_tpu_torch.ops import flash_attention as fa
+    pt.seed(REST_SEED)
+    fmt = pt.incubate.nn.FusedMultiTransformer(**REST_FMT)
+    fmt.eval()
+    L = REST_FMT["num_layers"]
+    B, S, E = REST_FMT_B, REST_FMT_S, REST_FMT["embed_dim"]
+    g = torch.Generator(device=REST_DEV).manual_seed(REST_SEED)
+    x = pt.to_tensor(torch.randn(B, S, E, generator=g, device=REST_DEV))
+    steps = [pt.to_tensor(torch.randn(B, 1, E, generator=g,
+                                      device=REST_DEV))
+             for _ in range(REST_DECODE)]
+    mask = pt.to_tensor(torch.triu(torch.full((S, S), -1e9,
+                                              device=REST_DEV), 1))
+
+    def run():
+        with torch.no_grad():
+            out, caches = fmt(x, attn_mask=mask, caches=[None] * L)
+            outs = [out.numpy()]
+            for st in steps:
+                o, caches = fmt(st, caches=caches)
+                outs.append(o.numpy())
+        return outs
+
+    def prefill():
+        with torch.no_grad():
+            out, _ = fmt(x, attn_mask=mask, caches=[None] * L)
+        torch.cuda.synchronize()
+        return out
+    fa.launches_fwd = 0
+    for k in ta.sdpa_routes:
+        ta.sdpa_routes[k] = 0
+    with card_profile(cpu=False) as prof:
+        prefill()
+    launches = fa.launches_fwd
+    routes = dict(ta.sdpa_routes)
+    prof_launches = sum(e.count for e in device_kernels(prof)
+                        if "flash_fwd" in e.key)
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    fa.launches_fwd = 0
+    kern = run()
+    run_launches = fa.launches_fwd
+    with torch.no_grad():
+        _, caches = fmt(x, attn_mask=mask, caches=[None] * L)
+        dms = []
+        for st in steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, caches = fmt(st, caches=caches)
+            torch.cuda.synchronize()
+            dms.append((time.perf_counter() - t0) * 1e3)
+    route = ta.sdpa_route
+    ta.sdpa_route = lambda q, k, d: "plain"
+    try:
+        plain = run()
+    finally:
+        ta.sdpa_route = route
+    rel = [float(np.abs(a - b).max() / np.sqrt(np.mean(np.square(b))))
+           for a, b in zip(kern, plain)]
+    finite = all(np.isfinite(a).all() for a in kern)
+    rec = {"prefill_launches": launches, "routes": routes,
+           "profiler_flash_fwd": prof_launches,
+           "run_launches": run_launches, "prefill_ms": sorted(ms)[1],
+           "decode_step_ms": sorted(dms)[len(dms) // 2],
+           "max_rel_err": max(rel), "rel_err_prefill": rel[0],
+           "rel_err_decode_max": max(rel[1:])}
+    log(f"rest (c) FusedMultiTransformer GPT-1.3B widths ({L} layers, "
+        f"embed {E}, {REST_FMT['num_heads']} heads, ffn "
+        f"{REST_FMT['dim_feedforward']}, f32 eval): prefill B={B} S={S} "
+        f"{rec['prefill_ms']:.1f} ms with {launches} flash forward launches "
+        f"(profiler {prof_launches}, routes {routes}); decode step "
+        f"{rec['decode_step_ms']:.2f} ms (median of {REST_DECODE}); max "
+        f"|kernel - plain| / RMS {rec['rel_err_prefill']:.2e} prefill, "
+        f"{rec['rel_err_decode_max']:.2e} decode [{smi}]")
+    if launches != L or prof_launches != L or routes["kernel"] != L or \
+            routes["plain"] != 0 or run_launches != L or \
+            max(rel) > FMT_REL or not finite:
+        raise AssertionError(f"phase 30 (c): {rec}")
+    return rec
+
+
+def rest_quant_deploy(pt, smi, out_dir):
+    """Phase 30 (d): ResNet-50 through fuse_conv_bn and PTQ (KL,
+    per-channel weights), jit.save, the Predictor in a fresh process held
+    to the in-process model; then BERT-base pruned 2:4 by incubate.asp and
+    one decorated optimizer step on the card."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.static import InputSpec
+    pt.seed(REST_SEED)
+    net = pt.vision.models.resnet50(num_classes=10)
+    rng = np.random.RandomState(REST_SEED)
+
+    def batch():
+        return pt.to_tensor(rng.rand(REST_RN_B, 3, 32, 32).astype("float32"))
+    net.train()
+    with torch.no_grad():
+        for _ in range(2):                   # BatchNorm running statistics
+            net(batch())
+    net.eval()
+    x = batch()
+    with torch.no_grad():
+        before = net(x).numpy()
+        pt.quantization.fuse_conv_bn(net)
+        fused = net(x).numpy()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        net, scales = pt.quantization.PostTrainingQuantization(
+            net, algo="KL").quantize([(batch(),)
+                                      for _ in range(REST_RN_BATCHES)],
+                                     batch_nums=REST_RN_BATCHES)
+    ptq_s = time.perf_counter() - t0
+    with torch.no_grad():
+        want = net(x).numpy()
+    prefix = os.path.join(out_dir, "resnet50_q")
+    t0 = time.perf_counter()
+    pt.jit.save(net, prefix, input_spec=[InputSpec([None, 3, 32, 32],
+                                                   "float32", "x")])
+    save_s = time.perf_counter() - t0
+    np.save(os.path.join(out_dir, "x.npy"), x.numpy())
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", REST_CHILD, prefix,
+                        os.path.join(out_dir, "x.npy"),
+                        os.path.join(out_dir, "served.npy")], env=env,
+                       capture_output=True, text=True, timeout=REST_CHILD_S)
+    child_s = time.perf_counter() - t0
+    with open(os.path.join(ROOT, "chiprun_out", "phase30_child.log"),
+              "w") as f:
+        f.write(p.stdout + "\n--- stderr ---\n" + p.stderr)
+    if p.returncode != 0:
+        raise AssertionError(f"phase 30 (d): the Predictor process failed "
+                             f"({p.returncode}): {p.stderr[-2000:]}")
+    child = json.loads(next(l for l in p.stdout.splitlines()
+                            if l.startswith("REST_CHILD "))[11:])
+    served = np.load(os.path.join(out_dir, "served.npy"))
+    err = _max_err(served, want)
+    rec = {"layers_quantized": len(scales), "ptq_s": ptq_s,
+           "save_s": save_s, "child_s": child_s,
+           "child_load_to_ready_s": child["load_to_ready_s"],
+           "served_max_abs_err": err,
+           "fuse_max_abs_err": _max_err(fused, before),
+           "quant_vs_float_max_abs_err": _max_err(want, before)}
+    log(f"rest (d) ResNet-50 B={REST_RN_B} 3x32x32: fuse_conv_bn (max abs "
+        f"change {rec['fuse_max_abs_err']:.3g}), PTQ KL per-channel over "
+        f"{REST_RN_BATCHES} batches of {len(scales)} layers in {ptq_s:.1f} s "
+        f"(quantised vs float max abs {rec['quant_vs_float_max_abs_err']:.3g})"
+        f", jit.save {save_s:.1f} s, Predictor child {child_s:.1f} s (load "
+        f"to ready {child['load_to_ready_s']:.2f} s): served vs in-process "
+        f"max abs err {err:.3g} [{smi}]")
+    # folding BatchNorm into the convolution changes only rounding
+    fuse_rel = rec["fuse_max_abs_err"] / float(np.sqrt(np.mean(before ** 2)))
+    rec["fuse_rel_err"] = fuse_rel
+    if not np.allclose(served, want, rtol=1e-5, atol=1e-5) or \
+            not np.isfinite(served).all() or not scales or fuse_rel > 1e-4:
+        raise AssertionError(f"phase 30 (d): {rec}")
+    del net
+    gc_cuda()
+
+    from paddle_tpu_torch.text.models import Bert, BertConfig
+    asp = pt.incubate.asp
+    pt.seed(REST_SEED)
+    bert = Bert(BertConfig())
+    linear = {f"{n}.weight" for n, l in bert.named_sublayers()
+              if isinstance(l, pt.nn.Linear)}
+    asp.reset_excluded_layers()
+    asp.set_excluded_layers(param_names=[
+        n for n, _ in bert.named_parameters() if n not in linear])
+    t0 = time.perf_counter()
+    pruned = asp.prune_model(bert)
+    prune_s = time.perf_counter() - t0
+    asp.reset_excluded_layers()
+    opt = asp.decorate(pt.optimizer.AdamW(1e-3,
+                                          parameters=bert.parameters()))
+    ids = pt.to_tensor(rng.randint(0, 30000, (8, 128)).astype("int64"))
+    first = next(iter(pruned))
+    w = dict(bert.named_parameters())[first]
+    before_w = w.numpy()
+    seq, pooled = bert(ids)
+    ((seq * seq).mean() + pooled.mean()).backward()
+    opt.step()
+    opt.clear_grad()
+    torch.cuda.synchronize()
+    params = dict(bert.named_parameters())
+    kept = all(asp.check_sparsity(params[n].numpy()) for n in pruned)
+    moved = not np.array_equal(before_w, w.numpy())
+    dens = asp.calculate_density(w.numpy())
+    rec["asp"] = {"pruned": len(pruned), "linear_weights": len(linear),
+                  "prune_s": prune_s, "kept_2_4": kept,
+                  "weights_moved": moved, "density": dens}
+    log(f"rest (d) BERT-base ASP: {len(pruned)} of {len(linear)} Linear "
+        f"weights pruned 2:4 in {prune_s:.1f} s; after one decorated AdamW "
+        f"step on the card every one keeps 2:4: {kept} (density of "
+        f"{first} {dens:.3f}, moved {moved}) [{smi}]")
+    if not kept or not moved or len(pruned) != len(linear):
+        raise AssertionError(f"phase 30 (d): {rec['asp']}")
+    return rec
+
+
+def rest_phase(smi):
+    """Phase 30 (module docstring): parts a, b, c, d; each raises on
+    failure."""
+    import paddle_tpu_torch as pt
+    t0 = time.perf_counter()
+    pt.set_device("gpu")
+    out_dir = os.path.join(ROOT, "build", "phase30")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    secs, out = {}, {}
+    try:
+        for part, fn in (("a", lambda: rest_recipe(pt, smi)),
+                         ("b", lambda: rest_sparse(pt, smi)),
+                         ("c", lambda: rest_fused_transformer(pt, smi)),
+                         ("d", lambda: rest_quant_deploy(pt, smi, out_dir))):
+            t1 = time.perf_counter()
+            out[part] = fn()
+            secs[part] = time.perf_counter() - t1
+            gc_cuda()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = secs
+    log(f"phase 30 took {out['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + f") [{smi}]")
+    return out
+
+
+def recipe_entry(rest):
+    """The `kernels` line's row of the recipe kernel (f32 at 2^26)."""
+    a = rest["a"]
+    t = a["timing"]["f32"]
+    return {"name": "scale_shift", "route": "cuda",
+            "source": "paddle_tpu_torch/utils/cpp_extension/recipe/"
+                      "scale_shift.cu",
+            "replaces": "tests/test_custom_op_recipe.py:47",
+            "launches": a["launches"],
+            "max_abs_err": max(a["max_abs_err"].values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
+
+
 def gc_cuda():
     import gc
     import torch
@@ -9359,6 +9953,7 @@ def main(argv):
     fleet_only = "--fleet-only" in argv
     fleet3_only = "--fleet3-only" in argv
     ps_only = "--ps-only" in argv
+    rest_only = "--rest-only" in argv
     seed = int(argv[argv.index("--seed") + 1]) if "--seed" in argv \
         else PS_SEED
     try:
@@ -9402,6 +9997,7 @@ def main(argv):
     # 2. build ------------------------------------------------------------------
     from paddle_tpu_torch._kernels import build
     t0 = time.perf_counter()
+    start_recipe_build()
     libs = build.build_all()
     report["build_s"] = time.perf_counter() - t0
     log(f"built {sorted(libs)} in {report['build_s']:.1f} s")
@@ -9419,6 +10015,15 @@ def main(argv):
             f"{r['registers']} registers, "
             f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
             f"spill loads, {r['smem_dynamic']} B dynamic shared memory")
+    if rest_only:
+        # phase 30 alone
+        report["rest"] = rest_phase(smi)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out",
+                               "chip_smoke_rest.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        log(json.dumps({"kernels": [recipe_entry(report["rest"])]}))
+        return 0
     if ps_only:
         # phase 29 alone
         report["ps"] = ps_phase(smi, seed)
@@ -9803,6 +10408,12 @@ def main(argv):
     torch.cuda.empty_cache()
     report["ps"] = ps_phase(smi, seed)
 
+    # 30. the rest of the surface: the custom-op recipe's kernel, sparse,
+    # incubate, quantization -------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["rest"] = rest_phase(smi)
+
     # summary ------------------------------------------------------------------------
     # every kernel's max_abs_err covers phase 3's cases and phase 24's at
     # the other head dims and dtypes
@@ -9869,6 +10480,9 @@ def main(argv):
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    # the recipe's kernel: phase 30 (a)'s path (its eager op and to_static
+    # program)
+    kernels["kernels"].append(recipe_entry(report["rest"]))
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -51,7 +51,15 @@ neither it nor JAX. Its slices so far:
     and `static.nn`;
   * `distributed`: the process group and the mesh of ranks (`env`), the
     collectives, `TCPStore` over the port's `kvstore.cc`, the launcher
-    and elastic relaunch, `DataParallel`, and `Model`'s dp route.
+    and elastic relaunch, `DataParallel`, and `Model`'s dp route;
+  * the rest of the surface: `sparse` (COO / CSR and the point-cloud
+    convolutions, whose rulebook is built on the input's device),
+    `distribution`, `quantization`, `geometric`, `incubate` (the fused
+    transformer, ASP, autograd, optimizers, operators, checkpoint),
+    `linalg`, `hub`, `sysconfig`, `version` and `utils`, whose
+    `cpp_extension.load` builds `.cu` sources with nvcc; the custom-op
+    recipe's kernel (`utils/cpp_extension/recipe/scale_shift.cu`) is
+    built by it.
 
 Exports of the eager core at this level: `Tensor`, `Parameter`,
 `to_tensor`, every op of `tensor` (`add`, `matmul`, `reshape`, `topk`,
@@ -77,6 +85,8 @@ from . import audio, fft, signal  # noqa: F401
 from . import jit, onnx, static  # noqa: F401
 from . import distributed  # noqa: F401
 from . import incubate  # noqa: F401
+from . import geometric, linalg, quantization, sparse  # noqa: F401
+from . import distribution, hub, sysconfig, utils, version  # noqa: F401
 from .distributed import DataParallel  # noqa: F401
 from .jit import to_static  # noqa: F401
 from .batch import batch  # noqa: F401
@@ -109,7 +119,9 @@ __all__ = ["core", "cost_model", "framework", "inference", "observability",
            "tensor", "nn", "optimizer", "amp", "regularizer", "io",
            "metric", "vision", "callbacks", "native", "reader", "batch",
            "fft", "signal", "audio", "jit", "static", "onnx", "to_static",
-           "distributed", "DataParallel",
+           "distributed", "DataParallel", "incubate", "sparse", "linalg",
+           "distribution", "version", "utils", "hub", "sysconfig",
+           "quantization", "geometric",
            "Model", "summary", "flops", "grad", "CPUPlace", "CUDAPlace", "Parameter", "Tensor",
            "bfloat16", "bool_", "complex64", "complex128", "enable_grad",
            "float16", "float32", "float64", "get_default_dtype",

@@ -31,9 +31,8 @@ What each flag does in the port:
   FLAGS_check_nan_inf            read by `core.tensor.apply_op`: an eager op
                                  whose float output holds NaN or Inf raises
                                  naming the op (one host sync an op)
-  FLAGS_benchmark, FLAGS_profile recorded; the parts of the eager surface
-                                 that read them are not ported (ROADMAP
-                                 A.13b-h)
+  FLAGS_benchmark, FLAGS_profile recorded only: the reference defines
+                                 them and no module of it reads them
   FLAGS_int64_numpy_boundary     recorded; torch keeps int64 as int64, so
                                  there is no boundary to widen at
   FLAGS_allocator_strategy,      XLA allocator and executor knobs in the

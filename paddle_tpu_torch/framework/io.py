@@ -55,7 +55,9 @@ class _TensorPayload:
             self.data = data
 
     def to_tensor(self, device):
-        t = torch.from_numpy(np.ascontiguousarray(self.data))
+        # ascontiguousarray makes a 0-d array 1-d: keep the shape
+        a = np.asarray(self.data)
+        t = torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
         if self.dtype == "bfloat16":
             t = t.to(torch.bfloat16)
         return t.to(device)

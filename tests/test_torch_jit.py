@@ -6,8 +6,8 @@ route, and the port's own contracts.
 * The oracle's save/load cases run in both packages on the same weights
   (carried with `set_state_dict`) and inputs: outputs at 1e-5, shapes at
   every batch size of a `None` dim. Left out: the persistent-compile-cache
-  case (XLA's cache, ROADMAP C.3) and the quantized deploy, which needs
-  `quantization` (ROADMAP A.13h).
+  case (XLA's cache, ROADMAP C.3). The quantized deploy is
+  `tests/test_torch_quantization.py::test_quantized_deploy_roundtrip`.
 * BERT (2 layers, hidden 64, 2 heads, S=16, a key-padding mask): the
   port's eager forward, `to_static`, `jit.save` -> `jit.load`, the
   Predictor and `Executor.run` against each other and against the JAX

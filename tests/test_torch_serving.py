@@ -533,6 +533,34 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "        'paddle_tpu_torch.text.datasets',\n"
             "        'paddle_tpu_torch.text.datasets_ref',\n"
             "        'paddle_tpu_torch.text.models.bert',\n"
+            "        'paddle_tpu_torch.sparse',\n"
+            "        'paddle_tpu_torch.sparse.nn',\n"
+            "        'paddle_tpu_torch.sparse.nn.conv',\n"
+            "        'paddle_tpu_torch.sparse.nn.functional',\n"
+            "        'paddle_tpu_torch.distribution',\n"
+            "        'paddle_tpu_torch.distribution.transform',\n"
+            "        'paddle_tpu_torch.quantization',\n"
+            "        'paddle_tpu_torch.quantization.observers',\n"
+            "        'paddle_tpu_torch.geometric',\n"
+            "        'paddle_tpu_torch.linalg',\n"
+            "        'paddle_tpu_torch.hub',\n"
+            "        'paddle_tpu_torch.sysconfig',\n"
+            "        'paddle_tpu_torch.version',\n"
+            "        'paddle_tpu_torch.utils',\n"
+            "        'paddle_tpu_torch.utils.unique_name',\n"
+            "        'paddle_tpu_torch.utils.download',\n"
+            "        'paddle_tpu_torch.utils.cpp_extension',\n"
+            "        'paddle_tpu_torch.utils.cpp_extension.recipe',\n"
+            "        'paddle_tpu_torch.incubate.nn',\n"
+            "        'paddle_tpu_torch.incubate.nn.functional',\n"
+            "        'paddle_tpu_torch.incubate.asp',\n"
+            "        'paddle_tpu_torch.incubate.autograd',\n"
+            "        'paddle_tpu_torch.incubate.checkpoint',\n"
+            "        'paddle_tpu_torch.incubate.optimizer',\n"
+            "        'paddle_tpu_torch.incubate.optimizer.wrappers',\n"
+            "        'paddle_tpu_torch.incubate.optimizer.functional',\n"
+            "        'paddle_tpu_torch.incubate.optimizer.functional.lbfgs',\n"
+            "        'paddle_tpu_torch.incubate.operators',\n"
             "        'paddle_tpu_torch.text.models.ernie'} <= set(mods), mods\n"
             "from paddle_tpu_torch.serving import make_engine\n"
             "from paddle_tpu_torch.inference import create_predictor\n"

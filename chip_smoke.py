@@ -14,6 +14,7 @@
     python3 chip_smoke.py --fleet3-only # phases 1, 2, 27 and 28
     python3 chip_smoke.py --ps-only     # phases 1, 2 and 29
     python3 chip_smoke.py --rest-only   # phases 1, 2 and 30
+    python3 chip_smoke.py --tune-only   # phases 1, 2 and 31 with the sweep
 
 Phases (any exception ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -516,6 +517,38 @@ Phases (any exception ends the run with a non-zero exit):
      pruned 2:4 by `incubate.asp` and one `decorate`d AdamW step on the
      card keeping 2:4. `--rest-only` runs phases 1, 2 and 30 (record
      `chiprun_out/chip_smoke_rest.json`).
+ 31. the kernels' tiles at launch (`incubate.autotune`, the tile table):
+     (a) every new build (the paged kernels at split_keys 256 and
+     chunk_keys 32, the 16-bit flash forward at (128, 64); dQ at (128,
+     128) spilled and was dropped) against its plain version at phases
+     3 and 7's tolerances, each launch twice and bit for bit, the table
+     forcing its pair: paged
+     decode at key counts one below, at and one above each split edge
+     and a pos = -1 slot, T=5 windows across a split edge, 100-row tiles,
+     every mode at head dims 32, 64 and 128; flash in bf16 and float16 at
+     D 64 and 128, plain and mask/dropout, S that no tile divides, GQA;
+     (b) a table of pairs no build has ([0, -3], [96, 96]) and a rotted
+     JSON file (env-path and shipped): the default builds run, no raise;
+     (c) phase 4's server captured with the shipped table in force and
+     with `kernel.enable` off: its 16 greedy streams equal (near-tie rule
+     as phase 13's), and equal phase 4's; the decode step of 8 requests
+     timed in alternated pairs; (d) a flash forward's host µs with the
+     table on and off, and each lookup's; (e) every new build on a main
+     path with its counts from 0: phase 4's engine at each new paged
+     pair, phase 10's speculative engine at split 256, GPT-350M's widths
+     at 2 layers through `make_train_step` at each new flash pair.
+     `--tune-only` runs phases 1, 2 and 31 with the sweep first: each
+     paged geometry (phase 4's engine; phase 24 (b)'s GPT-1.3B) scored at
+     every (split_keys, chunk_keys) by its launch mix (PERF.md §6:
+     launches x ms over decode, windows and tiles), each flash geometry
+     (phase 8's step; phase 22 (e)'s masked encoder) by forward + dQ +
+     dK/dV ms at every pair, the default and each candidate alternated
+     over 3 rounds; a winner that beats the default by more than the
+     default's spread is committed with `commit_shipped_table(...,
+     backend="cuda")` into `chiprun_out/flash_blocks_tuned.json`, a copy
+     of the shipped table (copy it over
+     `paddle_tpu_torch/ops/flash_blocks_tuned.json` to ship it); record
+     `chiprun_out/chip_smoke_tune.json`.
 
 The line before the last is the `kernels` JSON summary; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout of
@@ -752,10 +785,11 @@ def paged_cases(sp):
     ]
 
 
-def run_kernel_cases(flush, cases=None, seed=100):
-    """Phase 3 (and phase 24 (c) with its own `cases`, whose shapes may
-    set H and D): each paged case against its plain version, launched
-    twice, then timed beside its bound and SDPA."""
+def run_kernel_cases(flush, cases=None, seed=100, timed=None):
+    """Phase 3 (and phases 24 (c) and 31 with their own `cases`, whose
+    shapes may set H and D): each paged case against its plain version,
+    launched twice, then timed beside its bound and SDPA (every case, or
+    those named in `timed`)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.serving import blocks
@@ -763,7 +797,7 @@ def run_kernel_cases(flush, cases=None, seed=100):
     from paddle_tpu_torch.ops.paged_attention import paged_attention
 
     if cases is None:
-        cases = paged_cases(pa.decode_split_keys())
+        cases = paged_cases(pa.decode_split_keys(12, 1024, 64, 16))
     results = []
     for i, (name, shape, kind) in enumerate(cases):
         c = paged_case(seed + i, shape["S"], shape["T"], shape["pos"],
@@ -818,6 +852,19 @@ def run_kernel_cases(flush, cases=None, seed=100):
             raise AssertionError(
                 f"{name}: kernel disagrees with the plain version "
                 f"(max_abs_err={max_err}, finite={finite})")
+        bound, bound_by, nbytes, flops = case_bound(c, kind)
+        rec = {"case": name, "S": int(q.shape[0]), "T": int(q.shape[1]),
+               "H": int(q.shape[2]), "D": int(q.shape[3]),
+               "bs": int(k.shape[1]), "pos": shape["pos"], "kind": kind,
+               "max_abs_err": max_err, "tol": [tol, rtol],
+               "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+               "flops": flops}
+        results.append(rec)
+        if timed is not None and name not in timed:
+            log(f"case {name}: S={rec['S']} T={rec['T']} H={rec['H']} "
+                f"D={rec['D']} bs={rec['bs']} max_abs_err={max_err:.3e} "
+                f"(tol {tol}/{rtol}), repeats bit for bit")
+            continue
         kms = time_ms(kern, flush)
         khost = host_us(kern)
         pms = time_ms(plain, flush)
@@ -834,15 +881,7 @@ def run_kernel_cases(flush, cases=None, seed=100):
             vt = vd.to(q.dtype).transpose(1, 2).contiguous()
             lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 qd, kt, vt, attn_mask=mask), flush)
-        bound, bound_by, nbytes, flops = case_bound(c, kind)
-        rec = {"case": name, "S": int(q.shape[0]), "T": int(q.shape[1]),
-               "H": int(q.shape[2]), "D": int(q.shape[3]),
-               "bs": int(k.shape[1]), "pos": shape["pos"], "kind": kind,
-               "max_abs_err": max_err, "tol": [tol, rtol], "ms": kms,
-               "host_us": khost, "plain_ms": pms, "library_ms": lib_ms,
-               "bound_ms": bound,
-               "bound_by": bound_by, "bytes": nbytes, "flops": flops}
-        results.append(rec)
+        rec.update(ms=kms, host_us=khost, plain_ms=pms, library_ms=lib_ms)
         log(f"case {name}: S={rec['S']} T={rec['T']} H={rec['H']} "
             f"D={rec['D']} bs={rec['bs']} max_abs_err={max_err:.3e} "
             f"(tol {tol}/{rtol}) kernel_ms={kms:.4f} host_us={khost:.1f} "
@@ -2808,7 +2847,7 @@ def time_flash(c, shp, kind, causal, lse, delta, flush):
 
 
 _PTX_ARGS = re.compile(
-    r"13__nv_bfloat16|6__half|Li(\d+)E|Lb([01])|S\d*_|[fa]")
+    r"13__nv_bfloat16|6__half|Li(\d+)E?|Lb([01])|S\d*_|[fa]")
 
 
 def _short_kernel(mangled):
@@ -2851,11 +2890,10 @@ def ptxas_resources(lib):
 
 def wgmma_resources(flash_rows):
     """The 16-bit wgmma kernels among the flash library's `ptxas_resources`
-    rows, with their head dim, type, build and dynamic shared memory."""
-    import ctypes
+    rows, with their head dim, type, build (mask/dropout or plain; its
+    tile) and dynamic shared memory."""
     from paddle_tpu_torch.ops import flash_attention as fa
     lib = fa._kernel_lib()
-    lib.flash_attention_wgmma_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     out = []
     for r in flash_rows:
         kernel = r["mangled"]
@@ -2864,11 +2902,15 @@ def wgmma_resources(flash_rows):
         # the smem query's kernel index: fwd 0, dq 1, dkv 2
         which = (2 if "flash_dkv" in kernel else
                  1 if "flash_dq" in kernel else 0)
-        D = 128 if "Li128E" in kernel else 64
-        out.append({**r, "D": D,
-                    "dtype": "f16" if "6__half" in kernel else "bf16",
-                    "general": "Lb1E" in kernel,
-                    "smem_dynamic": lib.flash_attention_wgmma_smem(which, D)})
+        # <type, D, general[, M, N]>: dQ and dK/dV have one tile each
+        args = r["kernel"][r["kernel"].index("<") + 1:-1].split(",")
+        D = int(args[1])
+        tile = ((int(args[3]), int(args[4])) if len(args) == 5
+                else fa.BUILDS[("fwd", "dq", "dkv")[which]][0])
+        out.append({**r, "D": D, "dtype": args[0],
+                    "general": args[2] == "1", "tile": list(tile),
+                    "smem_dynamic": lib.flash_attention_wgmma_smem(
+                        which, D, *tile)})
     return out
 
 
@@ -4909,7 +4951,7 @@ def timed_train_config(B):
     return cfg, toks, labs
 
 
-def train_parallel_timed(smi, warmup=3, steps=5, B=8):
+def train_parallel_timed(smi, warmup=2, steps=3, B=8):
     """Phase 20 (c): each timed arm at phase 8's configuration: step ms
     (median of `steps` synchronised steps after `warmup`), tokens/s, peak
     memory, each rank's bytes, one profiled step (device busy ms, kernels,
@@ -6918,15 +6960,19 @@ TEXT_FLASH_CASES = [
 ]
 
 
-def text_paged_cases(sp):
+def text_paged_cases():
     """Phase 24 (c)'s paged cases at head dims 32 and 128: decode over
-    ragged positions up to 1000 and at the split edges phase 3 runs at 64,
-    verify windows (T=5) and prefill tiles (T=128, 512), in every mode."""
+    ragged positions up to 1000 and at the split edges of the split each
+    geometry takes, verify windows (T=5) and prefill tiles (T=128, 512),
+    in every mode."""
+    from paddle_tpu_torch.ops import paged_attention as pa
     ragged = [0, 15, 16, 17, 255, 511, 777, 1000]
     verify5 = [0, 12, 14, 255, 500, 777, 1000, 1019]
-    edges = [sp - 2, sp - 1, sp, 2 * sp - 2, 2 * sp - 1, 2 * sp, 1023, -1]
     out = []
     for D, H in TEXT_PAGED_DIMS:
+        sp = pa.decode_split_keys(H, 1024, D, 16)
+        edges = [sp - 2, sp - 1, sp, 2 * sp - 2, 2 * sp - 1, 2 * sp, 1023,
+                 -1]
         for kind in ("f32", "bf16", "int8"):
             hd = dict(H=H, D=D)
             out += [
@@ -6950,13 +6996,11 @@ def text_kernel_builds(pt, smi):
     control that rounds P and dS to bf16 to their limit, which it must
     fail."""
     import torch
-    from paddle_tpu_torch.ops import paged_attention as pa
     flush_buf = torch.empty(64 * 1024 * 1024, device="cuda")
 
     def flush():
         _flush_l2(flush_buf)
-    paged = run_kernel_cases(flush, text_paged_cases(pa.decode_split_keys()),
-                             seed=2400)
+    paged = run_kernel_cases(flush, text_paged_cases(), seed=2400)
     flash, timing = [], {}
     for i, (name, D, kind, causal, mask, rate, timed) in \
             enumerate(TEXT_FLASH_CASES):
@@ -9140,7 +9184,7 @@ def fleet3_launches(rec, which):
 # a MemorySparseTable (adagrad, dim 64) of 2^21 keys held whole on the card
 # for one pass; a Criteo-shaped batch: 26 categorical slots, 4096 rows, each
 # slot's ids Zipf-skewed over its own 2^21 / 26 of the keys
-PS_DIM, PS_KEYS, PS_SLOTS, PS_B, PS_STEPS = 64, 1 << 21, 26, 4096, 100
+PS_DIM, PS_KEYS, PS_SLOTS, PS_B, PS_STEPS = 64, 1 << 21, 26, 4096, 50
 PS_LR, PS_ZIPF = 0.05, 1.2
 PS_SEED = 29                    # `--seed N` sets it
 PS_REL = 1e-6                   # the largest relative difference admitted
@@ -9932,6 +9976,707 @@ def recipe_entry(rest):
             "library_ms": t["library_ms"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: incubate.autotune (ROADMAP A.8): the paged and flash kernels
+# take their tiles at launch from the tile table
+# ---------------------------------------------------------------------------
+PHASE4_LENGTHS = [1, 5, 17, 64, 100, 200, 255, 512,
+                  257, 290, 300, 333, 400, 480, 600, 700]
+PHASE4_ENGINE = dict(slots=8, max_len=1024, block_size=16,
+                     attention_impl="kernel")
+TILE_BS, TILE_NB = 16, 64   # the engines' block size and table entries
+# the paged geometries the sweep tunes (heads, head dim) and each one's
+# launch mix (PERF.md §6): phase 4's engine, phase 24 (b)'s GPT-1.3B
+TUNE_PAGED = (
+    ("gpt125m", 12, 64, {"decode_f32": 744, "decode_int8": 372,
+                         "window_f32": 744, "tile_f32": 384}),
+    ("gpt1p3b", 16, 128, {"decode_f32": 1488, "decode_int8": 1488,
+                          "tile_f32": 384, "tile_int8": 384}),
+)
+# the flash geometries the sweep tunes: phase 8's step, phase 22 (e)'s
+# masked encoder with dropout
+TUNE_FLASH = (
+    ("train350m", dict(B=8, H=16, Hk=16, S=1024, D=64), "bf16", True,
+     False, 0.0),
+    ("nn_masked", dict(B=8, H=12, Hk=12, S=512, D=64), "bf16", False,
+     True, 0.1),
+)
+TUNE_ROUNDS = 3             # each round: default, candidate, default, ...
+TUNE_OUT = os.path.join(ROOT, "chiprun_out", "flash_blocks_tuned.json")
+TILE_TIMED_PAIRS = 3        # (c), (d): alternated pairs, table on / off
+# (a): the new flash build's cases: 16-bit types at D 64 and 128, the plain
+# and the mask/dropout build, S that no tile divides. The float16 cases
+# are phase 24 (c)'s size (B=2, H=8, S near 1024), where the bf16-rounding
+# control fails the float16 limit as it must (at S=777, B=1 it passed)
+TILE_FLASH_CASES = [
+    ("bf16_D64_S1000", dict(B=1, H=8, Hk=8, S=1000, D=64), "bf16", True,
+     False, 0.0),
+    ("bf16_D64_mask_S200", dict(B=2, H=4, Hk=4, S=200, D=64), "bf16",
+     False, True, 0.0),
+    ("bf16_D128_nc_S1000", dict(B=1, H=8, Hk=8, S=1000, D=128), "bf16",
+     False, False, 0.0),
+    ("bf16_D128_dropout_S333", dict(B=2, H=4, Hk=4, S=333, D=128), "bf16",
+     True, False, 0.1),
+    ("f16_D64_S1000", dict(B=2, H=8, Hk=8, S=1000, D=64), "f16", True,
+     False, 0.0),
+    ("f16_D64_mask_S1000", dict(B=2, H=8, Hk=8, S=1000, D=64), "f16",
+     False, True, 0.0),
+    ("f16_D128_S1000", dict(B=2, H=8, Hk=8, S=1000, D=128), "f16", True,
+     False, 0.0),
+    ("f16_D128_dropout_S1000", dict(B=2, H=8, Hk=8, S=1000, D=128), "f16",
+     True, False, 0.1),
+    ("bf16_D64_gqa_S200", dict(B=1, H=16, Hk=4, S=200, D=64), "bf16", True,
+     False, 0.0),
+]
+TILE_TOUR_TOKENS = 8        # (e): new tokens a request on each build's path
+TILE_TRAIN = dict(TRAIN_350M, layers=2)     # (e): the flash builds' path
+
+
+def paged_key(H, D, bs=TILE_BS, nb=TILE_NB):
+    return ("paged", "cuda", H, nb * bs, D, bs)
+
+
+def flash_key(H, S, D, causal):
+    return ("cuda", H, S, D, bool(causal))
+
+
+class tile_table:
+    """In-process entries of the tile table, {key: pair}, for a block (a
+    pair of None removes the key's entry); the earlier entries are back
+    after it."""
+
+    def __init__(self, entries):
+        self.entries = entries
+
+    def __enter__(self):
+        from paddle_tpu_torch.incubate import autotune as at
+        self.saved = {k: at._block_cache.get(k) for k in self.entries}
+        for k, v in self.entries.items():
+            if v is None:
+                at._block_cache.pop(k, None)
+            else:
+                at._block_cache[k] = tuple(v)
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.incubate import autotune as at
+        for k, v in self.saved.items():
+            if v is None:
+                at._block_cache.pop(k, None)
+            else:
+                at._block_cache[k] = v
+
+
+def tuning(enable):
+    """Set `kernel.enable` of the tile table; returns the earlier value."""
+    from paddle_tpu_torch.incubate import autotune as at
+    was = at.kernel_tuning_enabled()
+    at.set_config({"kernel": {"enable": bool(enable)}})
+    return was
+
+
+def build_delta(before, after):
+    return {b: n - before.get(b, 0) for b, n in after.items()
+            if n != before.get(b, 0)}
+
+
+def new_paged_pairs():
+    from paddle_tpu_torch.ops import paged_attention as pa
+    default = (pa.SPLIT_KEYS[0], pa.CHUNK_KEYS[0])
+    return [(s, c) for s in pa.SPLIT_KEYS for c in pa.CHUNK_KEYS
+            if (s, c) != default]
+
+
+def new_flash_pairs():
+    """The pairs that select a flash build other than the defaults."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    return [p for p in fa.TUNE_PAIRS if p != fa.DEFAULT_PAIR]
+
+
+def tile_paged_cases(split, chunk, rows):
+    """(a): cases of the paged builds at (split, chunk) in every mode at
+    head dims 32, 64 and 128: with `rows`, decode at key counts one below,
+    at and one above each split edge and a pos = -1 slot, and T=5 windows
+    across the first split edge; then prefill tiles of 100 rows (no
+    multiple of the 64-row tile) across a split edge beside a pos = -1
+    slot."""
+    s = split
+    out = []
+    for D, H in ((32, 8), (64, 12), (128, 16)):
+        for kind in ("f32", "bf16", "int8"):
+            hd = dict(H=H, D=D)
+            tag = f"s{split}c{chunk}_d{D}_{kind}"
+            if rows:
+                out += [
+                    (f"{tag}_decode_edges",
+                     dict(S=8, T=1, pos=[s - 2, s - 1, s, 2 * s - 2,
+                                         2 * s - 1, 2 * s, 1023, -1], **hd),
+                     kind),
+                    (f"{tag}_window_T5",
+                     dict(S=8, T=5, pos=[s - 5, s - 4, s - 3, s - 2, s - 1,
+                                         2 * s - 2, -1, 1019], **hd), kind)]
+            out.append((f"{tag}_tile_T100",
+                        dict(S=3, T=100, pos=[-1, 0, s - 50], **hd), kind))
+    return out
+
+
+def tile_builds_paged(flush):
+    """(a), paged: every new build against its plain version (phase 3's
+    rules and tolerances), the table forcing its pair at each case's
+    geometry; the D=64 f32 cases timed. Returns {pair: records}."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    out, seen = {}, {pa.SPLIT_KEYS[0]}
+    for i, (split, chunk) in enumerate(new_paged_pairs()):
+        # the decode and window builds of a new split run once, with its
+        # first chunk
+        cases = tile_paged_cases(split, chunk, split not in seen)
+        seen.add(split)
+        keys = {paged_key(c[1]["H"], c[1]["D"]): (split, chunk)
+                for c in cases}
+        timed = {n for n, c, kind in cases
+                 if c["D"] == 64 and kind == "f32"}
+        before = pa.build_counts()
+        with tile_table(keys):
+            recs = run_kernel_cases(flush, cases, seed=3100 + 100 * i,
+                                    timed=timed)
+        got = build_delta(before, pa.build_counts())
+        for name, c, _ in cases:
+            want = pa.build_of(c["T"], split, chunk)
+            if got.get(want, 0) < 2:
+                raise AssertionError(f"phase 31 (a) {name}: the table's "
+                                     f"pair {(split, chunk)} did not run "
+                                     f"build {want} ({got})")
+        if any(b[1:] != (split, chunk)[:len(b) - 1] for b in got):
+            raise AssertionError(f"phase 31 (a): builds {got} ran under "
+                                 f"the pair {(split, chunk)}")
+        out[(split, chunk)] = recs
+    return out
+
+
+def tile_builds_flash(flush):
+    """(a), flash: the new build (the forward at (128, 64)) against its
+    plain version (phase 7's rules and tolerances), the table forcing its
+    pair, timed at the training shape. Returns {pair: (records,
+    timing)}."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    out = {}
+    train = FLASH_CASES[0]
+    for j, pair in enumerate(new_flash_pairs()):
+        recs, timing = [], None
+        # numbered from 1: flash_case_check times its case 0 too
+        for i, (name, shp, kind, causal, mask, rate) in \
+                enumerate(TILE_FLASH_CASES + [train], 1):
+            before = dict(fa.launches_by_build)
+            with tile_table({flash_key(shp["H"], shp["S"], shp["D"],
+                                       causal): pair}):
+                rec, t = flash_case_check(
+                    i, f"t31_{pair[0]}x{pair[1]}_{name}", shp, kind, causal,
+                    mask, rate, flush, timed=name == train[0],
+                    seed=3300 + 50 * j)
+            ran = build_delta(before, fa.launches_by_build)
+            new = [w for w in ("fwd", "dq") if pair in fa.BUILDS[w]]
+            if any(ran.get((w, *pair), 0) < 2 for w in new):
+                raise AssertionError(f"phase 31 (a) {name}: the pair "
+                                     f"{pair} did not run the {new} "
+                                     f"build(s): {ran}")
+            rec["builds"] = {f"{w}:{m}x{n}": c for (w, m, n), c in
+                             ran.items()}
+            recs.append(rec)
+            timing = timing or t
+        out[pair] = (recs, timing)
+    return out
+
+
+def tile_poison(smi):
+    """(b): a table whose entries are no build's pair ([0, -3] paged,
+    [96, 96] flash) and a rotted JSON file, as the env-path cache and as
+    the shipped table: every launch runs the default build, no raise."""
+    import torch
+    from paddle_tpu_torch.incubate import autotune as at
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    path = os.path.join(ROOT, "build", "phase31_table.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    c = paged_case(3150, 8, 1, [0, 15, 16, 17, 255, 511, 777, 1000])
+    fc = flash_case(3151, B=1, H=16, Hk=16, S=1024, D=64, kind="bf16",
+                    causal=True, mask=False, rate=0.0)
+    q, k, v, do, meta = (fc[n] for n in ("q", "k", "v", "do", "meta"))
+    poisoned = {json.dumps(list(paged_key(12, 64))): [0, -3],
+                json.dumps(list(flash_key(16, 1024, 64, True))): [96, 96]}
+    want_paged = {("decode", pa.SPLIT_KEYS[0]): 1}
+    want_flash = {(w, *fa.BUILDS[w][0]): 1 for w in ("fwd", "dq", "dkv")}
+    saved_env = os.environ.get(at._CACHE_ENV)
+    saved_shipped = at._SHIPPED_PATH
+    out = {}
+    try:
+        for label, text, shipped in (
+                ("no build's pair, env file", json.dumps(poisoned), False),
+                ("rotted env file", "{not json", False),
+                ("rotted shipped file", "[1, 2", True)):
+            with open(path, "w") as f:
+                f.write(text)
+            if shipped:
+                at._SHIPPED_PATH = path
+                os.environ.pop(at._CACHE_ENV, None)
+            else:
+                os.environ[at._CACHE_ENV] = path
+            at._disk_cache.clear()
+            at._disk_loaded = False
+            pb, fb = pa.build_counts(), dict(fa.launches_by_build)
+            pa.paged_attention(c["q"], c["k"], c["v"], c["tables"],
+                               c["pos"])
+            o, lse = fa.flash_fwd(q, k, v, None, meta)
+            delta = (do.float() * o.float()).sum(-1)
+            fa.flash_dq(q, k, v, do, lse, delta, None, meta)
+            fa.flash_dkv(q, k, v, do, lse, delta, None, meta)
+            torch.cuda.synchronize()
+            got_p = build_delta(pb, pa.build_counts())
+            got_f = build_delta(fb, fa.launches_by_build)
+            if got_p != want_paged or got_f != want_flash:
+                raise AssertionError(f"phase 31 (b) {label}: ran {got_p} "
+                                     f"{got_f}, want the defaults "
+                                     f"{want_paged} {want_flash}")
+            out[label] = {"paged": {str(b): n for b, n in got_p.items()},
+                          "flash": {str(b): n for b, n in got_f.items()}}
+            log(f"tiles poisoned, {label}: paged {got_p}, flash {got_f}: "
+                f"the defaults, no raise [{smi}]")
+    finally:
+        at._SHIPPED_PATH = saved_shipped
+        if saved_env is None:
+            os.environ.pop(at._CACHE_ENV, None)
+        else:
+            os.environ[at._CACHE_ENV] = saved_env
+        at._disk_cache.clear()
+        at._disk_loaded = False
+        os.remove(path)
+    return out
+
+
+def tile_serving(model, prompts, want, smi):
+    """(c): phase 4's server with the shipped table in force and with
+    `kernel.enable` off (each engine captured under its setting): the 16
+    requests' greedy streams equal (and equal phase 4's `want`, where
+    given), then the decode step of 8 of them timed in alternated pairs."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import PagedGenerationEngine
+    kw = dict(PHASE4_ENGINE, device="cuda")
+    on = PagedGenerationEngine(model, **kw)
+    precompile(on, "phase 31 table on")
+    was = tuning(False)
+    try:
+        off = PagedGenerationEngine(model, **kw)
+        precompile(off, "phase 31 table off")
+    finally:
+        tuning(was)
+    pb = pa.build_counts()
+    got_on, m_on, _ = serve(on, prompts, max_new=32)
+    builds_on = build_delta(pb, pa.build_counts())
+    was = tuning(False)
+    try:
+        pb = pa.build_counts()
+        got_off, _, _ = serve(off, prompts, max_new=32)
+        builds_off = build_delta(pb, pa.build_counts())
+    finally:
+        tuning(was)
+    exact, compared, dropped = 0, 0, 0
+    for i, (a, b) in enumerate(zip(got_on, got_off)):
+        exact += a.tokens == b.tokens
+        n, d = same_stream(model, prompts[i], a.tokens, b.tokens,
+                           f"phase 31 (c) request {i}, table on vs off")
+        compared, dropped = compared + n, dropped + d
+    same4 = None
+    if want is not None:
+        same4 = 0
+        for i, (a, w) in enumerate(zip(got_on, want)):
+            same4 += a.tokens == w
+            same_stream(model, prompts[i], a.tokens, w,
+                        f"phase 31 (c) request {i} against phase 4")
+    steps = {"on": [], "off": []}
+    for _ in range(TILE_TIMED_PAIRS):
+        steps["on"].append(serve(on, prompts[8:16], max_new=32)[1]
+                           ["decode_step_ms"])
+        was = tuning(False)
+        try:
+            steps["off"].append(serve(off, prompts[8:16], max_new=32)[1]
+                                ["decode_step_ms"])
+        finally:
+            tuning(was)
+    rec = {"streams_exact": exact, "streams_exact_phase4": same4,
+           "requests": len(prompts),
+           "compared_tokens": compared, "dropped_near_ties": dropped,
+           "builds_on": {str(b): n for b, n in builds_on.items()},
+           "builds_off": {str(b): n for b, n in builds_off.items()},
+           "decode_step_ms": steps, "card": smi}
+    log(f"tiles serving: {exact} of {len(prompts)} greedy streams equal "
+        f"with the shipped table in force and with it off ({compared} "
+        f"tokens compared, {dropped} dropped as near-ties); builds on "
+        f"{builds_on}, off {builds_off}; decode step ms on "
+        f"{[round(x, 4) for x in steps['on']]} off "
+        f"{[round(x, 4) for x in steps['off']]} (alternated) [{smi}]")
+    return rec
+
+
+def tile_lookup_cost(smi):
+    """(d): host µs of a flash forward call (B=8, H=16, S=1024, D=64 bf16,
+    causal) with the table on and off, in alternated pairs, and of the two
+    lookups alone."""
+    from paddle_tpu_torch.incubate import autotune as at
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    c = flash_case(3160, B=8, H=16, Hk=16, S=1024, D=64, kind="bf16",
+                   causal=True, mask=False, rate=0.0)
+    q, k, v, meta = (c[n] for n in ("q", "k", "v", "meta"))
+
+    def call():
+        return fa.flash_fwd(q, k, v, None, meta)
+    us = {"on": [], "off": []}
+    for _ in range(TILE_TIMED_PAIRS):
+        us["on"].append(host_us(call))
+        was = tuning(False)
+        try:
+            us["off"].append(host_us(call))
+        finally:
+            tuning(was)
+    n = 20000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        at.lookup_flash_blocks(8, 16, 1024, 64, True)
+    flash_us = (time.perf_counter() - t0) / n * 1e6
+    t0 = time.perf_counter()
+    for _ in range(n):
+        pa.tiles_for(12, 1024, 64, 16)
+    paged_us = (time.perf_counter() - t0) / n * 1e6
+    rec = {"flash_fwd_host_us": us, "lookup_flash_us": flash_us,
+           "lookup_paged_us": paged_us, "card": smi}
+    log(f"tiles lookup: flash forward host us a call, table on "
+        f"{[round(x, 2) for x in us['on']]} off "
+        f"{[round(x, 2) for x in us['off']]} (alternated); the lookups "
+        f"alone {flash_us:.2f} us (flash), {paged_us:.2f} us (paged) "
+        f"[{smi}]")
+    return rec
+
+
+def tile_tour(model, prompts, smi):
+    """(e): each new build on a main path, counts set to 0 before it and
+    read after it: phase 4's engine (8 requests) with the table at each new
+    paged pair, phase 10's speculative engine at the wider split (the
+    window kernel), and GPT-350M's widths at 2 layers through
+    `make_train_step` (2 steps, B=8) at each new flash pair."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.parallel import GPTSpmdConfig, make_train_step
+    from paddle_tpu_torch.serving import (PagedGenerationEngine,
+                                          SpeculativeEngine)
+    out = {}
+    for pair in new_paged_pairs():
+        with tile_table({paged_key(12, 64): pair}):
+            eng = PagedGenerationEngine(model, device="cuda",
+                                        **PHASE4_ENGINE)
+            precompile(eng, f"phase 31 (e) {pair}")
+            pa.set_build_counts({})
+            serve(eng, prompts[:8], max_new=TILE_TOUR_TOKENS)
+            out[f"paged {pair[0]}x{pair[1]}"] = pa.build_counts()
+            del eng
+    wide = (pa.SPLIT_KEYS[1], pa.CHUNK_KEYS[0])
+    with tile_table({paged_key(12, 64): wide}):
+        eng = SpeculativeEngine(model, device="cuda", **SPEC)
+        precompile(eng, "phase 31 (e) speculative")
+        pa.set_build_counts({})
+        serve(eng, prompts[8:12], max_new=TILE_TOUR_TOKENS)
+        out[f"spec {wide[0]}x{wide[1]}"] = pa.build_counts()
+        del eng
+    cfg = GPTSpmdConfig(**TILE_TRAIN, param_dtype="bfloat16",
+                        compute_dtype="bfloat16", remat=False)
+    step_fn, init_fn = make_train_step(cfg, learning_rate=2e-4,
+                                       device="cuda")
+    params, state = init_fn(0)
+    rng = np.random.RandomState(31)
+    B, S = 8, cfg.max_seq_len
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+    labs = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+    for pair in new_flash_pairs():
+        with tile_table({flash_key(cfg.heads, S, cfg.hidden // cfg.heads,
+                                   True): pair}):
+            fa.launches_by_build.clear()
+            for _ in range(2):
+                loss, params, state = step_fn(params, state, toks, labs)
+            torch.cuda.synchronize()
+            out[f"train {pair[0]}x{pair[1]}"] = dict(fa.launches_by_build)
+            if not math.isfinite(float(loss)):
+                raise AssertionError(f"phase 31 (e): loss {loss} at {pair}")
+    del step_fn, params, state
+    for name, counts in out.items():
+        log(f"tiles tour {name}: launches by build {counts} [{smi}]")
+    return {k: {str(b): n for b, n in v.items()} for k, v in out.items()}
+
+
+def tune_paged_calls(H, D, seed):
+    """The sweep's paged calls at one geometry, by launch kind: decode over
+    phase 3's ragged positions (f32, int8), a verify window (T=5) and the
+    serving path's prefill tiles (S=1 T=32 from 0, S=1 T=256 after 256,
+    S=2 T=512; f32, int8)."""
+    from paddle_tpu_torch.ops.paged_attention import paged_attention
+    ragged = [0, 15, 16, 17, 255, 511, 777, 1000]
+    verify5 = [0, 12, 14, 255, 500, 777, 1000, 1019]
+    tiles = [(1, 32, [0]), (1, 256, [256]), (2, 512, [0, 256])]
+    shapes = {"decode_f32": [(8, 1, ragged, "f32")],
+              "decode_int8": [(8, 1, ragged, "int8")],
+              "window_f32": [(8, 5, verify5, "f32")],
+              "tile_f32": [(S, T, p, "f32") for S, T, p in tiles],
+              "tile_int8": [(S, T, p, "int8") for S, T, p in tiles]}
+    out = {}
+    for kind, cases in shapes.items():
+        fns = []
+        for i, (S, T, pos, dt) in enumerate(cases):
+            c = paged_case(seed + 10 * len(out) + i, S, T, pos, H=H, D=D,
+                           kind=dt)
+            sc = dict(k_scale=c["ks"], v_scale=c["vs"]) if dt == "int8" \
+                else {}
+            fns.append(lambda c=c, sc=sc: paged_attention(
+                c["q"], c["k"], c["v"], c["tables"], c["pos"], **sc))
+        out[kind] = fns
+    return out
+
+
+def _median(xs):
+    return statistics.median(xs)
+
+
+def alternate(score, default, cands):
+    """Scores of `default` and each candidate, timed default, candidate,
+    default, candidate, ... for TUNE_ROUNDS rounds; returns {pair:
+    [scores]}."""
+    samples = {p: [] for p in [default] + list(cands)}
+    for _ in range(TUNE_ROUNDS):
+        for c in cands:
+            samples[default].append(score(default))
+            samples[c].append(score(c))
+    return samples
+
+
+def pick(samples, default):
+    """The candidate with the least median score and whether it beats the
+    default's median by more than the default's own spread."""
+    d = samples[default]
+    spread = max(d) - min(d)
+    best = min((p for p in samples if p != default),
+               key=lambda p: _median(samples[p]))
+    gain = _median(d) - _median(samples[best])
+    return best, gain > spread, {"default_median": _median(d),
+                                 "default_spread": spread,
+                                 "best_median": _median(samples[best]),
+                                 "gain": gain}
+
+
+def tune_sweep(flush, smi):
+    """The sweep (`--tune-only`): each paged geometry of TUNE_PAGED scored
+    by its launch mix (launches x ms over T=1, windows and tiles) at every
+    pair, each flash geometry of TUNE_FLASH by forward + dQ + dK/dV ms at
+    every pair of `TUNE_PAIRS`, default and candidates alternated; a
+    winner that beats the default by more than the default's spread is
+    committed (`commit_shipped_table`, backend "cuda") into TUNE_OUT, a
+    copy of the shipped table."""
+    from paddle_tpu_torch.incubate import autotune as at
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    rec = {"paged": {}, "flash": {}, "card": smi}
+    commit = {"paged": {}, "flash": {}}
+    default = (pa.SPLIT_KEYS[0], pa.CHUNK_KEYS[0])
+    for gi, (name, H, D, mix) in enumerate(TUNE_PAGED):
+        calls = tune_paged_calls(H, D, 3200 + 100 * gi)
+        key = paged_key(H, D)
+        by_kind = {}
+
+        def score(pair):
+            with tile_table({key: pair}):
+                ms = {k: sum(time_ms(f, flush) for f in calls[k])
+                      / len(calls[k]) for k in mix}
+            by_kind.setdefault(pair, []).append(ms)
+            return sum(mix[k] * ms[k] for k in mix)
+        samples = alternate(score, default, new_paged_pairs())
+        best, wins, stats = pick(samples, default)
+        rec["paged"][name] = {
+            "geometry": dict(H=H, D=D, block_size=TILE_BS,
+                             padded_len=TILE_BS * TILE_NB),
+            "mix": mix, "score_ms": {f"{p[0]}x{p[1]}": v
+                                     for p, v in samples.items()},
+            "ms_by_kind": {f"{p[0]}x{p[1]}": v for p, v in by_kind.items()},
+            "best": list(best), "committed": wins, **stats}
+        if wins:
+            commit["paged"][(H, TILE_BS * TILE_NB, D, TILE_BS)] = best
+        log(f"tune paged {name} (H={H} D={D}): launch-mix ms "
+            + "  ".join(f"{p[0]}x{p[1]} " + "/".join(
+                f"{x:.3f}" for x in v) for p, v in samples.items())
+            + f"; best {best} {'committed' if wins else 'not committed'} "
+            f"(gain {stats['gain']:.3f} ms against the default's spread "
+            f"{stats['default_spread']:.3f}) [{smi}]")
+    for gi, (name, shp, kind, causal, mask, rate) in enumerate(TUNE_FLASH):
+        c = flash_case(3250 + gi, **shp, kind=kind, causal=causal,
+                       mask=mask, rate=rate)
+        q, k, v, do, mf, meta = (c[n] for n in ("q", "k", "v", "do",
+                                                "mask", "meta"))
+        o, lse = fa.fwd_plain(q, k, v, mf, meta)
+        delta = (do.float() * o.float()).sum(-1)
+        fns = {"fwd": lambda: fa.flash_fwd(q, k, v, mf, meta),
+               "dq": lambda: fa.flash_dq(q, k, v, do, lse, delta, mf, meta),
+               "dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta, mf,
+                                           meta)}
+        key = flash_key(shp["H"], shp["S"], shp["D"], causal)
+        by_kernel = {}
+
+        def score(pair):
+            with tile_table({key: pair}):
+                ms = {w: time_ms(f, flush) for w, f in fns.items()}
+            by_kernel.setdefault(pair, []).append(ms)
+            return sum(ms.values())
+        samples = alternate(score, fa.DEFAULT_PAIR, new_flash_pairs())
+        best, wins, stats = pick(samples, fa.DEFAULT_PAIR)
+        rec["flash"][name] = {
+            "geometry": dict(shp, kind=kind, causal=causal, mask=mask,
+                             dropout=rate),
+            "score_ms": {f"{p[0]}x{p[1]}": v for p, v in samples.items()},
+            "ms_by_kernel": {f"{p[0]}x{p[1]}": v
+                             for p, v in by_kernel.items()},
+            "best": list(best), "committed": wins, **stats}
+        if wins:
+            commit["flash"][(shp["H"], shp["S"], shp["D"], causal)] = best
+        log(f"tune flash {name}: fwd+dq+dkv ms "
+            + "  ".join(f"{p[0]}x{p[1]} " + "/".join(
+                f"{x:.4f}" for x in v) for p, v in samples.items())
+            + f"; best {best} {'committed' if wins else 'not committed'} "
+            f"(gain {stats['gain']:.4f} ms against the default's spread "
+            f"{stats['default_spread']:.4f}) [{smi}]")
+    os.makedirs(os.path.dirname(TUNE_OUT), exist_ok=True)
+    shutil.copyfile(at._SHIPPED_PATH, TUNE_OUT)
+    for kernel, entries in commit.items():
+        if entries:
+            at.commit_shipped_table(entries, backend="cuda", path=TUNE_OUT,
+                                    kernel=kernel)
+    rec["committed"] = {k: {str(g): list(p) for g, p in v.items()}
+                        for k, v in commit.items()}
+    log(f"tune: committed {rec['committed']} into {TUNE_OUT} (copy it over "
+        "paddle_tpu_torch/ops/flash_blocks_tuned.json to ship it)")
+    return rec
+
+
+def tile_phase(smi, model=None, prompts=None, want=None, sweep=False):
+    """Phase 31: (a) every new build against its plain version, (b) a
+    poisoned table runs the defaults, (c) the shipped table in force on
+    phase 4's server, (d) the lookup's host cost, (e) each new build on a
+    main path; with `sweep`, the sweep (`tune_sweep`) first."""
+    import torch
+    from paddle_tpu_torch.text.models import gpt_125m
+    t0 = time.perf_counter()
+    flush_buf = torch.empty(64 * 1024 * 1024, device="cuda")
+
+    def flush():
+        _flush_l2(flush_buf)
+    rec = {"card": smi}
+    if sweep:
+        rec["sweep"] = tune_sweep(flush, smi)
+    rec["paged_builds"] = {f"{p[0]}x{p[1]}": r for p, r in
+                           tile_builds_paged(flush).items()}
+    flash = tile_builds_flash(flush)
+    rec["flash_builds"] = {f"{p[0]}x{p[1]}": {"cases": r, "timing": t}
+                           for p, (r, t) in flash.items()}
+    del flush_buf
+    rec["poison"] = tile_poison(smi)
+    if model is None:
+        model = gpt_125m(device="cuda", seed=0)
+    if prompts is None:
+        prompts = make_prompts(0, PHASE4_LENGTHS, shared_from=8,
+                               vocab=model.cfg.vocab_size)
+    rec["serving"] = tile_serving(model, prompts, want, smi)
+    rec["lookup"] = tile_lookup_cost(smi)
+    rec["tour"] = tile_tour(model, prompts, smi)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"phase 31 took {rec['seconds']:.1f} s [{smi}]")
+    return rec
+
+
+def tile_entries(tiles, tour_launches):
+    """The `kernels` line's entries of the new builds: each one's timed
+    case (the D=64 f32 decode, window and T=100 tile cases; the flash
+    build at the training shape), the largest error over its f32 cases
+    (paged) or its cases (flash, each at its dtype's tolerance), and its
+    launches on the main paths of (e) and of the script."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    out = []
+    src = "paddle_tpu_torch/csrc/paged_attention.cuh"
+    rep = "paddle_tpu/ops/pallas/paged_attention.py:75"
+    for pair, recs in tiles["paged_builds"].items():
+        split, chunk = (int(x) for x in pair.split("x"))
+        for kernel, T in (("decode", 1), ("window", 5), ("tile", 100)):
+            mine = [r for r in recs if r["T"] == T and r["kind"] == "f32"]
+            timed = [r for r in mine if "ms" in r]
+            if not timed:
+                continue
+            build = pa.build_of(T, split, chunk)
+            name = {"decode": "paged_attention", "window":
+                    "paged_attention_window", "tile":
+                    "paged_attention_prefill"}[kernel]
+            t = timed[0]
+            out.append({"name": f"{name}@{'x'.join(map(str, build[1:]))}",
+                        "route": "cuda", "source": src, "replaces": rep,
+                        "build": list(build),
+                        "launches": tour_launches.get(str(build), 0),
+                        "max_abs_err": max(r["max_abs_err"] for r in mine),
+                        "ms": t["ms"], "plain_ms": t["plain_ms"],
+                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                        "library_ms": t["library_ms"]})
+    fsrc = "paddle_tpu_torch/csrc/flash_attention.cu"
+    freps = {"fwd": ("flash_attention_fwd", ("o", "lse"),
+                     "paddle_tpu/ops/pallas/flash_attention.py:70"),
+             "dq": ("flash_attention_dq", ("dq",),
+                    "paddle_tpu/ops/pallas/flash_attention.py:234")}
+    from paddle_tpu_torch.ops import flash_attention as fa
+    for pair, r in tiles["flash_builds"].items():
+        bq, bk = (int(x) for x in pair.split("x"))
+        for which, (name, outs, replaces) in freps.items():
+            if (bq, bk) not in fa.BUILDS[which][1:]:
+                continue
+            t = r["timing"][which]
+            build = (which, bq, bk)
+            out.append({"name": f"{name}@{bq}x{bk}", "route": "cuda",
+                        "source": fsrc, "replaces": replaces,
+                        "build": list(build),
+                        "launches": tour_launches.get(str(build), 0),
+                        "max_abs_err": max(c["max_abs_err"][o]
+                                           for c in r["cases"]
+                                           for o in outs),
+                        "ms": t["ms"], "plain_ms": t["plain_ms"],
+                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                        "library_ms": t["library_ms"]})
+    return out
+
+
+def tour_launch_counts(tiles):
+    """{str(build): launches} over phase 31 (e)'s main-path runs."""
+    total = {}
+    for counts in tiles["tour"].values():
+        for b, n in counts.items():
+            total[b] = total.get(b, 0) + n
+    return total
+
+
+def nvcc_seconds(libs):
+    """{library: nvcc seconds} from the compile cache entries `libs`
+    ({name: library file}) were resolved to (None for a library this
+    process loaded from an earlier build)."""
+    from paddle_tpu_torch.framework import compile_cache
+    out = {}
+    for name, path in sorted(libs.items()):
+        try:
+            with open(os.path.join(os.path.dirname(path),
+                                   compile_cache.ENTRY_META)) as f:
+                sec = json.load(f).get("compile_seconds")
+        except (OSError, ValueError):
+            sec = None
+        out[name] = None if sec is None else round(float(sec), 1)
+    return out
+
+
 def gc_cuda():
     import gc
     import torch
@@ -9954,6 +10699,7 @@ def main(argv):
     fleet3_only = "--fleet3-only" in argv
     ps_only = "--ps-only" in argv
     rest_only = "--rest-only" in argv
+    tune_only = "--tune-only" in argv
     seed = int(argv[argv.index("--seed") + 1]) if "--seed" in argv \
         else PS_SEED
     try:
@@ -9978,7 +10724,16 @@ def main(argv):
     if "--fleet3-child" in argv:
         return fleet3_child(argv[argv.index("--fleet3-child") + 1])
     t_start = time.perf_counter()
-    report = {}
+    report = {"phase_s": {}}
+    t_lap = [t_start]
+
+    def lap(phase):
+        """Seconds since the previous lap, as phase `phase`'s."""
+        now = time.perf_counter()
+        report["phase_s"][phase] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+        log(f"phase {phase}: {report['phase_s'][phase]} s, "
+            f"{now - t_start:.1f} s since the start")
 
     # 1. device ---------------------------------------------------------------
     smi = subprocess.run(
@@ -10000,7 +10755,9 @@ def main(argv):
     start_recipe_build()
     libs = build.build_all()
     report["build_s"] = time.perf_counter() - t0
-    log(f"built {sorted(libs)} in {report['build_s']:.1f} s")
+    report["nvcc_s"] = nvcc_seconds(libs)
+    log(f"built {sorted(libs)} in {report['build_s']:.1f} s (nvcc s by "
+        f"library, at once: {report['nvcc_s']})")
     report["ptxas"] = {name: ptxas_resources(name) for name in sorted(libs)}
     for name, rows in report["ptxas"].items():
         for r in rows:
@@ -10011,10 +10768,21 @@ def main(argv):
         report["ptxas"]["flash_attention"])
     for r in report["wgmma_resources"]:
         log(f"wgmma kernel {r['kernel']} (D={r['D']} {r['dtype']}, "
-            f"{'mask/dropout' if r['general'] else 'plain'} build): "
+            f"{'mask/dropout' if r['general'] else 'plain'} build, tile "
+            f"{r['tile'][0]}x{r['tile'][1]}): "
             f"{r['registers']} registers, "
             f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
             f"spill loads, {r['smem_dynamic']} B dynamic shared memory")
+    if tune_only:
+        # phase 31 alone, with the sweep
+        report["tiles"] = tiles = tile_phase(smi, sweep=True)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out",
+                               "chip_smoke_tune.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        log(json.dumps({"kernels": tile_entries(
+            tiles, tour_launch_counts(tiles))}))
+        return 0
     if rest_only:
         # phase 30 alone
         report["rest"] = rest_phase(smi)
@@ -10117,27 +10885,28 @@ def main(argv):
             f"{len(FLASH_CASES)} cases agree [{smi}]")
         return 1 if failures else 0
 
+    lap('1-2')
     # 3. kernel vs plain --------------------------------------------------------
     flush_buf = torch.empty(64 * 1024 * 1024, device="cuda")
     cases = run_kernel_cases(lambda: _flush_l2(flush_buf))
     report["cases"] = cases
     del flush_buf
 
+    lap('3')
     # 4. the server ---------------------------------------------------------------
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.serving import PagedGenerationEngine
     from paddle_tpu_torch.text.models import gpt_125m
     model = gpt_125m(device="cuda", seed=0)
     cfg = model.cfg
-    lengths = [1, 5, 17, 64, 100, 200, 255, 512,
-               257, 290, 300, 333, 400, 480, 600, 700]
-    prompts = make_prompts(0, lengths, shared_from=8, vocab=cfg.vocab_size)
-    engine = PagedGenerationEngine(model, slots=8, max_len=1024,
-                                   block_size=16, attention_impl="kernel",
-                                   device="cuda")
+    prompts = make_prompts(0, PHASE4_LENGTHS, shared_from=8,
+                           vocab=cfg.vocab_size)
+    engine = PagedGenerationEngine(model, device="cuda", **PHASE4_ENGINE)
     capture4 = precompile(engine, "phase 4")
     pa.launches = pa.launches_window = pa.launches_prefill = 0
+    pa.set_build_counts({})
     handles, m, wall = serve(engine, prompts, max_new=32)
+    builds4 = pa.build_counts()
     counts4 = check_captures(engine, "phase 4")
     launches, prefill4 = pa.launches, pa.launches_prefill
     prefills = len(prompts) + m["requests"]["serving.preempted"]
@@ -10165,6 +10934,8 @@ def main(argv):
                  "ttft_s_mean": sum(ttfts) / len(ttfts),
                  "ttft_s_max": max(ttfts), "prefix_hits": m["prefix_hits"],
                  "capture_s": capture4, "capture_counts": counts4,
+                 "launches_by_build": {str(b): n for b, n in
+                                       builds4.items()},
                  "wall_s": wall, "card": smi}
     report["serve"] = serve_rec
     log(f"serve gpt_125m kernel: {len(prompts)} requests done, "
@@ -10175,8 +10946,10 @@ def main(argv):
         f"ttft_mean_s={serve_rec['ttft_s_mean']:.4f} "
         f"ttft_max_s={serve_rec['ttft_s_max']:.4f} "
         f"prefix_hits={m['prefix_hits']} wall_s={wall:.2f}; captured in "
-        f"{capture4:.2f} s, capture counts {counts4} [{smi}]")
+        f"{capture4:.2f} s, capture counts {counts4}; launches by build "
+        f"(the shipped tile table in force) {builds4} [{smi}]")
 
+    lap('4')
     # 5. int8 KV ---------------------------------------------------------------------
     eng8 = PagedGenerationEngine(model, slots=8, max_len=1024,
                                  block_size=16, attention_impl="kernel",
@@ -10211,11 +10984,13 @@ def main(argv):
             json.dump(report, f, indent=1, default=str)
         return 0
 
+    lap('5')
     # where a decode step's time goes ------------------------------------------------
     prof = profile_decode(model, prompts[8:16])
     report["profile"] = prof
     log_profile("one-token decode step", prof, smi)
 
+    lap('5 profile')
     # 6. kernel path vs plain path ------------------------------------------------
     compared, dropped = compare_paths(model, prompts[:4] + prompts[8:12])
     report["parity"] = {"compared_steps": compared,
@@ -10226,22 +11001,26 @@ def main(argv):
         raise AssertionError("phase 6 compared nothing")
     report["replay_vs_eager"] = replay_vs_eager(model, prompts[8:16])
 
+    lap('6')
     # 7. flash kernels vs plain -------------------------------------------------
     flush_buf = torch.empty(64 * 1024 * 1024, device="cuda")
     flash_cases, flash_t, _ = run_flash_cases(lambda: _flush_l2(flush_buf))
     report["flash_cases"], report["flash_timing"] = flash_cases, flash_t
     del flush_buf
 
+    lap('7')
     # 8. the training step ---------------------------------------------------------
     del model
     torch.cuda.empty_cache()
     report["train"] = train_step_350m(smi)
     torch.cuda.empty_cache()
 
+    lap('8')
     # 9. training kernel path vs plain path ------------------------------------------
     report["train_parity"] = compare_train_paths()
     torch.cuda.empty_cache()
 
+    lap('9')
     # 10. the speculative server ----------------------------------------------
     model = gpt_125m(device="cuda", seed=0)
     spec_rec, spec_handles, window10, prefill10 = serve_spec(model,
@@ -10262,17 +11041,20 @@ def main(argv):
     if compared == 0:
         raise AssertionError("phase 10 compared nothing")
 
+    lap('10')
     # 11. int8 decode weights, logit capture and hot-swap ---------------------
     report["quant_weights"] = quant_weights_quality(model, prompts[8:16], smi)
     report["spec_int8"] = spec_int8_agreement(model, prompts[8:12], smi)
     report["hot_swap"] = hot_swap(model, prompts, spec_handles, smi)
 
+    lap('11')
     # 12. the KV handoff ----------------------------------------------------
     failures = decode_failures()
     report["handoff"] = handoff(model, prompts[8:16], smi)
     if decode_failures() != failures:
         raise AssertionError("phase 12: a decode failure was contained")
 
+    lap('12')
     # 13. the server under its SLO machinery and chaos ----------------------
     report["slo"] = slo_serving(model, prompts, [h.tokens for h in handles],
                                 smi)
@@ -10286,6 +11068,7 @@ def main(argv):
         f"10 round {spec_rec['round_ms']:.3f} ms (median "
         f"{spec_rec['sched_host_us']['median_us']:.1f} us) [{smi}]")
 
+    lap('13')
     # 14. the serving fleet: worker processes on this card ------------------
     import gc
     gc.collect()                     # free the earlier phases' engines
@@ -10293,6 +11076,7 @@ def main(argv):
     report["fleet"] = fleet_serving(model, prompts,
                                     [h.tokens for h in handles], smi)
 
+    lap('14')
     # 15. KV tiers and multi-tenant serving ----------------------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -10308,6 +11092,7 @@ def main(argv):
         f"{report['tenancy']['spec']['window_launches']} windows; phase 15 "
         f"took {report['phase15_s']:.1f} s [{smi}]")
 
+    lap('15')
     # 16. the KV ledger and the numerics plane ---------------------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -10319,6 +11104,7 @@ def main(argv):
     report["phase16_s"] = time.perf_counter() - t16
     log(f"phase 16 took {report['phase16_s']:.1f} s [{smi}]")
 
+    lap('16')
     # 17. the device profile and the cost model ------------------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -10333,6 +11119,7 @@ def main(argv):
     report["phase17_s"] = time.perf_counter() - t17
     log(f"phase 17 took {report['phase17_s']:.1f} s [{smi}]")
 
+    lap('17')
     # 18. warm start: save_for_generation and the Predictor ------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -10342,6 +11129,7 @@ def main(argv):
     report["phase18_s"] = time.perf_counter() - t18
     log(f"phase 18 took {report['phase18_s']:.1f} s [{smi}]")
 
+    lap('18')
     # 19. multi-device serving on the one card -------------------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -10351,6 +11139,7 @@ def main(argv):
     report["phase19_s"] = time.perf_counter() - t19
     log(f"phase 19 took {report['phase19_s']:.1f} s [{smi}]")
 
+    lap('19')
     # 20. multi-device training on the one card ------------------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -10360,60 +11149,78 @@ def main(argv):
         f"{single:.2f} ms in phase 20, {report['train']['step_ms_median']:.2f}"
         f" ms in phase 8 [{smi}]")
 
+    lap('20')
     # 21. the eager core on the card ----------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
     report["eager"] = eager_phase(smi)
 
+    lap('21')
     # 22. nn, optimizer and amp on the card -----------------------------------
     gc.collect()
     torch.cuda.empty_cache()
     report["nn"] = nn_phase(smi)
 
+    lap('22')
     # 23. io, metric, hapi and vision: Model.fit on ResNet-50 ------------------
     gc.collect()
     torch.cuda.empty_cache()
     report["hapi"] = hapi_phase(smi)
 
+    lap('23')
     # 24. head dims 32 / 128 / 256 and float16; text and audio ---------------
     gc.collect()
     torch.cuda.empty_cache()
     report["text"] = text_phase(smi, sdpa_builds=False)
 
+    lap('24')
     # 25. jit, static and the Predictor over a saved program -----------------
     gc.collect()
     torch.cuda.empty_cache()
     report["jit"] = jit_phase(smi)
 
+    lap('25')
     # 26. the process layer and data parallelism: dp2 in two processes -------
     gc.collect()
     torch.cuda.empty_cache()
     report["dist"] = dist_phase(smi)
 
+    lap('26')
     # 27. fleet and hybrid parallelism: pp on one card, mp / pp / sharding
     # across two processes ------------------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
     report["fleet"] = fleet_phase(smi)
 
+    lap('27')
     # 28. fleet across processes: sp, GPipe, vpp and the pipeline runner
     # over two processes -------------------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
     report["fleet3"] = fleet3_phase(smi, report["fleet"])
 
+    lap('28')
     # 29. the parameter-server tables: a device embedding cache on the card,
     # two shard servers in child processes --------------------------------
     gc.collect()
     torch.cuda.empty_cache()
     report["ps"] = ps_phase(smi, seed)
 
+    lap('29')
     # 30. the rest of the surface: the custom-op recipe's kernel, sparse,
     # incubate, quantization -------------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
     report["rest"] = rest_phase(smi)
 
+    lap('30')
+    # 31. the kernels' tiles at launch: the tile table -----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["tiles"] = tiles = tile_phase(
+        smi, prompts=prompts, want=[h.tokens for h in handles])
+
+    lap('31')
     # summary ------------------------------------------------------------------------
     # every kernel's max_abs_err covers phase 3's cases and phase 24's at
     # the other head dims and dtypes
@@ -10432,7 +11239,7 @@ def main(argv):
 
     def entry(name, replaces, launches, c, err):
         return {"name": name, "route": "cuda",
-                "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+                "source": "paddle_tpu_torch/csrc/paged_attention.cuh",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": c["ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
@@ -10483,12 +11290,22 @@ def main(argv):
     # the recipe's kernel: phase 30 (a)'s path (its eager op and to_static
     # program)
     kernels["kernels"].append(recipe_entry(report["rest"]))
+    # the paged and flash kernels' other builds: phase 31 (e)'s main paths
+    # at their tiles, phase 4's and 31 (c)'s where the shipped table picks
+    # them
+    runs = tour_launch_counts(tiles)
+    for counts in (report["serve"]["launches_by_build"],
+                   tiles["serving"]["builds_on"]):
+        for b, n in counts.items():
+            runs[b] = runs.get(b, 0) + n
+    kernels["kernels"] += tile_entries(tiles, runs)
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    log(f"total {report['total_s']:.1f} s")
+    log(f"total {report['total_s']:.1f} s; seconds by phase "
+        f"{report['phase_s']}")
     log(smi)
     log(json.dumps(kernels))
     assert all(math.isfinite(x["ms"]) for x in kernels["kernels"])

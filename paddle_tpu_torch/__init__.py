@@ -3,7 +3,7 @@
 The JAX package `paddle_tpu` stays the reference; this package imports
 neither it nor JAX. Its slices so far:
   * serving: the paged-KV GPT engines and scheduler, whose attention runs
-    on a hand-written CUDA kernel (`csrc/paged_attention.cu`, bound in
+    on hand-written CUDA kernels (`csrc/paged_attention.cuh`, bound in
     `ops/paged_attention.py`);
   * training: the single-device GPT step of `parallel/gpt_spmd.py`, whose
     attention runs on hand-written flash-attention forward, dQ and dK/dV

@@ -30,8 +30,10 @@ fails (the `checkpoint.write` fault, a full disk) persists nothing, and
 may have torn the files it was committing; so the library and its log
 are copied into a private directory of the process before the commit,
 and where it fails that copy is what this process loads and reuses
-until it exits (then it is deleted); the next process builds again. `build_all()` starts one nvcc per missing source at once and waits
-for all of them. A failed build raises RuntimeError with the compiler's
+until it exits (then it is deleted); the next process builds again.
+`build_all()` starts one nvcc per missing source at once and waits for
+all of them; `load_many(names)` does the same for `names` and opens
+them. A failed build raises RuntimeError with the compiler's
 output. The `-Xptxas=-v` register/spill report is kept in the entry as
 `lib<name>.log` (`ptxas_report`).
 
@@ -50,8 +52,8 @@ import subprocess
 import threading
 import time
 
-__all__ = ["load", "build_all", "sources", "build_dir", "ptxas_report",
-           "outcome", "resolve_cache", "NVCC_FLAGS"]
+__all__ = ["load", "load_many", "build_all", "sources", "build_dir",
+           "ptxas_report", "outcome", "resolve_cache", "NVCC_FLAGS"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -274,6 +276,19 @@ def load(name, cache=None):
         lib = ctypes.CDLL(_resolve([name], resolve_cache(cache))[name])
         _loaded[name] = lib
         return lib
+
+
+def load_many(names, cache=None):
+    """{name: ctypes library} of kernels `names`: those this process has
+    not loaded yet are resolved through the cache at once (the missing
+    ones built in parallel, one nvcc each) and opened."""
+    with _lock:
+        todo = [n for n in names if n not in _loaded]
+        if todo:
+            paths = _resolve(todo, resolve_cache(cache))
+            for n in todo:
+                _loaded[n] = ctypes.CDLL(paths[n])
+        return {n: _loaded[n] for n in names}
 
 
 def outcome(name):

@@ -642,29 +642,42 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return p + ((1024 - (hw::smem_u32(p) & 1023)) & 1023);
 }
 
-// The forward: a block owns 128 query rows of one (batch*head) and walks
-// the 128-key tiles of K and V. Q, K and V tiles are D/64 panels of
-// 128 x 64 (hopper.cuh).
-template <int D>
+// S = A . B^T over one panel slice of a tile, N columns: the n64 or n128
+// product.
+template <int N, typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 128)
+    hw::wgmma_ss_n128<T>(d, da, db, accumulate);
+  else
+    hw::wgmma_ss_n64<T>(d, da, db, accumulate);
+}
+
+// The forward: a block owns M (128) query rows of one (batch*head) and
+// walks the N-key tiles of K and V (N = 128, the default, or 64). Q, K and
+// V tiles are D/64 panels of rows x 64 (hopper.cuh).
+template <int D, int M, int N>
 struct FwdShape {
-  static constexpr int kM = 128;
-  static constexpr int kN = 128;
+  static constexpr int kM = M;
+  static constexpr int kN = N;
   static constexpr int kPanels = D / 64;
-  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kStages = (D == 64 ? 3 : 2) * 128 / N;
   static constexpr int kQBytes = kM * D * 2;
   static constexpr int kKvBytes = kN * D * 2;  // one K or one V tile
   static constexpr int kBarOffset = kQBytes + 2 * kStages * kKvBytes;
   static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
 };
 
-template <typename T, int D, bool kGeneral>
+template <typename T, int D, bool kGeneral, int M, int N>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const Params p) {
-  using C = FwdShape<D>;
-  static_assert(C::kM == C::kN, "one offset serves Q and K panels");
+  using C = FwdShape<D, M, N>;
+  constexpr int kSc = C::kN / 2;  // score elements a thread holds
+  static_assert(C::kM == 128 && (C::kN == 128 || C::kN == 64),
+                "two 64-row warpgroups; n64 or n128 score products");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint8_t* sQ = smem;
@@ -677,7 +690,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int qt = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = qt * C::kM;
   const int nk = (p.S + C::kN - 1) / C::kN;
-  const int n_iter = p.causal ? qt + 1 : nk;  // kM == kN: qt < nk
+  // causal: up to the tile that holds the block's last diagonal element
+  const int n_iter =
+      p.causal ? min(nk, (q0 + C::kM + C::kN - 1) / C::kN) : nk;
 
   if (threadIdx.x == 0) {
     hw::mbar_init(q_full, 1);
@@ -721,6 +736,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int wg = threadIdx.x / 128 - 1;
     const int r0 = q0 + 64 * wg;  // the warpgroup's first row
     const float scale_log2 = p.scale * kLog2e;
+    // the last key tile the warpgroup's rows see; rows past S see none
+    const int last = r0 >= p.S ? -1 : p.causal ? (r0 + 63) / C::kN : nk - 1;
     float o[C::kPanels][32];
 #pragma unroll
     for (int pn = 0; pn < C::kPanels; ++pn)
@@ -735,18 +752,26 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const int k0 = it * C::kN;
       const uint8_t* sK = smem + C::kQBytes + s * 2 * C::kKvBytes;
       const uint8_t* sV = sK + C::kKvBytes;
+      // wait even for a tile this warpgroup skips: its arrival on the
+      // empty barrier must not run ahead of the other warpgroup's
       hw::mbar_wait(&full[s], (it / C::kStages) & 1);
+      if (it > last) {
+        if ((t & 31) == 0) hw::mbar_arrive(&empty[s]);
+        continue;
+      }
 
       // S = Q . K^T, both K-major
-      float sc[64];
+      float sc[kSc];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+      for (int i = 0; i < kSc; ++i) sc[i] = 0.f;
       const uint64_t dK = hw::desc(sK);
       hw::wg_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = (kk / 4) * C::kM * 128 + (kk % 4) * 32;
-        hw::wgmma_ss_n128<T>(sc, dQ + (off >> 4), dK + (off >> 4), 1);
+        const int pn = kk / 4, ko = (kk % 4) * 32;  // panel, k slice
+        const int q_off = (pn * C::kM * 128 + ko) >> 4;
+        const int kv_off = (pn * C::kN * 128 + ko) >> 4;
+        wgmma_ss<C::kN, T>(sc, dQ + q_off, dK + kv_off, 1);
       }
       hw::wg_commit();
       hw::wg_wait<0>();
@@ -757,33 +782,33 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       // only the diagonal tile and the ragged last tile mask anything, with
       // one compare an element, and every other tile is a plain scaled dot
       // product whose scale folds into the exponent.
-      const bool edge = kGeneral || (p.causal && it == n_iter - 1) ||
+      const bool edge = kGeneral || (p.causal && k0 + C::kN - 1 > r0) ||
                         k0 + C::kN > p.S;
       float mx[2] = {kMask, kMask};
       if constexpr (kGeneral) {
         const float* mask = mask_rows(p, b);
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < kSc; ++i) {
           sc[i] = score(p, mask, sc[i], r0 + hw::acc_row(t, i),
                         k0 + hw::acc_col(t, i));
           mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
         }
       } else if (edge) {
-        int last[2];  // the last key each of the thread's two rows sees
+        int seen[2];  // the last key each of the thread's two rows sees
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          last[h] = p.causal ? min(r0 + hw::acc_row(t, 2 * h), p.S - 1)
+          seen[h] = p.causal ? min(r0 + hw::acc_row(t, 2 * h), p.S - 1)
                              : p.S - 1;
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < kSc; ++i) {
           const int h = (i >> 1) & 1;
-          sc[i] = k0 + hw::acc_col(t, i) <= last[h] ? sc[i] * p.scale : kMask;
+          sc[i] = k0 + hw::acc_col(t, i) <= seen[h] ? sc[i] * p.scale : kMask;
           mx[h] = fmaxf(mx[h], sc[i]);
         }
       } else {
         mx[0] = mx[1] = __int_as_float(0xff800000);  // -inf
 #pragma unroll
-        for (int i = 0; i < 64; ++i)
+        for (int i = 0; i < kSc; ++i)
           mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
         mx[0] *= p.scale;  // scale > 0: the max of the scaled scores
         mx[1] *= p.scale;
@@ -798,7 +823,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
       if (edge) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < kSc; ++i) {
           const int h = (i >> 1) & 1;
           const float x = sc[i];
           float e = exp2f(fmaf(x, kLog2e, -ml[h]));
@@ -814,7 +839,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < kSc; ++i) {
           const int h = (i >> 1) & 1;
           const float e = exp2f(fmaf(sc[i], scale_log2, -ml[h]));
           sum[h] += e;
@@ -1364,39 +1389,84 @@ cudaError_t launch_wgmma(Kern kern, size_t smem, int BH, int tiles,
   return cudaGetLastError();
 }
 
+// The builds a 16-bit kernel has at head dims 64 and 128, as (M, N): the
+// query rows and key rows of its tile, the default first. A launch names
+// one (the wrapper reads the tile table, `incubate/autotune.py`).
+//   * forward: (128, 128), (128, 64);
+//   * dQ: (128, 64) (a (128, 128) build spills 384 B at D = 64 and 532 B
+//     at D = 128: its S and dP fragments take 128 registers a thread);
+//   * dK/dV: (64, 128).
+// The CUDA-core kernels (f32, and every dtype at D = 256) have one build,
+// (kTile, kTile).
+bool wgmma_built(Which which, int bm, int bn) {
+  switch (which) {
+    case kFwd:
+      return bm == 128 && (bn == 128 || bn == 64);
+    case kDq:
+      return bm == 128 && bn == 64;
+    case kDkv:
+      return bm == 64 && bn == 128;
+  }
+  return false;
+}
+
 // bf16 and float16 forward, dQ and dK/dV. They read their tiles through
 // tensor maps over [rows][S][D], so a box past S reads zeros, never the
 // next row's data. Q and dO boxes are the kernel's kM rows, K and V boxes
 // its kN.
-template <typename T, int D, bool kGeneral>
-cudaError_t run_wgmma(Which which, int BH, const Params& p, cudaStream_t st) {
-  if (hw::encode_tiled() == nullptr) return cudaErrorNotSupported;
+template <typename T, int D>
+bool make_maps(Which which, int BH, const Params& p, int m, int n,
+               CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv,
+               CUtensorMap* tdo) {
   const int kv_rows = BH / p.H * p.Hk;
-  const int m = which == kFwd  ? FwdShape<D>::kM
-                : which == kDq ? DqShape<D>::kM
-                               : DkvShape<D>::kM;
-  const int n = which == kFwd  ? FwdShape<D>::kN
-                : which == kDq ? DqShape<D>::kN
-                               : DkvShape<D>::kN;
-  CUtensorMap tq, tk, tv, tdo;
-  if (!hw::make_map_16<T>(&tq, p.q, BH, p.S, D, m) ||
-      !hw::make_map_16<T>(&tk, p.k, kv_rows, p.S, D, n) ||
-      !hw::make_map_16<T>(&tv, p.v, kv_rows, p.S, D, n) ||
-      (which != kFwd && !hw::make_map_16<T>(&tdo, p.dout, BH, p.S, D, m)))
+  return hw::make_map_16<T>(tq, p.q, BH, p.S, D, m) &&
+         hw::make_map_16<T>(tk, p.k, kv_rows, p.S, D, n) &&
+         hw::make_map_16<T>(tv, p.v, kv_rows, p.S, D, n) &&
+         (which == kFwd || hw::make_map_16<T>(tdo, p.dout, BH, p.S, D, m));
+}
+
+template <typename T, int D, bool kGeneral, int M, int N>
+cudaError_t run_fwd(int BH, const Params& p, cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  if (!make_maps<T, D>(kFwd, BH, p, M, N, &tq, &tk, &tv, nullptr))
     return cudaErrorInvalidValue;
+  return launch_wgmma(flash_fwd_wgmma_kernel<T, D, kGeneral, M, N>,
+                      FwdShape<D, M, N>::kSmem, BH, (p.S + M - 1) / M, p,
+                      st, tq, tk, tv);
+}
+
+template <typename T, int D, bool kGeneral>
+cudaError_t run_dq(int BH, const Params& p, cudaStream_t st) {
+  using C = DqShape<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_maps<T, D>(kDq, BH, p, C::kM, C::kN, &tq, &tk, &tv, &tdo))
+    return cudaErrorInvalidValue;
+  return launch_wgmma(flash_dq_wgmma_kernel<T, D, kGeneral>, C::kSmem, BH,
+                      (p.S + C::kM - 1) / C::kM, p, st, tq, tk, tv, tdo);
+}
+
+template <typename T, int D, bool kGeneral>
+cudaError_t run_dkv(int BH, const Params& p, cudaStream_t st) {
+  using C = DkvShape<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_maps<T, D>(kDkv, BH, p, C::kM, C::kN, &tq, &tk, &tv, &tdo))
+    return cudaErrorInvalidValue;
+  return launch_wgmma(flash_dkv_wgmma_kernel<T, D, kGeneral>, C::kSmem, BH,
+                      (p.S + C::kN - 1) / C::kN, p, st, tq, tk, tv, tdo);
+}
+
+template <typename T, int D, bool kGeneral>
+cudaError_t run_wgmma(Which which, int BH, const Params& p, int bm, int bn,
+                      cudaStream_t st) {
+  if (hw::encode_tiled() == nullptr) return cudaErrorNotSupported;
   switch (which) {
     case kFwd:
-      return launch_wgmma(flash_fwd_wgmma_kernel<T, D, kGeneral>,
-                          FwdShape<D>::kSmem, BH, (p.S + m - 1) / m, p, st,
-                          tq, tk, tv);
+      if (bn == 64) return run_fwd<T, D, kGeneral, 128, 64>(BH, p, st);
+      return run_fwd<T, D, kGeneral, 128, 128>(BH, p, st);
     case kDq:
-      return launch_wgmma(flash_dq_wgmma_kernel<T, D, kGeneral>,
-                          DqShape<D>::kSmem, BH, (p.S + m - 1) / m, p, st,
-                          tq, tk, tv, tdo);
+      return run_dq<T, D, kGeneral>(BH, p, st);
     case kDkv:
-      return launch_wgmma(flash_dkv_wgmma_kernel<T, D, kGeneral>,
-                          DkvShape<D>::kSmem, BH, (p.S + n - 1) / n, p, st,
-                          tq, tk, tv, tdo);
+      return run_dkv<T, D, kGeneral>(BH, p, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -1404,29 +1474,41 @@ cudaError_t run_wgmma(Which which, int BH, const Params& p, cudaStream_t st) {
 // bf16 and float16 inputs at D 64 and 128: the tensor-core kernels. A mask
 // or dropout selects the build that carries the per-element rules.
 template <typename T, int D>
-cudaError_t run_16(Which which, int BH, const Params& p, cudaStream_t st) {
+cudaError_t run_16(Which which, int BH, const Params& p, int bm, int bn,
+                   cudaStream_t st) {
+  if (!wgmma_built(which, bm, bn)) return cudaErrorInvalidValue;
   if (p.mask != nullptr || p.dropout)
-    return run_wgmma<T, D, true>(which, BH, p, st);
-  return run_wgmma<T, D, false>(which, BH, p, st);
+    return run_wgmma<T, D, true>(which, BH, p, bm, bn, st);
+  return run_wgmma<T, D, false>(which, BH, p, bm, bn, st);
 }
 
-// dtype: 0 = f32, 1 = bf16, 2 = float16
+template <typename T, int D>
+cudaError_t run_cores(Which which, int BH, const Params& p, int bm, int bn,
+                      cudaStream_t st) {
+  if (bm != kTile || bn != kTile) return cudaErrorInvalidValue;
+  return run_cuda_cores<T, D>(which, BH, p, st);
+}
+
+// dtype: 0 = f32, 1 = bf16, 2 = float16; (bm, bn) the build's tile.
 cudaError_t dispatch(Which which, int BH, int D, int dtype, const Params& p,
-                     cudaStream_t st) {
+                     int bm, int bn, cudaStream_t st) {
   if (BH <= 0 || p.S <= 0 || BH > 65535 || p.Hk <= 0 || p.H % p.Hk)
     return cudaErrorInvalidValue;
   if (dtype == 0 && D == 64)
-    return run_cuda_cores<float, 64>(which, BH, p, st);
+    return run_cores<float, 64>(which, BH, p, bm, bn, st);
   if (dtype == 0 && D == 128)
-    return run_cuda_cores<float, 128>(which, BH, p, st);
-  if (dtype == 1 && D == 64) return run_16<bf16, 64>(which, BH, p, st);
-  if (dtype == 1 && D == 128) return run_16<bf16, 128>(which, BH, p, st);
-  if (dtype == 2 && D == 64) return run_16<__half, 64>(which, BH, p, st);
-  if (dtype == 2 && D == 128) return run_16<__half, 128>(which, BH, p, st);
+    return run_cores<float, 128>(which, BH, p, bm, bn, st);
+  if (dtype == 1 && D == 64) return run_16<bf16, 64>(which, BH, p, bm, bn, st);
+  if (dtype == 1 && D == 128)
+    return run_16<bf16, 128>(which, BH, p, bm, bn, st);
+  if (dtype == 2 && D == 64)
+    return run_16<__half, 64>(which, BH, p, bm, bn, st);
+  if (dtype == 2 && D == 128)
+    return run_16<__half, 128>(which, BH, p, bm, bn, st);
   if (D == 256) {
-    if (dtype == 0) return run_cuda_cores<float, 256>(which, BH, p, st);
-    if (dtype == 1) return run_cuda_cores<bf16, 256>(which, BH, p, st);
-    if (dtype == 2) return run_cuda_cores<__half, 256>(which, BH, p, st);
+    if (dtype == 0) return run_cores<float, 256>(which, BH, p, bm, bn, st);
+    if (dtype == 1) return run_cores<bf16, 256>(which, BH, p, bm, bn, st);
+    if (dtype == 2) return run_cores<__half, 256>(which, BH, p, bm, bn, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -1455,14 +1537,16 @@ Params make_params(int H, int Hk, int S, int Bm, int Hm, float scale,
 // [Bm * Hm][S][S] f32 or null. flags: bit 0 causal, bit 1 dropout. dtype:
 // 0 = f32, 1 = bf16, 2 = float16. Head dims 64 and 128 (f32 on the CUDA
 // cores, bf16 and float16 on the tensor cores) and 256 (every dtype on the
-// CUDA cores). Each returns cudaGetLastError() after its launch (0 on
-// success).
+// CUDA cores). (bm, bn): the build that runs, one that
+// `flash_attention_has_build` lists for the kernel, head dim and dtype.
+// Each returns cudaGetLastError() after its launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* mask, void* o,
                                    void* lse, int BH, int H, int Hk, int S,
                                    int D, int Bm, int Hm, float scale,
                                    int flags, unsigned thr, float keep_div,
-                                   unsigned seed, int dtype, void* stream) {
+                                   unsigned seed, int dtype, int bm, int bn,
+                                   void* stream) {
   Params p = make_params(H, Hk, S, Bm, Hm, scale, flags, thr, keep_div, seed);
   p.q = q;
   p.k = k;
@@ -1470,7 +1554,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   p.mask = static_cast<const float*>(mask);
   p.o = o;
   p.lse = static_cast<float*>(lse);
-  return dispatch(kFwd, BH, D, dtype, p, static_cast<cudaStream_t>(stream));
+  return dispatch(kFwd, BH, D, dtype, p, bm, bn,
+                  static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
@@ -1479,7 +1564,8 @@ extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
                                   void* dq, int BH, int H, int Hk, int S,
                                   int D, int Bm, int Hm, float scale,
                                   int flags, unsigned thr, float keep_div,
-                                  unsigned seed, int dtype, void* stream) {
+                                  unsigned seed, int dtype, int bm, int bn,
+                                  void* stream) {
   Params p = make_params(H, Hk, S, Bm, Hm, scale, flags, thr, keep_div, seed);
   p.q = q;
   p.k = k;
@@ -1489,7 +1575,8 @@ extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
   p.delta = static_cast<const float*>(delta);
   p.mask = static_cast<const float*>(mask);
   p.dq = dq;
-  return dispatch(kDq, BH, D, dtype, p, static_cast<cudaStream_t>(stream));
+  return dispatch(kDq, BH, D, dtype, p, bm, bn,
+                  static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_dkv(const void* q, const void* k,
@@ -1499,7 +1586,8 @@ extern "C" int flash_attention_dkv(const void* q, const void* k,
                                    int BH, int H, int Hk, int S, int D,
                                    int Bm, int Hm, float scale, int flags,
                                    unsigned thr, float keep_div,
-                                   unsigned seed, int dtype, void* stream) {
+                                   unsigned seed, int dtype, int bm, int bn,
+                                   void* stream) {
   Params p = make_params(H, Hk, S, Bm, Hm, scale, flags, thr, keep_div, seed);
   p.q = q;
   p.k = k;
@@ -1510,24 +1598,48 @@ extern "C" int flash_attention_dkv(const void* q, const void* k,
   p.mask = static_cast<const float*>(mask);
   p.dk = dk;
   p.dv = dv;
-  return dispatch(kDkv, BH, D, dtype, p, static_cast<cudaStream_t>(stream));
+  return dispatch(kDkv, BH, D, dtype, p, bm, bn,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// 1 where the forward (which = 0), dQ (1) or dK/dV (2) kernel at head dim
+// D and dtype (0 = f32, 1 = bf16, 2 = float16) has a build with tiles of
+// bm query rows and bn key rows, else 0.
+extern "C" int flash_attention_has_build(int which, int D, int dtype, int bm,
+                                         int bn) {
+  if (which < kFwd || which > kDkv || dtype < 0 || dtype > 2) return 0;
+  if (dtype != 0 && (D == 64 || D == 128))
+    return wgmma_built(static_cast<Which>(which), bm, bn) ? 1 : 0;
+  if (D == 64 || D == 128 || D == 256) return bm == kTile && bn == kTile;
+  return 0;
 }
 
 // Dynamic shared memory of the 16-bit forward (which = 0), dQ (which = 1)
-// and dK/dV (which = 2) kernels at head dim D, in bytes: the wgmma builds
-// (bf16 and float16 share their shapes) at D 64 and 128, the CUDA-core
-// builds at D = 256 (0 for anything else).
-extern "C" int flash_attention_wgmma_smem(int which, int D) {
-  if (which == kFwd && D == 64) return FwdShape<64>::kSmem;
-  if (which == kFwd && D == 128) return FwdShape<128>::kSmem;
-  if (which == kDq && D == 64) return DqShape<64>::kSmem;
-  if (which == kDq && D == 128) return DqShape<128>::kSmem;
-  if (which == kDkv && D == 64) return DkvShape<64>::kSmem;
-  if (which == kDkv && D == 128) return DkvShape<128>::kSmem;
-  if (which == kFwd && D == 256) return fwd_smem<256>();
-  if (which == kDq && D == 256) return dq_smem<256, score_chunk<256>()>();
-  if (which == kDkv && D == 256) return dkv_smem<256, score_chunk<256>()>();
-  return 0;
+// and dK/dV (which = 2) kernels at head dim D and tile (bm, bn), in bytes:
+// the wgmma builds (bf16 and float16 share their shapes) at D 64 and 128,
+// the CUDA-core builds at D = 256 (0 for anything else).
+extern "C" int flash_attention_wgmma_smem(int which, int D, int bm, int bn) {
+  if (D == 256) {
+    if (which == kFwd) return fwd_smem<256>();
+    if (which == kDq) return dq_smem<256, score_chunk<256>()>();
+    if (which == kDkv) return dkv_smem<256, score_chunk<256>()>();
+    return 0;
+  }
+  if ((D != 64 && D != 128) ||
+      !wgmma_built(static_cast<Which>(which), bm, bn))
+    return 0;
+  const bool d64 = D == 64, wide = bn == 128;
+  switch (which) {
+    case kFwd:
+      return wide ? (d64 ? FwdShape<64, 128, 128>::kSmem
+                         : FwdShape<128, 128, 128>::kSmem)
+                  : (d64 ? FwdShape<64, 128, 64>::kSmem
+                         : FwdShape<128, 128, 64>::kSmem);
+    case kDq:
+      return d64 ? DqShape<64>::kSmem : DqShape<128>::kSmem;
+    default:
+      return d64 ? DkvShape<64>::kSmem : DkvShape<128>::kSmem;
+  }
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

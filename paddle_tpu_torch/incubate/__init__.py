@@ -1,8 +1,9 @@
 """paddle.incubate of the port (counterpart of `paddle_tpu/incubate`):
-`distributed` (fleet's segment recompute and the mixture-of-experts
-layers), `nn` (the fused transformer Layers and functionals), `asp`,
-`checkpoint`, `optimizer`, `operators` and `autograd`. The reference's
-`autotune` is not ported yet (ROADMAP A.8)."""
+`autotune` (the kernels' tile table), `distributed` (fleet's segment
+recompute and the mixture-of-experts layers), `nn` (the fused transformer
+Layers and functionals), `asp`, `checkpoint`, `optimizer`, `operators`
+and `autograd`."""
+from . import autotune  # noqa: F401
 from . import distributed  # noqa: F401
 from . import nn  # noqa: F401
 from . import asp  # noqa: F401

@@ -41,7 +41,18 @@ the checks the launch makes.
 
 `launches_fwd`, `launches_dq` and `launches_dkv` count kernel launches
 (CPU calls do not count), so a run can show that its main path went
-through the kernels.
+through the kernels; `launches_by_build` counts them by build,
+{(kernel, block_q, block_k): launches}.
+
+Tiles. Each kernel is built at the tiles of `BUILDS` (query rows, key
+rows), all compiled into the library at first use: the 16-bit forward at
+(128, 128) and (128, 64), the default first, dQ at (128, 64) (a (128,
+128) build spilled), dK/dV at (64, 128); the CUDA-core kernels (f32, and
+every dtype at D = 256) at (64, 64) alone. Every CUDA launch looks its geometry (H,
+S, D, causal) up in the tile table (`incubate/autotune.py`) and runs the
+table's pair where the kernel has a build at it, its default otherwise.
+`tiled_fwd`, `tiled_dq` and `tiled_dkv` take the pair from the caller
+instead (the tuner, the checks).
 
 The three launches are `torch.library` custom ops,
 `torch.ops.paddle_tpu_torch.flash_fwd`, `.flash_dq` and `.flash_dkv`,
@@ -63,18 +74,56 @@ import torch
 __all__ = ["flash_attention_bhsd", "flash_attention_bshd",
            "reference_attention_bhsd", "dropout_keep",
            "fwd_plain", "dq_plain", "dkv_plain", "flash_fwd", "flash_dq",
-           "flash_dkv", "SUPPORTED_HEAD_DIMS", "launches_fwd", "launches_dq",
-           "launches_dkv"]
+           "flash_dkv", "tiled_fwd", "tiled_dq", "tiled_dkv", "builds",
+           "build_pairs", "resolve_build", "SUPPORTED_HEAD_DIMS", "BUILDS",
+           "CORE_BUILD", "DEFAULT_PAIR", "TUNE_PAIRS", "launches_fwd",
+           "launches_dq", "launches_dkv", "launches_by_build"]
 
 launches_fwd = 0
 launches_dq = 0
 launches_dkv = 0
+launches_by_build = {}         # (kernel, block_q, block_k) -> launches
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 NEG_INF = -1e30
 _M32 = 0xFFFFFFFF
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_WHICH = {"fwd": 0, "dq": 1, "dkv": 2}
 _lib = None
+_autotune = None
+
+# The 16-bit (wgmma) builds at head dims 64 and 128, (query rows, key
+# rows) of a tile, the default first; `csrc/flash_attention.cu`
+# `wgmma_built` lists the same (checked when the library is bound).
+BUILDS = {"fwd": ((128, 128), (128, 64)),
+          "dq": ((128, 64),),
+          "dkv": ((64, 128),)}
+# the CUDA-core kernels' one build (f32 at D 64 and 128, every dtype at 256)
+CORE_BUILD = (64, 64)
+# the pair that runs every 16-bit kernel's default (the forward's; dQ and
+# dK/dV have no build there): the tuner's fallback, and a candidate
+DEFAULT_PAIR = (128, 128)
+TUNE_PAIRS = (DEFAULT_PAIR, (128, 64))
+
+
+def builds(which, D, dtype):
+    """The tiles kernel `which` ("fwd", "dq", "dkv") is built at for head
+    dim D and `dtype`, the default first."""
+    if dtype in (torch.bfloat16, torch.float16) and D in (64, 128):
+        return BUILDS[which]
+    return (CORE_BUILD,)
+
+
+def build_pairs():
+    """Every (block_q, block_k) some flash build has."""
+    return frozenset({CORE_BUILD}.union(*BUILDS.values()))
+
+
+def resolve_build(which, D, dtype, pair):
+    """The build a launch of `which` runs for a table `pair` (or None):
+    the pair where the kernel has a build at it, its default otherwise."""
+    have = builds(which, D, dtype)
+    return pair if pair in have else have[0]
 
 
 @dataclass(frozen=True)
@@ -230,18 +279,40 @@ def _kernel_lib():
         lib = build.load("flash_attention")
         vp, ci, cu, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                           ctypes.c_float)
-        # BH H Hk S D Bm Hm, scale flags threshold keep_div seed dtype stream
-        shape = [ci] * 7 + [cf, ci, cu, cf, cu, ci, vp]
+        # BH H Hk S D Bm Hm, scale flags threshold keep_div seed dtype,
+        # block_q block_k stream
+        shape = [ci] * 7 + [cf, ci, cu, cf, cu, ci, ci, ci, vp]
         lib.flash_attention_fwd.argtypes = [vp] * 6 + shape
         lib.flash_attention_dq.argtypes = [vp] * 8 + shape
         lib.flash_attention_dkv.argtypes = [vp] * 9 + shape
         for fn in (lib.flash_attention_fwd, lib.flash_attention_dq,
                    lib.flash_attention_dkv):
             fn.restype = ci
+        lib.flash_attention_has_build.argtypes = [ci] * 5
+        lib.flash_attention_has_build.restype = ci
+        lib.flash_attention_wgmma_smem.argtypes = [ci] * 4
+        lib.flash_attention_wgmma_smem.restype = ci
         lib.flash_attention_error_string.argtypes = [ci]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _check_builds(lib)
         _lib = lib
     return _lib
+
+
+def _check_builds(lib):
+    """The library's builds are `builds()`'s, for every kernel, head dim
+    and dtype."""
+    for which, w in _WHICH.items():
+        for D in SUPPORTED_HEAD_DIMS:
+            for dtype, code in _DTYPES.items():
+                have = set(builds(which, D, dtype))
+                for pair in build_pairs():
+                    if bool(lib.flash_attention_has_build(w, D, code,
+                                                          *pair)) \
+                            != (pair in have):
+                        raise RuntimeError(
+                            f"flash_attention: the library's {which} "
+                            f"builds at D={D} {dtype} are not {have}")
 
 
 def _check_kernel_args(name, q, k, v, mask, extra):
@@ -277,11 +348,27 @@ def _check_kernel_args(name, q, k, v, mask, extra):
                              "contiguous and 16-byte aligned")
 
 
-def _run(fn_name, ptrs, q, meta):
+def _table_pair(q, meta):
+    """The tile table's pair for this launch's geometry, or None."""
+    global _autotune
+    if _autotune is None:
+        from ..incubate import autotune
+        _autotune = autotune
+    return _autotune.lookup_flash_blocks(None, meta.H, q.shape[1],
+                                         q.shape[2], meta.causal, "cuda")
+
+
+def _run(which, ptrs, q, meta, pair):
+    """Launch kernel `which` at the build `pair` resolves to (the table's
+    pair when `pair` is None) and count it."""
     BH, S, D = q.shape
+    if pair is None:
+        pair = _table_pair(q, meta)
+    bq, bk = resolve_build(which, D, q.dtype, pair)
     rate = float(meta.rate)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = _kernel_lib()
+    fn_name = f"flash_attention_{which}"
     with torch.cuda.device(q.device):
         rc = getattr(lib, fn_name)(
             *[ctypes.c_void_p(None if t is None else t.data_ptr())
@@ -289,10 +376,12 @@ def _run(fn_name, ptrs, q, meta):
             BH, meta.H, meta.Hk, S, D, meta.Bm, meta.Hm, meta.scale,
             int(meta.causal) | (2 if rate > 0 else 0), _threshold(rate),
             float(1.0 - rate), int(meta.seed) & _M32, _DTYPES[q.dtype],
-            ctypes.c_void_p(stream))
+            bq, bk, ctypes.c_void_p(stream))
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"{fn_name} launch failed: {msg} (cudaError {rc})")
+    build = (which, bq, bk)
+    launches_by_build[build] = launches_by_build.get(build, 0) + 1
 
 
 # ------------------------------------------------------------ custom ops
@@ -329,23 +418,60 @@ def _meta(H, Hk, Bm, Hm, causal, scale, rate, seed):
                 rate=rate, seed=0 if seed is None else int(seed))
 
 
-@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
-def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  mask: Optional[torch.Tensor], H: int, Hk: int, Bm: int,
-                  Hm: int, causal: bool, scale: float, rate: float,
-                  seed: Optional[torch.Tensor]
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+def tiled_fwd(q, k, v, mask, meta, pair=None):
+    """The forward on CUDA tensors at the build `pair` resolves to (the
+    tile table's pair where `pair` is None); the plain version on CPU
+    tensors. Returns (O, lse [BH,S] f32)."""
     global launches_fwd
-    meta = _meta(H, Hk, Bm, Hm, causal, scale, rate, seed)
     if q.device.type == "cpu":
         return fwd_plain(q, k, v, mask, meta)
     q, k, v, mask = (_dense(t) for t in (q, k, v, mask))
     _check_kernel_args("fwd", q, k, v, mask, ())
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _run("flash_attention_fwd", [q, k, v, mask, o, lse], q, meta)
+    _run("fwd", [q, k, v, mask, o, lse], q, meta, pair)
     launches_fwd += 1
     return o, lse
+
+
+def tiled_dq(q, k, v, do, lse, delta, mask, meta, pair=None):
+    """dQ at the build `pair` resolves to (as `tiled_fwd`)."""
+    global launches_dq
+    if q.device.type == "cpu":
+        return dq_plain(q, k, v, do, lse, delta, mask, meta)
+    q, k, v, do, lse, delta, mask = (_dense(t) for t in
+                                     (q, k, v, do, lse, delta, mask))
+    _check_kernel_args("dq", q, k, v, mask, (do, lse, delta))
+    dq = torch.empty_like(q)
+    _run("dq", [q, k, v, do, lse, delta, mask, dq], q, meta, pair)
+    launches_dq += 1
+    return dq
+
+
+def tiled_dkv(q, k, v, do, lse, delta, mask, meta, pair=None):
+    """dK, dV per query head at the build `pair` resolves to (as
+    `tiled_fwd`)."""
+    global launches_dkv
+    if q.device.type == "cpu":
+        return dkv_plain(q, k, v, do, lse, delta, mask, meta)
+    q, k, v, do, lse, delta, mask = (_dense(t) for t in
+                                     (q, k, v, do, lse, delta, mask))
+    _check_kernel_args("dkv", q, k, v, mask, (do, lse, delta))
+    dk = torch.empty(q.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=v.dtype, device=q.device)
+    _run("dkv", [q, k, v, do, lse, delta, mask, dk, dv], q, meta, pair)
+    launches_dkv += 1
+    return dk, dv
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor], H: int, Hk: int, Bm: int,
+                  Hm: int, causal: bool, scale: float, rate: float,
+                  seed: Optional[torch.Tensor]
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    return tiled_fwd(q, k, v, mask,
+                     _meta(H, Hk, Bm, Hm, causal, scale, rate, seed))
 
 
 @_flash_fwd_op.register_fake
@@ -360,17 +486,8 @@ def _flash_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  mask: Optional[torch.Tensor], H: int, Hk: int, Bm: int,
                  Hm: int, causal: bool, scale: float, rate: float,
                  seed: Optional[torch.Tensor]) -> torch.Tensor:
-    global launches_dq
-    meta = _meta(H, Hk, Bm, Hm, causal, scale, rate, seed)
-    if q.device.type == "cpu":
-        return dq_plain(q, k, v, do, lse, delta, mask, meta)
-    q, k, v, do, lse, delta, mask = (_dense(t) for t in
-                                     (q, k, v, do, lse, delta, mask))
-    _check_kernel_args("dq", q, k, v, mask, (do, lse, delta))
-    dq = torch.empty_like(q)
-    _run("flash_attention_dq", [q, k, v, do, lse, delta, mask, dq], q, meta)
-    launches_dq += 1
-    return dq
+    return tiled_dq(q, k, v, do, lse, delta, mask,
+                    _meta(H, Hk, Bm, Hm, causal, scale, rate, seed))
 
 
 @_flash_dq_op.register_fake
@@ -386,19 +503,8 @@ def _flash_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   Hm: int, causal: bool, scale: float, rate: float,
                   seed: Optional[torch.Tensor]
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    global launches_dkv
-    meta = _meta(H, Hk, Bm, Hm, causal, scale, rate, seed)
-    if q.device.type == "cpu":
-        return dkv_plain(q, k, v, do, lse, delta, mask, meta)
-    q, k, v, do, lse, delta, mask = (_dense(t) for t in
-                                     (q, k, v, do, lse, delta, mask))
-    _check_kernel_args("dkv", q, k, v, mask, (do, lse, delta))
-    dk = torch.empty(q.shape, dtype=k.dtype, device=q.device)
-    dv = torch.empty(q.shape, dtype=v.dtype, device=q.device)
-    _run("flash_attention_dkv", [q, k, v, do, lse, delta, mask, dk, dv], q,
-         meta)
-    launches_dkv += 1
-    return dk, dv
+    return tiled_dkv(q, k, v, do, lse, delta, mask,
+                     _meta(H, Hk, Bm, Hm, causal, scale, rate, seed))
 
 
 @_flash_dkv_op.register_fake

@@ -1,5 +1,6 @@
-"""Paged attention: the wrapper of the hand-written CUDA kernel
-`csrc/paged_attention.cu`.
+"""Paged attention: the wrapper of the hand-written CUDA kernels
+`csrc/paged_attention.cuh` (built as the libraries of
+`csrc/paged_attention{,_wide,_tiles}.cu`).
 
 Replaces `paddle_tpu/ops/pallas/paged_attention.py` (`paged_attention`,
 the Pallas TPU kernel `_kernel`), float and int8 modes. The block table is
@@ -16,34 +17,59 @@ Three launch shapes, each a kernel of its own, all split over the KV
 length with the splits' partial softmax states merged inside the same
 launch; the grid follows the table's capacity, never `pos`, so no host
 read of `pos` is needed:
-  * T = 1 (decode): one block per (split of `decode_split_keys()` keys,
-    head, slot);
+  * T = 1 (decode): one block per (split of `split_keys` keys, head,
+    slot);
   * T = 2..WINDOW_ROWS (speculative verify windows, T = gamma+1): the
     same split, with the window's T query rows in every block;
   * T > WINDOW_ROWS (prefill buckets): one block per (split, tile of 64
-    query rows, head, slot).
-`attend_split_plain` is a plain model of the split-and-merge arithmetic of
-the first two, for the tests; the main path never calls it.
+    query rows, head, slot), staging `chunk_keys` keys a step.
+Tiles. Every kernel is built at each of `SPLIT_KEYS` and the tile kernel
+also at each of `CHUNK_KEYS` (the defaults first), all compiled at first
+use into three libraries (`LIBRARIES`, `library_of`): the default builds,
+the decode and window kernels at the wider split, the other tiles. Every
+CUDA launch looks its geometry (heads, the table's capacity nb * bs, head
+dim, block size) up in the tile table (`incubate/autotune.py`) and takes
+its pair, or (`SPLIT_KEYS[0]`, `CHUNK_KEYS[0]`) where the table has none;
+`decode_split_keys` says which split a geometry takes. `attend_split_plain` is a plain model of the
+split-and-merge arithmetic of the first two, at any of those splits, for
+the tests; the main path never calls it.
 
 `launches` counts kernel launches (CPU calls do not count), so a run can
 show that its main path went through the kernel; `launches_window` counts
-those of them at T = 2..WINDOW_ROWS and `launches_prefill` those above. A
-call captured in a CUDA graph launches at every replay, where no Python
-runs: the graph's owner credits the launches it recorded at capture once
-per replay (`count_replay`; `serving/graphs.py`).
+those of them at T = 2..WINDOW_ROWS and `launches_prefill` those above;
+`launches_by_build` counts them by build, {("decode" | "window", split) or
+("tile", split, chunk): launches}. A call captured in a CUDA graph
+launches at every replay, where no Python runs: the graph's owner credits
+the launches it recorded at capture once per replay (`count_replay`;
+`serving/graphs.py`). A graph fixes its tiles at capture: a table entry
+committed later takes effect at the next capture.
 """
 import ctypes
 
 import torch
 
 __all__ = ["paged_attention", "attend_split_plain", "decode_split_keys",
-           "launches", "launches_window", "launches_prefill",
-           "launch_counts", "set_launch_counts", "count_replay",
-           "SUPPORTED_HEAD_DIMS", "WINDOW_ROWS"]
+           "tiles_for", "build_of", "library_of", "bind_library",
+           "LIBRARIES", "launches", "launches_window", "launches_prefill",
+           "launches_by_build",
+           "launch_counts", "set_launch_counts", "build_counts",
+           "set_build_counts", "count_replay", "SUPPORTED_HEAD_DIMS",
+           "WINDOW_ROWS", "SPLIT_KEYS", "CHUNK_KEYS"]
 
 launches = 0
 launches_window = 0
 launches_prefill = 0
+launches_by_build = {}         # build_of(...) -> launches
+
+# the builds: keys a block covers (`split_keys`) and keys the tile kernel
+# stages a step (`chunk_keys`), the defaults first; every pair is built
+# (`paged_attention_split_keys` / `_chunk_keys` of the libraries list the
+# same, checked when one is bound)
+SPLIT_KEYS = (128, 256)
+CHUNK_KEYS = (64, 32)
+# the libraries the builds are spread over (`library_of`)
+LIBRARIES = ("paged_attention", "paged_attention_wide",
+             "paged_attention_tiles")
 
 # most query rows of the window path (`kWindowRows` of the kernel source);
 # longer calls run the tile path
@@ -56,24 +82,45 @@ _MAX_SMEM = 232448             # bytes a block may use on sm_90
 _MODES = {(torch.float32, torch.float32): 0,
           (torch.bfloat16, torch.bfloat16): 1,
           (torch.float32, torch.int8): 2}
-_lib = None
-_split = None                  # keys of one decode split, read from _lib
+_libs = {}                     # library name -> bound ctypes library
+_autotune = None
 _tickets = {}                  # (device, stream) -> int32 counters, zero
                                # between calls
 
 
-def _kernel_lib():
-    global _lib, _split
-    if _lib is None:
+def _kernel_lib(name=LIBRARIES[0]):
+    lib = _libs.get(name)
+    if lib is None:
         from .._kernels import build
-        lib = bind(build.load("paged_attention"))
-        _split = lib.paged_attention_decode_split()
-        _lib = lib
-    return _lib
+        lib = bind(build.load(name))
+        _check_builds(lib, name)
+        _libs[name] = lib
+    return lib
+
+
+def _check_builds(lib, name):
+    """Library `name` holds the builds `library_of` gives it, no other."""
+    for s in SPLIT_KEYS:
+        for c in CHUNK_KEYS:
+            for T in (1, WINDOW_ROWS + 1):
+                b = build_of(T, s, c)
+                if bool(lib.paged_attention_has_build(T > 1, s, c)) != \
+                        (library_of(b) == name):
+                    raise RuntimeError(f"paged_attention: library {name} "
+                                       f"and library_of disagree on {b}")
+
+
+def bind_library():
+    """Build (first use; the missing ones at once) and bind every kernel
+    library; returns {name: library}."""
+    if len(_libs) < len(LIBRARIES):
+        from .._kernels import build
+        build.load_many(LIBRARIES)
+    return {name: _kernel_lib(name) for name in LIBRARIES}
 
 
 def bind(lib):
-    """Declare the C interface of a built `csrc/paged_attention.cu` on its
+    """Declare the C interface of a built `csrc/paged_attention*.cu` on its
     ctypes library (also used to load variants of the source built with
     other constants); returns `lib`."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -82,16 +129,21 @@ def bind(lib):
         vp, vp, vp, vp, vp, vp, vp, vp,        # q k v ks vs tables pos out
         vp, vp,                                # partials tickets
         ci, ci, ci, ci, ci, ci,                # S T H D bs nb
-        cf, cf, ci, vp]                        # scale qmax mode stream
+        cf, cf, ci,                            # scale qmax mode
+        ci, ci, vp]                            # split chunk stream
     lib.paged_attention_fwd.restype = ci
-    lib.paged_attention_smem_bytes.argtypes = [ci, ci, ci]
+    lib.paged_attention_smem_bytes.argtypes = [ci] * 5
     lib.paged_attention_smem_bytes.restype = ci
-    lib.paged_attention_partial_floats.argtypes = [ci] * 6
+    lib.paged_attention_partial_floats.argtypes = [ci] * 7
     lib.paged_attention_partial_floats.restype = ll
     lib.paged_attention_ticket_count.argtypes = [ci, ci, ci]
     lib.paged_attention_ticket_count.restype = ll
-    lib.paged_attention_decode_split.argtypes = []
-    lib.paged_attention_decode_split.restype = ci
+    lib.paged_attention_has_build.argtypes = [ci, ci, ci]
+    lib.paged_attention_has_build.restype = ci
+    for fn in (lib.paged_attention_split_keys,
+               lib.paged_attention_chunk_keys):
+        fn.argtypes = [ci]
+        fn.restype = ci
     lib.paged_attention_window_rows.argtypes = []
     lib.paged_attention_window_rows.restype = ci
     lib.paged_attention_error_string.argtypes = [ci]
@@ -100,6 +152,12 @@ def bind(lib):
         raise RuntimeError("paged_attention: the kernel's window limit "
                            f"{lib.paged_attention_window_rows()} is not "
                            f"WINDOW_ROWS = {WINDOW_ROWS}")
+    have = tuple(tuple(v for v in (fn(i) for i in range(8)) if v)
+                 for fn in (lib.paged_attention_split_keys,
+                            lib.paged_attention_chunk_keys))
+    if have != (SPLIT_KEYS, CHUNK_KEYS):
+        raise RuntimeError(f"paged_attention: the library's builds {have} "
+                           f"are not {(SPLIT_KEYS, CHUNK_KEYS)}")
     return lib
 
 
@@ -194,14 +252,16 @@ def _launch(q, k_pool, v_pool, tables, pos, scale, k_scale, v_scale, qmax,
     nb = tables.shape[1]
     if S == 0 or T == 0 or nb == 0:
         return out.zero_()
-    lib = _kernel_lib()
-    smem = lib.paged_attention_smem_bytes(T, D, mode)
+    split, chunk = tiles_for(H, nb * bs, D, bs)
+    build = build_of(T, split, chunk)
+    lib = _kernel_lib(library_of(build))
+    smem = lib.paged_attention_smem_bytes(T, D, mode, split, chunk)
     if smem > _MAX_SMEM:
         raise ValueError(f"paged_attention: head_dim {D} needs {smem} bytes "
                          "of shared memory")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     partials = torch.empty(
-        (lib.paged_attention_partial_floats(S, T, H, D, bs, nb),),
+        (lib.paged_attention_partial_floats(S, T, H, D, bs, nb, split),),
         dtype=torch.float32, device=q.device)
     tickets = _ticket_counters(q.device, stream,
                                lib.paged_attention_ticket_count(S, T, H))
@@ -212,7 +272,7 @@ def _launch(q, k_pool, v_pool, tables, pos, scale, k_scale, v_scale, qmax,
         rc = lib.paged_attention_fwd(
             ptr(q), ptr(k_pool), ptr(v_pool), ptr(k_scale), ptr(v_scale),
             ptr(tables), ptr(pos), ptr(out), ptr(partials), ptr(tickets),
-            S, T, H, D, bs, nb, scale, qmax, mode,
+            S, T, H, D, bs, nb, scale, qmax, mode, split, chunk,
             ctypes.c_void_p(stream))
     if rc != 0:
         msg = lib.paged_attention_error_string(rc).decode()
@@ -223,7 +283,39 @@ def _launch(q, k_pool, v_pool, tables, pos, scale, k_scale, v_scale, qmax,
         launches_prefill += 1
     elif T > 1:
         launches_window += 1
+    launches_by_build[build] = launches_by_build.get(build, 0) + 1
     return out
+
+
+def tiles_for(H, padded_len, D, block_size):
+    """(split_keys, chunk_keys) a CUDA launch at this geometry takes: the
+    tile table's pair (`incubate/autotune.py` `lookup_paged_blocks`), or
+    the defaults where it has none."""
+    global _autotune
+    if _autotune is None:
+        from ..incubate import autotune
+        _autotune = autotune
+    return _autotune.lookup_paged_blocks(H, padded_len, D, block_size,
+                                         "cuda") \
+        or (SPLIT_KEYS[0], CHUNK_KEYS[0])
+
+
+def build_of(T, split, chunk):
+    """The build a launch of T query rows at (split, chunk) runs: the
+    decode or window kernel at the split, or the tile kernel at both."""
+    if T > WINDOW_ROWS:
+        return ("tile", split, chunk)
+    return ("decode" if T == 1 else "window", split)
+
+
+def library_of(build):
+    """The library that holds `build`: the defaults' (the decode and window
+    kernels at SPLIT_KEYS[0], the tile kernel at the default pair), the
+    wider split's decode and window kernels, or the other tiles."""
+    if build[0] == "tile":
+        return LIBRARIES[0] if build[1:] == (SPLIT_KEYS[0], CHUNK_KEYS[0]) \
+            else LIBRARIES[2]
+    return LIBRARIES[0] if build[1] == SPLIT_KEYS[0] else LIBRARIES[1]
 
 
 def launch_counts():
@@ -238,10 +330,24 @@ def set_launch_counts(counts):
     launches, launches_window, launches_prefill = (int(c) for c in counts)
 
 
-def count_replay(counts):
+def build_counts():
+    """A copy of `launches_by_build`."""
+    return dict(launches_by_build)
+
+
+def set_build_counts(counts):
+    """Put the by-build counters back to `counts` (a dict)."""
+    launches_by_build.clear()
+    launches_by_build.update(counts)
+
+
+def count_replay(counts, builds=None):
     """Credit one replay of a CUDA graph whose capture recorded `counts`
-    launches: the replay launches them, with no Python running."""
+    launches (and `builds`, {build: launches}): the replay launches them,
+    with no Python running."""
     set_launch_counts(a + b for a, b in zip(launch_counts(), counts))
+    for build, n in (builds or {}).items():
+        launches_by_build[build] = launches_by_build.get(build, 0) + n
 
 
 def _ticket_counters(device, stream, n):
@@ -257,11 +363,10 @@ def _ticket_counters(device, stream, n):
     return t
 
 
-def decode_split_keys():
-    """Keys of one split of the CUDA decode and window kernels (builds
-    the kernel library on first use)."""
-    _kernel_lib()
-    return _split
+def decode_split_keys(H, padded_len, D, block_size):
+    """Keys of one split of the CUDA decode, window and tile kernels at
+    this geometry (the tile table's, or the default)."""
+    return tiles_for(H, padded_len, D, block_size)[0]
 
 
 def attend_split_plain(q, k_pool, v_pool, tables, pos, split, scale=None,

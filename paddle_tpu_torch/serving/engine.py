@@ -784,8 +784,7 @@ class GenerationEngine:
             from .._kernels import build
             libs = sorted({lib for n in self.executable_names()
                            for lib in self._executable_libraries(n)})
-            for lib in libs:
-                build.load(lib, cache=self._compile_cache)
+            build.load_many(libs, cache=self._compile_cache)
             self._libraries = {lib: build.outcome(lib) for lib in libs}
         return self._libraries
 
@@ -1241,11 +1240,12 @@ class PagedGenerationEngine(GenerationEngine):
 
     # -- the executables ------------------------------------------------------
     def _executable_libraries(self, name):
-        """The paged kernel's library, for every executable on the kernel
-        path on the card (the gather path and the CPU launch none)."""
+        """The paged kernels' libraries (every build: the tile table picks
+        one at capture), for every executable on the kernel path on the
+        card (the gather path and the CPU launch none)."""
         if self.device.type == "cuda" and \
                 self.config.attention_impl == "kernel":
-            return ["paged_attention"]
+            return list(_pa.LIBRARIES)
         return []
 
     @property
@@ -1294,7 +1294,7 @@ class PagedGenerationEngine(GenerationEngine):
         t0 = time.perf_counter()
         libs = self._ensure_libraries()
         if libs:
-            _pa.decode_split_keys()             # binds the library
+            _pa.bind_library()
         t1 = time.perf_counter()
         for name in names:
             self._capture(name)

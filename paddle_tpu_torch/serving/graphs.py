@@ -117,7 +117,8 @@ class Executables:
     def __init__(self, device):
         self.device = device
         self.capture_counts = {}
-        self._graphs = {}            # name -> (graph, outputs, launches)
+        self._graphs = {}            # name -> (graph, outputs, launches,
+                                     # launches by build)
         self._streams = {}           # device -> (capture stream, pool)
 
     def run(self, name, fn, inputs, safe=None, upload=True, device=None):
@@ -132,19 +133,20 @@ class Executables:
             return fn(), 0
         if name not in self._graphs:
             upload = True                # the capture left the safe state
-        graph, out, launches = self.capture(name, fn, inputs, safe, device)
+        graph, out, launches, builds = self.capture(name, fn, inputs, safe,
+                                                    device)
         if upload:
             inputs.upload()
         _replay(name, graph)
-        _pa.count_replay(launches)
+        _pa.count_replay(launches, builds)
         return out, launches[0]
 
     def replay(self, name):
         """Replay a captured graph over the inputs as they were last
         uploaded; returns its outputs."""
-        graph, out, launches = self._graphs[name]
+        graph, out, launches, builds = self._graphs[name]
         _replay(name, graph)
-        _pa.count_replay(launches)
+        _pa.count_replay(launches, builds)
         return out
 
     def invalidate(self, name):
@@ -155,7 +157,8 @@ class Executables:
 
     def capture(self, name, fn, inputs, safe=None, device=None):
         """Capture `name` unless it was (see the module docstring); returns
-        (graph, outputs, launch counts of one replay)."""
+        (graph, outputs, launch counts of one replay, its launches by
+        build)."""
         entry = self._graphs.get(name)
         if entry is not None:
             return entry
@@ -166,14 +169,14 @@ class Executables:
                 self._streams[key] = (torch.cuda.Stream(device=device),
                                       torch.cuda.graph_pool_handle())
         stream, pool = self._streams[key]
-        counts = _pa.launch_counts()
+        counts, by_build = _pa.launch_counts(), _pa.build_counts()
         current = torch.cuda.current_stream(device)
         inputs.upload(safe or {})
         stream.wait_stream(current)
         with torch.cuda.device(device), torch.cuda.stream(stream):
             fn()
         current.wait_stream(stream)
-        warm = _pa.launch_counts()
+        warm, warm_builds = _pa.launch_counts(), _pa.build_counts()
         graph = torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
         gc.disable()
@@ -185,8 +188,12 @@ class Executables:
             if collecting:
                 gc.enable()
         launches = tuple(c - w for c, w in zip(_pa.launch_counts(), warm))
+        builds = {b: n - warm_builds.get(b, 0)
+                  for b, n in _pa.build_counts().items()
+                  if n != warm_builds.get(b, 0)}
         _pa.set_launch_counts(counts)
+        _pa.set_build_counts(by_build)
         self.capture_counts[name] = self.capture_counts.get(name, 0) + 1
-        entry = (graph, out, launches)
+        entry = (graph, out, launches, builds)
         self._graphs[name] = entry
         return entry

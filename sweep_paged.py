@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
 """Sweep compile-time constants of the paged-attention kernels on one GPU.
 
-    python3 sweep_paged.py kTileSplit=128,512 kTileStages=3 kSplit=64
+    python3 sweep_paged.py kTileStages=3 kRing=3,4
     python3 sweep_paged.py --cases prefill_f32_T512,verify_f32_T5 \
-        kTileKeys=32+kTileMinBlocks=3
+        kTileStages=3+kRing=3
 
 Each variant changes one `constexpr int` of
-`paddle_tpu_torch/csrc/paged_attention.cu` (or several, joined by `+`)
-from its committed value. The
-variants are built at once (one nvcc each, with the flags of
-`paddle_tpu_torch._kernels.build`, into build/paddle_tpu_torch/sweep/),
+`paddle_tpu_torch/csrc/paged_attention.cuh` (or several, joined by `+`)
+from its committed value, in the library of the default builds
+(`paged_attention.cu`). The splits and chunks a launch may take are
+builds of every library, chosen at launch from the tile table
+(`incubate/autotune.py`): `chip_smoke.py --tune-only` times those; this
+script times what the table cannot choose: the builds' other constants
+(a variant keeps the builds' splits and chunks, or it is refused when
+it is bound). The variants are built at once (one nvcc each, with the
+flags of `paddle_tpu_torch._kernels.build`, into
+build/paddle_tpu_torch/sweep/),
 then each case of chip_smoke.py's phase 3 (or those named by --cases) runs
 on the committed build and on every variant, in turns (committed,
 variants, committed): each variant's output must agree with the committed
@@ -55,7 +61,7 @@ def build_variants(variants):
     """Build every variant at once; returns {tag: library path}."""
     from paddle_tpu_torch._kernels import build
     src_dir = os.path.join(ROOT, "paddle_tpu_torch", "csrc")
-    with open(os.path.join(src_dir, "paged_attention.cu")) as fh:
+    with open(os.path.join(src_dir, "paged_attention.cuh")) as fh:
         text = fh.read()
     running = []
     for changes in variants:
@@ -65,16 +71,17 @@ def build_variants(variants):
             pat = re.compile(rf"(constexpr int {key} = )\d+;")
             if not pat.search(text):
                 raise SystemExit(f"sweep_paged: no `constexpr int {key}` in "
-                                 "paged_attention.cu")
+                                 "paged_attention.cuh")
             variant = pat.sub(rf"\g<1>{val};", variant)
         d = os.path.join(build.build_dir(), "sweep", tag.replace("=", "_"))
         os.makedirs(d, exist_ok=True)
         for f in os.listdir(src_dir):
             if f.endswith(".cuh"):
                 shutil.copy(os.path.join(src_dir, f), d)
-        src = os.path.join(d, "paged_attention.cu")
-        with open(src, "w") as fh:
+        with open(os.path.join(d, "paged_attention.cuh"), "w") as fh:
             fh.write(variant)
+        src = os.path.join(d, "paged_attention.cu")
+        shutil.copy(os.path.join(src_dir, "paged_attention.cu"), src)
         out = os.path.join(d, "libpaged_attention.so")
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", out, src]
         running.append((tag, out, subprocess.Popen(
@@ -108,10 +115,9 @@ def main(argv):
         timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = {"committed": (pa._kernel_lib(), pa.decode_split_keys())}
+    libs = {"committed": pa._kernel_lib()}
     for tag, path in build_variants(variants).items():
-        lib = pa.bind(ctypes.CDLL(path))
-        libs[tag] = (lib, lib.paged_attention_decode_split())
+        libs[tag] = pa.bind(ctypes.CDLL(path))
     order = list(libs) + ["committed"]
     flush_buf = torch.empty(64 * 1024 * 1024, device="cuda")
 
@@ -120,7 +126,7 @@ def main(argv):
     report = {"card": smi, "variants": [t for t in libs], "cases": []}
     try:
         for i, (name, shape, kind) in enumerate(
-                cs.paged_cases(pa.decode_split_keys())):
+                cs.paged_cases(pa.decode_split_keys(12, 1024, 64, 16))):
             if names is not None and name not in names:
                 continue
             c = cs.paged_case(100 + i, shape["S"], shape["T"], shape["pos"],
@@ -138,7 +144,7 @@ def main(argv):
                    "max_abs_err": {}}
             want = None
             for tag in order:
-                pa._lib, pa._split = libs[tag]
+                pa._libs[pa.LIBRARIES[0]] = libs[tag]
                 got = call().float()
                 torch.cuda.synchronize()
                 if want is None:
@@ -155,7 +161,7 @@ def main(argv):
                 f"{t} " + "/".join(f"{x:.4f}" for x in ms)
                 for t, ms in rec["ms"].items()) + f" ms [{smi}]", flush=True)
     finally:
-        pa._lib, pa._split = libs["committed"]
+        pa._libs[pa.LIBRARIES[0]] = libs["committed"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "sweep_paged.json"),
               "w") as fh:

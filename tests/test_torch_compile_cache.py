@@ -420,18 +420,18 @@ def test_build_key_follows_sources_and_flags(fake_nvcc, monkeypatch):
     hdr.write_text(hdr.read_text() + "\n// edited\n")
     _reset_build(monkeypatch)
     build.build_all(cache=cache)
-    assert len(fake_nvcc["compiles"]()) == n0 + 1 + 2
+    assert len(fake_nvcc["compiles"]()) == n0 + 1 + n0
     # other flags: every library misses
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
     _reset_build(monkeypatch)
     build.build_all(cache=cache)
-    assert len(fake_nvcc["compiles"]()) == n0 + 3 + 2
+    assert len(fake_nvcc["compiles"]()) == n0 + 1 + 2 * n0
     # an entry built by another nvcc is rebuilt where a compiler is found
     monkeypatch.setenv("FAKE_NVCC_VERSION", "fake nvcc 2.0")
     _reset_build(monkeypatch)
     with pytest.warns(UserWarning, match="another nvcc"):
         build.build_all(cache=cache)
-    assert len(fake_nvcc["compiles"]()) == n0 + 5 + 2
+    assert len(fake_nvcc["compiles"]()) == n0 + 1 + 3 * n0
 
 
 def test_torn_build_commit_still_gives_the_library(fake_nvcc):

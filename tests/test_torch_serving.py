@@ -501,6 +501,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "        'paddle_tpu_torch.distributed.sharding',\n"
             "        'paddle_tpu_torch.distributed.auto_parallel',\n"
             "        'paddle_tpu_torch.incubate',\n"
+            "        'paddle_tpu_torch.incubate.autotune',\n"
             "        'paddle_tpu_torch.incubate.distributed',\n"
             "        'paddle_tpu_torch.incubate.distributed.fleet',\n"
             "        'paddle_tpu_torch.incubate.distributed.moe',\n"

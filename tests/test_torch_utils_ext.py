@@ -155,11 +155,12 @@ def test_sysconfig_and_linalg_namespace():
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
-# the reference's modules of ROADMAP 13h; `incubate.autotune` is A.8's
+# the reference's modules of ROADMAP 13h, and A.8's `incubate.autotune`
 _MODULES = ["sparse", "sparse.nn", "sparse.nn.functional", "sparse.nn.conv",
             "distribution", "distribution.transform", "quantization",
             "quantization.observers", "geometric", "incubate", "incubate.nn",
             "incubate.nn.functional", "incubate.asp", "incubate.autograd",
+            "incubate.autotune",
             "incubate.checkpoint", "incubate.optimizer",
             "incubate.optimizer.functional",
             "incubate.optimizer.functional.lbfgs",
@@ -167,7 +168,7 @@ _MODULES = ["sparse", "sparse.nn", "sparse.nn.functional", "sparse.nn.conv",
             "hub", "sysconfig", "version", "utils", "utils.unique_name",
             "utils.download", "utils.cpp_extension", "static.sparsity"]
 # names the reference's modules import for their own use
-_IMPORTED = {"next_key", "Tensor", "autotune"}
+_IMPORTED = {"next_key", "Tensor"}
 
 
 @pytest.mark.parametrize("name", _MODULES)
